@@ -1,0 +1,58 @@
+"""Configuration of rsparse_tpu_torch: precision names, dtypes, logger.
+
+Mirrors ``rsparse_tpu/config.py`` with torch dtypes.  The reference's
+precision vocabulary ("double"/"float", reference R/model_WRMF.R:102) maps
+to float64/float32; bfloat16 is not part of this port yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import Union
+
+import numpy as np
+import torch
+
+logger = logging.getLogger("rsparse_tpu_torch")
+if not logger.handlers:
+    _h = logging.StreamHandler()
+    _h.setFormatter(logging.Formatter("[%(levelname)s] [%(asctime)s] %(message)s"))
+    logger.addHandler(_h)
+    logger.setLevel(os.environ.get("RSPARSE_TPU_LOGLEVEL", "WARNING").upper())
+
+_PRECISIONS = {
+    "double": torch.float64,
+    "float": torch.float32,
+    "float64": torch.float64,
+    "float32": torch.float32,
+}
+
+
+def resolve_dtype(precision: Union[str, torch.dtype]) -> torch.dtype:
+    """Resolve a precision name or torch dtype to float32 or float64."""
+    if isinstance(precision, torch.dtype):
+        dt = precision
+    elif precision in ("bfloat16", "bf16"):
+        dt = torch.bfloat16
+    else:
+        try:
+            dt = _PRECISIONS[precision]
+        except KeyError:
+            raise ValueError(
+                f"unknown precision {precision!r}; one of {sorted(_PRECISIONS)}"
+            ) from None
+    if dt not in (torch.float32, torch.float64):
+        raise NotImplementedError(
+            f"precision {dt} is not ported yet (see ROADMAP.md)")
+    return dt
+
+
+def accum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Accumulation dtype for losses and Grams: never below float32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def np_dtype(dtype: torch.dtype) -> np.dtype:
+    """numpy counterpart of a float32/float64 torch dtype."""
+    return np.dtype(np.float64 if dtype == torch.float64 else np.float32)

@@ -1,9 +1,11 @@
 """rsparse_tpu_torch: the PyTorch + CUDA (Hopper) port of rsparse_tpu.
 
-This slice covers implicit-feedback WRMF (CG and Cholesky solvers) with
-fitting, ``transform`` and masked top-k ``predict``.  Its three kernels are
-hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built with ``nvcc`` at
-first use; on CPU tensors every wrapper runs its plain PyTorch version.
+It covers single-device WRMF: implicit and explicit feedback, the CG,
+Cholesky and NNLS solvers, user/item and global biases, dynamic lambda and
+the dense zipf head, with fitting, ``transform`` and masked top-k
+``predict``.  Its four kernels are hand-written CUDA C++ for ``sm_90a``
+(``csrc/``), built with ``nvcc`` at first use; on CPU tensors every
+wrapper runs its plain PyTorch version.
 
 The reference's Gram matrices and exact solves run at full float32, so
 TF32 matmuls are switched off here.

@@ -1,12 +1,14 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface for ``sm_90a`` (Hopper), at first use, into
-``build/rsparse_tpu_torch/`` beside the package.  The library's file name
-carries a hash of the sources and flags, so an edit triggers a rebuild.
-It is loaded with ctypes: each C entry takes raw device pointers and the
-CUDA stream, launches on that stream and returns ``cudaGetLastError()``,
-which :func:`check` turns into an exception.
+``nvcc`` compiles every ``csrc/*.cu`` (one process per source, all at
+once) and links them into one shared library with a plain C interface for
+``sm_90a`` (Hopper), at first use, into ``build/rsparse_tpu_torch/`` beside
+the package.  The library's file name carries a hash of the sources and
+flags, so an edit triggers a rebuild.  It is loaded with ctypes: each C
+entry takes raw device pointers (the ALS kernels take them gathered in a
+:class:`BucketArgs`) and the CUDA stream, launches on that stream and
+returns ``cudaGetLastError()``, which :func:`check` turns into an
+exception.
 
 Nothing here runs at import: the CPU tests import every module of the port
 on machines without ``nvcc``.
@@ -35,15 +37,16 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "build", "rsparse_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-              "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
-#: largest rank the ALS kernels take (K2 holds a d x d lhs in shared memory;
-#: the per-lane register budgets in csrc/*.cu are sized for it)
-MAX_D = 128
+#: largest width the ALS kernels take (K2 and K4 hold d x d matrices in
+#: shared memory; csrc/*.cu build a d <= 128 and a d <= 160 variant, so
+#: rank 128 with user/item biases, d = 129, runs on the card)
+MAX_D = 160
 
 #: launches per kernel, counted by the wrappers
-launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "topk": 0}
+launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "als_nnls": 0,
+                            "topk": 0}
 #: what the last build did: {"seconds": ..., "log": ..., "path": ...}
 build_info: Dict[str, object] = {}
 
@@ -81,19 +84,52 @@ def _build() -> str:
         build_info.update(seconds=0.0, log="(cached)", path=so)
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cus = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    tmp = f"{so}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    objs, procs = [], []
+    for cu in (p for p in _sources() if p.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(cu)}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, cu], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    log, failed = [], []
+    for proc in procs:
+        out, _ = proc.communicate(timeout=600)
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(out)
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}.tmp", *objs],
+            capture_output=True, text=True, timeout=600)
+        log.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(link.stdout + link.stderr)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     seconds = time.perf_counter() - t0
-    if out.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({out.returncode}):\n{out.stdout}\n{out.stderr}")
-    os.replace(tmp, so)
-    build_info.update(seconds=seconds, log=out.stdout + out.stderr, path=so)
+    os.replace(f"{tmp}.tmp", so)
+    build_info.update(seconds=seconds, log="\n".join(log), path=so)
     logger.info("built %s in %.1f s", so, seconds)
     return so
+
+
+class BucketArgs(ctypes.Structure):
+    """One bucket of ALS solves as K1, K2 and K4 take it: the ctypes mirror
+    of ``rsp::BucketArgs`` in ``csrc/common.cuh`` (same fields, same
+    order).  Pointers are device addresses, 0 for an absent input."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "V", "xbias", "col", "val", "nnz", "nnz_total", "XtX", "rhs_init",
+        "W", "Vh", "bits", "x0", "y", "loss")] + [
+        (name, ctypes.c_int) for name in (
+            "B", "L", "d", "H", "explicit_fb", "dynamic_lambda")] + [
+        (name, ctypes.c_float) for name in ("lam", "g_rhs", "g_loss")]
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,12 +137,15 @@ def lib() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     so = ctypes.CDLL(_build())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # V, col, val, nnz, B, L, d, XtX, rhs_init, then the kernel's own
-    so.rsp_als_cg.argtypes = [p, p, p, p, i, i, i, p, p,
-                              p, p, p, i, f, f, i, f, p, p, p]
+    args = ctypes.POINTER(BucketArgs)
+    # args, cg_steps, tol, stream
+    so.rsp_als_cg.argtypes = [args, i, f, p]
     so.rsp_als_cg.restype = i
-    so.rsp_als_chol.argtypes = [p, p, p, p, i, i, i, p, p, f, f, p, p, p]
+    so.rsp_als_chol.argtypes = [args, p]
     so.rsp_als_chol.restype = i
+    # args, max_iter, rel_tol, sweeps (int32, or NULL), stream
+    so.rsp_als_nnls.argtypes = [args, i, f, p, p]
+    so.rsp_als_nnls.restype = i
     # scores, bits, C, n, k, glob_mean, out_scores, out_idx, stream
     so.rsp_topk.argtypes = [p, p, i, i, i, f, p, p, p]
     so.rsp_topk.restype = i

@@ -24,14 +24,20 @@ def wrmf_from_numpy(components: np.ndarray,
                     **wrmf_kwargs) -> WRMF:
     """A fitted port WRMF from (R, n_items) item factors ``components`` and
     optional (n_users, R) ``user_factors``; ``wrmf_kwargs`` go to
-    :class:`WRMF` (``rank`` defaults to R, and must equal it)."""
+    :class:`WRMF`.  R is ``rank``, or ``rank + 2`` with
+    ``with_user_item_bias`` (item rows ``[i_bias, emb..., 1]``); ``rank``
+    defaults to what R implies.  Pass the fitted model's ``feedback``,
+    ``solver``, ``lambda_``, ``dynamic_lambda`` and bias options too, so
+    that ``transform`` solves what the reference's does."""
     comps = np.asarray(components)
     if comps.ndim != 2:
-        raise ValueError("components must be (rank, n_items)")
-    wrmf_kwargs.setdefault("rank", comps.shape[0])
+        raise ValueError("components must be (R, n_items)")
+    extra = 2 if wrmf_kwargs.get("with_user_item_bias") else 0
+    wrmf_kwargs.setdefault("rank", comps.shape[0] - extra)
     m = WRMF(**wrmf_kwargs)
-    if m.rank != comps.shape[0]:
-        raise ValueError(f"rank={m.rank} but components has {comps.shape[0]} rows")
+    if m._R != comps.shape[0]:
+        raise ValueError(f"rank={m.rank} needs {m._R} rows of components, "
+                         f"got {comps.shape[0]}")
     m._V = torch.tensor(comps.T, dtype=m.dtype, device=m.device).contiguous()
     m.components = m._V.T.cpu().numpy()
     m._n_items = comps.shape[1]

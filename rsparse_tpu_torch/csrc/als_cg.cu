@@ -1,25 +1,36 @@
-// K1: one bucket of implicit-feedback ALS solves by conjugate gradient.
+// K1: one bucket of ALS solves by conjugate gradient, implicit or explicit
+// feedback.
 //
-// Replaces the TPU program rsparse_tpu/ops/als.py:138 _solve_bucket_implicit
-// (CG branch :165-227, loss :249-266) with rsparse_tpu/ops/solvers.py:208
-// batched_cg.  Its plain PyTorch version is
-// rsparse_tpu_torch/ops/als.py _solve_bucket_implicit.
+// Replaces the TPU programs rsparse_tpu/ops/als.py:138
+// _solve_bucket_implicit (CG branch :213-227, bias terms :179-189, loss
+// :249-266) and :269 _solve_bucket_explicit (CG branch :330-345, bias
+// terms :306-308, loss :364-373), with rsparse_tpu/ops/solvers.py:208
+// batched_cg.  Its plain PyTorch versions are rsparse_tpu_torch/ops/als.py
+// _solve_bucket_implicit and _solve_bucket_explicit.
 //
-// One CTA solves one target row b.  With Xg the source rows its entries
-// touch and c their confidences (cold entries from the bucket, zipf-head
-// entries from the dense weights w, 0 = absent):
-//   rhs   = Xg' (c - (c - 1) g) + rhs_init
-//   A p   = XtX p + Xg' ((c - 1) .* (Xg p))
+// One CTA solves one target row b.  With x_e the source rows its entries
+// touch (cold entries from the bucket, zipf-head entries from the dense
+// weights), c_e their values and xb_e their source biases
+// (common.cuh lhs_weight / rhs_weight / entry_loss):
+//   rhs   = sum_e rw_e x_e + rhs_init
+//   A p   = XtX p + sum_e (c_e - 1) (x_e . p) x_e        (implicit)
+//   A p   = lam_use p + sum_e (x_e . p) x_e              (explicit)
 //   x     = cg_steps of CG from x0, an entity freezing once rsold < tol
-//   loss  = sum c (1 - g - Xg x)^2 + lam |x|^2
+//   loss  = sum_e entry_loss + lam_use |x|^2
+// Explicit rows see only their observed entries; lam_use is lambda times
+// the row's total nnz with dynamic lambda; a head entry is present where its
+// packed bit is set, so a stored 0.0 rating enters the lhs and the loss.
 // x, r, p and Ap live in shared memory; the entries are never materialised:
 // every pass re-reads the source rows (through L1/L2) one warp per row.
 //
 // What bounds it on the H100: each matvec reads every entry's d-float source
 // row once (nnz * d * 4 bytes, mostly L2 hits: a 32k x 128 f32 table is
-// 16 MB of the 50 MB L2), d^2 floats of XtX, and the row's H head weights.
-// The FLOPs are 4 d per entry per pass, far below the FP32 peak, so the
-// kernel is bound by L2/HBM bytes and by latency for short rows.
+// 16 MB of the 50 MB L2), d^2 floats of XtX (implicit), and the row's H
+// head weights.  The FLOPs are 4 d per entry per pass, far below the FP32
+// peak, so the kernel is bound by L2/HBM bytes and by latency for short
+// rows.  Two widths are built: d <= 128 keeps 4 floats per lane, d <= 160
+// (rank 128 with biases is d = 129) 5; each with and without the source
+// biases compiled in (XB), so the unbiased path carries no bias code.
 
 #include "common.cuh"
 
@@ -27,8 +38,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxD = 128;
-constexpr int kPerLane = kMaxD / 32;
 
 struct Smem {
   float* x;
@@ -39,31 +48,32 @@ struct Smem {
   float* scratch;  // 32 floats for block_sum
 };
 
-// out = sum over entries of weight(c, row) * row, plus `extra` (a d-vector,
-// or the product XtX vec when `vec` is given).  mode 0: weight = c - (c-1) g
-// (rhs); mode 1: weight = (c - 1) (row . vec) (matvec).
-template <int MODE>
+// out = sum over entries of weight * row, plus (MODE 0, the rhs) rhs_init,
+// or (MODE 1, the matvec A vec) XtX vec / lam_use vec.  MODE 0:
+// weight = rhs_weight; MODE 1: weight = lhs_weight * (row . vec).
+template <int PL, bool EXPLICIT, bool XB, int MODE>
 __device__ void accumulate(const rsp::RowEntries& R, const Smem& S,
-                           const float* vec, const float* XtX,
-                           const float* extra, float g, float* out) {
+                           const float* vec, const rsp::BucketArgs& a,
+                           float lam_use, float* out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, d = R.d;
-  float acc[kPerLane];
+  float acc[PL];
 #pragma unroll
-  for (int m = 0; m < kPerLane; ++m) acc[m] = 0.f;
-  rsp::for_each_entry(R, warp, kWarps, [&](const float* row, float c) {
-    float rr[kPerLane];
-    rsp::load_row<kPerLane>(row, d, rr);
+  for (int m = 0; m < PL; ++m) acc[m] = 0.f;
+  rsp::for_each_entry<XB>(R, warp, kWarps, [&](const float* row, float c,
+                                               float xb) {
+    float rr[PL];
+    rsp::load_row<PL>(row, d, rr);
     float wgt;
     if (MODE == 0) {
-      wgt = c - (c - 1.f) * g;
+      wgt = rsp::rhs_weight<EXPLICIT>(c, xb, a.g_rhs);
     } else {
-      wgt = (c - 1.f) * rsp::row_dot<kPerLane>(rr, vec, d);
+      wgt = rsp::lhs_weight<EXPLICIT>(c) * rsp::row_dot<PL>(rr, vec, d);
     }
 #pragma unroll
-    for (int m = 0; m < kPerLane; ++m) acc[m] += wgt * rr[m];
+    for (int m = 0; m < PL; ++m) acc[m] += wgt * rr[m];
   });
 #pragma unroll
-  for (int m = 0; m < kPerLane; ++m) {
+  for (int m = 0; m < PL; ++m) {
     const int k = lane + 32 * m;
     if (k < d) S.red[warp * d + k] = acc[m];
   }
@@ -72,9 +82,11 @@ __device__ void accumulate(const rsp::RowEntries& R, const Smem& S,
     float s = 0.f;
     for (int w = 0; w < kWarps; ++w) s += S.red[w * d + t];
     if (MODE == 0) {
-      if (extra != nullptr) s += extra[t];
+      if (a.rhs_init != nullptr) s += a.rhs_init[t];
+    } else if (EXPLICIT) {
+      s += lam_use * vec[t];
     } else {
-      for (int i = 0; i < d; ++i) s += vec[i] * __ldg(XtX + (size_t)i * d + t);
+      for (int i = 0; i < d; ++i) s += vec[i] * __ldg(a.XtX + (size_t)i * d + t);
     }
     out[t] = s;
   }
@@ -88,27 +100,22 @@ __device__ float block_dot(const float* a, const float* b, int d,
   return rsp::block_sum(s, scratch);
 }
 
+template <int KMAXD, bool EXPLICIT, bool XB>
 __global__ void __launch_bounds__(kThreads)
-als_cg_kernel(const float* __restrict__ V, const int* __restrict__ col,
-              const float* __restrict__ val, const int* __restrict__ nnz,
-              int L, int d, const float* __restrict__ XtX,
-              const float* __restrict__ rhs_init,
-              const float* __restrict__ x0, const float* __restrict__ W,
-              const float* __restrict__ Vh, int H, float lam, float g,
-              int cg_steps, float tol, float* __restrict__ y,
-              float* __restrict__ loss) {
+als_cg_kernel(rsp::BucketArgs a, int cg_steps, float tol) {
+  constexpr int PL = KMAXD / 32;
   extern __shared__ float smem[];
-  const int b = blockIdx.x;
+  const int b = blockIdx.x, d = a.d;
   Smem S{smem, smem + d, smem + 2 * d, smem + 3 * d, smem + 4 * d,
          smem + (4 + kWarps) * d};
-  rsp::RowEntries R{V, col + (size_t)b * L, val + (size_t)b * L, nnz[b],
-                    Vh, W == nullptr ? nullptr : W + (size_t)b * H, H, d};
+  const rsp::RowEntries R = rsp::row_entries(a, b);
+  const float lam_use = rsp::row_lambda(a, b);
 
   // r = rhs - A x0, p = r
-  accumulate<0>(R, S, nullptr, XtX, rhs_init, g, S.r);
-  for (int t = threadIdx.x; t < d; t += kThreads) S.x[t] = x0[(size_t)b * d + t];
+  accumulate<PL, EXPLICIT, XB, 0>(R, S, nullptr, a, lam_use, S.r);
+  for (int t = threadIdx.x; t < d; t += kThreads) S.x[t] = a.x0[(size_t)b * d + t];
   __syncthreads();
-  accumulate<1>(R, S, S.x, XtX, nullptr, g, S.Ap);
+  accumulate<PL, EXPLICIT, XB, 1>(R, S, S.x, a, lam_use, S.Ap);
   for (int t = threadIdx.x; t < d; t += kThreads) {
     S.r[t] -= S.Ap[t];
     S.p[t] = S.r[t];
@@ -118,7 +125,7 @@ als_cg_kernel(const float* __restrict__ V, const int* __restrict__ col,
   // the freeze rule of batched_cg: live = rsold >= tol, masked alpha/beta
   for (int step = 0; step < cg_steps; ++step) {
     const bool live = rsold >= tol;
-    accumulate<1>(R, S, S.p, XtX, nullptr, g, S.Ap);
+    accumulate<PL, EXPLICIT, XB, 1>(R, S, S.p, a, lam_use, S.Ap);
     const float pAp = block_dot(S.p, S.Ap, d, S.scratch);
     const float alpha = live ? rsold / (pAp == 0.f ? 1.f : pAp) : 0.f;
     for (int t = threadIdx.x; t < d; t += kThreads) {
@@ -134,28 +141,29 @@ als_cg_kernel(const float* __restrict__ V, const int* __restrict__ col,
     __syncthreads();
   }
 
-  for (int t = threadIdx.x; t < d; t += kThreads) y[(size_t)b * d + t] = S.x[t];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float wl = rsp::entries_loss<kPerLane>(R, warp, kWarps, S.x, g);
-  float part = lane == 0 ? wl : 0.f;
-  for (int t = threadIdx.x; t < d; t += kThreads) part += lam * S.x[t] * S.x[t];
-  const float total = rsp::block_sum(part, S.scratch);
-  if (threadIdx.x == 0) loss[b] = total;
+  for (int t = threadIdx.x; t < d; t += kThreads) a.y[(size_t)b * d + t] = S.x[t];
+  const float total =
+      rsp::row_loss<PL, EXPLICIT, XB>(R, a, S.x, lam_use, S.scratch);
+  if (threadIdx.x == 0) a.loss[b] = total;
 }
 
 }  // namespace
 
-extern "C" int rsp_als_cg(const float* V, const int* col, const float* val,
-                          const int* nnz, int B, int L, int d,
-                          const float* XtX, const float* rhs_init,
-                          const float* x0, const float* W, const float* Vh,
-                          int H, float lam, float g, int cg_steps, float tol,
-                          float* y, float* loss, void* stream) {
-  if (B <= 0) return 0;
-  if (d <= 0 || d > kMaxD) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)(4 + kWarps) * d + 32);
-  als_cg_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      V, col, val, nnz, L, d, XtX, rhs_init, x0, W, Vh, H, lam, g, cg_steps,
-      tol, y, loss);
+extern "C" int rsp_als_cg(const rsp::BucketArgs* args, int cg_steps, float tol,
+                          void* stream) {
+  const rsp::BucketArgs a = *args;
+  if (a.B <= 0) return 0;
+  if (a.d <= 0 || a.d > 160) return (int)cudaErrorInvalidValue;
+  using Kernel = void (*)(rsp::BucketArgs, int, float);
+  // [d <= 128 ? 0 : 1][explicit][source biases]
+  static const Kernel kernels[2][2][2] = {
+      {{als_cg_kernel<128, false, false>, als_cg_kernel<128, false, true>},
+       {als_cg_kernel<128, true, false>, als_cg_kernel<128, true, true>}},
+      {{als_cg_kernel<160, false, false>, als_cg_kernel<160, false, true>},
+       {als_cg_kernel<160, true, false>, als_cg_kernel<160, true, true>}}};
+  const Kernel kern =
+      kernels[a.d > 128][a.explicit_fb != 0][a.xbias != nullptr];
+  const size_t smem = sizeof(float) * ((size_t)(4 + kWarps) * a.d + 32);
+  kern<<<a.B, kThreads, smem, (cudaStream_t)stream>>>(a, cg_steps, tol);
   return (int)cudaGetLastError();
 }

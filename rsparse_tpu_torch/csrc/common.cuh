@@ -1,4 +1,7 @@
-// Shared device helpers of the ALS kernels (als_cg.cu, als_chol.cu).
+// Shared device code of the ALS kernels (als_cg.cu, als_chol.cu,
+// als_nnls.cu): the bucket arguments, the per-entry weights of the two
+// feedback modes, the walk over a row's entries, the normal-equation build
+// of the exact solvers, and the per-row loss.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -7,6 +10,32 @@
 #define RSP_FULL_MASK 0xffffffffu
 
 namespace rsp {
+
+// One bucket of B target rows, as the wrappers in ops/als.py pass it (the
+// ctypes mirror is _kernels.BucketArgs; keep the two in the same order).
+// Row b's cold entries are col/val[b, :nnz[b]] over the source table V;
+// its dense zipf-head entries are W[b, :H] over the head's source rows Vh,
+// present where the packed bit is set (bits given) or where W != 0.
+struct BucketArgs {
+  const float* V;              // (n_src, d) active source rows
+  const float* xbias;          // (n_src,) source biases, or null
+  const int* col;              // (B, L)
+  const float* val;            // (B, L) confidences or ratings
+  const int* nnz;              // (B,) cold entries per row
+  const int* nnz_total;        // (B,) hot + cold entries, or null
+  const float* XtX;            // (d, d) Gram + lambda ridge (implicit)
+  const float* rhs_init;       // (d,) or null
+  const float* W;              // (B, H) dense head, 0 = absent, or null
+  const float* Vh;             // (H, d) head source rows
+  const unsigned char* bits;   // (B, ceil(H / 8)) head presence, or null
+  const float* x0;             // (B, d) warm start (CG, NNLS)
+  float* y;                    // (B, d) solutions
+  float* loss;                 // (B,) per-row loss
+  int B, L, d, H;
+  int explicit_fb;             // 0: implicit feedback, 1: explicit
+  int dynamic_lambda;          // explicit: lambda * total row nnz
+  float lam, g_rhs, g_loss;    // ridge; global bias in the rhs / the loss
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -26,50 +55,101 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   return warp_sum(lane < n_warps ? scratch[lane] : 0.f);
 }
 
-// The entries of one target row: its cold (bucketed) entries, `nnz` source
-// rows `table[col[l]]` with confidences `val[l]`, and optionally its dense
-// zipf-head entries, source rows `hot_table[h]` with confidence `w[h]`
-// (0 = absent).  Rows are `d` floats.
+// Weights of one entry with value c over a source row with bias xb.
+// Implicit (c a confidence): lhs c - 1, rhs c - (c - 1)(xb + g_rhs),
+// loss c (1 - g_loss - xb - x.y)^2 (ops/als.py _solve_bucket_implicit).
+// Explicit (c a rating): lhs 1, rhs c - xb, loss (c - xb - x.y)^2
+// (_solve_bucket_explicit).  Head entries have xb = 0.
+template <bool EXPLICIT>
+__device__ __forceinline__ float lhs_weight(float c) {
+  return EXPLICIT ? 1.f : c - 1.f;
+}
+template <bool EXPLICIT>
+__device__ __forceinline__ float rhs_weight(float c, float xb, float g_rhs) {
+  return EXPLICIT ? c - xb : c - (c - 1.f) * (xb + g_rhs);
+}
+template <bool EXPLICIT>
+__device__ __forceinline__ float entry_loss(float c, float xb, float g_loss,
+                                            float pred) {
+  if (EXPLICIT) {
+    const float e = c - xb - pred;
+    return e * e;
+  }
+  const float base = 1.f - g_loss - xb - pred;
+  return c * base * base;
+}
+
+// The ridge of row b: lambda, or lambda * total nnz with explicit dynamic
+// lambda (the head's entries count, ops/als.py nnz_total).
+__device__ __forceinline__ float row_lambda(const BucketArgs& a, int b) {
+  if (!a.explicit_fb || !a.dynamic_lambda) return a.lam;
+  const int n = a.nnz_total != nullptr ? a.nnz_total[b] : a.nnz[b];
+  return a.lam * (float)n;
+}
+
+__device__ __forceinline__ bool head_present(const unsigned char* bits_row,
+                                             float w, int h) {
+  return bits_row != nullptr ? ((bits_row[h >> 3] >> (h & 7)) & 1) != 0
+                             : w != 0.f;
+}
+
+// The entries of one target row (see BucketArgs).  Rows are `d` floats.
 struct RowEntries {
   const float* table;
+  const float* xbias;
   const int* col;
   const float* val;
   int nnz;
   const float* hot_table;
-  const float* w;  // nullptr: no dense head
+  const float* w;              // nullptr: no dense head
+  const unsigned char* bits;
   int H;
   int d;
 };
 
-// Calls f(row_ptr, c) once per entry of the row, with all 32 lanes of the
-// calling warp; the entries are dealt to the block's `n_warps` warps in
-// chunks of 32.  Absent head entries (w == 0) are skipped, as they add
-// nothing to the rhs, the matvec or the loss.
-template <class F>
+__device__ __forceinline__ RowEntries row_entries(const BucketArgs& a, int b) {
+  return RowEntries{
+      a.V, a.xbias, a.col + (size_t)b * a.L, a.val + (size_t)b * a.L,
+      a.nnz[b], a.Vh, a.W == nullptr ? nullptr : a.W + (size_t)b * a.H,
+      a.bits == nullptr ? nullptr : a.bits + (size_t)b * ((a.H + 7) >> 3),
+      a.H, a.d};
+}
+
+// Calls f(row_ptr, c, xb) once per entry of the row, with all 32 lanes of
+// the calling warp; the entries are dealt to the block's `n_warps` warps in
+// chunks of 32.  Absent head entries are skipped by a ballot over each
+// 32-column strip, so the head costs per present entry.  XB = false
+// compiles the source biases out (xb = 0); XB = true reads them where
+// R.xbias is set.
+template <bool XB, class F>
 __device__ __forceinline__ void for_each_entry(const RowEntries& R, int warp,
                                                int n_warps, F&& f) {
   const int lane = threadIdx.x & 31;
+  const bool has_xb = XB && R.xbias != nullptr;
   for (int base = warp * 32; base < R.nnz; base += n_warps * 32) {
     const int l = base + lane;
     const int my_col = l < R.nnz ? R.col[l] : 0;
     const float my_val = l < R.nnz ? R.val[l] : 0.f;
+    const float my_xb = (has_xb && l < R.nnz) ? __ldg(R.xbias + my_col) : 0.f;
     const int cnt = min(32, R.nnz - base);
     for (int j = 0; j < cnt; ++j) {
       const int c = __shfl_sync(RSP_FULL_MASK, my_col, j);
       const float v = __shfl_sync(RSP_FULL_MASK, my_val, j);
-      f(R.table + (size_t)c * R.d, v);
+      const float xb = has_xb ? __shfl_sync(RSP_FULL_MASK, my_xb, j) : 0.f;
+      f(R.table + (size_t)c * R.d, v, xb);
     }
   }
   if (R.w == nullptr) return;
   for (int base = warp * 32; base < R.H; base += n_warps * 32) {
     const int h = base + lane;
     const float my_w = h < R.H ? R.w[h] : 0.f;
-    unsigned present = __ballot_sync(RSP_FULL_MASK, my_w > 0.f);
+    unsigned present = __ballot_sync(
+        RSP_FULL_MASK, h < R.H && head_present(R.bits, my_w, h));
     while (present) {
       const int j = __ffs(present) - 1;
       present &= present - 1;
       const float v = __shfl_sync(RSP_FULL_MASK, my_w, j);
-      f(R.hot_table + (size_t)(base + j) * R.d, v);
+      f(R.hot_table + (size_t)(base + j) * R.d, v, 0.f);
     }
   }
 }
@@ -101,20 +181,167 @@ __device__ __forceinline__ float row_dot(const float (&r)[PER_LANE],
   return warp_sum(s);
 }
 
-// Per-row loss sum c (1 - g - row . y)^2 over the row's entries, summed over
-// the calling warp's entries (every lane holds the warp's sum).
-template <int PER_LANE>
-__device__ __forceinline__ float entries_loss(const RowEntries& R, int warp,
-                                              int n_warps, const float* y,
-                                              float g) {
+// Loss of row b with solution y (shared memory): the entries' terms plus
+// lam_use |y|^2, summed over the block (every thread gets it).
+template <int PER_LANE, bool EXPLICIT, bool XB = true>
+__device__ __forceinline__ float row_loss(const RowEntries& R,
+                                          const BucketArgs& a, const float* y,
+                                          float lam_use, float* scratch) {
+  const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
   float acc = 0.f;
-  for_each_entry(R, warp, n_warps, [&](const float* row, float c) {
+  for_each_entry<XB>(R, warp, n_warps, [&](const float* row, float c, float xb) {
     float r[PER_LANE];
     load_row<PER_LANE>(row, R.d, r);
-    const float base = 1.f - g - row_dot<PER_LANE>(r, y, R.d);
-    acc += c * base * base;
+    acc += entry_loss<EXPLICIT>(c, xb, a.g_loss, row_dot<PER_LANE>(r, y, R.d));
   });
-  return acc;
+  float part = (threadIdx.x & 31) == 0 ? acc : 0.f;
+  for (int t = threadIdx.x; t < R.d; t += blockDim.x) part += lam_use * y[t] * y[t];
+  return block_sum(part, scratch);
+}
+
+// ---- the normal equations of the exact solvers (K2, K4) --------------------
+
+constexpr int kGramThreads = 256;  // a 16 x 16 grid over the d x d matrix
+constexpr int kChunk = 32;         // source rows staged per pass
+
+// Shared-memory workspace of build_normal_equations.
+struct GramSmem {
+  float* rows;  // kChunk x d staged source rows
+  float* gw;    // kChunk lhs weights
+  float* rw;    // kChunk rhs weights
+  int* hidx;    // kChunk head columns of the staged strip
+  int* cnt;     // 1: present head entries in the strip
+};
+
+// acc += sum over the staged rows of gw[l] row_l row_l' (thread (ty, tx)
+// owns the entries (ty + 16 i, tx + 16 j)), rhs_acc += sum rw[l] row_l[tid].
+template <int KT>
+__device__ __forceinline__ void gram_accumulate(float (&acc)[KT][KT],
+                                                float& rhs_acc,
+                                                const GramSmem& S, int cnt,
+                                                int d) {
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  for (int l = 0; l < cnt; ++l) {
+    const float wl = S.gw[l];
+    const float* row = S.rows + l * d;
+    float av[KT], bv[KT];
+#pragma unroll
+    for (int i = 0; i < KT; ++i) {
+      const int ri = ty + 16 * i, ci = tx + 16 * i;
+      av[i] = ri < d ? wl * row[ri] : 0.f;
+      bv[i] = ci < d ? row[ci] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < KT; ++i)
+#pragma unroll
+      for (int j = 0; j < KT; ++j) acc[i][j] += av[i] * bv[j];
+    if (tid < d) rhs_acc += S.rw[l] * row[tid];
+  }
+}
+
+// Builds row b's lhs into A (d x d, row-major, full) and its rhs into `rhs`,
+// both in shared memory, with kGramThreads threads:
+//   implicit: A = XtX + sum_e (c_e - 1) x_e x_e',  rhs = sum_e rw_e x_e + rhs_init
+//   explicit: A = sum_e x_e x_e' + lam_use I (+ I for an empty row with
+//             lam_use = 0, which keeps padding rows nonsingular),
+//             rhs = sum_e (c_e - xb_e) x_e
+// over the cold entries (staged kChunk source rows at a time) and the
+// present head entries (each 32-column strip of W compacted by a ballot),
+// so the head costs per present entry and no (H, d^2) table exists.
+template <int KMAXD, bool EXPLICIT>
+__device__ void build_normal_equations(const BucketArgs& a, int b,
+                                       float lam_use, float* A, float* rhs,
+                                       const GramSmem& S) {
+  constexpr int KT = KMAXD / 16;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15, d = a.d;
+  const int nnz = a.nnz[b];
+  const int* rcol = a.col + (size_t)b * a.L;
+  const float* rval = a.val + (size_t)b * a.L;
+  float acc[KT][KT];
+#pragma unroll
+  for (int i = 0; i < KT; ++i)
+#pragma unroll
+    for (int j = 0; j < KT; ++j) acc[i][j] = 0.f;
+  float rhs_acc = 0.f;
+
+  for (int base = 0; base < nnz; base += kChunk) {
+    const int cnt = min(kChunk, nnz - base);
+    for (int e = tid; e < cnt * d; e += kGramThreads) {
+      const int l = e / d, k = e - l * d;
+      S.rows[e] = __ldg(a.V + (size_t)rcol[base + l] * d + k);
+    }
+    if (tid < cnt) {
+      const float c = rval[base + tid];
+      const float xb =
+          a.xbias != nullptr ? __ldg(a.xbias + rcol[base + tid]) : 0.f;
+      S.gw[tid] = lhs_weight<EXPLICIT>(c);
+      S.rw[tid] = rhs_weight<EXPLICIT>(c, xb, a.g_rhs);
+    }
+    __syncthreads();
+    gram_accumulate<KT>(acc, rhs_acc, S, cnt, d);
+    __syncthreads();
+  }
+
+  if (a.W != nullptr) {
+    const float* wrow = a.W + (size_t)b * a.H;
+    const unsigned char* brow =
+        a.bits == nullptr ? nullptr : a.bits + (size_t)b * ((a.H + 7) >> 3);
+    for (int base = 0; base < a.H; base += 32) {
+      if (tid < 32) {
+        const int h = base + tid;
+        const float w = h < a.H ? wrow[h] : 0.f;
+        const bool pres = h < a.H && head_present(brow, w, h);
+        const unsigned m = __ballot_sync(RSP_FULL_MASK, pres);
+        if (pres) {
+          const int p = __popc(m & ((1u << tid) - 1u));
+          S.hidx[p] = h;
+          S.gw[p] = lhs_weight<EXPLICIT>(w);
+          S.rw[p] = rhs_weight<EXPLICIT>(w, 0.f, a.g_rhs);
+        }
+        if (tid == 0) *S.cnt = __popc(m);
+      }
+      __syncthreads();
+      const int cnt = *S.cnt;
+      if (cnt > 0) {
+        for (int e = tid; e < cnt * d; e += kGramThreads) {
+          const int l = e / d, k = e - l * d;
+          S.rows[e] = __ldg(a.Vh + (size_t)S.hidx[l] * d + k);
+        }
+        __syncthreads();
+        gram_accumulate<KT>(acc, rhs_acc, S, cnt, d);
+      }
+      __syncthreads();
+    }
+  }
+
+  const float diag =
+      EXPLICIT ? lam_use + ((nnz == 0 && lam_use == 0.f) ? 1.f : 0.f) : 0.f;
+#pragma unroll
+  for (int i = 0; i < KT; ++i)
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      const int ri = ty + 16 * i, ci = tx + 16 * j;
+      if (ri < d && ci < d) {
+        const float base =
+            EXPLICIT ? (ri == ci ? diag : 0.f) : __ldg(a.XtX + ri * d + ci);
+        A[ri * d + ci] = base + acc[i][j];
+      }
+    }
+  if (tid < d) rhs[tid] = rhs_acc + (a.rhs_init != nullptr ? a.rhs_init[tid] : 0.f);
+  __syncthreads();
+}
+
+// Shared floats of build_normal_equations' workspace beside A and rhs
+// (the ints are counted as floats: both are 4 bytes).
+__host__ __device__ constexpr int gram_smem_floats(int d) {
+  return kChunk * d + 3 * kChunk + 1;
+}
+
+__device__ __forceinline__ GramSmem gram_smem(float* p, int d) {
+  float* gw = p + kChunk * d;
+  float* rw = gw + kChunk;
+  int* hidx = reinterpret_cast<int*>(rw + kChunk);
+  return GramSmem{p, gw, rw, hidx, hidx + kChunk};
 }
 
 }  // namespace rsp

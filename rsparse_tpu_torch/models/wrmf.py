@@ -1,14 +1,20 @@
-"""WRMF: Weighted Regularized Matrix Factorization (implicit-feedback iALS).
+"""WRMF: Weighted Regularized Matrix Factorization (iALS).
 
-Port of ``rsparse_tpu/models/wrmf.py`` for implicit feedback with the
-conjugate-gradient or Cholesky solver, an optional implicit global bias,
-the dense zipf-head split (``n_hot``, CG only), warm-start ``init`` and
-``convergence_tol``.  Interactions are bucketed into padded (B, L) row
-blocks (``sparse/device.py``); each ALS half-sweep solves the buckets one
-kernel launch at a time (``ops/als.py``).  The alternating item/user sweeps
-mirror the reference's fit loop (R/model_WRMF.R:318-338), and the fit ends
-with the exact Cholesky half-sweep that makes ``fit_transform(x)`` equal
-``transform(x)`` (R/model_WRMF.R:355-359).
+Port of ``rsparse_tpu/models/wrmf.py`` for one device: implicit and explicit
+feedback, the conjugate-gradient, Cholesky and NNLS solvers (NNLS gives
+NNMF), static or dynamic lambda, user/item and global biases, the dense
+zipf-head split (``n_hot``), warm-start ``init`` and ``convergence_tol``.
+Interactions are bucketed into padded (B, L) row blocks
+(``sparse/device.py``); each ALS half-sweep solves the buckets one kernel
+launch at a time (``ops/als.py``).  The alternating item/user sweeps mirror
+the reference's fit loop (R/model_WRMF.R:318-338), and the fit ends with
+the exact half-sweep that makes ``fit_transform(x)`` equal ``transform(x)``
+(R/model_WRMF.R:355-359).
+
+With ``with_user_item_bias`` the factor tables carry ``rank + 2`` columns:
+users ``[1, emb..., u_bias]``, items ``[i_bias, emb..., 1]``, so
+``components`` is ``(rank + 2, n_items)`` and a plain dot product scores
+``i_bias + emb . emb + u_bias``.
 
 Randomness comes from ``np.random.default_rng(seed)`` drawn in the same
 order as the reference (U first; V only when the solver is not CG), so the
@@ -27,6 +33,8 @@ import torch
 from ..config import logger, resolve_dtype
 from ..ops.als import (ALSConfig, CHOLESKY, CONJUGATE_GRADIENT, NNLS,
                        solver_code, wrmf_sweep)
+from ..ops.bias_init import initialize_biases
+from ..ops.solvers import SCD_MAX_ITER
 from ..sparse.device import (BucketedRows, bucket_rows, hot_bucket_rows,
                              split_hot_cold)
 from ..utils.profiling import FitTrace
@@ -43,7 +51,7 @@ def _not_ported(what: str):
 
 
 class WRMF(MatrixFactorizationRecommender):
-    """Weighted ALS matrix factorization for implicit feedback."""
+    """Weighted ALS matrix factorization for implicit/explicit feedback."""
 
     def __init__(
         self,
@@ -58,6 +66,7 @@ class WRMF(MatrixFactorizationRecommender):
         with_global_bias: bool = False,
         cg_steps: int = 3,
         precision: str = "float32",
+        nnls_max_iter: int = SCD_MAX_ITER,
         seed: Optional[int] = None,
         mesh=None,
         compute_dtype: str = "float32",
@@ -69,13 +78,11 @@ class WRMF(MatrixFactorizationRecommender):
         super().__init__(device)
         if feedback not in ("implicit", "explicit"):
             raise ValueError("feedback must be 'implicit' or 'explicit'")
-        if feedback == "explicit":
-            raise _not_ported("explicit feedback")
         self.solver = solver_code(solver)
-        if self.solver == NNLS:
-            raise _not_ported("the 'nnls' solver")
-        if with_user_item_bias:
-            raise _not_ported("with_user_item_bias")
+        self.non_negative = self.solver == NNLS
+        if self.non_negative and with_global_bias:
+            logger.warning("setting with_global_bias=False for 'nnls' solver")
+            with_global_bias = False
         if compute_dtype != "float32":
             raise _not_ported(f"compute_dtype={compute_dtype!r}")
         if hot_dtype != "auto":
@@ -84,16 +91,17 @@ class WRMF(MatrixFactorizationRecommender):
             raise _not_ported("mesh")
         if routing is not None:
             raise _not_ported(f"routing={routing!r}")
-        if n_hot != "auto" and int(n_hot) != 0 and \
-                self.solver != CONJUGATE_GRADIENT:
-            raise _not_ported("the dense zipf head with the Cholesky solver")
         self.feedback = feedback
+        self.with_user_item_bias = bool(with_user_item_bias)
         self.with_global_bias = with_global_bias
         self.rank = int(rank)
+        #: width of the factor tables: rank, + 2 with user/item biases
+        self._R = self.rank + (2 if self.with_user_item_bias else 0)
         self.lambda_ = float(lambda_)
-        # dynamic lambda scales lambda by nnz for explicit feedback only
+        #: dynamic lambda scales lambda by nnz (explicit feedback only)
         self.dynamic_lambda = bool(dynamic_lambda)
         self.cg_steps = int(cg_steps)
+        self.nnls_max_iter = int(nnls_max_iter)
         self.precision = precision
         self.dtype = resolve_dtype(precision)
         self.preprocess = preprocess or (lambda m: m)
@@ -102,7 +110,7 @@ class WRMF(MatrixFactorizationRecommender):
         #: dense zipf-head split: the hottest columns of each sweep
         #: orientation go to a dense block read without per-nnz indices.
         #: 0 disables, an int fixes the head size, "auto" applies the
-        #: reference's break-even rule
+        #: reference's break-even rule (CG only)
         self.n_hot = n_hot
         self._V: Optional[torch.Tensor] = None   # (n_items, R) factors
         self._U: Optional[torch.Tensor] = None   # (n_users, R) factors
@@ -111,12 +119,32 @@ class WRMF(MatrixFactorizationRecommender):
 
     # -- helpers -----------------------------------------------------------
 
-    def _cfg(self, solver: Optional[int] = None) -> ALSConfig:
+    def _cfg(self, bias_last_in_source: bool = False,
+             solver: Optional[int] = None) -> ALSConfig:
         return ALSConfig(
             solver=self.solver if solver is None else solver,
             cg_steps=self.cg_steps,
-            use_global_bias=self.with_global_bias,
+            use_global_bias=(self.feedback == "implicit"
+                             and self.with_global_bias
+                             and not self.with_user_item_bias),
+            feedback=self.feedback,
+            with_biases=self.with_user_item_bias,
+            bias_last_in_source=bias_last_in_source,
+            dynamic_lambda=self.dynamic_lambda,
+            nnls_max_iter=self.nnls_max_iter,
         )
+
+    @property
+    def _include_empty(self) -> bool:
+        """Bucket empty rows too: the reference solves them with implicit
+        feedback and biases or a global bias (wrmf_implicit.hpp:180)."""
+        return self._cfg().solve_empty
+
+    @property
+    def _g(self) -> float:
+        """The global bias the sweeps see (explicit feedback centres the
+        matrix instead)."""
+        return self.global_bias if self.feedback == "implicit" else 0.0
 
     def _bucketize(self, csr, include_empty: bool) -> BucketedRows:
         return bucket_rows(csr, self.dtype, self.device,
@@ -125,9 +153,13 @@ class WRMF(MatrixFactorizationRecommender):
     def _resolve_n_hot(self, csr: sp.csr_matrix) -> int:
         """Head size for the dense zipf-head split of one sweep orientation
         (the reference's rule, rsparse_tpu/models/wrmf.py
-        ``_resolve_n_hot``): "auto" takes every column whose nnz count
-        clears ``max(8, n_rows / (512 / w_bytes))``; the width is capped by
-        a 1 GB budget for the dense block and by 16384 / w_bytes."""
+        ``_resolve_n_hot``): none with per-entity biases; "auto" takes
+        every column whose nnz count clears ``max(8, n_rows / (512 /
+        w_bytes))`` with CG and none with the exact solvers, which pay
+        ``B * H * d^2`` for the head's lhs; the width is capped by a 1 GB
+        budget for the dense block and by 16384 / w_bytes."""
+        if self.with_user_item_bias:
+            return 0
         if self.solver != CONJUGATE_GRADIENT and self.n_hot == "auto":
             return 0
         n_rows, n_cols = csr.shape
@@ -148,7 +180,9 @@ class WRMF(MatrixFactorizationRecommender):
         n_hot = self._resolve_n_hot(csr)
         hot = None
         if n_hot:
-            hot, csr = split_hot_cold(csr, n_hot, self.dtype, self.device)
+            hot, csr = split_hot_cold(
+                csr, n_hot, self.dtype, self.device,
+                with_presence=self.feedback == "explicit")
         br = self._bucketize(csr, include_empty or hot is not None)
         if hot is None:
             return None, br, None
@@ -157,14 +191,42 @@ class WRMF(MatrixFactorizationRecommender):
     def _rand(self, n: int) -> torch.Tensor:
         # N(0, 0.01) init, matching large_rand_matrix / flrnorm
         # (reference src/utils.cpp:131-143, R/model_WRMF.R:211)
-        a = self._rng.standard_normal((n, self.rank)) * 0.01
+        a = self._rng.standard_normal((n, self._R)) * 0.01
         return torch.as_tensor(a, dtype=self.dtype, device=self.device)
 
     def _prepare_input(self, x: sp.spmatrix) -> sp.csr_matrix:
         csr = self.preprocess(sp.csr_matrix(x).astype(np.float64))
-        if csr.nnz and csr.data.min() < 0:
-            raise ValueError("all values must be >= 0 for implicit feedback")
+        if ((self.feedback == "implicit" or self.non_negative) and csr.nnz
+                and csr.data.min() < 0):
+            raise ValueError(
+                "all values must be >= 0 for implicit feedback / nnls")
         return csr
+
+    def _fit_matrix(self, x: sp.spmatrix):
+        """The matrix the sweeps of a fit see, and the initial biases:
+        (csr, user_bias or None, item_bias or None).  Sets
+        ``global_bias``; explicit feedback with a global bias centres the
+        values (reference R/model_WRMF.R, rsparse_tpu/models/wrmf.py:372-388)."""
+        csr = self._prepare_input(x)
+        n_users, n_items = csr.shape
+        self.global_bias = 0.0
+        if self.with_user_item_bias:
+            g, user_bias, item_bias, csr = initialize_biases(
+                csr, self.lambda_, self.dynamic_lambda, self.non_negative,
+                self.with_global_bias, self.feedback == "explicit")
+            if self.with_global_bias:
+                self.global_bias = g
+            return csr, user_bias, item_bias
+        if self.with_global_bias:
+            if self.feedback == "explicit":
+                self.global_bias = float(csr.data.mean()) if csr.nnz else 0.0
+                csr = csr.copy()
+                csr.data = csr.data - self.global_bias
+            else:
+                s = float(csr.data.sum())
+                self.global_bias = s / (s + float(n_users) * float(n_items)
+                                        - csr.nnz)
+        return csr, None, None
 
     # -- fitting -----------------------------------------------------------
 
@@ -173,28 +235,25 @@ class WRMF(MatrixFactorizationRecommender):
                       checkpoint_path: Optional[str] = None,
                       resume: bool = False) -> torch.Tensor:
         """Alternating sweeps over items and users; returns the user
-        embeddings (n_users, rank) as a tensor on the model's device."""
+        embeddings (n_users, rank [+2 with biases]) as a tensor on the
+        model's device."""
         if checkpoint_path is not None or resume:
             raise _not_ported("checkpoint_path/resume")
         if convergence_tol is None:
-            convergence_tol = 0.005
+            convergence_tol = 0.005 if self.feedback == "implicit" else 0.001
         row_names, col_names = get_names(x, 0), get_names(x, 1)
-        csr = self._prepare_input(x)
+        csr, user_bias, item_bias = self._fit_matrix(x)
         n_users, n_items = csr.shape
         self._n_items = n_items
         self.item_ids = col_names
         self.user_ids = row_names
-
-        self.global_bias = 0.0
-        if self.with_global_bias:
-            s = float(csr.data.sum())
-            self.global_bias = s / (s + float(n_users) * float(n_items)
-                                    - csr.nnz)
-        incl = self.with_global_bias
+        R = self._R
+        incl = self._include_empty
         # items-as-rows buckets drive the item sweep, users-as-rows the user
         # sweep; the closing exact half-sweep uses the full user buckets
+        csr_t = csr.T.tocsr()
         hot_items, ui, ui_hot_rows = self._stage(csr, incl)
-        hot_users, iu, iu_hot_rows = self._stage(csr.T.tocsr(), incl)
+        hot_users, iu, iu_hot_rows = self._stage(csr_t, incl)
         ui_full = ui if hot_items is None else self._bucketize(csr, incl)
         #: what staging built, for logs and smoke runs
         self.stage_info = {
@@ -204,37 +263,50 @@ class WRMF(MatrixFactorizationRecommender):
             "buckets_users": len(ui.buckets),
             "buckets_transform": len(ui_full.buckets)}
         logger.info("staged: %s", self.stage_info)
+        # nnz per user / per item, for the explicit dynamic-lambda loss
+        cnt_u = torch.as_tensor(np.diff(csr.indptr), dtype=torch.float32,
+                                device=self.device)
+        cnt_i = torch.as_tensor(np.diff(csr_t.indptr), dtype=torch.float32,
+                                device=self.device)
         nnz = max(csr.nnz, 1)
 
         # factor init (R/model_WRMF.R:203-255)
         U = self._rand(n_users)
         if self._init_components is not None:
             comp = np.asarray(self._init_components)
-            if comp.shape != (self.rank, n_items):
-                raise ValueError(
-                    f"init must have shape ({self.rank}, {n_items})")
-            V = torch.as_tensor(comp.T, dtype=self.dtype,
-                                device=self.device).contiguous()
+            if comp.shape != (R, n_items):
+                raise ValueError(f"init must have shape ({R}, {n_items})")
+            V = torch.tensor(comp.T, dtype=self.dtype,
+                             device=self.device).contiguous()
         elif self.solver == CONJUGATE_GRADIENT:
-            V = torch.zeros((n_items, self.rank), dtype=self.dtype,
+            V = torch.zeros((n_items, R), dtype=self.dtype,
                             device=self.device)
         else:
             V = self._rand(n_items)
+        if self.non_negative:
+            U, V = U.abs(), V.abs()
+        if self.with_user_item_bias:
+            # users = [1, emb..., u_bias]; items = [i_bias, emb..., 1]
+            U[:, 0] = 1.0
+            U[:, R - 1] = torch.as_tensor(user_bias, dtype=self.dtype)
+            V[:, R - 1] = 1.0
+            V[:, 0] = torch.as_tensor(item_bias, dtype=self.dtype)
 
-        cfg = self._cfg()
-        lam, g = self.lambda_, self.global_bias
+        cfg_items = self._cfg(bias_last_in_source=True)
+        cfg_users = self._cfg(bias_last_in_source=False)
+        lam, g = self.lambda_, self._g
         loss_prev = math.inf
         self.loss_history = []
         self.fit_trace = FitTrace(self.device)
         for it in range(n_iter):
             with self.fit_trace.phase(it + 1, "items") as rec:
-                V, loss = wrmf_sweep(U, V, iu.buckets, lam, g, cfg,
-                                     hot_users, iu_hot_rows)
+                V, loss = wrmf_sweep(U, V, iu.buckets, lam, g, cfg_items,
+                                     hot_users, iu_hot_rows, cnt_u)
                 rec["loss"] = loss = float(loss) / nnz
             logger.info("iter %d (items) loss = %.4f", it + 1, loss)
             with self.fit_trace.phase(it + 1, "users") as rec:
-                U, loss = wrmf_sweep(V, U, ui.buckets, lam, g, cfg,
-                                     hot_items, ui_hot_rows)
+                U, loss = wrmf_sweep(V, U, ui.buckets, lam, g, cfg_users,
+                                     hot_items, ui_hot_rows, cnt_i)
                 rec["loss"] = loss = float(loss) / nnz
             logger.info("iter %d (users) loss = %.4f", it + 1, loss)
             self.loss_history.append(loss)
@@ -252,13 +324,15 @@ class WRMF(MatrixFactorizationRecommender):
     def _transform_buckets(self, ui: BucketedRows,
                            n_users: int) -> torch.Tensor:
         """User-side half-sweep from zero init with CG swapped for Cholesky
-        (``avoid_cg``, reference R/model_WRMF.R:111-112,412-452).  The Gram
-        of the item factors is rebuilt on every call: it is one small
-        matmul, and no cache can go stale across refits."""
-        tgt0 = torch.zeros((n_users, self.rank), dtype=self.dtype,
+        (``avoid_cg``, reference R/model_WRMF.R:111-112,412-452); NNLS stays
+        NNLS.  The Gram of the item factors is rebuilt on every call: it is
+        one small matmul, and no cache can go stale across refits.  The
+        sweep's loss is not used, so no per-item counts are passed."""
+        solver = CHOLESKY if self.solver == CONJUGATE_GRADIENT else self.solver
+        tgt0 = torch.zeros((n_users, self._R), dtype=self.dtype,
                            device=self.device)
-        U, _ = wrmf_sweep(self._V, tgt0, ui.buckets, self.lambda_,
-                          self.global_bias, self._cfg(solver=CHOLESKY))
+        U, _ = wrmf_sweep(self._V, tgt0, ui.buckets, self.lambda_, self._g,
+                          self._cfg(bias_last_in_source=False, solver=solver))
         return U
 
     def transform(self, x: sp.spmatrix) -> torch.Tensor:
@@ -269,5 +343,8 @@ class WRMF(MatrixFactorizationRecommender):
         if x.shape[1] != self._n_items:
             raise ValueError("column count mismatch with fitted model")
         csr = self._prepare_input(x)
-        ui = self._bucketize(csr, self.with_global_bias)
+        if self.feedback == "explicit" and self.global_bias != 0.0:
+            csr = csr.copy()
+            csr.data = csr.data - self.global_bias
+        ui = self._bucketize(csr, self._include_empty)
         return self._transform_buckets(ui, csr.shape[0])

@@ -1,21 +1,33 @@
-"""Implicit-feedback ALS half-sweep for WRMF, one nnz-bucket at a time.
+"""ALS half-sweep for WRMF, one nnz-bucket at a time.
 
-Port of ``rsparse_tpu/ops/als.py`` for implicit feedback without
-per-entity biases.  For every target row b of a bucket, with the source
-rows it touches gathered as ``Xg = src[col_idx[b, :nnz_b]]`` and
-confidences ``c``:
+Port of ``rsparse_tpu/ops/als.py``.  For every target row b of a bucket,
+with the source rows it touches gathered as ``Xg = src[col_idx[b, :nnz_b]]``
+and their values ``c`` (confidences, or ratings for explicit feedback):
 
-    lhs  = XtX + Xg' diag(c - 1) Xg               (XtX holds the lambda ridge)
-    rhs  = Xg' (c - (c - 1) g) + rhs_init          (g: implicit global bias)
-    loss = sum c (1 - g - Xg y)^2 + lambda ||y||^2
+    implicit  lhs  = XtX + Xg' diag(c - 1) Xg      (XtX holds the ridge)
+              rhs  = Xg' (c - (c - 1)(x_bias + g)) + rhs_init
+              loss = sum c (1 - g - x_bias - Xg y)^2 + lambda ||y||^2
+    explicit  lhs  = Xg' Xg + lambda_use I         (observed entries only)
+              rhs  = Xg' (r - x_bias)
+              loss = sum (r - x_bias - Xg y)^2 + lambda_use ||y||^2
+
+``lambda_use`` is lambda times the row's total nnz with dynamic lambda.
+With per-entity biases the factor tables carry ``rank + 2`` columns, users
+``[1, emb..., u_bias]`` and items ``[i_bias, emb..., 1]`` (reference
+wrmf_implicit.hpp:96-101): a sweep solves the target's non-ones columns
+against the source's non-bias columns (:func:`_active_slices`) and reads
+the source's bias column as ``x_bias``.
 
 With a dense zipf head (``sparse/device.py`` ``HotBlock``) the head
-columns' entries add the same terms from the dense ``(B, H)`` weights.
+columns' entries add the same terms from the dense ``(B, H)`` weights;
+explicit presence comes from the packed bits, so a stored 0.0 rating
+enters the lhs and the loss.
 
-Two kernels solve a bucket on the card: K1 (``csrc/als_cg.cu``) runs the
-CG solve and K2 (``csrc/als_chol.cu``) the exact Cholesky solve.
-:func:`_solve_bucket_implicit` is their plain PyTorch version; the
-wrappers take it only for tensors on the CPU.
+Three kernels solve a bucket on the card: K1 (``csrc/als_cg.cu``) by CG,
+K2 (``csrc/als_chol.cu``) by Cholesky and K4 (``csrc/als_nnls.cu``) by
+NNLS coordinate descent.  :func:`_solve_bucket_implicit` and
+:func:`_solve_bucket_explicit` are their plain PyTorch versions; the
+wrappers take them only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -29,7 +41,9 @@ import torch
 from .. import _kernels
 from ..config import accum_dtype
 from ..sparse.device import RowBucket
-from .solvers import CG_TOL, batched_cg, batched_spd_solve
+from .solvers import (CG_TOL, SCD_MAX_ITER, SCD_TOL, batched_cg,
+                      batched_nnls, batched_spd_solve)
+from .topk import _expand_bits
 
 # Solver codes, mirroring reference inst/include/wrmf.hpp:16-18
 CHOLESKY = 0
@@ -42,20 +56,30 @@ _SOLVER_CODES = {"cholesky": CHOLESKY, "conjugate_gradient": CONJUGATE_GRADIENT,
 
 @dataclass(frozen=True)
 class ALSConfig:
-    """Configuration of one implicit-feedback ALS half-sweep."""
+    """Configuration of one ALS half-sweep."""
 
-    solver: int                 # CHOLESKY | CONJUGATE_GRADIENT
+    solver: int                 # CHOLESKY | CONJUGATE_GRADIENT | NNLS
     cg_steps: int = 3
+    #: implicit global bias (without per-entity biases)
     use_global_bias: bool = False
+    feedback: str = "implicit"  # "implicit" | "explicit"
+    with_biases: bool = False
+    #: True when the *source* factor carries its bias in the last column
+    #: (source = users, solving items); mirrors ``is_x_bias_last_row``
+    #: (reference wrmf_implicit.hpp:96-101)
+    bias_last_in_source: bool = True
+    dynamic_lambda: bool = False
+    nnls_max_iter: int = SCD_MAX_ITER
 
     @property
     def solve_empty(self) -> bool:
-        """Solve rows with zero total nnz too (implicit global-bias
-        semantics, reference wrmf_implicit.hpp:180); consulted on the
-        hot/cold-split path, where bucket membership cannot tell an empty
-        row from one whose entries all live in the hot block.  Without
-        per-entity biases it is exactly ``use_global_bias``."""
-        return self.use_global_bias
+        """Solve rows with zero total nnz too (the reference does so with
+        implicit feedback and biases or a global bias,
+        wrmf_implicit.hpp:180); consulted on the hot/cold-split path, where
+        bucket membership cannot tell an empty row from one whose entries
+        all live in the hot block."""
+        return self.feedback == "implicit" and (
+            self.with_biases or self.use_global_bias)
 
 
 def solver_code(name: str) -> int:
@@ -67,28 +91,79 @@ def solver_code(name: str) -> int:
         ) from None
 
 
+def _active_slices(cfg: ALSConfig, R: int):
+    """Column slices: (source active columns, target solved columns).
+
+    With biases the source drops its own bias column but keeps its ones
+    column (which generates the target's bias coordinate), the batched form
+    of ``drop_row`` (reference inst/include/wrmf_utils.hpp:4-10)."""
+    if not cfg.with_biases:
+        return slice(0, R), slice(0, R)
+    if cfg.bias_last_in_source:
+        # source = [1, emb..., bias], target = [bias, emb..., 1]
+        return slice(0, R - 1), slice(0, R - 1)
+    # source = [bias, emb..., 1], target = [1, emb..., bias]
+    return slice(1, R), slice(1, R)
+
+
+def hot_outer_table(Vh: torch.Tensor) -> torch.Tensor:
+    """(H, d*d) outer products of the head's source rows."""
+    H, d = Vh.shape
+    return (Vh[:, :, None] * Vh[:, None, :]).reshape(H, d * d)
+
+
+def _hot_lhs(w: torch.Tensor, Vh: torch.Tensor) -> torch.Tensor:
+    """Dense-head lhs term ``sum_h w[b, h] Vh[h] Vh[h]'`` (plain version of
+    K2's and K4's head term): one (B, H) x (H, d^2) matmul against the
+    outer-product table.  w: (B, H); Vh: (H, d) -> (B, d, d)."""
+    d = Vh.shape[1]
+    return (w @ hot_outer_table(Vh)).reshape(w.shape[0], d, d)
+
+
+def _exact_solve(lhs, rhs, x_init, cfg: ALSConfig, sweeps=None):
+    """Cholesky or NNLS solve of a bucket's normal equations; ``sweeps``
+    ((B,) int32, optional) receives the NNLS sweeps of each system."""
+    if cfg.solver == NNLS:
+        y, sw = batched_nnls(lhs, rhs, x_init.to(lhs.dtype),
+                             max_iter=cfg.nnls_max_iter, return_sweeps=True)
+        if sweeps is not None:
+            sweeps.copy_(sw)
+        return y
+    return batched_spd_solve(lhs, rhs)
+
+
 def _solve_bucket_implicit(
-    src: torch.Tensor,                 # (n_src, d)
+    src: torch.Tensor,                 # (n_src, d) active source columns
+    x_biases: Optional[torch.Tensor],  # (n_src,) source biases or None
     XtX: torch.Tensor,                 # (d, d) incl. lambda ridge
     rhs_init: Optional[torch.Tensor],  # (d,) or None
     bucket: RowBucket,
-    x_init: torch.Tensor,              # (B, d) warm start (CG only)
+    x_init: torch.Tensor,              # (B, d) warm start (CG, NNLS)
     lam: float,
     g: float,                          # global bias (0 when unused)
     cfg: ALSConfig,
     hot_W: Optional[torch.Tensor] = None,   # (B, H) dense hot confidences
     V_hot: Optional[torch.Tensor] = None,   # (H, d) hot source factors
+    sweeps: Optional[torch.Tensor] = None,  # (B,) int32 NNLS sweeps out
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1 (CG) and K2 (Cholesky): one bucket of
-    per-entity implicit-feedback solves.  Returns (y (B, d), loss (B,))."""
+    """Plain PyTorch version of K1, K2 and K4 for implicit feedback: one
+    bucket of per-entity solves.  Returns (y (B, d), loss (B,))."""
     sdt = XtX.dtype
     mask = bucket.mask()
-    Xg = src.to(sdt)[bucket.col_idx.long()]                  # (B, L, d)
+    col = bucket.col_idx.long()
+    Xg = src.to(sdt)[col]                                    # (B, L, d)
     c = bucket.values.to(sdt)
     zero = torch.zeros((), dtype=sdt, device=c.device)
     cm = torch.where(mask, c, zero)
     cm1 = torch.where(mask, c - 1.0, zero)
-    offs = g if cfg.use_global_bias else None
+    xb = None
+    if cfg.with_biases:
+        xb = x_biases.to(sdt)[col]                           # (B, L)
+        offs = xb + g
+    elif cfg.use_global_bias:
+        offs = g
+    else:
+        offs = None
 
     c_eff = cm if offs is None else cm - cm1 * offs
     rhs = torch.einsum("bld,bl->bd", Xg, c_eff)
@@ -98,7 +173,7 @@ def _solve_bucket_implicit(
         Vh = V_hot.to(sdt)
         Wc = hot_W.to(sdt)
         W1 = torch.where(Wc > 0, Wc - 1.0, zero)
-        ce_hot = Wc if offs is None else Wc - W1 * offs
+        ce_hot = Wc if offs is None else Wc - W1 * g
         rhs = rhs + ce_hot @ Vh
 
     if cfg.solver == CONJUGATE_GRADIENT:
@@ -109,136 +184,316 @@ def _solve_bucket_implicit(
                 out = out + ((p @ Vh.T) * W1) @ Vh
             return out
         y = batched_cg(matvec, rhs, x_init.to(sdt), cfg.cg_steps)
-    elif cfg.solver == CHOLESKY:
-        lhs = XtX[None] + torch.einsum("bld,ble->bde", Xg * cm1[..., None], Xg)
-        y = batched_spd_solve(lhs, rhs)
     else:
-        raise NotImplementedError(
-            f"solver code {cfg.solver} is not ported yet (see ROADMAP.md)")
+        lhs = XtX[None] + torch.einsum("bld,ble->bde", Xg * cm1[..., None], Xg)
+        if hot_W is not None:
+            lhs = lhs + _hot_lhs(W1, Vh)
+        y = _exact_solve(lhs, rhs, x_init, cfg, sweeps)
 
     pred = torch.einsum("bld,bd->bl", Xg, y)
     base = 1.0 - pred
-    if offs is not None:
-        base = base - offs
+    if cfg.use_global_bias:
+        base = base - g
+    if xb is not None:
+        base = base - xb
     loss = (cm * base * base).sum(-1) + lam * (y * y).sum(-1)
     if hot_W is not None:
         pred_h = y @ Vh.T
-        base_h = (1.0 - offs) - pred_h if offs is not None else 1.0 - pred_h
+        base_h = (1.0 - g) - pred_h if cfg.use_global_bias else 1.0 - pred_h
         loss = loss + (Wc * base_h * base_h).sum(-1)
     return y, loss
 
 
-def _bucket_args(src, XtX, rhs_init, bucket, d):
-    """Validate the arguments K1 and K2 share; return them as C values."""
+def _solve_bucket_explicit(
+    src: torch.Tensor,                 # (n_src, d) active source columns
+    x_biases: Optional[torch.Tensor],  # (n_src,) source biases or None
+    bucket: RowBucket,
+    x_init: torch.Tensor,              # (B, d) warm start (CG, NNLS)
+    lam: float,
+    cfg: ALSConfig,
+    hot_W: Optional[torch.Tensor] = None,     # (B, H) ratings, 0 = absent
+    V_hot: Optional[torch.Tensor] = None,     # (H, d)
+    hot_bits: Optional[torch.Tensor] = None,  # (B, ceil(H/8)) presence
+    nnz_total: Optional[torch.Tensor] = None,  # (B,) hot + cold row nnz
+    sweeps: Optional[torch.Tensor] = None,    # (B,) int32 NNLS sweeps out
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1, K2 and K4 for explicit feedback: one
+    bucket of observed-entries-only solves (reference
+    inst/include/wrmf_explicit.hpp:34-132).  Returns (y (B, d),
+    loss (B,))."""
+    sdt = src.dtype
+    mask = bucket.mask()
+    col = bucket.col_idx.long()
+    Xg = src[col]                                            # (B, L, d)
+    zero = torch.zeros((), dtype=sdt, device=Xg.device)
+    conf = torch.where(mask, bucket.values.to(sdt), zero)
+    if cfg.with_biases:
+        conf = conf - torch.where(mask, x_biases.to(sdt)[col], zero)
+
+    nnz = (bucket.nnz if nnz_total is None else nnz_total).to(sdt)
+    lam_use = lam * nnz if cfg.dynamic_lambda else torch.full_like(nnz, lam)
+
+    rhs = torch.einsum("bld,bl->bd", Xg, conf)
+    if hot_W is not None:
+        Vh = V_hot.to(sdt)
+        Wv = hot_W.to(sdt)
+        H = Wv.shape[1]
+        Mh = (_expand_bits(hot_bits)[:, :H] if hot_bits is not None
+              else Wv != 0)
+        # absent cells hold 0 and present zero ratings add nothing either
+        rhs = rhs + Wv @ Vh
+
+    if cfg.solver == CONJUGATE_GRADIENT:
+        def matvec(p):
+            t = torch.where(mask, torch.einsum("bld,bd->bl", Xg, p), zero)
+            out = torch.einsum("bl,bld->bd", t, Xg) + lam_use[:, None] * p
+            if hot_W is not None:
+                out = out + torch.where(Mh, p @ Vh.T, zero) @ Vh
+            return out
+        y = batched_cg(matvec, rhs, x_init.to(sdt), cfg.cg_steps)
+    else:
+        d = Xg.shape[-1]
+        eye = torch.eye(d, dtype=sdt, device=Xg.device)[None]
+        Xgm = torch.where(mask[..., None], Xg, zero)
+        lhs = torch.einsum("bld,ble->bde", Xgm, Xgm)
+        if hot_W is not None:
+            lhs = lhs + _hot_lhs(Mh.to(sdt), Vh)
+        lhs = lhs + lam_use[:, None, None] * eye
+        # keep padding rows nonsingular (their solutions are discarded)
+        invalid = (bucket.nnz == 0) & (lam_use == 0)
+        lhs = lhs + invalid[:, None, None] * eye
+        y = _exact_solve(lhs, rhs, x_init, cfg, sweeps)
+
+    pred = torch.einsum("bld,bd->bl", Xg, y)
+    diff = conf - torch.where(mask, pred, zero)
+    loss = (diff * diff).sum(-1) + lam_use * (y * y).sum(-1)
+    if hot_W is not None:
+        diff_h = torch.where(Mh, Wv - y @ Vh.T, zero)
+        loss = loss + (diff_h * diff_h).sum(-1)
+    return y, loss
+
+
+def _solve_bucket_plain(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
+                        cfg: ALSConfig, hot_W=None, V_hot=None, hot_bits=None,
+                        nnz_total=None, sweeps=None):
+    """The plain version of whichever kernel ``cfg`` selects."""
+    if cfg.feedback == "implicit":
+        return _solve_bucket_implicit(src, x_biases, XtX, rhs_init, bucket,
+                                      x_init, lam, g, cfg, hot_W, V_hot,
+                                      sweeps)
+    return _solve_bucket_explicit(src, x_biases, bucket, x_init, lam, cfg,
+                                  hot_W, V_hot, hot_bits, nnz_total, sweeps)
+
+
+def _bucket_args(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
+                 cfg: ALSConfig, hot_W, V_hot, hot_bits, nnz_total):
+    """Validate a bucket's CUDA inputs; return (BucketArgs, y, loss) with
+    the outputs allocated.  Raises on what the kernels do not take."""
+    d = src.shape[1]
     if d > _kernels.MAX_D:
         raise NotImplementedError(
-            f"the CUDA ALS kernels take rank <= {_kernels.MAX_D}, got {d} "
+            f"the CUDA ALS kernels take d <= {_kernels.MAX_D}, got {d} "
             "(see ROADMAP.md)")
     B, L = bucket.batch, bucket.pad_len
     f32, i32 = torch.float32, torch.int32
-    _kernels.check_tensor("src", src, (src.shape[0], d), f32)
-    _kernels.check_tensor("XtX", XtX, (d, d), f32)
+    n_src = src.shape[0]
+    _kernels.check_tensor("src", src, (n_src, d), f32)
     _kernels.check_tensor("col_idx", bucket.col_idx, (B, L), i32)
     _kernels.check_tensor("values", bucket.values, (B, L), f32)
     _kernels.check_tensor("nnz", bucket.nnz, (B,), i32)
-    if rhs_init is not None:
-        _kernels.check_tensor("rhs_init", rhs_init, (d,), f32)
-    return (_kernels.ptr(src), _kernels.ptr(bucket.col_idx),
-            _kernels.ptr(bucket.values), _kernels.ptr(bucket.nnz),
-            ctypes.c_int(B), ctypes.c_int(L), ctypes.c_int(d),
-            _kernels.ptr(XtX), _kernels.ptr(rhs_init))
+    explicit = cfg.feedback == "explicit"
+    if explicit:
+        XtX = rhs_init = None
+    else:
+        _kernels.check_tensor("XtX", XtX, (d, d), f32)
+        if rhs_init is not None:
+            _kernels.check_tensor("rhs_init", rhs_init, (d,), f32)
+    if not cfg.with_biases:
+        x_biases = None
+    elif x_biases is not None:
+        _kernels.check_tensor("x_biases", x_biases, (n_src,), f32)
+    if x_init is not None:
+        _kernels.check_tensor("x_init", x_init, (B, d), f32)
+    H = 0
+    if hot_W is not None:
+        H = hot_W.shape[1]
+        _kernels.check_tensor("hot_W", hot_W, (B, H), f32)
+        _kernels.check_tensor("V_hot", V_hot, (H, d), f32)
+        if hot_bits is not None:
+            _kernels.check_tensor("hot_bits", hot_bits, (B, -(-H // 8)),
+                                  torch.uint8)
+    if not (explicit and hot_W is not None):
+        hot_bits = None
+    if nnz_total is not None:
+        _kernels.check_tensor("nnz_total", nnz_total, (B,), i32)
+    y = torch.empty((B, d), dtype=f32, device=src.device)
+    loss = torch.empty((B,), dtype=f32, device=src.device)
+    if explicit:
+        g_rhs = g_loss = 0.0
+    else:
+        g_rhs = float(g) if (cfg.with_biases or cfg.use_global_bias) else 0.0
+        g_loss = float(g) if cfg.use_global_bias else 0.0
+    p = _kernels.ptr
+    args = _kernels.BucketArgs(
+        V=p(src), xbias=p(x_biases), col=p(bucket.col_idx),
+        val=p(bucket.values), nnz=p(bucket.nnz), nnz_total=p(nnz_total),
+        XtX=p(XtX), rhs_init=p(rhs_init), W=p(hot_W), Vh=p(V_hot),
+        bits=p(hot_bits), x0=p(x_init), y=p(y), loss=p(loss),
+        B=B, L=L, d=d, H=H, explicit_fb=int(explicit),
+        dynamic_lambda=int(cfg.dynamic_lambda), lam=float(lam),
+        g_rhs=g_rhs, g_loss=g_loss)
+    return args, y, loss
 
 
-def solve_bucket_cg(src, XtX, rhs_init, bucket, x_init, lam, g,
-                    cfg: ALSConfig, hot_W=None, V_hot=None):
-    """K1: one bucket of implicit CG solves (``csrc/als_cg.cu``).
+def solve_bucket_cg(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
+                    cfg: ALSConfig, hot_W=None, V_hot=None, hot_bits=None,
+                    nnz_total=None):
+    """K1: one bucket of CG solves (``csrc/als_cg.cu``).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     Returns (y (B, d), loss (B,))."""
     if src.device.type == "cpu":
-        return _solve_bucket_implicit(src, XtX, rhs_init, bucket, x_init,
-                                      lam, g, cfg, hot_W, V_hot)
-    d = src.shape[1]
-    args = _bucket_args(src, XtX, rhs_init, bucket, d)
-    B = bucket.batch
-    _kernels.check_tensor("x_init", x_init, (B, d), torch.float32)
-    H = 0
-    if hot_W is not None:
-        H = hot_W.shape[1]
-        _kernels.check_tensor("hot_W", hot_W, (B, H), torch.float32)
-        _kernels.check_tensor("V_hot", V_hot, (H, d), torch.float32)
-    y = torch.empty((B, d), dtype=torch.float32, device=src.device)
-    loss = torch.empty((B,), dtype=torch.float32, device=src.device)
-    gg = float(g) if cfg.use_global_bias else 0.0
+        return _solve_bucket_plain(src, x_biases, XtX, rhs_init, bucket,
+                                   x_init, lam, g, cfg, hot_W, V_hot,
+                                   hot_bits, nnz_total)
+    args, y, loss = _bucket_args(src, x_biases, XtX, rhs_init, bucket,
+                                 x_init, lam, g, cfg, hot_W, V_hot, hot_bits,
+                                 nnz_total)
     rc = _kernels.lib().rsp_als_cg(
-        *args, _kernels.ptr(x_init), _kernels.ptr(hot_W),
-        _kernels.ptr(V_hot), ctypes.c_int(H), ctypes.c_float(lam),
-        ctypes.c_float(gg), ctypes.c_int(cfg.cg_steps),
-        ctypes.c_float(CG_TOL), _kernels.ptr(y), _kernels.ptr(loss),
-        _kernels.stream(src.device))
+        ctypes.byref(args), ctypes.c_int(cfg.cg_steps),
+        ctypes.c_float(CG_TOL), _kernels.stream(src.device))
     _kernels.check(rc, "als_cg")
     _kernels.launches["als_cg"] += 1
     return y, loss
 
 
-def solve_bucket_cholesky(src, XtX, rhs_init, bucket, lam, g,
-                          cfg: ALSConfig):
-    """K2: one bucket of exact implicit Cholesky solves
-    (``csrc/als_chol.cu``).  CPU tensors take the plain version; CUDA
+def solve_bucket_cholesky(src, x_biases, XtX, rhs_init, bucket, x_init, lam,
+                          g, cfg: ALSConfig, hot_W=None, V_hot=None,
+                          hot_bits=None, nnz_total=None):
+    """K2: one bucket of exact Cholesky solves (``csrc/als_chol.cu``);
+    ``x_init`` is not read.  CPU tensors take the plain version; CUDA
     tensors launch the kernel.  Returns (y (B, d), loss (B,))."""
     if src.device.type == "cpu":
-        x0 = torch.zeros((bucket.batch, src.shape[1]), dtype=XtX.dtype)
-        return _solve_bucket_implicit(src, XtX, rhs_init, bucket, x0, lam,
-                                      g, cfg)
-    d = src.shape[1]
-    args = _bucket_args(src, XtX, rhs_init, bucket, d)
-    B = bucket.batch
-    y = torch.empty((B, d), dtype=torch.float32, device=src.device)
-    loss = torch.empty((B,), dtype=torch.float32, device=src.device)
-    gg = float(g) if cfg.use_global_bias else 0.0
-    rc = _kernels.lib().rsp_als_chol(
-        *args, ctypes.c_float(lam), ctypes.c_float(gg), _kernels.ptr(y),
-        _kernels.ptr(loss), _kernels.stream(src.device))
+        return _solve_bucket_plain(src, x_biases, XtX, rhs_init, bucket,
+                                   x_init, lam, g, cfg, hot_W, V_hot,
+                                   hot_bits, nnz_total)
+    args, y, loss = _bucket_args(src, x_biases, XtX, rhs_init, bucket, None,
+                                 lam, g, cfg, hot_W, V_hot, hot_bits,
+                                 nnz_total)
+    rc = _kernels.lib().rsp_als_chol(ctypes.byref(args),
+                                     _kernels.stream(src.device))
     _kernels.check(rc, "als_chol")
     _kernels.launches["als_chol"] += 1
     return y, loss
 
 
+def solve_bucket_nnls(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
+                      cfg: ALSConfig, hot_W=None, V_hot=None, hot_bits=None,
+                      nnz_total=None, sweeps=None):
+    """K4: one bucket of non-negative solves by coordinate descent
+    (``csrc/als_nnls.cu``).  ``sweeps`` ((B,) int32, optional) receives the
+    sweeps each system ran.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel.  Returns (y (B, d), loss (B,))."""
+    if src.device.type == "cpu":
+        return _solve_bucket_plain(src, x_biases, XtX, rhs_init, bucket,
+                                   x_init, lam, g, cfg, hot_W, V_hot,
+                                   hot_bits, nnz_total, sweeps)
+    args, y, loss = _bucket_args(src, x_biases, XtX, rhs_init, bucket,
+                                 x_init, lam, g, cfg, hot_W, V_hot, hot_bits,
+                                 nnz_total)
+    if sweeps is not None:
+        _kernels.check_tensor("sweeps", sweeps, (bucket.batch,), torch.int32)
+    rc = _kernels.lib().rsp_als_nnls(
+        ctypes.byref(args), ctypes.c_int(cfg.nnls_max_iter),
+        ctypes.c_float(SCD_TOL), _kernels.ptr(sweeps),
+        _kernels.stream(src.device))
+    _kernels.check(rc, "als_nnls")
+    _kernels.launches["als_nnls"] += 1
+    return y, loss
+
+
+_SOLVE = {CONJUGATE_GRADIENT: solve_bucket_cg, CHOLESKY: solve_bucket_cholesky,
+          NNLS: solve_bucket_nnls}
+
+
+def _check_hot_supported(hot_ids, cfg: ALSConfig):
+    """The reference's rule (rsparse_tpu/ops/als.py:376-380): every solver
+    takes the dense head, per-entity biases do not."""
+    if hot_ids is not None and cfg.with_biases:
+        raise NotImplementedError(
+            "hot/cold split does not support per-entity biases")
+
+
 def _sweep_prepare(src, lam, g, cfg: ALSConfig, sdt):
-    """XtX Gram with the lambda ridge, and rhs_init, from the source
-    factors."""
-    s = src.to(sdt)
+    """The sweep-invariant terms: (active source columns, contiguous;
+    source biases or None; XtX Gram with the lambda ridge, implicit only;
+    rhs_init or None)."""
+    R = src.shape[1]
+    src_sl, _ = _active_slices(cfg, R)
+    src_act = src[:, src_sl].contiguous()
+    x_biases = None
+    if cfg.with_biases:
+        x_biases = src[:, R - 1 if cfg.bias_last_in_source else 0].contiguous()
+    if cfg.feedback != "implicit":
+        # explicit feedback builds per-entity Grams from the gathered rows
+        # only (wrmf_explicit.hpp:74-78)
+        return src_act, x_biases, None, None
+    s = src_act.to(sdt)
     XtX = s.T @ s + lam * torch.eye(s.shape[1], dtype=sdt, device=s.device)
-    rhs_init = -g * s.sum(0) if cfg.use_global_bias else None
-    return XtX, rhs_init
+    rhs_init = None
+    if cfg.with_biases:
+        rhs_init = -(s.T @ (x_biases.to(sdt) + g))
+    elif cfg.use_global_bias:
+        rhs_init = -g * s.sum(0)
+    return src_act, x_biases, XtX, rhs_init
 
 
-def _src_reg_loss(src, lam, sdt):
-    """Final lambda * ||source||^2 term (reference wrmf_implicit.hpp:286-303)."""
-    s = src.to(sdt)
+def _src_reg_loss(src, src_cnt, lam, cfg: ALSConfig, sdt):
+    """Final lambda * ||learned source params||^2 term (reference
+    wrmf_implicit.hpp:286-303, wrmf_explicit.hpp:147-172)."""
+    R = src.shape[1]
+    if cfg.with_biases:
+        excl = slice(1, R) if cfg.bias_last_in_source else slice(0, R - 1)
+        s = src[:, excl].to(sdt)
+    else:
+        s = src.to(sdt)
+    if cfg.feedback == "explicit" and cfg.dynamic_lambda:
+        if src_cnt is None:
+            return torch.zeros((), dtype=sdt, device=src.device)
+        return lam * ((s * s).sum(1) * src_cnt.to(sdt)).sum()
     return lam * (s * s).sum()
 
 
-def _solve_scatter(result, src, XtX, rhs_init, bucket, old, lam, g,
-                   n_tgt: int, cfg: ALSConfig, V_hot=None, hot_pre=None):
+def _assemble_target(result_act, cfg: ALSConfig):
+    """Re-attach the target's ones column to its solved columns."""
+    if not cfg.with_biases:
+        return result_act
+    ones = torch.ones((result_act.shape[0], 1), dtype=result_act.dtype,
+                      device=result_act.device)
+    if cfg.bias_last_in_source:   # the target's ones column is last
+        return torch.cat([result_act, ones], dim=1)
+    return torch.cat([ones, result_act], dim=1)
+
+
+def _solve_scatter(result, src_act, x_biases, XtX, rhs_init, bucket, old_act,
+                   lam, g, n_tgt: int, cfg: ALSConfig, V_hot=None,
+                   hot_pre=None):
     """One bucket: gather the warm start, solve, scatter into ``result``
     (updated in place, so a sweep holds one output table).  Returns the
     bucket's loss over its valid rows."""
     ids = bucket.row_ids.clamp(max=n_tgt - 1).long()
     valid = bucket.row_ids < n_tgt
-    hot_W = None
+    hot_W = hot_bits = nnz_total = None
     if hot_pre is not None:
-        hot_W, row_nnz = hot_pre
+        hot_W, hot_bits, row_nnz = hot_pre
+        if cfg.feedback == "explicit" and cfg.dynamic_lambda:
+            nnz_total = row_nnz
         if not cfg.solve_empty:
             # rows with zero TOTAL nnz keep the excluded-row semantics (y=0)
             valid = valid & (row_nnz > 0)
-    if cfg.solver == CONJUGATE_GRADIENT:
-        y, le = solve_bucket_cg(src, XtX, rhs_init, bucket,
-                                old[ids].contiguous(), lam, g, cfg,
-                                hot_W, V_hot)
-    else:
-        y, le = solve_bucket_cholesky(src, XtX, rhs_init, bucket, lam, g,
-                                      cfg)
+    y, le = _SOLVE[cfg.solver](src_act, x_biases, XtX, rhs_init, bucket,
+                               old_act[ids].contiguous(), lam, g, cfg, hot_W,
+                               V_hot, hot_bits, nnz_total)
     y = torch.where(valid[:, None], y, torch.zeros((), dtype=y.dtype,
                                                    device=y.device))
     result[bucket.row_ids.long()] = y.to(result.dtype)
@@ -247,35 +502,37 @@ def _solve_scatter(result, src, XtX, rhs_init, bucket, old, lam, g,
 
 
 def wrmf_sweep(
-    src: torch.Tensor,                 # (n_src, d) source factors
-    tgt_old: torch.Tensor,             # (n_tgt, d) previous target factors
+    src: torch.Tensor,                 # (n_src, R) source factors
+    tgt_old: torch.Tensor,             # (n_tgt, R) previous target factors
     buckets: Tuple[RowBucket, ...],    # target rows over source columns
     lam: float,
     g: float,
     cfg: ALSConfig,
     hot_ids: Optional[torch.Tensor] = None,  # (H,) dense zipf-head columns
     hot_rows=None,                     # hot_bucket_rows(...) for buckets
+    src_cnt: Optional[torch.Tensor] = None,  # (n_src,) nnz counts
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ALS half-sweep: re-solve every target entity given fixed sources.
 
-    Returns (new target factors (n_tgt, d), summed un-normalised loss).
+    Returns (new target factors (n_tgt, R), summed un-normalised loss).
+    ``src_cnt`` weighs the source regulariser of explicit dynamic lambda;
+    without it that term is left out of the loss.
     Mirrors one call of ``private$solver`` in the reference fit loop
     (R/model_WRMF.R:318-338).
     """
-    n_tgt, d = tgt_old.shape
+    n_tgt, R = tgt_old.shape
     sdt = accum_dtype(src.dtype)
-    XtX, rhs_init = _sweep_prepare(src, lam, g, cfg, sdt)
-    V_hot = None
-    if hot_ids is not None:
-        if cfg.solver != CONJUGATE_GRADIENT:
-            raise NotImplementedError(
-                "the dense zipf head with the Cholesky solver is not ported "
-                "yet (see ROADMAP.md)")
-        V_hot = src[hot_ids.long()].contiguous()
+    _check_hot_supported(hot_ids, cfg)
+    src_act, x_biases, XtX, rhs_init = _sweep_prepare(src, lam, g, cfg, sdt)
+    _, tgt_sl = _active_slices(cfg, R)
+    old_act = tgt_old[:, tgt_sl]
+    d = src_act.shape[1]
+    V_hot = None if hot_ids is None else src_act[hot_ids.long()].contiguous()
     result = torch.zeros((n_tgt + 1, d), dtype=src.dtype, device=src.device)
     loss = torch.zeros((), dtype=sdt, device=src.device)
     for bi, bucket in enumerate(buckets):
         loss = loss + _solve_scatter(
-            result, src, XtX, rhs_init, bucket, tgt_old, lam, g, n_tgt, cfg,
-            V_hot, None if hot_rows is None else hot_rows[bi])
-    return result[:n_tgt], loss + _src_reg_loss(src, lam, sdt)
+            result, src_act, x_biases, XtX, rhs_init, bucket, old_act, lam, g,
+            n_tgt, cfg, V_hot, None if hot_rows is None else hot_rows[bi])
+    tgt_new = _assemble_target(result[:n_tgt], cfg)
+    return tgt_new, loss + _src_reg_loss(src, src_cnt, lam, cfg, sdt)

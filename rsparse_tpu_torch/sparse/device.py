@@ -181,15 +181,21 @@ def _fill_bucket_numpy(csr, row_nnz, rows, B, L, n_rows, val_dtype):
 class HotBlock(NamedTuple):
     """Dense block for the hottest columns (zipf head).
 
-    ``W[r, j]`` is the confidence of row ``r`` at column ``hot_ids[j]``;
-    0 means absent (implicit confidences are >= 1 where present).  The
-    cold remainder stays on the bucketed path; the solve adds the dense
-    head's rhs, matvec and loss terms.
+    ``W[r, j]`` is the confidence (or rating) of row ``r`` at column
+    ``hot_ids[j]``; 0 means absent (implicit confidences are >= 1 where
+    present).  The cold remainder stays on the bucketed path; the solve
+    adds the dense head's rhs, matvec/lhs and loss terms.
+
+    For explicit feedback a 0 *rating* is a legal observation, so presence
+    is then carried apart as packed bits ``present_bits`` ((n_rows,
+    ceil(H/8)) uint8, little-endian), built only when a stored zero lands
+    in the head; otherwise ``W != 0`` is exact.
     """
 
     hot_ids: torch.Tensor   # (H,) int32 original column ids
     W: torch.Tensor         # (n_rows, H) confidences, 0 = absent
     row_nnz: torch.Tensor   # (n_rows,) int32 TOTAL row nnz (hot + cold)
+    present_bits: Optional[torch.Tensor] = None   # (n_rows, ceil(H/8)) uint8
 
 
 def split_hot_cold(
@@ -197,12 +203,15 @@ def split_hot_cold(
     n_hot: int,
     dtype: torch.dtype,
     device,
+    with_presence: bool = False,
 ) -> Tuple[Optional[HotBlock], sp.csr_matrix]:
     """Split columns into a dense hot block on ``device`` + a cold CSR.
 
     The cold matrix keeps the original shape and column ids; the hot
     entries are removed structurally, so explicitly stored zeros elsewhere
     survive.  Returns ``(None, csr)`` when ``n_hot <= 0`` or ``x`` is empty.
+    Explicit-feedback callers pass ``with_presence=True`` (see
+    :class:`HotBlock`).
     """
     csr = sp.csr_matrix(x)
     n_rows, n_cols = csr.shape
@@ -221,6 +230,14 @@ def split_hot_cold(
                          np.diff(csr.indptr))
     rows = rows_all[is_hot]
     hot_cols = hot_pos[csr.indices[is_hot]]
+    hot_data = csr.data[is_hot]
+
+    present_bits = None
+    if with_presence and (hot_data == 0).any():
+        present = np.zeros((n_rows, -(-n_hot // 8) * 8), bool)
+        present[rows, hot_cols] = True
+        present_bits = torch.from_numpy(
+            np.packbits(present, axis=1, bitorder="little")).to(device)
 
     keep = ~is_hot
     cold_indptr = np.zeros(n_rows + 1, np.int64)
@@ -234,10 +251,11 @@ def split_hot_cold(
     W = torch.zeros((n_rows, n_hot), dtype=dtype, device=device)
     W[torch.from_numpy(rows).to(device),
       torch.from_numpy(hot_cols.astype(np.int64)).to(device)] = (
-        torch.from_numpy(csr.data[is_hot]).to(device, dtype))
+        torch.from_numpy(hot_data).to(device, dtype))
     blk = HotBlock(hot_ids=torch.from_numpy(hot_ids).to(device),
                    W=W,
-                   row_nnz=torch.from_numpy(row_nnz_total).to(device))
+                   row_nnz=torch.from_numpy(row_nnz_total).to(device),
+                   present_bits=present_bits)
     return blk, cold
 
 
@@ -246,13 +264,16 @@ def hot_bucket_rows(hot: Optional[HotBlock], buckets):
 
     Bucket membership is fixed for the whole fit, so every sweep then reads
     a contiguous ``(B, H)`` block per bucket.  Returns a tuple aligned with
-    ``buckets`` of ``(W_rows (B, H), row_nnz_rows (B,))``, or None.
+    ``buckets`` of ``(W_rows (B, H), bits_rows (B, ceil(H/8)) or None,
+    row_nnz_rows (B,))``, or None.
     """
     if hot is None:
         return None
     n = hot.W.shape[0]
+    bits = hot.present_bits
     out = []
     for b in buckets:
         ids = b.row_ids.clamp(max=n - 1).long()
-        out.append((hot.W[ids], hot.row_nnz[ids]))
+        out.append((hot.W[ids], None if bits is None else bits[ids],
+                    hot.row_nnz[ids]))
     return tuple(out)

@@ -93,9 +93,51 @@ def test_split_hot_cold_identical(n_hot, precision):
     rj = ref.hot_bucket_rows(hj, bj.buckets, m.shape[0])
     rt = port.hot_bucket_rows(ht, bt.buckets)
     assert len(rj) == len(rt)
-    for (wj, _, nj, _), (wt, nt) in zip(rj, rt):
+    for (wj, bj_, nj, _), (wt, bt_, nt) in zip(rj, rt):
         np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
         np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
+        assert bj_ is None and bt_ is None
+
+
+@pytest.mark.parametrize("stored_zero_in_head", [True, False])
+def test_split_hot_cold_presence_bits_identical(stored_zero_in_head):
+    """Explicit ratings: presence bits are built exactly when a stored 0.0
+    rating lands in the head, bit for bit as the reference builds them,
+    and follow the rows into bucket order.  Stored zeros in the tail stay
+    in the cold matrix."""
+    m = _csr(17).tolil()
+    counts = np.bincount(sp.csr_matrix(m).indices, minlength=m.shape[1])
+    hot_col, cold_col = int(np.argmax(counts)), int(np.argmin(counts))
+    m[3, cold_col] = 1e-300
+    if stored_zero_in_head:
+        m[4, hot_col] = 1e-300
+    m = sp.csr_matrix(m)
+    m.data[np.abs(m.data) < 1e-200] = 0.0            # true stored zeros
+    hj, cj = ref.split_hot_cold(m, 12, jnp.float64, with_presence=True)
+    ht, ct = port.split_hot_cold(m, 12, torch.float64, "cpu",
+                                 with_presence=True)
+    assert (ht.present_bits is not None) == stored_zero_in_head
+    assert (hj.present_bits is not None) == stored_zero_in_head
+    if stored_zero_in_head:
+        assert ht.present_bits.dtype == torch.uint8
+        np.testing.assert_array_equal(ht.present_bits.numpy(),
+                                      np.asarray(hj.present_bits))
+    np.testing.assert_array_equal(ht.W.numpy(), np.asarray(hj.W))
+    for a in ("indptr", "indices", "data"):
+        np.testing.assert_array_equal(getattr(ct, a), getattr(cj, a))
+    assert (ct.data == 0).sum() >= 1                 # the tail's stored zero
+    bj = ref.bucket_rows(cj, jnp.float64, include_empty=True, row_align=8)
+    bt = port.bucket_rows(ct, torch.float64, "cpu", include_empty=True,
+                          row_align=8)
+    rj = ref.hot_bucket_rows(hj, bj.buckets, m.shape[0])
+    rt = port.hot_bucket_rows(ht, bt.buckets)
+    for (wj, bits_j, nj, _), (wt, bits_t, nt) in zip(rj, rt):
+        np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
+        np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
+        if stored_zero_in_head:
+            np.testing.assert_array_equal(bits_t.numpy(), np.asarray(bits_j))
+        else:
+            assert bits_t is None and bits_j is None
 
 
 def test_split_hot_cold_disabled():

@@ -13,7 +13,11 @@ line:
    inputs, at the shapes the main paths give it, with both times: K1 (CG)
    and K2 (Cholesky) for implicit and explicit feedback, with biases,
    dense heads and presence bits, up to d = 129; K3 (top-k); K4 (NNLS)
-   with the distribution of its coordinate-descent sweeps;
+   with the distribution of its coordinate-descent sweeps; K5 (bucketed
+   SpMM) and K6 (fused soft-impute residual) at k = 10, 128 and 256 with
+   f32 and bf16 tables, a values override, the approx-only mode and an
+   8 x 41,280 bucket, beside one PyTorch library call for the same
+   function (torch.sparse.mm; sampled_addmm + sparse.mm);
 3. the main paths on MovieLens-100k: implicit WRMF fit_transform ->
    transform -> predict, held to the reference's quality gate
    (NDCG@10 > 0.31, MAP@10 > 0.37) and to fit_transform == transform; the
@@ -31,12 +35,23 @@ line:
    (its values as ratings), rank 128: (a) explicit CG(3), dynamic lambda,
    n_hot=4096 with presence bits; (b) explicit Cholesky with user/item and
    global biases (d = 129); (c) implicit NNLS on the first 8192 users;
-   each re-checks its kernels on its heaviest buckets as phase 4 does.
+   each re-checks its kernels on its heaviest buckets as phase 4 does;
+6. the low-rank family: (a) PureSVD and LinearFlow (rank 10) on
+   MovieLens-100k, held to the reference's NDCG@10 / MAP@10 within 0.01;
+   (b) the reference benchmark's config #3 at full width: soft-impute
+   iterations at rank 256 on the first 16,384 users, LinearFlow rank 256
+   fit_transform on the whole matrix with its stage walls, and
+   cross_validate_lambda on 16,384 users at 10 iterations and with V run
+   to convergence; (c) K5 and K6 against their plain versions on the
+   heaviest buckets of those fits, f32 and bf16, and each as a whole
+   function at the fit's shape beside the library call.
 
 The kernels' launch counters are reset right before each main-path run
 and must show every kernel of that path launched in it.  The
-second-to-last line is a JSON object describing the kernels; the last line
-is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero.
+second-to-last line is a JSON object describing the kernels (times, the
+bound from the card's peak rates, launches on the main paths); the last
+line is {"ok": true, "device": {...}}.  Without a CUDA device it exits
+non-zero.
 ``--phases`` runs a subset (phase 1 always runs) and then prints no result
 line.
 """
@@ -51,6 +66,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import scipy.sparse as sp
@@ -93,6 +109,87 @@ def rel_err(a, b) -> float:
     """max |a - b| / max |b|"""
     return float((a.double() - b.double()).abs().max()
                  / b.double().abs().max().clamp_min(1e-30))
+
+
+def fro_err(a, b) -> float:
+    """||a - b||_F / ||b||_F"""
+    return float((a.double() - b.double()).norm()
+                 / b.double().norm().clamp_min(1e-30))
+
+
+#: NVIDIA's data-sheet peaks of one H100 SXM: HBM bytes/s, f32 flop/s
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+
+def bound(nbytes: float, flops: float):
+    """(least time in ms the card could take, what bounds it): the larger
+    of the bytes over the memory rate and the f32 operations over the f32
+    rate."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _touched(col, nnz) -> int:
+    """Distinct columns the valid entries of a bucket read."""
+    import torch
+    live = torch.arange(col.shape[1], device=col.device)[None, :] < \
+        nnz[:, None]
+    return int(torch.unique(col[live]).numel())
+
+
+def als_bound(args, sweeps=None):
+    """Bound of one ALS bucket solve (K1, K2, K4) from its inputs: bytes of
+    the source rows it touches, the entries, the Gram, the dense head, the
+    warm start and the outputs, each once; operations the function needs
+    per row (n entries, d columns, a head of H columns, Hp of them present,
+    s CG steps or sweeps), a symmetric d x d result counted at its
+    d(d + 1)/2 distinct entries: CG (s + 1)(2d^2 + 4nd + 4Hd) + 4nd + 4Hd;
+    Cholesky (n + Hp)d(d + 1) for the Gram, d^3/3 for the factorisation,
+    2d^2 for the two triangular solves, 4nd; NNLS the same Gram, d^2(d + 1)
+    for G = lhs'lhs, 2 s d^2 for the sweeps, 4nd."""
+    from rsparse_tpu_torch.ops import als
+    src, _, _, _, b, _, _, _, cfg, W, Vh, hb, _ = args
+    B, d = b.batch, src.shape[1]
+    n = b.nnz.double()
+    H = 0 if W is None else W.shape[1]
+    hp = (W != 0).sum(1).double() if W is not None else n * 0
+    nbytes = (_touched(b.col_idx, b.nnz) * d * 4 + float(n.sum()) * 8
+              + B * 8 + d * d * 4 + B * d * 8 + B * 4)
+    if W is not None:
+        nbytes += B * H * 4 + H * d * 4
+    if hb is not None:
+        nbytes += hb.numel()
+    if cfg.solver == als.CONJUGATE_GRADIENT:
+        s = cfg.cg_steps
+        fl = ((s + 1) * (2 * d * d + 4 * n * d + 4 * H * d)
+              + 4 * n * d + 4 * H * d)
+    elif cfg.solver == als.CHOLESKY:
+        fl = (n + hp) * d * (d + 1) + d ** 3 / 3 + 2 * d * d + 4 * n * d
+    else:
+        sw = sweeps.double() if sweeps is not None else n * 0
+        fl = ((n + hp) * d * (d + 1) + d * d * (d + 1) + 2 * sw * d * d
+              + 4 * n * d)
+    return bound(nbytes, float(fl.sum()))
+
+
+def spmm_bound(buckets, k, tbytes, residual: bool):
+    """Bound of K5 (residual=False) or K6 over a list of buckets: bytes of
+    the entries (8 each), the table rows they touch, the rows' factors (K6)
+    and the output rows, each once; operations 2 nnz k (K5), 4 nnz k + 3
+    nnz (K6: the dot product, the SpMM, the squared norm)."""
+    import torch
+    nnz = sum(float(b.nnz.double().sum()) for b in buckets)
+    rows = sum(int((b.nnz > 0).sum()) for b in buckets)
+    live = [b.col_idx[torch.arange(b.pad_len, device=b.nnz.device)[None, :]
+                      < b.nnz[:, None]] for b in buckets]
+    touched = int(torch.unique(torch.cat(live)).numel())
+    nbytes = nnz * 8 + touched * k * tbytes + rows * k * 4
+    if residual:
+        nbytes += rows * k * 4 + k * 4
+    fl = (4 * nnz * k + 3 * nnz) if residual else 2 * nnz * k
+    return bound(nbytes, fl)
 
 
 def sweep_summary(sweeps) -> str:
@@ -189,7 +286,9 @@ def _record(results, name, kern, plain, args, tag, rep, limit_y, limit_loss,
     r = results[name.split()[1]]
     r["max_abs_err"] = max(r["max_abs_err"], float((yk - yp).abs().max()))
     if rep:
-        r.update(ms=ms, plain_ms=pms, shape=tag)
+        bms, bby = als_bound(args, sweeps)
+        r.update(ms=ms, plain_ms=pms, shape=tag, bound_ms=bms, bound_by=bby,
+                 library_ms=None)
     return yk
 
 
@@ -292,10 +391,276 @@ def check_topk_kernel(device, results) -> None:
                     results["topk"]["max_abs_err"],
                     float((sk - sp_).abs().max()))
                 if (n, k, b is not None) == (32768, 10, True):
-                    results["topk"].update(ms=ms, plain_ms=pms, shape=tag)
+                    # the library yardstick: torch.topk on the scores the
+                    # mask already set to NEG_INF
+                    live = topk._expand_bits(b)
+                    pre = (s + 0.25).clamp_min(topk.NEG_INF).masked_fill(
+                        live, topk.NEG_INF)
+                    lms = time_ms(lambda: torch.topk(pre, k, dim=1))
+                    bms, bby = bound(C * n * 4 + C * n // 8 + C * k * 8,
+                                     2 * C * n)
+                    log(f"  K3 topk     {tag:30s} library torch.topk="
+                        f"{lms:.3f} ms bound={bms:.4f} ms ({bby})")
+                    results["topk"].update(ms=ms, plain_ms=pms, shape=tag,
+                                           library_ms=lms, bound_ms=bms,
+                                           bound_by=bby)
 
 
-# -- phases 3 to 5: the main paths -------------------------------------------
+def _spmm_case(gen, device, B, L, n_cols, full=False, n_pad_rows=2):
+    """One synthetic bucket of B rows (the last ``n_pad_rows`` padding rows:
+    row_id == n_rows, nnz 0) over ``n_cols`` columns, entries N(0, 1); row
+    lengths uniform in [L/2, L], or all L with ``full``.  Returns (bucket,
+    n_rows)."""
+    import torch
+    from rsparse_tpu_torch.sparse.device import RowBucket
+    n_rows = B - n_pad_rows
+    nnz = (torch.full((B,), L, device=device, dtype=torch.int32) if full
+           else torch.randint(L // 2, L + 1, (B,), generator=gen,
+                              device=device, dtype=torch.int32))
+    nnz[n_rows:] = 0
+    live = torch.arange(L, device=device)[None, :] < nnz[:, None]
+    col = torch.randint(0, n_cols, (B, L), generator=gen, device=device,
+                        dtype=torch.int32) * live
+    val = torch.randn((B, L), generator=gen, device=device) * live
+    row_ids = torch.arange(B, device=device, dtype=torch.int32).clamp(
+        max=n_rows)
+    return RowBucket(row_ids, col.to(torch.int32).contiguous(),
+                     val.contiguous(), nnz), n_rows
+
+
+def _buckets_csr(buckets, n_cols):
+    """The buckets' rows, in bucket order, as one torch CSR tensor (rows,
+    n_cols): the library yardstick's input."""
+    import torch
+    nnz = torch.cat([b.nnz for b in buckets]).long()
+    crow = torch.zeros(nnz.numel() + 1, dtype=torch.int64, device=nnz.device)
+    crow[1:] = torch.cumsum(nnz, 0)
+    live = [torch.arange(b.pad_len, device=nnz.device)[None, :]
+            < b.nnz[:, None] for b in buckets]
+    cols = torch.cat([b.col_idx[m] for b, m in zip(buckets, live)]).long()
+    vals = torch.cat([b.values[m] for b, m in zip(buckets, live)])
+    with warnings.catch_warnings():   # "CSR support is in beta state"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(crow, cols, vals,
+                                       (nnz.numel(), n_cols))
+
+
+def check_spmm_pair(buckets, n_rows, table, rowfac, scale, cdt, tag,
+                    results, rep=False, csr=None, reps=5, which=("K5", "K6")):
+    """K5 and K6 against their plain versions on the same buckets: K5
+    ``spmm_buckets(buckets, n_rows, table)``, K6 ``spmm_residual_buckets(
+    buckets, n_rows, rowfac, table, scale)``.  f32: y and the squared norm
+    to 1e-5 relative; bf16 tables: K5 to the plain version in bf16, 1e-3,
+    K6's squared norm (of the f32 residuals) 1e-5, and K6's y entry by entry
+    (:func:`_k6_bf16_rounding`).  On fitted factors the residual is much
+    smaller than the product it is taken from, and f32 cancellation costs
+    digits in both versions, each in its own summation order: where K6's y
+    at f32 is more than 1e-5 from the plain version's, it must be no
+    further from the float64 plain version than twice the f32 plain
+    version is, in the Frobenius norm (both printed beside).  Two f32
+    results e from the truth may lie 2e apart, so the plain version's own
+    error is no limit for the distance between them; and on a 32-row
+    bucket the ratio of the two versions' largest entry errors varies from
+    fit to fit up to 2.7x, that of their Frobenius errors up to 1.3x
+    (``k6_spread.py``).
+    With ``csr`` (the buckets' rows as a torch CSR tensor, rows in bucket
+    order) the library call is timed too; ``rep`` records the numbers for
+    the kernels line."""
+    import torch
+    from rsparse_tpu_torch.ops import spmm
+    lim = 1e-5 if cdt is None else 1e-3
+    k = table.shape[1]
+    tb = 4 if cdt is None else 2
+    if "K5" in which:
+        _check_k5(buckets, n_rows, table, cdt, tag, results, rep, csr, reps,
+                  lim, tb)
+    if "K6" in which:
+        _check_k6(buckets, n_rows, table, rowfac, scale, cdt, tag, results,
+                  rep, csr, reps, tb)
+
+
+def _check_k5(buckets, n_rows, table, cdt, tag, results, rep, csr, reps, lim,
+              tb):
+    import torch
+    from rsparse_tpu_torch.ops import spmm
+    k = table.shape[1]
+    yk = spmm.spmm_buckets(buckets, n_rows, table, compute_dtype=cdt)
+    yp = spmm._spmm_plain(buckets, n_rows, table, compute_dtype=cdt)
+    torch.cuda.synchronize()
+    e5 = rel_err(yk, yp)
+    ms = time_ms(lambda: spmm.spmm_buckets(buckets, n_rows, table,
+                                           compute_dtype=cdt), reps)
+    pms = time_ms(lambda: spmm._spmm_plain(buckets, n_rows, table,
+                                           compute_dtype=cdt), reps)
+    lms = None
+    if csr is not None and cdt is None:
+        lms = time_ms(lambda: torch.sparse.mm(csr, table), reps)
+    bms, bby = spmm_bound(buckets, k, tb, residual=False)
+    log(f"  K5 spmm     {tag:46s} y_rel={e5:.2e} kernel={ms:.3f} ms "
+        f"plain={pms:.3f} ms library={'-' if lms is None else f'{lms:.3f}'}"
+        f" ms bound={bms:.4f} ms ({bby})")
+    require(bool(torch.isfinite(yk).all()), f"K5 {tag}: non-finite output")
+    require(e5 <= lim, f"K5 {tag}: disagrees with its plain version "
+            f"({e5:.2e})")
+    r = results["spmm"]
+    r["max_abs_err"] = max(r["max_abs_err"], float((yk - yp).abs().max()))
+    if rep:
+        r.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                 bound_by=bby, shape=tag)
+
+
+def _check_k6(buckets, n_rows, table, rowfac, scale, cdt, tag, results, rep,
+              csr, reps, tb):
+    import torch
+    from rsparse_tpu_torch.ops import spmm
+    k = table.shape[1]
+    pk, sk = spmm.spmm_residual_buckets(buckets, n_rows, rowfac, table,
+                                        scale, compute_dtype=cdt)
+    pp, sp_, _ = spmm._residual_plain(buckets, n_rows, rowfac, table, scale,
+                                      cdt)
+    e6, es = rel_err(pk, pp), rel_err(sk[None], sp_[None])
+    if cdt is None:
+        b64 = [b._replace(values=b.values.double()) for b in buckets]
+        p64, _, _ = spmm._residual_plain(b64, n_rows, rowfac.double(),
+                                         table.double(), scale.double())
+        fk, fp = fro_err(pk, p64), fro_err(pp, p64)
+        ok_y = e6 <= 1e-5 or fk <= max(1e-5, 2 * fp)
+        f64 = f" (vs f64, Frobenius: kernel {fk:.2e}, plain {fp:.2e})"
+        del p64, b64
+    else:
+        ok_y, f64 = _k6_bf16_rounding(buckets, n_rows, table, rowfac, scale,
+                                      pk)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: spmm.spmm_residual_buckets(
+        buckets, n_rows, rowfac, table, scale, compute_dtype=cdt), reps)
+    pms = time_ms(lambda: spmm._residual_plain(
+        buckets, n_rows, rowfac, table, scale, cdt), reps)
+    lms = None
+    if csr is not None and cdt is None:
+        rows = torch.cat([b.row_ids for b in buckets]).long().clamp(
+            max=rowfac.shape[0] - 1)
+
+        def library():
+            lf = rowfac[rows] * scale[None, :]
+            delta = torch.sparse.sampled_addmm(csr, lf, table.T, beta=1.0,
+                                               alpha=-1.0)
+            return (torch.sparse.mm(delta, table),
+                    delta.values().square().sum())
+        lms = time_ms(library, reps)
+    bms, bby = spmm_bound(buckets, k, tb, residual=True)
+    log(f"  K6 residual {tag:46s} y_rel={e6:.2e}{f64} sq_rel={es:.2e} "
+        f"kernel={ms:.3f} ms plain={pms:.3f} ms library="
+        f"{'-' if lms is None else f'{lms:.3f}'} ms bound={bms:.4f} ms "
+        f"({bby})")
+    require(bool(torch.isfinite(pk).all() and torch.isfinite(sk)),
+            f"K6 {tag}: non-finite output")
+    require(ok_y and es <= 1e-5,
+            f"K6 {tag}: disagrees with its plain "
+            f"version (y {e6:.2e}{f64}, sq {es:.2e})")
+    r = results["spmm_residual"]
+    r["max_abs_err"] = max(r["max_abs_err"], float((pk - pp).abs().max()))
+    if rep:
+        r.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                 bound_by=bby, shape=tag)
+
+
+def _k6_bf16_rounding(buckets, n_rows, table, rowfac, scale, pk):
+    """K6 with a bf16 table held to the reference's rounding.  Its
+    approx-only mode is the same compiled kernel, with the same dot
+    product, as the fused pass (proj is a run-time pointer), so its ``a``
+    gives the residuals bf16(val - a) that multiplied the table in the
+    fused pass.  Holds (1) that ``a`` to the plain version's, to max(1e-5,
+    twice the plain version's distance from float64 on the same bf16 left
+    factor): a kernel that left the left factor in f32 is ~1e-3 off; (2)
+    K6's proj ``pk`` to the plain SpMM of exactly those residuals, to
+    max(1e-5, twice that SpMM's distance from float64): a kernel that
+    multiplied by the f32 residual is ~1e-3 off.  Prints how many bf16
+    residuals differ from the plain version's (the f32 dot products sum in
+    other orders, so a residual next to a rounding boundary may round the
+    other way), and how far ``pk`` is from the plain version without
+    either rounding.  Returns (ok, text)."""
+    import torch
+    from rsparse_tpu_torch.ops import spmm
+    bf = torch.bfloat16
+    ak = spmm._residual(buckets, n_rows, rowfac, table, scale, "bfloat16",
+                        proj=False, approx=True)[2]
+    _, _, ap = spmm._residual_plain(buckets, n_rows, rowfac, table, scale,
+                                    "bfloat16", proj=False, approx=True)
+    _, _, a64 = spmm._residual_plain(
+        buckets, n_rows, (rowfac * scale[None, :]).double(), table.double(),
+        None, "bfloat16", proj=False, approx=True)
+    flat = lambda xs: torch.cat([x.reshape(-1) for x in xs])  # noqa: E731
+    ea = rel_err(flat(ak), flat(ap))
+    lim_a = max(1e-5, 2 * rel_err(flat(ap), flat(a64)))
+    differ = live = 0
+    dks = []
+    for b, a_k, a_p in zip(buckets, ak, ap):
+        m = b.mask()
+        dk = torch.where(m, b.values - a_k, 0.0).to(bf)
+        dp = torch.where(m, b.values - a_p, 0.0).to(bf)
+        differ += int((dk != dp).sum())
+        live += int(b.nnz.sum())
+        dks.append(dk.float())
+    ys = spmm._spmm_plain(buckets, n_rows, table, values_list=dks,
+                          compute_dtype="bfloat16")
+    y64 = spmm._spmm_plain(buckets, n_rows, table.to(bf).double(),
+                           values_list=[v.double() for v in dks])
+    lim = max(1e-5, 2 * rel_err(ys, y64))
+    es = rel_err(pk, ys)
+    pf, _, _ = spmm._residual_plain(buckets, n_rows, rowfac,
+                                    table.to(bf).float(), scale)
+    ok = ea <= lim_a and es <= lim
+    return ok, (f" (a vs plain {ea:.2e}, limit {lim_a:.2e}; bf16 residuals "
+                f"that differ from the plain version's: {differ} of {live}; "
+                f"y vs the plain SpMM of K6's residuals {es:.2e}, limit "
+                f"{lim:.2e}; vs no bf16 rounding of lf and delta "
+                f"{rel_err(pk, pf):.2e})")
+
+
+def check_spmm_kernels(device, results) -> None:
+    """Phase 2 for K5 / K6 on synthetic buckets over a 32,768-row table:
+    short, medium and the 8 x 41,280 long-row bucket; k = 10, 128, 256;
+    f32 and bf16 tables; K5 with a values override, K6 in approx-only
+    mode."""
+    import torch
+    from rsparse_tpu_torch.ops import spmm
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    n_cols = 32768
+    for (B, L, full) in ((4096, 8, False), (512, 256, False),
+                         (8, 41280, True)):
+        bucket, n_rows = _spmm_case(gen, device, B, L, n_cols, full)
+        csr = _buckets_csr([bucket], n_cols)
+        for k in (10, 128, 256):
+            table = torch.randn((n_cols, k), generator=gen, device=device)
+            rowfac = torch.randn((n_rows, k), generator=gen, device=device)
+            scale = torch.rand((k,), generator=gen, device=device) + 0.5
+            for cdt in (None, "bfloat16"):
+                tag = (f"B={B} L={L} k={k} "
+                       + ("f32" if cdt is None else "bf16"))
+                check_spmm_pair([bucket], n_rows, table, rowfac, scale, cdt,
+                                tag, results, csr=csr)
+            # K5 with a values override; K6 approx-only (and residual_values)
+            over = [torch.randn(bucket.values.shape, generator=gen,
+                                device=device).contiguous()]
+            yk = spmm.spmm_buckets([bucket], n_rows, table, values_list=over)
+            yp = spmm._spmm_plain([bucket], n_rows, table, values_list=over)
+            ak = spmm.sparse_approx_buckets([bucket], rowfac, table, scale)[0]
+            _, _, ap = spmm._residual_plain([bucket], n_rows, rowfac, table,
+                                            scale, proj=False, approx=True)
+            rk = spmm.residual_values([bucket], rowfac, table, scale)[0]
+            torch.cuda.synchronize()
+            ev, ea = rel_err(yk, yp), rel_err(ak, ap[0])
+            er = rel_err(rk, bucket.values - ap[0])
+            log(f"  K5 spmm     B={B} L={L} k={k} values override"
+                f"{'':20s} y_rel={ev:.2e}; K6 approx-only a_rel={ea:.2e} "
+                f"residual_rel={er:.2e}")
+            require(ev <= 1e-5 and ea <= 1e-5 and er <= 1e-5,
+                    f"K5/K6 B={B} L={L} k={k}: values override or "
+                    "approx-only disagrees with the plain version")
+
+
+# -- phases 3 to 6: the main paths -------------------------------------------
 
 def synth_ml20m_like(n_users=65_536, n_items=32_768, mean_nnz=144, seed=0):
     """The reference benchmark's implicit matrix (bench.py
@@ -643,6 +1008,205 @@ def run_config2(device, x, results, launches) -> None:
     check_staged_buckets(m, xs, results)
 
 
+# -- phase 6: the low-rank family ---------------------------------------------
+
+#: the reference's ML-100k quality (rsparse_tpu on the CPU, float32; pinned
+#: by tests/test_torch_soft_als.py): (NDCG@10, MAP@10)
+ML100K_PURESVD = (0.3258, 0.3848)
+ML100K_LINEAR_FLOW = (0.3338, 0.3924)
+
+
+def run_low_rank_ml100k(device, launches) -> None:
+    """PureSVD (rank 10, 100 iterations) and LinearFlow (rank 10, lambda 1,
+    30 iterations) on the 80/20 split, seed 0: fit_transform -> predict,
+    held to the reference's values within 0.01."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    x = rt.load_movielens100k()
+    train, test = rt.train_test_split(x, 0.2, np.random.default_rng(0))
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ps = rt.PureSVD(rank=10, seed=0, device=device)
+    ps.fit_transform(train, n_iter=100)
+    p_ps = ps.predict(train, k=10, not_recommend=train)
+    lf = rt.LinearFlow(rank=10, lambda_=1.0, seed=0, device=device)
+    lf.fit_transform(train, n_iter=30)
+    p_lf = lf.predict(train, k=10, not_recommend=train)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.append(check_launched(_kernels, "ML-100k low-rank main path",
+                                   ("spmm", "spmm_residual", "topk")))
+    for name, p, ref, its in (("PureSVD", p_ps, ML100K_PURESVD,
+                               len(ps.trace)),
+                              ("LinearFlow", p_lf, ML100K_LINEAR_FLOW,
+                               len(lf.svd_trace))):
+        ndcg = float(np.nanmean(rt.ndcg_k(p.indices, test)))
+        mapk = float(np.nanmean(rt.ap_k(p.indices, test)))
+        log(f"  {name} rank 10: NDCG@10={ndcg:.4f} MAP@10={mapk:.4f} "
+            f"(reference {ref[0]:.4f} / {ref[1]:.4f}) soft-ALS iterations "
+            f"{its}")
+        require(abs(ndcg - ref[0]) <= 0.01 and abs(mapk - ref[1]) <= 0.01,
+                f"ML-100k {name}: quality off the reference by more than "
+                "0.01")
+        check_predictions(p.indices, 10, train.shape[1], train,
+                          f"ML-100k {name}")
+    log(f"  wall (both fits and predicts) {wall:.2f} s")
+
+
+def _heaviest(buckets):
+    """Indices of the buckets with the most padded entries and the longest
+    rows."""
+    return sorted({max(range(len(buckets)), key=lambda i: buckets[i].batch
+                       * buckets[i].pad_len),
+                   max(range(len(buckets)),
+                       key=lambda i: buckets[i].pad_len)})
+
+
+def run_config3(device, x, results, launches) -> None:
+    """The reference benchmark's config #3 (bench.py measure_soft_impute,
+    measure_linear_flow) at rank 256 on the ML-20M-shaped synthetic."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.models.soft_als import staged_buckets
+    from rsparse_tpu_torch.sparse.device import clear_staging_cache
+    rank = 256
+    sub = sp.csr_matrix(x[:16384])
+
+    log(f"  (b) soft_impute rank {rank} on the first 16,384 users "
+        f"({sub.nnz} nnz): 6 iterations, the first a warm-up")
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit = rt.soft_impute(sub, rank=rank, lambda_=1.0, n_iter=6,
+                         convergence_tol=-1, seed=0, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.append(check_launched(_kernels, "config #3 soft_impute",
+                                   ("spmm_residual",)))
+    its = [r["wall_s"] * 1e3 for r in fit.trace]
+    log(f"  soft_impute: {float(np.mean(its[1:])):.3f} ms per iteration "
+        f"(iterations {[round(t, 3) for t in its]} ms), wall {wall:.3f} s "
+        f"incl. staging and the final SVD; loss/nnz "
+        f"{[round(r['loss'], 5) for r in fit.trace]}")
+    require(bool(torch.isfinite(fit.d).all()) and fit.u.shape[0] == 16384,
+            "config #3 soft_impute: bad result")
+    t0 = time.perf_counter()
+    fit16 = rt.soft_impute(sub, rank=rank, lambda_=1.0, n_iter=1,
+                           convergence_tol=-1, seed=0,
+                           compute_dtype="bfloat16", device=device)
+    log(f"  soft_impute, compute_dtype=bfloat16: first iteration "
+        f"{fit16.trace[0]['wall_s'] * 1e3:.3f} ms (f32 {its[0]:.3f} ms), "
+        f"loss/nnz {fit16.trace[0]['loss']:.5f} (f32 "
+        f"{fit.trace[0]['loss']:.5f}), wall "
+        f"{time.perf_counter() - t0:.3f} s")
+    require(abs(fit16.trace[0]["loss"] - fit.trace[0]["loss"])
+            <= 1e-2 * abs(fit.trace[0]["loss"]),
+            "config #3: the bf16 iteration's loss is off the f32 one")
+    del fit16
+
+    log(f"  (b) LinearFlow(rank={rank}, lambda_=1.0, seed=0)"
+        ".fit_transform(x, n_iter=10) on the whole matrix")
+    clear_staging_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    lf = rt.LinearFlow(rank=rank, lambda_=1.0, seed=0, device=device)
+    xv = lf.fit_transform(x, n_iter=10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.append(check_launched(_kernels, "config #3 LinearFlow "
+                                   "fit_transform", ("spmm", "spmm_residual")))
+    ph = lf.fit_trace.summary()
+    it_s = sum(r["wall_s"] for r in lf.svd_trace)
+    log(f"  fit_transform {wall:.3f} s = staging {ph['staging']:.3f} s + "
+        f"soft-impute {ph['soft_impute']:.3f} s ({len(lf.svd_trace)} "
+        f"iterations {it_s:.3f} s, {it_s / len(lf.svd_trace) * 1e3:.3f} ms "
+        f"each; staging lookup + final SVD {ph['soft_impute'] - it_s:.3f} s)"
+        f" + lhs/rhs {ph['lhs_rhs'] * 1e3:.3f} ms + solve "
+        f"{ph['solve'] * 1e3:.3f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(tuple(xv.shape) == (x.shape[0], rank) and
+            bool(torch.isfinite(xv).all()) and
+            np.isfinite(lf.components).all(), "config #3 LinearFlow: bad "
+            "result")
+    # the pieces of that wall that are not kernels of the port
+    from rsparse_tpu_torch.models.soft_als import svd_tall_skinny
+    from rsparse_tpu_torch.sparse.device import _csr_fingerprint
+    xc = sp.csr_matrix(x).astype(np.float64)
+    t0 = time.perf_counter()
+    _csr_fingerprint(xc)
+    fp_s = time.perf_counter() - t0
+    g = torch.randn((x.shape[0], rank), device=device)
+    h = torch.randn((x.shape[1], rank), device=device)
+    svd_ms = time_ms(lambda: torch.linalg.svd(g, full_matrices=False), 3)
+    ts_ms = time_ms(lambda: svd_tall_skinny(h), 5)
+    eigh_ms = time_ms(lambda: torch.linalg.eigh(h.T @ h), 5)
+    log(f"  pieces: staging-cache fingerprint of x (host) {fp_s * 1e3:.1f} "
+        f"ms; torch.linalg.svd of {x.shape[0]} x {rank} {svd_ms:.3f} ms; "
+        f"svd_tall_skinny of {x.shape[1]} x {rank} {ts_ms:.3f} ms, of which"
+        f" eigh of the {rank} x {rank} Gram {eigh_ms:.3f} ms")
+    del g, h
+
+    sub16, cv_users = sp.csr_matrix(x[:16384]), 16384
+    tr, te = rt.train_test_split(sub16, 0.5, np.random.default_rng(0))
+    for n_iter in (10, 100):
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = rt.LinearFlow(rank=rank, seed=0, device=device)
+        res = m.cross_validate_lambda(sub16, tr, te, lambda_="auto@5",
+                                      metric="map@10", n_iter=n_iter)
+        p = m.predict(tr, k=10, not_recommend=tr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches.append(check_launched(
+            _kernels, f"config #3 cross_validate_lambda n_iter={n_iter}",
+            ("spmm", "spmm_residual", "topk")))
+        best = max(res, key=lambda r: r["score"])
+        tr_ = m.svd_trace
+        log(f"  cross_validate_lambda ({cv_users} users, auto@5, map@10, "
+            f"n_iter={n_iter}, tol 1e-3): {len(tr_)} soft-impute iterations"
+            f" (last frob_delta {tr_[-1]['frob_delta']:.2e}), best lambda "
+            f"{best['lambda']:.4g} map@10={best['score']:.4f}; scores "
+            + ", ".join(f"{r['lambda']:.4g}: {r['score']:.4f}" for r in res)
+            + f"; wall {wall:.3f} s incl. predict")
+        require(all(np.isfinite(r["score"]) for r in res),
+                "config #3 CV: a NaN score")
+        check_predictions(p.indices, 10, x.shape[1], tr,
+                          f"config #3 CV n_iter={n_iter}")
+        del m
+
+    log("  (c) K5 / K6 on the heaviest buckets of the soft-impute fit (both"
+        " orientations, f32 and bf16), then each as a whole function")
+    f32 = torch.float32
+    csr = sub.astype(np.float64)
+    x_b = staged_buckets(csr, f32, device)
+    tx_b = staged_buckets(csr, f32, device, transpose=True)
+    u, d, v = fit.u, fit.d, fit.v
+    for orient, br, n_rows, table, rowfac in (
+            ("users", x_b, sub.shape[0], v, u),
+            ("items", tx_b, sub.shape[1], u, v)):
+        for bi in _heaviest(br.buckets):
+            b = br.buckets[bi]
+            for cdt in (None, "bfloat16"):
+                tag = (f"{orient} B={b.batch} L={b.pad_len} k={rank} "
+                       + ("f32" if cdt is None else "bf16"))
+                check_spmm_pair([b], n_rows, table, rowfac, d, cdt, tag,
+                                results, reps=3)
+    # whole functions at the main path's shapes, with the library calls
+    check_spmm_pair(list(tx_b.buckets), sub.shape[1], u, v, d, None,
+                    f"soft-impute item step, {len(tx_b.buckets)} buckets",
+                    results, rep=True, reps=3, which=("K6",),
+                    csr=_buckets_csr(tx_b.buckets, sub.shape[0]))
+    txf = staged_buckets(sp.csr_matrix(x).astype(np.float64), f32, device,
+                         transpose=True)
+    check_spmm_pair(list(txf.buckets), x.shape[1], xv, None, None, None,
+                    f"LinearFlow rhs (x'(xV)), {len(txf.buckets)} buckets",
+                    results, rep=True, reps=3, which=("K5",),
+                    csr=_buckets_csr(txf.buckets, x.shape[0]))
+
+
 # -----------------------------------------------------------------------------
 
 KERNELS = {
@@ -653,6 +1217,10 @@ KERNELS = {
     "topk": ("rsparse_tpu_torch/csrc/topk.cu", "rsparse_tpu/ops/topk.py:134"),
     "als_nnls": ("rsparse_tpu_torch/csrc/als_nnls.cu",
                  "rsparse_tpu/ops/solvers.py:254"),
+    "spmm": ("rsparse_tpu_torch/csrc/spmm.cu", "rsparse_tpu/ops/spmm.py:35"),
+    "spmm_residual": ("rsparse_tpu_torch/csrc/spmm_residual.cu",
+                      "rsparse_tpu/ops/spmm.py:81, "
+                      "rsparse_tpu/ops/spmm.py:59"),
 }
 
 
@@ -692,12 +1260,13 @@ def main(phases) -> int:
         log("phase 2: kernels against their plain versions")
         check_als_kernels(device, results)
         check_topk_kernel(device, results)
+        check_spmm_kernels(device, results)
     if 3 in phases:
         log("phase 3: main paths, ML-100k (implicit CG; explicit Cholesky "
             "with biases; NNLS)")
         run_ml100k(device, launches)
     x = None
-    if 4 in phases or 5 in phases:
+    if phases & {4, 5, 6}:
         t0 = time.perf_counter()
         x = synth_ml20m_like()
         log(f"  synth: {x.shape[0]} x {x.shape[1]}, {x.nnz} nnz "
@@ -715,7 +1284,13 @@ def main(phases) -> int:
         log("phase 5: config #2 at full width (rank 128, explicit / biases "
             "/ NNLS)")
         run_config2(device, x, results, launches)
-    if phases != set(range(1, 6)):
+    if 6 in phases:
+        log("phase 6: the low-rank family: (a) ML-100k PureSVD / LinearFlow")
+        run_low_rank_ml100k(device, launches)
+        log("phase 6 (b): config #3 at full width (rank 256, 65,536 x "
+            "32,768)")
+        run_config3(device, x, results, launches)
+    if phases != set(range(1, 7)):
         log(f"phases {sorted(phases)} passed (a subset: no result line)")
         return 0
 
@@ -724,6 +1299,9 @@ def main(phases) -> int:
                 "launches": total[name],
                 "max_abs_err": results[name]["max_abs_err"],
                 "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
+                "bound_ms": results[name]["bound_ms"],
+                "bound_by": results[name]["bound_by"],
+                "library_ms": results[name]["library_ms"],
                 "shape": results[name]["shape"]}
                for name, (src, rep) in KERNELS.items()]
     log(smi_line)
@@ -736,7 +1314,7 @@ def main(phases) -> int:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5",
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
                     help="comma-separated phases to run (1 always runs)")
     want = {1} | {int(p) for p in ap.parse_args().phases.split(",") if p}
     try:

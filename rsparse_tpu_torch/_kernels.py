@@ -14,7 +14,8 @@ Nothing here runs at import: the CPU tests import every module of the port
 on machines without ``nvcc``.
 
 ``launches`` counts the launches of each kernel; the wrappers in
-``ops/als.py`` and ``ops/topk.py`` add one where they launch.
+``ops/als.py``, ``ops/topk.py`` and ``ops/spmm.py`` add one where they
+launch.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ MAX_D = 160
 
 #: launches per kernel, counted by the wrappers
 launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "als_nnls": 0,
-                            "topk": 0}
+                            "topk": 0, "spmm": 0, "spmm_residual": 0}
 #: what the last build did: {"seconds": ..., "log": ..., "path": ...}
 build_info: Dict[str, object] = {}
 
@@ -149,6 +150,18 @@ def lib() -> ctypes.CDLL:
     # scores, bits, C, n, k, glob_mean, out_scores, out_idx, stream
     so.rsp_topk.argtypes = [p, p, i, i, i, f, p, p, p]
     so.rsp_topk.restype = i
+    # row_ids, col, val, nnz, table, table_bf16, aligned, B, L, k, n_rows,
+    # out, stream
+    so.rsp_spmm.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p]
+    so.rsp_spmm.restype = i
+    # row_ids, col, val, nnz, rowfac, scale, n_fac, table, table_bf16,
+    # aligned, B, L, k, n_rows, proj, approx, sq_part, stream
+    so.rsp_spmm_residual.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i,
+                                     i, p, p, p, p]
+    so.rsp_spmm_residual.restype = i
+    # B, L, k, aligned -> length of sq_part
+    so.rsp_spmm_residual_parts.argtypes = [i, i, i, i]
+    so.rsp_spmm_residual_parts.restype = i
     return so
 
 

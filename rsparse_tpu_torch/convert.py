@@ -1,10 +1,18 @@
 """Carry a fitted reference model's state into the port.
 
-:func:`wrmf_from_numpy` takes the state of a fitted ``rsparse_tpu`` WRMF as
-numpy arrays (``m.components``, ``np.asarray(m._U)``, ``m.global_bias``) and
-returns a fitted port :class:`~rsparse_tpu_torch.models.wrmf.WRMF`: its
-``transform``, ``predict`` and ``get_similar_items`` then compute what the
-reference's do.  Nothing of the reference is imported.
+Each function takes the state of a fitted ``rsparse_tpu`` model as numpy
+arrays and returns the fitted port model, whose ``transform``, ``predict``
+and ``get_similar_items`` then compute what the reference's do:
+
+- :func:`wrmf_from_numpy`: WRMF from ``m.components``, ``np.asarray(m._U)``
+  and ``m.global_bias``;
+- :func:`svd_from_numpy`: an :class:`SVDResult` from ``(u, d, v)``, e.g. a
+  ``soft_svd`` / ``soft_impute`` result, usable as a warm start;
+- :func:`pure_svd_from_numpy`: PureSVD from its ``_svd`` triple;
+- :func:`linear_flow_from_numpy`: LinearFlow from ``m.v`` and
+  ``m.components``.
+
+Nothing of the reference is imported.
 """
 
 from __future__ import annotations
@@ -14,6 +22,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .config import resolve_dtype
+from .models.linear_flow import LinearFlow
+from .models.pure_svd import PureSVD
+from .models.soft_als import SVDResult
 from .models.wrmf import WRMF
 
 
@@ -46,4 +58,51 @@ def wrmf_from_numpy(components: np.ndarray,
     if user_factors is not None:
         m._U = torch.tensor(np.asarray(user_factors), dtype=m.dtype,
                             device=m.device)
+    return m
+
+
+def svd_from_numpy(u: np.ndarray, d: np.ndarray, v: np.ndarray,
+                   precision: str = "float32", device="cuda") -> SVDResult:
+    """An :class:`SVDResult` of tensors on ``device`` from (n, r), (r,) and
+    (m, r) arrays."""
+    dtype = resolve_dtype(precision)
+    u, d, v = (torch.tensor(np.asarray(a), dtype=dtype, device=device)
+               for a in (u, d, v))
+    if d.ndim != 1 or u.shape[1] != d.shape[0] or v.shape[1] != d.shape[0]:
+        raise ValueError("expected u (n, r), d (r,), v (m, r)")
+    return SVDResult(u, d, v)
+
+
+def pure_svd_from_numpy(u: np.ndarray, d: np.ndarray, v: np.ndarray,
+                        item_ids: Optional[Sequence] = None,
+                        **pure_svd_kwargs) -> PureSVD:
+    """A fitted port PureSVD from the reference model's ``_svd`` triple;
+    ``pure_svd_kwargs`` go to :class:`PureSVD` (pass its ``precision`` and
+    ``preprocess``); ``rank`` defaults to ``len(d)``."""
+    pure_svd_kwargs.setdefault("rank", len(d))
+    m = PureSVD(**pure_svd_kwargs)
+    m._svd = svd_from_numpy(u, d, v, m.precision, m.device)
+    m.components = (m._svd.v * m._svd.d[None, :]).T.cpu().numpy()
+    m.item_ids = item_ids
+    return m
+
+
+def linear_flow_from_numpy(v: np.ndarray, components: np.ndarray,
+                           item_ids: Optional[Sequence] = None,
+                           **linear_flow_kwargs) -> LinearFlow:
+    """A fitted port LinearFlow from the reference model's (n_items, r)
+    right singular vectors ``v`` and (r, n_items) ``components``;
+    ``linear_flow_kwargs`` go to :class:`LinearFlow` (pass its
+    ``precision``, ``lambda_`` and ``preprocess``); ``rank`` defaults to
+    ``v.shape[1]``."""
+    v = np.asarray(v)
+    comps = np.asarray(components)
+    if v.ndim != 2 or comps.shape != (v.shape[1], v.shape[0]):
+        raise ValueError("expected v (n_items, r) and components "
+                         "(r, n_items)")
+    linear_flow_kwargs.setdefault("rank", v.shape[1])
+    m = LinearFlow(**linear_flow_kwargs)
+    m.v = torch.tensor(v, dtype=m.dtype, device=m.device)
+    m.components = np.array(comps)
+    m.item_ids = item_ids
     return m

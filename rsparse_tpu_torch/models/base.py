@@ -14,6 +14,7 @@ import scipy.sparse as sp
 import torch
 
 from ..ops.topk import top_product
+from ..sparse.splr import SparsePlusLowRank
 
 
 class TopK(NamedTuple):
@@ -39,8 +40,10 @@ def get_names(x, axis: int):
 
 class MatrixFactorizationRecommender:
     """Base recommender: holds item embeddings (``components``, (R, n_items)
-    numpy, the reference's rank-by-items layout) and retrieval.  Subclasses
-    implement ``transform(x)`` and set ``device``."""
+    numpy, the reference's rank-by-items layout) and retrieval on the
+    model's ``device``.  Subclasses (:class:`~.wrmf.WRMF`,
+    :class:`~.pure_svd.PureSVD`, :class:`~.linear_flow.LinearFlow`)
+    implement ``transform(x)``."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -68,6 +71,10 @@ class MatrixFactorizationRecommender:
         """
         if isinstance(not_recommend, str) and not_recommend == "x":
             not_recommend = x
+        if isinstance(not_recommend, SparsePlusLowRank):
+            # mask the observed interactions, the sparse part (the low-rank
+            # term is a dense offset, not an interaction record)
+            not_recommend = not_recommend.x
         items_exclude = list(dict.fromkeys(items_exclude))
         excl_idx = None
         if items_exclude:

@@ -277,3 +277,53 @@ def hot_bucket_rows(hot: Optional[HotBlock], buckets):
         out.append((hot.W[ids], None if bits is None else bits[ids],
                     hot.row_nnz[ids]))
     return tuple(out)
+
+
+# -- staged-bucket cache ------------------------------------------------------
+
+_STAGING_CACHE: dict = {}
+_STAGING_CACHE_MAX = 10
+
+
+def clear_staging_cache() -> int:
+    """Drop every cached staged tensor, releasing its device memory; returns
+    the number of entries dropped.  The LRU otherwise keeps up to
+    ``_STAGING_CACHE_MAX`` entries alive for the life of the process."""
+    n = len(_STAGING_CACHE)
+    _STAGING_CACHE.clear()
+    return n
+
+
+def _csr_fingerprint(csr: sp.csr_matrix) -> tuple:
+    """Cheap content fingerprint of a CSR matrix: its shape, nnz and the
+    adler32 of its three arrays (milliseconds, against seconds to restage
+    the buckets of a large matrix)."""
+    import zlib
+    return (csr.shape, csr.nnz,
+            zlib.adler32(np.ascontiguousarray(csr.data)),
+            zlib.adler32(np.ascontiguousarray(csr.indices)),
+            zlib.adler32(np.ascontiguousarray(csr.indptr)))
+
+
+def staged_aux_cached(tag: str, fingerprint, build, extra=None):
+    """Staging cache keyed by ``(tag, extra, fingerprint)``: ``build()`` runs
+    on a miss, and its result is kept in a small LRU."""
+    key = (tag, extra, fingerprint)
+    hit = _STAGING_CACHE.pop(key, None)
+    if hit is None:
+        hit = build()
+    _STAGING_CACHE[key] = hit                   # re-insert: LRU order
+    while len(_STAGING_CACHE) > _STAGING_CACHE_MAX:
+        _STAGING_CACHE.pop(next(iter(_STAGING_CACHE)))
+    return hit
+
+
+def staged_cached(tag: str, csr: sp.csr_matrix, build, extra=None):
+    """Content-addressed staging cache for tensors built from ``csr``.
+
+    soft-impute and LinearFlow's closed-form step bucket the same matrix
+    and its transpose; the second caller hits the cache.  ``extra`` carries
+    every other input that shapes what ``build()`` makes (the dtype and the
+    device at least): two models that differ only in precision or device
+    must not share an entry."""
+    return staged_aux_cached(tag, _csr_fingerprint(csr), build, extra)

@@ -110,7 +110,14 @@ def test_ml100k_quality_gate_float32():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, rsparse_tpu_torch; "
+    code = ("import sys, rsparse_tpu_torch, rsparse_tpu_torch.convert; "
+            "import rsparse_tpu_torch.ops.spmm, "
+            "rsparse_tpu_torch.models.soft_als, "
+            "rsparse_tpu_torch.models.pure_svd, "
+            "rsparse_tpu_torch.models.linear_flow, "
+            "rsparse_tpu_torch.models.kmeans, "
+            "rsparse_tpu_torch.models.scale_normalize, "
+            "rsparse_tpu_torch.sparse.splr; "
             "assert 'jax' not in sys.modules; "
             "assert not any(m.startswith('rsparse_tpu.') or m == 'rsparse_tpu'"
             " for m in sys.modules)")

@@ -44,7 +44,19 @@ line:
    cross_validate_lambda on 16,384 users at 10 iterations and with V run
    to convergence; (c) K5 and K6 against their plain versions on the
    heaviest buckets of those fits, f32 and bf16, and each as a whole
-   function at the fit's shape beside the library call.
+   function at the fit's shape beside the library call;
+7. the SGD family: (a) K7 (FTRL) and K8 (FM, r = 4 and 8) on a 32,768 x
+   32 block over 10,000 and 40M features, predict and update, dropout,
+   config #5's one-hot block, and K9 (RankMF) on S = 8192, K = 20 batches
+   (BPR / WARP, AdaGrad / RMSprop, identity and side features, r = 8 and
+   16) with the same bits, against their plain versions (each table by
+   its change, 1e-5; K9's counters exactly); (b) FTRL and FM on the
+   reference benchmark's GLM synthetic within 0.01 of the reference's
+   train accuracy, FM XOR, RankMF BPR on ML-100k through predict (K3);
+   (c) FTRL and FM rank 8 at the hashed shape (100,000 x 40M features)
+   and config #5 on one card (RankMF WARP on 10M users, FM rank 4 on 2M
+   one-hot rows): stage walls, rows or updates per second, peak memory,
+   each kernel re-checked on the fitted state.
 
 The kernels' launch counters are reset right before each main-path run
 and must show every kernel of that path launched in it.  The
@@ -62,6 +74,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1207,6 +1220,625 @@ def run_config3(device, x, results, launches) -> None:
                     csr=_buckets_csr(txf.buckets, x.shape[0]))
 
 
+# -- phase 7: the SGD family (FTRL, FM, RankMF) ------------------------------
+
+#: The reference's quality on the CPU (rsparse_tpu, float32), held by
+#: ``test_reference_quality`` in tests/test_torch_{ftrl,fm,rankmf}.py: the
+#: train accuracy
+#: (predict(x) > 0.5 against the labels) of FTRL(learning_rate=0.1,
+#: lambda_=1.0, seed=0) and of FactorizationMachine(rank=8,
+#: learning_rate_w=0.2, seed=0) after fit(x, truth, n_iter=3) on
+#: synth_glm(); and (auc_history[-1], NDCG@10) of RankMF(rank=16,
+#: learning_rate=0.5, loss="bpr", seed=0, batch_size=2048)
+#: .partial_fit_transform(train, n_iter=200) on the ML-100k 80/20 split
+#: (seed 0), scored in float64 with the training items masked.
+REF_GLM_ACC = {"ftrl": 0.69577, "fm": 0.98271}
+REF_RANKMF_ML100K = (0.8720, 0.2336)
+
+#: phase 7's shapes: the GLM block of the kernel checks (B, L), the hashed
+#: feature count (bench.py:760-765), config #5 (bench.py:327-393) and its
+#: RankMF batch (S, K), the users of K9's synthetic check
+GLM_BLOCK = (32768, 32)
+HASHED_FEATURES = 40_000_000
+CONFIG5 = dict(n_users=10_000_000, n_items=131_072, nnz_per_user=5,
+               fm_rows=2_000_000)
+K9_USERS = 200_000
+K9_BATCH = (8192, 20)
+
+
+def synth_glm(n_rows=100_000, n_feat=10_000, nnz_per_row=32, seed=0):
+    """The reference benchmark's GLM problem (bench.py:396
+    measure_ftrl_fm): N(0, 1) values at uniform columns, duplicates summed,
+    labels from the sign of the row's sum over the first 64 columns."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n_rows), nnz_per_row)
+    cols = rng.integers(0, n_feat, n_rows * nnz_per_row)
+    vals = rng.standard_normal(n_rows * nnz_per_row).astype(np.float32)
+    x = sp.csr_matrix((vals, (rows, cols)), shape=(n_rows, n_feat))
+    x.sum_duplicates()
+    truth = (np.asarray(x[:, :64].sum(axis=1)).ravel() > 0).astype(np.float64)
+    return x, truth
+
+
+def synth_config5(n_users, n_items, nnz_per_user, fm_rows, seed=0):
+    """The reference benchmark's config #5 data (bench.py:327-393): each
+    user's ``nnz_per_user`` uniform items, sorted; one-hot (user, item) FM
+    rows over n_users + n_items features, labelled u % 3 == 0.  Returns
+    (interactions, FM rows, FM labels)."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, n_items, n_users * nnz_per_user, dtype=np.int64)
+    indptr = np.arange(0, n_users * nnz_per_user + 1, nnz_per_user,
+                       dtype=np.int64)
+    cols = np.sort(cols.reshape(n_users, nnz_per_user), axis=1).reshape(-1)
+    x = sp.csr_matrix((np.ones(len(cols), np.float32),
+                       cols.astype(np.int32), indptr),
+                      shape=(n_users, n_items))
+    if not fm_rows:
+        return x, None, None
+    u = rng.integers(0, n_users, fm_rows, dtype=np.int64)
+    i = rng.integers(0, n_items, fm_rows, dtype=np.int64)
+    fmx = sp.csr_matrix(
+        (np.ones(2 * fm_rows, np.float32),
+         np.stack([u, n_users + i], 1).reshape(-1),
+         np.arange(0, 2 * fm_rows + 1, 2, dtype=np.int64)),
+        shape=(fm_rows, n_users + n_items))
+    return x, fmx, (u % 3 == 0).astype(np.float64)
+
+
+def glm_bound(blk, r=None, do_update=True):
+    """Bound of K7 (r None) or K8 (rank r) on one block: bytes of the
+    entries (column and value, 8 each), of each row's length and prediction
+    (8) and, with the update, label and weight (8 more), and of each
+    distinct feature of the block: one read of its table rows (K7: z, n;
+    K8: w, v) and, with the update, of the accumulators (K8) and one write
+    of all of them.  A row's address is its column: the port's slot map
+    and feature ids are its own layout and are not counted.  Operations
+    per entry ~10 (K7), 3r + 2 (K8), and with the update ~12 (K7), 6r + 6
+    (K8) more."""
+    n = float(blk.nnz.double().sum())
+    B, U = blk.nnz.shape[0], blk.feats.shape[0]
+    if r is None:
+        feat = 16 if do_update else 8
+        fl = n * (22 if do_update else 10)
+    else:
+        feat = 16 * (r + 1) if do_update else 4 * (r + 1)
+        fl = n * ((9 * r + 8) if do_update else (3 * r + 2))
+    nbytes = n * 8 + B * (16 if do_update else 8) + U * feat
+    return bound(nbytes, fl)
+
+
+def _delta_err(after_k, after_p, before, rows=None):
+    """(max |kernel - plain| / max |plain - before|, max |kernel - plain|,
+    that distance in float32 spacings of the largest stored value) of a
+    table's change, over ``rows`` (all rows if None).  Where the change is
+    far below the stored values (an accumulator of 1.5 that grows by
+    1e-3), the two tables can only agree to their own rounding: the third
+    number measures that."""
+    if rows is not None:
+        after_k, after_p, before = after_k[rows], after_p[rows], before[rows]
+    if not after_p.numel():
+        return 0.0, 0.0, 0.0
+    dk = after_k.double() - before.double()
+    dp = after_p.double() - before.double()
+    diff = float((dk - dp).abs().max())
+    spacing = 2.0 ** -23 * float(after_p.double().abs().max())
+    return (diff / max(float(dp.abs().max()), 1e-30), diff,
+            diff / max(spacing, 1e-45))
+
+
+def _hold(name, tag, errs, results, lim=1e-5):
+    """Print the distances of a kernel from its plain version and hold
+    each output to ``lim`` relative to its change, or to 2 float32 spacings
+    of its stored values; returns the largest absolute distance."""
+    for what, (rel, _, ulps) in errs.items():
+        require(rel <= lim or ulps <= 2.0, f"{name} {tag}: {what} disagrees "
+                f"with the plain version ({rel:.2e} > {lim:.0e} of its change"
+                f", {ulps:.2f} float32 spacings)")
+    diff = max(e[1] for e in errs.values())
+    r = results[name]
+    r["max_abs_err"] = max(r["max_abs_err"], diff)
+    return " ".join(f"{k}_rel={v[0]:.2e}" + (f" ({v[2]:.2f} ulp)"
+                                             if v[0] > lim else "")
+                    for k, v in errs.items())
+
+
+#: K7 and K8 by launch-counter name, which also names their module in
+#: rsparse_tpu_torch/models: the label, and the state tables in the order
+#: the block functions take them
+GLM_KERNELS = {"ftrl": ("K7 ftrl", ("z", "n")),
+               "fm": ("K8 fm", ("w0", "acc_w0", "w", "v", "acc_w", "acc_v"))}
+
+
+def check_glm_block(name, blk, state, y, w, params, tag, results,
+                    rep=False, reps=5):
+    """K7 (``name="ftrl"``, state (z, n), params (lr, decay, l1, l2,
+    dropout, keep, family)) or K8 (``"fm"``, state (w0, acc_w0, w, v,
+    acc_w, acc_v), params (lr_w, lr_v, lambda_w, lambda_v, family,
+    intercept)) against its plain version on one block from ``state``, in
+    predict and in update mode; each table held by its change on the
+    block's features."""
+    import importlib
+    import torch
+    label, names = GLM_KERNELS[name]
+    mod = importlib.import_module(f"rsparse_tpu_torch.models.{name}")
+    kern = getattr(mod, f"_{name}_block")
+    plain = getattr(mod, f"_{name}_block_plain")
+    rows = blk.feats.long()
+    r = state[3].shape[1] if name == "fm" else None
+    for do_update in (False, True):
+        args = (blk, y, w, *params, do_update)
+        sk = [t.clone() for t in state]
+        sp_ = [t.clone() for t in state]
+        yk = kern(*sk, *args)
+        yp = plain(*sp_, *args)
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(t).all()) for t in (yk, *sk)),
+                f"{label} {tag}: non-finite output")
+        errs = {"y": _delta_err(yk, yp, torch.zeros_like(yp))}
+        if do_update:
+            for tname, a, b, t0 in zip(names, sk, sp_, state):
+                errs[tname] = _delta_err(a, b, t0, rows if t0.dim() else None)
+                if t0.dim():
+                    out = torch.ones(t0.shape[0], dtype=torch.bool,
+                                     device=t0.device)
+                    out[rows] = False
+                    require(torch.equal(a[out], b[out]),
+                            f"{label} {tag}: {tname} differs from the plain "
+                            "version outside the block's features")
+                    del out
+        else:
+            require(all(torch.equal(a, b) for a, b in zip(sk, state)),
+                    f"{label} {tag}: predict mode changed the tables")
+        text = _hold(name, tag, errs, results)
+        ms = time_ms(lambda: kern(*sk, *args), reps)
+        pms = time_ms(lambda: plain(*sp_, *args), reps)
+        bms, bby = glm_bound(blk, r, do_update)
+        mode = "update" if do_update else "predict"
+        log(f"  {label:11s} {tag} {mode:7s} {text} kernel={ms:.3f} ms "
+            f"plain={pms:.3f} ms bound={bms:.4f} ms ({bby})")
+        if rep and do_update:
+            results[name].update(ms=ms, plain_ms=pms, bound_ms=bms,
+                                 bound_by=bby, library_ms=None,
+                                 shape=f"{tag} update")
+        del sk, sp_
+
+
+def _glm_block(col, val, nnz):
+    """A GLMBlock of (B, L) column ids and values with row lengths ``nnz``,
+    its slot map made by torch.unique on the card."""
+    import torch
+    from rsparse_tpu_torch.ops.segsum import GLMBlock
+    B, L = col.shape
+    live = torch.arange(L, device=col.device)[None, :] < nnz[:, None]
+    col = (col * live).to(torch.int32).contiguous()
+    feats, inv = torch.unique(col[live], return_inverse=True)
+    slot = torch.full((B, L), feats.numel(), dtype=torch.int32,
+                      device=col.device)
+    slot[live] = inv.to(torch.int32)
+    return GLMBlock(torch.arange(B, dtype=torch.int32, device=col.device),
+                    col, (val * live).float().contiguous(),
+                    nnz.to(torch.int32), feats.to(torch.int32), slot)
+
+
+def _synthetic_block(gen, device, B, L, n_feat):
+    """A GLM block of B full rows of L entries at uniform columns over
+    ``n_feat`` features, N(0, 1) values."""
+    import torch
+    return _glm_block(
+        torch.randint(0, n_feat, (B, L), generator=gen, device=device),
+        torch.randn((B, L), generator=gen, device=device),
+        torch.full((B,), L, device=device))
+
+
+#: the kernel checks' hyperparameters: FTRL (lr, decay, l1, l2), FM
+#: (lr_w, lr_v, lambda_w, lambda_v, binomial, intercept)
+FTRL_PARAMS = (0.1, 0.5, 0.7, 0.3)
+FM_PARAMS = (0.2, 0.2, 0.01, 0.02, 1, True)
+
+
+def _glm_state(gen, device, n_feat, r=None):
+    """Random FTRL (z, n) or FM (w0, acc_w0, w, v, acc_w, acc_v) state of
+    n_feat + 1 rows."""
+    import torch
+    F1 = n_feat + 1
+    kw = dict(generator=gen, device=device)
+    if r is None:
+        return (torch.randn((F1,), **kw),
+                torch.rand((F1,), **kw) * 4)
+    return (torch.full((), 0.1, device=device),
+            torch.full((), 1.5, device=device),
+            torch.randn((F1,), **kw) * 0.1,
+            torch.randn((F1, r), **kw) * 0.1,
+            1 + torch.rand((F1,), **kw),
+            1 + torch.rand((F1, r), **kw))
+
+
+def rankmf_bound(bits, pos, uf, itf, counters, r):
+    """Bound of K9 on one batch: bytes of the uint32 bits (4 each), of
+    each sample's three CSR reads (12), of one hash bucket row and one H
+    row per candidate tried, and of one read and one write of the
+    embedding row and the accumulator of each distinct user feature and
+    positive-item feature the batch updates.  The chosen negatives' writes
+    are left out, which outweighs the few candidates tried twice: a lower
+    bound.  Operations 2r per score of the positive and each tried
+    candidate and ~12r per sample for the updates."""
+    import torch
+    S, K2 = bits.shape
+    b = bits & 0xFFFFFFFF
+    n_user = pos.row_nnz.shape[0]
+    u = b[:, 0] % n_user
+    nnz_u = pos.row_nnz[u].long()
+    p = (pos.indptr[u].long() + b[:, 1] % nnz_u.clamp(min=1)).clamp(
+        0, pos.flat_idx.shape[0] - 1)
+    i = pos.flat_idx[p].long()
+
+    def rows(feats, ids):
+        if feats is None:
+            return int(torch.unique(ids).numel())
+        return int(torch.unique(feats.idx[ids][feats.mask[ids]]).numel())
+    tried = int(counters[3])
+    nbytes = (S * K2 * 4 + S * 12 + tried * (pos.table.shape[1] + r) * 4
+              + (rows(uf, u) + rows(itf, i)) * (8 * r + 8))
+    return bound(nbytes, 2 * r * (S + tried) + 12 * r * S)
+
+
+def check_rankmf_batch(tables, bits, pos, uf, itf, hp, cfg, n_item, tag,
+                       results, rep=False, reps=5):
+    """K9 against its plain version on one batch from the same tables and
+    bits: counters exactly, W, H, accW, accH by their change (rows either
+    version changed).  The scores must be exact in float32 for the two to
+    take the same decisions (first acceptable candidate, AUC): callers pass
+    tables on a grid that makes every score exact in any summation order."""
+    import torch
+    from rsparse_tpu_torch.models import rankmf
+    tk = [t.clone() for t in tables]
+    tp = [t.clone() for t in tables]
+    ck = rankmf._rankmf_batch(*tk, bits, pos, uf, itf, hp, cfg, n_item)
+    cp = rankmf._rankmf_batch_plain(*tp, bits, pos, uf, itf, hp, cfg, n_item)
+    torch.cuda.synchronize()
+    require(all(bool(torch.isfinite(t).all()) for t in tk),
+            f"K9 {tag}: non-finite output")
+    require(torch.equal(ck, cp), f"K9 {tag}: counters {ck.tolist()} != plain"
+            f" {cp.tolist()}")
+    errs = {}
+    for name, a, b, t0 in zip(("W", "H", "accW", "accH"), tk, tp, tables):
+        ch = (a != t0) | (b != t0)
+        ch = ch.any(1) if ch.dim() == 2 else ch
+        errs[name] = _delta_err(a, b, t0, ch)
+    text = _hold("rankmf", tag, errs, results)
+    ms = time_ms(lambda: rankmf._rankmf_batch(*tk, bits, pos, uf, itf, hp,
+                                              cfg, n_item), reps)
+    pms = time_ms(lambda: rankmf._rankmf_batch_plain(
+        *tp, bits, pos, uf, itf, hp, cfg, n_item), reps)
+    bms, bby = rankmf_bound(bits, pos, uf, itf, cp, tables[0].shape[1])
+    auc_n, auc_d, found, tried = cp.tolist()
+    S = bits.shape[0]
+    log(f"  K9 rankmf   {tag} counters auc {auc_n}/{auc_d} found {found} "
+        f"tried {tried} of S={S} (equal) {text} kernel={ms:.3f} ms "
+        f"plain={pms:.3f} ms bound={bms:.4f} ms ({bby})")
+    if rep:
+        results["rankmf"].update(ms=ms, plain_ms=pms, bound_ms=bms,
+                                 bound_by=bby, library_ms=None, shape=tag)
+    del tk, tp
+    return tried
+
+
+def _grid(t, step=2.0 ** -6):
+    """``t`` rounded to multiples of ``step``: rank-r dot products of such
+    values, and differences of two of them, are exact in float32 while
+    r (max |t| / step)^2 <= 2^23."""
+    return (t / step).round() * step
+
+
+def _exact_step(t, r):
+    """The finest power of two that ``_grid`` may round ``t`` to for
+    rank-r scores of two such tables to stay exact."""
+    top = max(float(t.abs().max()), 2.0 ** -100)
+    return 2.0 ** math.ceil(math.log2(top * math.sqrt(r) / 2.0 ** 11.5))
+
+
+def check_sgd_kernels(device, results) -> None:
+    """Phase 7 (a): K7, K8 and K9 against their plain versions on
+    synthetic inputs at the main paths' shapes."""
+    import torch
+    from rsparse_tpu_torch.models import rankmf
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    B, L = GLM_BLOCK
+    for n_feat in (10_000, HASHED_FEATURES):
+        blk = _synthetic_block(gen, device, B, L, n_feat)
+        y = (torch.rand((B,), generator=gen, device=device) < 0.5).float()
+        w = torch.rand((B,), generator=gen, device=device) + 0.5
+        tag = f"B={B} L={L} F={n_feat}"
+        check_glm_block("ftrl", blk, _glm_state(gen, device, n_feat), y, w,
+                        FTRL_PARAMS + (0.0, None, 1), tag, results,
+                        rep=n_feat == HASHED_FEATURES)
+        keep = torch.rand((B, L), generator=gen, device=device) > 0.3
+        check_glm_block("ftrl", blk, _glm_state(gen, device, n_feat), y, w,
+                        FTRL_PARAMS + (0.3, keep, 1), tag + " dropout 0.3",
+                        results)
+        for r in (4, 8):
+            check_glm_block("fm", blk, _glm_state(gen, device, n_feat, r),
+                            y * 2 - 1, w, FM_PARAMS, f"{tag} r={r}", results,
+                            rep=(n_feat, r) == (HASHED_FEATURES, 8))
+        torch.cuda.empty_cache()
+    # config #5's one-hot FM block: rows (user, n_users + item) of 2 entries
+    # of value 1, so L = 8 and B = 2^20 / 8
+    n_users, n_items = CONFIG5["n_users"], CONFIG5["n_items"]
+    B1, L1 = (1 << 20) // 8, 8
+    col = torch.zeros((B1, L1), dtype=torch.int64, device=device)
+    col[:, 0] = torch.randint(0, n_users, (B1,), generator=gen, device=device)
+    col[:, 1] = n_users + torch.randint(0, n_items, (B1,), generator=gen,
+                                        device=device)
+    blk = _glm_block(col, torch.ones((B1, L1), device=device),
+                     torch.full((B1,), 2, device=device))
+    y = (torch.rand((B1,), generator=gen, device=device) < 1 / 3).float()
+    check_glm_block("fm", blk, _glm_state(gen, device, n_users + n_items, 4),
+                    y * 2 - 1, torch.ones((B1,), device=device), FM_PARAMS,
+                    f"config #5 one-hot B={B1} L={L1} r=4", results)
+    del blk, col
+    torch.cuda.empty_cache()
+
+    # K9: S = 8192, K = 20 over 200,000 users x 131,072 items, 5 positives
+    x, _, _ = synth_config5(**dict(CONFIG5, n_users=K9_USERS, fm_rows=0),
+                            seed=1)
+    pos = rankmf._stage_positives(x, device)
+    n_user, n_item = x.shape
+    uf_m = _side_features(n_user, 4096, 11)
+    if_m = _side_features(n_item, 2048, 12)
+    feats = {"identity": (None, None),
+             "side": (rankmf._pad_features(uf_m, torch.float32, device),
+                      rankmf._pad_features(if_m, torch.float32, device))}
+    S, K = K9_BATCH
+    hp = rankmf.BatchParams(lr=0.5, gamma=0.9, lam_u=0.01, lam_ip=0.01,
+                            lam_in=0.01, margin=0.1)
+    cases = [(r, loss, opt, fk, rankmf.IDENTITY)
+             for r in (8, 16) for loss in (rankmf.BPR, rankmf.WARP)
+             for opt in (rankmf.ADAGRAD, rankmf.RMSPROP)
+             for fk in ("identity", "side")]
+    cases.append((8, rankmf.WARP, rankmf.ADAGRAD, "identity",
+                  rankmf.SIGMOID))
+    for r, loss, opt, fk, kern in cases:
+        uf, itf = feats[fk]
+        nuf = n_user if uf is None else uf_m.shape[1]
+        nif = n_item if itf is None else if_m.shape[1]
+        tables = (_grid(torch.randn((nuf, r), generator=gen, device=device)
+                        * 0.25),
+                  _grid(torch.randn((nif, r), generator=gen, device=device)
+                        * 0.25),
+                  1 + torch.rand((nuf,), generator=gen, device=device),
+                  1 + torch.rand((nif,), generator=gen, device=device))
+        bits = torch.randint(0, 1 << 32, (S, K + 2), generator=gen,
+                             device=device, dtype=torch.int64)
+        cfg = rankmf.BatchConfig(S, K, loss, kern, opt, True)
+        tag = (f"S={S} K={K} r={r} {('bpr', 'warp')[loss]} "
+               f"{('adagrad', 'rmsprop')[opt]} {fk} features"
+               + (" sigmoid" if kern == rankmf.SIGMOID else ""))
+        check_rankmf_batch(tables, bits, pos, uf, itf, hp, cfg, n_item, tag,
+                           results, rep=(r, loss, opt, fk, kern) == (
+                               8, rankmf.WARP, rankmf.ADAGRAD, "identity",
+                               rankmf.IDENTITY))
+
+
+def _side_features(n, n_feat, seed, max_k=3):
+    """1 to ``max_k`` distinct features of value 1 per entity."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(1, max_k + 1, n)
+    rows = np.repeat(np.arange(n), k)
+    cols = rng.integers(0, n_feat, int(k.sum()))
+    m = sp.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n_feat))
+    m.data[:] = 1.0                       # duplicates summed, then reset
+    return m
+
+
+def run_sgd_quality(device, launches) -> None:
+    """Phase 7 (b): FTRL and FM on bench.py:396's synthetic within 0.01 of
+    the reference's train accuracy; FM XOR; RankMF BPR on ML-100k beside
+    the reference's AUC / NDCG@10, through predict (K3)."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    x, truth = synth_glm()
+    models = {"ftrl": lambda: rt.FTRL(learning_rate=0.1, lambda_=1.0, seed=0,
+                                      device=device),
+              "fm": lambda: rt.FactorizationMachine(
+                  rank=8, learning_rate_w=0.2, seed=0, device=device)}
+    for name, make in models.items():
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = make()
+        m.fit(x, truth, n_iter=3)
+        p = m.predict(x)
+        wall = time.perf_counter() - t0
+        launches.append(check_launched(_kernels, f"{name} fit + predict, "
+                                       "100,000 x 10,000", (name,)))
+        acc = float(((p > 0.5) == truth).mean())
+        log(f"  {name}: train accuracy {acc:.5f} (reference "
+            f"{REF_GLM_ACC[name]:.5f} on the CPU) wall {wall:.3f} s")
+        require(np.isfinite(p).all(), f"{name}: non-finite predictions")
+        require(abs(acc - REF_GLM_ACC[name]) <= 0.01,
+                f"{name}: train accuracy off the reference by more than 0.01")
+
+    _kernels.reset_launch_counts()
+    xor = sp.csr_matrix(np.array([[0, 0], [0, 1], [1, 0], [1, 1]], float))
+    fm = rt.FactorizationMachine(learning_rate_w=0.2, rank=2, seed=42,
+                                 device=device)
+    fm.fit(sp.vstack([xor] * 200).tocsr(), np.tile([0.0, 1, 1, 0], 200),
+           n_iter=80)
+    p = fm.predict(xor)
+    launches.append(check_launched(_kernels, "FM XOR", ("fm",)))
+    log(f"  FM XOR predictions {np.round(p, 4).tolist()}")
+    require(p[0] < 0.05 and p[3] < 0.05 and p[1] > 0.95 and p[2] > 0.95,
+            "FM XOR: not learnt")
+
+    ml = rt.load_movielens100k()
+    train, test = rt.train_test_split(ml, 0.2, np.random.default_rng(0))
+    tr = sp.csr_matrix(train)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = rt.RankMF(rank=16, learning_rate=0.5, loss="bpr", seed=0,
+                  batch_size=2048, device=device)
+    emb = m.partial_fit_transform(tr, n_iter=200)
+    preds = m.predict(tr, k=10, not_recommend=tr)
+    wall = time.perf_counter() - t0
+    launches.append(check_launched(_kernels, "RankMF ML-100k + predict",
+                                   ("rankmf", "topk")))
+    ndcg = float(np.nanmean(rt.ndcg_k(preds.indices, test)))
+    log(f"  RankMF BPR rank 16 ML-100k: AUC {m.auc_history[-1]:.4f} NDCG@10 "
+        f"{ndcg:.4f} (reference on the CPU {REF_RANKMF_ML100K[0]:.4f} / "
+        f"{REF_RANKMF_ML100K[1]:.4f}) {m.stage_info['batches']} batches, "
+        f"wall {wall:.2f} s")
+    require(bool(torch.isfinite(emb).all()), "RankMF ML-100k: non-finite")
+    require(m.auc_history[-1] > 0.8 and ndcg > 0.15,
+            "RankMF ML-100k: quality gate failed")
+    check_predictions(preds.indices, 10, tr.shape[1], tr, "RankMF ML-100k")
+
+
+def _glm_full_width(device, name, make, x, truth, results, launches, what,
+                    passes=3):
+    """One GLM model at full width: init, staging, a first pass and
+    ``fit(n_iter=passes)`` (or, with passes=0, a second partial_fit) with
+    their walls and rows/s, peak device memory, the launch count, and the
+    kernel re-checked on the largest block with the fitted state."""
+    import torch
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.sparse.device import clear_staging_cache
+    clear_staging_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    n_rows = x.shape[0]
+    m = make()
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    m._ensure_state(x.shape[1])
+    sync()
+    t1 = time.perf_counter()
+    staged = m._stage(x, truth, None, True)
+    sync()
+    t2 = time.perf_counter()
+    m._run_staged(staged, do_update=True, materialize=False)
+    sync()
+    t3 = time.perf_counter()
+    if passes:
+        m.fit(x, truth, n_iter=passes)
+        label = f"fit(n_iter={passes})"
+    else:
+        m.partial_fit(x, truth)
+        passes, label = 1, "second partial_fit"
+    sync()
+    t4 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches.append(check_launched(_kernels, what, (name,)))
+    _, blocks, labels = staged
+    log(f"  {what}: init {t1 - t0:.3f} s, staging {t2 - t1:.3f} s "
+        f"({len(blocks)} blocks), first pass {t3 - t2:.3f} s = "
+        f"{n_rows / (t3 - t2):.0f} rows/s, {label} {t4 - t3:.3f} s = "
+        f"{passes * n_rows / (t4 - t3):.0f} rows/s; peak device memory "
+        f"{peak:.2f} GiB")
+    k = max(range(len(blocks)), key=lambda i: int(blocks[i].nnz.sum()))
+    (y_b, w_b), blk = labels[k], blocks[k]
+    tag = f"fitted, {what}, B={blk.col_idx.shape[0]} L={blk.col_idx.shape[1]}"
+    if name == "ftrl":
+        state = (m.z, m.n)
+        params = (m.learning_rate, m.learning_rate_decay, m._l1, m._l2,
+                  0.0, None, m.family_code)
+    else:
+        state = (m.w0, m.acc_w0, m.w, m.v, m.acc_w, m.acc_v)
+        params = (m.learning_rate_w, m.learning_rate_v, m.lambda_w,
+                  m.lambda_v, m.family_code, m.intercept)
+    check_glm_block(name, blk, state, y_b, w_b, params, tag, results, reps=3)
+    return m
+
+
+def run_sgd_full_width(device, results, launches) -> None:
+    """Phase 7 (c): FTRL and FM (rank 8) at the hashed shape of
+    bench.py:760-765 (100,000 rows x 40,000,000 features x 32 nnz), then
+    config #5 on one card (bench.py:327-393 without the mesh): RankMF WARP
+    rank 8 on 10M users x 131,072 items, and FM rank 4 on 2M one-hot rows."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.models import rankmf
+    from rsparse_tpu_torch.sparse.device import clear_staging_cache
+    t0 = time.perf_counter()
+    x, truth = synth_glm(n_feat=HASHED_FEATURES)
+    log(f"  hashed synthetic: {x.shape[0]} x {x.shape[1]}, {x.nnz} nnz "
+        f"({time.perf_counter() - t0:.2f} s)")
+    _glm_full_width(device, "ftrl", lambda: rt.FTRL(
+        learning_rate=0.1, lambda_=1.0, seed=0, device=device), x, truth,
+        results, launches, "FTRL hashed")
+    _glm_full_width(device, "fm", lambda: rt.FactorizationMachine(
+        rank=8, learning_rate_w=0.2, seed=0, device=device), x, truth,
+        results, launches, "FM rank 8 hashed")
+    del x, truth
+
+    t0 = time.perf_counter()
+    x, fmx, fmy = synth_config5(**CONFIG5)
+    log(f"  config #5 synthetic: {x.shape[0]} users x {x.shape[1]} items, "
+        f"{x.nnz} nnz; FM {fmx.shape[0]} one-hot rows over {fmx.shape[1]} "
+        f"features ({time.perf_counter() - t0:.2f} s)")
+    clear_staging_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    m = rt.RankMF(rank=8, learning_rate=0.5, loss="warp", seed=0,
+                  batch_size=K9_BATCH[0], max_negative_samples=K9_BATCH[1],
+                  device=device)
+    t0 = time.perf_counter()
+    m.partial_fit_transform(x, n_iter=0)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    info0 = dict(m.stage_info)
+    t0 = time.perf_counter()
+    emb = m.partial_fit_transform(x, n_iter=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    info = m.stage_info
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches.append(check_launched(_kernels, "config #5 RankMF", ("rankmf",)))
+    log(f"  config #5 RankMF WARP rank 8: first call {first:.3f} s (table "
+        f"draw {info0['init_s']:.3f} s, staging with the hash build "
+        f"{info0['staging_s']:.3f} s, {info0['batches']} batches); epoch "
+        f"{wall:.3f} s for {info['updates']} updates ({info['batches']} "
+        f"batches of {K9_BATCH[0]}) = {info['updates'] / wall:.0f} pairwise "
+        f"updates/s ({x.shape[0] / wall:.0f} per user of the epoch); AUC~"
+        f"{m.auc_history[-1]:.3f}; hash table "
+        f"{tuple(m._positives.table.shape)}; peak device memory {peak:.2f} "
+        "GiB")
+    require(bool(torch.isfinite(emb).all()) and
+            np.isfinite(m.components).all(), "config #5 RankMF: non-finite")
+    # K9 on one batch from the fitted tables, each rounded to the finest
+    # power-of-two grid on which every score is exact, with the model's own
+    # parameters.  Its scores are ~1e-5 against config #5's margin of 0.1,
+    # so there WARP takes the first candidate that is not a positive; with
+    # margin 0 it takes the first that outscores the positive, and its
+    # loop runs over the fitted values.
+    pos = m._positives
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    S, K = K9_BATCH
+    bits = torch.randint(0, 1 << 32, (S, K + 2), generator=gen,
+                         device=device, dtype=torch.int64)
+    W, H = m.user_features_embeddings, m.item_features_embeddings
+    sw, sh = _exact_step(W, m.rank), _exact_step(H, m.rank)
+    tables = (_grid(W, sw), _grid(H, sh), m._accW, m._accH)
+    hp = rankmf.BatchParams(m.learning_rate, m.gamma, m.lambda_user,
+                            m.lambda_item_positive, m.lambda_item_negative,
+                            m.margin)
+    cfg = rankmf.BatchConfig(S, K, m.loss, m.kernel, m.optimizer, True)
+    for margin in (m.margin, 0.0):
+        tried = check_rankmf_batch(
+            tables, bits, pos, None, None, hp._replace(margin=margin), cfg,
+            x.shape[1], f"fitted config #5 (W, H on grids 2^{math.log2(sw):.0f}"
+            f", 2^{math.log2(sh):.0f}) margin {margin}", results, reps=3)
+    require(tried > S, "config #5 K9 check: WARP's loop did not run")
+    del m, emb, W, H, tables, pos, x
+    _glm_full_width(device, "fm", lambda: rt.FactorizationMachine(
+        rank=4, learning_rate_w=0.2, seed=0, device=device), fmx, fmy,
+        results, launches, "config #5 FM rank 4", passes=0)
+
+
 # -----------------------------------------------------------------------------
 
 KERNELS = {
@@ -1221,6 +1853,10 @@ KERNELS = {
     "spmm_residual": ("rsparse_tpu_torch/csrc/spmm_residual.cu",
                       "rsparse_tpu/ops/spmm.py:81, "
                       "rsparse_tpu/ops/spmm.py:59"),
+    "ftrl": ("rsparse_tpu_torch/csrc/ftrl.cu", "rsparse_tpu/models/ftrl.py:64"),
+    "fm": ("rsparse_tpu_torch/csrc/fm.cu", "rsparse_tpu/models/fm.py:39"),
+    "rankmf": ("rsparse_tpu_torch/csrc/rankmf.cu",
+               "rsparse_tpu/models/rankmf.py:202"),
 }
 
 
@@ -1290,7 +1926,18 @@ def main(phases) -> int:
         log("phase 6 (b): config #3 at full width (rank 256, 65,536 x "
             "32,768)")
         run_config3(device, x, results, launches)
-    if phases != set(range(1, 7)):
+    del x
+    if 7 in phases:
+        log("phase 7 (a): the SGD family's kernels against their plain "
+            "versions")
+        check_sgd_kernels(device, results)
+        log("phase 7 (b): quality (FTRL / FM on bench.py:396's synthetic, "
+            "FM XOR, RankMF on ML-100k)")
+        run_sgd_quality(device, launches)
+        log("phase 7 (c): full width (hashed FTRL / FM; config #5 RankMF and"
+            " FM)")
+        run_sgd_full_width(device, results, launches)
+    if phases != set(range(1, 8)):
         log(f"phases {sorted(phases)} passed (a subset: no result line)")
         return 0
 
@@ -1314,7 +1961,7 @@ def main(phases) -> int:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="comma-separated phases to run (1 always runs)")
     want = {1} | {int(p) for p in ap.parse_args().phases.split(",") if p}
     try:

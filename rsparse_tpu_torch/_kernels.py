@@ -14,8 +14,8 @@ Nothing here runs at import: the CPU tests import every module of the port
 on machines without ``nvcc``.
 
 ``launches`` counts the launches of each kernel; the wrappers in
-``ops/als.py``, ``ops/topk.py`` and ``ops/spmm.py`` add one where they
-launch.
+``ops/als.py``, ``ops/topk.py``, ``ops/spmm.py``, ``models/ftrl.py``,
+``models/fm.py`` and ``models/rankmf.py`` add one where they launch.
 """
 
 from __future__ import annotations
@@ -47,7 +47,8 @@ MAX_D = 160
 
 #: launches per kernel, counted by the wrappers
 launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "als_nnls": 0,
-                            "topk": 0, "spmm": 0, "spmm_residual": 0}
+                            "topk": 0, "spmm": 0, "spmm_residual": 0,
+                            "ftrl": 0, "fm": 0, "rankmf": 0}
 #: what the last build did: {"seconds": ..., "log": ..., "path": ...}
 build_info: Dict[str, object] = {}
 
@@ -133,6 +134,23 @@ class BucketArgs(ctypes.Structure):
         (name, ctypes.c_float) for name in ("lam", "g_rhs", "g_loss")]
 
 
+class RankMFArgs(ctypes.Structure):
+    """One RankMF minibatch as K9 takes it: the ctypes mirror of
+    ``RankMFArgs`` in ``csrc/rankmf.cu`` (same fields, same order).
+    Pointers are device addresses, 0 for an absent input."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "bits", "flat_idx", "indptr", "row_nnz", "table", "boff", "bmask",
+        "bshift", "uf_idx", "uf_val", "uf_mask", "if_idx", "if_val",
+        "if_mask", "W", "H", "accW", "accH", "iscratch", "fscratch", "cntW",
+        "cntH", "counters")] + [
+        (name, ctypes.c_int) for name in (
+            "S", "K", "r", "n_user", "n_item", "flat_len", "lanes", "Fu",
+            "Fi", "loss", "kernel", "optimizer", "update_items")] + [
+        (name, ctypes.c_float) for name in (
+            "lr", "gamma", "lam_u", "lam_ip", "lam_in", "margin", "norm")]
+
+
 @functools.lru_cache(maxsize=None)
 def lib() -> ctypes.CDLL:
     """The kernel library, built on first use."""
@@ -162,6 +180,19 @@ def lib() -> ctypes.CDLL:
     # B, L, k, aligned -> length of sq_part
     so.rsp_spmm_residual_parts.argtypes = [i, i, i, i]
     so.rsp_spmm_residual_parts.restype = i
+    # col, val, nnz, slot, keep, keep_scale, y, sample_w, z, n, dzn, feats,
+    # U, B, L, lr, decay, l1, l2, family, do_update, y_hat, stream
+    so.rsp_ftrl_block.argtypes = [p, p, p, p, p, f, p, p, p, p, p, p, i, i,
+                                  i, f, f, f, f, i, i, p, p]
+    so.rsp_ftrl_block.restype = i
+    # col, val, nnz, slot, y, sample_w, w0, acc_w0, w, v, acc_w, acc_v, sums,
+    # feats, U, B, L, r, lr_w, lr_v, lam_w, lam_v, family, intercept,
+    # do_update, y_hat, stream
+    so.rsp_fm_block.argtypes = ([p] * 14 + [i] * 4 + [f] * 4 + [i] * 3
+                                + [p, p])
+    so.rsp_fm_block.restype = i
+    so.rsp_rankmf_batch.argtypes = [ctypes.POINTER(RankMFArgs), p]
+    so.rsp_rankmf_batch.restype = i
     return so
 
 

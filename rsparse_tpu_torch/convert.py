@@ -10,7 +10,13 @@ and ``get_similar_items`` then compute what the reference's do:
   ``soft_svd`` / ``soft_impute`` result, usable as a warm start;
 - :func:`pure_svd_from_numpy`: PureSVD from its ``_svd`` triple;
 - :func:`linear_flow_from_numpy`: LinearFlow from ``m.v`` and
-  ``m.components``.
+  ``m.components``;
+- :func:`ftrl_from_numpy`: FTRL from ``m.z`` and ``m.n`` (or
+  ``FTRL.load(m.dump())``);
+- :func:`fm_from_numpy`: FactorizationMachine from ``m.w0``, ``m.acc_w0``,
+  ``m.w``, ``m.v``, ``m.acc_w`` and ``m.acc_v``;
+- :func:`rankmf_from_numpy`: RankMF from ``m.user_features_embeddings``,
+  ``m.item_features_embeddings``, ``m._accW`` and ``m._accH``.
 
 Nothing of the reference is imported.
 """
@@ -23,8 +29,11 @@ import numpy as np
 import torch
 
 from .config import resolve_dtype
+from .models.fm import FactorizationMachine
+from .models.ftrl import FTRL
 from .models.linear_flow import LinearFlow
 from .models.pure_svd import PureSVD
+from .models.rankmf import RankMF
 from .models.soft_als import SVDResult
 from .models.wrmf import WRMF
 
@@ -104,5 +113,73 @@ def linear_flow_from_numpy(v: np.ndarray, components: np.ndarray,
     m = LinearFlow(**linear_flow_kwargs)
     m.v = torch.tensor(v, dtype=m.dtype, device=m.device)
     m.components = np.array(comps)
+    m.item_ids = item_ids
+    return m
+
+
+def _tensor(a, m):
+    return torch.tensor(np.asarray(a), dtype=m.dtype, device=m.device)
+
+
+def ftrl_from_numpy(z: np.ndarray, n: np.ndarray, **ftrl_kwargs) -> FTRL:
+    """A fitted port FTRL from the reference model's (F + 1,) ``z`` and
+    ``n`` (the last row is the padding feature); ``ftrl_kwargs`` go to
+    :class:`FTRL` (pass its learning rates, ``lambda_``, ``l1_ratio``,
+    ``dropout``, ``family`` and ``precision``)."""
+    z, n = np.asarray(z), np.asarray(n)
+    if z.ndim != 1 or z.shape != n.shape:
+        raise ValueError("expected z and n of one (F + 1,) shape")
+    m = FTRL(**ftrl_kwargs)
+    m.n_features = z.shape[0] - 1
+    m.z, m.n = _tensor(z, m), _tensor(n, m)
+    return m
+
+
+def fm_from_numpy(w0, acc_w0, w: np.ndarray, v: np.ndarray,
+                  acc_w: np.ndarray, acc_v: np.ndarray,
+                  **fm_kwargs) -> FactorizationMachine:
+    """A fitted port FactorizationMachine from the reference model's
+    scalars ``w0``/``acc_w0``, (F + 1,) ``w``/``acc_w`` and (F + 1, r)
+    ``v``/``acc_v``; ``fm_kwargs`` go to :class:`FactorizationMachine`
+    (pass its learning rates, lambdas, ``family``, ``intercept`` and
+    ``precision``); ``rank`` defaults to ``v.shape[1]``."""
+    v = np.asarray(v)
+    if v.ndim != 2 or np.shape(w) != (v.shape[0],):
+        raise ValueError("expected w (F + 1,) and v (F + 1, r)")
+    fm_kwargs.setdefault("rank", v.shape[1])
+    m = FactorizationMachine(**fm_kwargs)
+    m.n_features = v.shape[0] - 1
+    m.w0, m.acc_w0 = _tensor(w0, m), _tensor(acc_w0, m)
+    m.w, m.v = _tensor(w, m), _tensor(v, m)
+    m.acc_w, m.acc_v = _tensor(acc_w, m), _tensor(acc_v, m)
+    return m
+
+
+def rankmf_from_numpy(user_emb: np.ndarray, item_emb: np.ndarray,
+                      acc_user: np.ndarray, acc_item: np.ndarray,
+                      user_features=None, item_features=None,
+                      item_ids: Optional[Sequence] = None,
+                      **rankmf_kwargs) -> RankMF:
+    """A fitted port RankMF from the reference model's (n_user_feat, r) and
+    (n_item_feat, r) feature embeddings and their accumulators, with the
+    side-feature matrices it was fitted with (None: identity features);
+    ``rankmf_kwargs`` go to :class:`RankMF`; ``rank`` defaults to
+    ``user_emb.shape[1]``.  ``transform``, ``components`` and ``predict``
+    then give the reference's, and ``partial_fit_transform`` continues from
+    this state."""
+    import scipy.sparse as sp
+    user_emb, item_emb = np.asarray(user_emb), np.asarray(item_emb)
+    rankmf_kwargs.setdefault("rank", user_emb.shape[1])
+    m = RankMF(**rankmf_kwargs)
+    m.user_features_embeddings = _tensor(user_emb, m)
+    m.item_features_embeddings = _tensor(item_emb, m)
+    m._accW, m._accH = _tensor(acc_user, m), _tensor(acc_item, m)
+    m._nuf, m._nif = user_emb.shape[0], item_emb.shape[0]
+    m._identity_user_feats = user_features is None
+    m._identity_item_feats = item_features is None
+    m._user_features = (None if user_features is None
+                        else sp.csr_matrix(user_features))
+    m._item_features = (None if item_features is None
+                        else sp.csr_matrix(item_features))
     m.item_ids = item_ids
     return m

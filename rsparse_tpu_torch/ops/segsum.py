@@ -1,0 +1,123 @@
+"""Staging of the GLM row blocks that FTRL and the Factorization Machine run.
+
+Port of the FTRL/FM part of ``rsparse_tpu/ops/segsum.py``
+(``staged_blocks_with_layouts``, ``staged_label_gathers``).  The blocks are
+:func:`~rsparse_tpu_torch.sparse.device.bucket_rows` of the input with the
+reference's arguments (``include_empty=True``, ``max_elems=1 << 20``), so
+the port walks exactly the reference's blocks: same rows, same order, same
+``(B, L)``.  A different partition would give another, equally valid, SGD
+trajectory.
+
+The reference's scheduled two-level layout (``SchedLayout``,
+``build_sched_layout``, ``sched_to_rows``, ``sched_reduce_chunks``,
+``sched_apply_sums_multi``, ``scheduled_sums`` and the column schedules)
+is not carried over: it exists because scatter is slow on a TPU.  What it
+computes, the per-feature sums of per-position updates added to a table
+once per block, happens inside K7 (``csrc/ftrl.cu``) and K8
+(``csrc/fm.cu``): each block carries a host-built slot map (``feats``,
+the block's distinct feature ids, and ``slot``, each entry's index into
+``feats``), the kernels add per-entry updates into zeroed per-slot sums
+with atomics while every row still reads the block-start tables, and a
+second launch adds the sums into the tables at ``feats`` (distinct ids, no
+race).  GloVe's use of the scheduled layout is not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import zlib
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..sparse.device import (_csr_fingerprint, bucket_rows, staged_aux_cached,
+                             staged_cached)
+
+#: entries per GLM block (the reference's ``max_elems``, models/ftrl.py:39)
+GLM_BLOCK_ELEMS = 1 << 20
+
+
+class GLMBlock(NamedTuple):
+    """One padded row block with its slot map (tensors on one device).
+
+    ``row_ids``/``col_idx``/``values``/``nnz`` are the
+    :class:`~rsparse_tpu_torch.sparse.device.RowBucket` fields.
+    ``feats[u]`` is the u-th distinct feature id of the block's valid
+    entries (sorted); ``slot[b, l]`` is the index of ``col_idx[b, l]`` in
+    ``feats`` for a valid entry and ``len(feats)`` at padding."""
+
+    row_ids: torch.Tensor  # (B,)   int32
+    col_idx: torch.Tensor  # (B, L) int32
+    values: torch.Tensor   # (B, L) float
+    nnz: torch.Tensor      # (B,)   int32
+    feats: torch.Tensor    # (U,)   int32
+    slot: torch.Tensor     # (B, L) int32
+
+    def mask(self) -> torch.Tensor:
+        """(B, L) validity mask."""
+        iota = torch.arange(self.col_idx.shape[1], device=self.nnz.device)
+        return iota[None, :] < self.nnz[:, None]
+
+
+def slot_map(col_idx: np.ndarray, nnz: np.ndarray):
+    """``(feats, slot)`` of one host block: the distinct feature ids of the
+    valid entries and each entry's index into them (``len(feats)`` at
+    padding), from one ``np.unique``."""
+    B, L = col_idx.shape
+    valid = np.arange(L)[None, :] < nnz[:, None]
+    feats, inv = np.unique(col_idx[valid], return_inverse=True)
+    slot = np.full((B, L), len(feats), np.int32)
+    slot[valid] = inv
+    return feats.astype(np.int32), slot
+
+
+def staged_glm_blocks(csr, dtype: torch.dtype,
+                      device) -> Tuple[GLMBlock, ...]:
+    """Content-cached GLM blocks of ``csr`` on ``device`` with their slot
+    maps (the counterpart of the reference's
+    ``staged_blocks_with_layouts``): bucketed on the host, slot maps built
+    there, then copied to the device once."""
+
+    def build():
+        br = bucket_rows(csr, dtype, "cpu", include_empty=True,
+                         max_elems=GLM_BLOCK_ELEMS)
+        out = []
+        for b in br.buckets:
+            feats, slot = slot_map(b.col_idx.numpy(), b.nnz.numpy())
+            out.append(GLMBlock(
+                *(t.to(device) for t in b),
+                torch.from_numpy(feats).to(device),
+                torch.from_numpy(slot).to(device)))
+        return tuple(out)
+
+    return staged_cached("glm_blocks", csr, build,
+                         extra=(str(dtype), str(torch.device(device))))
+
+
+def staged_label_gathers(tag: str, csr, y: np.ndarray, weights: np.ndarray,
+                         blocks, dtype: torch.dtype, device,
+                         zero_pad_weight: bool):
+    """Per-block ``(y_b, w_b)`` gathers, content-cached
+    (rsparse_tpu/ops/segsum.py:252).  Padding rows read the last row's label
+    and weight; ``zero_pad_weight`` zeroes their weight instead (the FM
+    intercept contract: w0 steps once per real sample,
+    src/factorization_machine.cpp:147-149)."""
+    fp = (_csr_fingerprint(csr), zlib.adler32(np.ascontiguousarray(y)),
+          zlib.adler32(np.ascontiguousarray(weights)), len(y))
+
+    def build():
+        n_rows = len(y)
+        yd = torch.as_tensor(np.asarray(y), dtype=dtype, device=device)
+        wd = torch.as_tensor(np.asarray(weights), dtype=dtype, device=device)
+        out = []
+        for b in blocks:
+            rid = b.row_ids.long().clamp(max=n_rows - 1)
+            w_b = wd[rid]
+            if zero_pad_weight:
+                w_b = torch.where(b.row_ids < n_rows, w_b, 0.0)
+            out.append((yd[rid].contiguous(), w_b.contiguous()))
+        return tuple(out)
+
+    return staged_aux_cached(tag, fp, build,
+                             extra=(str(dtype), str(torch.device(device)),
+                                    zero_pad_weight))

@@ -117,7 +117,11 @@ def test_port_imports_no_jax():
             "rsparse_tpu_torch.models.linear_flow, "
             "rsparse_tpu_torch.models.kmeans, "
             "rsparse_tpu_torch.models.scale_normalize, "
-            "rsparse_tpu_torch.sparse.splr; "
+            "rsparse_tpu_torch.sparse.splr, "
+            "rsparse_tpu_torch.ops.segsum, "
+            "rsparse_tpu_torch.models.ftrl, "
+            "rsparse_tpu_torch.models.fm, "
+            "rsparse_tpu_torch.models.rankmf; "
             "assert 'jax' not in sys.modules; "
             "assert not any(m.startswith('rsparse_tpu.') or m == 'rsparse_tpu'"
             " for m in sys.modules)")

@@ -56,7 +56,18 @@ line:
    (c) FTRL and FM rank 8 at the hashed shape (100,000 x 40M features)
    and config #5 on one card (RankMF WARP on 10M users, FM rank 4 on 2M
    one-hot rows): stage walls, rows or updates per second, peak memory,
-   each kernel re-checked on the fitted state.
+   each kernel re-checked on the fitted state;
+8. GloVe: (a) K10 (tail shard) on config #4's first tail shard, straight
+   and swapped, and K11 (head tile) on its first tile, its edge tile and a
+   tile of the transposed pass, bf16 and f32 counts, against their plain
+   versions (each table by its change, 1e-5, or twice the plain version's
+   distance from float64), K11 beside the cuBLAS chain of the same step;
+   (b) GloVe rank 128 with the bf16 head on ML-100k and on the reference
+   benchmark's quick shape, each cost history held to the JAX package's
+   (pinned, 1e-3 relative); (c) config #4 (vocabulary 50,000, 4.97M
+   triplets, head H = 23,170) through GloVe.fit_transform, 3 epochs: stage
+   walls, triplets/s, the head / tail split of an epoch, peak memory, both
+   kernels re-checked on the fitted state.
 
 The kernels' launch counters are reset right before each main-path run
 and must show every kernel of that path launched in it.  The
@@ -133,6 +144,8 @@ def fro_err(a, b) -> float:
 #: NVIDIA's data-sheet peaks of one H100 SXM: HBM bytes/s, f32 flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+#: dense bf16 tensor-core peak
+BF16_FLOPS = 989e12
 
 
 def bound(nbytes: float, flops: float):
@@ -1839,6 +1852,346 @@ def run_sgd_full_width(device, results, launches) -> None:
         results, launches, "config #5 FM rank 4", passes=0)
 
 
+# -- phase 8: GloVe (K10, K11) ------------------------------------------------
+
+#: config #4 (bench.py:194-264) and the reference benchmark's quick shape
+#: of it (bench.py:618): vocabulary, draws
+CONFIG4 = dict(vocab=50_000, nnz=8_000_000)
+GLOVE_QUICK = dict(vocab=20_000, nnz=2_000_000)
+#: GloVe's n_hot="auto" on a square, not triangular input: sqrt(2^29)
+GLOVE_AUTO_HOT = 23_170
+#: the GloVe of phase 8: config #4's (bench.py:215-248, with the model's own
+#: initialisation), on every input (at rank 128 the x_max = 10 and learning
+#: rate 0.1 of tests/test_sgd_models.py:16 trip the reference's "cost is
+#: too big" guard on ML-100k)
+GLOVE_KW = dict(rank=128, x_max=100.0, learning_rate=0.05, batch_size=65_536,
+                compute_dtype="bfloat16", seed=0)
+#: the JAX package's cost_history (float32 state, bf16 head, on the CPU) of
+#: GloVe(**GLOVE_KW).fit_transform(x, n_iter=3) on ML-100k and on the quick
+#: shape, each held to GLOVE_REL per epoch; made by
+#:   JAX_PLATFORMS=cpu python3 -c "import chip_smoke as c, rsparse_tpu as r
+#:   for x in (c.ml100k_cooccurrence(r.load_movielens100k()),
+#:             c.synth_glove(**c.GLOVE_QUICK)):
+#:       m = r.GloVe(**c.GLOVE_KW); m.fit_transform(x, n_iter=3)
+#:       print(m.cost_history)"
+#: (tests/test_torch_glove.py test_reference_cost_history recomputes the
+#: ML-100k one)
+REF_GLOVE = {"ml100k": (0.45488280793498687, 0.07597071868772529,
+                        0.03505667713915087),
+             "quick": (0.4630190852547191, 0.14129658496505335,
+                       0.07906985425764775)}
+GLOVE_REL = 1e-3
+
+
+def synth_glove(vocab, nnz, seed=0):
+    """The reference benchmark's text8-scale co-occurrence (bench.py:194-206):
+    ``nnz`` (i, j) draws from a zipf-like popularity 1 / (rank + 5), counts
+    1 + Exp(5), duplicates summed."""
+    rng = np.random.default_rng(seed)
+    pop = 1.0 / (np.arange(vocab) + 5.0)
+    pop /= pop.sum()
+    i = rng.choice(vocab, nnz, p=pop)
+    j = rng.choice(vocab, nnz, p=pop)
+    v = 1.0 + rng.exponential(5.0, nnz)
+    tcm = sp.coo_matrix((v, (i, j)), shape=(vocab, vocab))
+    tcm.sum_duplicates()
+    return tcm
+
+
+def ml100k_cooccurrence(ml):
+    """crossprod(sign(x)) of MovieLens-100k (tests/test_sgd_models.py:13)."""
+    s = sp.csr_matrix(ml).sign()
+    return (s.T @ s).tocoo()
+
+
+def glove_bound(nbytes, prod_flops, elem_flops, bf16):
+    """Like :func:`bound`, with the products' operations at the bf16
+    tensor-core peak when their operands are bf16."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = (prod_flops / (BF16_FLOPS if bf16 else F32_FLOPS)
+          + elem_flops / F32_FLOPS) * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def k10_bound(sh, r):
+    """Bound of K10 on one shard: bytes of each valid entry (two ids and a
+    count, 12) and one read and one write of the four table rows (w, acc_w:
+    r floats; b, acc_b: one) of each distinct id of each side, 16 (r + 1);
+    operations ~10 r + 30 an entry (the dot product, g and g² on both
+    sides, weight, log, clip) and 6 a component in the apply.  The slot
+    maps are the port's own layout and are not counted."""
+    n = int((sh.slot_r < sh.feats_r.shape[0]).sum())
+    U = sh.feats_r.shape[0] + sh.feats_c.shape[0]
+    return glove_bound(n * 12 + U * 16 * (r + 1), 0,
+                       n * (10 * r + 30) + U * 6 * (r + 1), False)
+
+
+def k11_bound(n_r, n_c, r, grid_bytes, bf16):
+    """Bound of K11 on one tile: bytes of the counts, the ids and one read
+    and one write of each row's and column's four table rows; operations
+    of the five products, 10 n_r n_c r (at the bf16 peak for a bf16 head),
+    and ~20 a cell for the log, weight, clip and roundings."""
+    cells = n_r * n_c
+    return glove_bound(cells * grid_bytes + (n_r + n_c) * (4 + 16 * (r + 1)),
+                       10 * cells * r, 20 * cells, bf16)
+
+
+def _tile_cublas(st, rows, cols, x, x_max, alpha, lr):
+    """K11's step as a chain of PyTorch calls with bf16 operands: the five
+    products through cuBLAS on the tensor cores (bf16 outputs, so it rounds
+    where K11 does not), the elementwise work and the applies.  Timed as
+    the library column's yardstick only."""
+    import torch
+    from rsparse_tpu_torch.models import glove
+    bf = torch.bfloat16
+    i, j = rows.long(), cols.long()
+    xf = x.float()
+    present = xf > 0
+    lx = torch.log(torch.where(present, xf, 1.0))
+    w = torch.where(present, torch.where(
+        xf < x_max, torch.pow(xf / x_max, alpha), 1.0), 0.0)
+    wi, wj = st.w_i[i].to(bf), st.w_j[j].to(bf)
+    s = torch.clamp((wi @ wj.T).float() + st.b_i[i][:, None]
+                    + st.b_j[j][None, :] - lx, -100.0, 100.0)
+    cost = w.to(bf) * s.to(bf)
+    c2 = cost * cost
+    glove._adagrad_apply(st.w_i, st.b_i, st.acc_w_i, st.acc_b_i, i,
+                         (cost @ wj).float(), (c2 @ (wj * wj)).float(),
+                         cost.float().sum(1), c2.float().sum(1), lr)
+    glove._adagrad_apply(st.w_j, st.b_j, st.acc_w_j, st.acc_b_j, j,
+                         (cost.T @ wi).float(), (c2.T @ (wi * wi)).float(),
+                         cost.float().sum(0), c2.float().sum(0), lr)
+    return (cost.float() * s).sum()
+
+
+def _tile_s_bf16(st, rows, cols, x, acc):
+    """bf16(S) of a tile's present cells, S summed at ``acc``: which cells
+    of S an f32 sum can round to another bf16 value than float64 does."""
+    import torch
+    i, j = rows.long(), cols.long()
+    xf = x.to(acc)
+    rd = lambda t: t.to(torch.bfloat16).to(acc)  # noqa: E731
+    s = torch.clamp(rd(st.w_i[i]) @ rd(st.w_j[j]).T
+                    + st.b_i[i][:, None].to(acc) + st.b_j[j][None, :].to(acc)
+                    - torch.log(torch.where(xf > 0, xf, 1.0)), -100.0, 100.0)
+    return torch.where(xf > 0, rd(s), 0.0)
+
+
+def check_glove_step(name, step, plain, state, ids, tag, results, bnd,
+                     lib=None, rep=False, reps=5):
+    """K10 (``name="glove"``) or K11 (``"glove_dense"``) against its plain
+    version on the same state: ``step(st)`` and ``plain(st)`` update st in
+    place and return the loss term.  Each table (and the loss) is held by
+    its change to 1e-5, or to twice the plain version's distance from the
+    plain version at float64 (bf16 cells of S that an f32 sum rounds the
+    other way); tables outside ``ids`` (the row and the column side's ids)
+    must not move."""
+    import torch
+    from rsparse_tpu_torch.models import glove
+    fields = glove.GloveState._fields
+    sk = glove.GloveState(*(t.clone() for t in state))
+    sp_ = glove.GloveState(*(t.clone() for t in state))
+    s64 = glove.GloveState(*(t.double() for t in state))
+    lk, lp, l64 = step(sk), plain(sp_), plain(s64)
+    torch.cuda.synchronize()
+    require(all(bool(torch.isfinite(t).all()) for t in (lk, *sk)),
+            f"{name} {tag}: non-finite output")
+    errs, worst = {}, 0.0
+    zero = torch.zeros((), device=lk.device)
+    for tname, a, b, c, t0 in zip(fields + ("loss",), (*sk, lk), (*sp_, lp),
+                                  (*s64, l64), (*state, zero)):
+        rows = None if tname == "loss" else ids[tname.endswith("_j")]
+        rel, diff, _ = _delta_err(a, b, t0, rows)
+        ek = float((a.double() - c)[rows].abs().max()) if rows is not None \
+            else abs(float(a) - float(c))
+        ep = float((b.double() - c)[rows].abs().max()) if rows is not None \
+            else abs(float(b) - float(c))
+        require(rel <= 1e-5 or ek <= 2 * ep, f"{name} {tag}: {tname} "
+                f"disagrees with the plain version ({rel:.2e} of its change;"
+                f" {ek:.2e} from float64 against the plain version's "
+                f"{ep:.2e})")
+        errs[tname] = f"{tname}_rel={rel:.2e}" + (
+            f" (f64: {ek:.1e} vs {ep:.1e})" if rel > 1e-5 else "")
+        worst = max(worst, diff)
+        if rows is not None:
+            out = torch.ones(a.shape[0], dtype=torch.bool, device=a.device)
+            out[rows] = False
+            require(torch.equal(a[out], t0[out]), f"{name} {tag}: {tname} "
+                    "moved outside the step's ids")
+    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], worst)
+    ms = time_ms(lambda: step(sk), reps)
+    pms = time_ms(lambda: plain(sp_), reps)
+    lms = time_ms(lambda: lib(sp_), reps) if lib is not None else None
+    bms, bby = bnd
+    log(f"  {name:11s} {tag} {' '.join(errs.values())} kernel={ms:.3f} ms "
+        f"plain={pms:.3f} ms" + (f" cuBLAS chain={lms:.3f} ms" if lms else "")
+        + f" bound={bms:.4f} ms ({bby})")
+    if rep:
+        results[name].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                             library_ms=lms, shape=tag)
+
+
+def check_glove_kernels(head, tail, state, tag, results, rep=False):
+    """K10 on the tail's first shard, straight and swapped (the transposed
+    pass's roles); K11 on the head's first tile, its last (the reference's
+    padded edge tile, cut to its real positions) and the transposed pass's
+    tile (1, 0), with the bf16 grid and with float32 counts."""
+    import torch
+    from rsparse_tpu_torch.models import glove
+    hp = (GLOVE_KW["x_max"], 0.75, GLOVE_KW["learning_rate"])
+    r = state.w_i.shape[1]
+    for label, sh in (("shard 0", tail.shard(0)),
+                      ("swapped shard 0", tail.swapped().shard(0))):
+        ids = (sh.feats_r.long(), sh.feats_c.long())
+        check_glove_step(
+            "glove", lambda st: glove._glove_shard_cuda(st, sh, *hp),
+            lambda st: glove._glove_shard_plain(st, sh, *hp), state, ids,
+            f"{tag} {label}, N={sh.rows.shape[0]} U={ids[0].numel()}/"
+            f"{ids[1].numel()}", results, k10_bound(sh, r),
+            rep=rep and label == "shard 0")
+    H, side, last = head.ids.shape[0], head.side, head.nt - 1
+    span = lambda t: slice(t * side, min(H, (t + 1) * side))  # noqa: E731
+    x32 = head.x.float()
+    bf = torch.bfloat16
+    for (ti, tj), trans in (((0, 0), False), ((last, last), False),
+                            ((1, 0), True)):
+        rows, cols = head.ids[span(ti)], head.ids[span(tj)]
+        ids = (rows.long(), cols.long())
+        for x, cdt in ((head.x, bf), (x32, torch.float32)):
+            xv = (x.T if trans else x)[span(ti), span(tj)]
+            c64 = bf if cdt == bf else torch.float64
+            s32 = _tile_s_bf16(state, rows, cols, xv, torch.float32)
+            s64 = _tile_s_bf16(state, rows, cols, xv, torch.float64)
+            apart = int((s32.double() != s64).sum())
+            name = (f"{tag} tile ({ti}, {tj})" + (" transposed" if trans
+                                                  else "")
+                    + f" {rows.numel()} x {cols.numel()} "
+                    + ("bf16" if cdt == bf else "f32")
+                    + f" (bf16 S cells rounding apart f32/f64: {apart} of "
+                    f"{int((xv > 0).sum())})")
+            main = cdt == bf and (ti, tj) == (0, 0) and not trans
+            check_glove_step(
+                "glove_dense",
+                lambda st: glove._glove_tile_cuda(st, rows, cols, xv, *hp,
+                                                  cdt),
+                lambda st: glove._glove_tile_plain(
+                    st, rows, cols, xv, *hp,
+                    c64 if st.w_i.dtype == torch.float64 else cdt),
+                state, ids, name, results,
+                k11_bound(rows.numel(), cols.numel(), r, x.element_size(),
+                          cdt == bf),
+                lib=(lambda st: _tile_cublas(st, rows, cols, xv, *hp))
+                if main else None, rep=rep and main)
+    del x32
+    torch.cuda.empty_cache()
+
+
+def run_glove(device, results, launches) -> None:
+    """Phase 8: (a) K10 / K11 on config #4's staged shards and tiles from
+    the model's initial state; (b) GloVe on ML-100k and on the quick shape
+    held to the JAX package's cost history; (c) config #4 through
+    GloVe.fit_transform with its stage walls, the head / tail split of an
+    epoch, triplets/s, peak memory, and both kernels re-checked on the
+    fitted state."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.models import glove
+    t0 = time.perf_counter()
+    x4 = synth_glove(**CONFIG4)
+    n = x4.shape[0]
+    log(f"  config #4 synthetic: vocabulary {n}, {x4.nnz} triplets "
+        f"({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    hot, X, rem = glove._split_head(x4, GLOVE_AUTO_HOT, np.float32)
+    head = glove._stage_head(X, hot, torch.bfloat16, GLOVE_KW["batch_size"],
+                             device)
+    del X
+    tail = glove._stage_tail(rem, GLOVE_KW["batch_size"], torch.float32,
+                             device)
+    torch.cuda.synchronize()
+    log(f"  staged: head H={head.ids.shape[0]} ({x4.nnz - rem.nnz} triplets, "
+        f"{head.nt} x {head.nt} tiles of {head.side}), tail {rem.nnz} "
+        f"triplets in {tail.rows.shape[0]} shards "
+        f"({time.perf_counter() - t0:.2f} s)")
+    state0 = rt.GloVe(**GLOVE_KW, device=device)._init_state(n)
+    log("phase 8 (a): K10 / K11 against their plain versions (config #4)")
+    check_glove_kernels(head, tail, state0, "config #4", results, rep=True)
+    del state0
+
+    log("phase 8 (b): GloVe on ML-100k and the quick shape against the JAX "
+        "package's cost history")
+    for what, make in (
+            ("ml100k", lambda: ml100k_cooccurrence(rt.load_movielens100k())),
+            ("quick", lambda: synth_glove(**GLOVE_QUICK))):
+        x = make()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = rt.GloVe(**GLOVE_KW, device=device)
+        emb = m.fit_transform(x, n_iter=3)
+        wall = time.perf_counter() - t0
+        info = m.stage_info
+        names = (("glove_dense",) if info["tiles"] else ()) + (
+            ("glove",) if info["shards"] else ())
+        launches.append(check_launched(_kernels, f"GloVe {what}", names))
+        ref = REF_GLOVE[what]
+        rels = [abs(a / b - 1) for a, b in zip(m.cost_history, ref)]
+        log(f"  GloVe {what}: {x.nnz} triplets, H={info['head_tokens']} "
+            f"({info['tiles']} tiles), {info['shards']} shards; cost history "
+            f"{[round(c, 6) for c in m.cost_history]} (JAX on the CPU "
+            f"{[round(c, 6) for c in ref]}, largest relative distance "
+            f"{max(rels):.2e}); wall {wall:.2f} s")
+        require(bool(torch.isfinite(emb).all()), f"GloVe {what}: non-finite")
+        require(len(rels) == 3 and max(rels) <= GLOVE_REL,
+                f"GloVe {what}: cost history off the JAX package's by more "
+                f"than {GLOVE_REL}")
+
+    log("phase 8 (c): config #4 at full width through GloVe.fit_transform")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30  # (a)'s staged head, tail
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = rt.GloVe(**GLOVE_KW, device=device)
+    emb = m.fit_transform(x4, n_iter=3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 - base
+    launches.append(check_launched(_kernels, "config #4 GloVe",
+                                   ("glove", "glove_dense")))
+    info = m.stage_info
+    hist = m.cost_history
+    best = min(info["epoch_s"])
+    log(f"  config #4 GloVe rank 128: fit_transform(n_iter=3) {wall:.3f} s = "
+        f"split {info['split_s']:.3f} s + head staging {info['head_s']:.3f} "
+        f"s + tail staging {info['tail_s']:.3f} s + epochs "
+        f"{[round(e, 4) for e in info['epoch_s']]} s; "
+        f"{x4.nnz / best:.0f} triplets/s (best epoch); loss/nnz "
+        f"{[round(c, 6) for c in hist]}; peak device memory {peak:.2f} GiB "
+        f"(above the {base:.2f} GiB that (a) holds)")
+    require(bool(torch.isfinite(emb).all()) and all(np.isfinite(hist))
+            and hist[0] > hist[1] > hist[2],
+            "config #4 GloVe: loss not finite and decreasing")
+    # one more epoch, timed by part, on a copy of the fitted state
+    st = glove.GloveState(*(t.clone() for t in m._state))
+    hp = (GLOVE_KW["x_max"], 0.75, GLOVE_KW["learning_rate"])
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    glove._glove_dense_step(st, head, *hp, torch.bfloat16)
+    ev[1].record()
+    glove._glove_epoch(st, tail, *hp)
+    ev[2].record()
+    torch.cuda.synchronize()
+    h_ms, t_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    log(f"  config #4 epoch by part (device time): head {h_ms:.2f} ms "
+        f"({head.nt ** 2} tiles, {h_ms / head.nt ** 2:.3f} ms a tile), tail "
+        f"{t_ms:.2f} ms ({tail.rows.shape[0]} shards, "
+        f"{t_ms / tail.rows.shape[0]:.3f} ms a shard)")
+    del st
+    check_glove_kernels(head, tail, m._state, "fitted config #4", results)
+
+
 # -----------------------------------------------------------------------------
 
 KERNELS = {
@@ -1857,6 +2210,10 @@ KERNELS = {
     "fm": ("rsparse_tpu_torch/csrc/fm.cu", "rsparse_tpu/models/fm.py:39"),
     "rankmf": ("rsparse_tpu_torch/csrc/rankmf.cu",
                "rsparse_tpu/models/rankmf.py:202"),
+    "glove": ("rsparse_tpu_torch/csrc/glove.cu",
+              "rsparse_tpu/models/glove.py:50, rsparse_tpu/models/glove.py:109"),
+    "glove_dense": ("rsparse_tpu_torch/csrc/glove_dense.cu",
+                    "rsparse_tpu/models/glove.py:206"),
 }
 
 
@@ -1937,7 +2294,11 @@ def main(phases) -> int:
         log("phase 7 (c): full width (hashed FTRL / FM; config #5 RankMF and"
             " FM)")
         run_sgd_full_width(device, results, launches)
-    if phases != set(range(1, 8)):
+    if 8 in phases:
+        log("phase 8: GloVe (config #4: vocabulary 50,000, rank 128, bf16 "
+            "head)")
+        run_glove(device, results, launches)
+    if phases != set(range(1, 9)):
         log(f"phases {sorted(phases)} passed (a subset: no result line)")
         return 0
 
@@ -1961,7 +2322,7 @@ def main(phases) -> int:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (1 always runs)")
     want = {1} | {int(p) for p in ap.parse_args().phases.split(",") if p}
     try:

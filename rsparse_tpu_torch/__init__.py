@@ -4,8 +4,8 @@ It covers single-device WRMF (implicit and explicit feedback, the CG,
 Cholesky and NNLS solvers, user/item and global biases, dynamic lambda and
 the dense zipf head), the low-rank family (soft_svd / soft_impute,
 PureSVD, LinearFlow, ScaleNormalize, SparsePlusLowRank input, kmeans),
-with fitting, ``transform`` and masked top-k ``predict``, and the SGD
-models FTRL, FactorizationMachine and RankMF.  Its nine kernels
+with fitting, ``transform`` and masked top-k ``predict``, the SGD models
+FTRL, FactorizationMachine and RankMF, and GloVe.  Its eleven kernels
 are hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built with ``nvcc``
 at first use; on CPU tensors every wrapper runs its plain PyTorch version.
 Entry points run on "cuda" unless given ``device="cpu"``.
@@ -26,6 +26,7 @@ from .data.movielens import load_movielens100k  # noqa: E402,F401
 from .models.base import MatrixFactorizationRecommender, TopK  # noqa: E402,F401,E501
 from .models.fm import FactorizationMachine  # noqa: E402,F401
 from .models.ftrl import FTRL  # noqa: E402,F401
+from .models.glove import GloVe  # noqa: E402,F401
 from .models.kmeans import kmeans  # noqa: E402,F401
 from .models.linear_flow import LinearFlow  # noqa: E402,F401
 from .models.pure_svd import PureSVD  # noqa: E402,F401

@@ -15,7 +15,8 @@ on machines without ``nvcc``.
 
 ``launches`` counts the launches of each kernel; the wrappers in
 ``ops/als.py``, ``ops/topk.py``, ``ops/spmm.py``, ``models/ftrl.py``,
-``models/fm.py`` and ``models/rankmf.py`` add one where they launch.
+``models/fm.py``, ``models/rankmf.py`` and ``models/glove.py`` add one
+where they launch.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ MAX_D = 160
 #: launches per kernel, counted by the wrappers
 launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "als_nnls": 0,
                             "topk": 0, "spmm": 0, "spmm_residual": 0,
-                            "ftrl": 0, "fm": 0, "rankmf": 0}
+                            "ftrl": 0, "fm": 0, "rankmf": 0, "glove": 0,
+                            "glove_dense": 0}
 #: what the last build did: {"seconds": ..., "log": ..., "path": ...}
 build_info: Dict[str, object] = {}
 
@@ -193,6 +195,21 @@ def lib() -> ctypes.CDLL:
     so.rsp_fm_block.restype = i
     so.rsp_rankmf_batch.argtypes = [ctypes.POINTER(RankMFArgs), p]
     so.rsp_rankmf_batch.restype = i
+    # rows, cols, vals, slot_r, slot_c, feats_r, feats_c, N, U_r, U_c, r,
+    # w_i, w_j, b_i, b_j, acc_w_i, acc_w_j, acc_b_i, acc_b_j, x_max, alpha,
+    # lr, sums, stream
+    so.rsp_glove_shard.argtypes = [p] * 7 + [i] * 4 + [p] * 8 + [f] * 3 + [
+        p, p]
+    so.rsp_glove_shard.restype = i
+    ll = ctypes.c_longlong
+    # n_r, n_c, r -> floats of scratch
+    so.rsp_glove_tile_scratch.argtypes = [i, i, i]
+    so.rsp_glove_tile_scratch.restype = ll
+    # rows, cols, n_r, n_c, X, row stride, col stride, bf16, the 8 tables,
+    # r, x_max, alpha, lr, scratch, loss, stream
+    so.rsp_glove_tile.argtypes = [p, p, i, i, p, ll, ll, i] + [p] * 8 + [
+        i, f, f, f, p, p, p]
+    so.rsp_glove_tile.restype = i
     return so
 
 

@@ -16,7 +16,11 @@ and ``get_similar_items`` then compute what the reference's do:
 - :func:`fm_from_numpy`: FactorizationMachine from ``m.w0``, ``m.acc_w0``,
   ``m.w``, ``m.v``, ``m.acc_w`` and ``m.acc_v``;
 - :func:`rankmf_from_numpy`: RankMF from ``m.user_features_embeddings``,
-  ``m.item_features_embeddings``, ``m._accW`` and ``m._accH``.
+  ``m.item_features_embeddings``, ``m._accW`` and ``m._accH``;
+- :func:`glove_from_numpy`: GloVe from the embeddings ``fit_transform``
+  returned, ``m.components.T``, ``m.bias_i`` and ``m.bias_j``;
+  :func:`glove_state_from_numpy` the port's ``GloveState`` from the
+  reference's (``m._state``, 8 arrays).
 
 Nothing of the reference is imported.
 """
@@ -31,6 +35,7 @@ import torch
 from .config import resolve_dtype
 from .models.fm import FactorizationMachine
 from .models.ftrl import FTRL
+from .models.glove import GloVe, GloveState
 from .models.linear_flow import LinearFlow
 from .models.pure_svd import PureSVD
 from .models.rankmf import RankMF
@@ -182,4 +187,38 @@ def rankmf_from_numpy(user_emb: np.ndarray, item_emb: np.ndarray,
     m._item_features = (None if item_features is None
                         else sp.csr_matrix(item_features))
     m.item_ids = item_ids
+    return m
+
+
+def glove_state_from_numpy(state: Sequence, precision: str = "float32",
+                           device="cuda") -> GloveState:
+    """The port's :class:`GloveState` on ``device`` from the reference's
+    (8 arrays in its field order: w_i, w_j, b_i, b_j and their
+    accumulators)."""
+    if len(state) != len(GloveState._fields):
+        raise ValueError(f"expected {len(GloveState._fields)} arrays "
+                         f"({', '.join(GloveState._fields)})")
+    dtype = resolve_dtype(precision)
+    return GloveState(*(torch.tensor(np.asarray(a), dtype=dtype,
+                                     device=device) for a in state))
+
+
+def glove_from_numpy(w_i: np.ndarray, w_j: np.ndarray, b_i: np.ndarray,
+                     b_j: np.ndarray, **glove_kwargs) -> GloVe:
+    """A fitted port GloVe from the reference model's (n, r) embeddings
+    ``w_i`` (what ``fit_transform`` returned) and context embeddings ``w_j``
+    (``m.components.T``), and its (n,) biases; ``glove_kwargs`` go to
+    :class:`GloVe` (pass its ``x_max`` and ``precision``); ``rank``
+    defaults to ``w_i.shape[1]``.  Sets ``components``, ``bias_i``,
+    ``bias_j`` and the state (accumulators at ones)."""
+    w_i, w_j = np.asarray(w_i), np.asarray(w_j)
+    n = w_i.shape[0]
+    if (w_i.ndim != 2 or w_j.shape != w_i.shape or np.shape(b_i) != (n,)
+            or np.shape(b_j) != (n,)):
+        raise ValueError("expected w_i, w_j (n, r) and b_i, b_j (n,)")
+    glove_kwargs.setdefault("rank", w_i.shape[1])
+    m = GloVe(**glove_kwargs)
+    ones = [np.ones_like(a) for a in (w_i, w_j, b_i, b_j)]
+    m._set_fitted(glove_state_from_numpy(
+        [w_i, w_j, b_i, b_j, *ones], m.dtype, m.device))
     return m

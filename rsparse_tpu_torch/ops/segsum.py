@@ -1,4 +1,4 @@
-"""Staging of the GLM row blocks that FTRL and the Factorization Machine run.
+"""Staging of the SGD models' blocks and their per-feature slot maps.
 
 Port of the FTRL/FM part of ``rsparse_tpu/ops/segsum.py``
 (``staged_blocks_with_layouts``, ``staged_label_gathers``).  The blocks are
@@ -19,7 +19,14 @@ the block's distinct feature ids, and ``slot``, each entry's index into
 ``feats``), the kernels add per-entry updates into zeroed per-slot sums
 with atomics while every row still reads the block-start tables, and a
 second launch adds the sums into the tables at ``feats`` (distinct ids, no
-race).  GloVe's use of the scheduled layout is not ported yet (ROADMAP.md).
+race).
+
+GloVe's scheduled tail epoch (``build_stacked_col_schedule``,
+``sched_reduce_chunks``, ``sched_apply_sums_multi`` over its stacked
+shards) goes the same way into K10 (``csrc/glove.cu``): each staged shard
+carries one slot map per side from :func:`shard_slot_maps`, built on the
+device at staging and again after every shuffle, since a shuffle changes
+what each shard holds.
 """
 
 from __future__ import annotations
@@ -69,6 +76,38 @@ def slot_map(col_idx: np.ndarray, nnz: np.ndarray):
     slot = np.full((B, L), len(feats), np.int32)
     slot[valid] = inv
     return feats.astype(np.int32), slot
+
+
+class ShardMaps(NamedTuple):
+    """Slot maps of stacked (S, N) shards on one side (tensors on one
+    device): shard s's distinct ids of its valid entries, sorted, are
+    ``feats[offs[s]:offs[s + 1]]``, and ``slot[s, e]`` is entry e's index
+    into them (their count at padding)."""
+
+    feats: torch.Tensor  # (sum of U_s,) int32
+    slot: torch.Tensor   # (S, N) int32
+    offs: Tuple[int, ...]
+
+    def shard(self, s: int):
+        """(feats, slot) of shard s."""
+        return self.feats[self.offs[s]:self.offs[s + 1]], self.slot[s]
+
+
+def shard_slot_maps(ids: torch.Tensor, valid: torch.Tensor) -> ShardMaps:
+    """:func:`slot_map` of every shard of ``ids`` (S, N) over its ``valid``
+    entries, from one ``torch.unique`` over (shard, id) keys on the ids'
+    device."""
+    S, N = ids.shape
+    shard = torch.arange(S, device=ids.device)[:, None].expand(S, N)
+    keys = (shard[valid] << 32) | ids[valid].long()
+    uniq, inv = torch.unique(keys, return_inverse=True)
+    counts = torch.bincount(uniq >> 32, minlength=S)
+    starts = torch.cumsum(counts, 0) - counts
+    slot = counts[:, None].expand(S, N).clone()
+    slot[valid] = inv - starts[keys >> 32]
+    offs = [0] + torch.cumsum(counts, 0).tolist()
+    return ShardMaps((uniq & 0xFFFFFFFF).to(torch.int32),
+                     slot.to(torch.int32), tuple(offs))
 
 
 def staged_glm_blocks(csr, dtype: torch.dtype,

@@ -121,7 +121,8 @@ def test_port_imports_no_jax():
             "rsparse_tpu_torch.ops.segsum, "
             "rsparse_tpu_torch.models.ftrl, "
             "rsparse_tpu_torch.models.fm, "
-            "rsparse_tpu_torch.models.rankmf; "
+            "rsparse_tpu_torch.models.rankmf, "
+            "rsparse_tpu_torch.models.glove, chip_smoke; "
             "assert 'jax' not in sys.modules; "
             "assert not any(m.startswith('rsparse_tpu.') or m == 'rsparse_tpu'"
             " for m in sys.modules)")

@@ -67,10 +67,28 @@ line:
    (pinned, 1e-3 relative); (c) config #4 (vocabulary 50,000, 4.97M
    triplets, head H = 23,170) through GloVe.fit_transform, 3 epochs: stage
    walls, triplets/s, the head / tail split of an epoch, peak memory, both
-   kernels re-checked on the fitted state.
+   kernels re-checked on the fitted state;
+9. reduced precision: (a) K1, K2 and K4 with a bf16 table and a bf16 head
+   at compute_dtype="bfloat16", a bf16 table and a uint8 head, a float32
+   table and a uint8 head, and a bf16 table at float32 compute, against
+   their plain versions (bf16 cells that round apart held by their float64
+   twin); K1's bf16 head term alone (rsp_hot_chain, the Pallas probe
+   scripts/exp_bisect3.py) at (64, 512, 128) and (2048, 4096, 128); K12 row
+   gather (the probes scripts/exp_gather*.py) at 2,097,152 rows from an
+   L2-resident and an HBM-resident table and as the transposed lane gather,
+   bitwise, beside torch.index_select; (b) ML-100k at compute_dtype=
+   "bfloat16", hot_dtype="uint8", both, and precision="bfloat16", each
+   within 0.005 of the JAX package's NDCG@10 / MAP@10, and explicit CG at
+   bf16 held to the RMSE gate; (c) the full-width implicit fit at the
+   reference's headline setting (compute_dtype="bfloat16", n_hot=4096),
+   with a uint8 head and at precision="bfloat16": user-updates/s, sweep
+   ms, peak memory, loss per nnz within 1% of the float32 fit's, the
+   kernels re-checked on each fit's heaviest buckets.
 
 The kernels' launch counters are reset right before each main-path run
-and must show every kernel of that path launched in it.  The
+and must show every kernel of that path launched in it; K1's head term
+alone and K12 are the counterparts of probes, which no model calls, so
+their counts come from their probe runs (the timed launches).  The
 second-to-last line is a JSON object describing the kernels (times, the
 bound from the card's peak rates, launches on the main paths); the last
 line is {"ok": true, "device": {...}}.  Without a CUDA device it exits
@@ -141,6 +159,46 @@ def fro_err(a, b) -> float:
                  / b.double().norm().clamp_min(1e-30))
 
 
+def hold_bf16(what, k, p, p64, lim) -> int:
+    """Hold a kernel's output ``k`` with bf16 rounding points to its plain
+    version ``p``: within ``lim`` (max norm, relative), or, where bf16
+    roundings went the other way under the other float32 summation order,
+    no further from the float64 twin ``p64`` (the same roundings) than
+    twice the plain version, in the Frobenius norm.  Returns the number of
+    cells off by more than ``lim``, which it prints."""
+    e = rel_err(k, p)
+    apart = int(((k.double() - p.double()).abs()
+                 > lim * p.double().abs().max()).sum())
+    if e <= lim:
+        return apart
+    fk, fp = fro_err(k, p64), fro_err(p, p64)
+    log(f"    {what}: {apart} of {k.numel()} cells round apart "
+        f"(max {e:.2e}); vs the float64 twin: kernel {fk:.2e}, plain "
+        f"{fp:.2e} (Frobenius)")
+    require(fk <= max(2 * fp, 1e-7), f"{what}: off its plain version by "
+            f"{e:.2e} and further from the float64 twin ({fk:.2e}) than "
+            f"twice the plain version ({fp:.2e})")
+    return apart
+
+
+def hold_loss_at_own_y(what, args, y, loss, hot_scale, lim=1e-5) -> None:
+    """Hold a kernel's per-row loss to the plain version's loss of the
+    kernel's own solution ``y`` (a CG solve of 0 steps from ``y``: the loss
+    code after the solve is the same for every solver).  With bf16
+    rounding the loss reads bf16(y), so two solutions a float32 ulp apart
+    can give losses 1e-4 apart; at the same y only the summation order
+    differs."""
+    from rsparse_tpu_torch.ops import als
+    a = list(args)
+    a[5] = y
+    a[8] = dataclasses.replace(args[8], solver=als.CONJUGATE_GRADIENT,
+                               cg_steps=0)
+    ref = als._solve_bucket_plain(*a, hot_scale=hot_scale)[1]
+    e = rel_err(loss, ref)
+    require(e <= lim, f"{what}: loss off the plain version's loss of the "
+            f"kernel's own solution by {e:.2e} (> {lim:.0e})")
+
+
 #: NVIDIA's data-sheet peaks of one H100 SXM: HBM bytes/s, f32 flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -165,10 +223,12 @@ def _touched(col, nnz) -> int:
     return int(torch.unique(col[live]).numel())
 
 
-def als_bound(args, sweeps=None):
+def als_bound(args, sweeps=None, hot_scale=None):
     """Bound of one ALS bucket solve (K1, K2, K4) from its inputs: bytes of
-    the source rows it touches, the entries, the Gram, the dense head, the
-    warm start and the outputs, each once; operations the function needs
+    the source rows it touches (at the table's width, 4 or 2 bytes), the
+    entries, the Gram, the dense head (at its storage width, with a uint8
+    head's scales), the warm start and the outputs, each once; operations
+    the function needs
     per row (n entries, d columns, a head of H columns, Hp of them present,
     s CG steps or sweeps), a symmetric d x d result counted at its
     d(d + 1)/2 distinct entries: CG (s + 1)(2d^2 + 4nd + 4Hd) + 4nd + 4Hd;
@@ -181,10 +241,12 @@ def als_bound(args, sweeps=None):
     n = b.nnz.double()
     H = 0 if W is None else W.shape[1]
     hp = (W != 0).sum(1).double() if W is not None else n * 0
-    nbytes = (_touched(b.col_idx, b.nnz) * d * 4 + float(n.sum()) * 8
-              + B * 8 + d * d * 4 + B * d * 8 + B * 4)
+    nbytes = (_touched(b.col_idx, b.nnz) * d * src.element_size()
+              + float(n.sum()) * 8 + B * 8 + d * d * 4 + B * d * 8 + B * 4)
     if W is not None:
-        nbytes += B * H * 4 + H * d * 4
+        nbytes += B * H * W.element_size() + H * d * Vh.element_size()
+    if hot_scale is not None:
+        nbytes += B * 4
     if hb is not None:
         nbytes += hb.numel()
     if cfg.solver == als.CONJUGATE_GRADIENT:
@@ -806,9 +868,18 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300) -> None:
     """Each kernel of a fitted model's path against its plain version at
     the shapes the fit gave it: per sweep, the buckets with the most padded
     entries (B x L), the most rows and the longest rows, staged as
-    fit_transform stages them, with the fitted factors as sources and warm
-    starts.  The error of each against the plain version at float64 is
-    printed beside.  K4 is held against its plain version at most
+    fit_transform stages them (with compute_dtype="bfloat16" from the bf16
+    shadow table), with the fitted factors as sources and warm starts.  The
+    error of each against the plain version at float64 (with the same bf16
+    roundings) is printed beside; a bf16 solve that is off its plain
+    version by more than the limit (a bf16 rounding sent the other way by
+    the other float32 order) passes when it is no further from the float64
+    twin than twice the plain version, in the Frobenius norm, and the y
+    cells off by more than the limit are counted.  The loss is held to the
+    plain version's loss of the kernel's own solution (1e-5): on rows of
+    tens of thousands of entries the solutions themselves differ by ~1e-5
+    in float32, which their losses carry.  K4 is held against its
+    plain version at most
     ``nnls_max_iter`` sweeps (the plain loop costs launches per coordinate
     step); then it runs alone with the fit's own budget, and the
     distribution of its sweeps is printed."""
@@ -839,10 +910,12 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300) -> None:
                 "K2 als_chol", als.NNLS: "K4 als_nnls"}[cfg.solver]
         src_act, xb, XtX, rhs_init = als._sweep_prepare(src, lam, g, cfg,
                                                         torch.float32)
+        src_act = als._gather_src(src_act, cfg, torch.float32)
+        rounds = als._rounds_bf16(cfg, torch.float32)
         _, tgt_sl = als._active_slices(cfg, src.shape[1])
         old_act = (torch.zeros((br.n_rows, src_act.shape[1]),
                                device=src.device) if old is None
-                   else old[:, tgt_sl])
+                   else old[:, tgt_sl].float())
         Vh = None if hot is None else src_act[hot.long()].contiguous()
         bs = br.buckets
         picks = sorted({max(range(len(bs)), key=key) for key in (
@@ -850,9 +923,9 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300) -> None:
             lambda i: bs[i].batch, lambda i: bs[i].pad_len)})
         for bi in picks:
             b = bs[bi]
-            W = bits = nnz_tot = None
+            W = bits = nnz_tot = scale = None
             if rows is not None:
-                W, bits, row_nnz = rows[bi]
+                W, bits, row_nnz, scale = rows[bi]
                 if cfg.feedback == "explicit" and cfg.dynamic_lambda:
                     nnz_tot = row_nnz
             ids = b.row_ids.clamp(max=old_act.shape[0] - 1).long()
@@ -860,26 +933,32 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300) -> None:
             args = (src_act, xb, XtX, rhs_init, b, x0, lam, g, cfg, W, Vh,
                     bits, nnz_tot)
             sw = None
-            kern = als._SOLVE[cfg.solver]
+            kern = functools.partial(als._SOLVE[cfg.solver], hot_scale=scale)
+            plain = functools.partial(als._solve_bucket_plain,
+                                      hot_scale=scale)
             if cfg.solver == als.NNLS:
                 sw = torch.zeros((b.batch,), dtype=torch.int32,
                                  device=src.device)
-                kern = functools.partial(als.solve_bucket_nnls, sweeps=sw)
+                kern = functools.partial(als.solve_bucket_nnls, sweeps=sw,
+                                         hot_scale=scale)
             yk, lk = kern(*args)
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
-            yp, lp = als._solve_bucket_plain(*args)
+            yp, lp = plain(*args)
             t1.record()
             d64 = lambda t: None if t is None else t.double()  # noqa: E731
             y64, l64 = als._solve_bucket_plain(
                 src_act.double(), d64(xb), d64(XtX), d64(rhs_init), b,
-                x0.double(), lam, g, cfg, d64(W), d64(Vh), bits, nnz_tot)
+                x0.double(), lam, g, cfg,
+                W if W is None or W.dtype == torch.uint8 else W.double(),
+                d64(Vh), bits, nnz_tot, hot_scale=d64(scale),
+                rounding=rounds)
             torch.cuda.synchronize()
             ey, el = rel_err(yk, yp), rel_err(lk, lp)
             ms = time_ms(lambda: kern(*args), reps=3)
             pms = (t0.elapsed_time(t1) if sw is not None else
-                   time_ms(lambda: als._solve_bucket_plain(*args), reps=3))
+                   time_ms(lambda: plain(*args), reps=3))
             tag = (f"{sweep} {cfg.feedback[:3]} B={b.batch} L={b.pad_len} "
                    f"d={src_act.shape[1]} H={0 if W is None else W.shape[1]}")
             extra = ("" if sw is None else
@@ -896,11 +975,12 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300) -> None:
             # kernel may differ from it by twice that error
             lim = (max(1e-3, 2 * rel_err(yp, y64)) if sw is not None
                    else 1e-4)
-            require(ey <= lim, f"{name} {tag}: y disagrees with its plain "
-                    f"version ({ey:.2e} > {lim:.2e})")
-            require(cfg.solver != als.CONJUGATE_GRADIENT or el <= 1e-5,
-                    f"{name} {tag}: loss disagrees with its plain version "
-                    f"({el:.2e})")
+            if rounds:
+                hold_bf16(f"{name} {tag}", yk, yp, y64, lim)
+            else:
+                require(ey <= lim, f"{name} {tag}: y disagrees with its "
+                        f"plain version ({ey:.2e} > {lim:.2e})")
+            hold_loss_at_own_y(f"{name} {tag}", args, yk, lk, scale)
             r = results[name.split()[1]]
             r["max_abs_err"] = max(r["max_abs_err"],
                                    float((yk - yp).abs().max()))
@@ -909,7 +989,7 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300) -> None:
                 # the fit's own budget: the sweeps K4 really runs
                 t0.record()
                 yk, _ = als.solve_bucket_nnls(*args[:8], fit_cfg, *args[9:],
-                                              sweeps=sw)
+                                              sweeps=sw, hot_scale=scale)
                 t1.record()
                 torch.cuda.synchronize()
                 log(f"  {name:11s} {tag:50s} budget {fit_cfg.nnls_max_iter}:"
@@ -948,6 +1028,7 @@ def _fit_full_width(device, x, what, names, launches, n_iter=2, **kw):
     from rsparse_tpu_torch import _kernels
     _kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
     m = rt.WRMF(rank=128, seed=0, device=device, **kw)
     t0 = time.perf_counter()
     emb = m.fit_transform(x, n_iter=n_iter, convergence_tol=-1)
@@ -963,7 +1044,8 @@ def _fit_full_width(device, x, what, names, launches, n_iter=2, **kw):
         + "; per sweep: " + ", ".join(
             f"{r['phase']}#{r['iter']} {r['wall_s'] * 1e3:.2f} ms"
             for r in m.fit_trace))
-    log(f"  loss {m.loss_history}; peak device memory {peak:.2f} GiB")
+    log(f"  loss {m.loss_history}; peak device memory {peak:.2f} GiB "
+        f"({peak - held:.2f} GiB above the {held:.2f} GiB held before)")
     require(tuple(emb.shape) == (x.shape[0], m._R), f"{what}: emb shape")
     require(bool(torch.isfinite(emb).all()), f"{what}: non-finite emb")
     require(np.isfinite(m.components).all(), f"{what}: non-finite items")
@@ -2192,6 +2274,452 @@ def run_glove(device, results, launches) -> None:
     check_glove_kernels(head, tail, m._state, "fitted config #4", results)
 
 
+# -- phase 9: reduced precision ------------------------------------------------
+
+#: the JAX package's ML-100k quality at each reduced-precision setting of
+#: WRMF (rsparse_tpu on the CPU, bench.py:440's gate setup: rank 10,
+#: lambda 1, CG, seed 0, 80/20 split, n_iter=10, n_hot="auto"; held by
+#: tests/test_torch_wrmf_lowp_ref.py):
+#: setting -> (WRMF arguments, (NDCG@10, MAP@10))
+REF_LOWP = {
+    "compute_dtype=bfloat16": (dict(compute_dtype="bfloat16"),
+                               (0.3469, 0.4120)),
+    "hot_dtype=uint8": (dict(hot_dtype="uint8"), (0.3469, 0.4120)),
+    "bfloat16 + uint8": (dict(compute_dtype="bfloat16", hot_dtype="uint8"),
+                         (0.3469, 0.4121)),
+    "precision=bfloat16": (dict(precision="bfloat16"), (0.3465, 0.4117)),
+}
+LOWP_QUALITY_TOL = 0.005
+
+#: the kernel variants of phase 9 (a): (tag, table bf16, head storage,
+#: compute_dtype); uint8 heads are implicit-only (the reference's rule)
+LOWP_VARIANTS = (("bf16 table, bf16 head, bf16 compute", True, "bf16",
+                  "bfloat16"),
+                 ("bf16 table, f32 head, bf16 compute", True, "f32",
+                  "bfloat16"),
+                 ("bf16 table, uint8 head, bf16 compute", True, "uint8",
+                  "bfloat16"),
+                 ("f32 table, uint8 head, f32 compute", False, "uint8",
+                  "float32"),
+                 ("bf16 table, f32 head, f32 compute", True, "f32",
+                  "float32"))
+
+
+def _quantise_rows(W):
+    """A dense head as split_hot_cold(w_dtype=uint8) stores it: codes
+    clip(rint(w / s), 1, 255) where present, s = rowmax / 255."""
+    import torch
+    wmax = W.max(1).values
+    s = torch.where(wmax > 0, wmax / 255.0, torch.ones_like(wmax))
+    codes = torch.where(W > 0, torch.clamp(torch.round(W / s[:, None]), 1,
+                                            255), torch.zeros_like(W))
+    return codes.to(torch.uint8).contiguous(), s.contiguous()
+
+
+def _lowp_case(args, table_bf16, head, compute):
+    """Phase 2's bucket case at one precision variant: the table (and the
+    head's rows) at bf16 where the model would hold them so, the head
+    stored as bf16 or uint8 codes with their scales."""
+    import torch
+    from rsparse_tpu_torch.ops import als
+    src, xb, XtX, rhs_init, b, x0, lam, g, cfg, W, Vh, hb, nt = args
+    cfg = dataclasses.replace(cfg, compute_dtype=compute)
+    scale = None
+    if table_bf16:
+        src = src.to(torch.bfloat16)
+        if compute == "float32":
+            # a precision="bfloat16" model: the Gram of its bf16 factors
+            XtX = als._sweep_prepare(src, lam, g, cfg, torch.float32)[2]
+        Vh = None if Vh is None else Vh.to(torch.bfloat16)
+    if W is not None:
+        if head == "bf16":
+            W = W.to(torch.bfloat16)
+        elif head == "uint8":
+            W, scale = _quantise_rows(W)
+    return (src, xb, XtX, rhs_init, b, x0, lam, g, cfg, W, Vh, hb, nt), scale
+
+
+def check_lowp_kernels(device, results) -> None:
+    """K1, K2 and K4 on phase 2's synthetic cases, implicit and explicit
+    (presence bits with stored zero ratings, source biases), at each
+    variant of LOWP_VARIANTS that the case admits, against their plain
+    versions (y 1e-4, K4 y 1e-3, bf16 cells that round apart by hold_bf16;
+    the loss 1e-5 against the plain loss of the kernel's own y), with their
+    times and bounds."""
+    import torch
+    from rsparse_tpu_torch.ops import als
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    chol, nnls = als.CHOLESKY, als.NNLS
+    base = (("K1 als_cg", dict(B=2048, L=128, d=128, H=1024)),
+            ("K1 als_cg", dict(B=2048, L=128, d=128, H=1024, ugb=True)),
+            ("K1 als_cg", dict(B=2048, L=128, d=128, H=1024, explicit=True,
+                               bits=True)),
+            ("K1 als_cg", dict(B=2048, L=128, d=129, H=0, explicit=True,
+                               biases=True)),
+            ("K2 als_chol", dict(B=2048, L=128, d=128, H=1024, solver=chol)),
+            ("K2 als_chol", dict(B=2048, L=128, d=128, H=1024, explicit=True,
+                                 bits=True, solver=chol)),
+            ("K4 als_nnls", dict(B=2048, L=128, d=64, H=1024, solver=nnls)),
+            ("K4 als_nnls", dict(B=2048, L=128, d=64, H=1024, explicit=True,
+                                 bits=True, solver=nnls)))
+    for name, kw in base:
+        kw = dict(kw)
+        B, L, d, H = kw.pop("B"), kw.pop("L"), kw.pop("d"), kw.pop("H")
+        args32 = _bucket_case(gen, device, B, L, d, H, **kw)
+        seen = set()
+        for vtag, tbf16, head, compute in LOWP_VARIANTS:
+            key = (tbf16, head if H else None, compute)
+            if key in seen or (head == "uint8" and H and
+                               args32[8].feedback == "explicit"):
+                continue
+            seen.add(key)
+            args, scale = _lowp_case(args32, tbf16, head, compute)
+            cfg, b = args[8], args[4]
+            rounds = als._rounds_bf16(cfg, torch.float32)
+            tag = (f"{cfg.feedback[:3]} B={b.batch} L={b.pad_len} "
+                   f"d={args[0].shape[1]} H={H}"
+                   + (" bias" if cfg.with_biases else "")
+                   + (" bits" if args[11] is not None else "")
+                   + (" gb" if cfg.use_global_bias else "")
+                   + (f" {vtag}" if H else f" {vtag.split(', ')[0]}, "
+                      f"{'bf16' if compute == 'bfloat16' else 'f32'} "
+                      "compute"))
+            sw = None
+            if cfg.solver == als.NNLS:
+                sw = torch.zeros((b.batch,), dtype=torch.int32,
+                                 device=device)
+                kern = functools.partial(als.solve_bucket_nnls, sweeps=sw,
+                                         hot_scale=scale)
+            else:
+                kern = functools.partial(als._SOLVE[cfg.solver],
+                                         hot_scale=scale)
+            plain = functools.partial(als._solve_bucket_plain,
+                                      hot_scale=scale)
+            yk, lk = kern(*args)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            yp, lp = plain(*args)
+            t1.record()
+            src, xb, XtX, rhs_init, b, x0, lam, g, _, W, Vh, hb, nt = args
+            d64 = lambda t: None if t is None else t.double()  # noqa: E731
+            y64, l64 = als._solve_bucket_plain(
+                src.double(), d64(xb), d64(XtX), d64(rhs_init), b,
+                x0.double(), lam, g, cfg,
+                W if W is None or W.dtype == torch.uint8 else W.double(),
+                d64(Vh), hb, nt, hot_scale=d64(scale), rounding=rounds)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(yk).all() and torch.isfinite(lk)
+                         .all()), f"{name} {tag}: non-finite output")
+            lim_y = 1e-3 if sw is not None else 1e-4
+            apart = hold_bf16(f"{name} {tag}", yk, yp, y64, lim_y)
+            hold_loss_at_own_y(f"{name} {tag}", args, yk, lk, scale)
+            ms = time_ms(lambda: kern(*args))
+            pms = (t0.elapsed_time(t1) if sw is not None
+                   else time_ms(lambda: plain(*args)))
+            bms, bby = als_bound(args, sw, scale)
+            extra = "" if sw is None else " " + sweep_summary(sw)
+            log(f"  {name:11s} {tag:78s} y_rel={rel_err(yk, yp):.2e} "
+                f"loss_rel={rel_err(lk, lp):.2e} apart={apart} "
+                f"kernel={ms:.3f} ms plain={pms:.3f} ms bound={bms:.4f} ms "
+                f"({bby}){extra}")
+            r = results[name.split()[1]]
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   float((yk - yp).abs().max()))
+            del yk, lk, yp, lp, y64, l64
+
+
+def hot_chain_bound(W, d, present, mode):
+    """Bound of K1's head term alone: W at its width (+ scales), Vh in bf16,
+    p (matvec) and the output once; 4 d operations per present entry for
+    the matvec term (two products), 2 d for the rhs term, at the bf16
+    tensor-core rate (bf16 operands, float32 sums)."""
+    B, H = W.shape
+    nbytes = (B * H * W.element_size() + (B * 4 if W.element_size() == 1
+                                          else 0) + H * d * 2 + B * d * 4
+              + (B * d * 4 if mode == "matvec" else 0))
+    fl = (4 if mode == "matvec" else 2) * d * present
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = fl / BF16_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def check_hot_chain(device, results, launches) -> None:
+    """rsp_hot_chain (K1's bf16 head term) against the plain chain ka -> kd
+    of scripts/exp_bisect3.py at P3's shape (64, 512, 128) and at the full
+    width (2048, 4096, 128), W about 10% present, bf16 and uint8; then its
+    probe run (the timing launches, counted)."""
+    import torch
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.ops import als
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    probes = []
+    for B, H, d in ((64, 512, 128), (2048, 4096, 128)):
+        w = ((torch.rand((B, H), generator=gen, device=device) > 0.9)
+             * (1 + torch.rand((B, H), generator=gen, device=device)))
+        Vh = (torch.randn((H, d), generator=gen, device=device) * 0.1
+              ).to(torch.bfloat16)
+        P = torch.randn((B, d), generator=gen, device=device)
+        present = int((w > 0).sum())
+        for kind in ("bf16", "uint8"):
+            if kind == "uint8":
+                W, scale = _quantise_rows(w)
+            else:
+                W, scale = w.to(torch.bfloat16).contiguous(), None
+            for mode in ("matvec", "rhs"):
+                kw = dict(p=P) if mode == "matvec" else dict(g=0.3)
+                yk = als.hot_chain(W, Vh, scale=scale, **kw)
+                yp = als._hot_chain_plain(W, Vh, scale=scale, **kw)
+                y64 = als._hot_chain_plain(W, Vh, scale=scale,
+                                           sdt=torch.float64, **kw)
+                torch.cuda.synchronize()
+                tag = f"{mode} B={B} H={H} d={d} {kind}"
+                apart = hold_bf16(f"hot_chain {tag}", yk, yp, y64, 1e-5)
+                probes.append((tag, lambda W=W, Vh=Vh, scale=scale, kw=kw:
+                               als.hot_chain(W, Vh, scale=scale, **kw),
+                               lambda W=W, Vh=Vh, scale=scale, kw=kw:
+                               als._hot_chain_plain(W, Vh, scale=scale,
+                                                    **kw),
+                               hot_chain_bound(W, d, present, mode), apart,
+                               rel_err(yk, yp)))
+                results["hot_chain"]["max_abs_err"] = max(
+                    results["hot_chain"]["max_abs_err"],
+                    float((yk - yp).abs().max()))
+    _kernels.reset_launch_counts()
+    timed = [(tag, time_ms(k), bnd, apart, e)
+             for tag, k, _, bnd, apart, e in probes]
+    torch.cuda.synchronize()
+    launches.append(check_launched(_kernels, "hot_chain probe run",
+                                   ("hot_chain",)))
+    for (tag, ms, (bms, bby), apart, e), (_, _, p, _, _, _) in zip(timed,
+                                                                   probes):
+        pms = time_ms(p)
+        log(f"  hot_chain   {tag:36s} y_rel={e:.2e} apart={apart} "
+            f"kernel={ms:.4f} ms plain={pms:.4f} ms bound={bms:.5f} ms "
+            f"({bby})")
+        if tag == "matvec B=2048 H=4096 d=128 bf16":
+            results["hot_chain"].update(ms=ms, plain_ms=pms, shape=tag,
+                                        bound_ms=bms, bound_by=bby,
+                                        library_ms=None)
+
+
+#: K12's probe: P1's gather count and table rows (scripts/exp_gather.py),
+#: and the rows of a table that does not fit the 50 MB L2 (1 GiB in bf16)
+GATHER_N = 2_097_152
+GATHER_ROWS = (32_768, 4_194_304)
+
+
+def check_gather(device, results, launches) -> None:
+    """K12 at P1's shape (2,097,152 indices, d = 128), f32 and bf16: from an
+    L2-resident table (32,768 rows, P1's), from an HBM-resident one
+    (4,194,304 rows) and as P2's lane gather (the transposed table and
+    output as strided views); bitwise against table[idx], timed beside the
+    plain version and torch.index_select, with rows/s, GB/s and the
+    bound."""
+    import torch
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.ops import gather
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    n, d = GATHER_N, 128
+    runs = []
+    for dt in (torch.bfloat16, torch.float32):
+        for how, rows in (("L2", GATHER_ROWS[0]), ("HBM", GATHER_ROWS[1]),
+                          ("lanes", GATHER_ROWS[0])):
+            table = torch.randn((rows, d), generator=gen, device=device
+                                ).to(dt)
+            idx = torch.randint(0, rows, (n,), generator=gen, device=device,
+                                dtype=torch.int32)
+            if how == "lanes":
+                tabT = table.T.contiguous()          # (d, rows)
+                outT = torch.empty((d, n), dtype=dt, device=device)
+                call = (lambda tabT=tabT, idx=idx, outT=outT:
+                        gather.gather_rows(tabT.T, idx, out=outT.T))
+                plain = lambda tabT=tabT, idx=idx: tabT[:, idx.long()]  # noqa: E731
+                lib = (lambda tabT=tabT, idx=idx:
+                       torch.index_select(tabT, 1, idx))
+                got = lambda outT=outT: outT  # noqa: E731
+            else:
+                out = torch.empty((n, d), dtype=dt, device=device)
+                call = (lambda table=table, idx=idx, out=out:
+                        gather.gather_rows(table, idx, out=out))
+                plain = lambda table=table, idx=idx: table[idx.long()]  # noqa: E731
+                lib = (lambda table=table, idx=idx:
+                       torch.index_select(table, 0, idx))
+                got = lambda out=out: out  # noqa: E731
+            call()
+            same = torch.equal(got(), plain())
+            torch.cuda.synchronize()
+            tag = f"{how} {str(dt).split('.')[1]} table {rows}x{d}"
+            require(same, f"K12 gather {tag}: differs from table[idx]")
+            es = table.element_size()
+            touched = int(torch.unique(idx).numel())
+            nbytes = touched * d * es + n * 4 + n * d * es
+            moved = 2 * n * d * es + n * 4      # each gathered row read once
+            runs.append((tag, call, plain, lib, moved,
+                         bound(nbytes, 0)[0], (table, idx)))
+    _kernels.reset_launch_counts()
+    timed = [time_ms(r[1]) for r in runs]
+    torch.cuda.synchronize()
+    launches.append(check_launched(_kernels, "K12 gather probe run",
+                                   ("gather",)))
+    for (tag, _, plain, lib, moved, bms, _), ms in zip(runs, timed):
+        pms, lms = time_ms(plain), time_ms(lib)
+        log(f"  K12 gather  {tag:32s} bitwise_equal=True kernel={ms:.4f} ms "
+            f"({n / ms / 1e6:.1f}G rows/s, {moved / ms / 1e6:.0f} GB/s "
+            f"read + written) plain={pms:.4f} ms index_select={lms:.4f} ms "
+            f"bound={bms:.4f} ms (bytes)")
+        if tag.startswith("L2 bfloat16"):
+            results["gather"].update(ms=ms, plain_ms=pms, library_ms=lms,
+                                     shape=f"P1: n={n} from {tag}",
+                                     bound_ms=bms, bound_by="bytes")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def run_ml100k_lowp(device, results, launches) -> None:
+    """The four reduced-precision settings of REF_LOWP on ML-100k through
+    fit_transform -> transform -> predict, each within LOWP_QUALITY_TOL of
+    the JAX package's NDCG@10 / MAP@10 and above the gate; then explicit CG
+    with compute_dtype="bfloat16" and a 16-column head, held to phase 3's
+    explicit RMSE gate, and implicit NNLS with compute_dtype="bfloat16" and
+    a 16-column uint8 head, held to non-negative factors; both re-check
+    their kernels on the buckets the fit staged (check_staged_buckets)."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    x = rt.load_movielens100k()
+    train, test = rt.train_test_split(x, 0.2, np.random.default_rng(0))
+    for what, (kw, ref) in REF_LOWP.items():
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = rt.WRMF(rank=10, lambda_=1.0, feedback="implicit",
+                    solver="conjugate_gradient", seed=0, device=device, **kw)
+        emb = m.fit_transform(train, n_iter=10)
+        emb2 = m.transform(train)
+        preds = m.predict(train, k=10, not_recommend=train)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches.append(check_launched(_kernels, f"ML-100k {what}",
+                                       ("als_cg", "als_chol", "topk")))
+        ndcg = float(np.nanmean(rt.ndcg_k(preds.indices, test)))
+        mapk = float(np.nanmean(rt.ap_k(preds.indices, test)))
+        diff = rel_err(emb2, emb)
+        log(f"  {what:24s} NDCG@10={ndcg:.4f} MAP@10={mapk:.4f} (JAX "
+            f"{ref[0]:.4f} / {ref[1]:.4f}) iters={len(m.loss_history)} "
+            f"loss={m.loss_history[-1]:.5f} |fit_transform-transform|/max="
+            f"{diff:.2e} emb {emb.dtype} stages={m.stage_info} "
+            f"wall={wall:.2f} s")
+        require(ndcg > 0.31 and mapk > 0.37,
+                f"ML-100k {what}: quality gate failed")
+        require(abs(ndcg - ref[0]) <= LOWP_QUALITY_TOL
+                and abs(mapk - ref[1]) <= LOWP_QUALITY_TOL,
+                f"ML-100k {what}: off the JAX package's quality by more "
+                f"than {LOWP_QUALITY_TOL}")
+        require(diff <= 1e-5, f"ML-100k {what}: fit_transform != transform")
+        check_predictions(preds.indices, 10, train.shape[1], train,
+                          f"ML-100k {what}")
+    full = sp.csr_matrix(x)
+    tr, te = rt.train_test_split(full, 0.8, np.random.default_rng(7))
+    te = te.tocoo()
+    mean = tr.data.mean()
+    trc = tr.copy()
+    trc.data = trc.data - mean
+    _kernels.reset_launch_counts()
+    m = rt.WRMF(rank=10, lambda_=0.3, feedback="explicit",
+                solver="conjugate_gradient", compute_dtype="bfloat16",
+                n_hot=16, seed=0, device=device)
+    emb = m.fit_transform(trc, n_iter=30)
+    emb2 = m.transform(trc)
+    torch.cuda.synchronize()
+    launches.append(check_launched(_kernels, "ML-100k explicit bf16 CG",
+                                   ("als_cg", "als_chol")))
+    scores = emb.double().cpu().numpy() @ m.components + mean
+    rmse = float(np.sqrt(np.mean((scores[te.row, te.col] - te.data) ** 2)))
+    base = float(np.sqrt(np.mean((te.data - mean) ** 2)))
+    diff = rel_err(emb2, emb)
+    log(f"  explicit CG bf16, n_hot=16: RMSE={rmse:.4f} (global mean "
+        f"{base:.4f}) iters={len(m.loss_history)} |fit_transform-transform|"
+        f"/max={diff:.2e} stages={m.stage_info}")
+    require(rmse < 1.05 and rmse < base,
+            "ML-100k explicit bf16: RMSE gate failed")
+    require(diff <= 1e-5, "ML-100k explicit bf16: fit_transform != transform")
+    check_staged_buckets(m, trc, results)
+
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = rt.WRMF(rank=10, lambda_=1.0, feedback="implicit", solver="nnls",
+                compute_dtype="bfloat16", hot_dtype="uint8", n_hot=16,
+                seed=0, device=device)
+    m.fit_transform(train, n_iter=5)
+    emb = m.transform(train)
+    preds = m.predict(train, k=10, not_recommend=train)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.append(check_launched(_kernels, "ML-100k NNLS bf16 + uint8",
+                                   ("als_nnls", "topk")))
+    ndcg = float(np.nanmean(rt.ndcg_k(preds.indices, test)))
+    log(f"  NNLS bf16 + uint8, n_hot=16: NDCG@10={ndcg:.4f} min(transform)="
+        f"{float(emb.min()):.3e} min(components)={m.components.min():.3e} "
+        f"loss={m.loss_history} stages={m.stage_info} wall={wall:.2f} s")
+    require(bool(torch.isfinite(emb).all()), "ML-100k NNLS bf16: non-finite")
+    require(float(emb.min()) >= 0 and m.components.min() >= 0,
+            "ML-100k NNLS bf16: a negative factor")
+    check_predictions(preds.indices, 10, train.shape[1], train,
+                      "ML-100k NNLS bf16")
+    check_staged_buckets(m, train, results)
+
+
+#: the full-width reduced-precision fits of phase 9 (c)
+LOWP_FULL = (("headline: compute_dtype=bfloat16, n_hot=4096",
+              dict(compute_dtype="bfloat16", n_hot=4096)),
+             ("hot_dtype=uint8, n_hot=auto",
+              dict(hot_dtype="uint8", n_hot="auto")),
+             ("precision=bfloat16, n_hot=auto",
+              dict(precision="bfloat16", n_hot="auto")))
+
+
+def run_full_width_lowp(device, x, results, launches, f32_loss) -> None:
+    """The implicit main path at full width (rank 128, lambda 0.1, CG(3),
+    2 iterations + predict) at each LOWP_FULL setting: user-updates/s of
+    the best user sweep, each sweep's ms, the closing K2 half-sweep, peak
+    memory and launches; the loss per nnz within 1% of the float32 fit's
+    (``f32_loss``); each fit's heaviest buckets re-checked."""
+    import torch
+    from rsparse_tpu_torch import _kernels
+    q = x[:4096]
+    for what, kw in LOWP_FULL:
+        log(f"  {what}")
+        m, emb = _fit_full_width(device, x, f"full width {what}",
+                                 ("als_cg", "als_chol"), launches,
+                                 lambda_=0.1, feedback="implicit",
+                                 solver="conjugate_gradient", **kw)
+        t0 = time.perf_counter()
+        preds = m.predict(q, k=10, not_recommend=q)
+        torch.cuda.synchronize()
+        launches[-1] = check_launched(_kernels, f"full width {what} with "
+                                      "predict", ("als_cg", "als_chol",
+                                                  "topk"))
+        users = [r["wall_s"] for r in m.fit_trace if r["phase"] == "users"]
+        closing = [r["wall_s"] for r in m.fit_trace
+                   if r["phase"] == "transform"]
+        rel = max(abs(a / b - 1) for a, b in zip(m.loss_history, f32_loss))
+        log(f"  {x.shape[0] / min(users):.0f} user-updates/s (best user "
+            f"sweep); closing K2 half-sweep {closing[0] * 1e3:.2f} ms; "
+            f"predict 4096 users {time.perf_counter() - t0:.3f} s; loss/nnz "
+            f"{m.loss_history} vs f32 {f32_loss} (max rel {rel:.2e}); "
+            f"factors {emb.dtype}")
+        require(rel <= 0.01, f"full width {what}: loss per nnz off the "
+                f"float32 fit's by {rel:.2e}")
+        check_predictions(preds.indices, 10, x.shape[1], sp.csr_matrix(q),
+                          f"full width {what}")
+        check_staged_buckets(m, x, results)
+        del m, emb, preds
+        torch.cuda.empty_cache()
+
+
 # -----------------------------------------------------------------------------
 
 KERNELS = {
@@ -2214,6 +2742,11 @@ KERNELS = {
               "rsparse_tpu/models/glove.py:50, rsparse_tpu/models/glove.py:109"),
     "glove_dense": ("rsparse_tpu_torch/csrc/glove_dense.cu",
                     "rsparse_tpu/models/glove.py:206"),
+    "hot_chain": ("rsparse_tpu_torch/csrc/als_cg.cu",
+                  "scripts/exp_bisect3.py:17, scripts/exp_bisect3.py:80"),
+    "gather": ("rsparse_tpu_torch/csrc/gather.cu",
+               "scripts/exp_gather.py:74, scripts/exp_gather2.py:45, "
+               "scripts/exp_gather2.py:63, scripts/exp_gather2.py:79"),
 }
 
 
@@ -2258,8 +2791,8 @@ def main(phases) -> int:
         log("phase 3: main paths, ML-100k (implicit CG; explicit Cholesky "
             "with biases; NNLS)")
         run_ml100k(device, launches)
-    x = None
-    if phases & {4, 5, 6}:
+    x = f32_loss = None
+    if phases & {4, 5, 6, 9}:
         t0 = time.perf_counter()
         x = synth_ml20m_like()
         log(f"  synth: {x.shape[0]} x {x.shape[1]}, {x.nnz} nnz "
@@ -2268,6 +2801,7 @@ def main(phases) -> int:
         log("phase 4: implicit main path at full width (rank 128, "
             "65,536 x 32,768)")
         m = run_full_width(device, x, launches)
+        f32_loss = list(m.loss_history)
         check_staged_buckets(m, x, results)
         log("  profile of a warm full-width fit_transform + predict")
         profile_full_width(m, x)
@@ -2283,7 +2817,6 @@ def main(phases) -> int:
         log("phase 6 (b): config #3 at full width (rank 256, 65,536 x "
             "32,768)")
         run_config3(device, x, results, launches)
-    del x
     if 7 in phases:
         log("phase 7 (a): the SGD family's kernels against their plain "
             "versions")
@@ -2298,7 +2831,28 @@ def main(phases) -> int:
         log("phase 8: GloVe (config #4: vocabulary 50,000, rank 128, bf16 "
             "head)")
         run_glove(device, results, launches)
-    if phases != set(range(1, 9)):
+    if 9 in phases:
+        t9 = time.perf_counter()
+        log("phase 9 (a): reduced precision: K1/K2/K4 variants, K1's bf16 "
+            "head term (P3), K12 gather (P1/P2)")
+        check_lowp_kernels(device, results)
+        check_hot_chain(device, results, launches)
+        check_gather(device, results, launches)
+        log("phase 9 (b): ML-100k at each reduced-precision setting")
+        run_ml100k_lowp(device, results, launches)
+        log("phase 9 (c): full width (rank 128, 65,536 x 32,768) at "
+            "reduced precision")
+        if f32_loss is None:
+            m, _ = _fit_full_width(device, x, "full-width f32 fit",
+                                   ("als_cg", "als_chol"), launches,
+                                   lambda_=0.1, feedback="implicit",
+                                   solver="conjugate_gradient", n_hot="auto")
+            f32_loss = list(m.loss_history)
+            del m
+        run_full_width_lowp(device, x, results, launches, f32_loss)
+        log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+    del x
+    if phases != set(range(1, 10)):
         log(f"phases {sorted(phases)} passed (a subset: no result line)")
         return 0
 
@@ -2322,7 +2876,7 @@ def main(phases) -> int:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (1 always runs)")
     want = {1} | {int(p) for p in ap.parse_args().phases.split(",") if p}
     try:

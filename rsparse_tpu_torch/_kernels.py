@@ -14,9 +14,9 @@ Nothing here runs at import: the CPU tests import every module of the port
 on machines without ``nvcc``.
 
 ``launches`` counts the launches of each kernel; the wrappers in
-``ops/als.py``, ``ops/topk.py``, ``ops/spmm.py``, ``models/ftrl.py``,
-``models/fm.py``, ``models/rankmf.py`` and ``models/glove.py`` add one
-where they launch.
+``ops/als.py``, ``ops/topk.py``, ``ops/spmm.py``, ``ops/gather.py``,
+``models/ftrl.py``, ``models/fm.py``, ``models/rankmf.py`` and
+``models/glove.py`` add one where they launch.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ MAX_D = 160
 launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "als_nnls": 0,
                             "topk": 0, "spmm": 0, "spmm_residual": 0,
                             "ftrl": 0, "fm": 0, "rankmf": 0, "glove": 0,
-                            "glove_dense": 0}
+                            "glove_dense": 0, "hot_chain": 0, "gather": 0}
 #: what the last build did: {"seconds": ..., "log": ..., "path": ...}
 build_info: Dict[str, object] = {}
 
@@ -130,9 +130,10 @@ class BucketArgs(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "V", "xbias", "col", "val", "nnz", "nnz_total", "XtX", "rhs_init",
-        "W", "Vh", "bits", "x0", "y", "loss")] + [
+        "W", "Vh", "bits", "x0", "y", "loss", "w_scale")] + [
         (name, ctypes.c_int) for name in (
-            "B", "L", "d", "H", "explicit_fb", "dynamic_lambda")] + [
+            "B", "L", "d", "H", "explicit_fb", "dynamic_lambda", "table_bf16",
+            "w_kind", "round_bf16")] + [
         (name, ctypes.c_float) for name in ("lam", "g_rhs", "g_loss")]
 
 
@@ -167,6 +168,9 @@ def lib() -> ctypes.CDLL:
     # args, max_iter, rel_tol, sweeps (int32, or NULL), stream
     so.rsp_als_nnls.argtypes = [args, i, f, p, p]
     so.rsp_als_nnls.restype = i
+    # args, mode (1: matvec term of x0, 0: rhs term of g_rhs), stream
+    so.rsp_hot_chain.argtypes = [args, i, p]
+    so.rsp_hot_chain.restype = i
     # scores, bits, C, n, k, glob_mean, out_scores, out_idx, stream
     so.rsp_topk.argtypes = [p, p, i, i, i, f, p, p, p]
     so.rsp_topk.restype = i
@@ -210,6 +214,10 @@ def lib() -> ctypes.CDLL:
     so.rsp_glove_tile.argtypes = [p, p, i, i, p, ll, ll, i] + [p] * 8 + [
         i, f, f, f, p, p, p]
     so.rsp_glove_tile.restype = i
+    # table, row stride, col stride, bf16, int32 idx, n, d, out, row
+    # stride, col stride, stream
+    so.rsp_gather_rows.argtypes = [p, ll, ll, i, p, i, i, p, ll, ll, p]
+    so.rsp_gather_rows.restype = i
     return so
 
 

@@ -2,7 +2,8 @@
 
 Mirrors ``rsparse_tpu/config.py`` with torch dtypes.  The reference's
 precision vocabulary ("double"/"float", reference R/model_WRMF.R:102) maps
-to float64/float32; bfloat16 is not part of this port yet (ROADMAP.md).
+to float64/float32, and "bfloat16"/"bf16" to bfloat16, which only WRMF takes
+so far (:func:`resolve_full_dtype` is what the other models call; ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ _PRECISIONS = {
 
 
 def resolve_dtype(precision: Union[str, torch.dtype]) -> torch.dtype:
-    """Resolve a precision name or torch dtype to float32 or float64."""
+    """Resolve a precision name or torch dtype to float32, float64 or
+    bfloat16."""
     if isinstance(precision, torch.dtype):
         dt = precision
     elif precision in ("bfloat16", "bf16"):
@@ -42,9 +44,20 @@ def resolve_dtype(precision: Union[str, torch.dtype]) -> torch.dtype:
             raise ValueError(
                 f"unknown precision {precision!r}; one of {sorted(_PRECISIONS)}"
             ) from None
-    if dt not in (torch.float32, torch.float64):
+    if dt not in (torch.float32, torch.float64, torch.bfloat16):
         raise NotImplementedError(
             f"precision {dt} is not ported yet (see ROADMAP.md)")
+    return dt
+
+
+def resolve_full_dtype(precision: Union[str, torch.dtype]) -> torch.dtype:
+    """:func:`resolve_dtype` for the models that keep their state at float32
+    or float64: ``precision="bfloat16"`` is ported for WRMF only."""
+    dt = resolve_dtype(precision)
+    if dt == torch.bfloat16:
+        raise NotImplementedError(
+            "precision bfloat16 is ported for WRMF only, not for this model "
+            "yet (see ROADMAP.md)")
     return dt
 
 
@@ -54,5 +67,6 @@ def accum_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def np_dtype(dtype: torch.dtype) -> np.dtype:
-    """numpy counterpart of a float32/float64 torch dtype."""
+    """numpy counterpart of a torch dtype: float64, else float32 (numpy has
+    no bfloat16; values are rounded when they reach the device)."""
     return np.dtype(np.float64 if dtype == torch.float64 else np.float32)

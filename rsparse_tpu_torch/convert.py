@@ -32,7 +32,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .config import resolve_dtype
+from .config import resolve_full_dtype
 from .models.fm import FactorizationMachine
 from .models.ftrl import FTRL
 from .models.glove import GloVe, GloveState
@@ -54,7 +54,9 @@ def wrmf_from_numpy(components: np.ndarray,
     ``with_user_item_bias`` (item rows ``[i_bias, emb..., 1]``); ``rank``
     defaults to what R implies.  Pass the fitted model's ``feedback``,
     ``solver``, ``lambda_``, ``dynamic_lambda`` and bias options too, so
-    that ``transform`` solves what the reference's does."""
+    that ``transform`` solves what the reference's does, and its
+    ``precision``, ``compute_dtype`` and ``hot_dtype``: a bf16 model's
+    components, read as float32, load into a bf16 port model exactly."""
     comps = np.asarray(components)
     if comps.ndim != 2:
         raise ValueError("components must be (R, n_items)")
@@ -64,8 +66,8 @@ def wrmf_from_numpy(components: np.ndarray,
     if m._R != comps.shape[0]:
         raise ValueError(f"rank={m.rank} needs {m._R} rows of components, "
                          f"got {comps.shape[0]}")
-    m._V = torch.tensor(comps.T, dtype=m.dtype, device=m.device).contiguous()
-    m.components = m._V.T.cpu().numpy()
+    m._set_items(torch.tensor(comps.T, dtype=m.dtype,
+                              device=m.device).contiguous())
     m._n_items = comps.shape[1]
     m.global_bias = float(global_bias)
     m.item_ids = item_ids
@@ -79,7 +81,7 @@ def svd_from_numpy(u: np.ndarray, d: np.ndarray, v: np.ndarray,
                    precision: str = "float32", device="cuda") -> SVDResult:
     """An :class:`SVDResult` of tensors on ``device`` from (n, r), (r,) and
     (m, r) arrays."""
-    dtype = resolve_dtype(precision)
+    dtype = resolve_full_dtype(precision)
     u, d, v = (torch.tensor(np.asarray(a), dtype=dtype, device=device)
                for a in (u, d, v))
     if d.ndim != 1 or u.shape[1] != d.shape[0] or v.shape[1] != d.shape[0]:
@@ -198,7 +200,7 @@ def glove_state_from_numpy(state: Sequence, precision: str = "float32",
     if len(state) != len(GloveState._fields):
         raise ValueError(f"expected {len(GloveState._fields)} arrays "
                          f"({', '.join(GloveState._fields)})")
-    dtype = resolve_dtype(precision)
+    dtype = resolve_full_dtype(precision)
     return GloveState(*(torch.tensor(np.asarray(a), dtype=dtype,
                                      device=device) for a in state))
 

@@ -18,14 +18,18 @@
 //             source rows at a time, and of its present head entries, each
 //             32-column strip of the dense head compacted by a ballot (the
 //             TPU's (H, d^2) outer-product table is never built);
-//   right-looking Cholesky, one column per step, with the reference's guard
-//   for a non-positive pivot (piv = sqrt(max(A_jj, 0)), divisor 1 if 0);
+//   right-looking Cholesky (of the symmetric part (A + A') / 2 with
+//   compute_dtype="bfloat16"), one column per step, with the reference's guard for a non-positive pivot
+//   (piv = sqrt(max(A_jj, 0)), divisor 1 if 0);
 //   forward and back substitution; then the loss as in K1.
 // The Gram is accumulated in registers: the 256 threads form a 16 x 16 grid
 // and thread (ty, tx) owns the entries (ty + 16 a, tx + 16 b), a, b < d/16,
 // so each staged source row costs 2 d / 16 shared loads and (d / 16)^2 FMAs
 // per thread.  Two widths are built: d <= 128 (8 x 8 tiles) and d <= 160
-// (10 x 10; rank 128 with biases is d = 129).
+// (10 x 10; rank 128 with biases is d = 129), each for float and bf16
+// source tables (the bf16 shadow of compute_dtype="bfloat16", or a
+// precision="bfloat16" model's factors): rows are staged as float, and
+// the bf16 rounding points are build_normal_equations' and K1's.
 //
 // What bounds it on the H100: the Gram build is nnz * d^2 FMAs on the CUDA
 // cores (2.4e11 at 7.4M nnz, d = 128), reading source rows staged 32 at a
@@ -40,7 +44,7 @@ namespace {
 
 __device__ __forceinline__ float safe_div(float v) { return v > 0.f ? v : 1.f; }
 
-template <int KMAXD, bool EXPLICIT>
+template <int KMAXD, class T, bool EXPLICIT>
 __global__ void __launch_bounds__(rsp::kGramThreads)
 als_chol_kernel(rsp::BucketArgs a) {
   extern __shared__ float smem[];
@@ -54,7 +58,19 @@ als_chol_kernel(rsp::BucketArgs a) {
   const rsp::GramSmem S = rsp::gram_smem(scratch + 32, d);
 
   const float lam_use = rsp::row_lambda(a, b);
-  rsp::build_normal_equations<KMAXD, EXPLICIT>(a, b, lam_use, A, rhs, S);
+  rsp::build_normal_equations<KMAXD, EXPLICIT, T>(a, b, lam_use, A, rhs, S);
+  // with compute_dtype="bfloat16" factor the symmetric part (A + A') / 2,
+  // as the plain version and the reference's lax.linalg.cholesky do: a
+  // Gram of bf16-rounded weighted rows is not symmetric (in float32 it is
+  // up to rounding, and the pass is skipped).  Only the lower triangle is
+  // written.
+  if (a.round_bf16) {
+    for (int e = tid; e < d * d; e += rsp::kGramThreads) {
+      const int i = e / d, j = e - i * d;
+      if (i > j) A[e] = (A[e] + A[j * d + i]) / 2.f;
+    }
+    __syncthreads();
+  }
 
   // ---- Cholesky: L overwrites the lower triangle of A ----------------------
   for (int j = 0; j < d; ++j) {
@@ -84,7 +100,8 @@ als_chol_kernel(rsp::BucketArgs a) {
   // ---- output and loss -----------------------------------------------------
   for (int t = tid; t < d; t += rsp::kGramThreads) a.y[(size_t)b * d + t] = x[t];
   const float total = rsp::row_loss<KMAXD / 32, EXPLICIT>(
-      rsp::row_entries(a, b), a, x, lam_use, scratch);
+      rsp::row_entries<T>(a, b), a, x,
+      rsp::dot_operand(x, colv, d, a.round_bf16 != 0), lam_use, scratch);
   if (tid == 0) a.loss[b] = total;
 }
 
@@ -94,12 +111,16 @@ extern "C" int rsp_als_chol(const rsp::BucketArgs* args, void* stream) {
   const rsp::BucketArgs a = *args;
   if (a.B <= 0) return 0;
   if (a.d <= 0 || a.d > 160) return (int)cudaErrorInvalidValue;
-  void (*kern)(rsp::BucketArgs);
-  if (a.d <= 128) {
-    kern = a.explicit_fb ? als_chol_kernel<128, true> : als_chol_kernel<128, false>;
-  } else {
-    kern = a.explicit_fb ? als_chol_kernel<160, true> : als_chol_kernel<160, false>;
-  }
+  using Kernel = void (*)(rsp::BucketArgs);
+  using bf16 = __nv_bfloat16;
+  // [d <= 128 ? 0 : 1][bf16 table][explicit]
+  static const Kernel kernels[2][2][2] = {
+      {{als_chol_kernel<128, float, false>, als_chol_kernel<128, float, true>},
+       {als_chol_kernel<128, bf16, false>, als_chol_kernel<128, bf16, true>}},
+      {{als_chol_kernel<160, float, false>, als_chol_kernel<160, float, true>},
+       {als_chol_kernel<160, bf16, false>, als_chol_kernel<160, bf16, true>}}};
+  const Kernel kern =
+      kernels[a.d > 128][a.table_bf16 != 0][a.explicit_fb != 0];
   const size_t smem = sizeof(float) * ((size_t)a.d * a.d + 4 * (size_t)a.d + 32 +
                                        rsp::gram_smem_floats(a.d));
   // above 48 KB a block's dynamic shared memory must be opted into; the

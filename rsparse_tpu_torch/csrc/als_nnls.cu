@@ -23,6 +23,10 @@
 //   whole batch at once (ROADMAP queue 3).
 //   Then the loss as in K1.
 //
+// Built for d <= 128 and d <= 160, each for float and bf16 source tables
+// (the rounding points of compute_dtype="bfloat16" are those of the shared
+// normal-equation build and of K1's loss).
+//
 // What bounds it on the H100: the coordinate sweeps, a chain of d
 // dependent steps per sweep (about 100 cycles each), times the sweeps a
 // system needs (G squares the condition number of the lhs).  lhs and G
@@ -37,7 +41,7 @@ namespace {
 
 constexpr float kEps = 1e-16f;  // NNLS_EPS of ops/solvers.py
 
-template <int KMAXD, bool EXPLICIT>
+template <int KMAXD, class T, bool EXPLICIT>
 __global__ void __launch_bounds__(rsp::kGramThreads)
 als_nnls_kernel(rsp::BucketArgs a, int max_iter, float rel_tol,
                 int* __restrict__ sweeps) {
@@ -55,8 +59,8 @@ als_nnls_kernel(rsp::BucketArgs a, int max_iter, float rel_tol,
   float* scratch = mu + d;          // 32
 
   const float lam_use = rsp::row_lambda(a, b);
-  rsp::build_normal_equations<KMAXD, EXPLICIT>(a, b, lam_use, A, rhs,
-                                               rsp::gram_smem(G, d));
+  rsp::build_normal_equations<KMAXD, EXPLICIT, T>(a, b, lam_use, A, rhs,
+                                                  rsp::gram_smem(G, d));
 
   // ---- G = lhs' lhs + eps I ----------------------------------------------
   {
@@ -148,8 +152,9 @@ als_nnls_kernel(rsp::BucketArgs a, int max_iter, float rel_tol,
 
   // ---- output and loss -----------------------------------------------------
   for (int t = tid; t < d; t += rsp::kGramThreads) a.y[(size_t)b * d + t] = x[t];
-  const float total = rsp::row_loss<PL, EXPLICIT>(rsp::row_entries(a, b), a, x,
-                                                  lam_use, scratch);
+  const float total = rsp::row_loss<PL, EXPLICIT>(
+      rsp::row_entries<T>(a, b), a, x,
+      rsp::dot_operand(x, mu, d, a.round_bf16 != 0), lam_use, scratch);
   if (tid == 0) a.loss[b] = total;
 }
 
@@ -160,12 +165,16 @@ extern "C" int rsp_als_nnls(const rsp::BucketArgs* args, int max_iter,
   const rsp::BucketArgs a = *args;
   if (a.B <= 0) return 0;
   if (a.d <= 0 || a.d > 160) return (int)cudaErrorInvalidValue;
-  void (*kern)(rsp::BucketArgs, int, float, int*);
-  if (a.d <= 128) {
-    kern = a.explicit_fb ? als_nnls_kernel<128, true> : als_nnls_kernel<128, false>;
-  } else {
-    kern = a.explicit_fb ? als_nnls_kernel<160, true> : als_nnls_kernel<160, false>;
-  }
+  using Kernel = void (*)(rsp::BucketArgs, int, float, int*);
+  using bf16 = __nv_bfloat16;
+  // [d <= 128 ? 0 : 1][bf16 table][explicit]
+  static const Kernel kernels[2][2][2] = {
+      {{als_nnls_kernel<128, float, false>, als_nnls_kernel<128, float, true>},
+       {als_nnls_kernel<128, bf16, false>, als_nnls_kernel<128, bf16, true>}},
+      {{als_nnls_kernel<160, float, false>, als_nnls_kernel<160, float, true>},
+       {als_nnls_kernel<160, bf16, false>, als_nnls_kernel<160, bf16, true>}}};
+  const Kernel kern =
+      kernels[a.d > 128][a.table_bf16 != 0][a.explicit_fb != 0];
   const int gram = rsp::gram_smem_floats(a.d);
   const size_t g_floats = (size_t)(a.d * a.d > gram ? a.d * a.d : gram);
   const size_t smem = sizeof(float) * ((size_t)a.d * a.d + g_floats + 3 * (size_t)a.d + 32);

@@ -1,9 +1,12 @@
 // Shared device code of the ALS kernels (als_cg.cu, als_chol.cu,
 // als_nnls.cu): the bucket arguments, the per-entry weights of the two
-// feedback modes, the walk over a row's entries, the normal-equation build
-// of the exact solvers, and the per-row loss.
+// feedback modes (and their bf16-rounded forms), the walk over a row's
+// entries, the normal-equation build of the exact solvers, and the per-row
+// loss.  Source tables are float (T = float) or bf16 (T = __nv_bfloat16);
+// every sum is float32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -17,7 +20,7 @@ namespace rsp {
 // its dense zipf-head entries are W[b, :H] over the head's source rows Vh,
 // present where the packed bit is set (bits given) or where W != 0.
 struct BucketArgs {
-  const float* V;              // (n_src, d) active source rows
+  const void* V;               // (n_src, d) active source rows, T
   const float* xbias;          // (n_src,) source biases, or null
   const int* col;              // (B, L)
   const float* val;            // (B, L) confidences or ratings
@@ -25,17 +28,32 @@ struct BucketArgs {
   const int* nnz_total;        // (B,) hot + cold entries, or null
   const float* XtX;            // (d, d) Gram + lambda ridge (implicit)
   const float* rhs_init;       // (d,) or null
-  const float* W;              // (B, H) dense head, 0 = absent, or null
-  const float* Vh;             // (H, d) head source rows
+  const void* W;               // (B, H) dense head (w_kind), 0 = absent
+  const void* Vh;              // (H, d) head source rows, T
   const unsigned char* bits;   // (B, ceil(H / 8)) head presence, or null
   const float* x0;             // (B, d) warm start (CG, NNLS)
   float* y;                    // (B, d) solutions
   float* loss;                 // (B,) per-row loss
+  const float* w_scale;        // (B,) scale of uint8 head codes, or null
   int B, L, d, H;
   int explicit_fb;             // 0: implicit feedback, 1: explicit
   int dynamic_lambda;          // explicit: lambda * total row nnz
+  int table_bf16;              // V and Vh hold bf16 (T = __nv_bfloat16)
+  int w_kind;                  // W: 0 float32, 1 bfloat16, 2 uint8 codes
+  int round_bf16;              // compute_dtype="bfloat16" rounding points
   float lam, g_rhs, g_loss;    // ridge; global bias in the rhs / the loss
 };
+
+__device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// float -> bf16 -> float, round to nearest even (as torch and XLA round)
+__device__ __forceinline__ float rbf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -79,6 +97,34 @@ __device__ __forceinline__ float entry_loss(float c, float xb, float g_loss,
   return c * base * base;
 }
 
+// The same weights with compute_dtype="bfloat16", rounded where the
+// reference rounds them (rsparse_tpu/ops/als.py:189-225, :313-343): the
+// rhs weight (for an implicit head entry Wc - bf16(W1 bf16(g)) with
+// W1 = bf16(Wc - 1), each step in bf16), and a matvec term's coefficient
+// for dot = x . bf16(p): implicit cold bf16(dot (c - 1)), implicit head
+// bf16(bf16(dot) W1), explicit bf16(dot).  The head value c is Wc, already
+// bf16.  Products are __fmul_rn, so no FMA contraction moves a value across
+// a bf16 rounding boundary that the plain version's separate ops keep.
+template <bool EXPLICIT>
+__device__ __forceinline__ float rhs_weight_bf16(float c, float xb,
+                                                 float g_rhs, bool head) {
+  if (EXPLICIT) return rbf(c - xb);
+  if (head) return rbf(c - rbf(__fmul_rn(rbf(c - 1.f), rbf(g_rhs))));
+  return rbf(c - __fmul_rn(c - 1.f, xb + g_rhs));
+}
+template <bool EXPLICIT>
+__device__ __forceinline__ float matvec_coef_bf16(float c, float dot,
+                                                  bool head) {
+  if (EXPLICIT) return rbf(dot);
+  if (head) return rbf(__fmul_rn(rbf(dot), rbf(c - 1.f)));
+  return rbf(__fmul_rn(dot, c - 1.f));
+}
+// The lhs weight of a head entry in the exact solvers' Gram (W1 or 1).
+template <bool EXPLICIT>
+__device__ __forceinline__ float head_lhs_weight(float c, bool round) {
+  return (!EXPLICIT && round) ? rbf(c - 1.f) : lhs_weight<EXPLICIT>(c);
+}
+
 // The ridge of row b: lambda, or lambda * total nnz with explicit dynamic
 // lambda (the head's entries count, ops/als.py nnz_total).
 __device__ __forceinline__ float row_lambda(const BucketArgs& a, int b) {
@@ -93,37 +139,68 @@ __device__ __forceinline__ bool head_present(const unsigned char* bits_row,
                              : w != 0.f;
 }
 
-// The entries of one target row (see BucketArgs).  Rows are `d` floats.
+// The entries of one target row (see BucketArgs).  Rows are `d` values.
+template <class T>
 struct RowEntries {
-  const float* table;
+  const T* table;
   const float* xbias;
   const int* col;
   const float* val;
   int nnz;
-  const float* hot_table;
-  const float* w;              // nullptr: no dense head
+  const T* hot_table;
+  const void* w;               // nullptr: no dense head
   const unsigned char* bits;
   int H;
   int d;
+  int w_kind;                  // BucketArgs::w_kind
+  float w_scale;               // uint8 codes: the row's scale
+  bool round_w;                // the head value is bf16 (implicit Wc)
 };
 
-__device__ __forceinline__ RowEntries row_entries(const BucketArgs& a, int b) {
-  return RowEntries{
-      a.V, a.xbias, a.col + (size_t)b * a.L, a.val + (size_t)b * a.L,
-      a.nnz[b], a.Vh, a.W == nullptr ? nullptr : a.W + (size_t)b * a.H,
+template <class T>
+__device__ __forceinline__ RowEntries<T> row_entries(const BucketArgs& a,
+                                                     int b) {
+  const int wb = a.w_kind == 0 ? 4 : (a.w_kind == 1 ? 2 : 1);
+  float scale = a.w_scale != nullptr ? a.w_scale[b] : 1.f;
+  if (a.round_bf16) scale = rbf(scale);
+  const bool cold = a.nnz != nullptr;
+  return RowEntries<T>{
+      static_cast<const T*>(a.V), a.xbias,
+      cold ? a.col + (size_t)b * a.L : nullptr,
+      cold ? a.val + (size_t)b * a.L : nullptr, cold ? a.nnz[b] : 0,
+      static_cast<const T*>(a.Vh),
+      a.W == nullptr ? nullptr
+                     : static_cast<const char*>(a.W) + (size_t)b * a.H * wb,
       a.bits == nullptr ? nullptr : a.bits + (size_t)b * ((a.H + 7) >> 3),
-      a.H, a.d};
+      a.H, a.d, a.w_kind, scale, a.round_bf16 && !a.explicit_fb};
 }
 
-// Calls f(row_ptr, c, xb) once per entry of the row, with all 32 lanes of
-// the calling warp; the entries are dealt to the block's `n_warps` warps in
-// chunks of 32.  Absent head entries are skipped by a ballot over each
-// 32-column strip, so the head costs per present entry.  XB = false
-// compiles the source biases out (xb = 0); XB = true reads them where
-// R.xbias is set.
-template <bool XB, class F>
-__device__ __forceinline__ void for_each_entry(const RowEntries& R, int warp,
-                                               int n_warps, F&& f) {
+// Head value of column h: the stored weight, or a uint8 code times the
+// row's scale (code * scale in the compute dtype: bf16(scale) and a bf16
+// product when rounding), rounded to bf16 where the reference's Wc is bf16.
+template <class T>
+__device__ __forceinline__ float head_value(const RowEntries<T>& R, int h) {
+  float v;
+  if (R.w_kind == 0) {
+    v = __ldg(static_cast<const float*>(R.w) + h);
+  } else if (R.w_kind == 1) {
+    v = ldf(static_cast<const __nv_bfloat16*>(R.w) + h);
+  } else {
+    v = __fmul_rn((float)__ldg(static_cast<const unsigned char*>(R.w) + h),
+                  R.w_scale);
+  }
+  return R.round_w ? rbf(v) : v;
+}
+
+// Calls f(row_ptr, c, xb, head) once per entry of the row, with all 32
+// lanes of the calling warp; the entries are dealt to the block's
+// `n_warps` warps in chunks of 32.  Absent head entries are skipped by a
+// ballot over each 32-column strip, so the head costs per present entry.
+// XB = false compiles the source biases out (xb = 0); XB = true reads them
+// where R.xbias is set.
+template <bool XB, class T, class F>
+__device__ __forceinline__ void for_each_entry(const RowEntries<T>& R,
+                                               int warp, int n_warps, F&& f) {
   const int lane = threadIdx.x & 31;
   const bool has_xb = XB && R.xbias != nullptr;
   for (int base = warp * 32; base < R.nnz; base += n_warps * 32) {
@@ -136,33 +213,33 @@ __device__ __forceinline__ void for_each_entry(const RowEntries& R, int warp,
       const int c = __shfl_sync(RSP_FULL_MASK, my_col, j);
       const float v = __shfl_sync(RSP_FULL_MASK, my_val, j);
       const float xb = has_xb ? __shfl_sync(RSP_FULL_MASK, my_xb, j) : 0.f;
-      f(R.table + (size_t)c * R.d, v, xb);
+      f(R.table + (size_t)c * R.d, v, xb, false);
     }
   }
   if (R.w == nullptr) return;
   for (int base = warp * 32; base < R.H; base += n_warps * 32) {
     const int h = base + lane;
-    const float my_w = h < R.H ? R.w[h] : 0.f;
+    const float my_w = h < R.H ? head_value(R, h) : 0.f;
     unsigned present = __ballot_sync(
         RSP_FULL_MASK, h < R.H && head_present(R.bits, my_w, h));
     while (present) {
       const int j = __ffs(present) - 1;
       present &= present - 1;
       const float v = __shfl_sync(RSP_FULL_MASK, my_w, j);
-      f(R.hot_table + (size_t)(base + j) * R.d, v, 0.f);
+      f(R.hot_table + (size_t)(base + j) * R.d, v, 0.f, true);
     }
   }
 }
 
-// Lane `lane` holds elements lane, lane + 32, ... of a d-float row.
-template <int PER_LANE>
-__device__ __forceinline__ void load_row(const float* row, int d,
+// Lane `lane` holds elements lane, lane + 32, ... of a d-value row.
+template <int PER_LANE, class T>
+__device__ __forceinline__ void load_row(const T* row, int d,
                                          float (&r)[PER_LANE]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int m = 0; m < PER_LANE; ++m) {
     const int k = lane + 32 * m;
-    r[m] = k < d ? __ldg(row + k) : 0.f;
+    r[m] = k < d ? ldf(row + k) : 0.f;
   }
 }
 
@@ -181,20 +258,43 @@ __device__ __forceinline__ float row_dot(const float (&r)[PER_LANE],
   return warp_sum(s);
 }
 
-// Loss of row b with solution y (shared memory): the entries' terms plus
-// lam_use |y|^2, summed over the block (every thread gets it).
-template <int PER_LANE, bool EXPLICIT, bool XB = true>
-__device__ __forceinline__ float row_loss(const RowEntries& R,
+// `vec` itself, or with compute_dtype="bfloat16" its bf16 rounding written
+// to `buf`: the operand the reference's products read (bf16(p), bf16(y)).
+// Every thread calls it; `vec` must be complete (synchronised) before.
+__device__ __forceinline__ const float* dot_operand(const float* vec,
+                                                    float* buf, int d,
+                                                    bool round) {
+  if (!round) return vec;
+  for (int t = threadIdx.x; t < d; t += blockDim.x) buf[t] = rbf(vec[t]);
+  __syncthreads();
+  return buf;
+}
+
+// Loss of row b with solution y (shared memory): the entries' terms, with
+// predictions against y_dot (y, or bf16(y) from dot_operand), plus
+// lam_use |y|^2, summed over the block (every thread gets it).  Every lane
+// of a warp computes each term; lane k % 32 adds the warp's k-th, so no
+// lane sums more than 1/32 of the warp's terms in sequence (a row with a
+// 16,384-wide head and thousands of cold entries would otherwise carry the
+// rounding of that many float32 additions in a row).
+template <int PER_LANE, bool EXPLICIT, bool XB = true, class T>
+__device__ __forceinline__ float row_loss(const RowEntries<T>& R,
                                           const BucketArgs& a, const float* y,
-                                          float lam_use, float* scratch) {
+                                          const float* y_dot, float lam_use,
+                                          float* scratch) {
   const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
   float acc = 0.f;
-  for_each_entry<XB>(R, warp, n_warps, [&](const float* row, float c, float xb) {
+  int k = 0;
+  for_each_entry<XB>(R, warp, n_warps,
+                     [&](const T* row, float c, float xb, bool) {
     float r[PER_LANE];
     load_row<PER_LANE>(row, R.d, r);
-    acc += entry_loss<EXPLICIT>(c, xb, a.g_loss, row_dot<PER_LANE>(r, y, R.d));
+    const float term = entry_loss<EXPLICIT>(
+        c, xb, a.g_loss, row_dot<PER_LANE>(r, y_dot, R.d));
+    if ((k++ & 31) == lane) acc += term;
   });
-  float part = (threadIdx.x & 31) == 0 ? acc : 0.f;
+  float part = acc;
   for (int t = threadIdx.x; t < R.d; t += blockDim.x) part += lam_use * y[t] * y[t];
   return block_sum(part, scratch);
 }
@@ -213,13 +313,15 @@ struct GramSmem {
   int* cnt;     // 1: present head entries in the strip
 };
 
-// acc += sum over the staged rows of gw[l] row_l row_l' (thread (ty, tx)
+// acc += sum over the staged rows of (gw[l] row_l) row_l' (thread (ty, tx)
 // owns the entries (ty + 16 i, tx + 16 j)), rhs_acc += sum rw[l] row_l[tid].
+// round_rows rounds each gw[l] row_l[i] to bf16 first (compute_dtype=
+// "bfloat16": the reference's Xgw = bf16(Xg (c - 1)), ops/als.py:229).
 template <int KT>
 __device__ __forceinline__ void gram_accumulate(float (&acc)[KT][KT],
                                                 float& rhs_acc,
                                                 const GramSmem& S, int cnt,
-                                                int d) {
+                                                int d, bool round_rows) {
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   for (int l = 0; l < cnt; ++l) {
     const float wl = S.gw[l];
@@ -228,7 +330,8 @@ __device__ __forceinline__ void gram_accumulate(float (&acc)[KT][KT],
 #pragma unroll
     for (int i = 0; i < KT; ++i) {
       const int ri = ty + 16 * i, ci = tx + 16 * i;
-      av[i] = ri < d ? wl * row[ri] : 0.f;
+      const float w = ri < d ? wl * row[ri] : 0.f;
+      av[i] = round_rows ? rbf(w) : w;
       bv[i] = ci < d ? row[ci] : 0.f;
     }
 #pragma unroll
@@ -245,18 +348,22 @@ __device__ __forceinline__ void gram_accumulate(float (&acc)[KT][KT],
 //   explicit: A = sum_e x_e x_e' + lam_use I (+ I for an empty row with
 //             lam_use = 0, which keeps padding rows nonsingular),
 //             rhs = sum_e (c_e - xb_e) x_e
-// over the cold entries (staged kChunk source rows at a time) and the
-// present head entries (each 32-column strip of W compacted by a ballot),
-// so the head costs per present entry and no (H, d^2) table exists.
-template <int KMAXD, bool EXPLICIT>
+// over the cold entries (staged kChunk source rows at a time, read as T)
+// and the present head entries (each 32-column strip of W compacted by a
+// ballot), so the head costs per present entry and no (H, d^2) table
+// exists.  With compute_dtype="bfloat16" the rhs weights are rounded as in
+// K1, the cold implicit rows are weighted with rounding (gram_accumulate),
+// the head's lhs weight is W1 = bf16(Wc - 1) and its rows are not (the
+// reference's _hot_lhs sums W1 v v' in float32).
+template <int KMAXD, bool EXPLICIT, class T>
 __device__ void build_normal_equations(const BucketArgs& a, int b,
                                        float lam_use, float* A, float* rhs,
                                        const GramSmem& S) {
   constexpr int KT = KMAXD / 16;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15, d = a.d;
-  const int nnz = a.nnz[b];
-  const int* rcol = a.col + (size_t)b * a.L;
-  const float* rval = a.val + (size_t)b * a.L;
+  const RowEntries<T> R = row_entries<T>(a, b);
+  const bool rnd = a.round_bf16 != 0;
+  const int nnz = R.nnz;
   float acc[KT][KT];
 #pragma unroll
   for (int i = 0; i < KT; ++i)
@@ -268,35 +375,34 @@ __device__ void build_normal_equations(const BucketArgs& a, int b,
     const int cnt = min(kChunk, nnz - base);
     for (int e = tid; e < cnt * d; e += kGramThreads) {
       const int l = e / d, k = e - l * d;
-      S.rows[e] = __ldg(a.V + (size_t)rcol[base + l] * d + k);
+      S.rows[e] = ldf(R.table + (size_t)R.col[base + l] * d + k);
     }
     if (tid < cnt) {
-      const float c = rval[base + tid];
+      const float c = R.val[base + tid];
       const float xb =
-          a.xbias != nullptr ? __ldg(a.xbias + rcol[base + tid]) : 0.f;
+          a.xbias != nullptr ? __ldg(a.xbias + R.col[base + tid]) : 0.f;
       S.gw[tid] = lhs_weight<EXPLICIT>(c);
-      S.rw[tid] = rhs_weight<EXPLICIT>(c, xb, a.g_rhs);
+      S.rw[tid] = rnd ? rhs_weight_bf16<EXPLICIT>(c, xb, a.g_rhs, false)
+                      : rhs_weight<EXPLICIT>(c, xb, a.g_rhs);
     }
     __syncthreads();
-    gram_accumulate<KT>(acc, rhs_acc, S, cnt, d);
+    gram_accumulate<KT>(acc, rhs_acc, S, cnt, d, rnd && !EXPLICIT);
     __syncthreads();
   }
 
-  if (a.W != nullptr) {
-    const float* wrow = a.W + (size_t)b * a.H;
-    const unsigned char* brow =
-        a.bits == nullptr ? nullptr : a.bits + (size_t)b * ((a.H + 7) >> 3);
+  if (R.w != nullptr) {
     for (int base = 0; base < a.H; base += 32) {
       if (tid < 32) {
         const int h = base + tid;
-        const float w = h < a.H ? wrow[h] : 0.f;
-        const bool pres = h < a.H && head_present(brow, w, h);
+        const float w = h < a.H ? head_value(R, h) : 0.f;
+        const bool pres = h < a.H && head_present(R.bits, w, h);
         const unsigned m = __ballot_sync(RSP_FULL_MASK, pres);
         if (pres) {
           const int p = __popc(m & ((1u << tid) - 1u));
           S.hidx[p] = h;
-          S.gw[p] = lhs_weight<EXPLICIT>(w);
-          S.rw[p] = rhs_weight<EXPLICIT>(w, 0.f, a.g_rhs);
+          S.gw[p] = head_lhs_weight<EXPLICIT>(w, rnd);
+          S.rw[p] = rnd ? rhs_weight_bf16<EXPLICIT>(w, 0.f, a.g_rhs, true)
+                        : rhs_weight<EXPLICIT>(w, 0.f, a.g_rhs);
         }
         if (tid == 0) *S.cnt = __popc(m);
       }
@@ -305,10 +411,10 @@ __device__ void build_normal_equations(const BucketArgs& a, int b,
       if (cnt > 0) {
         for (int e = tid; e < cnt * d; e += kGramThreads) {
           const int l = e / d, k = e - l * d;
-          S.rows[e] = __ldg(a.Vh + (size_t)S.hidx[l] * d + k);
+          S.rows[e] = ldf(R.hot_table + (size_t)S.hidx[l] * d + k);
         }
         __syncthreads();
-        gram_accumulate<KT>(acc, rhs_acc, S, cnt, d);
+        gram_accumulate<KT>(acc, rhs_acc, S, cnt, d, false);
       }
       __syncthreads();
     }

@@ -92,11 +92,15 @@ class MatrixFactorizationRecommender:
             exclude=excl_idx, glob_mean=self.global_bias)
         return TopK(idx, scores, self._item_ids_of(idx), get_names(x, 0))
 
-    def get_similar_items(self, item_id, k: Optional[int] = None) -> TopK:
+    def get_similar_items(self, item_id, k: Optional[int] = None,
+                          device: Optional[bool] = None) -> TopK:
         """Cosine-similar items to ``item_id``
         (reference R/MatrixFactorizationRecommender.R:79-107): top_product
         of the query's L2-normalised embedding against all items, the query
-        itself excluded, so at most ``n_items - 1`` results."""
+        itself excluded, so at most ``n_items - 1`` results.  ``device`` is
+        the reference's choice between a host and a device ranking; it is
+        accepted and ignored, since the port always ranks through
+        ``top_product`` on the model's device."""
         comps = np.asarray(self.components, np.float32)
         n_items = comps.shape[1]
         k = n_items - 1 if k is None else min(k, n_items - 1)

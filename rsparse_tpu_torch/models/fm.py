@@ -35,7 +35,7 @@ import scipy.sparse as sp
 import torch
 
 from .. import _kernels
-from ..config import resolve_dtype
+from ..config import resolve_full_dtype
 from ..ops.segsum import GLMBlock, staged_glm_blocks, staged_label_gathers
 
 CLIP_VALUE = 100.0
@@ -179,7 +179,7 @@ class FactorizationMachine:
         self.family_code = 1 if family == "binomial" else 2
         self.intercept = bool(intercept)
         self.precision = precision
-        self.dtype = resolve_dtype(precision)
+        self.dtype = resolve_full_dtype(precision)
         self.device = torch.device(device)
         self.mesh = None
         self._rng = np.random.default_rng(seed)

@@ -29,7 +29,7 @@ import scipy.sparse as sp
 import torch
 
 from .. import _kernels
-from ..config import logger, resolve_dtype
+from ..config import logger, resolve_full_dtype
 from ..ops.segsum import GLMBlock, staged_glm_blocks, staged_label_gathers
 
 _FAMILY_CODES = {"binomial": 1, "gaussian": 2, "poisson": 3}
@@ -167,7 +167,7 @@ class FTRL:
         self.family = family
         self.family_code = _FAMILY_CODES[family]
         self.precision = precision
-        self.dtype = resolve_dtype(precision)
+        self.dtype = resolve_full_dtype(precision)
         self.device = torch.device(device)
         self.mesh = None
         self.n_features: Optional[int] = None

@@ -40,7 +40,7 @@ import scipy.sparse as sp
 import torch
 
 from .. import _kernels
-from ..config import logger, resolve_dtype
+from ..config import logger, resolve_dtype, resolve_full_dtype
 from ..ops.segsum import ShardMaps, shard_slot_maps
 
 CLIP_VALUE = 100.0
@@ -386,11 +386,7 @@ def _shuffle_shards(shards: Shards, seed: Optional[int] = None,
 
 
 def _compute_dtype(name, dtype: torch.dtype) -> torch.dtype:
-    if name is None:
-        return dtype
-    if name in ("bfloat16", "bf16"):
-        return torch.bfloat16
-    return resolve_dtype(name)
+    return dtype if name is None else resolve_dtype(name)
 
 
 class GloVe:
@@ -428,7 +424,7 @@ class GloVe:
         self.shuffle = shuffle
         self.batch_size = int(batch_size)
         self.n_hot = n_hot
-        self.dtype = resolve_dtype(precision)
+        self.dtype = resolve_full_dtype(precision)
         self._cdt = _compute_dtype(compute_dtype, self.dtype)
         self.device = torch.device(device)
         self._rng = np.random.default_rng(seed)

@@ -23,7 +23,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..config import logger, resolve_dtype
+from ..config import logger, resolve_full_dtype
 from ..ops.spmm import spmm_buckets
 from ..ops.topk import top_product
 from ..sparse.device import bucket_rows
@@ -63,7 +63,7 @@ class LinearFlow(MatrixFactorizationRecommender):
         self.preprocess = preprocess or (lambda m: m)
         self.solve_right_singular_vectors = solve_right_singular_vectors
         self.precision = precision
-        self.dtype = resolve_dtype(precision)
+        self.dtype = resolve_full_dtype(precision)
         self.seed = seed
         #: (n_items, rank) right singular vectors; ``init`` fixes them
         self.v: Optional[torch.Tensor] = None

@@ -13,7 +13,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..config import resolve_dtype
+from ..config import resolve_full_dtype
 from ..ops.spmm import spmm_buckets
 from ..sparse.device import bucket_rows
 from .base import MatrixFactorizationRecommender, get_names
@@ -39,7 +39,7 @@ class PureSVD(MatrixFactorizationRecommender):
         self.lambda_ = float(lambda_)
         self.method = method
         self.precision = precision
-        self.dtype = resolve_dtype(precision)
+        self.dtype = resolve_full_dtype(precision)
         self.preprocess = preprocess or (lambda m: m)
         self._init = init
         self._svd: Optional[SVDResult] = None

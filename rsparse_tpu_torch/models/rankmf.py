@@ -34,7 +34,7 @@ import scipy.sparse as sp
 import torch
 
 from .. import _kernels
-from ..config import logger, resolve_dtype
+from ..config import logger, resolve_full_dtype
 from ..sparse.device import staged_cached
 from .base import MatrixFactorizationRecommender, get_names
 
@@ -405,7 +405,7 @@ class RankMF(MatrixFactorizationRecommender):
         self.margin = float(margin)
         self.max_negative_samples = int(max_negative_samples)
         self.batch_size = int(batch_size)
-        self.dtype = resolve_dtype(precision)
+        self.dtype = resolve_full_dtype(precision)
         self._rng = np.random.default_rng(seed)
         self._seed = seed if seed is not None else 0
         self._generator: Optional[torch.Generator] = None

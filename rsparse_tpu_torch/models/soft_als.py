@@ -25,7 +25,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..config import logger, resolve_dtype
+from ..config import logger, resolve_full_dtype
 from ..ops.spmm import spmm_buckets, spmm_residual_buckets
 from ..sparse.device import (BucketedRows, _csr_fingerprint, bucket_rows,
                              staged_aux_cached)
@@ -204,7 +204,7 @@ def soft_als(
     precision.  ``init`` is a warm start: an :class:`SVDResult`,
     :class:`SoftALSFit` or ``(u, d, v)`` of tensors or arrays, padded to
     ``rank`` with orthogonalised random columns."""
-    dtype = resolve_dtype(precision)
+    dtype = resolve_full_dtype(precision)
     csr = sp.csr_matrix(x).astype(np.float64, copy=False)
     return _soft_als_buckets(*stage_both(csr, dtype, device), rank, lambda_,
                              n_iter, convergence_tol, init, final_svd, target,

@@ -3,7 +3,10 @@
 Port of ``rsparse_tpu/models/wrmf.py`` for one device: implicit and explicit
 feedback, the conjugate-gradient, Cholesky and NNLS solvers (NNLS gives
 NNMF), static or dynamic lambda, user/item and global biases, the dense
-zipf-head split (``n_hot``), warm-start ``init`` and ``convergence_tol``.
+zipf-head split (``n_hot``) stored as float32, bfloat16 or uint8 codes
+(``hot_dtype``), bf16 gathers and products with float32 sums
+(``compute_dtype="bfloat16"``), bf16 factor tables (``precision=
+"bfloat16"``), warm-start ``init`` and ``convergence_tol``.
 Interactions are bucketed into padded (B, L) row blocks
 (``sparse/device.py``); each ALS half-sweep solves the buckets one kernel
 launch at a time (``ops/als.py``).  The alternating item/user sweeps mirror
@@ -23,6 +26,7 @@ initial state matches it exactly.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Optional
 
@@ -30,7 +34,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..config import logger, resolve_dtype
+from ..config import accum_dtype, logger, resolve_dtype
 from ..ops.als import (ALSConfig, CHOLESKY, CONJUGATE_GRADIENT, NNLS,
                        solver_code, wrmf_sweep)
 from ..ops.bias_init import initialize_biases
@@ -83,10 +87,11 @@ class WRMF(MatrixFactorizationRecommender):
         if self.non_negative and with_global_bias:
             logger.warning("setting with_global_bias=False for 'nnls' solver")
             with_global_bias = False
-        if compute_dtype != "float32":
-            raise _not_ported(f"compute_dtype={compute_dtype!r}")
-        if hot_dtype != "auto":
-            raise _not_ported(f"hot_dtype={hot_dtype!r}")
+        if hot_dtype not in ("auto", "uint8", "bfloat16", "float32"):
+            raise ValueError(f"unknown hot_dtype {hot_dtype!r}")
+        if hot_dtype == "uint8" and feedback != "implicit":
+            raise ValueError("hot_dtype='uint8' requires implicit feedback "
+                             "(quantized confidences must be positive)")
         if mesh is not None:
             raise _not_ported("mesh")
         if routing is not None:
@@ -112,6 +117,12 @@ class WRMF(MatrixFactorizationRecommender):
         #: 0 disables, an int fixes the head size, "auto" applies the
         #: reference's break-even rule (CG only)
         self.n_hot = n_hot
+        #: dtype of the gathered rows and the products' operands ("float32"
+        #: or "bfloat16": bf16 operands, float32 sums)
+        self.compute_dtype = compute_dtype
+        #: storage of the dense head: "auto" follows compute_dtype (else the
+        #: factor dtype), "uint8" per-row quantised codes (implicit only)
+        self.hot_dtype = hot_dtype
         self._V: Optional[torch.Tensor] = None   # (n_items, R) factors
         self._U: Optional[torch.Tensor] = None   # (n_users, R) factors
         self._n_items: Optional[int] = None
@@ -132,6 +143,7 @@ class WRMF(MatrixFactorizationRecommender):
             bias_last_in_source=bias_last_in_source,
             dynamic_lambda=self.dynamic_lambda,
             nnls_max_iter=self.nnls_max_iter,
+            compute_dtype=self.compute_dtype,
         )
 
     @property
@@ -146,9 +158,26 @@ class WRMF(MatrixFactorizationRecommender):
         matrix instead)."""
         return self.global_bias if self.feedback == "implicit" else 0.0
 
+    @property
+    def _w_dtype(self) -> torch.dtype:
+        """Storage dtype of the dense head (rsparse_tpu/models/wrmf.py:
+        396-400)."""
+        if self.hot_dtype == "auto":
+            return (torch.bfloat16 if self.compute_dtype == "bfloat16"
+                    else self.dtype)
+        return {"uint8": torch.uint8, "bfloat16": torch.bfloat16,
+                "float32": torch.float32}[self.hot_dtype]
+
     def _bucketize(self, csr, include_empty: bool) -> BucketedRows:
-        return bucket_rows(csr, self.dtype, self.device,
-                           include_empty=include_empty, row_align=_ROW_ALIGN)
+        """Buckets of ``csr`` at the factor dtype; bf16 values (precision
+        "bfloat16", as the reference stores them) are held as the float32
+        they equal, which is what the kernels read."""
+        br = bucket_rows(csr, self.dtype, self.device,
+                         include_empty=include_empty, row_align=_ROW_ALIGN)
+        if self.dtype != torch.bfloat16:
+            return br
+        return dataclasses.replace(br, buckets=tuple(
+            b._replace(values=b.values.float()) for b in br.buckets))
 
     def _resolve_n_hot(self, csr: sp.csr_matrix) -> int:
         """Head size for the dense zipf-head split of one sweep orientation
@@ -163,7 +192,14 @@ class WRMF(MatrixFactorizationRecommender):
         if self.solver != CONJUGATE_GRADIENT and self.n_hot == "auto":
             return 0
         n_rows, n_cols = csr.shape
-        w_bytes = torch.finfo(self.dtype).bits // 8
+        # the reference's storage width: uint8 1, a bf16 head 2, else the
+        # factor dtype's (rsparse_tpu/models/wrmf.py:300-309)
+        if self.hot_dtype == "uint8":
+            w_bytes = 1
+        elif self._w_dtype == torch.bfloat16:
+            w_bytes = 2
+        else:
+            w_bytes = torch.finfo(self.dtype).bits // 8
         n = self.n_hot
         if n == "auto":
             counts = np.bincount(csr.indices, minlength=n_cols)
@@ -182,7 +218,8 @@ class WRMF(MatrixFactorizationRecommender):
         if n_hot:
             hot, csr = split_hot_cold(
                 csr, n_hot, self.dtype, self.device,
-                with_presence=self.feedback == "explicit")
+                with_presence=self.feedback == "explicit",
+                w_dtype=self._w_dtype)
         br = self._bucketize(csr, include_empty or hot is not None)
         if hot is None:
             return None, br, None
@@ -315,11 +352,16 @@ class WRMF(MatrixFactorizationRecommender):
                 break
             loss_prev = loss
 
-        self._V = V
-        self.components = V.T.cpu().numpy()       # (R, n_items) public layout
+        self._set_items(V)
         with self.fit_trace.phase(len(self.loss_history), "transform"):
             self._U = self._transform_buckets(ui_full, n_users)
         return self._U
+
+    def _set_items(self, V: torch.Tensor) -> None:
+        """Keep the item factors and their public (R, n_items) numpy view
+        (float32 for a bf16 model: numpy has no bfloat16; exact)."""
+        self._V = V
+        self.components = V.T.to(accum_dtype(V.dtype)).cpu().numpy()
 
     def _transform_buckets(self, ui: BucketedRows,
                            n_users: int) -> torch.Tensor:

@@ -23,11 +23,20 @@ columns' entries add the same terms from the dense ``(B, H)`` weights;
 explicit presence comes from the packed bits, so a stored 0.0 rating
 enters the lhs and the loss.
 
+``compute_dtype="bfloat16"`` (with float32 sums) gathers from a bf16 shadow
+of the source table and rounds to bf16 where the reference does
+(rsparse_tpu/ops/als.py:166-265, :296-373): the rhs weights, ``bf16(p)``
+before each product, the matvec terms before their second product, the
+head's ``Wc``, ``W1 = Wc - 1`` and ``Wc - W1 g``, the exact solvers' weighted
+rows, and ``bf16(y)`` in the loss; every sum stays float32.  A uint8 head
+(``hot_scale``) dequantises as ``code * scale`` in the compute dtype.
+
 Three kernels solve a bucket on the card: K1 (``csrc/als_cg.cu``) by CG,
 K2 (``csrc/als_chol.cu``) by Cholesky and K4 (``csrc/als_nnls.cu``) by
-NNLS coordinate descent.  :func:`_solve_bucket_implicit` and
-:func:`_solve_bucket_explicit` are their plain PyTorch versions; the
-wrappers take them only for tensors on the CPU.
+NNLS coordinate descent; :func:`hot_chain` exposes K1's bf16 head term
+alone.  :func:`_solve_bucket_implicit` and :func:`_solve_bucket_explicit`
+are their plain PyTorch versions; the wrappers take them only for tensors
+on the CPU.
 """
 
 from __future__ import annotations
@@ -70,6 +79,9 @@ class ALSConfig:
     bias_last_in_source: bool = True
     dynamic_lambda: bool = False
     nnls_max_iter: int = SCD_MAX_ITER
+    #: dtype of the gathered rows and the products' operands: "bfloat16"
+    #: rounds at the reference's points over float32 sums
+    compute_dtype: str = "float32"
 
     @property
     def solve_empty(self) -> bool:
@@ -120,6 +132,42 @@ def _hot_lhs(w: torch.Tensor, Vh: torch.Tensor) -> torch.Tensor:
     return (w @ hot_outer_table(Vh)).reshape(w.shape[0], d, d)
 
 
+def _rounds_bf16(cfg: ALSConfig, sdt: torch.dtype) -> bool:
+    """Whether the solve rounds to bf16: ``compute_dtype="bfloat16"`` over
+    float32 sums (the reference's ``gdt``, rsparse_tpu/ops/als.py:166)."""
+    return cfg.compute_dtype == "bfloat16" and sdt == torch.float32
+
+
+def _bf16_rounder(on: bool):
+    """``t -> bf16(t)`` kept in ``t``'s dtype (a product of two rounded
+    values is then exact in float32, as with ``preferred_element_type``),
+    or the identity."""
+    if not on:
+        return lambda t: t
+    return lambda t: t.to(torch.bfloat16).to(t.dtype)
+
+
+def _gather_src(src_act: torch.Tensor, cfg: ALSConfig, sdt) -> torch.Tensor:
+    """The table the buckets gather from: its bf16 shadow when the solve
+    rounds (cast once per half-sweep, rsparse_tpu/ops/als.py:173), else
+    ``src_act``."""
+    return (src_act.to(torch.bfloat16).contiguous() if _rounds_bf16(cfg, sdt)
+            else src_act)
+
+
+def _hot_terms(hot_W, V_hot, hot_scale, rb, sdt):
+    """The dense head's (Vh, Wc, W1) at ``sdt`` (rsparse_tpu/ops/als.py:
+    203-208): Wc = W, or code * scale for a uint8 head, W1 = Wc - 1 where
+    Wc > 0, each rounded by ``rb`` as the compute dtype rounds them."""
+    Vh = rb(V_hot.to(sdt))
+    Wc = rb(hot_W.to(sdt))
+    if hot_scale is not None:
+        Wc = rb(Wc * rb(hot_scale.to(sdt))[:, None])
+    W1 = torch.where(Wc > 0, rb(Wc - 1.0), torch.zeros((), dtype=sdt,
+                                                        device=Wc.device))
+    return Vh, Wc, W1
+
+
 def _exact_solve(lhs, rhs, x_init, cfg: ALSConfig, sweeps=None):
     """Cholesky or NNLS solve of a bucket's normal equations; ``sweeps``
     ((B,) int32, optional) receives the NNLS sweeps of each system."""
@@ -145,13 +193,19 @@ def _solve_bucket_implicit(
     hot_W: Optional[torch.Tensor] = None,   # (B, H) dense hot confidences
     V_hot: Optional[torch.Tensor] = None,   # (H, d) hot source factors
     sweeps: Optional[torch.Tensor] = None,  # (B,) int32 NNLS sweeps out
+    hot_scale: Optional[torch.Tensor] = None,  # (B,) uint8 head scale
+    rounding: Optional[bool] = None,   # bf16 rounding (None: as cfg says)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1, K2 and K4 for implicit feedback: one
-    bucket of per-entity solves.  Returns (y (B, d), loss (B,))."""
+    """Plain version of K1, K2 and K4 for implicit feedback: one bucket of
+    per-entity solves.  ``rounding`` forces the compute dtype's bf16
+    rounding on or off whatever ``XtX``'s dtype (a float64 twin of a bf16
+    solve).  Returns (y (B, d), loss (B,))."""
     sdt = XtX.dtype
+    rb = _bf16_rounder(_rounds_bf16(cfg, sdt) if rounding is None
+                       else rounding)
     mask = bucket.mask()
     col = bucket.col_idx.long()
-    Xg = src.to(sdt)[col]                                    # (B, L, d)
+    Xg = rb(src[col].to(sdt))                                # (B, L, d)
     c = bucket.values.to(sdt)
     zero = torch.zeros((), dtype=sdt, device=c.device)
     cm = torch.where(mask, c, zero)
@@ -166,31 +220,33 @@ def _solve_bucket_implicit(
         offs = None
 
     c_eff = cm if offs is None else cm - cm1 * offs
-    rhs = torch.einsum("bld,bl->bd", Xg, c_eff)
+    rhs = torch.einsum("bld,bl->bd", Xg, rb(c_eff))
     if rhs_init is not None:
         rhs = rhs + rhs_init[None, :]
     if hot_W is not None:
-        Vh = V_hot.to(sdt)
-        Wc = hot_W.to(sdt)
-        W1 = torch.where(Wc > 0, Wc - 1.0, zero)
-        ce_hot = Wc if offs is None else Wc - W1 * g
+        Vh, Wc, W1 = _hot_terms(hot_W, V_hot, hot_scale, rb, sdt)
+        ce_hot = (Wc if offs is None
+                  else rb(Wc - rb(W1 * rb(torch.tensor(g, dtype=sdt)))))
         rhs = rhs + ce_hot @ Vh
 
     if cfg.solver == CONJUGATE_GRADIENT:
         def matvec(p):
-            t = torch.einsum("bld,bd->bl", Xg, p) * cm1
+            pb = rb(p)
+            t = rb(torch.einsum("bld,bd->bl", Xg, pb) * cm1)
             out = p @ XtX + torch.einsum("bl,bld->bd", t, Xg)
             if hot_W is not None:
-                out = out + ((p @ Vh.T) * W1) @ Vh
+                out = out + rb(rb(pb @ Vh.T) * W1) @ Vh
             return out
         y = batched_cg(matvec, rhs, x_init.to(sdt), cfg.cg_steps)
     else:
-        lhs = XtX[None] + torch.einsum("bld,ble->bde", Xg * cm1[..., None], Xg)
+        lhs = XtX[None] + torch.einsum("bld,ble->bde",
+                                       rb(Xg * cm1[..., None]), Xg)
         if hot_W is not None:
             lhs = lhs + _hot_lhs(W1, Vh)
         y = _exact_solve(lhs, rhs, x_init, cfg, sweeps)
 
-    pred = torch.einsum("bld,bd->bl", Xg, y)
+    yb = rb(y)
+    pred = torch.einsum("bld,bd->bl", Xg, yb)
     base = 1.0 - pred
     if cfg.use_global_bias:
         base = base - g
@@ -198,7 +254,7 @@ def _solve_bucket_implicit(
         base = base - xb
     loss = (cm * base * base).sum(-1) + lam * (y * y).sum(-1)
     if hot_W is not None:
-        pred_h = y @ Vh.T
+        pred_h = yb @ Vh.T
         base_h = (1.0 - g) - pred_h if cfg.use_global_bias else 1.0 - pred_h
         loss = loss + (Wc * base_h * base_h).sum(-1)
     return y, loss
@@ -216,15 +272,18 @@ def _solve_bucket_explicit(
     hot_bits: Optional[torch.Tensor] = None,  # (B, ceil(H/8)) presence
     nnz_total: Optional[torch.Tensor] = None,  # (B,) hot + cold row nnz
     sweeps: Optional[torch.Tensor] = None,    # (B,) int32 NNLS sweeps out
+    rounding: Optional[bool] = None,   # bf16 rounding (None: as cfg says)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1, K2 and K4 for explicit feedback: one
-    bucket of observed-entries-only solves (reference
+    """Plain version of K1, K2 and K4 for explicit feedback: one bucket of
+    observed-entries-only solves (reference
     inst/include/wrmf_explicit.hpp:34-132).  Returns (y (B, d),
     loss (B,))."""
-    sdt = src.dtype
+    sdt = accum_dtype(src.dtype)
+    rb = _bf16_rounder(_rounds_bf16(cfg, sdt) if rounding is None
+                       else rounding)
     mask = bucket.mask()
     col = bucket.col_idx.long()
-    Xg = src[col]                                            # (B, L, d)
+    Xg = rb(src[col].to(sdt))                                # (B, L, d)
     zero = torch.zeros((), dtype=sdt, device=Xg.device)
     conf = torch.where(mask, bucket.values.to(sdt), zero)
     if cfg.with_biases:
@@ -233,10 +292,11 @@ def _solve_bucket_explicit(
     nnz = (bucket.nnz if nnz_total is None else nnz_total).to(sdt)
     lam_use = lam * nnz if cfg.dynamic_lambda else torch.full_like(nnz, lam)
 
-    rhs = torch.einsum("bld,bl->bd", Xg, conf)
+    rhs = torch.einsum("bld,bl->bd", Xg, rb(conf))
     if hot_W is not None:
-        Vh = V_hot.to(sdt)
-        Wv = hot_W.to(sdt)
+        Vh = rb(V_hot.to(sdt))
+        Wraw = hot_W.to(sdt)
+        Wv = rb(Wraw)
         H = Wv.shape[1]
         Mh = (_expand_bits(hot_bits)[:, :H] if hot_bits is not None
               else Wv != 0)
@@ -245,10 +305,11 @@ def _solve_bucket_explicit(
 
     if cfg.solver == CONJUGATE_GRADIENT:
         def matvec(p):
-            t = torch.where(mask, torch.einsum("bld,bd->bl", Xg, p), zero)
-            out = torch.einsum("bl,bld->bd", t, Xg) + lam_use[:, None] * p
+            pb = rb(p)
+            t = torch.where(mask, torch.einsum("bld,bd->bl", Xg, pb), zero)
+            out = torch.einsum("bl,bld->bd", rb(t), Xg) + lam_use[:, None] * p
             if hot_W is not None:
-                out = out + torch.where(Mh, p @ Vh.T, zero) @ Vh
+                out = out + rb(torch.where(Mh, pb @ Vh.T, zero)) @ Vh
             return out
         y = batched_cg(matvec, rhs, x_init.to(sdt), cfg.cg_steps)
     else:
@@ -264,31 +325,43 @@ def _solve_bucket_explicit(
         lhs = lhs + invalid[:, None, None] * eye
         y = _exact_solve(lhs, rhs, x_init, cfg, sweeps)
 
-    pred = torch.einsum("bld,bd->bl", Xg, y)
+    yb = rb(y)
+    pred = torch.einsum("bld,bd->bl", Xg, yb)
     diff = conf - torch.where(mask, pred, zero)
     loss = (diff * diff).sum(-1) + lam_use * (y * y).sum(-1)
     if hot_W is not None:
-        diff_h = torch.where(Mh, Wv - y @ Vh.T, zero)
+        diff_h = torch.where(Mh, Wraw - yb @ Vh.T, zero)
         loss = loss + (diff_h * diff_h).sum(-1)
     return y, loss
 
 
 def _solve_bucket_plain(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
                         cfg: ALSConfig, hot_W=None, V_hot=None, hot_bits=None,
-                        nnz_total=None, sweeps=None):
+                        nnz_total=None, sweeps=None, hot_scale=None,
+                        rounding=None):
     """The plain version of whichever kernel ``cfg`` selects."""
     if cfg.feedback == "implicit":
         return _solve_bucket_implicit(src, x_biases, XtX, rhs_init, bucket,
                                       x_init, lam, g, cfg, hot_W, V_hot,
-                                      sweeps)
+                                      sweeps, hot_scale, rounding)
     return _solve_bucket_explicit(src, x_biases, bucket, x_init, lam, cfg,
-                                  hot_W, V_hot, hot_bits, nnz_total, sweeps)
+                                  hot_W, V_hot, hot_bits, nnz_total, sweeps,
+                                  rounding)
+
+
+#: BucketArgs.w_kind of each head storage dtype
+_W_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 
 def _bucket_args(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
-                 cfg: ALSConfig, hot_W, V_hot, hot_bits, nnz_total):
+                 cfg: ALSConfig, hot_W, V_hot, hot_bits, nnz_total,
+                 hot_scale=None):
     """Validate a bucket's CUDA inputs; return (BucketArgs, y, loss) with
-    the outputs allocated.  Raises on what the kernels do not take."""
+    the outputs allocated.  The source table and the head's rows are read
+    as float32 or bfloat16 (with ``compute_dtype="bfloat16"`` a float32
+    table is cast to its shadow first); the head as float32, bfloat16 or
+    uint8 codes with their (B,) ``hot_scale``.  Raises on what the kernels
+    do not take."""
     d = src.shape[1]
     if d > _kernels.MAX_D:
         raise NotImplementedError(
@@ -297,7 +370,11 @@ def _bucket_args(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
     B, L = bucket.batch, bucket.pad_len
     f32, i32 = torch.float32, torch.int32
     n_src = src.shape[0]
-    _kernels.check_tensor("src", src, (n_src, d), f32)
+    round_bf16 = _rounds_bf16(cfg, f32)
+    if round_bf16:
+        src = src.to(torch.bfloat16)
+    tdt = src.dtype if src.dtype == torch.bfloat16 else f32
+    _kernels.check_tensor("src", src, (n_src, d), tdt)
     _kernels.check_tensor("col_idx", bucket.col_idx, (B, L), i32)
     _kernels.check_tensor("values", bucket.values, (B, L), f32)
     _kernels.check_tensor("nnz", bucket.nnz, (B,), i32)
@@ -314,14 +391,24 @@ def _bucket_args(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
         _kernels.check_tensor("x_biases", x_biases, (n_src,), f32)
     if x_init is not None:
         _kernels.check_tensor("x_init", x_init, (B, d), f32)
-    H = 0
+    H, w_kind = 0, 0
     if hot_W is not None:
         H = hot_W.shape[1]
-        _kernels.check_tensor("hot_W", hot_W, (B, H), f32)
-        _kernels.check_tensor("V_hot", V_hot, (H, d), f32)
+        w_kind = _W_KIND.get(hot_W.dtype)
+        if w_kind is None:
+            raise TypeError(f"hot_W: dtype {hot_W.dtype} is not supported by "
+                            "the CUDA kernel (float32, bfloat16 or uint8)")
+        _kernels.check_tensor("hot_W", hot_W, (B, H), hot_W.dtype)
+        V_hot = V_hot.to(tdt)
+        _kernels.check_tensor("V_hot", V_hot, (H, d), tdt)
         if hot_bits is not None:
             _kernels.check_tensor("hot_bits", hot_bits, (B, -(-H // 8)),
                                   torch.uint8)
+        if (hot_scale is not None) != (hot_W.dtype == torch.uint8):
+            raise ValueError("hot_scale is given exactly with uint8 hot_W")
+        if hot_scale is not None:
+            hot_scale = hot_scale.to(f32)
+            _kernels.check_tensor("hot_scale", hot_scale, (B,), f32)
     if not (explicit and hot_W is not None):
         hot_bits = None
     if nnz_total is not None:
@@ -339,15 +426,20 @@ def _bucket_args(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
         val=p(bucket.values), nnz=p(bucket.nnz), nnz_total=p(nnz_total),
         XtX=p(XtX), rhs_init=p(rhs_init), W=p(hot_W), Vh=p(V_hot),
         bits=p(hot_bits), x0=p(x_init), y=p(y), loss=p(loss),
-        B=B, L=L, d=d, H=H, explicit_fb=int(explicit),
-        dynamic_lambda=int(cfg.dynamic_lambda), lam=float(lam),
-        g_rhs=g_rhs, g_loss=g_loss)
+        w_scale=p(hot_scale), B=B, L=L, d=d, H=H, explicit_fb=int(explicit),
+        dynamic_lambda=int(cfg.dynamic_lambda),
+        table_bf16=int(tdt == torch.bfloat16), w_kind=w_kind,
+        round_bf16=int(round_bf16), lam=float(lam), g_rhs=g_rhs,
+        g_loss=g_loss)
+    # the tensors the struct points into (casts made here included) must
+    # outlive the launch: they ride along with the outputs
+    args._keep = (src, V_hot, hot_scale)
     return args, y, loss
 
 
 def solve_bucket_cg(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
                     cfg: ALSConfig, hot_W=None, V_hot=None, hot_bits=None,
-                    nnz_total=None):
+                    nnz_total=None, hot_scale=None):
     """K1: one bucket of CG solves (``csrc/als_cg.cu``).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
@@ -355,10 +447,10 @@ def solve_bucket_cg(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
     if src.device.type == "cpu":
         return _solve_bucket_plain(src, x_biases, XtX, rhs_init, bucket,
                                    x_init, lam, g, cfg, hot_W, V_hot,
-                                   hot_bits, nnz_total)
+                                   hot_bits, nnz_total, hot_scale=hot_scale)
     args, y, loss = _bucket_args(src, x_biases, XtX, rhs_init, bucket,
                                  x_init, lam, g, cfg, hot_W, V_hot, hot_bits,
-                                 nnz_total)
+                                 nnz_total, hot_scale)
     rc = _kernels.lib().rsp_als_cg(
         ctypes.byref(args), ctypes.c_int(cfg.cg_steps),
         ctypes.c_float(CG_TOL), _kernels.stream(src.device))
@@ -369,17 +461,17 @@ def solve_bucket_cg(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
 
 def solve_bucket_cholesky(src, x_biases, XtX, rhs_init, bucket, x_init, lam,
                           g, cfg: ALSConfig, hot_W=None, V_hot=None,
-                          hot_bits=None, nnz_total=None):
+                          hot_bits=None, nnz_total=None, hot_scale=None):
     """K2: one bucket of exact Cholesky solves (``csrc/als_chol.cu``);
     ``x_init`` is not read.  CPU tensors take the plain version; CUDA
     tensors launch the kernel.  Returns (y (B, d), loss (B,))."""
     if src.device.type == "cpu":
         return _solve_bucket_plain(src, x_biases, XtX, rhs_init, bucket,
                                    x_init, lam, g, cfg, hot_W, V_hot,
-                                   hot_bits, nnz_total)
+                                   hot_bits, nnz_total, hot_scale=hot_scale)
     args, y, loss = _bucket_args(src, x_biases, XtX, rhs_init, bucket, None,
                                  lam, g, cfg, hot_W, V_hot, hot_bits,
-                                 nnz_total)
+                                 nnz_total, hot_scale)
     rc = _kernels.lib().rsp_als_chol(ctypes.byref(args),
                                      _kernels.stream(src.device))
     _kernels.check(rc, "als_chol")
@@ -389,7 +481,7 @@ def solve_bucket_cholesky(src, x_biases, XtX, rhs_init, bucket, x_init, lam,
 
 def solve_bucket_nnls(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
                       cfg: ALSConfig, hot_W=None, V_hot=None, hot_bits=None,
-                      nnz_total=None, sweeps=None):
+                      nnz_total=None, sweeps=None, hot_scale=None):
     """K4: one bucket of non-negative solves by coordinate descent
     (``csrc/als_nnls.cu``).  ``sweeps`` ((B,) int32, optional) receives the
     sweeps each system ran.  CPU tensors take the plain version; CUDA
@@ -397,10 +489,10 @@ def solve_bucket_nnls(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
     if src.device.type == "cpu":
         return _solve_bucket_plain(src, x_biases, XtX, rhs_init, bucket,
                                    x_init, lam, g, cfg, hot_W, V_hot,
-                                   hot_bits, nnz_total, sweeps)
+                                   hot_bits, nnz_total, sweeps, hot_scale)
     args, y, loss = _bucket_args(src, x_biases, XtX, rhs_init, bucket,
                                  x_init, lam, g, cfg, hot_W, V_hot, hot_bits,
-                                 nnz_total)
+                                 nnz_total, hot_scale)
     if sweeps is not None:
         _kernels.check_tensor("sweeps", sweeps, (bucket.batch,), torch.int32)
     rc = _kernels.lib().rsp_als_nnls(
@@ -410,6 +502,67 @@ def solve_bucket_nnls(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
     _kernels.check(rc, "als_nnls")
     _kernels.launches["als_nnls"] += 1
     return y, loss
+
+
+def _hot_chain_plain(W, Vh, p=None, g=None, scale=None,
+                     sdt=torch.float32):
+    """Plain version of :func:`hot_chain`: the dense-head terms of the bf16
+    implicit solve, sums at ``sdt`` (float32; float64 gives a twin with the
+    same roundings; rsparse_tpu/ops/als.py:203-225, the chain of
+    scripts/exp_bisect3.py ``ka`` -> ``kd``)."""
+    rb = _bf16_rounder(True)
+    Vb, Wc, W1 = _hot_terms(W, Vh, scale, rb, sdt)
+    if p is not None:
+        return rb(rb(rb(p.to(sdt)) @ Vb.T) * W1) @ Vb
+    return rb(Wc - rb(W1 * rb(torch.tensor(g, dtype=sdt)))) @ Vb
+
+
+#: widest Vh rsp_hot_chain is built for (the probe's d = 128)
+HOT_CHAIN_MAX_D = 128
+
+
+def hot_chain(W, Vh, p=None, g=None, scale=None) -> torch.Tensor:
+    """K1's bf16 dense-head term alone (``rsp_hot_chain`` in
+    ``csrc/als_cg.cu``, the same device code K1 runs), the counterpart of
+    the Pallas probe scripts/exp_bisect3.py: with ``p`` ((B, d)) the CG
+    matvec term ``bf16(bf16(bf16(p) Vh') * W1) Vh`` (``kc``), else with
+    ``g`` the rhs term ``bf16(Wc - bf16(W1 bf16(g))) Vh`` (``kd``); ``W``
+    (B, H) float32, bfloat16 or uint8 codes with (B,) ``scale``, ``Vh``
+    (H, d), d <= ``HOT_CHAIN_MAX_D``.  Returns (B, d) float32.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    if (p is None) == (g is None):
+        raise ValueError("give exactly one of p (matvec term) and g (rhs)")
+    if W.device.type == "cpu":
+        return _hot_chain_plain(W, Vh, p, g, scale)
+    B, H = W.shape
+    d = Vh.shape[1]
+    bf16, f32 = torch.bfloat16, torch.float32
+    if d > HOT_CHAIN_MAX_D:
+        raise NotImplementedError(f"hot_chain takes d <= {HOT_CHAIN_MAX_D}")
+    w_kind = _W_KIND.get(W.dtype)
+    if w_kind is None:
+        raise TypeError(f"W: dtype {W.dtype} is not supported")
+    _kernels.check_tensor("W", W, (B, H), W.dtype)
+    Vh = Vh.to(bf16).contiguous()
+    if (scale is not None) != (W.dtype == torch.uint8):
+        raise ValueError("scale is given exactly with uint8 W")
+    if scale is not None:
+        scale = scale.to(f32).contiguous()
+        _kernels.check_tensor("scale", scale, (B,), f32)
+    if p is not None:
+        _kernels.check_tensor("p", p, (B, d), f32)
+    out = torch.empty((B, d), dtype=f32, device=W.device)
+    q = _kernels.ptr
+    args = _kernels.BucketArgs(
+        W=q(W), Vh=q(Vh), x0=q(p), y=q(out), w_scale=q(scale), B=B, d=d,
+        H=H, table_bf16=1, w_kind=w_kind, round_bf16=1,
+        g_rhs=0.0 if g is None else float(g))
+    rc = _kernels.lib().rsp_hot_chain(ctypes.byref(args),
+                                      ctypes.c_int(int(p is not None)),
+                                      _kernels.stream(W.device))
+    _kernels.check(rc, "hot_chain")
+    _kernels.launches["hot_chain"] += 1
+    return out
 
 
 _SOLVE = {CONJUGATE_GRADIENT: solve_bucket_cg, CHOLESKY: solve_bucket_cholesky,
@@ -433,7 +586,8 @@ def _sweep_prepare(src, lam, g, cfg: ALSConfig, sdt):
     src_act = src[:, src_sl].contiguous()
     x_biases = None
     if cfg.with_biases:
-        x_biases = src[:, R - 1 if cfg.bias_last_in_source else 0].contiguous()
+        x_biases = src[:, R - 1 if cfg.bias_last_in_source else 0].to(
+            sdt).contiguous()
     if cfg.feedback != "implicit":
         # explicit feedback builds per-entity Grams from the gathered rows
         # only (wrmf_explicit.hpp:74-78)
@@ -479,21 +633,23 @@ def _solve_scatter(result, src_act, x_biases, XtX, rhs_init, bucket, old_act,
                    lam, g, n_tgt: int, cfg: ALSConfig, V_hot=None,
                    hot_pre=None):
     """One bucket: gather the warm start, solve, scatter into ``result``
-    (updated in place, so a sweep holds one output table).  Returns the
-    bucket's loss over its valid rows."""
+    (updated in place, so a sweep holds one output table; a bf16 table
+    rounds the solutions there).  Returns the bucket's loss over its valid
+    rows."""
     ids = bucket.row_ids.clamp(max=n_tgt - 1).long()
     valid = bucket.row_ids < n_tgt
-    hot_W = hot_bits = nnz_total = None
+    hot_W = hot_bits = nnz_total = hot_scale = None
     if hot_pre is not None:
-        hot_W, hot_bits, row_nnz = hot_pre
+        hot_W, hot_bits, row_nnz, hot_scale = hot_pre
         if cfg.feedback == "explicit" and cfg.dynamic_lambda:
             nnz_total = row_nnz
         if not cfg.solve_empty:
             # rows with zero TOTAL nnz keep the excluded-row semantics (y=0)
             valid = valid & (row_nnz > 0)
-    y, le = _SOLVE[cfg.solver](src_act, x_biases, XtX, rhs_init, bucket,
-                               old_act[ids].contiguous(), lam, g, cfg, hot_W,
-                               V_hot, hot_bits, nnz_total)
+    x0 = old_act[ids].to(accum_dtype(old_act.dtype)).contiguous()
+    y, le = _SOLVE[cfg.solver](src_act, x_biases, XtX, rhs_init, bucket, x0,
+                               lam, g, cfg, hot_W, V_hot, hot_bits, nnz_total,
+                               hot_scale=hot_scale)
     y = torch.where(valid[:, None], y, torch.zeros((), dtype=y.dtype,
                                                    device=y.device))
     result[bucket.row_ids.long()] = y.to(result.dtype)
@@ -518,12 +674,15 @@ def wrmf_sweep(
     ``src_cnt`` weighs the source regulariser of explicit dynamic lambda;
     without it that term is left out of the loss.
     Mirrors one call of ``private$solver`` in the reference fit loop
-    (R/model_WRMF.R:318-338).
+    (R/model_WRMF.R:318-338).  The Gram and rhs_init come from ``src`` as
+    it is; with ``compute_dtype="bfloat16"`` the buckets and the head
+    gather from its bf16 shadow.
     """
     n_tgt, R = tgt_old.shape
     sdt = accum_dtype(src.dtype)
     _check_hot_supported(hot_ids, cfg)
     src_act, x_biases, XtX, rhs_init = _sweep_prepare(src, lam, g, cfg, sdt)
+    src_act = _gather_src(src_act, cfg, sdt)
     _, tgt_sl = _active_slices(cfg, R)
     old_act = tgt_old[:, tgt_sl]
     d = src_act.shape[1]

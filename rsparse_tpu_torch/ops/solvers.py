@@ -27,9 +27,12 @@ NNLS_EPS = 1e-16
 def batched_spd_solve(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Solve ``lhs @ x = rhs`` for a batch of SPD systems.
 
-    lhs: (B, d, d), rhs: (B, d) -> (B, d).
+    lhs: (B, d, d), rhs: (B, d) -> (B, d).  The factorisation reads the
+    symmetric part ``(lhs + lhs') / 2``, as ``lax.linalg.cholesky`` does
+    in the reference: a Gram of bf16-rounded weighted rows is not exactly
+    symmetric.
     """
-    chol = torch.linalg.cholesky(lhs)
+    chol = torch.linalg.cholesky((lhs + lhs.transpose(-1, -2)) / 2)
     return torch.cholesky_solve(rhs[..., None], chol)[..., 0]
 
 

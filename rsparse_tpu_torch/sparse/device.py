@@ -190,12 +190,18 @@ class HotBlock(NamedTuple):
     is then carried apart as packed bits ``present_bits`` ((n_rows,
     ceil(H/8)) uint8, little-endian), built only when a stored zero lands
     in the head; otherwise ``W != 0`` is exact.
+
+    With ``w_dtype=torch.uint8`` (implicit feedback only) ``W`` holds codes
+    (0 = absent, present entries 1..255) and ``w_scale`` the per-row scale,
+    ``confidence = code * w_scale[row]``; a value below half a code unit
+    rounds up to code 1, so presence survives.
     """
 
     hot_ids: torch.Tensor   # (H,) int32 original column ids
     W: torch.Tensor         # (n_rows, H) confidences, 0 = absent
     row_nnz: torch.Tensor   # (n_rows,) int32 TOTAL row nnz (hot + cold)
     present_bits: Optional[torch.Tensor] = None   # (n_rows, ceil(H/8)) uint8
+    w_scale: Optional[torch.Tensor] = None        # (n_rows,) uint8 scale
 
 
 def split_hot_cold(
@@ -204,6 +210,7 @@ def split_hot_cold(
     dtype: torch.dtype,
     device,
     with_presence: bool = False,
+    w_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[Optional[HotBlock], sp.csr_matrix]:
     """Split columns into a dense hot block on ``device`` + a cold CSR.
 
@@ -211,7 +218,11 @@ def split_hot_cold(
     entries are removed structurally, so explicitly stored zeros elsewhere
     survive.  Returns ``(None, csr)`` when ``n_hot <= 0`` or ``x`` is empty.
     Explicit-feedback callers pass ``with_presence=True`` (see
-    :class:`HotBlock`).
+    :class:`HotBlock`).  ``w_dtype`` is the storage dtype of ``W`` (default
+    ``dtype``); ``torch.uint8`` quantises each row to codes
+    ``clip(rint(v / s), 1, 255)`` with ``s = rowmax / 255``, the scale held
+    at ``dtype``, and raises ValueError for values <= 0 or with presence
+    bits (rsparse_tpu/sparse/device.py split_hot_cold).
     """
     csr = sp.csr_matrix(x)
     n_rows, n_cols = csr.shape
@@ -231,6 +242,9 @@ def split_hot_cold(
     rows = rows_all[is_hot]
     hot_cols = hot_pos[csr.indices[is_hot]]
     hot_data = csr.data[is_hot]
+    w_dtype = w_dtype or dtype
+    quantised = w_dtype == torch.uint8
+    np_w = np_dtype(dtype if quantised else w_dtype)
 
     present_bits = None
     if with_presence and (hot_data == 0).any():
@@ -246,16 +260,31 @@ def split_hot_cold(
     cold = sp.csr_matrix(
         (csr.data[keep], csr.indices[keep], cold_indptr), shape=csr.shape)
 
+    w_scale = None
+    scatter_vals = hot_data.astype(np_w)
+    if quantised:
+        if with_presence or (hot_data <= 0).any():
+            raise ValueError(
+                "uint8 hot block requires strictly positive values "
+                "(implicit-feedback confidences)")
+        wmax = np.zeros((n_rows,), np_w)
+        np.maximum.at(wmax, rows, scatter_vals)
+        s = np.where(wmax > 0, wmax / 255.0, 1.0).astype(np_w)
+        scatter_vals = np.clip(np.rint(scatter_vals / s[rows]),
+                               1, 255).astype(np.uint8)
+        w_scale = torch.from_numpy(s).to(device, dtype)
+
     # the dense W is built on the device from the hot triplets: ~16 B/nnz
     # over the bus instead of the whole (n_rows, H) block
-    W = torch.zeros((n_rows, n_hot), dtype=dtype, device=device)
+    W = torch.zeros((n_rows, n_hot), dtype=w_dtype, device=device)
     W[torch.from_numpy(rows).to(device),
       torch.from_numpy(hot_cols.astype(np.int64)).to(device)] = (
-        torch.from_numpy(hot_data).to(device, dtype))
+        torch.from_numpy(scatter_vals).to(device, w_dtype))
     blk = HotBlock(hot_ids=torch.from_numpy(hot_ids).to(device),
                    W=W,
                    row_nnz=torch.from_numpy(row_nnz_total).to(device),
-                   present_bits=present_bits)
+                   present_bits=present_bits,
+                   w_scale=w_scale)
     return blk, cold
 
 
@@ -265,17 +294,16 @@ def hot_bucket_rows(hot: Optional[HotBlock], buckets):
     Bucket membership is fixed for the whole fit, so every sweep then reads
     a contiguous ``(B, H)`` block per bucket.  Returns a tuple aligned with
     ``buckets`` of ``(W_rows (B, H), bits_rows (B, ceil(H/8)) or None,
-    row_nnz_rows (B,))``, or None.
+    row_nnz_rows (B,), scale_rows (B,) or None)``, or None.
     """
     if hot is None:
         return None
     n = hot.W.shape[0]
-    bits = hot.present_bits
     out = []
     for b in buckets:
         ids = b.row_ids.clamp(max=n - 1).long()
-        out.append((hot.W[ids], None if bits is None else bits[ids],
-                    hot.row_nnz[ids]))
+        out.append(tuple(None if t is None else t[ids] for t in (
+            hot.W, hot.present_bits, hot.row_nnz, hot.w_scale)))
     return tuple(out)
 
 
@@ -323,7 +351,7 @@ def staged_cached(tag: str, csr: sp.csr_matrix, build, extra=None):
 
     soft-impute and LinearFlow's closed-form step bucket the same matrix
     and its transpose; the second caller hits the cache.  ``extra`` carries
-    every other input that shapes what ``build()`` makes (the dtype and the
-    device at least): two models that differ only in precision or device
-    must not share an entry."""
+    every other input that shapes what ``build()`` makes (the dtype, the
+    device and, for a hot block, its ``w_dtype``): two models that differ
+    only in precision, storage dtype or device must not share an entry."""
     return staged_aux_cached(tag, _csr_fingerprint(csr), build, extra)

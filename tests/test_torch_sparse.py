@@ -93,10 +93,11 @@ def test_split_hot_cold_identical(n_hot, precision):
     rj = ref.hot_bucket_rows(hj, bj.buckets, m.shape[0])
     rt = port.hot_bucket_rows(ht, bt.buckets)
     assert len(rj) == len(rt)
-    for (wj, bj_, nj, _), (wt, bt_, nt) in zip(rj, rt):
+    for (wj, bj_, nj, sj), (wt, bt_, nt, st) in zip(rj, rt):
         np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
         np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
         assert bj_ is None and bt_ is None
+        assert sj is None and st is None
 
 
 @pytest.mark.parametrize("stored_zero_in_head", [True, False])
@@ -131,7 +132,7 @@ def test_split_hot_cold_presence_bits_identical(stored_zero_in_head):
                           row_align=8)
     rj = ref.hot_bucket_rows(hj, bj.buckets, m.shape[0])
     rt = port.hot_bucket_rows(ht, bt.buckets)
-    for (wj, bits_j, nj, _), (wt, bits_t, nt) in zip(rj, rt):
+    for (wj, bits_j, nj, _), (wt, bits_t, nt, _) in zip(rj, rt):
         np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
         np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
         if stored_zero_in_head:

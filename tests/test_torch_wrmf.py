@@ -90,7 +90,7 @@ def test_state_carried_by_convert(fitted_pair):
     np.testing.assert_array_equal(mc.predict(held_out, k=7).indices,
                                   mj.predict(held_out, k=7).indices)
     sj = mj.get_similar_items(3, k=15, device=True)
-    st = mc.get_similar_items(3, k=15)
+    st = mc.get_similar_items(3, k=15, device=True)
     np.testing.assert_array_equal(st.indices, sj.indices)
     np.testing.assert_array_equal(st.ids, sj.ids)
 
@@ -122,7 +122,8 @@ def test_port_imports_no_jax():
             "rsparse_tpu_torch.models.ftrl, "
             "rsparse_tpu_torch.models.fm, "
             "rsparse_tpu_torch.models.rankmf, "
-            "rsparse_tpu_torch.models.glove, chip_smoke; "
+            "rsparse_tpu_torch.models.glove, rsparse_tpu_torch.ops.gather, "
+            "chip_smoke; "
             "assert 'jax' not in sys.modules; "
             "assert not any(m.startswith('rsparse_tpu.') or m == 'rsparse_tpu'"
             " for m in sys.modules)")
@@ -132,13 +133,15 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(compute_dtype="bfloat16"),
-    dict(hot_dtype="uint8"),
-    dict(precision="bfloat16"),
+    dict(mesh=object(), compute_dtype="bfloat16"),
+    dict(mesh=object(), hot_dtype="uint8"),
+    dict(mesh=object(), precision="bfloat16"),
     dict(mesh=object()),
     dict(routing="alx"),
 ])
 def test_options_outside_the_slice_raise(kwargs):
+    """The mesh and routing stay outside the port, with or without the
+    reduced-precision options (which now run: tests/test_torch_wrmf_lowp.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         rt.WRMF(device="cpu", **kwargs)
 

@@ -44,7 +44,10 @@ line:
    cross_validate_lambda on 16,384 users at 10 iterations and with V run
    to convergence; (c) K5 and K6 against their plain versions on the
    heaviest buckets of those fits, f32 and bf16, and each as a whole
-   function at the fit's shape beside the library call;
+   function at the fit's shape beside the library call (K5 at LinearFlow's
+   rhs x'(xV) and at its xV), with K5's gathered GB/s, its wrapper's host
+   time a call and its work list (blocks, chunked and packed rows, build
+   time);
 7. the SGD family: (a) K7 (FTRL) and K8 (FM, r = 4 and 8) on a 32,768 x
    32 block over 10,000 and 40M features, predict and update, dropout,
    config #5's one-hot block, and K9 (RankMF) on S = 8192, K = 20 batches
@@ -75,8 +78,9 @@ line:
    twin); K1's bf16 head term alone (rsp_hot_chain, the Pallas probe
    scripts/exp_bisect3.py) at (64, 512, 128) and (2048, 4096, 128); K12 row
    gather (the probes scripts/exp_gather*.py) at 2,097,152 rows from an
-   L2-resident and an HBM-resident table and as the transposed lane gather,
-   bitwise, beside torch.index_select; (b) ML-100k at compute_dtype=
+   L2-resident and an HBM-resident table and as the transposed lane gather
+   (with the case its plan took), bf16 and f32, bitwise, beside
+   torch.index_select and the bound; (b) ML-100k at compute_dtype=
    "bfloat16", hot_dtype="uint8", both, and precision="bfloat16", each
    within 0.005 of the JAX package's NDCG@10 / MAP@10, and explicit CG at
    bf16 held to the RMSE gate; (c) the full-width implicit fit at the
@@ -583,10 +587,28 @@ def _check_k5(buckets, n_rows, table, cdt, tag, results, rep, csr, reps, lim,
     lms = None
     if csr is not None and cdt is None:
         lms = time_ms(lambda: torch.sparse.mm(csr, table), reps)
+    # the wrapper's host time a call (checks, work-list lookup, launch),
+    # with the card busy behind it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        spmm.spmm_buckets(buckets, n_rows, table, compute_dtype=cdt)
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
     bms, bby = spmm_bound(buckets, k, tb, residual=False)
+    nnz = sum(float(b.nnz.double().sum()) for b in buckets)
+    shapes = tuple((b.batch, b.pad_len) for b in buckets if b.batch)
+    sh = spmm.row_shape(k, spmm._gather_table(table, cdt).data_ptr() % 16
+                        == 0, sum(B * L for B, L in shapes))
+    st = spmm.spmm_layout(shapes, sh, table.device).stats
     log(f"  K5 spmm     {tag:46s} y_rel={e5:.2e} kernel={ms:.3f} ms "
         f"plain={pms:.3f} ms library={'-' if lms is None else f'{lms:.3f}'}"
-        f" ms bound={bms:.4f} ms ({bby})")
+        f" ms bound={bms:.4f} ms ({bby}); host {host_ms:.3f} ms a call; "
+        f"gathered {nnz * k * tb / ms / 1e6:.0f} GB/s (nnz x k x {tb} B); "
+        f"work list {st['blocks']} blocks: {st['chunks']} chunks of "
+        f"{sh.chunk} over {st['chunked_rows']} rows, {st['packed_rows']} "
+        f"rows of buckets padded to at most {sh.short} packed; built in "
+        f"{st['build_s'] * 1e3:.2f} ms")
     require(bool(torch.isfinite(yk).all()), f"K5 {tag}: non-finite output")
     require(e5 <= lim, f"K5 {tag}: disagrees with its plain version "
             f"({e5:.2e})")
@@ -1313,6 +1335,11 @@ def run_config3(device, x, results, launches) -> None:
                     f"LinearFlow rhs (x'(xV)), {len(txf.buckets)} buckets",
                     results, rep=True, reps=3, which=("K5",),
                     csr=_buckets_csr(txf.buckets, x.shape[0]))
+    xf = staged_buckets(sp.csr_matrix(x).astype(np.float64), f32, device)
+    check_spmm_pair(list(xf.buckets), x.shape[0], lf.v, None, None, None,
+                    f"LinearFlow xV, {len(xf.buckets)} buckets", results,
+                    reps=3, which=("K5",),
+                    csr=_buckets_csr(xf.buckets, x.shape[1]))
 
 
 # -- phase 7: the SGD family (FTRL, FM, RankMF) ------------------------------
@@ -2532,7 +2559,11 @@ def check_gather(device, results, launches) -> None:
                                 ).to(dt)
             idx = torch.randint(0, rows, (n,), generator=gen, device=device,
                                 dtype=torch.int32)
+            plan = None
             if how == "lanes":
+                sms, smem = gather._device_limits(table.device)
+                plan = gather.lane_plan(n, d, rows, table.element_size(),
+                                        sms, smem)
                 tabT = table.T.contiguous()          # (d, rows)
                 outT = torch.empty((d, n), dtype=dt, device=device)
                 call = (lambda tabT=tabT, idx=idx, outT=outT:
@@ -2559,22 +2590,32 @@ def check_gather(device, results, launches) -> None:
             nbytes = touched * d * es + n * 4 + n * d * es
             moved = 2 * n * d * es + n * 4      # each gathered row read once
             runs.append((tag, call, plain, lib, moved,
-                         bound(nbytes, 0)[0], (table, idx)))
+                         bound(nbytes, 0)[0], (table, idx), plan))
     _kernels.reset_launch_counts()
     timed = [time_ms(r[1]) for r in runs]
     torch.cuda.synchronize()
     launches.append(check_launched(_kernels, "K12 gather probe run",
-                                   ("gather",)))
-    for (tag, _, plain, lib, moved, bms, _), ms in zip(runs, timed):
+                                   ("gather", "gather_lanes")))
+    for (tag, _, plain, lib, moved, bms, _, plan), ms in zip(runs, timed):
         pms, lms = time_ms(plain), time_ms(lib)
+        case = "" if plan is None else (
+            f" case={plan.case} rt={plan.rt} span={plan.span} grid="
+            f"{plan.row_groups}x{plan.n_spans} smem={plan.smem_bytes} B, "
+            f"idx read {plan.row_groups}x")
         log(f"  K12 gather  {tag:32s} bitwise_equal=True kernel={ms:.4f} ms "
             f"({n / ms / 1e6:.1f}G rows/s, {moved / ms / 1e6:.0f} GB/s "
             f"read + written) plain={pms:.4f} ms index_select={lms:.4f} ms "
-            f"bound={bms:.4f} ms (bytes)")
-        if tag.startswith("L2 bfloat16"):
-            results["gather"].update(ms=ms, plain_ms=pms, library_ms=lms,
-                                     shape=f"P1: n={n} from {tag}",
-                                     bound_ms=bms, bound_by="bytes")
+            f"(kernel/index_select {ms / lms:.3f}) bound={bms:.4f} ms "
+            f"(bytes, kernel/bound {ms / bms:.2f}){case}")
+        if plan is not None:
+            require(plan.case == "staged", f"K12 {tag}: took the "
+                    f"{plan.case} case")
+        name = ("gather_lanes" if tag.startswith("lanes bfloat16") else
+                "gather" if tag.startswith("L2 bfloat16") else None)
+        if name is not None:
+            results[name].update(ms=ms, plain_ms=pms, library_ms=lms,
+                                 shape=f"n={n} from {tag}", bound_ms=bms,
+                                 bound_by="bytes")
     del runs
     torch.cuda.empty_cache()
 
@@ -2746,7 +2787,9 @@ KERNELS = {
                   "scripts/exp_bisect3.py:17, scripts/exp_bisect3.py:80"),
     "gather": ("rsparse_tpu_torch/csrc/gather.cu",
                "scripts/exp_gather.py:74, scripts/exp_gather2.py:45, "
-               "scripts/exp_gather2.py:63, scripts/exp_gather2.py:79"),
+               "scripts/exp_gather2.py:63"),
+    "gather_lanes": ("rsparse_tpu_torch/csrc/gather.cu",
+                     "scripts/exp_gather2.py:79"),
 }
 
 

@@ -50,7 +50,8 @@ MAX_D = 160
 launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "als_nnls": 0,
                             "topk": 0, "spmm": 0, "spmm_residual": 0,
                             "ftrl": 0, "fm": 0, "rankmf": 0, "glove": 0,
-                            "glove_dense": 0, "hot_chain": 0, "gather": 0}
+                            "glove_dense": 0, "hot_chain": 0, "gather": 0,
+                            "gather_lanes": 0}
 #: what the last build did: {"seconds": ..., "log": ..., "path": ...}
 build_info: Dict[str, object] = {}
 
@@ -174,9 +175,10 @@ def lib() -> ctypes.CDLL:
     # scores, bits, C, n, k, glob_mean, out_scores, out_idx, stream
     so.rsp_topk.argtypes = [p, p, i, i, i, f, p, p, p]
     so.rsp_topk.restype = i
-    # row_ids, col, val, nnz, table, table_bf16, aligned, B, L, k, n_rows,
-    # out, stream
-    so.rsp_spmm.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, p]
+    # bucket pointers (host int64 array), n_buckets, desc, n_blocks, table,
+    # table_bf16, aligned, k, n_rows, chunk, out, stream
+    so.rsp_spmm.argtypes = [ctypes.POINTER(ctypes.c_longlong), i, p, i, p, i,
+                            i, i, i, i, p, p]
     so.rsp_spmm.restype = i
     # row_ids, col, val, nnz, rowfac, scale, n_fac, table, table_bf16,
     # aligned, B, L, k, n_rows, proj, approx, sq_part, stream
@@ -215,8 +217,9 @@ def lib() -> ctypes.CDLL:
         i, f, f, f, p, p, p]
     so.rsp_glove_tile.restype = i
     # table, row stride, col stride, bf16, int32 idx, n, d, out, row
-    # stride, col stride, stream
-    so.rsp_gather_rows.argtypes = [p, ll, ll, i, p, i, i, p, ll, ll, p]
+    # stride, col stride, table rows, lane rows per block, lane span, stream
+    so.rsp_gather_rows.argtypes = [p, ll, ll, i, p, i, i, p, ll, ll, i, i, i,
+                                   p]
     so.rsp_gather_rows.restype = i
     return so
 

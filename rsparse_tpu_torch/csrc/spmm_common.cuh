@@ -1,21 +1,17 @@
-// The one kernel body of the bucketed sparse-dense kernels K5 (spmm.cu) and
-// K6 (spmm_residual.cu), and what it is built from: the thread layout over
-// one bucket row, the gather of a table row as f32 or bf16, bf16 rounding,
-// and the launch shape.  K5 is the body with kResidual = false: with no left
-// factor the low-rank product is 0, the residual is the value itself
-// (rounded to bf16 with a bf16 table, as K5 rounds its values), and only
-// the SpMM output is written.
+// What the bucketed sparse-dense kernels K5 (spmm.cu) and K6
+// (spmm_residual.cu) share: the gather of a table row as f32 or bf16, bf16
+// rounding, the sum of a block's partial rows, and the thread layout over
+// one bucket row (make_shape).
 //
 // Layout.  A bucket is B rows padded to L entries (col, val: (B, L); row b
 // holds nnz[b] entries; padding rows carry row_id == n_rows and nnz 0).  A
-// block takes one chunk of one row: entries [c * chunk, (c + 1) * chunk) of
-// row blockIdx.x, chunk blockIdx.y.  Its threads form G groups of tpe
-// threads; a group takes one entry at a time (entries g, g + G, ...), and
-// thread t of the group holds the table columns (t + m * tpe) * VEC + e,
-// m < NV, e < VEC, so a gathered row is read as VEC-wide loads, neighbouring
-// threads on neighbouring addresses.  At the end the G groups' partial rows
-// are summed in shared memory in a fixed order, and the row is stored, or
-// added with atomicAdd when the row spans several chunks (several blocks).
+// block's threads form G groups of tpe threads; a group takes one entry at
+// a time, and thread t of the group holds the table columns
+// (t + m * tpe) * VEC + e, m < NV, e < VEC, so a gathered row is read as
+// VEC-wide loads, neighbouring threads on neighbouring addresses.  At the
+// end the G groups' partial rows are summed in shared memory in a fixed
+// order (reduce_row), and the row is stored, or added with atomicAdd when
+// the row spans several blocks.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -132,158 +128,5 @@ inline Shape make_shape(int L, int k, bool aligned) {
   s.n_chunks = (L + s.chunk - 1) / s.chunk;
   return s;
 }
-
-namespace {  // each source instantiates its own cases
-
-// For entry (b, l < nnz[b]) with cf = table[col[b, l]]:
-//   K6: lf = rowfac[min(row_ids[b], n_fac - 1)] * scale, a = lf . cf,
-//       delta = val[b, l] - a, sq += delta^2, approx[b, l] = a;
-//   K5: delta = val[b, l];
-//   both: proj[row_ids[b]] += delta * cf (proj may be null in K6).
-// With a bf16 table, lf and the delta that multiplies cf are rounded to
-// bf16.  See spmm_residual.cu for the outputs' layout.
-template <bool kResidual, typename T, int VEC, int NV>
-__global__ void __launch_bounds__(kMaxThreads)
-sparse_dense_kernel(const int* __restrict__ row_ids,
-                    const int* __restrict__ col,
-                    const float* __restrict__ val,
-                    const int* __restrict__ nnz,
-                    const float* __restrict__ rowfac,
-                    const float* __restrict__ scale, int n_fac,
-                    const T* __restrict__ table, int L, int k, int n_rows,
-                    int tpe, int chunk, float* __restrict__ proj,
-                    float* __restrict__ approx, float* __restrict__ sq_part) {
-  extern __shared__ float red[];  // G * k floats, then 32 for block_sum
-  const int b = blockIdx.x;
-  const int n = nnz[b], row = row_ids[b];
-  const int start = blockIdx.y * chunk;
-  if (start >= n) return;  // uniform over the block; sq_part stays 0
-  if (!kResidual && row >= n_rows) return;
-  const int end = min(n, start + chunk);
-  const int t = threadIdx.x % tpe, g = threadIdx.x / tpe;
-  const int G = blockDim.x / tpe;
-  constexpr bool kBf16 = sizeof(T) == 2;
-
-  // this thread's columns of lf = rowfac[row] * scale
-  float lf[NV * VEC];
-  if constexpr (kResidual) {
-    const float* frow = rowfac + (size_t)min(row, n_fac - 1) * k;
-#pragma unroll
-    for (int m = 0; m < NV; ++m) {
-      const int j0 = (t + m * tpe) * VEC;
-#pragma unroll
-      for (int q = 0; q < VEC; ++q) {
-        float x = 0.f;
-        if (j0 < k) {
-          x = frow[j0 + q];
-          if (scale != nullptr) x *= scale[j0 + q];
-          if (kBf16) x = bf16_round(x);
-        }
-        lf[m * VEC + q] = x;
-      }
-    }
-  }
-
-  float acc[NV * VEC];
-#pragma unroll
-  for (int i = 0; i < NV * VEC; ++i) acc[i] = 0.f;
-  float sq = 0.f;
-  // K6's loop runs the same trips on every thread (group_sum shuffles);
-  // K5 has no shuffle, and a thread leaves once its entries are done
-  for (int l0 = start; l0 < end; l0 += G) {
-    const int l = l0 + g;
-    const bool live = l < end;
-    if (!kResidual && !live) break;
-    const size_t e = (size_t)b * L + (live ? l : start);
-    const T* crow = table + (size_t)col[e] * k;
-    float cf[NV * VEC];
-    float dot = 0.f;
-#pragma unroll
-    for (int m = 0; m < NV; ++m) {
-      const int j0 = (t + m * tpe) * VEC;
-      if (j0 < k) {
-        load_vec<T, VEC>(crow + j0, cf + m * VEC);
-      } else {
-#pragma unroll
-        for (int q = 0; q < VEC; ++q) cf[m * VEC + q] = 0.f;
-      }
-      if constexpr (kResidual) {
-#pragma unroll
-        for (int q = 0; q < VEC; ++q) dot += lf[m * VEC + q] * cf[m * VEC + q];
-      }
-    }
-    if constexpr (kResidual) dot = group_sum(dot, tpe);
-    if (live) {
-      const float delta = kResidual ? val[e] - dot : val[e];
-      if (kResidual && t == 0) {
-        sq += delta * delta;
-        if (approx != nullptr) approx[e] = dot;
-      }
-      if (proj != nullptr) {
-        const float du = kBf16 ? bf16_round(delta) : delta;
-#pragma unroll
-        for (int i = 0; i < NV * VEC; ++i) acc[i] += du * cf[i];
-      }
-    }
-  }
-  if (kResidual && sq_part != nullptr) {
-    const float s = rsp::block_sum(sq, red + G * k);
-    if (threadIdx.x == 0) sq_part[(size_t)blockIdx.y * gridDim.x + b] = s;
-  }
-  if (proj != nullptr && row < n_rows)
-    reduce_row<VEC, NV>(acc, red, k, tpe, proj + (size_t)row * k,
-                        gridDim.y > 1);
-}
-
-template <bool kResidual, typename T, int VEC, int NV>
-int launch(const int* row_ids, const int* col, const float* val,
-           const int* nnz, const float* rowfac, const float* scale,
-           int n_fac, const void* table, int B, int L, int k, int n_rows,
-           const Shape& s, float* proj, float* approx, float* sq_part,
-           cudaStream_t stream) {
-  const dim3 grid(B, s.n_chunks);
-  const size_t smem = ((size_t)s.groups * k + 32) * sizeof(float);
-  sparse_dense_kernel<kResidual, T, VEC, NV>
-      <<<grid, s.tpe * s.groups, smem, stream>>>(
-          row_ids, col, val, nnz, rowfac, scale, n_fac,
-          static_cast<const T*>(table), L, k, n_rows, s.tpe, s.chunk, proj,
-          approx, sq_part);
-  return (int)cudaGetLastError();
-}
-
-// The launch of one bucket: the table's element type from table_bf16, the
-// vector width and vectors per thread from the shape.
-template <bool kResidual>
-int dispatch(const int* row_ids, const int* col, const float* val,
-             const int* nnz, const float* rowfac, const float* scale,
-             int n_fac, const void* table, int table_bf16, int aligned, int B,
-             int L, int k, int n_rows, float* proj, float* approx,
-             float* sq_part, cudaStream_t stream) {
-  const Shape s = make_shape(L, k, aligned != 0);
-#define RSP_SD_CASE(T, V, N)                                                 \
-  if (s.vec == V && s.nv == N)                                               \
-    return launch<kResidual, T, V, N>(row_ids, col, val, nnz, rowfac, scale, \
-                                      n_fac, table, B, L, k, n_rows, s, proj, \
-                                      approx, sq_part, stream);
-#define RSP_SD_CASES(T) \
-  RSP_SD_CASE(T, 4, 1)  \
-  RSP_SD_CASE(T, 4, 2)  \
-  RSP_SD_CASE(T, 4, 4)  \
-  RSP_SD_CASE(T, 1, 1)  \
-  RSP_SD_CASE(T, 1, 2)  \
-  RSP_SD_CASE(T, 1, 4)  \
-  RSP_SD_CASE(T, 1, 8)  \
-  RSP_SD_CASE(T, 1, 16)
-  if (table_bf16) {
-    RSP_SD_CASES(__nv_bfloat16)
-  } else {
-    RSP_SD_CASES(float)
-  }
-#undef RSP_SD_CASES
-#undef RSP_SD_CASE
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
 
 }  // namespace rsp_sp

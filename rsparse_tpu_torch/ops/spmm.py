@@ -5,7 +5,8 @@ Port of ``rsparse_tpu/ops/spmm.py`` (reference R/SoftALS.R:86,101 and the
 hand-written kernels carry it on the card:
 
 - K5 (``csrc/spmm.cu``): :func:`spmm_buckets`, ``out[row_ids[b]] = sum_l
-  vals[b, l] * dense[col_idx[b, l]]``;
+  vals[b, l] * dense[col_idx[b, l]]``, one launch over a work list of row
+  chunks and packed short rows (:func:`row_shape`, :func:`row_layout`);
 - K6 (``csrc/spmm_residual.cu``): :func:`spmm_residual_buckets`, the
   soft-impute projection: per entry ``a = (rowfac[row] * scale) .
   colfac[col]`` and ``delta = val - a``, returning ``sum delta^2`` and
@@ -30,8 +31,12 @@ product at column 0.  Nothing reads those entries.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+import functools
+import time
+from collections import OrderedDict
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import _kernels
@@ -40,6 +45,13 @@ from ..sparse.device import RowBucket
 
 #: widest table K5 and K6 take (csrc/spmm_common.cuh kMaxK)
 MAX_K = 512
+#: K5's threads per block, the blocks its work list aims at, and its
+#: longest chunk of a row (csrc/spmm.cu, :func:`row_shape`)
+ROW_THREADS = 256
+ROW_BLOCKS = 2048
+ROW_MAX_CHUNK = 4096
+#: buckets one K5 launch takes (their pointers are kernel parameters)
+ROW_MAX_BUCKETS = 64
 
 _GATHER_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
                   "float32": torch.float32, "float64": torch.float64}
@@ -56,6 +68,125 @@ def _gather_table(dense: torch.Tensor, compute_dtype) -> torch.Tensor:
     if dt is None:
         raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
     return dense if dt == dense.dtype else dense.to(dt).contiguous()
+
+
+# -- K5's work list -------------------------------------------------------
+
+class RowShape(NamedTuple):
+    """K5's launch shape for a table of k columns (csrc/spmm.cu): a block
+    of ``ROW_THREADS`` threads is ``groups`` groups of ``tpe`` threads, each
+    thread holding ``nv`` vectors of ``vec`` columns of a row.  The rows of
+    a bucket padded to more than ``short`` entries are cut into chunks of
+    ``chunk`` entries, one block each, its groups taking the chunk's entries
+    in turn; the rows of the other buckets are packed ``groups`` to a block,
+    one group each."""
+
+    vec: int
+    tpe: int
+    nv: int
+    groups: int
+    chunk: int
+    short: int
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=256)
+def row_shape(k: int, aligned: bool = True, entries: int = 0) -> RowShape:
+    """K5's shape for k columns (``aligned``: the table starts 16-byte
+    aligned; the same arithmetic as ``rsp_sp::make_shape``) over buckets of
+    ``entries`` padded entries.  The chunk aims at ``ROW_BLOCKS`` blocks,
+    a power of two from 16 entries a group to ``ROW_MAX_CHUNK``: a small
+    product keeps short chunks, so that it still fills the card, and a
+    large one long chunks, so that fewer partial rows are summed and added.
+    Rows are packed (those of buckets padded to at most a sixteenth of a
+    chunk) only when the blocks would hold 1,024 entries or more: a group
+    walks a packed row alone, which pays only when blocks are plentiful."""
+    vec = 4 if (k % 4 == 0 and aligned) else 1
+    nvec = -(-k // vec)
+    tpe = min(32, _pow2_ceil(nvec))
+    nv = _pow2_ceil(-(-nvec // tpe))
+    groups = ROW_THREADS // tpe
+    per_block = entries // ROW_BLOCKS
+    chunk = min(ROW_MAX_CHUNK, max(16 * groups, 1 << max(
+        0, per_block.bit_length() - 1)))
+    return RowShape(vec, tpe, nv, groups, chunk,
+                    chunk // 16 if per_block >= 1024 else 0)
+
+
+class RowLayout(NamedTuple):
+    """K5's work list over a list of bucket shapes (:func:`row_layout`):
+    ``desc`` (n_blocks, 4) int32 = (bucket, row, chunk index or row count,
+    packed), packed 0 chunk z of row y, 1 the z rows y, y + 1, ... of the
+    bucket (z <= ``groups``); the chunks first, by chunk index, the buckets
+    of the longest rows first."""
+
+    desc: torch.Tensor        # (n_blocks, 4) int32
+    shape: RowShape
+    stats: dict               # blocks, chunks, chunked / packed rows, build_s
+
+
+def row_layout(shapes: Sequence[Tuple[int, int]], shape: RowShape,
+               device="cpu") -> RowLayout:
+    """Build K5's work list (:class:`RowLayout`) for buckets of these
+    ``(batch, pad_len)`` shapes: every row of a bucket padded to more than
+    ``shape.short`` entries takes ``ceil(pad_len / chunk)`` chunk blocks
+    (chunk c of every such row, longest buckets first, then chunk c + 1),
+    and the rows of the other buckets are packed ``shape.groups`` to a
+    block.  It reads no bucket data: a chunk past a row's entries leaves at
+    once on the card, and a row whose entries fit one chunk is stored, not
+    added (csrc/spmm.cu).  Built on the host from the shapes and copied to
+    ``device`` once."""
+    t0 = time.perf_counter()
+    C, G = shape.chunk, shape.groups
+    chunked = [(bi, B, -(-L // C)) for bi, (B, L) in enumerate(shapes)
+               if B and L > shape.short]
+    chunked.sort(key=lambda c: -c[2])
+    segs = [(bi, B, c) for c in range(max((n for _, _, n in chunked),
+                                          default=0))
+            for bi, B, n in chunked if n > c]
+    parts = [np.stack([np.full(B, bi), np.arange(B), np.full(B, c),
+                       np.zeros(B, np.int64)], 1) for bi, B, c in segs]
+    n_chunks = sum(B for _, B, _ in segs)
+    packed = [(bi, B) for bi, (B, L) in enumerate(shapes)
+              if B and L <= shape.short]
+    for bi, B in packed:
+        y = np.arange(0, B, G)
+        parts.append(np.stack([np.full(y.size, bi), y,
+                               np.minimum(G, B - y), np.ones(y.size,
+                                                             np.int64)], 1))
+    desc = (np.concatenate(parts) if parts else np.zeros((0, 4), np.int64))
+    stats = dict(blocks=int(desc.shape[0]), chunks=n_chunks,
+                 chunked_rows=sum(B for _, B, _ in chunked),
+                 packed_rows=sum(B for _, B in packed))
+    lay = RowLayout(torch.from_numpy(desc.astype(np.int32)).to(device),
+                    shape, stats)
+    stats["build_s"] = time.perf_counter() - t0
+    return lay
+
+
+#: K5's work lists by (device, bucket shapes, RowShape), least recently
+#: used first
+_LAYOUTS: "OrderedDict[tuple, RowLayout]" = OrderedDict()
+_LAYOUTS_MAX = 64
+
+
+def spmm_layout(shapes: Tuple[Tuple[int, int], ...], shape: RowShape,
+                device) -> RowLayout:
+    """K5's work list for buckets of these ``(batch, pad_len)`` shapes on
+    ``device``, from a cache of its own: built on the first call for a list
+    of shapes, then reused for any buckets of the same shapes."""
+    key = (torch.device(device), shapes, shape)
+    lay = _LAYOUTS.get(key)
+    if lay is None:
+        lay = _LAYOUTS[key] = row_layout(shapes, shape, device)
+        while len(_LAYOUTS) > _LAYOUTS_MAX:
+            _LAYOUTS.popitem(last=False)
+    else:
+        _LAYOUTS.move_to_end(key)
+    return lay
 
 
 # -- plain versions ----------------------------------------------------------
@@ -128,30 +259,45 @@ def _table_for_kernel(name: str, dense: torch.Tensor,
 
 
 def _check_bucket(b: RowBucket, vals: torch.Tensor) -> None:
+    """Raise unless the bucket's tensors are contiguous CUDA tensors of its
+    shape and the kernels' dtypes (``_kernels.check_tensor``'s errors; the
+    test that passes is inlined, as K5 and K6 run it on every call)."""
     B, L = b.col_idx.shape
-    _kernels.check_tensor("row_ids", b.row_ids, (B,), torch.int32)
-    _kernels.check_tensor("col_idx", b.col_idx, (B, L), torch.int32)
-    _kernels.check_tensor("nnz", b.nnz, (B,), torch.int32)
-    _kernels.check_tensor("values", vals, (B, L), torch.float32)
+    for name, t, shape, dt in (("row_ids", b.row_ids, (B,), torch.int32),
+                               ("col_idx", b.col_idx, (B, L), torch.int32),
+                               ("nnz", b.nnz, (B,), torch.int32),
+                               ("values", vals, (B, L), torch.float32)):
+        if not (t.is_cuda and t.dtype == dt and t.shape == shape
+                and t.is_contiguous()):
+            _kernels.check_tensor(name, t, shape, dt)
 
 
 def _spmm_cuda(buckets, n_rows, dense, values_list, compute_dtype):
     tbl = _table_for_kernel("dense", dense, compute_dtype)
     k = tbl.shape[1]
     out = torch.zeros((n_rows, k), dtype=torch.float32, device=dense.device)
-    lib, st = _kernels.lib(), _kernels.stream(dense.device)
-    aligned = int(tbl.data_ptr() % 16 == 0)
-    for bi, b in enumerate(buckets):
-        vals = b.values if values_list is None else values_list[bi]
-        _check_bucket(b, vals)
-        B, L = b.col_idx.shape
-        if B == 0:
-            continue
-        rc = lib.rsp_spmm(
-            _kernels.ptr(b.row_ids), _kernels.ptr(b.col_idx),
-            _kernels.ptr(vals), _kernels.ptr(b.nnz), _kernels.ptr(tbl),
-            int(tbl.dtype == torch.bfloat16), aligned, B, L, k, n_rows,
-            _kernels.ptr(out), st)
+    vals = [b.values if values_list is None else values_list[bi]
+            for bi, b in enumerate(buckets)]
+    live = [(b, v) for b, v in zip(buckets, vals) if b.batch]
+    aligned = tbl.data_ptr() % 16 == 0
+    # one launch per ROW_MAX_BUCKETS buckets (one for every staged matrix
+    # of the port); their rows are disjoint, so the launches need no order
+    for i in range(0, len(live), ROW_MAX_BUCKETS):
+        part = live[i:i + ROW_MAX_BUCKETS]
+        shapes, ptrs = [], []
+        for b, v in part:
+            _check_bucket(b, v)
+            B, L = b.col_idx.shape
+            shapes.append((B, L))
+            ptrs += (b.col_idx.data_ptr(), v.data_ptr(), b.row_ids.data_ptr(),
+                     b.nnz.data_ptr(), L)
+        shape = row_shape(k, aligned, sum(B * L for B, L in shapes))
+        lay = spmm_layout(tuple(shapes), shape, dense.device)
+        rc = _kernels.lib().rsp_spmm(
+            (ctypes.c_longlong * len(ptrs))(*ptrs), len(part),
+            _kernels.ptr(lay.desc), lay.stats["blocks"], _kernels.ptr(tbl),
+            int(tbl.dtype == torch.bfloat16), int(aligned), k, n_rows,
+            shape.chunk, _kernels.ptr(out), _kernels.stream(dense.device))
         _kernels.check(rc, "spmm")
         _kernels.launches["spmm"] += 1
     return out
@@ -213,7 +359,9 @@ def spmm_buckets(buckets: Sequence[RowBucket], n_rows: int,
 
     ``values_list`` optionally overrides each bucket's values (e.g. residual
     values from :func:`residual_values`).  CPU tensors take the plain
-    version; CUDA tensors launch K5 once per bucket."""
+    version; CUDA tensors launch K5 once over every bucket (once per 64
+    buckets), on the work list of these buckets' shapes (built on the first
+    call for a list of shapes, then cached)."""
     if dense.device.type == "cpu":
         return _spmm_plain(buckets, n_rows, dense, values_list, compute_dtype)
     return _spmm_cuda(buckets, n_rows, dense, values_list, compute_dtype)

@@ -450,14 +450,21 @@ def test_gather_rows_plain_and_strided_out():
             port_gather.gather_rows(tab, torch.tensor(sq)).float().numpy(),
             np.asarray(tala.astype(jnp.float32)))
         tabT_j = tab_j.T                              # b3: (16, 64)
-        lanes = jnp.take_along_axis(
-            tabT_j, jnp.broadcast_to(jnp.asarray(idx_np)[None, :], (16, 200)),
-            axis=1)
         tabT = tab.T.contiguous()
-        outT = torch.empty((16, 200), dtype=tdt)
-        port_gather.gather_rows(tabT.T, idx, out=outT.T)
-        assert np.array_equal(outT.float().numpy(),
-                              np.asarray(lanes.astype(jnp.float32)))
+        # 200 indices, and 1001: a row of the output that is not a whole
+        # number of 16-byte vectors
+        for li in (idx_np, rng.integers(0, 64, 1001).astype(np.int32)):
+            n = li.size
+            lanes = jnp.take_along_axis(
+                tabT_j, jnp.broadcast_to(jnp.asarray(li)[None, :], (16, n)),
+                axis=1)
+            outT = torch.empty((16, n), dtype=tdt)
+            got = port_gather.gather_rows(tabT.T, torch.tensor(li),
+                                          out=outT.T)
+            assert got.data_ptr() == outT.data_ptr()
+            assert np.array_equal(outT.float().numpy(),
+                                  np.asarray(lanes.astype(jnp.float32)))
+            assert torch.equal(outT, tabT[:, torch.tensor(li).long()])
     tab = torch.tensor(tab_np)
     with pytest.raises(ValueError):
         port_gather.gather_rows(tab, idx, out=torch.empty((200, 15)))
@@ -465,3 +472,32 @@ def test_gather_rows_plain_and_strided_out():
         port_gather.gather_rows(tab, idx.long())
     with pytest.raises(ValueError, match="strides"):
         port_gather.gather_rows(tab[:, ::2], idx)
+
+
+@pytest.mark.parametrize("n, d, n_tab, es, want", [
+    # P2's shape, bf16: one 64 KB row of tabT a block, two blocks an SM,
+    # spans of twice the table
+    (2_097_152, 128, 32_768, 2, ("staged", 1, 65_536, 128, 32, 65_536)),
+    # f32: one 128 KB row a block, one block an SM, 3 spans (3 waves)
+    (2_097_152, 128, 32_768, 4, ("staged", 1, 699_052, 128, 3, 131_072)),
+    # a bf16 table of 200,000 rows: a row of tabT (400 KB) does not fit
+    (4096, 64, 200_000, 2, ("elementwise", 0, 0, 0, 0, 0)),
+    # a small table: every row staged in one group
+    (50, 16, 64, 2, ("staged", 16, 128, 1, 1, 2048)),
+])
+def test_lane_plan(n, d, n_tab, es, want):
+    """K12's lane layout plan: the rows of tabT that leave room for two
+    blocks an SM in the H100's shared memory (else the one that fits),
+    spread evenly over the row groups; short spans when two blocks share
+    an SM, else at least two waves of 132 blocks; spans a multiple of the
+    16-byte vector; the per-element case for a table too long."""
+    p = port_gather.lane_plan(n, d, n_tab, es)
+    assert tuple(p) == want
+    if p.case == "staged":
+        assert p.span % (16 // es) == 0 and p.span * p.n_spans >= n
+        assert p.smem_bytes <= port_gather.H100_SMEM_BYTES
+        assert p.row_groups * p.rt >= d > (p.row_groups - 1) * p.rt
+        assert (2 * p.smem_bytes <= port_gather.H100_SMEM_BYTES
+                or p.rt == 1 and p.row_groups * p.n_spans
+                >= 2 * port_gather.H100_SMS)
+

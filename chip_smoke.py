@@ -13,7 +13,9 @@ line:
    inputs, at the shapes the main paths give it, with both times: K1 (CG)
    and K2 (Cholesky) for implicit and explicit feedback, with biases,
    dense heads and presence bits, up to d = 129; K3 (top-k); K4 (NNLS)
-   with the distribution of its coordinate-descent sweeps; K5 (bucketed
+   with the distribution of its coordinate-descent sweeps, the systems it
+   sweeps at once per SM, and bit for bit with its scratch in slices; K5
+   (bucketed
    SpMM) and K6 (fused soft-impute residual) at k = 10, 128 and 256 with
    f32 and bf16 tables, a values override, the approx-only mode and an
    8 x 41,280 bucket, beside one PyTorch library call for the same
@@ -47,7 +49,11 @@ line:
    function at the fit's shape beside the library call (K5 at LinearFlow's
    rhs x'(xV) and at its xV), with K5's gathered GB/s, its wrapper's host
    time a call and its work list (blocks, chunked and packed rows, build
-   time);
+   time), and K6's launches a call, work list and host time a call beside
+   K5 on the same buckets and table (the gather alone); K4 prints
+   its sweep counts and the systems it sweeps at once per SM, and config
+   #2 (c)'s item bucket of the most rows at the fit's budget with a bound
+   that counts the sweeps each system ran;
 7. the SGD family: (a) K7 (FTRL) and K8 (FM, r = 4 and 8) on a 32,768 x
    32 block over 10,000 and 40M features, predict and update, dropout,
    config #5's one-hot block, and K9 (RankMF) on S = 8192, K = 20 batches
@@ -293,6 +299,14 @@ def sweep_summary(sweeps) -> str:
             f"{int(sw.max())}")
 
 
+def nnls_summary(sweeps, src) -> str:
+    """K4's sweep counts and the systems its sweep stage holds at once on
+    one SM at the width of ``src`` (the active source table)."""
+    from rsparse_tpu_torch.ops import als
+    return (f"{sweep_summary(sweeps)}, {als.nnls_inflight(src.shape[1])} "
+            "systems sweeping an SM")
+
+
 # -- phase 2: kernels against their plain versions ----------------------------
 
 def _bucket_case(gen, device, B, L, d, H, *, explicit=False, biases=False,
@@ -368,7 +382,7 @@ def _record(results, name, kern, plain, args, tag, rep, limit_y, limit_loss,
     ms = time_ms(lambda: kern(*args))
     pms = (time_ms(lambda: plain(*args), reps=plain_reps) if plain_reps
            else t0.elapsed_time(t1))
-    extra = "" if sweeps is None else " " + sweep_summary(sweeps)
+    extra = "" if sweeps is None else " " + nnls_summary(sweeps, args[0])
     log(f"  {name:11s} {tag:44s} y_rel={ey:.2e} loss_rel={el:.2e} "
         f"kernel={ms:.3f} ms plain={pms:.3f} ms{extra}")
     require(bool(torch.isfinite(yk).all() and torch.isfinite(lk).all()),
@@ -443,11 +457,37 @@ def check_als_kernels(device, results) -> None:
         if cfg.solver == als.NNLS:
             sweeps = torch.zeros((B,), dtype=torch.int32, device=device)
             kern = functools.partial(als.solve_bucket_nnls, sweeps=sweeps)
-            _record(results, name, kern, plain, args, tag, rep, 1e-3, 1e-3,
-                    plain_reps=0, sweeps=sweeps)
+            yk = _record(results, name, kern, plain, args, tag, rep, 1e-3,
+                         1e-3, plain_reps=0, sweeps=sweeps)
+            if rep:
+                check_nnls_slices(args, yk, sweeps, tag)
         else:
             kern = als._SOLVE[cfg.solver]
             _record(results, name, kern, plain, args, tag, rep, 1e-4, 1e-5)
+
+
+def check_nnls_slices(args, y, sweeps, tag) -> None:
+    """K4 with its scratch cut into slices of a third of the bucket's
+    systems, as a bucket larger than ``als.NNLS_SCRATCH_BYTES`` runs: the
+    same factors and sweeps, bit for bit (each system is built and swept
+    alone)."""
+    import torch
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.ops import als
+    per = -(-args[4].batch // 3)
+    stride = _kernels.lib().rsp_als_nnls_stride(args[0].shape[1])
+    sw = torch.zeros_like(sweeps)
+    kept = als.NNLS_SCRATCH_BYTES
+    try:
+        als.NNLS_SCRATCH_BYTES = 4 * stride * per
+        ys, _ = als.solve_bucket_nnls(*args, sweeps=sw)
+    finally:
+        als.NNLS_SCRATCH_BYTES = kept
+    torch.cuda.synchronize()
+    same = bool(torch.equal(ys, y) and torch.equal(sw, sweeps))
+    log(f"  K4 als_nnls {tag}: in slices of {per} systems, bitwise "
+        f"equal={same}")
+    require(same, f"K4 {tag}: the sliced scratch changed the result")
 
 
 def check_topk_kernel(device, results) -> None:
@@ -571,6 +611,31 @@ def check_spmm_pair(buckets, n_rows, table, rowfac, scale, cdt, tag,
                   rep, csr, reps, tb)
 
 
+def _work_list(buckets, table, cdt):
+    """The work list K5 and K6 run for these buckets and this table:
+    (RowShape, its stats: blocks, chunks, chunked / packed rows, build
+    time)."""
+    from rsparse_tpu_torch.ops import spmm
+    k = table.shape[1]
+    shapes = tuple((b.batch, b.pad_len) for b in buckets if b.batch)
+    sh = spmm.row_shape(k, spmm._gather_table(table, cdt).data_ptr() % 16
+                        == 0, sum(B * L for B, L in shapes))
+    return sh, spmm.spmm_layout(shapes, sh, table.device).stats
+
+
+def _host_ms(fn, reps) -> float:
+    """The host time of a call of ``fn`` (checks, work-list lookup,
+    launches), with the card busy behind it."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return host_ms
+
+
 def _check_k5(buckets, n_rows, table, cdt, tag, results, rep, csr, reps, lim,
               tb):
     import torch
@@ -587,20 +652,11 @@ def _check_k5(buckets, n_rows, table, cdt, tag, results, rep, csr, reps, lim,
     lms = None
     if csr is not None and cdt is None:
         lms = time_ms(lambda: torch.sparse.mm(csr, table), reps)
-    # the wrapper's host time a call (checks, work-list lookup, launch),
-    # with the card busy behind it
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        spmm.spmm_buckets(buckets, n_rows, table, compute_dtype=cdt)
-    host_ms = (time.perf_counter() - t0) / reps * 1e3
-    torch.cuda.synchronize()
+    host_ms = _host_ms(lambda: spmm.spmm_buckets(buckets, n_rows, table,
+                                                 compute_dtype=cdt), reps)
     bms, bby = spmm_bound(buckets, k, tb, residual=False)
     nnz = sum(float(b.nnz.double().sum()) for b in buckets)
-    shapes = tuple((b.batch, b.pad_len) for b in buckets if b.batch)
-    sh = spmm.row_shape(k, spmm._gather_table(table, cdt).data_ptr() % 16
-                        == 0, sum(B * L for B, L in shapes))
-    st = spmm.spmm_layout(shapes, sh, table.device).stats
+    sh, st = _work_list(buckets, table, cdt)
     log(f"  K5 spmm     {tag:46s} y_rel={e5:.2e} kernel={ms:.3f} ms "
         f"plain={pms:.3f} ms library={'-' if lms is None else f'{lms:.3f}'}"
         f" ms bound={bms:.4f} ms ({bby}); host {host_ms:.3f} ms a call; "
@@ -662,6 +718,8 @@ def _check_k6(buckets, n_rows, table, rowfac, scale, cdt, tag, results, rep,
         f"kernel={ms:.3f} ms plain={pms:.3f} ms library="
         f"{'-' if lms is None else f'{lms:.3f}'} ms bound={bms:.4f} ms "
         f"({bby})")
+    if rep:
+        _k6_launch_profile(buckets, n_rows, table, rowfac, scale, cdt, reps)
     require(bool(torch.isfinite(pk).all() and torch.isfinite(sk)),
             f"K6 {tag}: non-finite output")
     require(ok_y and es <= 1e-5,
@@ -672,6 +730,42 @@ def _check_k6(buckets, n_rows, table, rowfac, scale, cdt, tag, results, rep,
     if rep:
         r.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
                  bound_by=bby, shape=tag)
+
+
+def _k6_launch_profile(buckets, n_rows, table, rowfac, scale, cdt, reps):
+    """K6 as a whole function: its launches a call, its work list (blocks,
+    chunks, packed rows, build time), the wrapper's host time a call and
+    its gathered GB/s, beside K5 on the same buckets and table: the gather
+    without the dot products."""
+    import torch
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.ops import spmm
+
+    def call():
+        return spmm.spmm_residual_buckets(buckets, n_rows, rowfac, table,
+                                          scale, compute_dtype=cdt)
+    before = _kernels.launches["spmm_residual"]
+    call()
+    per_call = _kernels.launches["spmm_residual"] - before
+    host_ms = _host_ms(call, reps)
+    sh, st = _work_list(buckets, table, cdt)
+    ms = time_ms(call, reps)
+    k5_ms = time_ms(lambda: spmm.spmm_buckets(buckets, n_rows, table,
+                                              compute_dtype=cdt), reps)
+    nnz = sum(float(b.nnz.double().sum()) for b in buckets)
+    mb = nnz * table.shape[1] * (4 if cdt is None else 2) / 1e6
+    log(f"  K6 residual {len(buckets)} buckets: {per_call} launch(es) a "
+        f"call; host {host_ms:.3f} ms a call; work list {st['blocks']} "
+        f"blocks: {st['chunks']} chunks of {sh.chunk} over "
+        f"{st['chunked_rows']} rows, {st['packed_rows']} rows of buckets "
+        f"padded to at most {sh.short} packed; built in "
+        f"{st['build_s'] * 1e3:.2f} ms; {ms:.3f} ms ({mb / ms:.0f} GB/s "
+        f"gathered); K5 on the same buckets and table {k5_ms:.3f} ms "
+        f"({mb / k5_ms:.0f} GB/s)")
+    live = sum(1 for b in buckets if b.batch)
+    require(per_call == -(-live // spmm.ROW_MAX_BUCKETS),
+            f"K6: {per_call} launches for one call over {live} buckets")
+    torch.cuda.synchronize()
 
 
 def _k6_bf16_rounding(buckets, n_rows, table, rowfac, scale, pk):
@@ -886,7 +980,8 @@ def run_ml100k(device, launches) -> None:
     check_predictions(preds.indices, 10, train.shape[1], train, "ML-100k NNLS")
 
 
-def check_staged_buckets(m, x, results, nnls_max_iter=300) -> None:
+def check_staged_buckets(m, x, results, nnls_max_iter=300,
+                         record_budget=False) -> None:
     """Each kernel of a fitted model's path against its plain version at
     the shapes the fit gave it: per sweep, the buckets with the most padded
     entries (B x L), the most rows and the longest rows, staged as
@@ -904,7 +999,9 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300) -> None:
     plain version at most
     ``nnls_max_iter`` sweeps (the plain loop costs launches per coordinate
     step); then it runs alone with the fit's own budget, and the
-    distribution of its sweeps is printed."""
+    distribution of its sweeps is printed; with ``record_budget`` that run
+    on the item sweep's bucket of the most rows is K4's second row of the
+    kernels line (its bound counts the sweeps each system ran)."""
     import torch
     from rsparse_tpu_torch.ops import als
     lam, g = m.lambda_, m._g
@@ -984,7 +1081,7 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300) -> None:
             tag = (f"{sweep} {cfg.feedback[:3]} B={b.batch} L={b.pad_len} "
                    f"d={src_act.shape[1]} H={0 if W is None else W.shape[1]}")
             extra = ("" if sw is None else
-                     f" {sweep_summary(sw)} (cap {nnls_max_iter})")
+                     f" {nnls_summary(sw, src_act)} (cap {nnls_max_iter})")
             log(f"  {name:11s} {tag:50s} y_rel={ey:.2e} loss_rel={el:.2e} "
                 f"(vs f64: kernel y {rel_err(yk, y64):.2e} loss "
                 f"{rel_err(lk, l64):.2e}, plain y {rel_err(yp, y64):.2e} "
@@ -1014,13 +1111,22 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300) -> None:
                                               sweeps=sw, hot_scale=scale)
                 t1.record()
                 torch.cuda.synchronize()
+                bms, bby = als_bound((*args[:8], fit_cfg, *args[9:]), sw,
+                                     scale)
+                fms = t0.elapsed_time(t1)
                 log(f"  {name:11s} {tag:50s} budget {fit_cfg.nnls_max_iter}:"
-                    f" kernel={t0.elapsed_time(t1):.3f} ms "
-                    f"{sweep_summary(sw)}, at the budget "
+                    f" kernel={fms:.3f} ms bound={bms:.4f} ms ({bby}) "
+                    f"{nnls_summary(sw, src_act)}, at the budget "
                     f"{int((sw >= fit_cfg.nnls_max_iter).sum())} of {b.batch}")
                 require(bool(torch.isfinite(yk).all()) and
                         float(yk.min()) >= 0, f"{name} {tag}: K4 with the "
                         "fit's budget gave a negative or non-finite factor")
+                if record_budget and sweep == "item sweep" and bi == max(
+                        range(len(bs)), key=lambda i: bs[i].batch):
+                    results["als_nnls"].update(
+                        fit_shape=f"{tag}, budget {fit_cfg.nnls_max_iter}",
+                        fit_ms=fms, fit_bound_ms=bms, fit_bound_by=bby,
+                        fit_sweeps=sweep_summary(sw))
 
 
 def profile_full_width(m, x) -> None:
@@ -1135,7 +1241,7 @@ def run_config2(device, x, results, launches) -> None:
         lambda_=0.1, feedback="implicit", solver="nnls")
     require(float(emb.min()) >= 0 and m.components.min() >= 0,
             "config #2 (c): a negative factor")
-    check_staged_buckets(m, xs, results)
+    check_staged_buckets(m, xs, results, record_budget=True)
 
 
 # -- phase 6: the low-rank family ---------------------------------------------
@@ -2907,7 +3013,9 @@ def main(phases) -> int:
                 "bound_ms": results[name]["bound_ms"],
                 "bound_by": results[name]["bound_by"],
                 "library_ms": results[name]["library_ms"],
-                "shape": results[name]["shape"]}
+                "shape": results[name]["shape"],
+                **{key: v for key, v in results[name].items()
+                   if key.startswith("fit_")}}
                for name, (src, rep) in KERNELS.items()]
     log(smi_line)
     log(json.dumps({"kernels": kernels}))

@@ -166,9 +166,15 @@ def lib() -> ctypes.CDLL:
     so.rsp_als_cg.restype = i
     so.rsp_als_chol.argtypes = [args, p]
     so.rsp_als_chol.restype = i
-    # args, max_iter, rel_tol, sweeps (int32, or NULL), stream
-    so.rsp_als_nnls.argtypes = [args, i, f, p, p]
+    # args, max_iter, rel_tol, sweeps (int32, or NULL), scratch, systems a
+    # slice, counter, stream
+    so.rsp_als_nnls.argtypes = [args, i, f, p, p, i, p, p]
     so.rsp_als_nnls.restype = i
+    # d -> floats of scratch a system; d -> systems sweeping at once an SM
+    so.rsp_als_nnls_stride.argtypes = [i]
+    so.rsp_als_nnls_stride.restype = i
+    so.rsp_als_nnls_inflight.argtypes = [i]
+    so.rsp_als_nnls_inflight.restype = i
     # args, mode (1: matvec term of x0, 0: rhs term of g_rhs), stream
     so.rsp_hot_chain.argtypes = [args, i, p]
     so.rsp_hot_chain.restype = i
@@ -180,14 +186,14 @@ def lib() -> ctypes.CDLL:
     so.rsp_spmm.argtypes = [ctypes.POINTER(ctypes.c_longlong), i, p, i, p, i,
                             i, i, i, i, p, p]
     so.rsp_spmm.restype = i
-    # row_ids, col, val, nnz, rowfac, scale, n_fac, table, table_bf16,
-    # aligned, B, L, k, n_rows, proj, approx, sq_part, stream
-    so.rsp_spmm_residual.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i,
-                                     i, p, p, p, p]
+    # bucket pointers (host int64 array), n_buckets, approx pointers (host
+    # int64 array or NULL), desc, n_blocks, rowfac, scale, n_fac, table,
+    # table_bf16, aligned, k, n_rows, chunk, proj, sq_part, stream
+    so.rsp_spmm_residual.argtypes = [
+        ctypes.POINTER(ctypes.c_longlong), i,
+        ctypes.POINTER(ctypes.c_longlong), p, i, p, p, i, p, i, i, i, i, i,
+        p, p, p]
     so.rsp_spmm_residual.restype = i
-    # B, L, k, aligned -> length of sq_part
-    so.rsp_spmm_residual_parts.argtypes = [i, i, i, i]
-    so.rsp_spmm_residual_parts.restype = i
     # col, val, nnz, slot, keep, keep_scale, y, sample_w, z, n, dzn, feats,
     # U, B, L, lr, decay, l1, l2, family, do_update, y_hat, stream
     so.rsp_ftrl_block.argtypes = [p, p, p, p, p, f, p, p, p, p, p, p, i, i,

@@ -47,18 +47,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;     // ops/spmm.py ROW_THREADS
-constexpr int kMaxBuckets = 64;   // ops/spmm.py ROW_MAX_BUCKETS
-
-// The buckets of one launch, passed by value: a block reads its bucket's
-// pointers from the constant bank, not through a load from memory.
-struct Buckets {
-  const int* col[kMaxBuckets];
-  const float* val[kMaxBuckets];
-  const int* row_ids[kMaxBuckets];
-  const int* nnz[kMaxBuckets];
-  long long L[kMaxBuckets];
-};
+using rsp_sp::Buckets;
+using rsp_sp::kMaxBuckets;
+using rsp_sp::kThreads;
 
 // desc: per block (bucket, row, chunk index or row count, packed): packed
 // 0 chunk z of row y, stored, or added with atomics when the row has more
@@ -156,16 +147,8 @@ extern "C" int rsp_spmm(const long long* buckets, int n_buckets,
   if (k <= 0 || k > rsp_sp::kMaxK || chunk <= 0 || n_buckets <= 0 ||
       n_buckets > kMaxBuckets)
     return (int)cudaErrorInvalidValue;
-  Buckets bk = {};
-  for (int i = 0; i < n_buckets; ++i) {
-    const long long* b = buckets + 5 * i;
-    bk.col[i] = reinterpret_cast<const int*>(b[0]);
-    bk.val[i] = reinterpret_cast<const float*>(b[1]);
-    bk.row_ids[i] = reinterpret_cast<const int*>(b[2]);
-    bk.nnz[i] = reinterpret_cast<const int*>(b[3]);
-    bk.L[i] = b[4];
-  }
-  const rsp_sp::Shape s = rsp_sp::make_shape(kThreads, k, aligned != 0);
+  const Buckets bk = rsp_sp::unpack_buckets(buckets, n_buckets);
+  const rsp_sp::Shape s = rsp_sp::make_shape(k, aligned != 0);
   const int4* d = reinterpret_cast<const int4*>(desc);
   const cudaStream_t st = (cudaStream_t)stream;
 #define RSP_ROWS_CASE(T, V, N)                                        \

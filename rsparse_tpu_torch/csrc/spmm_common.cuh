@@ -1,7 +1,7 @@
 // What the bucketed sparse-dense kernels K5 (spmm.cu) and K6
-// (spmm_residual.cu) share: the gather of a table row as f32 or bf16, bf16
-// rounding, the sum of a block's partial rows, and the thread layout over
-// one bucket row (make_shape).
+// (spmm_residual.cu) share: the buckets of a launch, the gather of a table
+// row as f32 or bf16, bf16 rounding, the sum of a block's partial rows, and
+// the thread layout over one row (make_shape).
 //
 // Layout.  A bucket is B rows padded to L entries (col, val: (B, L); row b
 // holds nnz[b] entries; padding rows carry row_id == n_rows and nnz 0).  A
@@ -22,8 +22,7 @@
 
 namespace rsp_sp {
 
-constexpr int kMaxThreads = 256;
-constexpr int kEntriesPerGroup = 16;  // a chunk is G * 16 entries
+constexpr int kThreads = 256;  // ops/spmm.py ROW_THREADS
 constexpr int kMaxK = 512;
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -65,13 +64,11 @@ __device__ __forceinline__ void load_vec<__nv_bfloat16, 1>(
   out[0] = __uint_as_float(static_cast<unsigned>(v) << 16);
 }
 
-// Sum over the tpe threads of a group (tpe a power of two <= 32).  Every
-// lane of the warp must call it: groups never straddle a warp, and the
-// callers keep their loops uniform across the block.
-__device__ __forceinline__ float group_sum(float v, int tpe) {
-  for (int o = tpe >> 1; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o, tpe);
-  return v;
+// The lanes of this thread's group of tpe threads (tpe a power of two <=
+// 32; groups never straddle a warp), for shuffles within the group alone.
+__device__ __forceinline__ unsigned group_mask(int tpe) {
+  return tpe == 32 ? 0xffffffffu
+                   : ((1u << tpe) - 1u) << ((threadIdx.x & 31) & ~(tpe - 1));
 }
 
 // Sum the G groups' partial rows (acc, NV * VEC columns per thread) in
@@ -102,9 +99,38 @@ __device__ __forceinline__ void reduce_row(const float* acc, float* red,
   }
 }
 
-// Launch shape of one bucket: entries per group, threads, chunk length.
+// The buckets of one launch over a work list (ops/spmm.py row_layout),
+// passed by value: a block reads its bucket's pointers from the constant
+// bank, not through a load from memory.
+constexpr int kMaxBuckets = 64;  // ops/spmm.py ROW_MAX_BUCKETS
+struct Buckets {
+  const int* col[kMaxBuckets];
+  const float* val[kMaxBuckets];
+  const int* row_ids[kMaxBuckets];
+  const int* nnz[kMaxBuckets];
+  long long L[kMaxBuckets];
+};
+
+// From the host array of n x 5 int64 (col, val, row_ids, nnz device
+// pointers, L) the wrappers pass; n <= kMaxBuckets.
+inline Buckets unpack_buckets(const long long* buckets, int n) {
+  Buckets bk = {};
+  for (int i = 0; i < n; ++i) {
+    const long long* b = buckets + 5 * i;
+    bk.col[i] = reinterpret_cast<const int*>(b[0]);
+    bk.val[i] = reinterpret_cast<const float*>(b[1]);
+    bk.row_ids[i] = reinterpret_cast<const int*>(b[2]);
+    bk.nnz[i] = reinterpret_cast<const int*>(b[3]);
+    bk.L[i] = b[4];
+  }
+  return bk;
+}
+
+// Thread layout over a row of k columns: groups of tpe threads, each
+// thread nv vectors of vec columns (the same arithmetic as ops/spmm.py
+// row_shape).
 struct Shape {
-  int vec, tpe, nv, groups, chunk, n_chunks;
+  int vec, tpe, nv;
 };
 
 inline int pow2_ceil(int x) {
@@ -114,18 +140,12 @@ inline int pow2_ceil(int x) {
 }
 
 // vec: 4 when every row starts 16-byte aligned (f32) / 8-byte (bf16), else 1
-inline Shape make_shape(int L, int k, bool aligned) {
+inline Shape make_shape(int k, bool aligned) {
   Shape s;
   s.vec = (k % 4 == 0 && aligned) ? 4 : 1;
   const int nvec = k / s.vec + (k % s.vec != 0);
   s.tpe = pow2_ceil(nvec) < 32 ? pow2_ceil(nvec) : 32;
   s.nv = pow2_ceil((nvec + s.tpe - 1) / s.tpe);
-  int g = pow2_ceil(L);
-  if (g < 32 / s.tpe) g = 32 / s.tpe;
-  if (g > kMaxThreads / s.tpe) g = kMaxThreads / s.tpe;
-  s.groups = g;
-  s.chunk = g * kEntriesPerGroup;
-  s.n_chunks = (L + s.chunk - 1) / s.chunk;
   return s;
 }
 

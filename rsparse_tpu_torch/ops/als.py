@@ -479,13 +479,30 @@ def solve_bucket_cholesky(src, x_biases, XtX, rhs_init, bucket, x_init, lam,
     return y, loss
 
 
+#: largest scratch K4's build stage writes for its sweeps (packed G and mu,
+#: 33.5 KB a system at d = 128): a bucket with more systems is built and
+#: swept in slices
+NNLS_SCRATCH_BYTES = 1 << 30
+
+
+def nnls_inflight(d: int) -> int:
+    """Systems K4's sweep stage holds at once on one SM at width d (one
+    warp each; shared memory bounds it)."""
+    n = _kernels.lib().rsp_als_nnls_inflight(d)
+    if n <= 0:
+        raise RuntimeError(f"als_nnls occupancy query failed: CUDA error {-n}")
+    return n
+
+
 def solve_bucket_nnls(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
                       cfg: ALSConfig, hot_W=None, V_hot=None, hot_bits=None,
                       nnz_total=None, sweeps=None, hot_scale=None):
     """K4: one bucket of non-negative solves by coordinate descent
-    (``csrc/als_nnls.cu``).  ``sweeps`` ((B,) int32, optional) receives the
-    sweeps each system ran.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel.  Returns (y (B, d), loss (B,))."""
+    (``csrc/als_nnls.cu``: the normal equations and G built per system,
+    then the sweeps one warp per system, then the loss).  ``sweeps`` ((B,)
+    int32, optional) receives the sweeps each system ran.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel.  Returns (y (B, d),
+    loss (B,))."""
     if src.device.type == "cpu":
         return _solve_bucket_plain(src, x_biases, XtX, rhs_init, bucket,
                                    x_init, lam, g, cfg, hot_W, V_hot,
@@ -495,10 +512,18 @@ def solve_bucket_nnls(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
                                  nnz_total, hot_scale)
     if sweeps is not None:
         _kernels.check_tensor("sweeps", sweeps, (bucket.batch,), torch.int32)
-    rc = _kernels.lib().rsp_als_nnls(
+    lib = _kernels.lib()
+    # the build stage's G and mu for the sweeps: a slice of the bucket's
+    # systems at a time, at most NNLS_SCRATCH_BYTES
+    stride = lib.rsp_als_nnls_stride(args.d)
+    per = max(1, min(args.B, NNLS_SCRATCH_BYTES // (4 * stride)))
+    scratch = torch.empty((per * stride,), dtype=torch.float32,
+                          device=src.device)
+    counter = torch.empty((1,), dtype=torch.int32, device=src.device)
+    rc = lib.rsp_als_nnls(
         ctypes.byref(args), ctypes.c_int(cfg.nnls_max_iter),
-        ctypes.c_float(SCD_TOL), _kernels.ptr(sweeps),
-        _kernels.stream(src.device))
+        ctypes.c_float(SCD_TOL), _kernels.ptr(sweeps), _kernels.ptr(scratch),
+        per, _kernels.ptr(counter), _kernels.stream(src.device))
     _kernels.check(rc, "als_nnls")
     _kernels.launches["als_nnls"] += 1
     return y, loss

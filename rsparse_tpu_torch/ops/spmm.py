@@ -12,7 +12,8 @@ hand-written kernels carry it on the card:
   colfac[col]`` and ``delta = val - a``, returning ``sum delta^2`` and
   ``proj[row] = sum_l delta * colfac[col]`` from one gather of ``colfac``;
   with no proj and an ``a`` output it is :func:`sparse_approx_buckets`
-  (and :func:`residual_values`).
+  (and :func:`residual_values`).  It runs on K5's work list, one launch
+  per call, with one squared-norm partial per block.
 
 ``compute_dtype="bfloat16"`` gathers a bf16 shadow of the table
 (:func:`_gather_table`) and rounds what multiplies it (the values, the
@@ -50,7 +51,7 @@ MAX_K = 512
 ROW_THREADS = 256
 ROW_BLOCKS = 2048
 ROW_MAX_CHUNK = 4096
-#: buckets one K5 launch takes (their pointers are kernel parameters)
+#: buckets one K5 or K6 launch takes (their pointers are kernel parameters)
 ROW_MAX_BUCKETS = 64
 
 _GATHER_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -70,16 +71,16 @@ def _gather_table(dense: torch.Tensor, compute_dtype) -> torch.Tensor:
     return dense if dt == dense.dtype else dense.to(dt).contiguous()
 
 
-# -- K5's work list -------------------------------------------------------
+# -- K5's and K6's work list -------------------------------------------------
 
 class RowShape(NamedTuple):
-    """K5's launch shape for a table of k columns (csrc/spmm.cu): a block
-    of ``ROW_THREADS`` threads is ``groups`` groups of ``tpe`` threads, each
-    thread holding ``nv`` vectors of ``vec`` columns of a row.  The rows of
-    a bucket padded to more than ``short`` entries are cut into chunks of
-    ``chunk`` entries, one block each, its groups taking the chunk's entries
-    in turn; the rows of the other buckets are packed ``groups`` to a block,
-    one group each."""
+    """K5's and K6's launch shape for a table of k columns (csrc/spmm.cu,
+    csrc/spmm_residual.cu): a block of ``ROW_THREADS`` threads is
+    ``groups`` groups of ``tpe`` threads, each thread holding ``nv`` vectors
+    of ``vec`` columns of a row.  The rows of a bucket padded to more than
+    ``short`` entries are cut into chunks of ``chunk`` entries, one block
+    each, its groups taking the chunk's entries in turn; the rows of the
+    other buckets are packed ``groups`` to a block, one group each."""
 
     vec: int
     tpe: int
@@ -130,15 +131,15 @@ class RowLayout(NamedTuple):
 
 def row_layout(shapes: Sequence[Tuple[int, int]], shape: RowShape,
                device="cpu") -> RowLayout:
-    """Build K5's work list (:class:`RowLayout`) for buckets of these
-    ``(batch, pad_len)`` shapes: every row of a bucket padded to more than
-    ``shape.short`` entries takes ``ceil(pad_len / chunk)`` chunk blocks
-    (chunk c of every such row, longest buckets first, then chunk c + 1),
-    and the rows of the other buckets are packed ``shape.groups`` to a
-    block.  It reads no bucket data: a chunk past a row's entries leaves at
-    once on the card, and a row whose entries fit one chunk is stored, not
-    added (csrc/spmm.cu).  Built on the host from the shapes and copied to
-    ``device`` once."""
+    """Build K5's and K6's work list (:class:`RowLayout`) for buckets of
+    these ``(batch, pad_len)`` shapes: every row of a bucket padded to more
+    than ``shape.short`` entries takes ``ceil(pad_len / chunk)`` chunk
+    blocks (chunk c of every such row, longest buckets first, then chunk
+    c + 1), and the rows of the other buckets are packed ``shape.groups``
+    to a block.  It reads no bucket data: a chunk past a row's entries
+    leaves at once on the card, and a row whose entries fit one chunk is
+    stored, not added (csrc/spmm.cu, csrc/spmm_residual.cu).  Built on the
+    host from the shapes and copied to ``device`` once."""
     t0 = time.perf_counter()
     C, G = shape.chunk, shape.groups
     chunked = [(bi, B, -(-L // C)) for bi, (B, L) in enumerate(shapes)
@@ -272,32 +273,53 @@ def _check_bucket(b: RowBucket, vals: torch.Tensor) -> None:
             _kernels.check_tensor(name, t, shape, dt)
 
 
-def _spmm_cuda(buckets, n_rows, dense, values_list, compute_dtype):
-    tbl = _table_for_kernel("dense", dense, compute_dtype)
-    k = tbl.shape[1]
-    out = torch.zeros((n_rows, k), dtype=torch.float32, device=dense.device)
-    vals = [b.values if values_list is None else values_list[bi]
-            for bi, b in enumerate(buckets)]
-    live = [(b, v) for b, v in zip(buckets, vals) if b.batch]
-    aligned = tbl.data_ptr() % 16 == 0
-    # one launch per ROW_MAX_BUCKETS buckets (one for every staged matrix
-    # of the port); their rows are disjoint, so the launches need no order
+class _Part(NamedTuple):
+    """The buckets of one K5 / K6 launch (at most ``ROW_MAX_BUCKETS``, all
+    of them for every staged matrix of the port): their indices among the
+    caller's buckets, the host array of their pointers the C entries take,
+    and the work list of their shapes."""
+
+    index: List[int]
+    ptrs: ctypes.Array
+    layout: RowLayout
+
+
+def _parts(buckets, vals, k: int, aligned: bool, device) -> List[_Part]:
+    """Check the non-empty buckets and cut them into launches, each with
+    its cached work list (:func:`spmm_layout`)."""
+    live = [i for i, b in enumerate(buckets) if b.batch]
+    parts = []
     for i in range(0, len(live), ROW_MAX_BUCKETS):
-        part = live[i:i + ROW_MAX_BUCKETS]
+        index = live[i:i + ROW_MAX_BUCKETS]
         shapes, ptrs = [], []
-        for b, v in part:
+        for bi in index:
+            b, v = buckets[bi], vals[bi]
             _check_bucket(b, v)
             B, L = b.col_idx.shape
             shapes.append((B, L))
             ptrs += (b.col_idx.data_ptr(), v.data_ptr(), b.row_ids.data_ptr(),
                      b.nnz.data_ptr(), L)
         shape = row_shape(k, aligned, sum(B * L for B, L in shapes))
-        lay = spmm_layout(tuple(shapes), shape, dense.device)
+        parts.append(_Part(index, (ctypes.c_longlong * len(ptrs))(*ptrs),
+                           spmm_layout(tuple(shapes), shape, device)))
+    return parts
+
+
+def _spmm_cuda(buckets, n_rows, dense, values_list, compute_dtype):
+    tbl = _table_for_kernel("dense", dense, compute_dtype)
+    k = tbl.shape[1]
+    out = torch.zeros((n_rows, k), dtype=torch.float32, device=dense.device)
+    vals = ([b.values for b in buckets] if values_list is None
+            else values_list)
+    aligned = tbl.data_ptr() % 16 == 0
+    # the parts' rows are disjoint, so their launches need no order
+    for part in _parts(buckets, vals, k, aligned, dense.device):
+        lay = part.layout
         rc = _kernels.lib().rsp_spmm(
-            (ctypes.c_longlong * len(ptrs))(*ptrs), len(part),
-            _kernels.ptr(lay.desc), lay.stats["blocks"], _kernels.ptr(tbl),
+            part.ptrs, len(part.index), _kernels.ptr(lay.desc),
+            lay.stats["blocks"], _kernels.ptr(tbl),
             int(tbl.dtype == torch.bfloat16), int(aligned), k, n_rows,
-            shape.chunk, _kernels.ptr(out), _kernels.stream(dense.device))
+            lay.shape.chunk, _kernels.ptr(out), _kernels.stream(dense.device))
         _kernels.check(rc, "spmm")
         _kernels.launches["spmm"] += 1
     return out
@@ -314,39 +336,41 @@ def _residual_cuda(buckets, n_rows, rowfac, colfac, scale, compute_dtype,
         scale = scale.contiguous()
         _kernels.check_tensor("scale", scale, (k,), torch.float32)
     dev = colfac.device
-    lib, st = _kernels.lib(), _kernels.stream(dev)
-    aligned = int(tbl.data_ptr() % 16 == 0)
+    aligned = tbl.data_ptr() % 16 == 0
     out = (torch.zeros((n_rows, k), dtype=torch.float32, device=dev)
            if proj else None)
-    parts = [lib.rsp_spmm_residual_parts(b.batch, b.pad_len, k, aligned)
-             for b in buckets]
-    offs = [0]
-    for p in parts:
-        offs.append(offs[-1] + p)
-    sq_all = None if approx else torch.zeros((max(offs[-1], 1),),
-                                             dtype=torch.float32, device=dev)
-    approx_list = [] if approx else None
-    for bi, b in enumerate(buckets):
-        _check_bucket(b, b.values)
-        B, L = b.col_idx.shape
-        a = (torch.zeros((B, L), dtype=torch.float32, device=dev)
-             if approx else None)
-        if approx:
-            approx_list.append(a)
-        if B == 0:
-            continue
-        sq_ptr = (ctypes.c_void_p(0) if sq_all is None else
-                  ctypes.c_void_p(sq_all.data_ptr() + 4 * offs[bi]))
+    approx_list = aptr = None
+    if approx:
+        # one zeroed buffer, one (B, L) view of it per bucket
+        sizes = [b.batch * b.pad_len for b in buckets]
+        flat = torch.zeros((sum(sizes),), dtype=torch.float32, device=dev)
+        approx_list = [a.view(b.batch, b.pad_len) for a, b in
+                       zip(flat.split(sizes), buckets)]
+        aptr = [a.data_ptr() for a in approx_list]
+    parts = _parts(buckets, [b.values for b in buckets], k, aligned, dev)
+    sq_part = None
+    if not approx:
+        sq_part = torch.empty((sum(p.layout.stats["blocks"] for p in parts),),
+                              dtype=torch.float32, device=dev)
+    lib, st, off = _kernels.lib(), _kernels.stream(dev), 0
+    for part in parts:
+        lay = part.layout
+        ap = (None if aptr is None else
+              (ctypes.c_longlong * len(part.index))(
+                  *(aptr[i] for i in part.index)))
         rc = lib.rsp_spmm_residual(
-            _kernels.ptr(b.row_ids), _kernels.ptr(b.col_idx),
-            _kernels.ptr(b.values), _kernels.ptr(b.nnz), _kernels.ptr(rowfac),
-            _kernels.ptr(scale), rowfac.shape[0], _kernels.ptr(tbl),
-            int(tbl.dtype == torch.bfloat16), aligned, B, L, k, n_rows,
-            _kernels.ptr(out), _kernels.ptr(a), sq_ptr, st)
+            part.ptrs, len(part.index), ap, _kernels.ptr(lay.desc),
+            lay.stats["blocks"], _kernels.ptr(rowfac), _kernels.ptr(scale),
+            rowfac.shape[0], _kernels.ptr(tbl),
+            int(tbl.dtype == torch.bfloat16), int(aligned), k, n_rows,
+            lay.shape.chunk, _kernels.ptr(out),
+            (ctypes.c_void_p(0) if sq_part is None else
+             ctypes.c_void_p(sq_part.data_ptr() + 4 * off)), st)
         _kernels.check(rc, "spmm_residual")
         _kernels.launches["spmm_residual"] += 1
-    sqn = (torch.zeros((), dtype=torch.float32, device=dev) if sq_all is None
-           else sq_all.sum())
+        off += lay.stats["blocks"]
+    sqn = (torch.zeros((), dtype=torch.float32, device=dev)
+           if sq_part is None else sq_part.sum())
     return out, sqn, approx_list
 
 
@@ -384,8 +408,8 @@ def spmm_residual_buckets(buckets: Sequence[RowBucket], n_rows: int,
     colfac'`` at the nnz pattern, its squared norm (summed in float32, as
     the reference does at any precision) and the residual-SpMM against
     ``colfac``, in one gather of ``colfac`` per entry.  Returns ``(proj
-    (n_rows, k), sq_norm scalar)``.  CUDA tensors launch K6 once per
-    bucket."""
+    (n_rows, k), sq_norm scalar)``.  CUDA tensors launch K6 once over
+    every bucket (once per 64 buckets), on K5's work list."""
     proj, sqn, _ = _residual(buckets, n_rows, rowfac, colfac, scale,
                              compute_dtype, proj=True)
     return proj, sqn

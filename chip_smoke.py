@@ -209,11 +209,34 @@ def hold_loss_at_own_y(what, args, y, loss, hot_scale, lim=1e-5) -> None:
             f"kernel's own solution by {e:.2e} (> {lim:.0e})")
 
 
+def k2_detail(args, hot_scale=None):
+    """K2's plan for a bucket (CTAs an SM, the padded width D, the Gram
+    route of the cold and the head entries) and its stages timed apart: the
+    Gram (stages=1), the factorisation and the substitutions (stages=2 less
+    1), the loss (the whole less stages=2).  Returns (plan, text)."""
+    from rsparse_tpu_torch.ops import als
+    plan = als.cholesky_plan(*args, hot_scale=hot_scale)
+    t = [time_ms(lambda: als.solve_bucket_cholesky(*args, hot_scale=hot_scale,
+                                                   stages=st), reps=3)
+         for st in (1, 2, 3)]
+    return plan, (f"K2 {plan['ctas_per_sm']} CTAs an SM, D={plan['D']}, "
+                  f"Gram {plan['cold_route']} / head {plan['head_route']}; "
+                  f"Gram {t[0]:.3f} + factor and solve {t[1] - t[0]:.3f} + "
+                  f"loss {t[2] - t[1]:.3f} ms")
+
+
 #: NVIDIA's data-sheet peaks of one H100 SXM: HBM bytes/s, f32 flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 #: dense bf16 tensor-core peak
 BF16_FLOPS = 989e12
+#: dense TF32 tensor-core peak
+TF32_FLOPS = 495e12
+#: the rate of each of K2's Gram routes (ops/als.py CHOL_ROUTES): bf16
+#: products at the bf16 peak; 2xTF32 and 3xTF32 issue two and three TF32
+#: products for each one the function needs
+K2_ROUTE_FLOPS = {"bf16 mma": BF16_FLOPS, "bf16 mma, both ways": BF16_FLOPS,
+                  "2xTF32": TF32_FLOPS / 2, "3xTF32": TF32_FLOPS / 3}
 
 
 def bound(nbytes: float, flops: float):
@@ -233,7 +256,13 @@ def _touched(col, nnz) -> int:
     return int(torch.unique(col[live]).numel())
 
 
-def als_bound(args, sweeps=None, hot_scale=None):
+def als_bound(args, sweeps=None, hot_scale=None, plan=None):
+    """(least time in ms, what bounds it) of :func:`als_bound_parts`."""
+    tb, to = als_bound_parts(args, sweeps, hot_scale, plan)
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def als_bound_parts(args, sweeps=None, hot_scale=None, plan=None):
     """Bound of one ALS bucket solve (K1, K2, K4) from its inputs: bytes of
     the source rows it touches (at the table's width, 4 or 2 bytes), the
     entries, the Gram, the dense head (at its storage width, with a uint8
@@ -244,7 +273,12 @@ def als_bound(args, sweeps=None, hot_scale=None):
     d(d + 1)/2 distinct entries: CG (s + 1)(2d^2 + 4nd + 4Hd) + 4nd + 4Hd;
     Cholesky (n + Hp)d(d + 1) for the Gram, d^3/3 for the factorisation,
     2d^2 for the two triangular solves, 4nd; NNLS the same Gram, d^2(d + 1)
-    for G = lhs'lhs, 2 s d^2 for the sweeps, 4nd."""
+    for G = lhs'lhs, 2 s d^2 for the sweeps, 4nd.  Operations run at the
+    float32 rate, except K2's Gram given its ``plan``
+    (ops/als.py cholesky_plan): at the rate of the units its route runs on
+    (K2_ROUTE_FLOPS), and when the route sums both ways (the symmetric part
+    of a Gram of bf16-rounded weighted rows) at 2 n d^2.  Returns (ms for
+    the bytes, ms for the operations)."""
     from rsparse_tpu_torch.ops import als
     src, _, _, _, b, _, _, _, cfg, W, Vh, hb, _ = args
     B, d = b.batch, src.shape[1]
@@ -263,13 +297,21 @@ def als_bound(args, sweeps=None, hot_scale=None):
         s = cfg.cg_steps
         fl = ((s + 1) * (2 * d * d + 4 * n * d + 4 * H * d)
               + 4 * n * d + 4 * H * d)
+    elif cfg.solver == als.CHOLESKY and plan is not None:
+        cold = n * d * (2 * d if "both" in plan["cold_route"] else d + 1)
+        t_ops = float(
+            (cold / K2_ROUTE_FLOPS[plan["cold_route"]]
+             + hp * d * (d + 1) / K2_ROUTE_FLOPS[plan["head_route"]]
+             + (d ** 3 / 3 + 2 * d * d + 4 * n * d) / F32_FLOPS).sum()) * 1e3
+        return nbytes / HBM_BYTES_PER_S * 1e3, t_ops
     elif cfg.solver == als.CHOLESKY:
         fl = (n + hp) * d * (d + 1) + d ** 3 / 3 + 2 * d * d + 4 * n * d
     else:
         sw = sweeps.double() if sweeps is not None else n * 0
         fl = ((n + hp) * d * (d + 1) + d * d * (d + 1) + 2 * sw * d * d
               + 4 * n * d)
-    return bound(nbytes, float(fl.sum()))
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            float(fl.sum()) / F32_FLOPS * 1e3)
 
 
 def spmm_bound(buckets, k, tbytes, residual: bool):
@@ -383,6 +425,10 @@ def _record(results, name, kern, plain, args, tag, rep, limit_y, limit_loss,
     pms = (time_ms(lambda: plain(*args), reps=plain_reps) if plain_reps
            else t0.elapsed_time(t1))
     extra = "" if sweeps is None else " " + nnls_summary(sweeps, args[0])
+    plan = None
+    if name.startswith("K2"):
+        plan, detail = k2_detail(args)
+        extra += "\n    " + detail
     log(f"  {name:11s} {tag:44s} y_rel={ey:.2e} loss_rel={el:.2e} "
         f"kernel={ms:.3f} ms plain={pms:.3f} ms{extra}")
     require(bool(torch.isfinite(yk).all() and torch.isfinite(lk).all()),
@@ -392,7 +438,7 @@ def _record(results, name, kern, plain, args, tag, rep, limit_y, limit_loss,
     r = results[name.split()[1]]
     r["max_abs_err"] = max(r["max_abs_err"], float((yk - yp).abs().max()))
     if rep:
-        bms, bby = als_bound(args, sweeps)
+        bms, bby = als_bound(args, sweeps, plan=plan)
         r.update(ms=ms, plain_ms=pms, shape=tag, bound_ms=bms, bound_by=bby,
                  library_ms=None)
     return yk
@@ -981,7 +1027,7 @@ def run_ml100k(device, launches) -> None:
 
 
 def check_staged_buckets(m, x, results, nnls_max_iter=300,
-                         record_budget=False) -> None:
+                         record_budget=False, k2_fit=False) -> None:
     """Each kernel of a fitted model's path against its plain version at
     the shapes the fit gave it: per sweep, the buckets with the most padded
     entries (B x L), the most rows and the longest rows, staged as
@@ -1001,7 +1047,11 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300,
     step); then it runs alone with the fit's own budget, and the
     distribution of its sweeps is printed; with ``record_budget`` that run
     on the item sweep's bucket of the most rows is K4's second row of the
-    kernels line (its bound counts the sweeps each system ran)."""
+    kernels line (its bound counts the sweeps each system ran).  K2 prints
+    its plan and stages on each bucket, and runs the whole closing sweep
+    (every bucket, as fit_transform and transform launch it) timed by CUDA
+    events beside the sum of its buckets' bounds; with ``k2_fit`` that is
+    K2's second row of the kernels line."""
     import torch
     from rsparse_tpu_torch.ops import als
     lam, g = m.lambda_, m._g
@@ -1082,6 +1132,8 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300,
                    f"d={src_act.shape[1]} H={0 if W is None else W.shape[1]}")
             extra = ("" if sw is None else
                      f" {nnls_summary(sw, src_act)} (cap {nnls_max_iter})")
+            if cfg.solver == als.CHOLESKY:
+                extra += "\n    " + k2_detail(args, scale)[1]
             log(f"  {name:11s} {tag:50s} y_rel={ey:.2e} loss_rel={el:.2e} "
                 f"(vs f64: kernel y {rel_err(yk, y64):.2e} loss "
                 f"{rel_err(lk, l64):.2e}, plain y {rel_err(yp, y64):.2e} "
@@ -1127,6 +1179,43 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300,
                         fit_shape=f"{tag}, budget {fit_cfg.nnls_max_iter}",
                         fit_ms=fms, fit_bound_ms=bms, fit_bound_by=bby,
                         fit_sweeps=sweep_summary(sw))
+        if cfg.solver == als.CHOLESKY and sweep == "closing sweep":
+            _k2_sweep(results if k2_fit else None, src_act, xb, XtX,
+                      rhs_init, bs, lam, g, cfg, br.n_rows)
+
+
+def _k2_sweep(results, src_act, xb, XtX, rhs_init, buckets, lam, g, cfg,
+              n_rows) -> None:
+    """K2 over every bucket of a closing sweep (no head), one launch a
+    bucket as the sweep makes them, timed by CUDA events after a warm-up
+    pass; its bound is the larger of the buckets' summed bytes and summed
+    operations (als_bound_parts).  ``results`` given: K2's fit row."""
+    import torch
+    from rsparse_tpu_torch.ops import als
+    every = [(src_act, xb, XtX, rhs_init, b, None, lam, g, cfg, None, None,
+              None, None) for b in buckets]
+    parts = [als_bound_parts(a, plan=als.cholesky_plan(*a)) for a in every]
+    tb, to = sum(p[0] for p in parts), sum(p[1] for p in parts)
+    bms, bby = (tb, "bytes") if tb >= to else (to, "operations")
+    for a in every:
+        als.solve_bucket_cholesky(*a)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for a in every:
+        als.solve_bucket_cholesky(*a)
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1)
+    shape = (f"closing {cfg.feedback[:3]} sweep, {n_rows} rows in "
+             f"{len(every)} buckets, d={src_act.shape[1]}")
+    log(f"  K2 als_chol {shape}: kernel={ms:.3f} ms over {len(every)} "
+        f"launches, bound={bms:.4f} ms ({bby}), "
+        f"{n_rows / ms * 1e3:.0f} rows/s")
+    if results is not None:
+        results["als_chol"].update(fit_shape=shape, fit_ms=ms,
+                                   fit_bound_ms=bms, fit_bound_by=bby,
+                                   fit_launches=len(every))
 
 
 def profile_full_width(m, x) -> None:
@@ -1193,6 +1282,12 @@ def run_full_width(device, x, launches):
     torch.cuda.synchronize()
     log(f"  predict 4096 users k=10 (transform + top-k) "
         f"{time.perf_counter() - t0:.3f} s")
+    for _ in range(2):  # the serving path alone: staging + K2, twice
+        t0 = time.perf_counter()
+        m.transform(x)
+        torch.cuda.synchronize()
+        log(f"  transform {x.shape[0]} users (K2, rank 128): "
+            f"{time.perf_counter() - t0:.3f} s")
     launches[-1] = check_launched(_kernels, "full-width implicit main path "
                                   "with predict", ("als_cg", "als_chol",
                                                    "topk"))
@@ -2141,14 +2236,65 @@ def k10_bound(sh, r):
                        n * (10 * r + 30) + U * 6 * (r + 1), False)
 
 
-def k11_bound(n_r, n_c, r, grid_bytes, bf16):
+def k11_bound(n_r, n_c, r, grid_bytes, bf16, present):
     """Bound of K11 on one tile: bytes of the counts, the ids and one read
     and one write of each row's and column's four table rows; operations
-    of the five products, 10 n_r n_c r (at the bf16 peak for a bf16 head),
-    and ~20 a cell for the log, weight, clip and roundings."""
+    of what the ``present`` cells need (the cost is zero at every other
+    cell): S and the four products, 10 r a present cell (at the bf16 peak
+    for a bf16 head), and ~20 for the log, weight, clip and roundings.
+    (K11 computes the products densely: 12 n_r n_c r on the tensor cores
+    for a bf16 head, the five products on the FMA units for f32.)"""
     cells = n_r * n_c
     return glove_bound(cells * grid_bytes + (n_r + n_c) * (4 + 16 * (r + 1)),
-                       10 * cells * r, 20 * cells, bf16)
+                       10 * present * r, 20 * present, bf16)
+
+
+def k11_sides_apart(st, rows, cols, xv, hp) -> str:
+    """The bf16 value of clip(S + b_i + b_j - log x) that K11's two sides
+    formed at the present cells of a bf16 tile (the row side's [i, j], the
+    column side's [j, i]): how many cells the sides round apart, and how
+    many round apart from the same value formed with float64 sums, beside
+    the float32 plain version's count."""
+    import torch
+    from rsparse_tpu_torch.models import glove
+    n_r, n_c = rows.numel(), cols.numel()
+    s2 = torch.zeros((2, n_r, n_c), dtype=torch.float32, device=xv.device)
+    glove._glove_tile_cuda(st, rows, cols, xv, *hp, torch.bfloat16,
+                           s_dump=s2)
+    i, j = rows.long(), cols.long()
+    present = xv.float() > 0
+
+    def sv_bf16(S, dt):
+        x = xv.to(dt)
+        lx = torch.log(torch.where(present, x, 1.0))
+        return torch.clamp(S.to(dt) + st.b_i[i][:, None].to(dt)
+                           + st.b_j[j][None, :].to(dt) - lx, -100.0,
+                           100.0).to(torch.bfloat16)
+
+    wi, wj = (t.to(torch.bfloat16).double() for t in (st.w_i[i], st.w_j[j]))
+    ref = sv_bf16(wi @ wj.T, torch.float64)
+    s32 = wi.float() @ wj.float().T
+    plain = sv_bf16(s32, torch.float32)
+    sides = [s2[k].to(torch.bfloat16) for k in (0, 1)]
+    n = lambda a, b: int(((a != b) & present).sum())  # noqa: E731
+    # the cells K11 sums again exactly (csrc/glove_dense.cu near_midpoint),
+    # estimated from the float32 plain S
+    lx = torch.log(torch.where(present, xv.float(), 1.0))
+    b_r, b_c = st.b_i[i][:, None], st.b_j[j][None, :]
+    sv = torch.clamp(s32 + b_r + b_c - lx, -100.0, 100.0)
+    bound = (2.0 ** -18 * wi.float().norm(dim=1)[:, None]
+             * wj.float().norm(dim=1)[None, :]
+             + 2.0 ** -22 * (s32.abs() + b_r.abs() + b_c.abs() + lx.abs())
+             + 2.0 ** -21 * (1.0 + lx.abs()))
+    bits = sv.view(torch.int32)
+    ulp = torch.pow(2.0, ((bits >> 23) & 0xFF).float() - 150.0)
+    near = present & (((bits & 0xFFFF) - 0x8000).abs().float() * ulp
+                      <= bound)
+    return (f"bf16 clip(S + b - log x): {n(sides[0], sides[1])} present "
+            f"cells apart between the two sides; apart from float64 sums: "
+            f"row side {n(sides[0], ref)}, column side {n(sides[1], ref)}, "
+            f"float32 plain {n(plain, ref)}; of {int(present.sum())} "
+            f"present, ~{int(near.sum())} summed again exactly")
 
 
 def _tile_cublas(st, rows, cols, x, x_max, alpha, lr):
@@ -2193,14 +2339,14 @@ def _tile_s_bf16(st, rows, cols, x, acc):
 
 
 def check_glove_step(name, step, plain, state, ids, tag, results, bnd,
-                     lib=None, rep=False, reps=5):
+                     lib=None, rep=False, reps=5, flops=0):
     """K10 (``name="glove"``) or K11 (``"glove_dense"``) against its plain
     version on the same state: ``step(st)`` and ``plain(st)`` update st in
     place and return the loss term.  Each table (and the loss) is held by
     its change to 1e-5, or to twice the plain version's distance from the
     plain version at float64 (bf16 cells of S that an f32 sum rounds the
     other way); tables outside ``ids`` (the row and the column side's ids)
-    must not move."""
+    must not move.  ``flops``: the kernel's own work, printed as a rate."""
     import torch
     from rsparse_tpu_torch.models import glove
     fields = glove.GloveState._fields
@@ -2235,12 +2381,16 @@ def check_glove_step(name, step, plain, state, ids, tag, results, bnd,
                     "moved outside the step's ids")
     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], worst)
     ms = time_ms(lambda: step(sk), reps)
+    if flops:
+        bms_note = f" {flops / ms / 1e9:.1f} TFLOP/s (dense mma work)"
+    else:
+        bms_note = ""
     pms = time_ms(lambda: plain(sp_), reps)
     lms = time_ms(lambda: lib(sp_), reps) if lib is not None else None
     bms, bby = bnd
     log(f"  {name:11s} {tag} {' '.join(errs.values())} kernel={ms:.3f} ms "
         f"plain={pms:.3f} ms" + (f" cuBLAS chain={lms:.3f} ms" if lms else "")
-        + f" bound={bms:.4f} ms ({bby})")
+        + f" bound={bms:.4f} ms ({bby}){bms_note}")
     if rep:
         results[name].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
                              library_ms=lms, shape=tag)
@@ -2285,6 +2435,8 @@ def check_glove_kernels(head, tail, state, tag, results, rep=False):
                     + f" (bf16 S cells rounding apart f32/f64: {apart} of "
                     f"{int((xv > 0).sum())})")
             main = cdt == bf and (ti, tj) == (0, 0) and not trans
+            if cdt == bf:
+                log("    " + k11_sides_apart(state, rows, cols, xv, hp))
             check_glove_step(
                 "glove_dense",
                 lambda st: glove._glove_tile_cuda(st, rows, cols, xv, *hp,
@@ -2294,9 +2446,11 @@ def check_glove_kernels(head, tail, state, tag, results, rep=False):
                     c64 if st.w_i.dtype == torch.float64 else cdt),
                 state, ids, name, results,
                 k11_bound(rows.numel(), cols.numel(), r, x.element_size(),
-                          cdt == bf),
+                          cdt == bf, int((xv > 0).sum())),
                 lib=(lambda st: _tile_cublas(st, rows, cols, xv, *hp))
-                if main else None, rep=rep and main)
+                if main else None, rep=rep and main,
+                flops=12 * rows.numel() * cols.numel() * r if cdt == bf
+                else 0)
     del x32
     torch.cuda.empty_cache()
 
@@ -2551,8 +2705,12 @@ def check_lowp_kernels(device, results) -> None:
             ms = time_ms(lambda: kern(*args))
             pms = (t0.elapsed_time(t1) if sw is not None
                    else time_ms(lambda: plain(*args)))
-            bms, bby = als_bound(args, sw, scale)
+            plan = None
             extra = "" if sw is None else " " + sweep_summary(sw)
+            if cfg.solver == als.CHOLESKY:
+                plan, detail = k2_detail(args, scale)
+                extra += "\n    " + detail
+            bms, bby = als_bound(args, sw, scale, plan)
             log(f"  {name:11s} {tag:78s} y_rel={rel_err(yk, yp):.2e} "
                 f"loss_rel={rel_err(lk, lp):.2e} apart={apart} "
                 f"kernel={ms:.3f} ms plain={pms:.3f} ms bound={bms:.4f} ms "
@@ -2951,7 +3109,7 @@ def main(phases) -> int:
             "65,536 x 32,768)")
         m = run_full_width(device, x, launches)
         f32_loss = list(m.loss_history)
-        check_staged_buckets(m, x, results)
+        check_staged_buckets(m, x, results, k2_fit=True)
         log("  profile of a warm full-width fit_transform + predict")
         profile_full_width(m, x)
         del m

@@ -164,8 +164,13 @@ def lib() -> ctypes.CDLL:
     # args, cg_steps, tol, stream
     so.rsp_als_cg.argtypes = [args, i, f, p]
     so.rsp_als_cg.restype = i
-    so.rsp_als_chol.argtypes = [args, p]
+    # args, stages (1 the Gram, 2 + the solve, 3 + the loss), stream
+    so.rsp_als_chol.argtypes = [args, i, p]
     so.rsp_als_chol.restype = i
+    # args, info (5 int32 on the host: CTAs an SM, the cold and the head
+    # entries' Gram routes, D, shared bytes)
+    so.rsp_als_chol_info.argtypes = [args, p]
+    so.rsp_als_chol_info.restype = i
     # args, max_iter, rel_tol, sweeps (int32, or NULL), scratch, systems a
     # slice, counter, stream
     so.rsp_als_nnls.argtypes = [args, i, f, p, p, i, p, p]
@@ -214,13 +219,13 @@ def lib() -> ctypes.CDLL:
         p, p]
     so.rsp_glove_shard.restype = i
     ll = ctypes.c_longlong
-    # n_r, n_c, r -> floats of scratch
-    so.rsp_glove_tile_scratch.argtypes = [i, i, i]
+    # n_r, n_c, r, bf16 -> floats of scratch
+    so.rsp_glove_tile_scratch.argtypes = [i, i, i, i]
     so.rsp_glove_tile_scratch.restype = ll
     # rows, cols, n_r, n_c, X, row stride, col stride, bf16, the 8 tables,
-    # r, x_max, alpha, lr, scratch, loss, stream
+    # r, x_max, alpha, lr, scratch, loss, S of both sides (or NULL), stream
     so.rsp_glove_tile.argtypes = [p, p, i, i, p, ll, ll, i] + [p] * 8 + [
-        i, f, f, f, p, p, p]
+        i, f, f, f, p, p, p, p]
     so.rsp_glove_tile.restype = i
     # table, row stride, col stride, bf16, int32 idx, n, d, out, row
     # stride, col stride, table rows, lane rows per block, lane span, stream

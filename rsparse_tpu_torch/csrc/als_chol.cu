@@ -12,122 +12,788 @@
 // Gram + torch.linalg.cholesky + torch.cholesky_solve).  transform() and
 // the closing half-sweep of fit_transform run it.
 //
-// One CTA solves one target row:
-//   lhs, rhs  built in shared memory by rsp::build_normal_equations
-//             (common.cuh): the Gram of the row's cold entries, staged 32
-//             source rows at a time, and of its present head entries, each
-//             32-column strip of the dense head compacted by a ballot (the
-//             TPU's (H, d^2) outer-product table is never built);
-//   right-looking Cholesky (of the symmetric part (A + A') / 2 with
-//   compute_dtype="bfloat16"), one column per step, with the reference's guard for a non-positive pivot
-//   (piv = sqrt(max(A_jj, 0)), divisor 1 if 0);
-//   forward and back substitution; then the loss as in K1.
-// The Gram is accumulated in registers: the 256 threads form a 16 x 16 grid
-// and thread (ty, tx) owns the entries (ty + 16 a, tx + 16 b), a, b < d/16,
-// so each staged source row costs 2 d / 16 shared loads and (d / 16)^2 FMAs
-// per thread.  Two widths are built: d <= 128 (8 x 8 tiles) and d <= 160
-// (10 x 10; rank 128 with biases is d = 129), each for float and bf16
-// source tables (the bf16 shadow of compute_dtype="bfloat16", or a
-// precision="bfloat16" model's factors): rows are staged as float, and
-// the bf16 rounding points are build_normal_equations' and K1's.
+// One CTA of 8 warps solves one target row, in three stages.
 //
-// What bounds it on the H100: the Gram build is nnz * d^2 FMAs on the CUDA
-// cores (2.4e11 at 7.4M nnz, d = 128), reading source rows staged 32 at a
-// time through shared memory; the factorisation is d^3 / 3 FMAs per row
-// with one __syncthreads per column, latency-bound at small d.  The lhs
-// takes d^2 floats of shared memory (64 KB at d = 128, 65 KB at d = 129),
-// so two CTAs fit on an SM.
+// (1) The Gram on tensor cores.  The row's lhs is one weighted product
+//     X' diag(w) X over its entries: cold entries, then the dense head's
+//     present entries.  Entries are listed kSeg at a time in shared memory
+//     (cold: source row, lhs and rhs weights; head: each kSeg-column
+//     stretch of W scanned by the whole block and compacted in column
+//     order by ballots), then their source rows are staged kRows at a time
+//     with cp.async into two buffers (the next chunk lands while the
+//     tensor cores work on this one).  A row is copied as the 16-byte
+//     granules that hold it, so rows of any width and alignment stage with
+//     16-byte copies; its offset inside the first granule is kept beside
+//     it.  Only the lower m16n8 tiles of the d x d Gram are computed
+//     (nM (nM + 1) tiles, nM = D / 16), dealt to the warps in row-major
+//     runs; each chunk is summed into fresh register fragments, which are
+//     added in float32 to the warp's sums in shared memory (the tensor core
+//     truncates as it adds into a running sum: over a row of thousands of
+//     entries that cost more than K2's limit).  The operand rule:
+//       - both operands exact in bf16 -> mma.m16n8k16 bf16 (explicit
+//         feedback on a bf16 table, w = 1; implicit cold entries under
+//         compute_dtype="bfloat16", whose A operand is bf16(w x));
+//       - otherwise mma.m16n8k8 tf32 with each operand that tf32 does not
+//         hold split into hi + lo and the lo * lo term dropped (3xTF32 on
+//         a float32 table; 2xTF32 on a bf16 table, whose rows tf32 holds).
+//     Under compute_dtype="bfloat16" the implicit Gram is not symmetric,
+//     and the plain version factors (A + A') / 2: the kernel sums each cold
+//     entry twice, as (bf16(w x), x) and (x, bf16(w x)), and each head
+//     entry with weight 2 W1 (its term is symmetric), and halves, so the
+//     lower tiles hold the symmetric part.  The rhs is summed by the first
+//     d threads with FMAs from the same staged rows.
+// (2) The factorisation, right-looking in panels of 16 columns, in shared
+//     memory as (D + 1) x (D + 4) floats whose last row is the rhs: each
+//     panel's forward substitution is the same triangular solve as the
+//     rows below it, so z = L^-1 rhs comes out of the factorisation.  Per
+//     panel: one warp factors the 16 x 16 diagonal block in registers with
+//     shuffles (the reference's guard for a non-positive pivot, piv =
+//     sqrt(max(A_jj, 0)), divisor 1 if 0, column by column); one thread per
+//     row below solves that row against it (divisor L_jj, or 1 where it is
+//     not positive, as _trsm_lower); all threads apply the rank-16 trailing
+//     update in 4 x 4 register tiles.  Three block barriers per panel, none
+//     per column.  d is padded to D, a multiple of 16, with an identity
+//     block (d = 129 runs at D = 144).
+// (3) The back substitution L' x = z in one warp: lane k % 32 keeps the
+//     running u_k in registers; each step is a multiply, a shuffle and one
+//     FMA per lane over a contiguous row of L (no barrier).  Then the loss
+//     as in K1.
+//
+// The staging buffers, the entry list and the warps' Gram sums share one
+// shared-memory region with the factorised matrix, which is written only
+// after the last chunk: 70 KB a CTA at d = 128 (three CTAs an SM), 88 KB at
+// d = 129 (D = 144, two).
+//
+// What bounds it on the H100: per row the Gram is (n + Hp) d^2 products
+// (on the tensor cores, at 989 TFLOP/s bf16 or 495 / 3 TFLOP/s 3xTF32) and
+// the factorisation d^3 / 3 FMAs; at the table's shapes the bound is tens
+// of microseconds for a whole bucket, while one row's chain of 16-column
+// panels and D back-substitution steps is latency: the design keeps that
+// chain to a few barriers a panel and fills the SM with three rows at once.
+//
+// rsp_als_chol's `stages` stops a launch after the Gram (1: the lhs is
+// built, nothing is written) or after the solve (2: y written, no loss);
+// 3 runs everything.  chip_smoke.py times the stages apart.
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float safe_div(float v) { return v > 0.f ? v : 1.f; }
+constexpr int kThreads = 256;
+constexpr int kRows = 16;    // entries staged per chunk
+// entries listed at once (cold), or head columns scanned at once
+constexpr int kSeg = 1024;
+constexpr int kPanel = 16;
 
-template <int KMAXD, class T, bool EXPLICIT>
-__global__ void __launch_bounds__(rsp::kGramThreads)
-als_chol_kernel(rsp::BucketArgs a) {
-  extern __shared__ float smem[];
-  const int d = a.d, b = blockIdx.x, tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  float* A = smem;                                  // d x d, row-major
-  float* rhs = A + d * d;                           // d
-  float* x = rhs + d;                               // d
-  float* colv = x + d;                              // d
-  float* scratch = colv + d;                        // 32
-  const rsp::GramSmem S = rsp::gram_smem(scratch + 32, d);
+// Gram routes (rsp_als_chol_info reports them)
+enum Route : int {
+  kRouteBf16 = 0,     // one bf16 mma
+  kRouteBf16Sym = 1,  // two bf16 mmas: (bf16(w x), x) and (x, bf16(w x))
+  kRouteTf32x2 = 2,   // tf32, A split into hi + lo
+  kRouteTf32x3 = 3    // tf32, A and B split
+};
 
-  const float lam_use = rsp::row_lambda(a, b);
-  rsp::build_normal_equations<KMAXD, EXPLICIT, T>(a, b, lam_use, A, rhs, S);
-  // with compute_dtype="bfloat16" factor the symmetric part (A + A') / 2,
-  // as the plain version and the reference's lax.linalg.cholesky do: a
-  // Gram of bf16-rounded weighted rows is not symmetric (in float32 it is
-  // up to rounding, and the pass is skipped).  Only the lower triangle is
-  // written.
-  if (a.round_bf16) {
-    for (int e = tid; e < d * d; e += rsp::kGramThreads) {
-      const int i = e / d, j = e - i * d;
-      if (i > j) A[e] = (A[e] + A[j * d + i]) / 2.f;
-    }
-    __syncthreads();
-  }
-
-  // ---- Cholesky: L overwrites the lower triangle of A ----------------------
-  for (int j = 0; j < d; ++j) {
-    const float safe = safe_div(sqrtf(fmaxf(A[j * d + j], 0.f)));
-    for (int i = j + tid; i < d; i += rsp::kGramThreads) colv[i] = A[i * d + j] / safe;
-    __syncthreads();
-    for (int i = j + tid; i < d; i += rsp::kGramThreads) A[i * d + j] = colv[i];
-    for (int i = j + 1 + ty; i < d; i += 16)
-      for (int k = j + 1 + tx; k <= i; k += 16) A[i * d + k] -= colv[i] * colv[k];
-    __syncthreads();
-  }
-
-  // ---- L z = rhs (z overwrites rhs), then L' x = z ---------------------------
-  for (int j = 0; j < d; ++j) {
-    const float zj = rhs[j] / safe_div(A[j * d + j]);
-    for (int i = j + 1 + tid; i < d; i += rsp::kGramThreads) rhs[i] -= A[i * d + j] * zj;
-    if (tid == 0) colv[j] = zj;
-    __syncthreads();
-  }
-  for (int j = d - 1; j >= 0; --j) {
-    const float xj = colv[j] / safe_div(A[j * d + j]);
-    for (int i = tid; i < j; i += rsp::kGramThreads) colv[i] -= A[j * d + i] * xj;
-    if (tid == 0) x[j] = xj;
-    __syncthreads();
-  }
-
-  // ---- output and loss -----------------------------------------------------
-  for (int t = tid; t < d; t += rsp::kGramThreads) a.y[(size_t)b * d + t] = x[t];
-  const float total = rsp::row_loss<KMAXD / 32, EXPLICIT>(
-      rsp::row_entries<T>(a, b), a, x,
-      rsp::dot_operand(x, colv, d, a.round_bf16 != 0), lam_use, scratch);
-  if (tid == 0) a.loss[b] = total;
+template <class T>
+__host__ __device__ constexpr bool is_bf16() {
+  return std::is_same<T, __nv_bfloat16>::value;
 }
 
-}  // namespace
+template <class T, bool EXPLICIT>
+__host__ __device__ constexpr int gram_route(bool head, bool round) {
+  return !is_bf16<T>() ? kRouteTf32x3
+         : EXPLICIT    ? kRouteBf16
+         : (round && !head) ? kRouteBf16Sym
+                            : kRouteTf32x2;
+}
 
-extern "C" int rsp_als_chol(const rsp::BucketArgs* args, void* stream) {
-  const rsp::BucketArgs a = *args;
-  if (a.B <= 0) return 0;
-  if (a.d <= 0 || a.d > 160) return (int)cudaErrorInvalidValue;
-  using Kernel = void (*)(rsp::BucketArgs);
+// Shared-memory layout of one CTA, computed alike on the host and the card.
+struct Layout {
+  int D;        // d padded to a multiple of 16
+  int lda;      // row stride of the factorised matrix (floats)
+  int rs;       // bytes of one staged row's slot
+  int granules; // 16-byte granules a row's window can span
+  int per;      // lower m16n8 tiles a warp
+  int list;     // byte offset of the entry list (after the two buffers)
+  int totals;   // byte offset of the warps' Gram sums
+  int extra;    // byte offset of dinv, x, dot operand, scratch
+  int bytes;    // total
+};
+
+__host__ __device__ inline Layout make_layout(int d, int tbytes) {
+  Layout L;
+  L.D = (d + kPanel - 1) / kPanel * kPanel;
+  L.lda = L.D + 4;
+  L.granules = (d * tbytes + 30) / 16;
+  int w = 4 * L.granules;                 // words; 8 mod 32 spreads a
+  w += ((8 - w) % 32 + 32) % 32;          // fragment's 4 rows over the banks
+  L.rs = 4 * w;
+  const int nM = L.D / 16;
+  L.per = (nM * (nM + 1) + 7) / 8;
+  L.list = 2 * kRows * L.rs;
+  L.totals = L.list + kSeg * 12 + ((2 * kRows * 4 + 65 * 4 + 15) & ~15);
+  const int gram = L.totals + 8 * L.per * 4 * 32 * 4;
+  const int lhs = (L.D + 1) * L.lda * 4;
+  L.extra = ((gram > lhs ? gram : lhs) + 15) & ~15;
+  L.bytes = L.extra + (3 * L.D + 32) * 4;
+  return L;
+}
+
+// ---- device helpers ---------------------------------------------------------
+
+// Element i of a staged row (raw bytes of type T) as float.
+template <class T>
+__device__ __forceinline__ float sld(const unsigned char* row, int i) {
+  if constexpr (is_bf16<T>()) {
+    return __uint_as_float(
+        (unsigned)*reinterpret_cast<const unsigned short*>(row + 2 * i) << 16);
+  } else {
+    return *reinterpret_cast<const float*>(row + 4 * i);
+  }
+}
+
+// bf16 bits of a float that is exact in bf16, or rounded to nearest even
+__device__ __forceinline__ unsigned bf16_bits(float x) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  return bf16_bits(lo) | (bf16_bits(hi) << 16);
+}
+
+// The warp's run of lower m16n8 tiles: tile (m, n), n <= 2m + 1, in
+// row-major order; MAXT covers the widest D of the template.
+template <int KD>
+struct TileRun {
+  static constexpr int kMaxT = ((KD / 16) * (KD / 16 + 1) + 7) / 8;
+  int count, m0, n0;
+  __device__ __forceinline__ TileRun(int D, int warp) {
+    const int nM = D / 16, nT = nM * (nM + 1);
+    const int per = (nT + 7) / 8;
+    const int first = warp * per;
+    count = max(0, min(per, nT - first));
+    int m = 0;
+    while ((m + 1) * (m + 2) <= first) ++m;
+    m0 = m;
+    n0 = first - m * (m + 1);
+  }
+};
+
+// One k-step of 8 staged rows on the tf32 route: rows pA (k = tig) and pB
+// (k = tig + 4) with lhs weights wA, wB; A = w x split into hi + lo, B = x
+// split when SPLIT_B (a float32 table).  Columns at or past d read as 0.
+template <int KD, class T, bool SPLIT_B>
+__device__ __forceinline__ void tf32_step(float (&c)[TileRun<KD>::kMaxT][4],
+                                          const TileRun<KD>& run,
+                                          const unsigned char* pA,
+                                          const unsigned char* pB, float wA,
+                                          float wB, int d, int g) {
+  int m = run.m0, n = run.n0, cur = -1;
+  unsigned ah[4], al[4];
+#pragma unroll
+  for (int t = 0; t < TileRun<KD>::kMaxT; ++t) {
+    if (t < run.count) {
+      if (m != cur) {
+        const int i0 = 16 * m + g, i1 = i0 + 8;
+        const float v[4] = {i0 < d ? wA * sld<T>(pA, i0) : 0.f,
+                            i1 < d ? wA * sld<T>(pA, i1) : 0.f,
+                            i0 < d ? wB * sld<T>(pB, i0) : 0.f,
+                            i1 < d ? wB * sld<T>(pB, i1) : 0.f};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ah[q] = rsp::to_tf32(v[q]);
+          al[q] = rsp::to_tf32(v[q] - __uint_as_float(ah[q]));
+        }
+        cur = m;
+      }
+      const int j = 8 * n + g;
+      const float u0 = j < d ? sld<T>(pA, j) : 0.f;
+      const float u1 = j < d ? sld<T>(pB, j) : 0.f;
+      const unsigned bh0 = rsp::to_tf32(u0), bh1 = rsp::to_tf32(u1);
+      if constexpr (SPLIT_B) {
+        rsp::mma_tf32(c[t], ah, rsp::to_tf32(u0 - __uint_as_float(bh0)),
+                 rsp::to_tf32(u1 - __uint_as_float(bh1)));
+      }
+      rsp::mma_tf32(c[t], al, bh0, bh1);
+      rsp::mma_tf32(c[t], ah, bh0, bh1);
+      if (++n > 2 * m + 1) {
+        n = 0;
+        ++m;
+      }
+    }
+  }
+}
+
+
+// One k-step of 16 staged rows on a bf16 route: p[0..3] are the rows
+// k = 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9 with weights w[0..3].  SYM adds
+// the transposed term: c += bf16(w x) x' + x bf16(w x)'; else (explicit)
+// c += x x'.
+template <int KD, class T, bool SYM>
+__device__ __forceinline__ void bf16_step(float (&c)[TileRun<KD>::kMaxT][4],
+                                          const TileRun<KD>& run,
+                                          const unsigned char* const (&p)[4],
+                                          const float (&w)[4], int d, int g) {
+  int m = run.m0, n = run.n0, cur = -1;
+  unsigned ax[4], aw[4];
+#pragma unroll
+  for (int t = 0; t < TileRun<KD>::kMaxT; ++t) {
+    if (t < run.count) {
+      if (m != cur) {
+        const int i0 = 16 * m + g, i1 = i0 + 8;
+        float x0[4], x1[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          x0[q] = i0 < d ? sld<T>(p[q], i0) : 0.f;
+          x1[q] = i1 < d ? sld<T>(p[q], i1) : 0.f;
+        }
+        ax[0] = pack2(x0[0], x0[1]);
+        ax[1] = pack2(x1[0], x1[1]);
+        ax[2] = pack2(x0[2], x0[3]);
+        ax[3] = pack2(x1[2], x1[3]);
+        if constexpr (SYM) {
+          aw[0] = pack2(w[0] * x0[0], w[1] * x0[1]);
+          aw[1] = pack2(w[0] * x1[0], w[1] * x1[1]);
+          aw[2] = pack2(w[2] * x0[2], w[3] * x0[3]);
+          aw[3] = pack2(w[2] * x1[2], w[3] * x1[3]);
+        }
+        cur = m;
+      }
+      const int j = 8 * n + g;
+      float u[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) u[q] = j < d ? sld<T>(p[q], j) : 0.f;
+      const unsigned bx0 = pack2(u[0], u[1]), bx1 = pack2(u[2], u[3]);
+      if constexpr (SYM) {
+        rsp::mma_bf16(c[t], aw, bx0, bx1);
+        rsp::mma_bf16(c[t], ax, pack2(w[0] * u[0], w[1] * u[1]),
+                 pack2(w[2] * u[2], w[3] * u[3]));
+      } else {
+        rsp::mma_bf16(c[t], ax, bx0, bx1);
+      }
+      if (++n > 2 * m + 1) {
+        n = 0;
+        ++m;
+      }
+    }
+  }
+}
+
+// ---- the factorisation's pieces ---------------------------------------------
+
+// Warp 0: factor the 16 x 16 diagonal block at (s, s) in registers, one row
+// a lane (lanes 0..15; lanes 16..31 shadow them), column by column with the
+// reference's guard (piv = sqrt(max(A_jj, 0)), divisor 1 where it is 0);
+// writes L back and dinv[s + i] = 1 / L_ii, or 1 where L_ii is not positive
+// (the divisor of _trsm_lower and of the substitutions).
+__device__ __forceinline__ void factor_diag(float* Lm, int lda, int s,
+                                            float* dinv, int lane) {
+  float r[kPanel];
+  float* row = Lm + (s + (lane & 15)) * lda + s;
+#pragma unroll
+  for (int k = 0; k < kPanel; k += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(row + k);
+    r[k] = v.x; r[k + 1] = v.y; r[k + 2] = v.z; r[k + 3] = v.w;
+  }
+  float ljj = 0.f;
+  // the pivot of column j: lane j's A_jj, broadcast.  Lane j + 1 forms the
+  // next pivot from its own L_{j+1,j} before the other lanes' shuffles, so
+  // only one shuffle a column lies on the chain.
+  float ajj = __shfl_sync(RSP_FULL_MASK, r[0], 0);
+#pragma unroll
+  for (int j = 0; j < kPanel; ++j) {
+    // 1 / piv, piv = sqrt(max(A_jj, 0)), or 1 where piv is 0
+    const float inv = ajj > 0.f ? rsqrtf(ajj) : 1.f;
+    if (lane >= j) r[j] *= inv;
+    if (lane == j) ljj = r[j];
+    if (j + 1 < kPanel) {
+      // lane j + 1's updated A_{j+1,j+1} (its own L_{j+1,j} twice: the
+      // same fmaf as the update below gives it), broadcast
+      ajj = __shfl_sync(RSP_FULL_MASK, fmaf(-r[j], r[j], r[j + 1]), j + 1);
+      const float own = r[j];
+#pragma unroll
+      for (int k = j + 1; k < kPanel; ++k)
+        r[k] = fmaf(-own, __shfl_sync(RSP_FULL_MASK, own, k), r[k]);
+    }
+  }
+  if (lane < kPanel) {
+#pragma unroll
+    for (int k = 0; k < kPanel; k += 4)
+      *reinterpret_cast<float4*>(row + k) =
+          make_float4(r[k], r[k + 1], r[k + 2], r[k + 3]);
+    dinv[s + lane] = 1.f / (ljj > 0.f ? ljj : 1.f);
+  }
+}
+
+// One 4 x 4 tile t of the rank-16 trailing update after the panel at s:
+// tiles t < nb (nb + 1) / 2 walk the lower triangle of the nb x nb blocks
+// of rows and columns [s + 16, D) row by row; the next nb are the rhs row
+// D against each block of columns.
+__device__ __forceinline__ void update_tile(float* Lm, int lda, int s, int nb,
+                                            int t) {
+  const int n_tri = nb * (nb + 1) / 2, c0 = s + kPanel;
+  int rb, cb;
+  if (t < n_tri) {
+    rb = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+    while (rb * (rb + 1) / 2 > t) --rb;
+    while ((rb + 1) * (rb + 2) / 2 <= t) ++rb;
+    cb = t - rb * (rb + 1) / 2;
+  } else {
+    rb = nb;
+    cb = t - n_tri;
+  }
+  const int i0 = c0 + 4 * rb, j0 = c0 + 4 * cb, nr = rb == nb ? 1 : 4;
+  float acc[4][4];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    if (ii < nr) {
+      const float4 v = *reinterpret_cast<const float4*>(Lm + (i0 + ii) * lda + j0);
+      acc[ii][0] = v.x; acc[ii][1] = v.y; acc[ii][2] = v.z; acc[ii][3] = v.w;
+    }
+  }
+#pragma unroll
+  for (int kq = 0; kq < kPanel; kq += 4) {
+    float4 li[4], lj[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      li[q] = q < nr ? *reinterpret_cast<const float4*>(Lm + (i0 + q) * lda + s + kq)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      lj[q] = *reinterpret_cast<const float4*>(Lm + (j0 + q) * lda + s + kq);
+    }
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        acc[ii][jj] -= li[ii].x * lj[jj].x + li[ii].y * lj[jj].y +
+                       li[ii].z * lj[jj].z + li[ii].w * lj[jj].w;
+  }
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii)
+    if (ii < nr)
+      *reinterpret_cast<float4*>(Lm + (i0 + ii) * lda + j0) =
+          make_float4(acc[ii][0], acc[ii][1], acc[ii][2], acc[ii][3]);
+}
+
+// ---- the kernel -------------------------------------------------------------
+
+
+template <int KD, class T, bool EXPLICIT>
+__global__ void __launch_bounds__(kThreads, KD <= 128 ? 3 : 2)
+als_chol_kernel(rsp::BucketArgs a, int stages) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kMaxT = TileRun<KD>::kMaxT;
+  const int d = a.d, b = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const Layout Ly = make_layout(d, (int)sizeof(T));
+  const int D = Ly.D, lda = Ly.lda, rs = Ly.rs;
+
+  unsigned char* stage = smem;
+  int* lidx = reinterpret_cast<int*>(smem + Ly.list);
+  float* lgw = reinterpret_cast<float*>(lidx + kSeg);
+  float* lrw = lgw + kSeg;
+  int* soff = reinterpret_cast<int*>(lrw + kSeg);  // [2][kRows]
+  int* cnt = soff + 2 * kRows;                      // [64] + total
+  // the warp's Gram sums: [tile][component][lane]
+  float* tot = reinterpret_cast<float*>(smem + Ly.totals) +
+               warp * Ly.per * 128 + lane;
+  float* Lm = reinterpret_cast<float*>(smem);       // (D + 1) x lda, after the Gram
+  float* dinv = reinterpret_cast<float*>(smem + Ly.extra);
+  float* xs = dinv + D;
+  float* colv = xs + D;
+  float* scratch = colv + D;
+
+  const float lam_use = rsp::row_lambda(a, b);
+  const rsp::RowEntries<T> R = rsp::row_entries<T>(a, b);
+  const bool rnd = a.round_bf16 != 0;
+  const TileRun<KD> run(D, warp);
+
+
+  // Each chunk is summed by the tensor cores into fresh fragments c, which
+  // are then added to the warp's sums in shared memory in float32: the
+  // tensor core truncates when it adds into a running sum, and over
+  // thousands of entries (a long row, a wide head) that loss would grow
+  // past K2's limit.
+  float c[kMaxT][4];
+#pragma unroll
+  for (int t = 0; t < kMaxT; ++t)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) c[t][q] = 0.f;
+  for (int e = 0; e < run.count * 4; ++e) tot[32 * e] = 0.f;
+  float rhs_acc = 0.f;
+
+  // ---- (1) the Gram, segment by segment ------------------------------------
+  const int nnz = R.nnz;
+  const int n_cold = (nnz + kSeg - 1) / kSeg;
+  const int n_head = R.w != nullptr ? (a.H + kSeg - 1) / kSeg : 0;
+  const float head_scale = (rnd && !EXPLICIT) ? 2.f : 1.f;
+  for (int sg = 0; sg < n_cold + n_head; ++sg) {
+    const bool head = sg >= n_cold;
+    int n_list;
+    if (!head) {
+      const int c0 = sg * kSeg;
+      n_list = min(kSeg, nnz - c0);
+      const int n_pad = (n_list + kRows - 1) / kRows * kRows;
+      for (int e = tid; e < n_pad; e += kThreads) {
+        int col = 0;
+        float gw = 0.f, rw = 0.f;
+        if (e < n_list) {
+          col = R.col[c0 + e];
+          const float v = R.val[c0 + e];
+          const float xb = a.xbias != nullptr ? __ldg(a.xbias + col) : 0.f;
+          gw = rsp::lhs_weight<EXPLICIT>(v);
+          rw = rnd ? rsp::rhs_weight_bf16<EXPLICIT>(v, xb, a.g_rhs, false)
+                   : rsp::rhs_weight<EXPLICIT>(v, xb, a.g_rhs);
+        }
+        lidx[e] = col;
+        lgw[e] = gw;
+        lrw[e] = rw;
+      }
+      __syncthreads();
+    } else {
+      const int h0 = (sg - n_cold) * kSeg;
+      unsigned bal[kSeg / kThreads];
+      float wv[kSeg / kThreads];
+#pragma unroll
+      for (int q = 0; q < kSeg / kThreads; ++q) {
+        const int h = h0 + q * kThreads + tid;
+        wv[q] = h < a.H ? rsp::head_value(R, h) : 0.f;
+        bal[q] = __ballot_sync(RSP_FULL_MASK,
+                               h < a.H && rsp::head_present(R.bits, wv[q], h));
+        if (lane == 0) cnt[q * 8 + warp] = __popc(bal[q]);
+      }
+      __syncthreads();
+      constexpr int kCnt = kSeg / kThreads * 8;  // counts, a multiple of 32
+      if (warp == 0) {  // exclusive scan of the counts, in column order
+        constexpr int kPer = kCnt / 32;
+        int v[kPer], sum = 0;
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) sum += v[e] = cnt[kPer * lane + e];
+        int incl = sum;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(RSP_FULL_MASK, incl, o);
+          if (lane >= o) incl += y;
+        }
+        int excl = incl - sum;
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) {
+          cnt[kPer * lane + e] = excl;
+          excl += v[e];
+        }
+        if (lane == 31) cnt[kCnt] = incl;
+      }
+      __syncthreads();
+      n_list = cnt[kCnt];
+      const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+      for (int q = 0; q < kSeg / kThreads; ++q) {
+        if ((bal[q] >> lane) & 1u) {
+          const int pos = cnt[q * 8 + warp] + __popc(bal[q] & lt);
+          const float w = wv[q];
+          lidx[pos] = h0 + q * kThreads + tid;
+          lgw[pos] = head_scale * rsp::head_lhs_weight<EXPLICIT>(w, rnd);
+          lrw[pos] = rnd ? rsp::rhs_weight_bf16<EXPLICIT>(w, 0.f, a.g_rhs, true)
+                         : rsp::rhs_weight<EXPLICIT>(w, 0.f, a.g_rhs);
+        }
+      }
+      if (tid < kRows && n_list + tid < (n_list + kRows - 1) / kRows * kRows) {
+        lidx[n_list + tid] = 0;
+        lgw[n_list + tid] = 0.f;
+        lrw[n_list + tid] = 0.f;
+      }
+      __syncthreads();
+    }
+    if (n_list == 0) continue;
+
+    const T* src = head ? R.hot_table : R.table;
+    const int row_bytes = d * (int)sizeof(T);
+    auto issue = [&](int ch) {
+      unsigned char* buf = stage + (ch & 1) * kRows * rs;
+      for (int e = tid; e < kRows * Ly.granules; e += kThreads) {
+        const int l = e / Ly.granules, q = e - l * Ly.granules;
+        const int k = ch * kRows + l;
+        unsigned char* dst = buf + l * rs + 16 * q;
+        if (k < n_list) {
+          const size_t p = reinterpret_cast<size_t>(src + (size_t)lidx[k] * d);
+          const int off = (int)(p & 15);
+          if (q == 0) soff[(ch & 1) * kRows + l] = off;
+          if (q < (off + row_bytes + 15) >> 4)
+            rsp::cp_async16(
+                dst, reinterpret_cast<const void*>((p & ~(size_t)15) + 16 * q),
+                16);
+        } else {
+          if (q == 0) soff[(ch & 1) * kRows + l] = 0;
+          rsp::cp_async16(dst, src, 0);  // zero fill
+        }
+      }
+    };
+    const int route = gram_route<T, EXPLICIT>(head, rnd);
+    const int n_chunks = (n_list + kRows - 1) / kRows;
+    issue(0);
+    rsp::cp_async_commit();
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      if (ch + 1 < n_chunks) {
+        issue(ch + 1);
+        rsp::cp_async_commit();
+        rsp::cp_async_wait<1>();
+      } else {
+        rsp::cp_async_wait<0>();
+      }
+      __syncthreads();
+      const unsigned char* buf = stage + (ch & 1) * kRows * rs;
+      const int* off = soff + (ch & 1) * kRows;
+      const float* gw = lgw + ch * kRows;
+      const float* rw = lrw + ch * kRows;
+      if (tid < d) {
+#pragma unroll 8
+        for (int l = 0; l < kRows; ++l)
+          rhs_acc += rw[l] * sld<T>(buf + l * rs + off[l], tid);
+      }
+      if constexpr (!is_bf16<T>()) {
+#pragma unroll
+        for (int ks = 0; ks < kRows / 8; ++ks) {
+          const int lA = 8 * ks + tig, lB = lA + 4;
+          tf32_step<KD, T, true>(c, run, buf + lA * rs + off[lA],
+                                 buf + lB * rs + off[lB], gw[lA], gw[lB], d, g);
+        }
+      } else {
+        if (route == kRouteTf32x2) {
+#pragma unroll
+          for (int ks = 0; ks < kRows / 8; ++ks) {
+            const int lA = 8 * ks + tig, lB = lA + 4;
+            tf32_step<KD, T, false>(c, run, buf + lA * rs + off[lA],
+                                    buf + lB * rs + off[lB], gw[lA], gw[lB], d,
+                                    g);
+          }
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < kRows / 16; ++ks) {
+            const int r0 = 16 * ks + 2 * tig;
+            const int rr[4] = {r0, r0 + 1, r0 + 8, r0 + 9};
+            const unsigned char* const p[4] = {
+                buf + rr[0] * rs + off[rr[0]], buf + rr[1] * rs + off[rr[1]],
+                buf + rr[2] * rs + off[rr[2]], buf + rr[3] * rs + off[rr[3]]};
+            const float w[4] = {gw[rr[0]], gw[rr[1]], gw[rr[2]], gw[rr[3]]};
+            if (!EXPLICIT && route == kRouteBf16Sym)
+              bf16_step<KD, T, true>(c, run, p, w, d, g);
+            else
+              bf16_step<KD, T, false>(c, run, p, w, d, g);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kMaxT; ++t) {
+        if (t < run.count) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            tot[32 * (4 * t + q)] += c[t][q];
+            c[t][q] = 0.f;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+
+  // ---- the lhs (lower tiles) and the rhs row into the factor's matrix ------
+  {
+    const bool doubled = rnd && !EXPLICIT && is_bf16<T>();
+    const float scale = doubled ? 0.5f : 1.f;
+    const float diag =
+        EXPLICIT ? lam_use + ((nnz == 0 && lam_use == 0.f) ? 1.f : 0.f) : 0.f;
+    int m = run.m0, n = run.n0;
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) {
+      if (t < run.count) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = 16 * m + g + 8 * (q >> 1), j = 8 * n + 2 * tig + (q & 1);
+          float base;
+          if (i >= d || j >= d) {
+            base = i == j ? 1.f : 0.f;
+          } else if (EXPLICIT) {
+            base = i == j ? diag : 0.f;
+          } else {
+            base = doubled ? 0.5f * (__ldg(a.XtX + i * d + j) + __ldg(a.XtX + j * d + i))
+                           : __ldg(a.XtX + i * d + j);
+          }
+          c[t][q] = base + scale * tot[32 * (4 * t + q)];
+        }
+        if (++n > 2 * m + 1) {
+          n = 0;
+          ++m;
+        }
+      }
+    }
+    const float rv =
+        tid < d ? rhs_acc + (a.rhs_init != nullptr ? a.rhs_init[tid] : 0.f)
+                : 0.f;
+    __syncthreads();  // every warp holds its sums: the matrix may cover them
+    m = run.m0;
+    n = run.n0;
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) {
+      if (t < run.count) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          Lm[(16 * m + g + 8 * (q >> 1)) * lda + 8 * n + 2 * tig + (q & 1)] =
+              c[t][q];
+        if (++n > 2 * m + 1) {
+          n = 0;
+          ++m;
+        }
+      }
+    }
+    if (tid < D) Lm[D * lda + tid] = rv;
+  }
+  __syncthreads();
+  if (stages < 2) return;
+
+  // ---- (2) blocked right-looking Cholesky; row D carries z = L^-1 rhs -------
+  // Per panel, three barriers: warp 0 factors the diagonal block; one
+  // thread per row below (the rhs row last) solves that row against it;
+  // all threads apply the trailing update.
+  for (int s = 0;; s += kPanel) {
+    if (warp == 0) factor_diag(Lm, lda, s, dinv, lane);
+    __syncthreads();
+    const int below = D - s - kPanel;  // rows below the block, the rhs row after them
+    if (tid <= below) {
+      float* row = Lm + (s + kPanel + tid) * lda + s;
+      float r[kPanel];
+#pragma unroll
+      for (int k = 0; k < kPanel; k += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(row + k);
+        r[k] = v.x; r[k + 1] = v.y; r[k + 2] = v.z; r[k + 3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < kPanel; ++j) {
+        r[j] *= dinv[s + j];
+#pragma unroll
+        for (int k = j + 1; k < kPanel; ++k)
+          r[k] -= r[j] * Lm[(s + k) * lda + s + j];
+      }
+#pragma unroll
+      for (int k = 0; k < kPanel; k += 4)
+        *reinterpret_cast<float4*>(row + k) =
+            make_float4(r[k], r[k + 1], r[k + 2], r[k + 3]);
+    }
+    __syncthreads();
+    if (below == 0) break;
+    const int nb = below / 4;
+    for (int t = tid; t < nb * (nb + 1) / 2 + nb; t += kThreads)
+      update_tile(Lm, lda, s, nb, t);
+    __syncthreads();
+  }
+
+  // ---- (3) L' x = z in one warp --------------------------------------------
+  if (warp == 0) {
+    constexpr int kPer = KD / 32;
+    float u[kPer];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int j = 32 * q + lane;
+      u[q] = j < D ? Lm[D * lda + j] : 0.f;
+    }
+#pragma unroll
+    for (int q = kPer - 1; q >= 0; --q) {
+      if (32 * q >= D) continue;
+#pragma unroll
+      for (int o = 31; o >= 0; --o) {
+        const int i = 32 * q + o;
+        if (i >= D) continue;
+        const float xi = __shfl_sync(RSP_FULL_MASK, u[q] * dinv[i], o);
+        if (lane == o) xs[i] = xi;
+        const float* Li = Lm + i * lda;
+#pragma unroll
+        for (int qq = 0; qq <= q; ++qq) {
+          const int j = 32 * qq + lane;
+          if (j < i) u[qq] -= Li[j] * xi;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- output and loss -----------------------------------------------------
+  for (int t = tid; t < d; t += kThreads) a.y[(size_t)b * d + t] = xs[t];
+  if (stages >= 3) {
+    const float total = rsp::row_loss<KD / 32, EXPLICIT>(
+        R, a, xs, rsp::dot_operand(xs, colv, d, rnd), lam_use, scratch);
+    if (tid == 0) a.loss[b] = total;
+  }
+}
+
+using Kernel = void (*)(rsp::BucketArgs, int);
+
+Kernel pick(const rsp::BucketArgs& a) {
   using bf16 = __nv_bfloat16;
-  // [d <= 128 ? 0 : 1][bf16 table][explicit]
+  // [D <= 128 ? 0 : 1][bf16 table][explicit]
   static const Kernel kernels[2][2][2] = {
       {{als_chol_kernel<128, float, false>, als_chol_kernel<128, float, true>},
        {als_chol_kernel<128, bf16, false>, als_chol_kernel<128, bf16, true>}},
       {{als_chol_kernel<160, float, false>, als_chol_kernel<160, float, true>},
        {als_chol_kernel<160, bf16, false>, als_chol_kernel<160, bf16, true>}}};
-  const Kernel kern =
-      kernels[a.d > 128][a.table_bf16 != 0][a.explicit_fb != 0];
-  const size_t smem = sizeof(float) * ((size_t)a.d * a.d + 4 * (size_t)a.d + 32 +
-                                       rsp::gram_smem_floats(a.d));
+  return kernels[a.d > 128][a.table_bf16 != 0][a.explicit_fb != 0];
+}
+
+int check_args(const rsp::BucketArgs& a) {
+  if (a.d <= 0 || a.d > 160) return (int)cudaErrorInvalidValue;
+  // compute_dtype="bfloat16" reads bf16 tables (ops/als.py casts them)
+  if (a.round_bf16 && !a.table_bf16) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+}  // namespace
+
+// stages: 1 the Gram only, 2 also the solve (y), 3 everything (y, loss).
+extern "C" int rsp_als_chol(const rsp::BucketArgs* args, int stages,
+                            void* stream) {
+  const rsp::BucketArgs a = *args;
+  if (a.B <= 0) return 0;
+  if (int e = check_args(a)) return e;
+  const Kernel kern = pick(a);
+  const int smem = make_layout(a.d, a.table_bf16 ? 2 : 4).bytes;
   // above 48 KB a block's dynamic shared memory must be opted into; the
   // attribute is per device, so it is set before every launch
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<a.B, rsp::kGramThreads, smem, (cudaStream_t)stream>>>(a);
+  kern<<<a.B, kThreads, smem, (cudaStream_t)stream>>>(a, stages);
   return (int)cudaGetLastError();
+}
+
+// info: [0] CTAs an SM, [1] the cold entries' Gram route, [2] the head's,
+// [3] D, [4] shared bytes a CTA (routes: 0 bf16 mma, 1 bf16 mma summed
+// both ways, 2 2xTF32, 3 3xTF32).
+extern "C" int rsp_als_chol_info(const rsp::BucketArgs* args, int* info) {
+  const rsp::BucketArgs a = *args;
+  if (int e = check_args(a)) return e;
+  const Kernel kern = pick(a);
+  const Layout Ly = make_layout(a.d, a.table_bf16 ? 2 : 4);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Ly.bytes);
+  if (err != cudaSuccess) return (int)err;
+  int n = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kThreads,
+                                                      Ly.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const bool rnd = a.round_bf16 != 0;
+  int cold, head;
+  if (!a.table_bf16) {
+    cold = gram_route<float, false>(false, rnd);
+    head = gram_route<float, false>(true, rnd);
+  } else if (a.explicit_fb) {
+    cold = gram_route<__nv_bfloat16, true>(false, rnd);
+    head = gram_route<__nv_bfloat16, true>(true, rnd);
+  } else {
+    cold = gram_route<__nv_bfloat16, false>(false, rnd);
+    head = gram_route<__nv_bfloat16, false>(true, rnd);
+  }
+  info[0] = n;
+  info[1] = cold;
+  info[2] = head;
+  info[3] = Ly.D;
+  info[4] = Ly.bytes;
+  return 0;
 }

@@ -17,30 +17,56 @@
 // (rsparse_tpu/models/glove.py:247-283); every product and sum accumulates
 // in f32.
 //
-// Two launches, written by hand (no library product):
-//   A  grid (own blocks, chunks, 2 sides).  A CTA owns kO positions of one
+// Written by hand (no library product), in launches that keep it
+// deterministic (no atomics; sums in a fixed order):
+//   A  grid (own blocks, chunks, 2 sides).  A CTA owns positions of one
 //      side (z = 0: rows, z = 1: columns) and walks one chunk of the other
-//      side in steps of kN positions.  Per step it loads the kN factor rows
-//      and the kO x kN counts into shared memory, computes its S block with
-//      an FMA loop over r, turns it into the cost block on chip (never
-//      written to device memory), and adds cost @ w_oth and cost^2 @ w_oth^2
-//      into its own positions' sums, kept in registers across the steps.
-//      S, and so the cost, is computed once by each side (6 products for
-//      the tile's 5): no CTA has to add into another's sums, so there are
-//      no atomics, and a chunk writes its partial sums once.  The loss sum
-//      cost * S comes from the row side, one partial per CTA;
+//      side in steps.  Per step it forms its block of S, turns it into the
+//      cost block on chip (never written to device memory), and adds cost
+//      @ w_oth and cost^2 @ w_oth^2 and the row sums of cost and cost^2
+//      into its own positions' sums, held across the steps.  S, and so the
+//      cost, is computed once by each side (6 products for the tile's 5):
+//      no CTA adds into another's sums, and a chunk writes its partial sums
+//      once.  The loss sum cost * S comes from the row side, one partial per
+//      CTA;
 //   B  one thread per (side, position, component): the partials of all
 //      chunks summed in a fixed order, then acc += sum cost^2 w^2, w +=
 //      -lr sum cost w / sqrt(acc) (the same for the biases), for the
 //      tile's own positions (distinct hot ids: no race); thread 0 sums the
-//      loss partials.  Both launches are deterministic.
+//      loss partials.
 //
-// What bounds it on the H100: operations.  At config #4 a tile is 3,063 x
-// 3,063 x r = 128: 12.0 GFLOP for the five products against ~19 MB of
-// bf16 counts, far above the card's ~295 flops a byte in bf16 and ~20 in
-// f32.  This first version runs on the f32 FMA units (a 2 x 4 micro-tile a
-// thread for S, 4 x 4 x 2 for the products, operands from shared memory);
-// wgmma on bf16 operands is later work.
+// The bf16 head (bf16 != 0, the configuration that config #4 and
+// compute_dtype="bfloat16" run) puts all six products on the tensor cores
+// (glove_tile_sums_mma, mma.sync.m16n8k16, bf16 operands, f32 sums), after
+// a gather launch that writes both sides' rows as bf16, bf16(w^2) (rounded
+// once), the biases, the rows' norms, and a table of (bf16(weight), log x,
+// log x in float64) for all 2^15 positive bf16 counts.  A CTA of four
+// warps owns 64 positions, a warp 16; per step of 64 other positions (rows,
+// squares, biases, norms and counts staged with cp.async, two buffers) a
+// warp forms its 16 x 64 block of S into register fragments, turns them
+// into cost and cost^2 in registers, and reuses them, packed to bf16, as
+// the A fragments of the two products (the layout FlashAttention-2 uses
+// for P V).  Count lines are staged along whichever side is contiguous in
+// X, so both sides read X in rows.  Numerics: the tensor core truncates
+// when it adds into a running sum, so each k16 slice of S and each step's
+// products are summed into fresh fragments and added in float32, and the
+// row sums of cost and cost^2 a step at a time; a cell whose float32
+// clip(S + b_i + b_j - log x) lies within the sum's error bound of a bf16
+// rounding midpoint (bound from |w_own| |w_oth|, by Cauchy-Schwarz) is
+// summed again exactly in float64 by the warp (eight lanes a cell), so the
+// bf16 costs are those of the exactly summed S.  The f32 head keeps the
+// first version: S and the products on the FMA units (a 2 x 4 micro-tile
+// a thread for S, 4 x 4 x 2 for the products, operands from shared
+// memory).
+//
+// What bounds it on the H100: at config #4 a tile is 3,063 x 3,063 cells,
+// r = 128, of which ~0.7% (a tail tile) to 14% (the first) are present:
+// the function needs the present cells' work and one read of the ~19 MB of
+// bf16 counts, a few microseconds.  The dense formulation does 12 n_r n_c r
+// = 13.5 GFLOP a tile on the tensor cores whatever the density; the steps'
+// staging and latency (two warps a scheduler at ~250 registers a thread)
+// and the exact re-sums of the densest rows hold it well below the bf16
+// peak.
 
 #include <cuda_bf16.h>
 
@@ -66,30 +92,13 @@ struct Smem {
   float red[32];
 };
 
-__device__ __forceinline__ float to_c(float x, bool bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
-__device__ __forceinline__ float load_count(const void* X, long long off,
-                                            bool bf16) {
-  if (bf16) {
-    const unsigned h = static_cast<const unsigned short*>(X)[off];
-    return __uint_as_float(h << 16);
-  }
-  return static_cast<const float*>(X)[off];
-}
 
 // Chunks of the other side per CTA row: enough CTAs for ~8 a multiprocessor
 // over both sides, at most one step of kN positions per chunk.
+int n_sms();
+
 int plan_chunks(int n_r, int n_c) {
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      n_sm = 132;
-  }
+  const int n_sm = n_sms();
   const int n = n_r > n_c ? n_r : n_c;
   const int own_blocks = (n + kO - 1) / kO;
   const int steps = (n + kN - 1) / kN;
@@ -103,8 +112,8 @@ int plan_chunks(int n_r, int n_c) {
 // chunks) loss partials.
 __global__ void __launch_bounds__(kThreads, 2)
     glove_tile_sums(const int* __restrict__ rows, const int* __restrict__ cols,
-                    int n_r, int n_c, const void* __restrict__ X,
-                    long long sr, long long sc, int bf16,
+                    int n_r, int n_c, const float* __restrict__ X,
+                    long long sr, long long sc,
                     const float* __restrict__ w_i,
                     const float* __restrict__ w_j,
                     const float* __restrict__ b_i,
@@ -118,7 +127,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int own0 = blockIdx.x * kO;
   if (own0 >= n_own) return;  // the same for the whole CTA
   const int chunk = blockIdx.y;
-  const bool bf = bf16 != 0;
   const int* own_ids = side ? cols : rows;
   const int* oth_ids = side ? rows : cols;
   const float* W_own = side ? w_j : w_i;
@@ -132,8 +140,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   for (int q = tid; q < kO * r; q += kThreads) {
     const int m = q / r, k = q % r, p = own0 + m;
-    sm.own[m * kLd + k] =
-        p < n_own ? to_c(W_own[(size_t)own_ids[p] * r + k], bf) : 0.f;
+    sm.own[m * kLd + k] = p < n_own ? W_own[(size_t)own_ids[p] * r + k] : 0.f;
   }
   if (tid < kO) {
     const int p = own0 + tid;
@@ -159,8 +166,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();  // the previous step's products are done with oth, cost
     for (int q = tid; q < kN * r; q += kThreads) {
       const int n = q / r, k = q % r, p = oth0 + n;
-      sm.oth[n * kLd + k] =
-          p < n_oth ? to_c(W_oth[(size_t)oth_ids[p] * r + k], bf) : 0.f;
+      sm.oth[n * kLd + k] = p < n_oth ? W_oth[(size_t)oth_ids[p] * r + k] : 0.f;
     }
     if (tid < kN) {
       const int p = oth0 + tid;
@@ -170,9 +176,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int q = tid; q < A * Bn; q += kThreads) {
       const int al = b_fast ? q / Bn : q % A, bl = b_fast ? q % Bn : q / A;
       const int ra = a0 + al, cb = b0 + bl;
-      const float x = (ra < n_r && cb < n_c)
-                          ? load_count(X, ra * sr + cb * sc, bf)
-                          : 0.f;
+      const float x = (ra < n_r && cb < n_c) ? X[ra * sr + cb * sc] : 0.f;
       const int ol = side ? bl : al, tl = side ? al : bl;
       sm.cost[ol * kLdc + tl] = x;
     }
@@ -210,8 +214,8 @@ __global__ void __launch_bounds__(kThreads, 2)
             present ? (x < x_max ? powf(x / x_max, alpha) : 1.f) : 0.f;
         const float sv =
             fminf(fmaxf(s[i][j] + b_row + b_col - lx, -kClip), kClip);
-        const float cost = to_c(to_c(w, bf) * to_c(sv, bf), bf);
-        const float c2 = to_c(cost * cost, bf);
+        const float cost = w * sv;
+        const float c2 = cost * cost;
         lsum += cost * sv;
         rc[i] += cost;
         rc2[i] += c2;
@@ -228,7 +232,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int j = 0; j < 4; ++j) {
         const int k = px + 32 * j;
         o[j] = k < r ? sm.oth[n * kLd + k] : 0.f;
-        o2[j] = to_c(o[j] * o[j], bf);
+        o2[j] = o[j] * o[j];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -271,6 +275,501 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (tx == 0 && p < n_own) {
       P[(size_t)p * width + 2 * r] = rc[i];
       P[(size_t)p * width + 2 * r + 1] = rc2[i];
+    }
+  }
+  if (side == 0) {
+    const float l = rsp::block_sum(lsum, sm.red);
+    if (tid == 0) lpart[blockIdx.x * chunks + chunk] = l;
+  }
+}
+
+// ---- the bf16 head on tensor cores ------------------------------------------
+
+constexpr int kMO = 64;             // own positions per CTA (16 a warp)
+constexpr int kMN = 64;             // other positions per step
+constexpr int kMThreads = 128;
+constexpr int kWRow = kMaxR + 8;    // bf16 a staged factor row: 272 bytes,
+                                    // so ldmatrix's 8 rows hit 8 bank groups
+constexpr int kCntLine = 144;       // bytes a staged count line: 9 granules
+
+struct MmaSmem {
+  __nv_bfloat16 own[kMO * kWRow];
+  __nv_bfloat16 oth[2][kMN * kWRow];
+  __nv_bfloat16 oth2[2][kMN * kWRow];  // bf16(w^2)
+  unsigned char cnt[2][64 * kCntLine];
+  int coff[2][64];                     // offset of each line in its first granule
+  float b_own[kMO];
+  float b_oth[2][kMN];
+  float n_own[kMO];                    // |bf16(w)|_2 of each staged row
+  float n_oth[2][kMN];
+  float red[32];
+};
+
+// bf16 counts: 2^15 bit patterns of positive (or zero) values
+constexpr int kLut = 1 << 15;
+
+// The tile's factor rows at bf16 for the tensor cores, both sides: rows
+// side then columns side, kMaxR columns each (0 past r), w and bf16(w^2),
+// one warp a position; the biases and the rows' norms |bf16(w)|_2 f32, the
+// columns side's from offset round4(n_r).  Threads below kLut also fill
+// the weight table of the bf16 counts: for the count with bits b << 16,
+// (bf16(weight), log x) as the plain version computes them (logf, powf),
+// so that the sums kernel reads them instead of evaluating both in every
+// cell.
+__global__ void glove_tile_gather(const int* __restrict__ rows,
+                                  const int* __restrict__ cols, int n_r,
+                                  int n_c, const float* __restrict__ w_i,
+                                  const float* __restrict__ w_j,
+                                  const float* __restrict__ b_i,
+                                  const float* __restrict__ b_j, int r,
+                                  float x_max, float alpha,
+                                  __nv_bfloat16* gw, __nv_bfloat16* gw2,
+                                  float* gb, float* gn, float2* lut,
+                                  double* lut64) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < kLut) {
+    const float x = __uint_as_float((unsigned)idx << 16);
+    const float w = x > 0.f ? (x < x_max ? powf(x / x_max, alpha) : 1.f) : 0.f;
+    lut[idx] = make_float2(rsp::rbf(w), logf(x > 0.f ? x : 1.f));
+    lut64[idx] = log(x > 0.f ? (double)x : 1.0);
+  }
+  const int p = (int)(idx >> 5), lane = threadIdx.x & 31;
+  if (p >= n_r + n_c) return;  // the same for the whole warp
+  const bool col = p >= n_r;
+  const int pos = col ? p - n_r : p;
+  const int id = (col ? cols : rows)[pos];
+  const float* W = (col ? w_j : w_i) + (size_t)id * r;
+  float ss = 0.f;
+#pragma unroll
+  for (int m = 0; m < kMaxR / 32; ++m) {
+    const int k = lane + 32 * m;
+    const float v = k < r ? rsp::rbf(W[k]) : 0.f;
+    gw[(size_t)p * kMaxR + k] = __float2bfloat16_rn(v);
+    gw2[(size_t)p * kMaxR + k] = __float2bfloat16_rn(v * v);
+    ss += v * v;
+  }
+  ss = rsp::warp_sum(ss);
+  if (lane == 0) {
+    const int o = col ? ((n_r + 3) & ~3) + pos : pos;
+    gb[o] = (col ? b_j : b_i)[id];
+    gn[o] = sqrtf(ss);
+  }
+}
+
+// Whether clip(S + b_row + b_col - log x) computed in float32 from K11's
+// tensor-core S (s) may sit on the other side of a bf16 rounding midpoint
+// than the exact value: its distance from the nearest midpoint is within
+// the error bound of the sum.  S is 8 k16 slices, each summed by the
+// tensor core (at most ~2 ulp of its partial sums) and added in float32;
+// every partial is bounded by sum |a_k b_k| <= |a|_2 |b|_2 (Cauchy-
+// Schwarz), so the bound is 2^-18 |a| |b| plus the three float32 roundings
+// of the biases and the log, and the error of the __logf the test is made
+// with.
+__device__ __forceinline__ bool near_midpoint(float sv, float s, float b_row,
+                                              float b_col, float lx,
+                                              float na, float nb) {
+  const float bound = 0x1p-18f * na * nb +
+                      0x1p-22f * (fabsf(s) + fabsf(b_row) + fabsf(b_col) +
+                                  fabsf(lx)) +
+                      0x1p-21f * (1.f + fabsf(lx));
+  const unsigned u = __float_as_uint(sv);
+  const float ulp = __uint_as_float(u & 0x7f800000u) * 0x1p-23f;
+  const int dist = abs((int)(u & 0xffffu) - 0x8000);
+  return (float)dist * ulp <= bound;
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+// Launch A of the bf16 head on the tensor cores: as glove_tile_sums, with
+// kMO own positions a CTA (16 a warp) and kMN other positions a step.
+// Per step a warp computes its 16 x 64 block of S = w_own w_oth' with
+// mma.m16n8k16 (bf16 operands from the gathered rows, f32 sums), turns
+// the S fragments into cost and cost^2 in registers, and reuses them, packed
+// to bf16, as the A fragments of cost @ w_oth and cost^2 @ w_oth^2 (the
+// accumulator layout of m16n8 equals the A layout of m16n8k16 over two
+// adjacent n tiles), summing into 16 x 128 f32 fragments held across the
+// steps.  The other side's rows, squares, biases and counts are staged with
+// cp.async into two buffers; counts are staged as lines along whichever
+// side is contiguous in X (the row side's lines are X's rows; the column
+// side reads the same rows and indexes them transposed).
+__global__ void __launch_bounds__(kMThreads, 2)
+    glove_tile_sums_mma(int n_r, int n_c, const void* __restrict__ X,
+                        long long sr, long long sc,
+                        const __nv_bfloat16* __restrict__ gw,
+                        const __nv_bfloat16* __restrict__ gw2,
+                        const float* __restrict__ gb,
+                        const float* __restrict__ gn,
+                        const float2* __restrict__ lut,
+                        const double* __restrict__ lut64, int r, int chunks,
+                        float* __restrict__ part, float* __restrict__ lpart,
+                        float* s_dump) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  MmaSmem& sm = *reinterpret_cast<MmaSmem*>(smem_mma);
+  const int side = blockIdx.z;
+  const int n_own = side ? n_c : n_r, n_oth = side ? n_r : n_c;
+  const int own0 = blockIdx.x * kMO;
+  if (own0 >= n_own) return;  // the same for the whole CTA
+  const int chunk = blockIdx.y;
+  const int steps = (n_oth + kMN - 1) / kMN;
+  const int s0 = (int)((long long)chunk * steps / chunks);
+  const int s1 = (int)((long long)(chunk + 1) * steps / chunks);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int rb = (n_r + 3) & ~3;
+  const __nv_bfloat16* W_own = gw + (size_t)(side ? n_r : 0) * kMaxR;
+  const __nv_bfloat16* W_oth = gw + (size_t)(side ? 0 : n_r) * kMaxR;
+  const __nv_bfloat16* W2_oth = gw2 + (size_t)(side ? 0 : n_r) * kMaxR;
+  const float* B_own = gb + (side ? rb : 0);
+  const float* B_oth = gb + (side ? 0 : rb);
+  const float* N_own = gn + (side ? rb : 0);
+  const float* N_oth = gn + (side ? 0 : rb);
+  const long long s_own = side ? sc : sr, s_oth = side ? sr : sc;
+  const bool lines_own = s_oth == 1;  // count lines run along the other side
+  const long long s_line = lines_own ? s_own : s_oth;
+  const int kr = (r + 15) / 16;       // k16 slices of the factor rows
+
+  for (int e = tid; e < kMO * 16; e += kMThreads) {
+    const int m = e >> 4, q = e & 15, p = own0 + m;
+    rsp::cp_async16(&sm.own[m * kWRow + 8 * q],
+                    W_own + (size_t)(p < n_own ? p : 0) * kMaxR + 8 * q,
+                    p < n_own ? 16 : 0);
+  }
+  if (tid < kMO / 4) {
+    const int p = own0 + 4 * tid;
+    rsp::cp_async16(&sm.b_own[4 * tid], B_own + (p < n_own ? p : 0),
+                    p < n_own ? 16 : 0);
+    rsp::cp_async16(&sm.n_own[4 * tid], N_own + (p < n_own ? p : 0),
+                    p < n_own ? 16 : 0);
+  }
+  auto issue = [&](int step) {
+    const int buf = step & 1, q0 = step * kMN;
+    for (int e = tid; e < kMN * 16; e += kMThreads) {
+      const int m = e >> 4, q = e & 15, p = q0 + m;
+      const size_t o = (size_t)(p < n_oth ? p : 0) * kMaxR + 8 * q;
+      rsp::cp_async16(&sm.oth[buf][m * kWRow + 8 * q], W_oth + o,
+                      p < n_oth ? 16 : 0);
+      rsp::cp_async16(&sm.oth2[buf][m * kWRow + 8 * q], W2_oth + o,
+                      p < n_oth ? 16 : 0);
+    }
+    if (tid < kMN / 4) {
+      const int p = q0 + 4 * tid;
+      rsp::cp_async16(&sm.b_oth[buf][4 * tid], B_oth + (p < n_oth ? p : 0),
+                      p < n_oth ? 16 : 0);
+      rsp::cp_async16(&sm.n_oth[buf][4 * tid], N_oth + (p < n_oth ? p : 0),
+                      p < n_oth ? 16 : 0);
+    }
+    // count lines: along the other side (lines = own positions) or along
+    // the own side (lines = other positions); only the granules that hold
+    // the line's positions inside the tile are read
+    const int n_lines = lines_own ? n_own - own0 : n_oth - q0;
+    const int first = lines_own ? q0 : own0;
+    const int n_along = (lines_own ? n_oth : n_own) - first;
+    const int len = n_along < 64 ? n_along : 64;
+    for (int e = tid; e < 64 * 9; e += kMThreads) {
+      const int line = e / 9, q = e - line * 9;
+      if (line >= n_lines) continue;
+      const long long el =
+          (long long)((lines_own ? own0 : q0) + line) * s_line + first;
+      const size_t a = reinterpret_cast<size_t>(X) + 2 * (size_t)el;
+      const int off = (int)(a & 15);
+      if (q == 0) sm.coff[buf][line] = off;
+      if (q < ((off + 2 * len + 15) >> 4))
+        rsp::cp_async16(&sm.cnt[buf][line * kCntLine + 16 * q],
+                        reinterpret_cast<const void*>((a & ~(size_t)15) + 16 * q),
+                        16);
+    }
+  };
+
+  float G[16][4], A2[16][4];
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) G[n][q] = A2[n][q] = 0.f;
+  float rc[2] = {0.f, 0.f}, rc2[2] = {0.f, 0.f}, lsum = 0.f;
+  const int prow = 16 * warp;  // the warp's first own row in the block
+
+  if (s0 < s1) issue(s0);
+  rsp::cp_async_commit();
+  for (int step = s0; step < s1; ++step) {
+    const int buf = step & 1, q0 = step * kMN;
+    if (step + 1 < s1) {
+      issue(step + 1);
+      rsp::cp_async_commit();
+      rsp::cp_async_wait<1>();
+    } else {
+      rsp::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // S for the warp's 16 own rows x 64 other positions.  Each k16 slice
+    // is summed by the tensor core into a fresh fragment and the slices are
+    // added in float32: the tensor core truncates when it adds into a
+    // running sum, which would send more cells of S across a bf16 rounding
+    // boundary than a float32 sum does.
+    float s[8][4];
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s[2 * np][q] = s[2 * np + 1][q] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kMaxR / 16; ++ks) {
+        if (ks < kr) {
+          unsigned a[4], bq[4];
+          rsp::ldsm_x4(a, &sm.own[(prow + (lane & 15)) * kWRow + 16 * ks +
+                                  (lane >> 4) * 8]);
+          rsp::ldsm_x4(bq, &sm.oth[buf][(16 * np + (lane & 7) +
+                                         ((lane >> 4) << 3)) * kWRow +
+                                        16 * ks + ((lane >> 3) & 1) * 8]);
+          float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+          rsp::mma_bf16(t0, a, bq[0], bq[1]);
+          rsp::mma_bf16(t1, a, bq[2], bq[3]);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            s[2 * np][q] += t0[q];
+            s[2 * np + 1][q] += t1[q];
+          }
+        }
+      }
+    }
+
+    // cost and cost^2 in registers, packed as the products' A fragments.
+    // Cell 4 n + q of a thread is S fragment s[n][q]: own row pr, other
+    // position qr.  Three passes keep every array index a constant (a
+    // runtime index would put the fragments in local memory): (1) flag the
+    // cells whose float32 clip(S + b_i + b_j - log x) may round to the
+    // other bf16 neighbour than the exact S does; (2) the warp sums the
+    // flagged cells' S exactly in float64, four cells a round, eight lanes
+    // and 16 of the 128 exact products a lane each, and each cell's thread
+    // queues its S (the first four of a thread's eight cells in a quarter of
+    // the step; a fifth keeps its float32 value); (3) the costs, their sums
+    // and the packed fragments, a flagged cell's clip(S + b_i + b_j - log
+    // x) formed in float64 from the queue and rounded once to bf16, as the
+    // float64 sum does.
+    const unsigned char* cb = sm.cnt[buf];
+    auto cell = [&](int n, int q, int& pr, int& qr, unsigned& xb, float& b_row,
+                    float& b_col) {
+      pr = prow + g + 8 * (q >> 1);
+      qr = 8 * n + 2 * tig + (q & 1);
+      const int line = lines_own ? pr : qr, el = lines_own ? qr : pr;
+      const bool in = own0 + pr < n_own && q0 + qr < n_oth;
+      xb = in ? *reinterpret_cast<const unsigned short*>(
+                    cb + line * kCntLine + sm.coff[buf][line] + 2 * el)
+              : 0u;
+      // the reference adds the row's bias first: (S + b_i) + b_j
+      b_row = side ? sm.b_oth[buf][qr] : sm.b_own[pr];
+      b_col = side ? sm.b_own[pr] : sm.b_oth[buf][qr];
+    };
+    unsigned ca[4][4], c2a[4][4];
+    // this step's row sums, added to the running sums after the step (two
+    // levels: a long float32 sum of cancelling terms in one chain would
+    // sit further from the exact sum than the plain version's)
+    float sc[2] = {0.f, 0.f}, sc2[2] = {0.f, 0.f}, sl = 0.f;
+    // by quarters of the step's cells (two S fragments, 8 cells a thread),
+    // so that the queue of four rarely overflows
+#pragma unroll
+    for (int qt = 0; qt < 4; ++qt) {
+      unsigned near_mask = 0;
+#pragma unroll
+      for (int n = 2 * qt; n < 2 * qt + 2; ++n) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int pr = prow + g + 8 * (q >> 1);
+          const int qr = 8 * n + 2 * tig + (q & 1);
+          const int line = lines_own ? pr : qr, el = lines_own ? qr : pr;
+          const float x =
+              own0 + pr < n_own && q0 + qr < n_oth
+                  ? __uint_as_float(
+                        (unsigned)*reinterpret_cast<const unsigned short*>(
+                            cb + line * kCntLine + sm.coff[buf][line] + 2 * el)
+                        << 16)
+                  : 0.f;
+          if (x > 0.f) {  // (absent cells, most of a sparse tile, skip)
+            const float b_row = side ? sm.b_oth[buf][qr] : sm.b_own[pr];
+            const float b_col = side ? sm.b_own[pr] : sm.b_oth[buf][qr];
+            // log x by the fast intrinsic, its error (at most 2^-21 (1 +
+            // |log x|)) added to the test's bound: no global memory here
+            const float lx = __logf(x);
+            const float sv =
+                fminf(fmaxf(s[n][q] + b_row + b_col - lx, -kClip), kClip);
+            if (near_midpoint(sv, s[n][q], b_row, b_col, lx, sm.n_own[pr],
+                              sm.n_oth[buf][qr]))
+              near_mask |= 1u << (4 * n + q);
+          }
+        }
+      }
+      // the first four flagged cells of the thread, in cell order
+      unsigned fixed = 0;
+      for (int i = 0; i < 4 && near_mask != 0; ++i) {
+        fixed |= near_mask & (0u - near_mask);
+        near_mask &= near_mask - 1;
+      }
+      near_mask = fixed;
+      // the queue of exact S, in cell order
+      double fs0 = 0.0, fs1 = 0.0, fs2 = 0.0, fs3 = 0.0;
+      int fn = 0;
+      for (unsigned any = __ballot_sync(RSP_FULL_MASK, near_mask != 0); any;
+           any = __ballot_sync(RSP_FULL_MASK, near_mask != 0)) {
+        // four cells a round, eight lanes each: group j takes the lowest
+        // flagged cell of the j-th lowest lane that has one
+        const int grp = lane >> 3, gl = lane & 7;
+        unsigned a = any;
+        for (int j = 0; j < grp && a; ++j) a &= a - 1;
+        const int L = a ? __ffs(a) - 1 : -1;
+        const int t = __shfl_sync(RSP_FULL_MASK, __ffs(near_mask) - 1,
+                                  L < 0 ? 0 : L);
+        double part = 0.0;
+        if (L >= 0) {
+          const int n = t >> 2, q = t & 3;
+          const int pr = prow + (L >> 2) + 8 * (q >> 1);
+          const int qr = 8 * n + 2 * (L & 3) + (q & 1);
+#pragma unroll
+          for (int e = 0; e < 16; e += 2) {
+            const int k = 16 * gl + e;
+            const __nv_bfloat162 x =
+                *reinterpret_cast<const __nv_bfloat162*>(&sm.own[pr * kWRow + k]);
+            const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(
+                &sm.oth[buf][qr * kWRow + k]);
+            part += (double)(__low2float(x) * __low2float(y)) +
+                    (double)(__high2float(x) * __high2float(y));
+          }
+        }
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1)
+          part += __shfl_xor_sync(RSP_FULL_MASK, part, o);
+        // the owners (the four lowest lanes with a flagged cell) take their
+        // group's sum
+        const int rank = __popc(any & ((1u << lane) - 1u));
+        const double res = __shfl_sync(RSP_FULL_MASK, part, 8 * (rank & 3));
+        if (near_mask != 0 && rank < 4) {
+          near_mask &= near_mask - 1;
+          fs0 = fn == 0 ? res : fs0;
+          fs1 = fn == 1 ? res : fs1;
+          fs2 = fn == 2 ? res : fs2;
+          fs3 = fn == 3 ? res : fs3;
+          ++fn;
+        }
+      }
+#pragma unroll
+      for (int n = 2 * qt; n < 2 * qt + 2; ++n) {
+        int pr[4], qr[4];
+        unsigned xb[4];
+        float b_row[4], b_col[4];
+        float2 wl[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          cell(n, q, pr[q], qr[q], xb[q], b_row[q], b_col[q]);
+        double lx64[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // bf16(weight) and log x of the count
+          const bool present = __uint_as_float(xb[q] << 16) > 0.f;
+          wl[q] = present ? __ldg(&lut[xb[q]]) : make_float2(0.f, 0.f);
+          lx64[q] = (fixed >> (4 * n + q)) & 1u ? __ldg(&lut64[xb[q]]) : 0.0;
+        }
+        float cv[4], c2v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool present = __uint_as_float(xb[q] << 16) > 0.f;
+          float sv =
+              fminf(fmaxf(s[n][q] + b_row[q] + b_col[q] - wl[q].y, -kClip),
+                    kClip);
+          float svb = rsp::rbf(sv);
+          if ((fixed >> (4 * n + q)) & 1u) {  // the next queued exact S
+            const double v = fmin(
+                fmax(fs0 + (double)b_row[q] + (double)b_col[q] - lx64[q],
+                     -(double)kClip),
+                (double)kClip);
+            svb = __bfloat162float(__double2bfloat16(v));  // rounded once
+            sv = (float)v;
+            fs0 = fs1;
+            fs1 = fs2;
+            fs2 = fs3;
+          }
+          const float cost = present ? rsp::rbf(wl[q].x * svb) : 0.f;
+          const float c2 = rsp::rbf(cost * cost);
+          sl += cost * sv;
+          if (s_dump != nullptr && present) {
+            const int i = side ? q0 + qr[q] : own0 + pr[q];
+            const int j = side ? own0 + pr[q] : q0 + qr[q];
+            s_dump[((size_t)side * n_r + i) * n_c + j] = svb;
+          }
+          sc[q >> 1] += cost;
+          sc2[q >> 1] += c2;
+          cv[q] = cost;
+          c2v[q] = c2;
+        }
+        ca[n >> 1][2 * (n & 1)] = pack_bf16(cv[0], cv[1]);
+        ca[n >> 1][2 * (n & 1) + 1] = pack_bf16(cv[2], cv[3]);
+        c2a[n >> 1][2 * (n & 1)] = pack_bf16(c2v[0], c2v[1]);
+        c2a[n >> 1][2 * (n & 1) + 1] = pack_bf16(c2v[2], c2v[3]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rc[h] += sc[h];
+      rc2[h] += sc2[h];
+    }
+    lsum += sl;
+
+    // cost @ w_oth and cost^2 @ w_oth^2: each step's four k16 slices into
+    // fresh fragments, added to the warp's 16 x 128 sums in float32
+#pragma unroll
+    for (int cp = 0; cp < kMaxR / 16; ++cp) {
+      if (cp < kr) {
+        float tg[2][4] = {}, ta[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int o = (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kWRow +
+                        16 * cp + (lane >> 4) * 8;
+          unsigned bq[4];
+          rsp::ldsm_x4_trans(bq, &sm.oth[buf][o]);
+          rsp::mma_bf16(tg[0], ca[kk], bq[0], bq[1]);
+          rsp::mma_bf16(tg[1], ca[kk], bq[2], bq[3]);
+          rsp::ldsm_x4_trans(bq, &sm.oth2[buf][o]);
+          rsp::mma_bf16(ta[0], c2a[kk], bq[0], bq[1]);
+          rsp::mma_bf16(ta[1], c2a[kk], bq[2], bq[3]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          G[2 * cp][q] += tg[0][q];
+          G[2 * cp + 1][q] += tg[1][q];
+          A2[2 * cp][q] += ta[0][q];
+          A2[2 * cp + 1][q] += ta[1][q];
+        }
+      }
+    }
+    __syncthreads();  // buffers of this step are free for step + 2
+  }
+  rsp::cp_async_wait<0>();
+
+  const int width = 2 * r + 2;
+  float* P = part + (side ? (size_t)chunks * n_r * width : 0) +
+             (size_t)chunk * n_own * width;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = own0 + prow + g + 8 * h;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = 8 * n + 2 * tig + e;
+        if (p < n_own && k < r) {
+          P[(size_t)p * width + k] = G[n][2 * h + e];
+          P[(size_t)p * width + r + k] = A2[n][2 * h + e];
+        }
+      }
+    }
+    float a1 = rc[h], a2 = rc2[h];
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {  // over the 4 lanes of one own row
+      a1 += __shfl_xor_sync(RSP_FULL_MASK, a1, o);
+      a2 += __shfl_xor_sync(RSP_FULL_MASK, a2, o);
+    }
+    if (tig == 0 && p < n_own) {
+      P[(size_t)p * width + 2 * r] = a1;
+      P[(size_t)p * width + 2 * r + 1] = a2;
     }
   }
   if (side == 0) {
@@ -331,10 +830,65 @@ __global__ void glove_tile_apply(const int* __restrict__ rows,
   }
 }
 
+int n_sms() {
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n_sm = 132;
+  }
+  return n_sm;
+}
+
+// Chunks of the other side per CTA row of the tensor-core path: the count
+// (at most 4: each adds a tile's worth of partial sums) with the fewest
+// waves x steps a chunk, at two CTAs an SM.
+int plan_chunks_mma(int n_r, int n_c) {
+  const int n = n_r > n_c ? n_r : n_c;
+  const int own_blocks = (n + kMO - 1) / kMO, steps = (n + kMN - 1) / kMN;
+  const int slots = 2 * n_sms();
+  int best = 1;
+  long long best_t = -1;
+  for (int c = 1; c <= 4 && c <= steps; ++c) {
+    const long long waves = (2LL * own_blocks * c + slots - 1) / slots;
+    const long long t = waves * ((steps + c - 1) / c);
+    if (best_t < 0 || t < best_t) {
+      best_t = t;
+      best = c;
+    }
+  }
+  return best;
+}
+
+// Scratch floats of the tensor-core path: partials, loss partials, then
+// (16-byte aligned) the gathered bf16 rows and squares, the biases, the
+// rows' norms and the weight table.
+struct MmaScratch {
+  long long part, lpart, gw, gw2, gb, gn, lut, lut64, total;
+};
+MmaScratch mma_scratch(int n_r, int n_c, int r) {
+  const long long chunks = plan_chunks_mma(n_r, n_c);
+  MmaScratch m;
+  m.part = 0;
+  m.lpart = chunks * (n_r + n_c) * (2LL * r + 2);
+  m.gw = (m.lpart + chunks * ((n_r + kMO - 1) / kMO) + 3) & ~3LL;
+  m.gw2 = m.gw + (long long)(n_r + n_c) * kMaxR / 2;
+  m.gb = m.gw2 + (long long)(n_r + n_c) * kMaxR / 2;
+  m.gn = m.gb + ((n_r + 3) & ~3) + ((n_c + 3) & ~3) + 4;
+  m.lut = m.gn + ((n_r + 3) & ~3) + ((n_c + 3) & ~3) + 4;
+  m.lut64 = m.lut + 2LL * kLut;
+  m.total = m.lut64 + 2LL * kLut;
+  return m;
+}
+
 }  // namespace
 
 // Floats of scratch one tile needs (the wrapper allocates it uninitialised).
-extern "C" long long rsp_glove_tile_scratch(int n_r, int n_c, int r) {
+extern "C" long long rsp_glove_tile_scratch(int n_r, int n_c, int r,
+                                            int bf16) {
+  if (bf16) return mma_scratch(n_r, n_c, r).total;
   const long long chunks = plan_chunks(n_r, n_c);
   return chunks * (n_r + n_c) * (2LL * r + 2) +
          chunks * ((n_r + kO - 1) / kO);
@@ -342,39 +896,80 @@ extern "C" long long rsp_glove_tile_scratch(int n_r, int n_c, int r) {
 
 // rows (n_r,), cols (n_c,) int32: the tile's distinct hot ids; X the
 // tile's counts, element (a, b) at X[a sr + b sc] (f32, or bf16 when bf16
-// != 0, which also rounds the products' operands to bf16); the eight state
-// tables f32, updated in place; scratch of rsp_glove_tile_scratch floats;
-// loss (one float) receives the tile's sum(cost * S).
+// != 0, which also rounds the products' operands to bf16 and runs them on
+// the tensor cores; then sr or sc must be 1); the eight state tables f32,
+// updated in place; scratch of rsp_glove_tile_scratch floats; loss (one
+// float) receives the tile's sum(cost * S).  s_dump, for checks only, is
+// null or (2, n_r, n_c) floats that receive, at the present cells, the
+// bf16 value of clip(S + b_i + b_j - log x) that each side of the bf16 path
+// formed (the row side's [i, j], the column side's [j, i]); then the state
+// is left as it was.
 extern "C" int rsp_glove_tile(const int* rows, const int* cols, int n_r,
                               int n_c, const void* X, long long sr,
                               long long sc, int bf16, float* w_i, float* w_j,
                               float* b_i, float* b_j, float* acc_w_i,
                               float* acc_w_j, float* acc_b_i, float* acc_b_j,
                               int r, float x_max, float alpha, float lr,
-                              float* scratch, float* loss, void* stream) {
+                              float* scratch, float* loss, float* s_dump,
+                              void* stream) {
   if (n_r <= 0 || n_c <= 0 || r < 1 || r > kMaxR || !scratch || !loss)
     return (int)cudaErrorInvalidValue;
+  if (bf16 && sr != 1 && sc != 1) return (int)cudaErrorInvalidValue;
+  if (s_dump != nullptr && !bf16) return (int)cudaErrorInvalidValue;
   static bool smem_set = false;
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
         glove_tile_sums, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)sizeof(Smem));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(glove_tile_sums_mma,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(MmaSmem));
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  const int chunks = plan_chunks(n_r, n_c);
-  const int own_blocks = ((n_r > n_c ? n_r : n_c) + kO - 1) / kO;
-  float* lpart = scratch + (size_t)chunks * (n_r + n_c) * (2 * r + 2);
-  glove_tile_sums<<<dim3(own_blocks, chunks, 2), kThreads, sizeof(Smem),
-                    st>>>(rows, cols, n_r, n_c, X, sr, sc, bf16, w_i, w_j,
-                          b_i, b_j, r, x_max, alpha, chunks, scratch, lpart);
+  int chunks, n_lpart;
+  float* lpart;
+  if (bf16) {
+    const MmaScratch m = mma_scratch(n_r, n_c, r);
+    chunks = plan_chunks_mma(n_r, n_c);
+    const int own_blocks = ((n_r > n_c ? n_r : n_c) + kMO - 1) / kMO;
+    n_lpart = chunks * ((n_r + kMO - 1) / kMO);
+    lpart = scratch + m.lpart;
+    auto* gw = reinterpret_cast<__nv_bfloat16*>(scratch + m.gw);
+    auto* gw2 = reinterpret_cast<__nv_bfloat16*>(scratch + m.gw2);
+    float* gb = scratch + m.gb;
+    float* gn = scratch + m.gn;
+    auto* lut = reinterpret_cast<float2*>(scratch + m.lut);
+    auto* lut64 = reinterpret_cast<double*>(scratch + m.lut64);
+    long long ng = 32LL * (n_r + n_c);
+    if (ng < kLut) ng = kLut;
+    glove_tile_gather<<<(unsigned)((ng + 255) / 256), 256, 0, st>>>(
+        rows, cols, n_r, n_c, w_i, w_j, b_i, b_j, r, x_max, alpha, gw, gw2,
+        gb, gn, lut, lut64);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    glove_tile_sums_mma<<<dim3(own_blocks, chunks, 2), kMThreads,
+                          sizeof(MmaSmem), st>>>(
+        n_r, n_c, X, sr, sc, gw, gw2, gb, gn, lut, lut64, r, chunks, scratch,
+        lpart, s_dump);
+    if (s_dump != nullptr) return (int)cudaGetLastError();
+  } else {
+    chunks = plan_chunks(n_r, n_c);
+    const int own_blocks = ((n_r > n_c ? n_r : n_c) + kO - 1) / kO;
+    n_lpart = chunks * ((n_r + kO - 1) / kO);
+    lpart = scratch + (size_t)chunks * (n_r + n_c) * (2 * r + 2);
+    glove_tile_sums<<<dim3(own_blocks, chunks, 2), kThreads, sizeof(Smem),
+                      st>>>(rows, cols, n_r, n_c, static_cast<const float*>(X),
+                            sr, sc, w_i, w_j, b_i, b_j, r, x_max, alpha,
+                            chunks, scratch, lpart);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long n = (long long)(n_r + n_c) * (r + 1);
   glove_tile_apply<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      rows, cols, n_r, n_c, r, chunks, scratch, lpart,
-      chunks * ((n_r + kO - 1) / kO), w_i, w_j, b_i, b_j, acc_w_i, acc_w_j,
-      acc_b_i, acc_b_j, lr, loss);
+      rows, cols, n_r, n_c, r, chunks, scratch, lpart, n_lpart, w_i, w_j,
+      b_i, b_j, acc_w_i, acc_w_j, acc_b_i, acc_b_j, lr, loss);
   return (int)cudaGetLastError();
 }

@@ -242,7 +242,13 @@ def _glove_tile_plain(st: GloveState, rows, cols, x, x_max: float,
 
 
 def _glove_tile_cuda(st: GloveState, rows, cols, x, x_max: float,
-                     alpha: float, lr: float, cdt: torch.dtype):
+                     alpha: float, lr: float, cdt: torch.dtype,
+                     s_dump: Optional[torch.Tensor] = None):
+    """K11 on the card.  ``s_dump`` (checks only; bf16 head): a (2, n_r,
+    n_c) float32 CUDA tensor that receives, at the present cells, the bf16
+    value of clip(S + b_i + b_j - log x) that each side formed (the row
+    side's [i, j], the column side's [j, i]); the state is then left
+    unchanged and the loss unwritten."""
     r = _check_state(st)
     n_r, n_c = rows.shape[0], cols.shape[0]
     f32 = torch.float32
@@ -256,14 +262,20 @@ def _glove_tile_cuda(st: GloveState, rows, cols, x, x_max: float,
     _kernels.check_tensor("cols", cols, (n_c,), torch.int32)
     so = _kernels.lib()
     dev = st.w_i.device
-    scratch = torch.empty((so.rsp_glove_tile_scratch(n_r, n_c, r),),
+    bf16 = int(cdt == torch.bfloat16)
+    if bf16 and 1 not in x.stride():
+        raise ValueError("x: the bf16 head takes a view with a unit stride")
+    if s_dump is not None:
+        _kernels.check_tensor("s_dump", s_dump, (2, n_r, n_c), f32)
+    scratch = torch.empty((so.rsp_glove_tile_scratch(n_r, n_c, r, bf16),),
                           dtype=f32, device=dev)
     loss = torch.empty((), dtype=f32, device=dev)
     rc = so.rsp_glove_tile(
         _kernels.ptr(rows), _kernels.ptr(cols), n_r, n_c, _kernels.ptr(x),
-        x.stride(0), x.stride(1), int(cdt == torch.bfloat16),
+        x.stride(0), x.stride(1), bf16,
         *(_kernels.ptr(t) for t in st), r, x_max, alpha, lr,
-        _kernels.ptr(scratch), _kernels.ptr(loss), _kernels.stream(dev))
+        _kernels.ptr(scratch), _kernels.ptr(loss), _kernels.ptr(s_dump),
+        _kernels.stream(dev))
     _kernels.check(rc, "glove_dense")
     _kernels.launches["glove_dense"] += 1
     return loss

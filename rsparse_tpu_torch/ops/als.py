@@ -461,10 +461,15 @@ def solve_bucket_cg(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
 
 def solve_bucket_cholesky(src, x_biases, XtX, rhs_init, bucket, x_init, lam,
                           g, cfg: ALSConfig, hot_W=None, V_hot=None,
-                          hot_bits=None, nnz_total=None, hot_scale=None):
+                          hot_bits=None, nnz_total=None, hot_scale=None,
+                          stages: int = 3):
     """K2: one bucket of exact Cholesky solves (``csrc/als_chol.cu``);
     ``x_init`` is not read.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel.  Returns (y (B, d), loss (B,))."""
+    tensors launch the kernel.  Returns (y (B, d), loss (B,)).
+
+    ``stages`` < 3 stops the kernel early, for timing its parts: 1 after
+    the Gram (y and loss are left unwritten), 2 after the solve (no
+    loss)."""
     if src.device.type == "cpu":
         return _solve_bucket_plain(src, x_biases, XtX, rhs_init, bucket,
                                    x_init, lam, g, cfg, hot_W, V_hot,
@@ -472,11 +477,32 @@ def solve_bucket_cholesky(src, x_biases, XtX, rhs_init, bucket, x_init, lam,
     args, y, loss = _bucket_args(src, x_biases, XtX, rhs_init, bucket, None,
                                  lam, g, cfg, hot_W, V_hot, hot_bits,
                                  nnz_total, hot_scale)
-    rc = _kernels.lib().rsp_als_chol(ctypes.byref(args),
+    rc = _kernels.lib().rsp_als_chol(ctypes.byref(args), int(stages),
                                      _kernels.stream(src.device))
     _kernels.check(rc, "als_chol")
     _kernels.launches["als_chol"] += 1
     return y, loss
+
+
+#: K2's Gram routes (csrc/als_chol.cu Route)
+CHOL_ROUTES = ("bf16 mma", "bf16 mma, both ways", "2xTF32", "3xTF32")
+
+
+def cholesky_plan(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
+                  cfg: ALSConfig, hot_W=None, V_hot=None, hot_bits=None,
+                  nnz_total=None, hot_scale=None) -> dict:
+    """How K2 runs a bucket on the card (nothing is launched): CTAs an SM,
+    the Gram route of the cold and of the head entries, the padded width D
+    and the shared bytes a CTA."""
+    args, _, _ = _bucket_args(src, x_biases, XtX, rhs_init, bucket, None,
+                              lam, g, cfg, hot_W, V_hot, hot_bits, nnz_total,
+                              hot_scale)
+    info = (ctypes.c_int * 5)()
+    rc = _kernels.lib().rsp_als_chol_info(ctypes.byref(args), info)
+    _kernels.check(rc, "als_chol")
+    return dict(ctas_per_sm=info[0], cold_route=CHOL_ROUTES[info[1]],
+                head_route=CHOL_ROUTES[info[2]], D=info[3],
+                smem_bytes=info[4])
 
 
 #: largest scratch K4's build stage writes for its sweeps (packed G and mu,

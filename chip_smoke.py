@@ -12,7 +12,9 @@ line:
 2. each kernel against its plain PyTorch version on the card, on the same
    inputs, at the shapes the main paths give it, with both times: K1 (CG)
    and K2 (Cholesky) for implicit and explicit feedback, with biases,
-   dense heads and presence bits, up to d = 129; K3 (top-k); K4 (NNLS)
+   dense heads and presence bits, up to d = 129 (K1 with its launch
+   plan, and on a 60%-present head with its panels as tile products and
+   walked); K3 (top-k); K4 (NNLS)
    with the distribution of its coordinate-descent sweeps, the systems it
    sweeps at once per SM, and bit for bit with its scratch in slices; K5
    (bucketed
@@ -30,8 +32,11 @@ line:
    stage times; then K1 and K2 against their plain versions on the
    heaviest buckets that run staged (the most entries, the most rows and
    the longest rows of each sweep, with their dense heads), with its
-   fitted factors; last, a warm full-width fit_transform + predict under
-   torch.profiler: the device time of each kernel and copy, and the
+   fitted factors; K1 bucket by bucket over both half-sweeps of this fit
+   and of the headline fit (compute_dtype="bfloat16", n_hot=4096): rows x
+   length, head, the launch K1 takes, K1 and plain ms, each bucket held to
+   its plain version; last, a warm full-width fit_transform + predict
+   under torch.profiler: the device time of each kernel and copy, and the
    device's busy share of the wall time;
 5. the reference benchmark's config #2 at full width on the same matrix
    (its values as ratings), rank 128: (a) explicit CG(3), dynamic lambda,
@@ -59,7 +64,8 @@ line:
    config #5's one-hot block, and K9 (RankMF) on S = 8192, K = 20 batches
    (BPR / WARP, AdaGrad / RMSprop, identity and side features, r = 8 and
    16) with the same bits, against their plain versions (each table by
-   its change, 1e-5; K9's counters exactly); (b) FTRL and FM on the
+   its change, 1e-5; K9's counters exactly), K9's launches' device times
+   apart, its candidate window and mean candidates tried; (b) FTRL and FM on the
    reference benchmark's GLM synthetic within 0.01 of the reference's
    train accuracy, FM XOR, RankMF BPR on ML-100k through predict (K3);
    (c) FTRL and FM rank 8 at the hashed shape (100,000 x 40M features)
@@ -82,7 +88,8 @@ line:
    table and a uint8 head, and a bf16 table at float32 compute, against
    their plain versions (bf16 cells that round apart held by their float64
    twin); K1's bf16 head term alone (rsp_hot_chain, the Pallas probe
-   scripts/exp_bisect3.py) at (64, 512, 128) and (2048, 4096, 128); K12 row
+   scripts/exp_bisect3.py) at (64, 512, 128) and (2048, 4096, 128), as K1
+   takes the head and with every panel a tile product; K12 row
    gather (the probes scripts/exp_gather*.py) at 2,097,152 rows from an
    L2-resident and an HBM-resident table and as the transposed lane gather
    (with the case its plan took), bf16 and f32, bitwise, beside
@@ -112,6 +119,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -225,6 +233,20 @@ def k2_detail(args, hot_scale=None):
                   f"loss {t[2] - t[1]:.3f} ms")
 
 
+def k1_detail(args, hot_scale=None):
+    """K1's plan for a bucket (ops/als.py cg_plan: rows a CTA, CTAs a
+    cluster, the head's panels by kind, the tile products' route).
+    Returns (plan, text)."""
+    from rsparse_tpu_torch.ops import als
+    pl = als.cg_plan(*args, hot_scale=hot_scale)
+    return pl, (f"K1 {pl['rows']} rows x {pl['cluster']} CTAs, "
+                f"{pl['smem_bytes']} B shared, {pl['ctas_per_sm']} CTA(s) an"
+                f" SM, {pl['cache']} cells a warp's cache; head panels: "
+                f"{pl['dense_panels']} tile products "
+                f"({pl['route']}), {pl['sparse_panels']} walked "
+                f"({pl['sparse_cells']} cells), of {pl['panels']}")
+
+
 #: NVIDIA's data-sheet peaks of one H100 SXM: HBM bytes/s, f32 flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -278,7 +300,16 @@ def als_bound_parts(args, sweeps=None, hot_scale=None, plan=None):
     (ops/als.py cholesky_plan): at the rate of the units its route runs on
     (K2_ROUTE_FLOPS), and when the route sums both ways (the symmetric part
     of a Gram of bf16-rounded weighted rows) at 2 n d^2.  Returns (ms for
-    the bytes, ms for the operations)."""
+    the bytes, ms for the operations).
+
+    K1 given its ``plan`` (ops/als.py cg_plan) counts what it runs: per
+    pass (the rhs, s + 1 products, the loss) 2d (rhs, loss) or 4d (a
+    product) operations a cold entry and a cell of a sparse head panel, at
+    the f32 rate; 2d^2 a row a product for XtX p (implicit), at the 3xTF32
+    rate it runs at; and the head's tile products, 2 x 16 x 64 x d
+    operations each (one a panel for the rhs and the loss, two for a
+    product), on the present panels the plan takes as tiles, at the rate
+    of their route (K2_ROUTE_FLOPS)."""
     from rsparse_tpu_torch.ops import als
     src, _, _, _, b, _, _, _, cfg, W, Vh, hb, _ = args
     B, d = b.batch, src.shape[1]
@@ -293,6 +324,17 @@ def als_bound_parts(args, sweeps=None, hot_scale=None, plan=None):
         nbytes += B * 4
     if hb is not None:
         nbytes += hb.numel()
+    if cfg.solver == als.CONJUGATE_GRADIENT and plan is not None:
+        s = cfg.cg_steps
+        per = 4 * d * (s + 2)                # per entry: rhs, products, loss
+        f32_ops = (float(n.sum()) + plan["sparse_cells"]) * per
+        tile_ops = plan["dense_panels"] * 2 * 16 * 64 * d * (2 * s + 4)
+        # P XtX: 2 d^2 a row a product, on the tensor cores at 3xTF32
+        xtx = B * 2 * d * d * (s + 1) if cfg.feedback == "implicit" else 0
+        t_ops = (f32_ops / F32_FLOPS
+                 + tile_ops / K2_ROUTE_FLOPS[plan["route"]]
+                 + xtx / K2_ROUTE_FLOPS["3xTF32"]) * 1e3
+        return nbytes / HBM_BYTES_PER_S * 1e3, t_ops
     if cfg.solver == als.CONJUGATE_GRADIENT:
         s = cfg.cg_steps
         fl = ((s + 1) * (2 * d * d + 4 * n * d + 4 * H * d)
@@ -352,12 +394,14 @@ def nnls_summary(sweeps, src) -> str:
 # -- phase 2: kernels against their plain versions ----------------------------
 
 def _bucket_case(gen, device, B, L, d, H, *, explicit=False, biases=False,
-                 bits=False, ugb=False, solver=None, n_src=32768):
+                 bits=False, ugb=False, solver=None, n_src=32768,
+                 density=0.05):
     """One bucket with its sweep terms, made on the card: source rows
     (n_src, d), cold entries (implicit confidences 1 + e^u; explicit
     integer ratings -2..2, many stored zeros), source biases, and a dense
-    head of H columns about 5% present (explicit: with stored zeros, and
-    presence bits when ``bits``; else no zero is stored in the head)."""
+    head of H columns, ``density`` of its cells present (explicit: with
+    stored zeros, and presence bits when ``bits``; else no zero is stored
+    in the head)."""
     import torch
     from rsparse_tpu_torch.ops import als
     from rsparse_tpu_torch.sparse.device import RowBucket
@@ -387,7 +431,7 @@ def _bucket_case(gen, device, B, L, d, H, *, explicit=False, biases=False,
                                                           f32)
     W = Vh = hb = nnz_tot = None
     if H:
-        present = torch.rand((B, H), generator=gen, device=device) < 0.05
+        present = torch.rand((B, H), generator=gen, device=device) < density
         w = torch.rand((B, H), generator=gen, device=device)
         if explicit and bits:
             w = torch.round(w * 4) - 2
@@ -429,6 +473,9 @@ def _record(results, name, kern, plain, args, tag, rep, limit_y, limit_loss,
     if name.startswith("K2"):
         plan, detail = k2_detail(args)
         extra += "\n    " + detail
+    elif name.startswith("K1"):
+        plan, detail = k1_detail(args)
+        extra += "\n    " + detail
     log(f"  {name:11s} {tag:44s} y_rel={ey:.2e} loss_rel={el:.2e} "
         f"kernel={ms:.3f} ms plain={pms:.3f} ms{extra}")
     require(bool(torch.isfinite(yk).all() and torch.isfinite(lk).all()),
@@ -461,6 +508,15 @@ def check_als_kernels(device, results) -> None:
     for d in (10, 129):
         cases.append(("K1 als_cg", dict(B=2048, L=128, d=d, H=0, biases=True),
                       False))
+    # K1 with heads of 30% and 90% present cells, on each side of the
+    # threshold (als.CG_TAU) from which its panels are tile products on the
+    # tensor cores (3xTF32), implicit and explicit with bits
+    for dens in (0.3, 0.9):
+        cases.append(("K1 als_cg", dict(B=2048, L=128, d=128, H=1024,
+                                        density=dens), False))
+        cases.append(("K1 als_cg", dict(B=2048, L=128, d=128, H=1024,
+                                        density=dens, explicit=True,
+                                        bits=True), False))
     # K1, explicit: biases without a head; a head with presence bits and
     # stored zero ratings; a head without bits
     for d in (10, 128, 129):
@@ -497,6 +553,8 @@ def check_als_kernels(device, results) -> None:
         args = _bucket_case(gen, device, B, L, d, H, **kw)
         cfg = args[8]
         tag = (f"{cfg.feedback[:3]} B={B} L={L} d={d} H={H}"
+               + (f" {kw['density']:.0%} present" if "density" in kw
+                  else "")
                + (" bias" if cfg.with_biases else "")
                + (" bits" if args[11] is not None else "")
                + (" gb" if cfg.use_global_bias else ""))
@@ -510,6 +568,42 @@ def check_als_kernels(device, results) -> None:
         else:
             kern = als._SOLVE[cfg.solver]
             _record(results, name, kern, plain, args, tag, rep, 1e-4, 1e-5)
+            if "density" in kw:
+                k1_tiles_or_walk(args, tag)
+
+
+def k1_tiles_or_walk(args, tag, hot_scale=None, y64=None) -> None:
+    """K1 on one bucket with its head's panels all taken as tile products
+    and all walked cell by cell (its launch plan with tau 1, and tau past
+    any panel's cells) beside the default (``als.CG_TAU`` of its route),
+    each held to the plain version (y 1e-4; given the float64 twin
+    ``y64``, bf16 cells that round apart by hold_bf16): what the threshold
+    trades."""
+    import torch
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.ops import als
+    plain = als._solve_bucket_plain(*args, hot_scale=hot_scale)
+    cargs, y, loss = als._bucket_args(*args, hot_scale)
+    pl = als._cg_launch_plan(cargs, args[4].pad_len)
+    out = []
+    for tau in (1, 1 << 30):
+        plan = _kernels.CgPlan(rows=pl.rows, cluster=pl.cluster, tau=tau)
+        run = functools.partial(als._launch_cg, cargs, y, loss, plan,
+                                args[8].cg_steps, y.device)
+        yk = run()[0].clone()
+        torch.cuda.synchronize()
+        if y64 is not None:
+            hold_bf16(f"K1 {tag} tau {tau}", yk, plain[0], y64, 1e-4)
+        else:
+            e = rel_err(yk, plain[0])
+            require(e <= 1e-4, f"K1 {tag} tau {tau}: disagrees with its "
+                    f"plain version ({e:.2e})")
+        out.append((tau, time_ms(run)))
+    dflt = time_ms(lambda: als.solve_bucket_cg(*args, hot_scale=hot_scale))
+    log("    K1 head panels " + ", ".join(
+        f"{'as tile products' if t == 1 else 'walked'} {ms:.3f} ms"
+        for t, ms in out) + f"; default (tau {pl.tau}, "
+        f"{als._cg_route(cargs)}) {dflt:.3f} ms")
 
 
 def check_nnls_slices(args, y, sweeps, tag) -> None:
@@ -1218,6 +1312,101 @@ def _k2_sweep(results, src_act, xb, XtX, rhs_init, buckets, lam, g, cfg,
                                    fit_launches=len(every))
 
 
+def k1_bucket_table(m, x, fit_tag, results=None) -> None:
+    """K1 bucket by bucket over both CG half-sweeps of a fitted model, as
+    fit_transform stages them (the fitted factors as sources and warm
+    starts): rows x length, head columns, the launch K1 takes for it (rows
+    a CTA and CTAs a row, from ``als.cg_plan``), K1's and the plain
+    version's ms (CUDA events, mean of 3), each half-sweep summed.  Every
+    bucket is held to its plain version: y 1e-4 (bf16 rounding: the cells
+    that round apart, held by the float64 twin as phase 4 holds them), the
+    loss 1e-5 against the plain loss of the kernel's own y."""
+    import torch
+    from rsparse_tpu_torch.ops import als
+    lam, g = m.lambda_, m._g
+    csr, _, _ = m._fit_matrix(x)
+    incl = m._include_empty
+    for sweep, cfg, src, old, staged in (
+            ("items", m._cfg(True), m._U, m._V, m._stage(csr.T.tocsr(), incl)),
+            ("users", m._cfg(False), m._V, m._U, m._stage(csr, incl))):
+        hot, br, rows = staged
+        src_act, xb, XtX, rhs_init = als._sweep_prepare(src, lam, g, cfg,
+                                                        torch.float32)
+        src_act = als._gather_src(src_act, cfg, torch.float32)
+        rounds = als._rounds_bf16(cfg, torch.float32)
+        _, tgt_sl = als._active_slices(cfg, src.shape[1])
+        old_act = old[:, tgt_sl].float()
+        Vh = None if hot is None else src_act[hot.long()].contiguous()
+        tot_k = tot_p = 0.0
+        for bi, b in enumerate(br.buckets):
+            W = bits = scale = None
+            if rows is not None:
+                W, bits, _, scale = rows[bi]
+            x0 = old_act[b.row_ids.clamp(max=old_act.shape[0] - 1).long()
+                         ].contiguous()
+            args = (src_act, xb, XtX, rhs_init, b, x0, lam, g, cfg, W, Vh,
+                    bits, None)
+            kern = functools.partial(als.solve_bucket_cg, hot_scale=scale)
+            plain = functools.partial(als._solve_bucket_plain,
+                                      hot_scale=scale)
+            yk, lk = kern(*args)
+            yp, lp = plain(*args)
+            ms = time_ms(lambda: kern(*args), reps=3)
+            pms = time_ms(lambda: plain(*args), reps=3)
+            tot_k += ms
+            tot_p += pms
+            H = 0 if W is None else W.shape[1]
+            pl = als.cg_plan(*args, hot_scale=scale)
+            split = (f" {pl['rows']} rows x {pl['cluster']} CTAs, "
+                     f"{pl['dense_panels']}/{pl['panels']} dense panels")
+            tag = (f"{fit_tag} {sweep} {b.batch} x {b.pad_len} H={H}")
+            ey = rel_err(yk, yp)
+            log(f"  K1 bucket {tag:44s}{split} kernel={ms:.3f} ms "
+                f"plain={pms:.3f} ms y_rel={ey:.2e}")
+            require(bool(torch.isfinite(yk).all() and torch.isfinite(lk).all()),
+                    f"K1 {tag}: non-finite output")
+            if rounds and ey > 1e-4:
+                d64 = lambda t: None if t is None else t.double()  # noqa
+                y64, _ = als._solve_bucket_plain(
+                    src_act.double(), d64(xb), d64(XtX), d64(rhs_init), b,
+                    x0.double(), lam, g, cfg,
+                    W if W is None or W.dtype == torch.uint8 else W.double(),
+                    d64(Vh), bits, None, hot_scale=d64(scale), rounding=True)
+                hold_bf16(f"K1 {tag}", yk, yp, y64, 1e-4)
+                del y64
+            else:
+                require(ey <= 1e-4, f"K1 {tag}: y disagrees with its plain "
+                        f"version ({ey:.2e})")
+            hold_loss_at_own_y(f"K1 {tag}", args, yk, lk, scale)
+            if results is not None:
+                r = results["als_cg"]
+                r["max_abs_err"] = max(r["max_abs_err"],
+                                       float((yk - yp).abs().max()))
+            del yk, lk, yp, lp
+        log(f"  K1 {fit_tag} {sweep} half-sweep, {len(br.buckets)} buckets: "
+            f"kernel {tot_k:.3f} ms, plain {tot_p:.3f} ms")
+        torch.cuda.empty_cache()
+
+
+def k1_buckets_full_width(device, x, m32, results) -> None:
+    """Phase 4's K1 table: the float32 fit's buckets, then the headline
+    fit's (compute_dtype="bfloat16", n_hot=4096, bench.py:744)."""
+    import torch
+    import rsparse_tpu_torch as rt
+    k1_bucket_table(m32, x, "f32", results)
+    m = rt.WRMF(rank=128, seed=0, device=device, lambda_=0.1,
+                feedback="implicit", solver="conjugate_gradient",
+                compute_dtype="bfloat16", n_hot=4096)
+    m.fit_transform(x, n_iter=2, convergence_tol=-1)
+    torch.cuda.synchronize()
+    log("  headline fit per sweep: " + ", ".join(
+        f"{r['phase']}#{r['iter']} {r['wall_s'] * 1e3:.2f} ms"
+        for r in m.fit_trace))
+    k1_bucket_table(m, x, "bf16", results)
+    del m
+    torch.cuda.empty_cache()
+
+
 def profile_full_width(m, x) -> None:
     """A warm full-width fit_transform + predict under torch.profiler."""
     import torch
@@ -1842,8 +2031,54 @@ def check_rankmf_batch(tables, bits, pos, uf, itf, hp, cfg, n_item, tag,
     if rep:
         results["rankmf"].update(ms=ms, plain_ms=pms, bound_ms=bms,
                                  bound_by=bby, library_ms=None, shape=tag)
+        ams, dms, rms = k9_device_ms(tables, bits, pos, uf, itf, hp, cfg,
+                                     n_item)
+        log(f"  K9 device time of one batch (CUDA graphs, less the tables' "
+            f"restore {rms:.4f} ms): {dms:.4f} ms = launch A {ams:.4f} ms + "
+            f"launch B {dms - ams:.4f} ms; window {rankmf.K9_WINDOW}; mean "
+            f"tried per sample {tried / S:.3f}; the wrapper call's "
+            f"{ms:.3f} ms is host time")
+        require(0 < ams < dms, f"K9 {tag}: launch A {ams:.4f} ms and the "
+                f"batch {dms:.4f} ms were not measured apart")
+        results["rankmf"]["device_ms"] = dms
     del tk, tp
     return tried
+
+
+def k9_device_ms(tables, bits, pos, uf, itf, hp, cfg, n_item, reps=50):
+    """K9's device time on one batch, free of the wrapper's host time, by
+    CUDA graphs replayed ``reps`` times (CUDA events): (restore the tables
+    from ``tables``, launch A alone) and (restore, the whole batch), each
+    less a graph of the restore alone.  Returns (launch A ms, batch ms,
+    restore ms); the batch less launch A is launch B (and A2 for
+    RMSprop)."""
+    import torch
+    from rsparse_tpu_torch.models import rankmf
+    work = [t.clone() for t in tables]
+
+    def restore():
+        for w, t in zip(work, tables):
+            w.copy_(t)
+
+    def step(stages):
+        restore()
+        rankmf._rankmf_batch_cuda(*work, bits, pos, uf, itf, hp, cfg, n_item,
+                                  stages=stages)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for st in (1, 2, 1, 2):
+            step(st)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs = []
+    for fn in (restore, lambda: step(1), lambda: step(2)):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        graphs.append(g)
+    t_restore, t_a, t_batch = (time_ms(g.replay, reps) for g in graphs)
+    return t_a - t_restore, t_batch - t_restore, t_restore
 
 
 def _grid(t, step=2.0 ** -6):
@@ -1915,8 +2150,10 @@ def check_sgd_kernels(device, results) -> None:
     S, K = K9_BATCH
     hp = rankmf.BatchParams(lr=0.5, gamma=0.9, lam_u=0.01, lam_ip=0.01,
                             lam_in=0.01, margin=0.1)
+    # every instantiation of launch A: the candidates side by side at r <=
+    # 8, 16 and 32, one after another at r > 32 (up to MAX_RANK = 128)
     cases = [(r, loss, opt, fk, rankmf.IDENTITY)
-             for r in (8, 16) for loss in (rankmf.BPR, rankmf.WARP)
+             for r in (8, 16, 32, 64, 128) for loss in (rankmf.BPR, rankmf.WARP)
              for opt in (rankmf.ADAGRAD, rankmf.RMSPROP)
              for fk in ("identity", "side")]
     cases.append((8, rankmf.WARP, rankmf.ADAGRAD, "identity",
@@ -1925,10 +2162,13 @@ def check_sgd_kernels(device, results) -> None:
         uf, itf = feats[fk]
         nuf = n_user if uf is None else uf_m.shape[1]
         nif = n_item if itf is None else if_m.shape[1]
+        # a sum of up to 3 side features stays on the grid; past r = 32 a
+        # smaller scale keeps r (max / step)^2 <= 2^23 (_grid)
+        sc = 0.25 if r <= 32 else 0.125
         tables = (_grid(torch.randn((nuf, r), generator=gen, device=device)
-                        * 0.25),
+                        * sc),
                   _grid(torch.randn((nif, r), generator=gen, device=device)
-                        * 0.25),
+                        * sc),
                   1 + torch.rand((nuf,), generator=gen, device=device),
                   1 + torch.rand((nif,), generator=gen, device=device))
         bits = torch.randint(0, 1 << 32, (S, K + 2), generator=gen,
@@ -2156,6 +2396,15 @@ def run_sgd_full_width(device, results, launches) -> None:
             x.shape[1], f"fitted config #5 (W, H on grids 2^{math.log2(sw):.0f}"
             f", 2^{math.log2(sh):.0f}) margin {margin}", results, reps=3)
     require(tried > S, "config #5 K9 check: WARP's loop did not run")
+    # the candidates the fitted model tries per sample, over 8 batches
+    tk = [t.clone() for t in (W, H, m._accW, m._accH)]
+    c = sum(rankmf._rankmf_batch(
+        *tk, torch.randint(0, 1 << 32, (S, K + 2), generator=gen,
+                           device=device, dtype=torch.int64),
+        pos, None, None, hp, cfg, x.shape[1]) for _ in range(8)).tolist()
+    log(f"  config #5 fitted state: mean tried per sample {c[3] / (8 * S):.3f}"
+        f" (found {c[2] / (8 * S):.3f} of samples)")
+    del tk
     del m, emb, W, H, tables, pos, x
     _glm_full_width(device, "fm", lambda: rt.FactorizationMachine(
         rank=4, learning_rate_w=0.2, seed=0, device=device), fmx, fmy,
@@ -2644,6 +2893,8 @@ def check_lowp_kernels(device, results) -> None:
                                bits=True)),
             ("K1 als_cg", dict(B=2048, L=128, d=129, H=0, explicit=True,
                                biases=True)),
+            ("K1 als_cg", dict(B=2048, L=128, d=128, H=1024, density=0.3)),
+            ("K1 als_cg", dict(B=2048, L=128, d=128, H=1024, density=0.9)),
             ("K2 als_chol", dict(B=2048, L=128, d=128, H=1024, solver=chol)),
             ("K2 als_chol", dict(B=2048, L=128, d=128, H=1024, explicit=True,
                                  bits=True, solver=chol)),
@@ -2666,6 +2917,7 @@ def check_lowp_kernels(device, results) -> None:
             rounds = als._rounds_bf16(cfg, torch.float32)
             tag = (f"{cfg.feedback[:3]} B={b.batch} L={b.pad_len} "
                    f"d={args[0].shape[1]} H={H}"
+                   + (f" {kw['density']:.0%}" if "density" in kw else "")
                    + (" bias" if cfg.with_biases else "")
                    + (" bits" if args[11] is not None else "")
                    + (" gb" if cfg.use_global_bias else "")
@@ -2710,11 +2962,16 @@ def check_lowp_kernels(device, results) -> None:
             if cfg.solver == als.CHOLESKY:
                 plan, detail = k2_detail(args, scale)
                 extra += "\n    " + detail
+            elif cfg.solver == als.CONJUGATE_GRADIENT:
+                plan, detail = k1_detail(args, scale)
+                extra += "\n    " + detail
             bms, bby = als_bound(args, sw, scale, plan)
             log(f"  {name:11s} {tag:78s} y_rel={rel_err(yk, yp):.2e} "
                 f"loss_rel={rel_err(lk, lp):.2e} apart={apart} "
                 f"kernel={ms:.3f} ms plain={pms:.3f} ms bound={bms:.4f} ms "
                 f"({bby}){extra}")
+            if "density" in kw:
+                k1_tiles_or_walk(args, tag, scale, y64)
             r = results[name.split()[1]]
             r["max_abs_err"] = max(r["max_abs_err"],
                                    float((yk - yp).abs().max()))
@@ -2739,16 +2996,20 @@ def hot_chain_bound(W, d, present, mode):
 def check_hot_chain(device, results, launches) -> None:
     """rsp_hot_chain (K1's bf16 head term) against the plain chain ka -> kd
     of scripts/exp_bisect3.py at P3's shape (64, 512, 128) and at the full
-    width (2048, 4096, 128), W about 10% present, bf16 and uint8; then its
-    probe run (the timing launches, counted)."""
+    width (2048, 4096, 128), bf16 and uint8, with W about 10% present (its
+    panels walked cell by cell, as K1 takes them at this density) and 60%
+    present (past ``als.CG_TAU["bf16 mma"]``: its panels tile products on
+    the tensor cores); then its probe run (the timing launches,
+    counted)."""
     import torch
     from rsparse_tpu_torch import _kernels
     from rsparse_tpu_torch.ops import als
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
     probes = []
-    for B, H, d in ((64, 512, 128), (2048, 4096, 128)):
-        w = ((torch.rand((B, H), generator=gen, device=device) > 0.9)
+    for (B, H, d), dens in itertools.product(
+            ((64, 512, 128), (2048, 4096, 128)), (0.1, 0.6)):
+        w = ((torch.rand((B, H), generator=gen, device=device) < dens)
              * (1 + torch.rand((B, H), generator=gen, device=device)))
         Vh = (torch.randn((H, d), generator=gen, device=device) * 0.1
               ).to(torch.bfloat16)
@@ -2766,7 +3027,7 @@ def check_hot_chain(device, results, launches) -> None:
                 y64 = als._hot_chain_plain(W, Vh, scale=scale,
                                            sdt=torch.float64, **kw)
                 torch.cuda.synchronize()
-                tag = f"{mode} B={B} H={H} d={d} {kind}"
+                tag = f"{mode} B={B} H={H} d={d} {kind} {dens:.0%}"
                 apart = hold_bf16(f"hot_chain {tag}", yk, yp, y64, 1e-5)
                 probes.append((tag, lambda W=W, Vh=Vh, scale=scale, kw=kw:
                                als.hot_chain(W, Vh, scale=scale, **kw),
@@ -2790,7 +3051,7 @@ def check_hot_chain(device, results, launches) -> None:
         log(f"  hot_chain   {tag:36s} y_rel={e:.2e} apart={apart} "
             f"kernel={ms:.4f} ms plain={pms:.4f} ms bound={bms:.5f} ms "
             f"({bby})")
-        if tag == "matvec B=2048 H=4096 d=128 bf16":
+        if tag == "matvec B=2048 H=4096 d=128 bf16 10%":
             results["hot_chain"].update(ms=ms, plain_ms=pms, shape=tag,
                                         bound_ms=bms, bound_by=bby,
                                         library_ms=None)
@@ -3110,6 +3371,8 @@ def main(phases) -> int:
         m = run_full_width(device, x, launches)
         f32_loss = list(m.loss_history)
         check_staged_buckets(m, x, results, k2_fit=True)
+        log("  K1 bucket by bucket (f32 fit, then the headline bf16 fit)")
+        k1_buckets_full_width(device, x, m, results)
         log("  profile of a warm full-width fit_transform + predict")
         profile_full_width(m, x)
         del m
@@ -3173,7 +3436,7 @@ def main(phases) -> int:
                 "library_ms": results[name]["library_ms"],
                 "shape": results[name]["shape"],
                 **{key: v for key, v in results[name].items()
-                   if key.startswith("fit_")}}
+                   if key.startswith("fit_") or key == "device_ms"}}
                for name, (src, rep) in KERNELS.items()]
     log(smi_line)
     log(json.dumps({"kernels": kernels}))

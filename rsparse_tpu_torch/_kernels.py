@@ -138,6 +138,15 @@ class BucketArgs(ctypes.Structure):
         (name, ctypes.c_float) for name in ("lam", "g_rhs", "g_loss")]
 
 
+class CgPlan(ctypes.Structure):
+    """K1's launch for one bucket (``Plan`` in ``csrc/als_cg.cuh``): target
+    rows a CTA, CTAs a cluster sharing them (``ops/als.py`` ``cg_split``),
+    and the present cells from which a head panel is a tile product."""
+
+    _fields_ = [("rows", ctypes.c_int), ("cluster", ctypes.c_int),
+                ("tau", ctypes.c_int)]
+
+
 class RankMFArgs(ctypes.Structure):
     """One RankMF minibatch as K9 takes it: the ctypes mirror of
     ``RankMFArgs`` in ``csrc/rankmf.cu`` (same fields, same order).
@@ -161,9 +170,14 @@ def lib() -> ctypes.CDLL:
     so = ctypes.CDLL(_build())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     args = ctypes.POINTER(BucketArgs)
-    # args, cg_steps, tol, stream
-    so.rsp_als_cg.argtypes = [args, i, f, p]
+    plan = ctypes.POINTER(CgPlan)
+    # args, plan, cg_steps, tol, stream
+    so.rsp_als_cg.argtypes = [args, plan, i, f, p]
     so.rsp_als_cg.restype = i
+    # args, info (7 int32 on the host: shared bytes a CTA, CTAs an SM,
+    # clusters of 1, 2, 4, 8, 16 CTAs that run at once)
+    so.rsp_als_cg_info.argtypes = [args, p]
+    so.rsp_als_cg_info.restype = i
     # args, stages (1 the Gram, 2 + the solve, 3 + the loss), stream
     so.rsp_als_chol.argtypes = [args, i, p]
     so.rsp_als_chol.restype = i
@@ -180,8 +194,8 @@ def lib() -> ctypes.CDLL:
     so.rsp_als_nnls_stride.restype = i
     so.rsp_als_nnls_inflight.argtypes = [i]
     so.rsp_als_nnls_inflight.restype = i
-    # args, mode (1: matvec term of x0, 0: rhs term of g_rhs), stream
-    so.rsp_hot_chain.argtypes = [args, i, p]
+    # args, plan, mode (1: matvec term of x0, 0: rhs term of g_rhs), stream
+    so.rsp_hot_chain.argtypes = [args, plan, i, p]
     so.rsp_hot_chain.restype = i
     # scores, bits, C, n, k, glob_mean, out_scores, out_idx, stream
     so.rsp_topk.argtypes = [p, p, i, i, i, f, p, p, p]
@@ -210,7 +224,8 @@ def lib() -> ctypes.CDLL:
     so.rsp_fm_block.argtypes = ([p] * 14 + [i] * 4 + [f] * 4 + [i] * 3
                                 + [p, p])
     so.rsp_fm_block.restype = i
-    so.rsp_rankmf_batch.argtypes = [ctypes.POINTER(RankMFArgs), p]
+    # args, stages (1 launch A, 2 the batch), stream
+    so.rsp_rankmf_batch.argtypes = [ctypes.POINTER(RankMFArgs), i, p]
     so.rsp_rankmf_batch.restype = i
     # rows, cols, vals, slot_r, slot_c, feats_r, feats_c, N, U_r, U_c, r,
     # w_i, w_j, b_i, b_j, acc_w_i, acc_w_j, acc_b_i, acc_b_j, x_max, alpha,

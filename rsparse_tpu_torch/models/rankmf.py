@@ -48,6 +48,10 @@ MAX_RANK = 128
 #: batches whose AUC counters make one ``auc_history`` entry (the
 #: reference's scan chunk)
 CHUNK = 8
+#: candidates K9's launch A scores side by side before its first ballot
+#: (``kWindow`` in csrc/rankmf.cu, where the reason for 8 stands; later
+#: windows take up to 32)
+K9_WINDOW = 8
 
 
 class _Feats(NamedTuple):
@@ -215,6 +219,16 @@ def _apply_plain(emb, acc, feats, ids, grad, lam, comb, lr, gamma, optimizer):
     emb.index_add_(0, flat, (-lr * step).reshape(-1, r))
 
 
+def _first_acceptable(acceptable: torch.Tensor, valid: torch.Tensor):
+    """The reference's choice among a sample's K candidates
+    (rsparse_tpu/models/rankmf.py:257-262): (found, the first acceptable
+    candidate or 0, the candidates tried: first + 1, or K), each (S,)."""
+    K = acceptable.shape[1]
+    found = acceptable.any(1) & valid
+    first_k = acceptable.to(torch.uint8).argmax(1)       # first True, or 0
+    return found, first_k, torch.where(found, first_k + 1, K)
+
+
 def _rankmf_batch_plain(W, H, accW, accH, bits, pos: _Positives,
                         uf: Optional[_Feats], itf: Optional[_Feats],
                         hp: BatchParams, cfg: BatchConfig, n_item: int):
@@ -251,8 +265,7 @@ def _rankmf_batch_plain(W, H, accW, accH, bits, pos: _Positives,
         hj_adj_all = torch.ones_like(r_uj)
         d = r_uj - r_ui[:, None]
     acceptable = is_neg if cfg.loss == BPR else is_neg & (d + hp.margin >= 0)
-    found = acceptable.any(1) & valid
-    first_k = acceptable.to(torch.uint8).argmax(1)       # first True, or 0
+    found, first_k, tried = _first_acceptable(acceptable, valid)
     sel = lambda a: a.gather(1, first_k[:, None])[:, 0]  # noqa: E731
     j = sel(j_cand)
     d_sel, hj_adj = sel(d), sel(hj_adj_all)
@@ -279,8 +292,7 @@ def _rankmf_batch_plain(W, H, accW, accH, bits, pos: _Positives,
                      torch.cat([grad_ip, grad_in]),
                      torch.cat([full(hp.lam_ip), full(hp.lam_in)]),
                      torch.cat([h_i, h_j]), hp.lr, hp.gamma, cfg.optimizer)
-    n_tried = torch.where(found, first_k + 1, K).sum()
-    return torch.stack([auc_num, auc_den, found.sum(), n_tried]).long()
+    return torch.stack([auc_num, auc_den, found.sum(), tried.sum()]).long()
 
 
 def _feat_args(f: Optional[_Feats], name: str, n: int):
@@ -295,7 +307,11 @@ def _feat_args(f: Optional[_Feats], name: str, n: int):
 
 def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
                        uf: Optional[_Feats], itf: Optional[_Feats],
-                       hp: BatchParams, cfg: BatchConfig, n_item: int):
+                       hp: BatchParams, cfg: BatchConfig, n_item: int,
+                       stages: int = 2):
+    """K9 on CUDA tensors (see :func:`_rankmf_batch`).  ``stages`` 1 stops
+    after launch A, for timing it apart: the counters are left unclamped
+    and the tables unchanged, but AdaGrad's accumulators."""
     S, K = cfg.S, cfg.K
     nuf, r = W.shape
     nif = H.shape[0]
@@ -327,7 +343,7 @@ def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
     cntW = torch.zeros((nuf,), dtype=f32, device=dev) if rms else None
     cntH = (torch.zeros((nif,), dtype=f32, device=dev)
             if rms and cfg.update_items else None)
-    counters = torch.zeros((4,), dtype=i32, device=dev)
+    counters = torch.empty((4,), dtype=torch.int64, device=dev)
     args = _kernels.RankMFArgs(
         *(_kernels.ptr(t) for t in (
             bits, pos.flat_idx, pos.indptr, pos.row_nnz, pos.table, pos.boff,
@@ -338,12 +354,11 @@ def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
         hp.lr, hp.gamma, hp.lam_u, hp.lam_ip, hp.lam_in, hp.margin,
         float(np.log1p(float(n_item) + 1.0)))
     rc = _kernels.lib().rsp_rankmf_batch(ctypes.byref(args),
+                                         ctypes.c_int(int(stages)),
                                          _kernels.stream(dev))
     _kernels.check(rc, "rankmf")
     _kernels.launches["rankmf"] += 1
-    out = counters.long()
-    out[1].clamp_(min=1)
-    return out
+    return counters
 
 
 def _rankmf_batch(W, H, accW, accH, bits, pos: _Positives,

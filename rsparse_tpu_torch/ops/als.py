@@ -31,7 +31,7 @@ head's ``Wc``, ``W1 = Wc - 1`` and ``Wc - W1 g``, the exact solvers' weighted
 rows, and ``bf16(y)`` in the loss; every sum stays float32.  A uint8 head
 (``hot_scale``) dequantises as ``code * scale`` in the compute dtype.
 
-Three kernels solve a bucket on the card: K1 (``csrc/als_cg.cu``) by CG,
+Three kernels solve a bucket on the card: K1 (``csrc/als_cg.cuh``) by CG,
 K2 (``csrc/als_chol.cu``) by Cholesky and K4 (``csrc/als_nnls.cu``) by
 NNLS coordinate descent; :func:`hot_chain` exposes K1's bf16 head term
 alone.  :func:`_solve_bucket_implicit` and :func:`_solve_bucket_explicit`
@@ -437,10 +437,210 @@ def _bucket_args(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
     return args, y, loss
 
 
+#: K1's layout (csrc/als_cg.cuh): warps a CTA, rows of a tile product,
+#: head columns a panel, and the bounds of the sparse head cells a warp
+#: keeps (what shared memory leaves)
+CG_WARPS, CG_TILE, CG_PANEL = 32, 16, 64
+CG_CACHE_MIN, CG_CACHE_MAX = 160, 1024
+#: present cells (of a tile's rows in one panel: 1,024 at most) from which
+#: K1 takes the panel as a tensor-core tile product, by the products'
+#: route: where the tile products (a fixed cost a panel) overtake the walk
+#: (a cost a cell) on the H100, at about 72% present at 3xTF32, 75% at
+#: 2xTF32 and 42% on bf16 mma (PERF.md; chip_smoke.py phases 2 and 9 time
+#: both sides); sparser panels are walked cell by cell, panels without one
+#: are skipped
+CG_TAU = {"3xTF32": 736, "2xTF32": 768, "bf16 mma": 432}
+#: fewest cold entries a warp's share of a row may hold when a row is split
+#: over the CTAs of a cluster
+CG_MIN_SLICE = 64
+#: :func:`cg_split`'s costs, in a warp's round trips: the fixed work of a
+#: pass (barriers, P XtX, the CG scalars) and a cluster's exchange; fitted
+#: to K1's times under every plan on each bucket of the ML-20M-shaped fit
+#: (NVIDIA H100, PERF.md)
+CG_PASS_COST, CG_CLUSTER_COST = 16, 16
+#: shared memory a CTA may use on the H100 (bytes)
+SMEM_LIMIT = 232_448
+
+
+def cg_layout(d: int, H: int, tbytes: int, cluster: int) -> Tuple[int, int]:
+    """(shared bytes, sparse head cells a warp keeps) of one K1 CTA
+    (``make_layout`` in ``csrc/als_cg.cuh``; ``chip_smoke.py`` holds the
+    two equal on the card)."""
+    up = lambda n: (n + 15) & ~15  # noqa: E731
+    Dk = -(-d // 16) * 16
+    sp = Dk + 4
+    sv = Dk + 4 if tbytes == 4 else Dk + 8
+    npan = -(-H // CG_PANEL)
+    vec = CG_TILE * sp * 4
+    head = H > 0
+    parts = [vec] * 5 + [
+        CG_WARPS * sp * 4,
+        CG_TILE * (CG_PANEL + 4) * 4 if head else 0,
+        CG_PANEL * sv * tbytes if head else 0,
+        CG_PANEL * sv * tbytes if head else 0,
+        vec if cluster > 1 else 0, vec if cluster > 1 else 0,
+        CG_TILE * 4, CG_TILE * 4, (CG_WARPS + 8) * CG_TILE * 4,
+        CG_TILE * 8 * 4, npan * 4, npan * 4, npan * 4, 16]
+    o = sum(up(n) for n in parts)
+    cache = 0
+    if head:
+        cache = ((SMEM_LIMIT - o) // (CG_WARPS * 8)) & ~31
+        cache = min(max(cache, CG_CACHE_MIN), CG_CACHE_MAX)
+    return o + 2 * up(CG_WARPS * cache * 4), cache
+
+
+def cg_smem_bytes(d: int, H: int, tbytes: int, cluster: int) -> int:
+    """Shared bytes of one K1 CTA (:func:`cg_layout`)."""
+    return cg_layout(d, H, tbytes, cluster)[0]
+
+
+def _cg_walk(L: int, units: int) -> int:
+    """Round trips (four source rows loaded at once) of the busiest of
+    ``units`` warps taking a row of L entries in chunks of 32 dealt round
+    robin: unit 0, whose last chunk may be the row's short one."""
+    n = -(-L // 32)
+    k = -(-n // units)
+    trips = 8 * k
+    if (n - 1) % units == 0:
+        trips -= 8 - (-(-(L - 32 * (n - 1)) // 4))
+    return trips
+
+
+def cg_split(B: int, L: int, active, H: int = 0) -> Tuple[int, int]:
+    """K1's split of a bucket of B rows padded to L entries, with a dense
+    head of H columns: (target rows a CTA, CTAs a cluster).  ``active``
+    maps a cluster size (1, 2, 4, 8, 16) to the clusters of that size the
+    card runs at once (0 or absent: that size cannot run).  A row's
+    entries are dealt in chunks of 32 to the CG_WARPS / rows warps of each
+    CTA of its cluster, and its head panels likewise, so every (rows,
+    cluster) is costed as its waves (whole while they are few) times a
+    warp's round trips in a pass: the busiest warp's walk (:func:`_cg_walk`),
+    a quarter of its share of the head's panels (the first pass scans them
+    four at a time), ``CG_PASS_COST`` for the pass's fixed work and, in a
+    cluster, ``CG_CLUSTER_COST`` for the exchange; a row is split over a
+    cluster only while each warp keeps ``CG_MIN_SLICE`` entries.  The
+    cheapest within 5% wins, the most rows a CTA first (they share the
+    head's tile products), then the smallest cluster."""
+    npan = -(-H // CG_PANEL)
+    options = []
+    for rows in (16, 8, 4, 2, 1):
+        tiles = -(-B // rows)
+        wpr = CG_WARPS // rows
+        for cs in (1, 2, 4, 8, 16):
+            n = int(active.get(cs, 0))
+            if n <= 0 or (cs > 1 and L < CG_MIN_SLICE * wpr * cs):
+                continue
+            waves = tiles / n if tiles >= 4 * n else -(-tiles // n)
+            trips = (CG_PASS_COST + (CG_CLUSTER_COST if cs > 1 else 0)
+                     + _cg_walk(L, wpr * cs) + npan / (4 * wpr * cs))
+            options.append((waves * trips, rows, cs))
+    if not options:
+        raise RuntimeError("als_cg: the card runs no K1 launch")
+    best = min(o[0] for o in options)
+    _, rows, cs = max((o for o in options if o[0] <= 1.05 * best),
+                      key=lambda o: (o[1], -o[2]))
+    return rows, cs
+
+
+_CG_INFO: dict = {}
+
+
+def _cg_info(args) -> dict:
+    """The driver's answer for K1 at a bucket's width, table and head
+    (cached): shared bytes, CTAs an SM, clusters of each size at once."""
+    key = (args.d, args.H if args.W else 0, args.table_bf16,
+           args.explicit_fb, bool(args.xbias))
+    if key not in _CG_INFO:
+        info = (ctypes.c_int * 7)()
+        rc = _kernels.lib().rsp_als_cg_info(ctypes.byref(args), info)
+        _kernels.check(rc, "als_cg")
+        _CG_INFO[key] = dict(smem_bytes=info[0], ctas_per_sm=info[1],
+                             active={1 << k: info[2 + k] for k in range(5)})
+    return _CG_INFO[key]
+
+
+def _cg_route(args) -> str:
+    """The route of K1's tile products (head panels, P XtX) for a bucket."""
+    return ("bf16 mma" if args.round_bf16 else
+            "2xTF32" if args.table_bf16 else "3xTF32")
+
+
+def _cg_launch_plan(args, L: int) -> "_kernels.CgPlan":
+    """K1's launch for a bucket padded to L entries: :func:`cg_split` on
+    the driver's cluster occupancy, and ``CG_TAU`` of its route."""
+    info = _cg_info(args)
+    rows, cs = cg_split(args.B, L, info["active"], args.H if args.W else 0)
+    return _kernels.CgPlan(rows=rows, cluster=cs,
+                           tau=CG_TAU[_cg_route(args)])
+
+
+def _launch_cg(args, y, loss, plan, cg_steps: int, device):
+    """Launch K1 on the bucket in ``args`` (:func:`_bucket_args`, whose
+    outputs are y and loss) as ``plan`` says."""
+    rc = _kernels.lib().rsp_als_cg(
+        ctypes.byref(args), ctypes.byref(plan), ctypes.c_int(cg_steps),
+        ctypes.c_float(CG_TOL), _kernels.stream(device))
+    _kernels.check(rc, "als_cg")
+    _kernels.launches["als_cg"] += 1
+    return y, loss
+
+
+def cg_head_panels(hot_W, hot_bits, rows: int, cluster: int,
+                   tau: int) -> dict:
+    """How K1 takes a bucket's dense head (counted here with torch, as the
+    kernel counts it): panels of ``CG_PANEL`` columns a tile of ``rows``
+    rows, and of those the tile products (at least ``tau`` present cells),
+    the sparse ones and the empty ones, summed over the tiles."""
+    if hot_W is None:
+        return dict(panels=0, dense_panels=0, sparse_panels=0,
+                    sparse_cells=0)
+    B, H = hot_W.shape
+    pres = (_expand_bits(hot_bits)[:, :H] if hot_bits is not None
+            else hot_W != 0)
+    npan, tiles = -(-H // CG_PANEL), -(-B // rows)
+    pres = torch.nn.functional.pad(pres, (0, npan * CG_PANEL - H, 0,
+                                          tiles * rows - B))
+    cnt = pres.reshape(tiles, rows, npan, CG_PANEL).sum((1, 3))
+    sparse = (cnt > 0) & (cnt < tau)
+    return dict(panels=tiles * npan, dense_panels=int((cnt >= tau).sum()),
+                sparse_panels=int(sparse.sum()),
+                sparse_cells=int((cnt * sparse).sum()))
+
+
+def cg_plan(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
+            cfg: ALSConfig, hot_W=None, V_hot=None, hot_bits=None,
+            nnz_total=None, hot_scale=None) -> dict:
+    """How K1 runs a bucket on the card (nothing is launched): rows a CTA,
+    CTAs a cluster, the shared bytes a CTA and the sparse head cells a warp
+    keeps (:func:`cg_layout`, held to the driver's count), CTAs an SM, the
+    head's panels by kind (:func:`cg_head_panels`) and the tile products'
+    route."""
+    args, _, _ = _bucket_args(src, x_biases, XtX, rhs_init, bucket, x_init,
+                              lam, g, cfg, hot_W, V_hot, hot_bits, nnz_total,
+                              hot_scale)
+    info = _cg_info(args)
+    pl = _cg_launch_plan(args, bucket.pad_len)
+    route = _cg_route(args)
+    tb = 2 if args.table_bf16 else 4
+    Hh = args.H if args.W else 0
+    smem, cache = cg_layout(args.d, Hh, tb, pl.cluster)
+    one = cg_layout(args.d, Hh, tb, 1)[0]
+    if one != info["smem_bytes"]:
+        raise RuntimeError(f"als_cg: the host's layout ({one} B) is not the "
+                           f"card's ({info['smem_bytes']} B)")
+    return dict(rows=pl.rows, cluster=pl.cluster, tau=pl.tau, route=route,
+                smem_bytes=smem, cache=cache,
+                ctas_per_sm=info["ctas_per_sm"], active=info["active"],
+                **cg_head_panels(hot_W, hot_bits if cfg.feedback ==
+                                 "explicit" else None, pl.rows, pl.cluster,
+                                 pl.tau))
+
+
 def solve_bucket_cg(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
                     cfg: ALSConfig, hot_W=None, V_hot=None, hot_bits=None,
                     nnz_total=None, hot_scale=None):
-    """K1: one bucket of CG solves (``csrc/als_cg.cu``).
+    """K1: one bucket of CG solves (``csrc/als_cg.cu``), launched as
+    :func:`cg_split` splits the bucket's shape.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     Returns (y (B, d), loss (B,))."""
@@ -451,12 +651,8 @@ def solve_bucket_cg(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
     args, y, loss = _bucket_args(src, x_biases, XtX, rhs_init, bucket,
                                  x_init, lam, g, cfg, hot_W, V_hot, hot_bits,
                                  nnz_total, hot_scale)
-    rc = _kernels.lib().rsp_als_cg(
-        ctypes.byref(args), ctypes.c_int(cfg.cg_steps),
-        ctypes.c_float(CG_TOL), _kernels.stream(src.device))
-    _kernels.check(rc, "als_cg")
-    _kernels.launches["als_cg"] += 1
-    return y, loss
+    return _launch_cg(args, y, loss, _cg_launch_plan(args, bucket.pad_len),
+                      cfg.cg_steps, src.device)
 
 
 def solve_bucket_cholesky(src, x_biases, XtX, rhs_init, bucket, x_init, lam,
@@ -579,8 +775,10 @@ def hot_chain(W, Vh, p=None, g=None, scale=None) -> torch.Tensor:
     matvec term ``bf16(bf16(bf16(p) Vh') * W1) Vh`` (``kc``), else with
     ``g`` the rhs term ``bf16(Wc - bf16(W1 bf16(g))) Vh`` (``kd``); ``W``
     (B, H) float32, bfloat16 or uint8 codes with (B,) ``scale``, ``Vh``
-    (H, d), d <= ``HOT_CHAIN_MAX_D``.  Returns (B, d) float32.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    (H, d), d <= ``HOT_CHAIN_MAX_D``.  The head's panels are taken as K1
+    takes them on bf16 mma (``CG_TAU["bf16 mma"]``: the present cells from
+    which a panel of 16 rows is a tile product).  Returns (B, d) float32.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if (p is None) == (g is None):
         raise ValueError("give exactly one of p (matvec term) and g (rhs)")
     if W.device.type == "cpu":
@@ -608,7 +806,8 @@ def hot_chain(W, Vh, p=None, g=None, scale=None) -> torch.Tensor:
         W=q(W), Vh=q(Vh), x0=q(p), y=q(out), w_scale=q(scale), B=B, d=d,
         H=H, table_bf16=1, w_kind=w_kind, round_bf16=1,
         g_rhs=0.0 if g is None else float(g))
-    rc = _kernels.lib().rsp_hot_chain(ctypes.byref(args),
+    plan = _kernels.CgPlan(rows=CG_TILE, cluster=1, tau=CG_TAU["bf16 mma"])
+    rc = _kernels.lib().rsp_hot_chain(ctypes.byref(args), ctypes.byref(plan),
                                       ctypes.c_int(int(p is not None)),
                                       _kernels.stream(W.device))
     _kernels.check(rc, "hot_chain")

@@ -268,3 +268,136 @@ def test_reference_quality():
     np.testing.assert_allclose((m.auc_history[-1], ndcg),
                                chip_smoke.REF_RANKMF_ML100K, rtol=0,
                                atol=5e-5)
+
+
+# -- K9's windowed selection --------------------------------------------------
+
+def _windowed(acceptable: torch.Tensor, window: int):
+    """Launch A's selection replayed: the K candidates in windows (``window``
+    of them, then up to 32 at a time), each one "any acceptable" ballot
+    whose first set lane is taken.  Returns (first_k or 0, any found,
+    windows run), each (S,)."""
+    S, K = acceptable.shape
+    first_k = torch.zeros((S,), dtype=torch.long)
+    found = torch.zeros((S,), dtype=torch.bool)
+    windows = torch.zeros((S,), dtype=torch.long)
+    k0, w = 0, window
+    while k0 < K:
+        blk = acceptable[:, k0:k0 + w]
+        live = ~found
+        windows += live.long()
+        hit = blk.any(1) & live
+        first_k = torch.where(hit, k0 + blk.to(torch.uint8).argmax(1),
+                              first_k)
+        found |= hit
+        k0, w = k0 + w, 32
+    return first_k, found, windows
+
+
+def _forced_streams(n_user=6, n_item=40, violators=(3, 10, 23, 36)):
+    """Interactions and rank-2 tables that force the candidate streams:
+    user u's positives are the items of its parity (user 1 has none, the
+    last user has every item), every positive scores 1, a non-positive
+    scores 1/2 (no WARP violator, an AUC hit) or, for the ``violators``, 1
+    (a violator at margin 0.05).  Scores are sums of multiples of 1/4:
+    exact in any order."""
+    rows, cols = [], []
+    for u in range(n_user):
+        if u == 1:
+            continue
+        items = (range(n_item) if u == n_user - 1
+                 else range(u % 2, n_item, 2))
+        rows += [u] * len(items)
+        cols += list(items)
+    x = sp.csr_matrix((np.ones(len(rows)), (rows, cols)),
+                      shape=(n_user, n_item))
+    x.sort_indices()
+    sign = np.where(np.arange(n_user) % 2 == 0, 1.0, -1.0)
+    W = np.stack([np.ones(n_user), sign], 1)
+    # r_uj = a_j + sign_u b_j: 1 for users of j's parity, else 1/2 or 1
+    own = np.ones(n_item)
+    other = np.where(np.isin(np.arange(n_item), violators), 1.0, 0.5)
+    even = np.arange(n_item) % 2 == 0
+    plus = np.where(even, own, other)      # a + b: what even users see
+    minus = np.where(even, other, own)     # a - b: what odd users see
+    H = np.stack([(plus + minus) / 2, (plus - minus) / 2], 1)
+    return x, W, H
+
+
+@pytest.mark.parametrize("loss", ["bpr", "warp"])
+@pytest.mark.parametrize("window", [8, 16, 32])
+def test_windowed_selection_matches_plain_and_reference(loss, window):
+    """On forced candidate streams (positives first, no violator among the
+    K, a violator at candidate 0, at the last candidate and in a later
+    window), the windowed selection gives each sample the plain version's
+    first candidate, found flag and count tried, and the AUC hit of
+    candidate 0; its counters equal the plain version's and the JAX
+    package's batch, whose tables the plain version matches (1e-10)."""
+    x, W0, H0 = _forced_streams()
+    n_user, n_item = x.shape
+    S, K, r = 256, 20, 2
+    lo = {"bpr": ref.BPR, "warp": ref.WARP}[loss]
+    hp = port.BatchParams(lr=0.25, gamma=0.9, lam_u=0.0, lam_ip=0.0,
+                          lam_in=0.0, margin=0.05)
+    flat, indptr, row_nnz, uhash, _, _ = _ref_inputs(x, None, None)
+    pos = port._stage_positives(x, "cpu")
+    seen = {"positive first": 0, "none in K": 0, "at 0": 0, "at K - 1": 0,
+            "later window": 0}
+    for step in range(3):
+        key = jax.random.PRNGKey(7 + step)
+        cfg = (S, K, lo, ref.IDENTITY, ref.ADAGRAD, True)
+        init = [W0, H0, np.ones(n_user), np.ones(n_item)]
+        tj = [jnp.asarray(a) for a in init]
+        tt = [torch.tensor(a) for a in init]
+        *tj, an, ad, nf, nt = ref._rankmf_batch(
+            DirectOps(), *tj, key, flat, indptr, row_nnz, uhash, None, None,
+            *(jnp.asarray(v, jnp.float64) for v in hp), cfg, n_item,
+            ref._MAX_PROBE)
+        bits = torch.from_numpy(np.asarray(
+            jax.random.bits(key, (S, K + 2), jnp.uint32)).astype(np.int64))
+        c = port._rankmf_batch(*tt, bits, pos, None, None, hp,
+                               port.BatchConfig(*cfg), n_item)
+        assert c.tolist() == [int(an), int(ad), int(nf), int(nt)]
+        for a, b in zip(tt, tj):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                       atol=TOL)
+        # the streams: membership and score of every candidate
+        b = bits & 0xFFFFFFFF
+        u = b[:, 0] % n_user
+        valid = pos.row_nnz[u] > 0
+        j = b[:, 2:] % n_item
+        is_neg = ~port._in_hash_set(pos.table, pos.boff, pos.bmask,
+                                    pos.bshift, u, j)
+        Wt, Ht = torch.tensor(W0), torch.tensor(H0)
+        i = pos.flat_idx[(pos.indptr[u].long() + b[:, 1]
+                          % pos.row_nnz[u].clamp(min=1)).clamp(
+                              0, pos.flat_idx.shape[0] - 1)].long()
+        r_ui = (Wt[u] * Ht[i]).sum(1)
+        d = torch.einsum("sr,skr->sk", Wt[u], Ht[j]) - r_ui[:, None]
+        acceptable = is_neg if lo == ref.BPR else is_neg & (d + hp.margin
+                                                            >= 0)
+        first_k, any_ok, windows = _windowed(acceptable, window)
+        found = any_ok & valid
+        tried = torch.where(found, first_k + 1, K)
+        auc_hit = valid & is_neg[:, 0] & (d[:, 0] < 0)
+        pf, pk, pt = port._first_acceptable(acceptable, valid)
+        assert torch.equal(found, pf) and torch.equal(tried, pt)
+        assert torch.equal(first_k[found], pk[found])
+        assert [int(auc_hit.sum()), int(valid.sum()), int(found.sum()),
+                int(tried.sum())] == [int(an), int(ad), int(nf), int(nt)]
+        # the walk ends with the window that holds the first acceptable
+        last = torch.where(any_ok, first_k, K - 1)
+        want = torch.where(last < window, 1,
+                           2 + torch.clamp(last - window, min=0) // 32)
+        assert torch.equal(windows, want)
+        seen["positive first"] += int((found & ~is_neg[:, 0]).sum())
+        seen["none in K"] += int((valid & ~found).sum())
+        seen["at 0"] += int((found & (first_k == 0)).sum())
+        seen["at K - 1"] += int((found & (first_k == K - 1)).sum())
+        seen["later window"] += int((found & (first_k >= window)).sum())
+    need = ["positive first", "none in K", "at 0"]
+    if loss == "warp":
+        need.append("at K - 1")
+        if window < K:
+            need.append("later window")
+    assert all(seen[k] > 0 for k in need), seen

@@ -14,7 +14,11 @@ line:
    and K2 (Cholesky) for implicit and explicit feedback, with biases,
    dense heads and presence bits, up to d = 129 (K1 with its launch
    plan, and on a 60%-present head with its panels as tile products and
-   walked); K3 (top-k); K4 (NNLS)
+   walked); K3 (top-k), both routes (one pass for k <= 32, the k rounds
+   past it) bit for bit at C = 1 and 256 over 1,682, 1,792 and 32,768
+   columns, timed with the L2 cold (rotating copies of the scores) by
+   CUDA events and by CUDA graphs beside the round-based kernel and
+   torch.topk; K4 (NNLS)
    with the distribution of its coordinate-descent sweeps, the systems it
    sweeps at once per SM, and bit for bit with its scratch in slices; K5
    (bucketed
@@ -35,9 +39,11 @@ line:
    fitted factors; K1 bucket by bucket over both half-sweeps of this fit
    and of the headline fit (compute_dtype="bfloat16", n_hot=4096): rows x
    length, head, the launch K1 takes, K1 and plain ms, each bucket held to
-   its plain version; last, a warm full-width fit_transform + predict
-   under torch.profiler: the device time of each kernel and copy, and the
-   device's busy share of the wall time;
+   its plain version; WRMF predict by part (transform, the host bit
+   packing, the mask's copy, the scoring matmul, K3, the copy back); last,
+   a warm full-width fit_transform + predict under torch.profiler: the
+   device time of each kernel and copy, and the device's busy share of the
+   wall time;
 5. the reference benchmark's config #2 at full width on the same matrix
    (its values as ratings), rank 128: (a) explicit CG(3), dynamic lambda,
    n_hot=4096 with presence bits; (b) explicit Cholesky with user/item and
@@ -61,11 +67,12 @@ line:
    that counts the sweeps each system ran;
 7. the SGD family: (a) K7 (FTRL) and K8 (FM, r = 4 and 8) on a 32,768 x
    32 block over 10,000 and 40M features, predict and update, dropout,
-   config #5's one-hot block, and K9 (RankMF) on S = 8192, K = 20 batches
-   (BPR / WARP, AdaGrad / RMSprop, identity and side features, r = 8 and
-   16) with the same bits, against their plain versions (each table by
-   its change, 1e-5; K9's counters exactly), K9's launches' device times
-   apart, its candidate window and mean candidates tried; (b) FTRL and FM on the
+   a feature in every row, config #5's one-hot block (K8 also by CUDA
+   graphs), and K9 (RankMF) on S = 8192, K = 20 batches (BPR / WARP,
+   AdaGrad / RMSprop, identity and side features, r = 8 and 16) with the
+   same bits, against their plain versions (each table by its change,
+   1e-5; K9's counters exactly), K9's launches' device times apart, its
+   candidate window and mean candidates tried; (b) FTRL and FM on the
    reference benchmark's GLM synthetic within 0.01 of the reference's
    train accuracy, FM XOR, RankMF BPR on ML-100k through predict (K3);
    (c) FTRL and FM rank 8 at the hashed shape (100,000 x 40M features)
@@ -630,52 +637,143 @@ def check_nnls_slices(args, y, sweeps, tag) -> None:
     require(same, f"K4 {tag}: the sliced scratch changed the result")
 
 
+#: K3's checked shapes: rows (get_similar_items' one, top_product's chunk
+#: of 256), columns (ML-100k's items, unmasked and n % 4 == 2; a multiple
+#: of 256; the ML-20M-shaped synthetic's items) and k (1, the callers' 10,
+#: TOPK_KMAX and past it, the tests' 100)
+TOPK_ROWS = (1, 256)
+TOPK_COLS = (1682, 1792, 32768)
+TOPK_KS = (1, 10, 32, 33, 100)
+
+
+def _rotating(fns):
+    """One call of the next of ``fns`` per call, in turn."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def graph_ms(fns, reps=10) -> float:
+    """Device time of one call, free of the host's: a CUDA graph of one
+    call of each of ``fns`` in turn, replayed ``reps`` times (CUDA events),
+    over the number of calls."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for fn in fns:
+            fn()
+    ms = time_ms(g.replay, reps) / len(fns)
+    del g
+    return ms
+
+
+def _topk_case(gen, device, C, n):
+    """Quarter-step scores (many exact ties) and, where n % 8 == 0, a 30%
+    mask with, where C > 2, row 0 all masked, row 1 none and row 2 all but
+    5 columns."""
+    import torch
+    s = (torch.randn((C, n), generator=gen, device=device) * 4).round() / 4
+    if n % 8:
+        return s, None
+    mask = torch.rand((C, n), generator=gen, device=device) < 0.3
+    if C > 2:
+        mask[0] = True
+        mask[1] = False
+        mask[2] = True
+        mask[2, :5] = False
+    return s, torch.from_numpy(np.packbits(mask.cpu().numpy(), axis=1,
+                                           bitorder="little")).to(device)
+
+
 def check_topk_kernel(device, results) -> None:
+    """K3's two routes bitwise against the plain version at every TOPK_*
+    shape; then timed with the L2 cold: each call reads other scores than
+    the calls before it (rotating copies, together over 50 MB), against
+    the round-based kernel (the first K3, the route past TOPK_KMAX), the
+    plain version and torch.topk on pre-masked scores."""
     import torch
     from rsparse_tpu_torch.ops import topk
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    C = 256
-    for n in (1792, 32768):
-        # quarter-step scores: many exact ties
-        s = (torch.randn((C, n), generator=gen, device=device) * 4).round() / 4
-        mask = torch.rand((C, n), generator=gen, device=device) < 0.3
-        mask[0] = True                        # all masked
-        mask[1] = False                       # nothing masked
-        mask[2] = True
-        mask[2, :5] = False                   # fewer than k live columns
-        bits = torch.from_numpy(np.packbits(mask.cpu().numpy(), axis=1,
-                                            bitorder="little")).to(device)
-        for k in (1, 10, 100):
-            for b in (bits, None):
-                sk, ik = topk.masked_top_k_bits(s, b, k, 0.25)
+    for C in TOPK_ROWS:
+        for n in TOPK_COLS:
+            s, bits = _topk_case(gen, device, C, n)
+            masks = (None,) if bits is None else (bits, None)
+            for k, b in itertools.product(TOPK_KS, masks):
                 sp_, ip = topk._masked_top_k_plain(s, b, k, 0.25)
-                torch.cuda.synchronize()
+                plan = topk.topk_plan(C, n, k, b is not None)
+                same = []
+                for rounds in ((False, True) if k <= topk.TOPK_KMAX
+                               else (True,)):
+                    sk, ik = topk._masked_top_k_cuda(s, b, k, 0.25,
+                                                     rounds=rounds)
+                    torch.cuda.synchronize()
+                    same.append(bool(torch.equal(ik, ip)
+                                     and torch.equal(sk, sp_)))
+                    results["topk"]["max_abs_err"] = max(
+                        results["topk"]["max_abs_err"],
+                        float((sk - sp_).abs().max()))
                 tag = (f"C={C} n={n} k={k} "
                        + ("masked" if b is not None else "no mask"))
-                same = torch.equal(ik, ip) and torch.equal(sk, sp_)
-                ms = time_ms(lambda: topk.masked_top_k_bits(s, b, k, 0.25))
-                pms = time_ms(lambda: topk._masked_top_k_plain(s, b, k, 0.25))
-                log(f"  K3 topk     {tag:30s} bitwise_equal={same} "
-                    f"kernel={ms:.3f} ms plain={pms:.3f} ms")
-                require(same, f"K3 {tag}: differs from its plain version")
-                results["topk"]["max_abs_err"] = max(
-                    results["topk"]["max_abs_err"],
-                    float((sk - sp_).abs().max()))
-                if (n, k, b is not None) == (32768, 10, True):
-                    # the library yardstick: torch.topk on the scores the
-                    # mask already set to NEG_INF
-                    live = topk._expand_bits(b)
-                    pre = (s + 0.25).clamp_min(topk.NEG_INF).masked_fill(
-                        live, topk.NEG_INF)
-                    lms = time_ms(lambda: torch.topk(pre, k, dim=1))
-                    bms, bby = bound(C * n * 4 + C * n // 8 + C * k * 8,
-                                     2 * C * n)
-                    log(f"  K3 topk     {tag:30s} library torch.topk="
-                        f"{lms:.3f} ms bound={bms:.4f} ms ({bby})")
-                    results["topk"].update(ms=ms, plain_ms=pms, shape=tag,
-                                           library_ms=lms, bound_ms=bms,
-                                           bound_by=bby)
+                log(f"  K3 topk     {tag:30s} {plan['route']} "
+                    f"(parts {plan['parts']}, words {plan['words']}) "
+                    f"bitwise_equal={same[0]}"
+                    + (f", rounds bitwise_equal={same[1]}"
+                       if len(same) > 1 else ""))
+                require(all(same), f"K3 {tag}: differs from its plain "
+                        "version")
+            del s, bits
+    for C, n, masked in ((256, 32768, True), (1, 32768, True),
+                         (256, 1682, False)):
+        k = 10
+        copies = max(4, -(-(64 << 20) // (C * n * 4)))
+        big, bits = _topk_case(gen, device, copies * C, n)
+        if not masked:
+            bits = None
+        rows = [(big[i * C:(i + 1) * C],
+                 None if bits is None else bits[i * C:(i + 1) * C])
+                for i in range(copies)]
+        pre = [(a + 0.25).clamp_min(topk.NEG_INF).masked_fill(
+            topk._expand_bits(b), topk.NEG_INF) if b is not None
+            else (a + 0.25).clamp_min(topk.NEG_INF) for a, b in rows]
+        t = {"lists": [functools.partial(topk._masked_top_k_cuda, a, b, k,
+                                         0.25) for a, b in rows],
+             "rounds": [functools.partial(topk._masked_top_k_cuda, a, b, k,
+                                          0.25, rounds=True)
+                        for a, b in rows],
+             "plain": [functools.partial(topk._masked_top_k_plain, a, b, k,
+                                         0.25) for a, b in rows],
+             "torch.topk": [functools.partial(torch.topk, p, k, dim=1)
+                            for p in pre]}
+        ms = {name: time_ms(_rotating(fns), reps=4 * copies)
+              for name, fns in t.items()}
+        dev = {name: graph_ms(t[name]) for name in ("lists", "rounds",
+                                                    "torch.topk")}
+        warm = time_ms(lambda: topk._masked_top_k_cuda(*rows[0], k, 0.25),
+                       reps=20)
+        bms, bby = bound(C * n * 4 + (C * n // 8 if masked else 0)
+                         + C * k * 8, 2 * C * n)
+        tag = f"C={C} n={n} k={k} " + ("masked" if masked else "no mask")
+        log(f"  K3 topk     {tag:30s} L2 cold ({copies} rotating copies): "
+            f"kernel={ms['lists']:.4f} ms, the round-based kernel "
+            f"{ms['rounds']:.4f} ms, plain={ms['plain']:.3f} ms, library "
+            f"torch.topk={ms['torch.topk']:.4f} ms, bound={bms:.4f} ms "
+            f"({bby}); device time by CUDA graphs: kernel "
+            f"{dev['lists']:.4f}, round-based {dev['rounds']:.4f}, "
+            f"torch.topk {dev['torch.topk']:.4f} ms; the kernel from L2 "
+            f"{warm:.4f} ms")
+        if C == 256 and masked:
+            results["topk"].update(ms=ms["lists"], plain_ms=ms["plain"],
+                                   shape=tag, library_ms=ms["torch.topk"],
+                                   bound_ms=bms, bound_by=bby,
+                                   device_ms=dev["lists"])
+        del big, bits, rows, pre, t
+        torch.cuda.empty_cache()
 
 
 def _spmm_case(gen, device, B, L, n_cols, full=False, n_pad_rows=2):
@@ -1480,10 +1578,62 @@ def run_full_width(device, x, launches):
     launches[-1] = check_launched(_kernels, "full-width implicit main path "
                                   "with predict", ("als_cg", "als_chol",
                                                    "topk"))
+    predict_parts(m, q)  # after the count: its launches are not the path's
     require(m.loss_history[1] <= m.loss_history[0], "full width: loss rose")
     check_predictions(preds.indices, 10, x.shape[1], sp.csr_matrix(q),
                       "full width")
     return m
+
+
+def predict_parts(m, q, k=10) -> None:
+    """WRMF ``predict(q, k, not_recommend=q)`` at full width by part: the
+    transform, then ``top_product``'s loop over chunks of 256 users done as
+    it does it, each part summed over the chunks: the host bit packing, the
+    mask's copy to the card, the scoring matmul and K3 (CUDA events), and
+    the results' copy back."""
+    import torch
+    from rsparse_tpu_torch.ops import topk
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    emb = m.transform(q)
+    torch.cuda.synchronize()
+    wall = {"transform": time.perf_counter() - t0}
+    x = torch.as_tensor(emb, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(m.components, dtype=torch.float32, device=dev)
+    n_users, n_items = x.shape[0], y.shape[1]
+    n_pad = -(-n_items // 256) * 256
+    y = torch.nn.functional.pad(y, (0, n_pad - n_items))
+    nr = sp.csr_matrix(q)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for key in ("pack", "upload", "matmul", "K3", "download"):
+        wall[key] = 0.0
+    for s in range(0, n_users, 256):
+        e = min(s + 256, n_users)
+        t0 = time.perf_counter()
+        packed = topk.pack_mask_bits(n_pad, csr=nr, rows=slice(s, e),
+                                     n_rows=e - s)
+        t1 = time.perf_counter()
+        bits = torch.from_numpy(packed).to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ev[0].record()
+        sc = x[s:e] @ y
+        ev[1].record()
+        ts, ti = topk.masked_top_k_bits(sc, bits, k, float(m.global_bias))
+        ev[2].record()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ts.cpu().numpy()
+        ti.cpu().numpy()
+        t4 = time.perf_counter()
+        wall["pack"] += t1 - t0
+        wall["upload"] += t2 - t1
+        wall["matmul"] += ev[0].elapsed_time(ev[1]) / 1e3
+        wall["K3"] += ev[1].elapsed_time(ev[2]) / 1e3
+        wall["download"] += t4 - t3
+    log(f"  predict {n_users} users k={k} by part (ms): " + ", ".join(
+        f"{key} {v * 1e3:.3f}" for key, v in wall.items())
+        + f"; {-(-n_users // 256)} chunks of 256")
 
 
 def run_config2(device, x, results, launches) -> None:
@@ -1862,13 +2012,13 @@ GLM_KERNELS = {"ftrl": ("K7 ftrl", ("z", "n")),
 
 
 def check_glm_block(name, blk, state, y, w, params, tag, results,
-                    rep=False, reps=5):
+                    rep=False, reps=5, twin=False):
     """K7 (``name="ftrl"``, state (z, n), params (lr, decay, l1, l2,
     dropout, keep, family)) or K8 (``"fm"``, state (w0, acc_w0, w, v,
     acc_w, acc_v), params (lr_w, lr_v, lambda_w, lambda_v, family,
     intercept)) against its plain version on one block from ``state``, in
     predict and in update mode; each table held by its change on the
-    block's features."""
+    block's features, with ``twin`` (K8 only) as by_float64_twin says."""
     import importlib
     import torch
     label, names = GLM_KERNELS[name]
@@ -1901,23 +2051,28 @@ def check_glm_block(name, blk, state, y, w, params, tag, results,
         else:
             require(all(torch.equal(a, b) for a, b in zip(sk, state)),
                     f"{label} {tag}: predict mode changed the tables")
+        if do_update and twin:
+            by_float64_twin(blk, state, sk, sp_, y, w, params, tag, errs)
         text = _hold(name, tag, errs, results)
         ms = time_ms(lambda: kern(*sk, *args), reps)
+        dms = graph_ms([lambda: kern(*sk, *args)], reps=20)
         pms = time_ms(lambda: plain(*sp_, *args), reps)
         bms, bby = glm_bound(blk, r, do_update)
         mode = "update" if do_update else "predict"
         log(f"  {label:11s} {tag} {mode:7s} {text} kernel={ms:.3f} ms "
-            f"plain={pms:.3f} ms bound={bms:.4f} ms ({bby})")
+            f"(device {dms:.4f} ms by CUDA graphs) plain={pms:.3f} ms "
+            f"bound={bms:.4f} ms ({bby})")
         if rep and do_update:
             results[name].update(ms=ms, plain_ms=pms, bound_ms=bms,
                                  bound_by=bby, library_ms=None,
-                                 shape=f"{tag} update")
+                                 shape=f"{tag} update", device_ms=dms)
         del sk, sp_
 
 
 def _glm_block(col, val, nnz):
     """A GLMBlock of (B, L) column ids and values with row lengths ``nnz``,
-    its slot map made by torch.unique on the card."""
+    its slot map and feature-ordered entry list made by torch on the card
+    (torch.unique; a stable argsort of the slots; their counts)."""
     import torch
     from rsparse_tpu_torch.ops.segsum import GLMBlock
     B, L = col.shape
@@ -1927,9 +2082,15 @@ def _glm_block(col, val, nnz):
     slot = torch.full((B, L), feats.numel(), dtype=torch.int32,
                       device=col.device)
     slot[live] = inv.to(torch.int32)
+    order = torch.nonzero(live.reshape(-1)).reshape(-1)[
+        torch.sort(inv, stable=True).indices]
+    offs = torch.zeros(feats.numel() + 1, dtype=torch.int64,
+                       device=col.device)
+    offs[1:] = torch.cumsum(torch.bincount(inv, minlength=feats.numel()), 0)
     return GLMBlock(torch.arange(B, dtype=torch.int32, device=col.device),
                     col, (val * live).float().contiguous(),
-                    nnz.to(torch.int32), feats.to(torch.int32), slot)
+                    nnz.to(torch.int32), feats.to(torch.int32), slot,
+                    order.to(torch.int32), offs.to(torch.int32))
 
 
 def _synthetic_block(gen, device, B, L, n_feat):
@@ -2116,10 +2277,21 @@ def check_sgd_kernels(device, results) -> None:
                         FTRL_PARAMS + (0.3, keep, 1), tag + " dropout 0.3",
                         results)
         for r in (4, 8):
-            check_glm_block("fm", blk, _glm_state(gen, device, n_feat, r),
-                            y * 2 - 1, w, FM_PARAMS, f"{tag} r={r}", results,
+            state = _glm_state(gen, device, n_feat, r)
+            check_glm_block("fm", blk, state, y * 2 - 1, w, FM_PARAMS,
+                            f"{tag} r={r}", results,
                             rep=(n_feat, r) == (HASHED_FEATURES, 8))
-        torch.cuda.empty_cache()
+        if n_feat == HASHED_FEATURES:
+            # a feature in every row (a bias column): 32,768 entries of one
+            # feature, split over every tile of K8's walk
+            col = blk.col_idx.long().clone()
+            col[:, 0] = 0
+            bias = _glm_block(col, blk.values, blk.nnz)
+            state = _glm_state(gen, device, n_feat, 8)
+            check_glm_block("fm", bias, state, y * 2 - 1, w, FM_PARAMS,
+                            f"{tag} r=8, feature 0 in every row", results,
+                            twin=True)
+            del col
     # config #5's one-hot FM block: rows (user, n_users + item) of 2 entries
     # of value 1, so L = 8 and B = 2^20 / 8
     n_users, n_items = CONFIG5["n_users"], CONFIG5["n_items"]
@@ -2131,10 +2303,11 @@ def check_sgd_kernels(device, results) -> None:
     blk = _glm_block(col, torch.ones((B1, L1), device=device),
                      torch.full((B1,), 2, device=device))
     y = (torch.rand((B1,), generator=gen, device=device) < 1 / 3).float()
-    check_glm_block("fm", blk, _glm_state(gen, device, n_users + n_items, 4),
-                    y * 2 - 1, torch.ones((B1,), device=device), FM_PARAMS,
-                    f"config #5 one-hot B={B1} L={L1} r=4", results)
-    del blk, col
+    state = _glm_state(gen, device, n_users + n_items, 4)
+    tag = f"config #5 one-hot B={B1} L={L1} r=4"
+    check_glm_block("fm", blk, state, y * 2 - 1,
+                    torch.ones((B1,), device=device), FM_PARAMS, tag, results)
+    del blk, col, state
     torch.cuda.empty_cache()
 
     # K9: S = 8192, K = 20 over 200,000 users x 131,072 items, 5 positives
@@ -2181,6 +2354,50 @@ def check_sgd_kernels(device, results) -> None:
                            results, rep=(r, loss, opt, fk, kern) == (
                                8, rankmf.WARP, rankmf.ADAGRAD, "identity",
                                rankmf.IDENTITY))
+
+
+def by_float64_twin(blk, state, sk, sp_, y, w, params, tag, errs) -> None:
+    """K8 on a feature in every row: that feature's sums run over 32,768
+    entries, added in two float32 orders (the plain version's index_add_,
+    the kernel's tiles), so a table ``errs`` holds off its plain version by
+    more than _hold's limit is held apart on the features whose entries
+    run over more than one tile of K8_TILE (and on w0 and acc_w0, sums over
+    the whole block): no further from the plain version run at float64
+    than twice the float32 plain version (max norm over those features).
+    Every other feature of the block stays held at _hold's limit, and its
+    distance is what ``errs`` then holds for the table."""
+    from rsparse_tpu_torch.models import fm
+    from rsparse_tpu_torch.ops.segsum import GLMBlock
+    names = GLM_KERNELS["fm"][1]
+    bad = [name for name, (rel, _, ulps) in errs.items()
+           if name in names and not (rel <= 1e-5 or ulps <= 2.0)]
+    if not bad:
+        return
+    feats = blk.feats.long()
+    wide = (blk.offs[1:] - blk.offs[:-1]) > fm.K8_TILE
+    f64 = GLMBlock(*(t.double() if t.is_floating_point() else t
+                     for t in blk))
+    s64 = [t.double() for t in state]
+    fm._fm_block_plain(*s64, f64, y.double(), w.double(), *params, True)
+    for name in bad:
+        i = names.index(name)
+        rows = feats[wide] if state[i].dim() else None
+        sel = (lambda t: t[rows]) if state[i].dim() else (lambda t: t)
+        fk = float((sel(sk[i]).double() - sel(s64[i])).abs().max())
+        fp = float((sel(sp_[i]).double() - sel(s64[i])).abs().max())
+        log(f"    K8 {tag}: {name} {errs[name][0]:.2e} of its change off "
+            f"the plain version; from float64 on "
+            + (f"the features over a tile ({int(wide.sum())})"
+               if state[i].dim() else "the block")
+            + f": kernel {fk:.3e}, plain {fp:.3e}")
+        require(fk <= 2 * fp, f"K8 {tag}: {name} off the plain version by "
+                f"{errs[name][0]:.2e} of its change and further from float64 "
+                f"({fk:.3e}) than twice the plain version ({fp:.3e})")
+        if state[i].dim():
+            rest = _delta_err(sk[i], sp_[i], state[i], feats[~wide])
+            errs[name] = (rest[0], errs[name][1], rest[2])
+        else:
+            errs[name] = (0.0, errs[name][1], 0.0)
 
 
 def _side_features(n, n_feat, seed, max_k=3):

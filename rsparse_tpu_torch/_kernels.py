@@ -197,8 +197,9 @@ def lib() -> ctypes.CDLL:
     # args, plan, mode (1: matvec term of x0, 0: rhs term of g_rhs), stream
     so.rsp_hot_chain.argtypes = [args, plan, i, p]
     so.rsp_hot_chain.restype = i
-    # scores, bits, C, n, k, glob_mean, out_scores, out_idx, stream
-    so.rsp_topk.argtypes = [p, p, i, i, i, f, p, p, p]
+    # scores, bits, C, n, k, glob_mean, route, list_k, parts, words,
+    # out_scores, out_idx, stream
+    so.rsp_topk.argtypes = [p, p, i, i, i, f, i, i, i, i, p, p, p]
     so.rsp_topk.restype = i
     # bucket pointers (host int64 array), n_buckets, desc, n_blocks, table,
     # table_bf16, aligned, k, n_rows, chunk, out, stream
@@ -218,10 +219,10 @@ def lib() -> ctypes.CDLL:
     so.rsp_ftrl_block.argtypes = [p, p, p, p, p, f, p, p, p, p, p, p, i, i,
                                   i, f, f, f, f, i, i, p, p]
     so.rsp_ftrl_block.restype = i
-    # col, val, nnz, slot, y, sample_w, w0, acc_w0, w, v, acc_w, acc_v, sums,
-    # feats, U, B, L, r, lr_w, lr_v, lam_w, lam_v, family, intercept,
-    # do_update, y_hat, stream
-    so.rsp_fm_block.argtypes = ([p] * 14 + [i] * 4 + [f] * 4 + [i] * 3
+    # col, val, nnz, slot, y, sample_w, w0, acc_w0, w, v, acc_w, acc_v,
+    # feats, order, offs, scratch, U, N, B, L, r, tpe, G, lr_w, lr_v, lam_w,
+    # lam_v, family, intercept, do_update, y_hat, stream
+    so.rsp_fm_block.argtypes = ([p] * 16 + [i] * 7 + [f] * 4 + [i] * 3
                                 + [p, p])
     so.rsp_fm_block.restype = i
     # args, stages (1 launch A, 2 the batch), stream

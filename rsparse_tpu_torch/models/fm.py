@@ -5,7 +5,8 @@ R/model_FactorizationMachine.R:22-182 over
 src/factorization_machine.cpp:8-194).  Rows go in the reference's padded
 ``(B, L)`` blocks (``ops/segsum.py``); each block is one deterministic
 update from the block-start tables with accumulator-first AdaGrad factored
-per feature.  On the card one block is K8 (``csrc/fm.cu``);
+per feature.  On the card one block is K8 (``csrc/fm.cu``: rows, then the
+block's entries grouped by feature, :func:`k8_plan`);
 :func:`_fm_block_plain` is its plain PyTorch version, which CPU tensors
 take.
 
@@ -41,6 +42,31 @@ from ..ops.segsum import GLMBlock, staged_glm_blocks, staged_label_gathers
 CLIP_VALUE = 100.0
 #: widest factor table K8 takes (csrc/fm.cu kMaxR)
 MAX_RANK = 128
+#: warps a CTA in K8's launches (csrc/fm.cu kWarps)
+K8_WARPS = 8
+#: entries a tile of K8's feature walk (csrc/fm.cu kTile, launch B): a
+#: feature with more entries than a tile holds is summed by every tile it
+#: runs over and finished by launch C.  Chosen by ``kernel_times.py
+#: k8-tiles`` (PERF.md)
+K8_TILE = 128
+
+
+def k8_plan(B: int, N: int, r: int) -> dict:
+    """K8's launch for a block of B rows holding N valid entries at rank r:
+    ``tpe`` lanes an entry (its components across them), ``G`` lanes a row
+    in launch A (tpe times the mean row length, both rounded up to powers
+    of two, at most 32: short rows share a warp), launch A's CTAs
+    (``n_part``), launch B's tiles of K8_TILE entries, and the float32
+    scratch the wrapper allocates (rows, A's partials, the tiles' head and
+    tail sums and their owners)."""
+    tpe = min(1 << (r - 1).bit_length(), 32)
+    per_row = -(-N // B) if B else 0
+    G = min(32, tpe * (1 << max(per_row - 1, 0).bit_length()))
+    n_part = -(-B // (K8_WARPS * (32 // G)))
+    n_tiles = -(-N // K8_TILE)
+    scratch = B * (r + 1) + 2 * n_part + n_tiles * (2 * (2 + 2 * r) + 1)
+    return dict(tpe=tpe, G=G, n_part=n_part, n_tiles=n_tiles,
+                scratch=scratch)
 
 
 def _fm_block_plain(w0, acc_w0, w, v, acc_w, acc_v, blk: GLMBlock, y,
@@ -95,7 +121,7 @@ def _fm_block_cuda(w0, acc_w0, w, v, acc_w, acc_v, blk: GLMBlock, y,
                    sample_w, lr_w, lr_v, lam_w, lam_v, family: int,
                    intercept: bool, do_update: bool):
     B, L = blk.col_idx.shape
-    U, r = blk.feats.shape[0], v.shape[1]
+    U, r, N = blk.feats.shape[0], v.shape[1], blk.order.shape[0]
     if r > MAX_RANK:
         raise ValueError(f"FM rank {r}: the CUDA kernel takes at most "
                          f"{MAX_RANK}")
@@ -109,22 +135,27 @@ def _fm_block_cuda(w0, acc_w0, w, v, acc_w, acc_v, blk: GLMBlock, y,
         _kernels.check_tensor(name, t, shape, f32)
     for name, t, shape in (("col_idx", blk.col_idx, (B, L)),
                            ("nnz", blk.nnz, (B,)), ("slot", blk.slot, (B, L)),
-                           ("feats", blk.feats, (U,))):
+                           ("feats", blk.feats, (U,)), ("order", blk.order,
+                                                        (N,)),
+                           ("offs", blk.offs, (U + 1,))):
         _kernels.check_tensor(name, t, shape, torch.int32)
     dev = w.device
     y_hat = torch.empty((B,), dtype=f32, device=dev)
     if B == 0:
         return y_hat
-    sums = (torch.zeros((2 + 2 * U * (r + 1),), dtype=f32, device=dev)
-            if do_update else None)
+    plan = k8_plan(B, N, r)
+    scratch = (torch.empty((plan["scratch"],), dtype=f32, device=dev)
+               if do_update else None)
     rc = _kernels.lib().rsp_fm_block(
         _kernels.ptr(blk.col_idx), _kernels.ptr(blk.values),
         _kernels.ptr(blk.nnz), _kernels.ptr(blk.slot), _kernels.ptr(y),
         _kernels.ptr(sample_w), _kernels.ptr(w0), _kernels.ptr(acc_w0),
         _kernels.ptr(w), _kernels.ptr(v), _kernels.ptr(acc_w),
-        _kernels.ptr(acc_v), _kernels.ptr(sums), _kernels.ptr(blk.feats),
-        U, B, L, r, lr_w, lr_v, lam_w, lam_v, family, int(intercept),
-        int(do_update), _kernels.ptr(y_hat), _kernels.stream(dev))
+        _kernels.ptr(acc_v), _kernels.ptr(blk.feats),
+        _kernels.ptr(blk.order), _kernels.ptr(blk.offs),
+        _kernels.ptr(scratch), U, N, B, L, r, plan["tpe"], plan["G"], lr_w,
+        lr_v, lam_w, lam_v, family, int(intercept), int(do_update),
+        _kernels.ptr(y_hat), _kernels.stream(dev))
     _kernels.check(rc, "fm")
     _kernels.launches["fm"] += 1
     return y_hat

@@ -14,12 +14,14 @@ The reference's scheduled two-level layout (``SchedLayout``,
 is not carried over: it exists because scatter is slow on a TPU.  What it
 computes, the per-feature sums of per-position updates added to a table
 once per block, happens inside K7 (``csrc/ftrl.cu``) and K8
-(``csrc/fm.cu``): each block carries a host-built slot map (``feats``,
-the block's distinct feature ids, and ``slot``, each entry's index into
-``feats``), the kernels add per-entry updates into zeroed per-slot sums
-with atomics while every row still reads the block-start tables, and a
-second launch adds the sums into the tables at ``feats`` (distinct ids, no
-race).
+(``csrc/fm.cu``), from a host-built slot map carried with each block:
+``feats``, the block's distinct feature ids, and ``slot``, each entry's
+index into ``feats``.  K7 adds per-entry updates into zeroed per-slot sums
+with atomics and then applies them at ``feats`` (distinct ids, no race).
+K8 walks the block's entries grouped by feature instead (``order``, the
+valid entries' flat indices sorted by slot, and ``offs``, each slot's
+range in ``order``): every feature's sums are taken in registers in a
+fixed order, with no atomics and no scratch to zero.
 
 GloVe's scheduled tail epoch (``build_stacked_col_schedule``,
 ``sched_reduce_chunks``, ``sched_apply_sums_multi`` over its stacked
@@ -51,7 +53,10 @@ class GLMBlock(NamedTuple):
     :class:`~rsparse_tpu_torch.sparse.device.RowBucket` fields.
     ``feats[u]`` is the u-th distinct feature id of the block's valid
     entries (sorted); ``slot[b, l]`` is the index of ``col_idx[b, l]`` in
-    ``feats`` for a valid entry and ``len(feats)`` at padding."""
+    ``feats`` for a valid entry and ``len(feats)`` at padding.
+    ``order`` lists the flat indices ``b * L + l`` of the N valid entries
+    grouped by slot ascending, row-major within a slot, and slot u's
+    entries are ``order[offs[u]:offs[u + 1]]``."""
 
     row_ids: torch.Tensor  # (B,)   int32
     col_idx: torch.Tensor  # (B, L) int32
@@ -59,6 +64,8 @@ class GLMBlock(NamedTuple):
     nnz: torch.Tensor      # (B,)   int32
     feats: torch.Tensor    # (U,)   int32
     slot: torch.Tensor     # (B, L) int32
+    order: torch.Tensor    # (N,)   int32
+    offs: torch.Tensor     # (U + 1,) int32
 
     def mask(self) -> torch.Tensor:
         """(B, L) validity mask."""
@@ -67,15 +74,25 @@ class GLMBlock(NamedTuple):
 
 
 def slot_map(col_idx: np.ndarray, nnz: np.ndarray):
-    """``(feats, slot)`` of one host block: the distinct feature ids of the
-    valid entries and each entry's index into them (``len(feats)`` at
-    padding), from one ``np.unique``."""
+    """``(feats, slot, order, offs)`` of one host block: the distinct
+    feature ids of the valid entries, each entry's index into them
+    (``len(feats)`` at padding), the valid entries' flat indices grouped
+    by that index (row-major within a group), and each group's offsets
+    into ``order``; all from one sort of (feature id, flat index) keys."""
     B, L = col_idx.shape
     valid = np.arange(L)[None, :] < nnz[:, None]
-    feats, inv = np.unique(col_idx[valid], return_inverse=True)
-    slot = np.full((B, L), len(feats), np.int32)
-    slot[valid] = inv
-    return feats.astype(np.int32), slot
+    pos = np.flatnonzero(valid)
+    keys = (col_idx.reshape(-1)[pos].astype(np.int64) << 32) | pos
+    keys.sort()
+    ids = keys >> 32
+    start = np.ones(len(keys), bool)     # an entry that opens a group
+    start[1:] = ids[1:] != ids[:-1]
+    order = (keys & 0xFFFFFFFF).astype(np.int32)
+    slot = np.full(B * L, np.count_nonzero(start), np.int32)
+    slot[order] = np.cumsum(start) - 1
+    offs = np.append(np.flatnonzero(start), len(keys))
+    return (ids[start].astype(np.int32), slot.reshape(B, L), order,
+            offs.astype(np.int32))
 
 
 class ShardMaps(NamedTuple):
@@ -113,20 +130,19 @@ def shard_slot_maps(ids: torch.Tensor, valid: torch.Tensor) -> ShardMaps:
 def staged_glm_blocks(csr, dtype: torch.dtype,
                       device) -> Tuple[GLMBlock, ...]:
     """Content-cached GLM blocks of ``csr`` on ``device`` with their slot
-    maps (the counterpart of the reference's
-    ``staged_blocks_with_layouts``): bucketed on the host, slot maps built
-    there, then copied to the device once."""
+    maps and feature-ordered entry lists (the counterpart of the
+    reference's ``staged_blocks_with_layouts``): bucketed on the host,
+    slot maps built there, then copied to the device once."""
 
     def build():
         br = bucket_rows(csr, dtype, "cpu", include_empty=True,
                          max_elems=GLM_BLOCK_ELEMS)
         out = []
         for b in br.buckets:
-            feats, slot = slot_map(b.col_idx.numpy(), b.nnz.numpy())
-            out.append(GLMBlock(
-                *(t.to(device) for t in b),
-                torch.from_numpy(feats).to(device),
-                torch.from_numpy(slot).to(device)))
+            maps = slot_map(b.col_idx.numpy(), b.nnz.numpy())
+            out.append(GLMBlock(*(t.to(device) for t in b),
+                                *(torch.from_numpy(a).to(device)
+                                  for a in maps)))
         return tuple(out)
 
     return staged_cached("glm_blocks", csr, build,

@@ -12,13 +12,17 @@ takes the exact top-k of each row of ``max(scores + glob_mean, NEG_INF)``:
   index, and a row with fewer than k live columns still returns k distinct
   indices, its tail at ``NEG_INF``.
 
-:func:`_masked_top_k_plain` is K3's plain version; the wrapper
+K3 has two routes, chosen by k (:func:`topk_plan`): for k <= ``TOPK_KMAX``
+one pass over the row (per-thread candidate lists above a sampled
+threshold, merged by warp, CTA and cluster); above it the first kernel's k
+rounds.  :func:`_masked_top_k_plain` is K3's plain version; the wrapper
 :func:`masked_top_k_bits` takes it only for tensors on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -28,6 +32,30 @@ import torch
 from .. import _kernels
 
 NEG_INF = float(np.finfo(np.float32).min)
+#: largest k of K3's one-pass route (csrc/topk.cu kMaxK)
+TOPK_KMAX = 32
+#: threads a CTA of that route (csrc/topk.cu kListThreads)
+TOPK_THREADS = 256
+#: the H100's streaming multiprocessors
+SMS = 132
+
+
+def topk_plan(C: int, n: int, k: int, masked: bool, sms: int = SMS) -> dict:
+    """K3's launch for C rows of n columns: ``route`` "lists" (one pass,
+    k <= TOPK_KMAX) or "rounds" (the first kernel, any k); for "lists" the
+    sorted candidate list a thread keeps (``list_k``: 16 or 32 entries),
+    ``parts``, the CTAs (a cluster) a row is split over so that few rows
+    still fill the card (doubled while C * parts < sms and each CTA keeps
+    at least four 16-byte chunks a thread), and ``words``, whether the mask
+    is read as 32-bit words (n % 32 == 0; bytes otherwise)."""
+    if k > TOPK_KMAX:
+        return dict(route="rounds", list_k=0, parts=1, words=False)
+    parts = 1
+    while (parts < 8 and C * parts < sms
+           and n // 4 >= 2 * 2 * parts * TOPK_THREADS):
+        parts *= 2
+    return dict(route="lists", list_k=16 if k <= 16 else 32, parts=parts,
+                words=masked and n % 32 == 0)
 
 
 def _expand_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -62,19 +90,35 @@ def masked_top_k_bits(scores: torch.Tensor, bits: Optional[torch.Tensor],
         raise ValueError(f"bits shape {tuple(bits.shape)} != {(B, n // 8)}")
     if scores.device.type == "cpu":
         return _masked_top_k_plain(scores, bits, k, glob_mean)
+    return _masked_top_k_cuda(scores, bits, k, glob_mean)
+
+
+def _masked_top_k_cuda(scores, bits, k, glob_mean, rounds=False):
+    """K3 on the card, on the route :func:`topk_plan` picks, or with
+    ``rounds`` on the round-based route whatever k (checks hold both
+    routes)."""
+    B, n = scores.shape
     _kernels.check_tensor("scores", scores, (B, n), torch.float32)
     if bits is not None:
         _kernels.check_tensor("bits", bits, (B, n // 8), torch.uint8)
+    plan = topk_plan(B, n, TOPK_KMAX + 1 if rounds else k, bits is not None,
+                     _sms(scores.device))
+    words = plan["words"] and bits.data_ptr() % 4 == 0
     out_s = torch.empty((B, k), dtype=torch.float32, device=scores.device)
     out_i = torch.empty((B, k), dtype=torch.int32, device=scores.device)
     rc = _kernels.lib().rsp_topk(
-        _kernels.ptr(scores), _kernels.ptr(bits), ctypes.c_int(B),
-        ctypes.c_int(n), ctypes.c_int(k), ctypes.c_float(glob_mean),
-        _kernels.ptr(out_s), _kernels.ptr(out_i),
-        _kernels.stream(scores.device))
+        _kernels.ptr(scores), _kernels.ptr(bits), B, n, k,
+        ctypes.c_float(glob_mean), int(plan["route"] == "lists"),
+        plan["list_k"], plan["parts"], int(words), _kernels.ptr(out_s),
+        _kernels.ptr(out_i), _kernels.stream(scores.device))
     _kernels.check(rc, "topk")
     _kernels.launches["topk"] += 1
     return out_s, out_i
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def pack_mask_bits(

@@ -65,12 +65,13 @@ line:
    its sweep counts and the systems it sweeps at once per SM, and config
    #2 (c)'s item bucket of the most rows at the fit's budget with a bound
    that counts the sweeps each system ran;
-7. the SGD family: (a) K7 (FTRL) and K8 (FM, r = 4 and 8) on a 32,768 x
-   32 block over 10,000 and 40M features, predict and update, dropout,
-   a feature in every row, config #5's one-hot block (K8 also by CUDA
-   graphs), and K9 (RankMF) on S = 8192, K = 20 batches (BPR / WARP,
-   AdaGrad / RMSprop, identity and side features, r = 8 and 16) with the
-   same bits, against their plain versions (each table by its change,
+7. the SGD family: (a) K7 (FTRL, on the model's (z, n) pair table and on
+   two separate tables) and K8 (FM, r = 4 and 8) on a 32,768 x 32 block
+   over 10,000 and 40M features, predict and update, dropout, a feature in
+   every row, config #5's one-hot block (K8), each also by CUDA graphs, K7
+   launched twice on the same inputs for bitwise-equal tables, and K9
+   (RankMF) on S = 8192, K = 20 batches (BPR / WARP, AdaGrad / RMSprop,
+   identity and side features, r = 8 and 16) with the same bits, against their plain versions (each table by its change,
    1e-5; K9's counters exactly), K9's launches' device times apart, its
    candidate window and mean candidates tried; (b) FTRL and FM on the
    reference benchmark's GLM synthetic within 0.01 of the reference's
@@ -80,8 +81,9 @@ line:
    one-hot rows): stage walls, rows or updates per second, peak memory,
    each kernel re-checked on the fitted state;
 8. GloVe: (a) K10 (tail shard) on config #4's first tail shard, straight
-   and swapped, and K11 (head tile) on its first tile, its edge tile and a
-   tile of the transposed pass, bf16 and f32 counts, against their plain
+   and swapped (also by CUDA graphs, and launched twice on the same inputs
+   for bitwise-equal tables and loss), and K11 (head tile) on its first
+   tile, its edge tile and a tile of the transposed pass, bf16 and f32 counts, against their plain
    versions (each table by its change, 1e-5, or twice the plain version's
    distance from float64), K11 beside the cuBLAS chain of the same step;
    (b) GloVe rank 128 with the bf16 head on ML-100k and on the reference
@@ -2011,6 +2013,17 @@ GLM_KERNELS = {"ftrl": ("K7 ftrl", ("z", "n")),
                "fm": ("K8 fm", ("w0", "acc_w0", "w", "v", "acc_w", "acc_v"))}
 
 
+def _glm_clone(name, state, layout):
+    """Fresh copies of a block function's state; K7's (z, n) as the two
+    columns of one (F + 1, 2) table (``layout="pair"``, the model's) or as
+    two separate tables."""
+    import torch
+    if layout == "pair":
+        zn = torch.stack([t.detach() for t in state], 1)
+        return [zn[:, 0], zn[:, 1]]
+    return [t.clone() for t in state]
+
+
 def check_glm_block(name, blk, state, y, w, params, tag, results,
                     rep=False, reps=5, twin=False):
     """K7 (``name="ftrl"``, state (z, n), params (lr, decay, l1, l2,
@@ -2018,7 +2031,9 @@ def check_glm_block(name, blk, state, y, w, params, tag, results,
     acc_w, acc_v), params (lr_w, lr_v, lambda_w, lambda_v, family,
     intercept)) against its plain version on one block from ``state``, in
     predict and in update mode; each table held by its change on the
-    block's features, with ``twin`` (K8 only) as by_float64_twin says."""
+    block's features, with ``twin`` as by_float64_twin says.  K7 runs on
+    the model's pair table and on two separate tables, and two launches
+    from the same state must give bitwise-equal tables."""
     import importlib
     import torch
     label, names = GLM_KERNELS[name]
@@ -2027,9 +2042,10 @@ def check_glm_block(name, blk, state, y, w, params, tag, results,
     plain = getattr(mod, f"_{name}_block_plain")
     rows = blk.feats.long()
     r = state[3].shape[1] if name == "fm" else None
-    for do_update in (False, True):
+    layouts = ("pair", "separate") if name == "ftrl" else (None,)
+    for do_update, layout in itertools.product((False, True), layouts):
         args = (blk, y, w, *params, do_update)
-        sk = [t.clone() for t in state]
+        sk = _glm_clone(name, state, layout)
         sp_ = [t.clone() for t in state]
         yk = kern(*sk, *args)
         yp = plain(*sp_, *args)
@@ -2051,18 +2067,28 @@ def check_glm_block(name, blk, state, y, w, params, tag, results,
         else:
             require(all(torch.equal(a, b) for a, b in zip(sk, state)),
                     f"{label} {tag}: predict mode changed the tables")
+        if do_update and name == "ftrl":
+            s2 = _glm_clone(name, state, layout)
+            y2 = kern(*s2, *args)
+            require(torch.equal(y2, yk) and all(
+                torch.equal(a, b) for a, b in zip(s2, sk)),
+                f"{label} {tag}: two launches on the same inputs differ")
+            del s2
         if do_update and twin:
-            by_float64_twin(blk, state, sk, sp_, y, w, params, tag, errs)
+            by_float64_twin(name, blk, state, sk, sp_, y, w, params, tag,
+                            errs)
         text = _hold(name, tag, errs, results)
         ms = time_ms(lambda: kern(*sk, *args), reps)
         dms = graph_ms([lambda: kern(*sk, *args)], reps=20)
         pms = time_ms(lambda: plain(*sp_, *args), reps)
         bms, bby = glm_bound(blk, r, do_update)
         mode = "update" if do_update else "predict"
+        if layout:
+            mode += f" ({layout} tables)"
         log(f"  {label:11s} {tag} {mode:7s} {text} kernel={ms:.3f} ms "
             f"(device {dms:.4f} ms by CUDA graphs) plain={pms:.3f} ms "
             f"bound={bms:.4f} ms ({bby})")
-        if rep and do_update:
+        if rep and do_update and layout in (None, "pair"):
             results[name].update(ms=ms, plain_ms=pms, bound_ms=bms,
                                  bound_by=bby, library_ms=None,
                                  shape=f"{tag} update", device_ms=dms)
@@ -2283,10 +2309,14 @@ def check_sgd_kernels(device, results) -> None:
                             rep=(n_feat, r) == (HASHED_FEATURES, 8))
         if n_feat == HASHED_FEATURES:
             # a feature in every row (a bias column): 32,768 entries of one
-            # feature, split over every tile of K8's walk
+            # feature, split over every tile of K7's and K8's walks
             col = blk.col_idx.long().clone()
             col[:, 0] = 0
             bias = _glm_block(col, blk.values, blk.nnz)
+            check_glm_block("ftrl", bias, _glm_state(gen, device, n_feat), y,
+                            w, FTRL_PARAMS + (0.0, None, 1),
+                            f"{tag}, feature 0 in every row", results,
+                            twin=True)
             state = _glm_state(gen, device, n_feat, 8)
             check_glm_block("fm", bias, state, y * 2 - 1, w, FM_PARAMS,
                             f"{tag} r=8, feature 0 in every row", results,
@@ -2356,48 +2386,55 @@ def check_sgd_kernels(device, results) -> None:
                                rankmf.IDENTITY))
 
 
-def by_float64_twin(blk, state, sk, sp_, y, w, params, tag, errs) -> None:
-    """K8 on a feature in every row: that feature's sums run over 32,768
-    entries, added in two float32 orders (the plain version's index_add_,
-    the kernel's tiles), so a table ``errs`` holds off its plain version by
-    more than _hold's limit is held apart on the features whose entries
-    run over more than one tile of K8_TILE (and on w0 and acc_w0, sums over
-    the whole block): no further from the plain version run at float64
-    than twice the float32 plain version (max norm over those features).
-    Every other feature of the block stays held at _hold's limit, and its
-    distance is what ``errs`` then holds for the table."""
-    from rsparse_tpu_torch.models import fm
+def by_float64_twin(name, blk, state, sk, sp_, y, w, params, tag,
+                    errs) -> None:
+    """K7 or K8 on a feature in every row: that feature's sums run over
+    32,768 entries, added in two float32 orders (the plain version's
+    index_add_, the kernel's tiles), so a table ``errs`` holds off its
+    plain version by more than _hold's limit is held apart on the features
+    whose entries run over more than one tile of the kernel's walk (K7_TILE
+    or K8_TILE; and on K8's w0 and acc_w0, sums over the whole block): no
+    further from the plain version run at float64 than twice the float32
+    plain version (max norm over those features).  Every other feature of
+    the block stays held at _hold's limit, and its distance is what
+    ``errs`` then holds for the table."""
+    import importlib
     from rsparse_tpu_torch.ops.segsum import GLMBlock
-    names = GLM_KERNELS["fm"][1]
-    bad = [name for name, (rel, _, ulps) in errs.items()
-           if name in names and not (rel <= 1e-5 or ulps <= 2.0)]
+    mod = importlib.import_module(f"rsparse_tpu_torch.models.{name}")
+    label, names = GLM_KERNELS[name]
+    label = label.split()[0]
+    tile = mod.K7_TILE if name == "ftrl" else mod.K8_TILE
+    bad = [tn for tn, (rel, _, ulps) in errs.items()
+           if tn in names and not (rel <= 1e-5 or ulps <= 2.0)]
     if not bad:
         return
     feats = blk.feats.long()
-    wide = (blk.offs[1:] - blk.offs[:-1]) > fm.K8_TILE
+    wide = (blk.offs[1:] - blk.offs[:-1]) > tile
     f64 = GLMBlock(*(t.double() if t.is_floating_point() else t
                      for t in blk))
     s64 = [t.double() for t in state]
-    fm._fm_block_plain(*s64, f64, y.double(), w.double(), *params, True)
-    for name in bad:
-        i = names.index(name)
+    getattr(mod, f"_{name}_block_plain")(*s64, f64, y.double(), w.double(),
+                                         *params, True)
+    for tn in bad:
+        i = names.index(tn)
         rows = feats[wide] if state[i].dim() else None
         sel = (lambda t: t[rows]) if state[i].dim() else (lambda t: t)
         fk = float((sel(sk[i]).double() - sel(s64[i])).abs().max())
         fp = float((sel(sp_[i]).double() - sel(s64[i])).abs().max())
-        log(f"    K8 {tag}: {name} {errs[name][0]:.2e} of its change off "
+        log(f"    {label} {tag}: {tn} {errs[tn][0]:.2e} of its change off "
             f"the plain version; from float64 on "
             + (f"the features over a tile ({int(wide.sum())})"
                if state[i].dim() else "the block")
             + f": kernel {fk:.3e}, plain {fp:.3e}")
-        require(fk <= 2 * fp, f"K8 {tag}: {name} off the plain version by "
-                f"{errs[name][0]:.2e} of its change and further from float64 "
-                f"({fk:.3e}) than twice the plain version ({fp:.3e})")
+        require(fk <= 2 * fp, f"{label} {tag}: {tn} off the plain version "
+                f"by {errs[tn][0]:.2e} of its change and further from "
+                f"float64 ({fk:.3e}) than twice the plain version "
+                f"({fp:.3e})")
         if state[i].dim():
             rest = _delta_err(sk[i], sp_[i], state[i], feats[~wide])
-            errs[name] = (rest[0], errs[name][1], rest[2])
+            errs[tn] = (rest[0], errs[tn][1], rest[2])
         else:
-            errs[name] = (0.0, errs[name][1], 0.0)
+            errs[tn] = (0.0, errs[tn][1], 0.0)
 
 
 def _side_features(n, n_feat, seed, max_k=3):
@@ -2846,6 +2883,16 @@ def check_glove_step(name, step, plain, state, ids, tag, results, bnd,
             require(torch.equal(a[out], t0[out]), f"{name} {tag}: {tname} "
                     "moved outside the step's ids")
     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], worst)
+    dms = None
+    if name == "glove":
+        # K10: the same result on every run, and its device time
+        s2 = glove.GloveState(*(t.clone() for t in state))
+        l2 = step(s2)
+        require(torch.equal(l2, lk) and all(
+            torch.equal(a, b) for a, b in zip(s2, sk)),
+            f"{name} {tag}: two launches on the same inputs differ")
+        del s2
+        dms = graph_ms([lambda: step(sk)], reps=20)
     ms = time_ms(lambda: step(sk), reps)
     if flops:
         bms_note = f" {flops / ms / 1e9:.1f} TFLOP/s (dense mma work)"
@@ -2855,11 +2902,14 @@ def check_glove_step(name, step, plain, state, ids, tag, results, bnd,
     lms = time_ms(lambda: lib(sp_), reps) if lib is not None else None
     bms, bby = bnd
     log(f"  {name:11s} {tag} {' '.join(errs.values())} kernel={ms:.3f} ms "
-        f"plain={pms:.3f} ms" + (f" cuBLAS chain={lms:.3f} ms" if lms else "")
+        + (f"(device {dms:.4f} ms by CUDA graphs) " if dms else "")
+        + f"plain={pms:.3f} ms"
+        + (f" cuBLAS chain={lms:.3f} ms" if lms else "")
         + f" bound={bms:.4f} ms ({bby}){bms_note}")
     if rep:
         results[name].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                             library_ms=lms, shape=tag)
+                             library_ms=lms, shape=tag,
+                             **({"device_ms": dms} if dms else {}))
 
 
 def check_glove_kernels(head, tail, state, tag, results, rep=False):

@@ -32,15 +32,40 @@ WHAT is one or more of:
               tiles of 32, 64, 128 and 256 entries (``RSP_FM_TILE``; the
               ``models/fm.py`` K8_TILE the wrapper plans with set to
               match), each held to the plain version by the largest
-              distance of a table's change.
+              distance of a table's change;
+  k7          K7 (FTRL's block) in predict and update mode at phase 7
+              (a)'s shapes, each block staged from a host CSR by
+              ``staged_glm_blocks``: 32,768 rows x 32 entries over 40M
+              features, the same with feature 0 in every row, and over
+              10,000 features; on the model's own (z, n) tables
+              (``_ensure_state``, filled from a fixed seed) and on two
+              separate contiguous copies of them;
+  ftrl-pass   FTRL's staged pass at phase 7 (c)'s hashed shape (100,000
+              rows x 40M features, 4 blocks): three fresh models, each
+              staged (``_stage``) and then passed over (``_run_staged``)
+              REPS + 1 times, every pass by the host's clock after a
+              synchronise (the first apart, as phase 7 (c) reads it, with
+              its device time by CUDA events and the allocator's
+              cudaMalloc calls in it), one more pass after
+              ``torch.cuda.empty_cache()`` read the same way, and a pass's
+              device time by CUDA graphs;
+  k10         K10 (GloVe's tail shard) on config #4's first tail shard
+              (``_stage_tail(...).shard(0)``, straight and swapped) from
+              the model's initial state;
+
+k7 and k10 also print each launch's device time by ``torch.profiler``.
 
 Needs one CUDA card.  The data and the timers are this checkout's
 ``chip_smoke.py`` (``time_ms``: CUDA events over wrapper calls after a
 warm-up; ``graph_ms``: device time by CUDA graphs); its helpers import the
 package only inside functions, so they run against the package under ROOT.
-k1, k8, k3 and fm-staging use only entry points that every version of the
-port has had since PR 10; k8-tiles needs ``RSP_FM_TILE`` (PR 11 on).
-``chip_smoke.py`` holds each kernel to its plain version.
+k1, k8, k3, fm-staging, k7, ftrl-pass and k10 use only entry points that
+older checkouts of the port have too (``_stage_tail(...).shard(0)``,
+``_glove_shard``, ``staged_glm_blocks``, ``_ftrl_block``, FTRL's
+``_stage`` / ``_run_staged`` and the like); k8-tiles needs a
+``csrc/fm.cu`` that reads ``RSP_FM_TILE``.  Every kernel time is printed
+twice: CUDA events over wrapper calls, and the device time by CUDA
+graphs.  ``chip_smoke.py`` holds each kernel to its plain version.
 """
 
 import argparse
@@ -200,19 +225,26 @@ def k8_times(dev, reps):
               f"update {ms[1]:.4f} ms (device {dms[1]:.4f})", flush=True)
 
 
-def _fm_variant(tile):
-    """csrc/fm.cu alone built with RSP_FM_TILE = ``tile``, its entry point
-    typed as the package's."""
+def _variant(source, defines, entries):
+    """``csrc/<source>`` alone built with ``defines`` (-D flags), its
+    ``entries`` typed as the package's."""
     from rsparse_tpu_torch import _kernels
-    out = os.path.join(_kernels.BUILD_DIR, f"fm_tile{tile}.so")
+    tag = "_".join(d.replace("=", "") for d in defines)
+    out = os.path.join(_kernels.BUILD_DIR, f"{source}_{tag}.so")
     subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS[:-2], "-shared",
-                    f"-DRSP_FM_TILE={tile}", "-o", out,
-                    os.path.join(_kernels.CSRC, "fm.cu")],
+                    *(f"-D{d}" for d in defines), "-o", out,
+                    os.path.join(_kernels.CSRC, f"{source}.cu")],
                    check=True, capture_output=True, text=True, timeout=600)
     so = ctypes.CDLL(out)
-    so.rsp_fm_block.argtypes = _kernels.lib().rsp_fm_block.argtypes
-    so.rsp_fm_block.restype = ctypes.c_int
+    for name in entries:
+        fn, ref = getattr(so, name), getattr(_kernels.lib(), name)
+        fn.argtypes, fn.restype = ref.argtypes, ref.restype
     return so
+
+
+def _fm_variant(tile):
+    """csrc/fm.cu alone built with RSP_FM_TILE = ``tile``."""
+    return _variant("fm", [f"RSP_FM_TILE={tile}"], ["rsp_fm_block"])
 
 
 def k8_tile_times(dev, reps):
@@ -305,8 +337,150 @@ def fm_staging_times(dev, reps):
     clear_staging_cache()
 
 
+def launch_split(fn, reps):
+    """Device ms a call of each kernel ``fn`` launches, by torch.profiler
+    over ``reps`` calls after a warm-up, as "name ms" pairs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", None)
+        if total is None:
+            total = e.cuda_time_total
+        if total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0]
+            out.append(f"{name} {total / reps / 1e3:.4f}")
+    return ", ".join(out)
+
+
+#: FTRL's hyperparameters in the timed calls (chip_smoke.FTRL_PARAMS:
+#: lr, decay, l1, l2; no dropout, binomial)
+FTRL_ARGS = (0.1, 0.5, 0.7, 0.3, 0.0, None, 1)
+
+
+def k7_times(dev, reps):
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch.models import ftrl
+    from rsparse_tpu_torch.ops import segsum
+    cs = sys.modules["chip_smoke"]
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev)
+    for tag, x in (("B=32768 L=32 F=40000000", _csr(rng, 32768, HASHED, 32)),
+                   ("B=32768 L=32 F=40000000 bias column",
+                    _csr(rng, 32768, HASHED, 32, bias=True)),
+                   ("B=32768 L=32 F=10000", _csr(rng, 32768, 10_000, 32))):
+        (blk,) = segsum.staged_glm_blocks(x, torch.float32, dev)
+        B = blk.col_idx.shape[0]
+        gen.manual_seed(7)
+        kw = dict(generator=gen, device=dev)
+        m = rt.FTRL(learning_rate=0.1, lambda_=1.0, seed=0, device=dev)
+        m._ensure_state(x.shape[1])
+        m.z.copy_(torch.randn(m.z.shape, **kw))
+        m.n.copy_(torch.rand(m.n.shape, **kw) * 4)
+        y = (torch.rand((B,), **kw) < 0.5).float()
+        w = torch.rand((B,), **kw) + 0.5
+        for what, (z, n) in (("model tables", (m.z, m.n)),
+                             ("separate tables", (m.z.clone(),
+                                                  m.n.clone()))):
+            calls = [lambda upd=upd: ftrl._ftrl_block(z, n, blk, y, w,
+                                                      *FTRL_ARGS, upd)
+                     for upd in (False, True)]
+            ms = [cs.time_ms(fn, reps) for fn in calls]
+            dms = [cs.graph_ms([fn], reps) for fn in calls]
+            print(f"  K7 {tag}, {what}: predict {ms[0]:.4f} ms (device "
+                  f"{dms[0]:.4f}), update {ms[1]:.4f} ms (device "
+                  f"{dms[1]:.4f}); update by launch: "
+                  f"{launch_split(calls[1], reps)}", flush=True)
+        del m, blk
+        torch.cuda.empty_cache()
+
+
+
+#: fresh FTRL models ftrl-pass stages and times
+FTRL_PASS_TRIALS = 3
+
+
+def ftrl_pass_times(dev, reps):
+    import torch
+    import rsparse_tpu_torch as rt
+    cs = sys.modules["chip_smoke"]
+    x, truth = cs.synth_glm(n_feat=cs.HASHED_FEATURES)
+    n_rows, sync = x.shape[0], torch.cuda.synchronize
+
+    def timed(fn):
+        """One call: host ms after a synchronise, device ms by CUDA
+        events, and the caching allocator's cudaMalloc calls in it."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        mallocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        t0 = time.perf_counter()
+        ev[0].record()
+        fn()
+        ev[1].record()
+        sync()
+        host = (time.perf_counter() - t0) * 1e3
+        mallocs = torch.cuda.memory_stats().get("num_device_alloc",
+                                                0) - mallocs
+        return host, ev[0].elapsed_time(ev[1]), mallocs
+
+    for trial in range(FTRL_PASS_TRIALS):
+        m = rt.FTRL(learning_rate=0.1, lambda_=1.0, seed=0, device=dev)
+        m._ensure_state(x.shape[1])
+        staged = m._stage(x, truth, None, True)
+        fn = lambda: m._run_staged(staged, do_update=True,  # noqa: E731
+                                   materialize=False)
+        sync()
+        first = timed(fn)
+        rest = np.sort([timed(fn)[0] for _ in range(reps)])
+        med = float(np.median(rest))
+        torch.cuda.empty_cache()
+        again = timed(fn)
+        print(f"  FTRL hashed pass, model {trial} ({len(staged[1])} blocks): "
+              f"first {first[0]:.4f} ms = {n_rows / first[0] * 1e3:.0f} "
+              f"rows/s (device {first[1]:.4f} by events, {first[2]} "
+              f"cudaMalloc); next {reps}: min {rest[0]:.4f} / median "
+              f"{med:.4f} / max {rest[-1]:.4f} ms (median "
+              f"{n_rows / med * 1e3:.0f} rows/s); after empty_cache "
+              f"{again[0]:.4f} ms (device {again[1]:.4f}, {again[2]} "
+              f"cudaMalloc); device {cs.graph_ms([fn], reps):.4f} ms a "
+              f"pass by CUDA graphs", flush=True)
+        del m, staged, fn
+        torch.cuda.empty_cache()
+
+
+def k10_times(dev, reps):
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch.models import glove
+    cs = sys.modules["chip_smoke"]
+    x4 = cs.synth_glove(**cs.CONFIG4)
+    _, _, rem = glove._split_head(x4, cs.GLOVE_AUTO_HOT, np.float32)
+    tail = glove._stage_tail(rem, cs.GLOVE_KW["batch_size"], torch.float32,
+                             dev)
+    hp = (cs.GLOVE_KW["x_max"], 0.75, cs.GLOVE_KW["learning_rate"])
+    st0 = rt.GloVe(**cs.GLOVE_KW, device=dev)._init_state(x4.shape[0])
+    for what, sh in (("shard 0", tail.shard(0)),
+                     ("swapped shard 0", tail.swapped().shard(0))):
+        st = glove.GloveState(*(t.clone() for t in st0))
+        fn = lambda: glove._glove_shard(st, sh, *hp)  # noqa: E731
+        ms, dms = cs.time_ms(fn, reps), cs.graph_ms([fn], reps)
+        print(f"  K10 config #4 {what} (N={sh.rows.shape[0]}, "
+              f"U={sh.feats_r.shape[0]}/{sh.feats_c.shape[0]}): {ms:.4f} ms "
+              f"(device {dms:.4f}); by launch: {launch_split(fn, reps)}",
+              flush=True)
+        del st
+
+
 TIMERS = {"k1": k1_times, "k8": k8_times, "k3": k3_times,
-          "fm-staging": fm_staging_times, "k8-tiles": k8_tile_times}
+          "fm-staging": fm_staging_times, "k8-tiles": k8_tile_times,
+          "k7": k7_times, "ftrl-pass": ftrl_pass_times, "k10": k10_times}
 
 
 def main() -> int:

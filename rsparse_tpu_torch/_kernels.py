@@ -214,10 +214,11 @@ def lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_longlong), p, i, p, p, i, p, i, i, i, i, i,
         p, p, p]
     so.rsp_spmm_residual.restype = i
-    # col, val, nnz, slot, keep, keep_scale, y, sample_w, z, n, dzn, feats,
-    # U, B, L, lr, decay, l1, l2, family, do_update, y_hat, stream
-    so.rsp_ftrl_block.argtypes = [p, p, p, p, p, f, p, p, p, p, p, p, i, i,
-                                  i, f, f, f, f, i, i, p, p]
+    # col, val, nnz, slot, keep, keep_scale, y, sample_w, z, n, pair, feats,
+    # order, offs, scratch, U, N, B, L, lr, decay, l1, l2, family,
+    # do_update, y_hat, stream
+    so.rsp_ftrl_block.argtypes = [p, p, p, p, p, f, p, p, p, p, i, p, p, p,
+                                  p, i, i, i, i, f, f, f, f, i, i, p, p]
     so.rsp_ftrl_block.restype = i
     # col, val, nnz, slot, y, sample_w, w0, acc_w0, w, v, acc_w, acc_v,
     # feats, order, offs, scratch, U, N, B, L, r, tpe, G, lr_w, lr_v, lam_w,
@@ -228,13 +229,16 @@ def lib() -> ctypes.CDLL:
     # args, stages (1 launch A, 2 the batch), stream
     so.rsp_rankmf_batch.argtypes = [ctypes.POINTER(RankMFArgs), i, p]
     so.rsp_rankmf_batch.restype = i
-    # rows, cols, vals, slot_r, slot_c, feats_r, feats_c, N, U_r, U_c, r,
-    # w_i, w_j, b_i, b_j, acc_w_i, acc_w_j, acc_b_i, acc_b_j, x_max, alpha,
-    # lr, sums, stream
-    so.rsp_glove_shard.argtypes = [p] * 7 + [i] * 4 + [p] * 8 + [f] * 3 + [
-        p, p]
+    # rows, cols, vals, slot_r, slot_c, feats_r, feats_c, order_r, order_c,
+    # bounds_r, bounds_c, N, U_r, U_c, r, w_i, w_j, b_i, b_j, acc_w_i,
+    # acc_w_j, acc_b_i, acc_b_j, x_max, alpha, lr, scratch, loss, stream
+    so.rsp_glove_shard.argtypes = [p] * 11 + [i] * 4 + [p] * 8 + [f] * 3 + [
+        p, p, p]
     so.rsp_glove_shard.restype = i
     ll = ctypes.c_longlong
+    # N, U_r, r -> floats of scratch
+    so.rsp_glove_shard_scratch.argtypes = [i, i, i]
+    so.rsp_glove_shard_scratch.restype = ll
     # n_r, n_c, r, bf16 -> floats of scratch
     so.rsp_glove_tile_scratch.argtypes = [i, i, i, i]
     so.rsp_glove_tile_scratch.restype = ll

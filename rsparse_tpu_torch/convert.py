@@ -133,12 +133,8 @@ def ftrl_from_numpy(z: np.ndarray, n: np.ndarray, **ftrl_kwargs) -> FTRL:
     ``n`` (the last row is the padding feature); ``ftrl_kwargs`` go to
     :class:`FTRL` (pass its learning rates, ``lambda_``, ``l1_ratio``,
     ``dropout``, ``family`` and ``precision``)."""
-    z, n = np.asarray(z), np.asarray(n)
-    if z.ndim != 1 or z.shape != n.shape:
-        raise ValueError("expected z and n of one (F + 1,) shape")
     m = FTRL(**ftrl_kwargs)
-    m.n_features = z.shape[0] - 1
-    m.z, m.n = _tensor(z, m), _tensor(n, m)
+    m._set_state(z, n)
     return m
 
 

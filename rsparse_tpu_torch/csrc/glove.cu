@@ -1,4 +1,4 @@
-// K10: one GloVe sparse-tail shard.
+// K10: one GloVe sparse-tail shard, walked by feature.
 //
 // Replaces the TPU programs rsparse_tpu/models/glove.py:50 _glove_epoch_impl
 // and :109 _glove_epoch_sched_impl (one scan step each), and for GloVe the
@@ -10,34 +10,46 @@
 // Every entry of a shard reads the shard-start tables, and AdaGrad is
 // accumulator first (rsparse_tpu/models/glove.py:73-93): a feature's step
 // is -lr sum(g) / sqrt(acc + sum(g^2)) over its entries in the shard, for
-// w_i / b_i on the row side and w_j / b_j on the column side.  Each side
-// carries a slot map (ops/segsum.py shard_slot_maps: the shard's distinct
-// ids `feats` and each entry's index into them, U at padding).  Two
-// launches:
-//   A  one warp per entry: gathers w_i[i], w_j[j], b_i[i], b_j[j]; weight
-//      (v / x_max)^alpha below x_max, else 1; the inner cost clipped at
-//      +-100; cost = weight * inner and its loss term cost * inner; then
-//      atomicAdd into zeroed per-slot sums of g = cost w_j and g^2 on the
-//      row side, g = cost w_i and g^2 on the column side, and cost and
-//      cost^2 for the biases of both;
-//   B  one thread per (side, distinct feature, component): acc += sum g^2,
-//      w += -lr sum g / sqrt(acc) (the same for the biases).  The ids of a
-//      side are distinct: no race.
+// w_i / b_i on the row side and w_j / b_j on the column side.  As K8 does
+// (csrc/fm.cu), each side walks the shard's valid entries grouped by its own
+// id (ops/segsum.py ShardMaps: `order`, the entries sorted by slot, and
+// `bounds`, each slot's range in it), so a feature's sums are taken in
+// registers in a fixed order and its table rows written once: no atomics,
+// no zeroed scratch, and the same result on every run.
 //
-// Scratch per side is slot-indexed (U rows), not vocabulary-indexed: a
-// config #4 tail shard touches ~half the 50,000 ids on each side, and
-// launch B then walks only those; no dense per-vocabulary scratch has to
-// be zeroed for every shard.
+// The snapshot: the row side's gradients need the shard-start w_j, b_j and
+// the column side's the shard-start w_i, b_i, so neither side may write its
+// tables while the other still reads them.  Three launches:
+//   R  the row side: tiles of kTile consecutive entries of its `order`, one
+//      warp a tile, lanes over r.  At a feature's first entry the warp takes
+//      its w_i, b_i and accumulators and copies w_i, b_i, once a feature,
+//      into the slot-indexed snapshot `snap` (U_r, r + 1); per entry it
+//      reads w_j[j], b_j[j], forms the cost from both rows (weight, clip at
+//      +-100) and its loss term, and sums g = cost w_j, g^2, cost and cost^2
+//      in registers.  A feature whose entries all lie in the tile takes its
+//      AdaGrad step there, in place; the tile's first feature, if it began
+//      before the tile, and its last, if it runs past it, leave their sums
+//      in the tile's head / tail slot.  One loss partial a tile;
+//   C  the column side the same way over its own `order`: its w_j, b_j are
+//      still the shard's start, and the row side's rows come from `snap` by
+//      the entry's row slot, whatever R wrote to w_i, b_i;
+//   F  the features of both sides that run over tiles: the tile where a
+//      feature's tail lies sums it and the heads of the tiles it runs into
+//      (`bounds` say how far) in four running sums taken in turn, added in
+//      a fixed order, and takes the step; one more CTA sums the loss
+//      partials in a fixed order.
+// A walk's warp reads its next 32 entries one a lane (ids, log x, weight),
+// then takes them kDepth at a time: all the group's row loads first, then
+// its entries in order.  Each entry's cost is formed twice, from the same
+// two rows in the same order, so both sides see the same value.
 //
-// What bounds it on the H100: bytes.  Per entry it reads two ids, a value,
-// two slots and two table rows of r floats at random ids (~1 KB at r =
-// 128), and does ~6 r flops; every distinct feature's four table rows are
-// read and written once more in launch B.  The design reads each entry's
-// rows once (lanes over r, so one warp moves a 512-byte row in four
-// coalesced loads), writes nothing of (N, r) size, and its 4 r + 4 atomics
-// an entry go to consecutive addresses within a warp.  The atomic sums of
-// a popular feature add in an order that changes from run to run (f32
-// rounding, ~1e-6 relative against the plain version).
+// What bounds it on the H100: bytes.  Per entry each side reads the other
+// side's row (r floats, at a random id) and a few indices; per distinct id
+// it reads its own four table rows once and writes them once.  At r = 128
+// a row is 512 bytes, read by a warp in four coalesced loads.  Nothing of
+// (N, r) size is written; the snapshot is U_r (r + 1) floats, read from L2.
+// The walks' registers are capped for kMinBlocks CTAs an SM (128 a thread
+// at two), so that enough entries' rows are in flight.
 
 #include "common.cuh"
 
@@ -46,157 +58,408 @@ namespace {
 constexpr float kClip = 100.f;
 constexpr int kMaxR = 128;          // widest embedding (models/glove.py MAX_RANK)
 constexpr int kRpl = kMaxR / 32;    // components a lane holds at most
-constexpr int kWarps = 8;           // entries (warps) in flight per CTA
+constexpr int kWarps = 8;           // tiles (warps) a CTA
+constexpr int kThreads = kWarps * 32;
+constexpr int kTile = 32;           // entries a tile of the walks
+                                    // (models/glove.py K10_TILE)
+static_assert(kTile > 0 && kTile % 32 == 0, "a tile is whole steps of 32");
+constexpr int kDepth = 4;           // entries whose rows a walk's warp loads
+                                    // together
+constexpr int kMinBlocks = 2;       // CTAs an SM the walks' register cap is
+                                    // set for
 
-// One side's sums: [sum g (U, r) | sum g^2 (U, r) | sum cost (U) |
-// sum cost^2 (U)].
+// One side of a shard as its walk takes it.
 struct Side {
-  float* g;
-  float* g2;
-  float* c;
-  float* c2;
-  __device__ Side(float* sums, int U, int r)
-      : g(sums), g2(sums + (size_t)U * r), c(sums + 2 * (size_t)U * r),
-        c2(sums + 2 * (size_t)U * r + U) {}
+  const int* own;     // (N,) the side's ids (rows or cols)
+  const int* slot;    // (N,) each entry's index into feats
+  const int* order;   // (N,) the valid entries grouped by slot
+  const int* bounds;  // (U + 1,) slot u's range in order; bounds[U] entries
+  const int* feats;   // (U,) the side's distinct ids
+  float *w, *b, *acc_w, *acc_b;  // the side's own tables
+  float* span;        // (n_tiles, 2, 2r + 2) the tiles' head / tail sums
+  int* tail_u;        // (n_tiles,) the slot whose tail a tile holds, or -1
+  int U;
 };
 
-__global__ void glove_entries(const int* __restrict__ rows,
-                              const int* __restrict__ cols,
-                              const float* __restrict__ vals,
-                              const int* __restrict__ slot_r,
-                              const int* __restrict__ slot_c, int N, int U_r,
-                              int U_c, int r, const float* __restrict__ w_i,
-                              const float* __restrict__ w_j,
-                              const float* __restrict__ b_i,
-                              const float* __restrict__ b_j, float x_max,
-                              float alpha, float* sums_r, float* sums_c,
-                              float* loss) {
-  __shared__ float part[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int e = blockIdx.x * kWarps + warp;
-  const Side sr(sums_r, U_r, r), sc(sums_c, U_c, r);
-  float lterm = 0.f;
-  // e and the slot are the same on every lane of the warp; padding entries
-  // carry slot U_r
-  const int ur = e < N ? slot_r[e] : U_r;
-  if (ur < U_r) {
-    const int uc = slot_c[e];
-    const int i = rows[e], j = cols[e];
-    const float v = vals[e];
-    const float* wir = w_i + (size_t)i * r;
-    const float* wjr = w_j + (size_t)j * r;
-    float a[kRpl], b[kRpl];
-    float dot = 0.f;
+// A feature's sums as a lane holds them: g and g^2 at components
+// lane + 32 t, cost and cost^2.
+struct Sums {
+  float g[kRpl], g2[kRpl], c, c2;
+};
+
+__device__ __forceinline__ void zero(Sums& a) {
 #pragma unroll
-    for (int t = 0; t < kRpl; ++t) {
-      const int k = lane + 32 * t;
-      a[t] = k < r ? wir[k] : 0.f;
-      b[t] = k < r ? wjr[k] : 0.f;
-      dot += a[t] * b[t];
-    }
-    dot = rsp::warp_sum(dot);
-    const float inner =
-        fminf(fmaxf(dot + b_i[i] + b_j[j] - logf(v), -kClip), kClip);
-    const float weight = v < x_max ? powf(v / x_max, alpha) : 1.f;
-    const float cost = weight * inner;
-    lterm = cost * inner;
+  for (int t = 0; t < kRpl; ++t) a.g[t] = a.g2[t] = 0.f;
+  a.c = a.c2 = 0.f;
+}
+
+__device__ __forceinline__ void add(Sums& a, const Sums& b) {
 #pragma unroll
-    for (int t = 0; t < kRpl; ++t) {
-      const int k = lane + 32 * t;
-      if (k < r) {
-        const float g = cost * b[t], h = cost * a[t];
-        atomicAdd(sr.g + (size_t)ur * r + k, g);
-        atomicAdd(sr.g2 + (size_t)ur * r + k, g * g);
-        atomicAdd(sc.g + (size_t)uc * r + k, h);
-        atomicAdd(sc.g2 + (size_t)uc * r + k, h * h);
-      }
-    }
-    if (lane == 0) {
-      atomicAdd(sr.c + ur, cost);
-      atomicAdd(sr.c2 + ur, cost * cost);
-      atomicAdd(sc.c + uc, cost);
-      atomicAdd(sc.c2 + uc, cost * cost);
+  for (int t = 0; t < kRpl; ++t) {
+    a.g[t] += b.g[t];
+    a.g2[t] += b.g2[t];
+  }
+  a.c += b.c;
+  a.c2 += b.c2;
+}
+
+// running sums launch F keeps for a feature over tiles
+constexpr int kSpanWays = 4;
+static_assert(kSpanWays == 4, "glove_final adds the four in a fixed tree");
+
+// a tile's head (which 0) or tail (1) slot: [g (r), g^2 (r), cost, cost^2]
+__device__ __forceinline__ float* span_slot(float* span, int tile, int which,
+                                            int r) {
+  return span + ((size_t)tile * 2 + which) * (2 * r + 2);
+}
+
+__device__ __forceinline__ void store_sums(const Sums& a, float* dst,
+                                           int lane, int r) {
+#pragma unroll
+  for (int t = 0; t < kRpl; ++t) {
+    const int k = lane + 32 * t;
+    if (k < r) {
+      dst[k] = a.g[t];
+      dst[r + k] = a.g2[t];
     }
   }
-  if (lane == 0) part[warp] = lterm;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += part[w];
-    atomicAdd(loss, s);
+  if (lane == 0) {
+    dst[2 * r] = a.c;
+    dst[2 * r + 1] = a.c2;
   }
 }
 
-// Threads [0, U_r (r + 1)) apply the row side, the rest the column side;
-// within a side, thread u (r + 1) + k is component k of feature u, k = r
-// its bias.
-__global__ void glove_apply(const int* __restrict__ feats_r,
-                            const int* __restrict__ feats_c, int U_r, int U_c,
-                            int r, const float* __restrict__ sums_r,
-                            const float* __restrict__ sums_c, float* w_i,
-                            float* w_j, float* b_i, float* b_j, float* acc_w_i,
-                            float* acc_w_j, float* acc_b_i, float* acc_b_j,
-                            float lr) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long n_r = (long long)U_r * (r + 1);
-  if (idx >= n_r + (long long)U_c * (r + 1)) return;
-  const bool col = idx >= n_r;
-  if (col) idx -= n_r;
-  const int U = col ? U_c : U_r;
-  const Side s(const_cast<float*>(col ? sums_c : sums_r), U, r);
-  const int u = (int)(idx / (r + 1)), k = (int)(idx % (r + 1));
-  const int f = (col ? feats_c : feats_r)[u];
-  if (k < r) {
-    float* w = col ? w_j : w_i;
-    float* acc = col ? acc_w_j : acc_w_i;
-    const size_t e = (size_t)f * r + k, q = (size_t)u * r + k;
-    const float a = acc[e] + s.g2[q];
-    w[e] += -lr * s.g[q] / sqrtf(a);
-    acc[e] = a;
-  } else {
-    float* b = col ? b_j : b_i;
-    float* acc = col ? acc_b_j : acc_b_i;
-    const float a = acc[f] + s.c2[u];
-    b[f] += -lr * s.c[u] / sqrtf(a);
-    acc[f] = a;
+__device__ __forceinline__ void add_sums(Sums& a, const float* src, int lane,
+                                         int r) {
+#pragma unroll
+  for (int t = 0; t < kRpl; ++t) {
+    const int k = lane + 32 * t;
+    if (k < r) {
+      a.g[t] += src[k];
+      a.g2[t] += src[r + k];
+    }
   }
+  a.c += src[2 * r];
+  a.c2 += src[2 * r + 1];
+}
+
+// A feature's shard-start rows as a lane holds them: w and acc_w at
+// components lane + 32 t, b and acc_b.
+struct Row {
+  float w[kRpl], aw[kRpl], b, ab;
+};
+
+__device__ __forceinline__ void read_row(const Side& sd, int f, int lane,
+                                         int r, Row& e) {
+#pragma unroll
+  for (int t = 0; t < kRpl; ++t) {
+    const int k = lane + 32 * t;
+    const size_t i = (size_t)f * r + k;
+    e.w[t] = k < r ? sd.w[i] : 0.f;
+    e.aw[t] = k < r ? sd.acc_w[i] : 0.f;
+  }
+  e.b = sd.b[f];
+  e.ab = sd.acc_b[f];
+}
+
+// accumulator-first AdaGrad of feature f from its sums and shard-start rows
+__device__ __forceinline__ void adagrad(const Sums& a, const Side& sd, int f,
+                                        const Row& e, int lane, int r,
+                                        float lr) {
+#pragma unroll
+  for (int t = 0; t < kRpl; ++t) {
+    const int k = lane + 32 * t;
+    if (k < r) {
+      const size_t i = (size_t)f * r + k;
+      const float acc = e.aw[t] + a.g2[t];
+      sd.w[i] = e.w[t] + -lr * a.g[t] / sqrtf(acc);
+      sd.acc_w[i] = acc;
+    }
+  }
+  if (lane == 0) {
+    const float acc = e.ab + a.c2;
+    sd.b[f] = e.b + -lr * a.c / sqrtf(acc);
+    sd.acc_b[f] = acc;
+  }
+}
+
+// A feature's shard-start row and bias, as a lane holds them
+struct Own {
+  float w[kRpl], b;
+};
+
+// Launch R (kRow) or C: one warp a tile of the side's `order`.  R reads the
+// other side's rows from w_o, b_o (w_j, b_j) at the entry's column id and
+// writes the snapshot; C reads them from the snapshot at the entry's row
+// slot (`other`).  Each lane first reads one of 32 entries (its ids, log
+// and weight); then the entries go kDepth at a time: first the group's
+// loads (the other side's rows, and the own row of each feature that
+// begins there), then the entries in order, so that a warp keeps kDepth
+// entries' rows in flight instead of waiting on each.  A feature's
+// accumulators are read when it begins, for its step.
+template <bool kRow>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+glove_walk(Side sd, const int* __restrict__ other,
+           const float* __restrict__ vals, const float* __restrict__ w_o,
+           const float* __restrict__ b_o, float* snap, int r, int n_tiles,
+           float x_max, float alpha, float lr,
+           float* __restrict__ loss_part) {
+  const int lane = threadIdx.x & 31;
+  const int tile = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (tile >= n_tiles) return;  // the whole warp
+  const int R1 = r + 1;
+  const int n_valid = sd.bounds[sd.U];
+  const int e0 = tile * kTile, e1 = min(e0 + kTile, n_valid);
+  // the tile's first and last slots, and whether their entries run past
+  // the tile (read with the first and the last 32 entries)
+  int u_first = -1, u_last = -1;
+  bool cross_in = false, own_tail = false;
+  float lpart = 0.f;
+  Sums a;
+  zero(a);
+  int cu = -1, cf = 0;  // the open segment's slot and feature
+  Row ce;               // and its shard-start rows
+#pragma unroll
+  for (int t = 0; t < kRpl; ++t) ce.w[t] = ce.aw[t] = 0.f;
+  ce.b = ce.ab = 0.f;
+
+  // the open segment's sums are done: a head or tail slot, or its step
+  auto finish = [&]() {
+    if (cu == u_first && cross_in)
+      store_sums(a, span_slot(sd.span, tile, 0, r), lane, r);
+    else if (cu == u_last && own_tail)
+      store_sums(a, span_slot(sd.span, tile, 1, r), lane, r);
+    else
+      adagrad(a, sd, cf, ce, lane, r, lr);
+  };
+
+  for (int sb = e0; sb < e1; sb += 32) {
+    // 32 entries at a time, one a lane: slot, own id, the other side's id
+    // (R) or slot (C), log x and the weight
+    const int n_sub = min(32, e1 - sb);
+    int u = -1, f = 0, o = 0;
+    float lx = 0.f, wt = 0.f;
+    if (lane < n_sub) {
+      const int p = sd.order[sb + lane];
+      u = sd.slot[p];
+      f = sd.own[p];
+      o = other[p];
+      const float v = vals[p];
+      lx = logf(v);
+      wt = v < x_max ? powf(v / x_max, alpha) : 1.f;
+    }
+    if (sb == e0) {
+      u_first = __shfl_sync(RSP_FULL_MASK, u, 0);
+      cross_in = sd.bounds[u_first] < e0;
+    }
+    if (sb + 32 >= e1) {
+      u_last = __shfl_sync(RSP_FULL_MASK, u, n_sub - 1);
+      own_tail = sd.bounds[u_last + 1] > e1 &&
+                 !(u_last == u_first && cross_in);
+    }
+    for (int s0 = 0; s0 < n_sub; s0 += kDepth) {
+      // the group's loads
+      int gu[kDepth], gf[kDepth];
+      float fr[kDepth][kRpl], fb[kDepth];
+      Own own[kDepth];
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d) {
+        const int s = min(s0 + d, n_sub - 1);
+        gu[d] = __shfl_sync(RSP_FULL_MASK, u, s);
+        gf[d] = __shfl_sync(RSP_FULL_MASK, f, s);
+        const int oe = __shfl_sync(RSP_FULL_MASK, o, s);
+        const float* orow =
+            kRow ? w_o + (size_t)oe * r : snap + (size_t)oe * R1;
+#pragma unroll
+        for (int t = 0; t < kRpl; ++t) {
+          const int k = lane + 32 * t;
+          fr[d][t] = k < r ? orow[k] : 0.f;
+        }
+        fb[d] = kRow ? b_o[oe] : orow[r];
+        if (gu[d] != (d == 0 ? cu : gu[d - 1])) {
+#pragma unroll
+          for (int t = 0; t < kRpl; ++t) {
+            const int k = lane + 32 * t;
+            own[d].w[t] = k < r ? sd.w[(size_t)gf[d] * r + k] : 0.f;
+          }
+          own[d].b = sd.b[gf[d]];
+        }
+      }
+      // the group's entries, in order
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d) {
+        if (s0 + d < n_sub) {
+          if (gu[d] != cu) {  // a new feature (the same on every lane)
+            if (cu >= 0) finish();
+            cu = gu[d];
+            cf = gf[d];
+#pragma unroll
+            for (int t = 0; t < kRpl; ++t) {
+              const int k = lane + 32 * t;
+              ce.w[t] = own[d].w[t];
+              ce.aw[t] = k < r ? sd.acc_w[(size_t)cf * r + k] : 0.f;
+            }
+            ce.b = own[d].b;
+            ce.ab = sd.acc_b[cf];
+            zero(a);
+            if (kRow && !(cu == u_first && cross_in)) {
+              // the feature begins in this tile: its snapshot, once
+              float* dst = snap + (size_t)cu * R1;
+#pragma unroll
+              for (int t = 0; t < kRpl; ++t) {
+                const int k = lane + 32 * t;
+                if (k < r) dst[k] = ce.w[t];
+              }
+              if (lane == 0) dst[r] = ce.b;
+            }
+          }
+          const int s = s0 + d;
+          float dot = 0.f;
+#pragma unroll
+          for (int t = 0; t < kRpl; ++t) dot += ce.w[t] * fr[d][t];
+          dot = rsp::warp_sum(dot);
+          const float bi = kRow ? ce.b : fb[d], bj = kRow ? fb[d] : ce.b;
+          const float inner =
+              fminf(fmaxf(dot + bi + bj - __shfl_sync(RSP_FULL_MASK, lx, s),
+                          -kClip),
+                    kClip);
+          const float cost = __shfl_sync(RSP_FULL_MASK, wt, s) * inner;
+          if (kRow) lpart += cost * inner;
+#pragma unroll
+          for (int t = 0; t < kRpl; ++t) {
+            const float g = cost * fr[d][t];
+            a.g[t] += g;
+            a.g2[t] += g * g;
+          }
+          a.c += cost;
+          a.c2 += cost * cost;
+        }
+      }
+    }
+  }
+  if (cu >= 0) finish();  // the tile's last segment
+  if (lane == 0) {
+    sd.tail_u[tile] = own_tail ? u_last : -1;
+    if (kRow) loss_part[tile] = lpart;
+  }
+}
+
+// Launch F: CTAs [0, n_blk) the row side's tiles, [n_blk, 2 n_blk) the
+// column side's, one warp a tile; the last CTA the loss.
+__global__ void __launch_bounds__(kThreads)
+glove_final(Side rs, Side cs, int r, int n_tiles, float lr,
+            const float* __restrict__ loss_part, int n_part,
+            float* __restrict__ loss) {
+  const int n_blk = (n_tiles + kWarps - 1) / kWarps;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (blockIdx.x == 2 * n_blk) {
+    // the loss partials in a fixed order: strided by thread, then a fixed
+    // tree
+    __shared__ float red[kWarps];
+    float s = 0.f;
+    for (int i = threadIdx.x; i < n_part; i += kThreads) s += loss_part[i];
+    s = rsp::warp_sum(s);
+    if (lane == 0) red[warp] = s;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float t = 0.f;
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) t += red[i];
+      loss[0] = t;
+    }
+    return;
+  }
+  const bool col = blockIdx.x >= n_blk;
+  // a copy, not a reference: a reference to a parameter puts both sides
+  // in every thread's local memory
+  const Side sd = col ? cs : rs;
+  const int tile = (blockIdx.x - (col ? n_blk : 0)) * kWarps + warp;
+  if (tile >= n_tiles) return;  // the whole warp
+  const int u = sd.tail_u[tile];
+  if (u < 0) return;
+  const int t1 = (sd.bounds[u + 1] - 1) / kTile;
+  // kSpanWays running sums, sum j over the slots tile + j, tile + j +
+  // kSpanWays, ..., so that their loads are in flight together; then
+  // ((0 + 1) + (2 + 3))
+  Sums p[kSpanWays];
+#pragma unroll
+  for (int j = 0; j < kSpanWays; ++j) zero(p[j]);
+  for (int q0 = tile; q0 <= t1; q0 += kSpanWays) {
+#pragma unroll
+    for (int j = 0; j < kSpanWays; ++j) {
+      const int q = q0 + j;
+      if (q <= t1)
+        add_sums(p[j], span_slot(sd.span, q, q == tile, r), lane, r);
+    }
+  }
+  Sums a = p[0];
+  add(a, p[1]);
+  add(p[2], p[3]);
+  add(a, p[2]);
+  const int f = sd.feats[u];
+  Row e;
+  read_row(sd, f, lane, r, e);
+  adagrad(a, sd, f, e, lane, r, lr);
+}
+
+// Floats of scratch a shard of N entries with U_r distinct row ids at rank
+// r takes: the snapshot (U_r, r + 1), the two sides' span slots
+// (n_tiles, 2, 2r + 2) each, one loss partial a tile, and the two sides'
+// tail slots (n_tiles) int32.
+__host__ __device__ constexpr long long shard_scratch(int N, int U_r, int r) {
+  const long long n_tiles = (N + kTile - 1) / kTile;
+  return (long long)U_r * (r + 1) + 2 * n_tiles * 2 * (2 * r + 2) + n_tiles +
+         2 * n_tiles;
 }
 
 }  // namespace
 
-// rows/cols/slot_r/slot_c (N,) int32, vals (N,) f32 of one shard; feats_r
-// (U_r,), feats_c (U_c,) the distinct ids of its valid entries; the eight
-// state tables (n, r) / (n,) f32, updated in place; sums
-// (2 (U_r + U_c)(r + 1) + 1) zeroed by the caller, its last float the
-// shard's loss sum(cost * inner).
-extern "C" int rsp_glove_shard(const int* rows, const int* cols,
-                               const float* vals, const int* slot_r,
-                               const int* slot_c, const int* feats_r,
-                               const int* feats_c, int N, int U_r, int U_c,
-                               int r, float* w_i, float* w_j, float* b_i,
-                               float* b_j, float* acc_w_i, float* acc_w_j,
-                               float* acc_b_i, float* acc_b_j, float x_max,
-                               float alpha, float lr, float* sums,
-                               void* stream) {
+extern "C" long long rsp_glove_shard_scratch(int N, int U_r, int r) {
+  return shard_scratch(N, U_r, r);
+}
+
+// rows/cols/slot_r/slot_c/order_r/order_c (N,) int32, vals (N,) f32 of one
+// shard; feats_r (U_r,), feats_c (U_c,) the distinct ids of its valid
+// entries, bounds_r (U_r + 1,), bounds_c (U_c + 1,) each slot's range in
+// its side's order (ops/segsum.py ShardMaps); the eight state tables
+// (n, r) / (n,) f32, updated in place; scratch of rsp_glove_shard_scratch
+// floats (written before it is read: no zeroing); loss one float, the
+// shard's sum(cost * inner).
+extern "C" int rsp_glove_shard(
+    const int* rows, const int* cols, const float* vals, const int* slot_r,
+    const int* slot_c, const int* feats_r, const int* feats_c,
+    const int* order_r, const int* order_c, const int* bounds_r,
+    const int* bounds_c, int N, int U_r, int U_c, int r, float* w_i,
+    float* w_j, float* b_i, float* b_j, float* acc_w_i, float* acc_w_j,
+    float* acc_b_i, float* acc_b_j, float x_max, float alpha, float lr,
+    float* scratch, float* loss, void* stream) {
   if (N <= 0) return 0;
-  if (U_r < 0 || U_c < 0 || r < 1 || r > kMaxR || !sums)
+  if (U_r < 0 || U_c < 0 || r < 1 || r > kMaxR || !scratch || !loss)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  float* sums_r = sums;
-  float* sums_c = sums + 2 * (size_t)U_r * (r + 1);
-  float* loss = sums_c + 2 * (size_t)U_c * (r + 1);
-  glove_entries<<<(N + kWarps - 1) / kWarps, kWarps * 32, 0, st>>>(
-      rows, cols, vals, slot_r, slot_c, N, U_r, U_c, r, w_i, w_j, b_i, b_j,
-      x_max, alpha, sums_r, sums_c, loss);
+  const int n_tiles = (N + kTile - 1) / kTile;
+  const size_t span_n = (size_t)n_tiles * 2 * (2 * r + 2);
+  float* snap = scratch;
+  float* span_r = snap + (size_t)U_r * (r + 1);
+  float* span_c = span_r + span_n;
+  float* loss_part = span_c + span_n;
+  int* tail_r = reinterpret_cast<int*>(loss_part + n_tiles);
+  int* tail_c = tail_r + n_tiles;
+  const Side rs{rows, slot_r, order_r, bounds_r, feats_r, w_i, b_i,
+                acc_w_i, acc_b_i, span_r, tail_r, U_r};
+  const Side cs{cols, slot_c, order_c, bounds_c, feats_c, w_j, b_j,
+                acc_w_j, acc_b_j, span_c, tail_c, U_c};
+  const unsigned grid = (unsigned)((n_tiles + kWarps - 1) / kWarps);
+  glove_walk<true><<<grid, kThreads, 0, st>>>(
+      rs, cols, vals, w_j, b_j, snap, r, n_tiles, x_max, alpha, lr, loss_part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)(U_r + U_c) * (r + 1);
-  if (n > 0) {
-    glove_apply<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-        feats_r, feats_c, U_r, U_c, r, sums_r, sums_c, w_i, w_j, b_i, b_j,
-        acc_w_i, acc_w_j, acc_b_i, acc_b_j, lr);
-    err = cudaGetLastError();
-  }
-  return (int)err;
+  glove_walk<false><<<grid, kThreads, 0, st>>>(
+      cs, slot_r, vals, nullptr, nullptr, snap, r, n_tiles, x_max, alpha, lr,
+      nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  glove_final<<<2 * grid + 1, kThreads, 0, st>>>(rs, cs, r, n_tiles, lr,
+                                                 loss_part, n_tiles, loss);
+  return (int)cudaGetLastError();
 }

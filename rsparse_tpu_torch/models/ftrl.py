@@ -5,8 +5,15 @@ src/FTRL.cpp:18-169, McMahan et al.).  Rows go in the reference's padded
 ``(B, L)`` blocks (``ops/segsum.py``); each block is one deterministic
 update: lazy weights from the block-start (z, n), link and gradient, then
 the per-feature sums of the per-entry z/n increments added to the tables.
-On the card one block is K7 (``csrc/ftrl.cu``); :func:`_ftrl_block_plain`
-is its plain PyTorch version, which CPU tensors take.
+On the card one block is K7 (``csrc/ftrl.cu``: the rows, then the block's
+entries grouped by feature, :func:`k7_plan`); :func:`_ftrl_block_plain` is
+its plain PyTorch version, which CPU tensors take.
+
+The model keeps (z, n) as one (F + 1, 2) table ``zn``, so that a feature's
+z and n share one 32-byte sector of device memory; ``z`` and ``n`` are its
+column views.  (The JAX package keeps two 1-D tables because a TPU pads a
+(F, 2) array to (F, 128), rsparse_tpu/models/ftrl.py:71-74; a GPU does not
+pad.)
 
 Per-element math matches src/FTRL.cpp:
   w_j = -(z_j - sign(z_j) l1) / ((decay + sqrt(n_j))/lr + l2)  if |z_j| > l1
@@ -34,6 +41,44 @@ from ..ops.segsum import GLMBlock, staged_glm_blocks, staged_label_gathers
 
 _FAMILY_CODES = {"binomial": 1, "gaussian": 2, "poisson": 3}
 CLIP_GRAD = 1000.0
+#: entries a tile of K7's feature walk (csrc/ftrl.cu kTile, launch B): a
+#: feature with entries in more than one tile is finished by launch C
+K7_TILE = 128
+
+
+def k7_plan(B: int, L: int, N: int) -> dict:
+    """K7's launch for a (B, L) block holding N valid entries: launch B's
+    tiles of K7_TILE entries, and the float32 scratch the wrapper allocates
+    in update mode (each entry's two increments and block-start pair, the
+    tiles' head and tail sums and their owners)."""
+    n_tiles = -(-N // K7_TILE)
+    return dict(n_tiles=n_tiles, scratch=4 * B * L + 4 * n_tiles + n_tiles)
+
+
+def zn_layout(z: torch.Tensor, n: torch.Tensor) -> int:
+    """How K7 takes (z, n): 1 for the two columns of one contiguous
+    (F + 1, 2) float32 CUDA table, 0 for two contiguous 1-D ones; raises
+    for any other layout."""
+    if z.dim() != 1 or z.shape != n.shape:
+        raise ValueError("z, n: expected two (F + 1,) tables")
+    F1 = z.shape[0]
+    pair = (z.stride() == n.stride() == (2,) and F1 > 1
+            and z.untyped_storage().data_ptr()
+            == n.untyped_storage().data_ptr()
+            and n.storage_offset() == z.storage_offset() + 1)
+    if not (pair or z.is_contiguous() and n.is_contiguous()):
+        raise ValueError("z, n: the CUDA kernel takes the two columns of one "
+                         "contiguous (F + 1, 2) table or two contiguous 1-D "
+                         "tables")
+    if not pair:
+        _kernels.check_tensor("z", z, (F1,), torch.float32)
+        _kernels.check_tensor("n", n, (F1,), torch.float32)
+        return 0
+    _kernels.check_tensor("zn", z.as_strided((F1, 2), (2, 1)), (F1, 2),
+                          torch.float32)
+    if z.data_ptr() % 8:
+        raise ValueError("zn: the pair table must be 8-byte aligned")
+    return 1
 
 
 def _link(x: torch.Tensor, family: int) -> torch.Tensor:
@@ -90,15 +135,16 @@ def _ftrl_block_plain(z, n, blk: GLMBlock, y, sample_w, lr, decay, l1, l2,
 def _ftrl_block_cuda(z, n, blk: GLMBlock, y, sample_w, lr, decay, l1, l2,
                      dropout, keep, family: int, do_update: bool):
     B, L = blk.col_idx.shape
-    U = blk.feats.shape[0]
+    U, N = blk.feats.shape[0], blk.order.shape[0]
     f32 = torch.float32
-    _kernels.check_tensor("z", z, z.shape, f32)
-    _kernels.check_tensor("n", n, z.shape, f32)
+    pair = zn_layout(z, n)
     _kernels.check_tensor("col_idx", blk.col_idx, (B, L), torch.int32)
     _kernels.check_tensor("values", blk.values, (B, L), f32)
     _kernels.check_tensor("nnz", blk.nnz, (B,), torch.int32)
     _kernels.check_tensor("slot", blk.slot, (B, L), torch.int32)
     _kernels.check_tensor("feats", blk.feats, (U,), torch.int32)
+    _kernels.check_tensor("order", blk.order, (N,), torch.int32)
+    _kernels.check_tensor("offs", blk.offs, (U + 1,), torch.int32)
     _kernels.check_tensor("y", y, (B,), f32)
     _kernels.check_tensor("sample_w", sample_w, (B,), f32)
     if keep is not None:
@@ -107,14 +153,15 @@ def _ftrl_block_cuda(z, n, blk: GLMBlock, y, sample_w, lr, decay, l1, l2,
     y_hat = torch.empty((B,), dtype=f32, device=dev)
     if B == 0:
         return y_hat
-    dzn = (torch.zeros((2, max(U, 1)), dtype=f32, device=dev)
-           if do_update else None)
+    scratch = (torch.empty((k7_plan(B, L, N)["scratch"],), dtype=f32,
+                           device=dev) if do_update else None)
     rc = _kernels.lib().rsp_ftrl_block(
         _kernels.ptr(blk.col_idx), _kernels.ptr(blk.values),
         _kernels.ptr(blk.nnz), _kernels.ptr(blk.slot), _kernels.ptr(keep),
         1.0 / (1.0 - dropout), _kernels.ptr(y), _kernels.ptr(sample_w),
-        _kernels.ptr(z), _kernels.ptr(n), _kernels.ptr(dzn),
-        _kernels.ptr(blk.feats), U, B, L, lr, decay, l1, l2, family,
+        _kernels.ptr(z), _kernels.ptr(n), pair, _kernels.ptr(blk.feats),
+        _kernels.ptr(blk.order), _kernels.ptr(blk.offs),
+        _kernels.ptr(scratch), U, N, B, L, lr, decay, l1, l2, family,
         int(do_update), _kernels.ptr(y_hat), _kernels.stream(dev))
     _kernels.check(rc, "ftrl")
     _kernels.launches["ftrl"] += 1
@@ -126,7 +173,8 @@ def _ftrl_block(z, n, blk: GLMBlock, y, sample_w, lr, decay, l1, l2,
     """One block: predictions (B,) from the block-start (z, n), and with
     ``do_update`` the z/n increments added in place.  ``keep`` is the
     (B, L) bool dropout mask or None.  CPU tensors take the plain version;
-    CUDA tensors launch K7."""
+    CUDA tensors launch K7, with (z, n) laid out as :func:`zn_layout`
+    takes them."""
     fn = _ftrl_block_plain if z.device.type == "cpu" else _ftrl_block_cuda
     return fn(z, n, blk, y, sample_w, float(lr), float(decay), float(l1),
               float(l2), float(dropout), keep, family, do_update)
@@ -171,10 +219,29 @@ class FTRL:
         self.device = torch.device(device)
         self.mesh = None
         self.n_features: Optional[int] = None
-        self.z: Optional[torch.Tensor] = None
-        self.n: Optional[torch.Tensor] = None
+        #: the (F + 1, 2) table of (z, n), the last row the padding feature
+        self.zn: Optional[torch.Tensor] = None
         self._seed = seed if seed is not None else 0
         self._generator: Optional[torch.Generator] = None
+
+    @property
+    def z(self) -> Optional[torch.Tensor]:
+        """(F + 1,) z: column 0 of ``zn``, a view."""
+        return None if self.zn is None else self.zn[:, 0]
+
+    @property
+    def n(self) -> Optional[torch.Tensor]:
+        """(F + 1,) n: column 1 of ``zn``, a view."""
+        return None if self.zn is None else self.zn[:, 1]
+
+    def _set_state(self, z, n) -> None:
+        """``zn`` from (F + 1,) arrays z and n."""
+        z, n = np.asarray(z), np.asarray(n)
+        if z.ndim != 1 or z.shape != n.shape:
+            raise ValueError("expected z and n of one (F + 1,) shape")
+        self.n_features = z.shape[0] - 1
+        self.zn = torch.tensor(np.stack([z, n], 1), dtype=self.dtype,
+                               device=self.device)
 
     @property
     def _gen(self) -> torch.Generator:
@@ -196,9 +263,8 @@ class FTRL:
     def _ensure_state(self, n_features: int):
         if self.n_features is None:
             self.n_features = n_features
-            self.z = torch.zeros((n_features + 1,), dtype=self.dtype,
-                                 device=self.device)
-            self.n = torch.zeros_like(self.z)
+            self.zn = torch.zeros((n_features + 1, 2), dtype=self.dtype,
+                                  device=self.device)
         elif n_features != self.n_features:
             raise ValueError(
                 f"feature count mismatch: model has {self.n_features}, "
@@ -305,7 +371,7 @@ class FTRL:
                 lambda_=d["lambda"], l1_ratio=d["l1_ratio"],
                 dropout=d["dropout"], family=d["family"],
                 precision=precision, device=device)
-        m.n_features = int(d["n_features"])
-        m.z = torch.tensor(np.asarray(d["z"]), dtype=m.dtype, device=m.device)
-        m.n = torch.tensor(np.asarray(d["n"]), dtype=m.dtype, device=m.device)
+        m._set_state(d["z"], d["n"])
+        if m.n_features != int(d["n_features"]):
+            raise ValueError("n_features does not match z and n")
         return m

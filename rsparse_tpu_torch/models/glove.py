@@ -47,6 +47,9 @@ CLIP_VALUE = 100.0
 #: widest embedding K10 and K11 take (csrc/glove.cu, csrc/glove_dense.cu
 #: kMaxR)
 MAX_RANK = 128
+#: entries a tile of K10's walks (csrc/glove.cu kTile): a feature with
+#: entries in more than one tile is finished by launch F
+K10_TILE = 32
 
 
 class GloveState(NamedTuple):
@@ -64,15 +67,20 @@ class Shard(NamedTuple):
     """One tail shard as K10 takes it: N entries (row id, column id,
     count) and each side's slot map (``feats`` the distinct ids of the
     valid entries, ``slot`` each entry's index into them, ``len(feats)`` at
-    padding)."""
+    padding; ``order`` the valid entries grouped by slot, ``bounds`` each
+    slot's range in it: ops/segsum.py ShardMaps)."""
 
-    rows: torch.Tensor     # (N,) int32
-    cols: torch.Tensor     # (N,) int32
-    vals: torch.Tensor     # (N,) float
-    feats_r: torch.Tensor  # (U_r,) int32
-    slot_r: torch.Tensor   # (N,) int32
-    feats_c: torch.Tensor  # (U_c,) int32
-    slot_c: torch.Tensor   # (N,) int32
+    rows: torch.Tensor      # (N,) int32
+    cols: torch.Tensor      # (N,) int32
+    vals: torch.Tensor      # (N,) float
+    feats_r: torch.Tensor   # (U_r,) int32
+    slot_r: torch.Tensor    # (N,) int32
+    order_r: torch.Tensor   # (N,) int32
+    bounds_r: torch.Tensor  # (U_r + 1,) int32
+    feats_c: torch.Tensor   # (U_c,) int32
+    slot_c: torch.Tensor    # (N,) int32
+    order_c: torch.Tensor   # (N,) int32
+    bounds_c: torch.Tensor  # (U_c + 1,) int32
 
 
 class Shards(NamedTuple):
@@ -177,18 +185,29 @@ def _glove_shard_cuda(st: GloveState, sh: Shard, x_max: float, alpha: float,
                            ("slot_r", sh.slot_r, (N,)),
                            ("slot_c", sh.slot_c, (N,)),
                            ("feats_r", sh.feats_r, (U_r,)),
-                           ("feats_c", sh.feats_c, (U_c,))):
+                           ("feats_c", sh.feats_c, (U_c,)),
+                           ("order_r", sh.order_r, (N,)),
+                           ("order_c", sh.order_c, (N,)),
+                           ("bounds_r", sh.bounds_r, (U_r + 1,)),
+                           ("bounds_c", sh.bounds_c, (U_c + 1,))):
         _kernels.check_tensor(name, t, shape, i32)
-    sums = torch.zeros((2 * (U_r + U_c) * (r + 1) + 1,), dtype=f32,
-                       device=st.w_i.device)
-    rc = _kernels.lib().rsp_glove_shard(
+    dev = st.w_i.device
+    loss = torch.empty((), dtype=f32, device=dev)
+    if N == 0:
+        return loss.zero_()
+    so = _kernels.lib()
+    scratch = torch.empty((so.rsp_glove_shard_scratch(N, U_r, r),),
+                          dtype=f32, device=dev)
+    rc = so.rsp_glove_shard(
         *(_kernels.ptr(t) for t in (sh.rows, sh.cols, sh.vals, sh.slot_r,
-                                    sh.slot_c, sh.feats_r, sh.feats_c)),
+                                    sh.slot_c, sh.feats_r, sh.feats_c,
+                                    sh.order_r, sh.order_c, sh.bounds_r,
+                                    sh.bounds_c)),
         N, U_r, U_c, r, *(_kernels.ptr(t) for t in st), x_max, alpha, lr,
-        _kernels.ptr(sums), _kernels.stream(st.w_i.device))
+        _kernels.ptr(scratch), _kernels.ptr(loss), _kernels.stream(dev))
     _kernels.check(rc, "glove")
     _kernels.launches["glove"] += 1
-    return sums[-1]
+    return loss
 
 
 def _glove_shard(st: GloveState, sh: Shard, x_max: float, alpha: float,

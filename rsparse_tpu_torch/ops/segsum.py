@@ -15,20 +15,21 @@ is not carried over: it exists because scatter is slow on a TPU.  What it
 computes, the per-feature sums of per-position updates added to a table
 once per block, happens inside K7 (``csrc/ftrl.cu``) and K8
 (``csrc/fm.cu``), from a host-built slot map carried with each block:
-``feats``, the block's distinct feature ids, and ``slot``, each entry's
-index into ``feats``.  K7 adds per-entry updates into zeroed per-slot sums
-with atomics and then applies them at ``feats`` (distinct ids, no race).
-K8 walks the block's entries grouped by feature instead (``order``, the
-valid entries' flat indices sorted by slot, and ``offs``, each slot's
-range in ``order``): every feature's sums are taken in registers in a
-fixed order, with no atomics and no scratch to zero.
+``feats``, the block's distinct feature ids, ``slot``, each entry's index
+into ``feats``, ``order``, the valid entries' flat indices sorted by slot,
+and ``offs``, each slot's range in ``order``.  Both kernels walk a block's
+entries grouped by feature: every feature's sums are taken in registers in
+a fixed order and its table rows written once, with no atomics, no scratch
+to zero, and the same result on every run.
 
 GloVe's scheduled tail epoch (``build_stacked_col_schedule``,
 ``sched_reduce_chunks``, ``sched_apply_sums_multi`` over its stacked
 shards) goes the same way into K10 (``csrc/glove.cu``): each staged shard
-carries one slot map per side from :func:`shard_slot_maps`, built on the
-device at staging and again after every shuffle, since a shuffle changes
-what each shard holds.
+carries one slot map per side from :func:`shard_slot_maps` (``feats``,
+``slot``, and the side's entries grouped by slot, ``order`` and
+``bounds``), built on the device from one sort at staging and again after
+every shuffle, since a shuffle changes what each shard holds; each side
+walks its entries by its own id.
 """
 
 from __future__ import annotations
@@ -99,32 +100,57 @@ class ShardMaps(NamedTuple):
     """Slot maps of stacked (S, N) shards on one side (tensors on one
     device): shard s's distinct ids of its valid entries, sorted, are
     ``feats[offs[s]:offs[s + 1]]``, and ``slot[s, e]`` is entry e's index
-    into them (their count at padding)."""
+    into them (their count at padding).  ``order[s]`` lists shard s's
+    valid entries grouped by slot ascending, entry ascending within a slot
+    (N past its valid entries), and slot u's entries are ``order[s, b[u]:
+    b[u + 1]]`` with ``b = bounds[offs[s] + s:offs[s + 1] + s + 1]``."""
 
-    feats: torch.Tensor  # (sum of U_s,) int32
-    slot: torch.Tensor   # (S, N) int32
+    feats: torch.Tensor   # (sum of U_s,) int32
+    slot: torch.Tensor    # (S, N) int32
     offs: Tuple[int, ...]
+    order: torch.Tensor   # (S, N) int32
+    bounds: torch.Tensor  # (sum of U_s + S,) int32
 
     def shard(self, s: int):
-        """(feats, slot) of shard s."""
-        return self.feats[self.offs[s]:self.offs[s + 1]], self.slot[s]
+        """(feats, slot, order, bounds) of shard s."""
+        a, b = self.offs[s], self.offs[s + 1]
+        return (self.feats[a:b], self.slot[s], self.order[s],
+                self.bounds[a + s:b + s + 1])
 
 
 def shard_slot_maps(ids: torch.Tensor, valid: torch.Tensor) -> ShardMaps:
     """:func:`slot_map` of every shard of ``ids`` (S, N) over its ``valid``
-    entries, from one ``torch.unique`` over (shard, id) keys on the ids'
-    device."""
+    entries, from one stable device sort of (shard, id) keys over the valid
+    entries in (shard, entry) order, so that equal keys keep their entries
+    ascending: the sort of (shard, id, entry) keys."""
     S, N = ids.shape
-    shard = torch.arange(S, device=ids.device)[:, None].expand(S, N)
-    keys = (shard[valid] << 32) | ids[valid].long()
-    uniq, inv = torch.unique(keys, return_inverse=True)
-    counts = torch.bincount(uniq >> 32, minlength=S)
-    starts = torch.cumsum(counts, 0) - counts
+    dev = ids.device
+    pos = torch.nonzero(valid.reshape(-1)).reshape(-1)   # shard-major
+    keys = ((pos // N) << 32) | ids.reshape(-1)[pos].long()
+    keys, perm = torch.sort(keys, stable=True)
+    pos = pos[perm]
+    shard = keys >> 32
+    start = torch.ones_like(keys, dtype=torch.bool)      # opens a slot
+    start[1:] = keys[1:] != keys[:-1]
+    gid = torch.cumsum(start, 0) - 1                     # slot over shards
+    counts = torch.bincount(shard[start], minlength=S)   # U_s
+    n_valid = torch.bincount(shard, minlength=S)
+    u0 = torch.cumsum(counts, 0) - counts
+    e0 = torch.cumsum(n_valid, 0) - n_valid
     slot = counts[:, None].expand(S, N).clone()
-    slot[valid] = inv - starts[keys >> 32]
-    offs = [0] + torch.cumsum(counts, 0).tolist()
-    return ShardMaps((uniq & 0xFFFFFFFF).to(torch.int32),
-                     slot.to(torch.int32), tuple(offs))
+    slot.view(-1)[pos] = gid - u0[shard]
+    rank = torch.arange(keys.numel(), device=dev) - e0[shard]
+    order = torch.full((S, N), N, dtype=torch.int64, device=dev)
+    order[shard, rank] = pos % N
+    # shard s's slot u begins at bounds[u0[s] + s + u]; its end, n_valid[s]
+    ends = torch.cumsum(counts, 0)
+    offs = [0] + ends.tolist()
+    bounds = torch.empty((offs[-1] + S,), dtype=torch.int64, device=dev)
+    bounds[gid[start] + shard[start]] = rank[start]
+    bounds[ends + torch.arange(S, device=dev)] = n_valid
+    return ShardMaps((keys[start] & 0xFFFFFFFF).to(torch.int32),
+                     slot.to(torch.int32), tuple(offs),
+                     order.to(torch.int32), bounds.to(torch.int32))
 
 
 def staged_glm_blocks(csr, dtype: torch.dtype,

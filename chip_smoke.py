@@ -111,6 +111,21 @@ line:
    ms, peak memory, loss per nnz within 1% of the float32 fit's, the
    kernels re-checked on each fit's heaviest buckets.
 
+10. the command line, in process through ``rsparse_tpu_torch.cli.main``:
+   (a) ``fit`` on ML-100k for WRMF, PureSVD and LinearFlow (rank 10,
+   lambda 1, 10 iterations, 20% held out, seed 0) with ``--out`` and
+   ``--profile-dir``, each ndcg@k / map@k within 0.005 (WRMF) or 0.01 of
+   the JAX CLI's (``REF_CLI``), then ``recommend`` from each checkpoint
+   against the loaded model's ``predict``, and the WRMF trace naming K1's
+   kernel; (b) phase 4's synthetic written as a ``user,item,rating`` CSV
+   (a temporary directory), read back by ``load_interactions`` with the
+   native parser (host seconds, MB/s) and held equal to the synthetic,
+   then ``fit`` at rank 128 (2 iterations, 20% held out) beside phase 4's
+   in-process fit, the checkpoint's size and save / load seconds, and
+   ``recommend --limit 10`` against the in-process ``predict``; (c) a fit
+   of 1 iteration with ``checkpoint_path``, resumed to 2, bitwise equal to
+   2 iterations in one go.
+
 The kernels' launch counters are reset right before each main-path run
 and must show every kernel of that path launched in it; K1's head term
 alone and K12 are the counterparts of probes, which no model calls, so
@@ -126,14 +141,18 @@ line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
+import io
 import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1526,6 +1545,10 @@ def profile_full_width(m, x) -> None:
     torch.cuda.synchronize()
 
 
+#: host wall of each full-width fit_transform, by its name in the log
+FIT_WALLS = {}
+
+
 def _fit_full_width(device, x, what, names, launches, n_iter=2, **kw):
     """One full-width fit_transform through the public entry point, its
     launch counts and per-sweep times."""
@@ -1540,6 +1563,7 @@ def _fit_full_width(device, x, what, names, launches, n_iter=2, **kw):
     emb = m.fit_transform(x, n_iter=n_iter, convergence_tol=-1)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    FIT_WALLS[what] = fit_s
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches.append(check_launched(_kernels, what, names))
     phases = m.fit_trace.summary()
@@ -3553,6 +3577,238 @@ def run_full_width_lowp(device, x, results, launches, f32_loss) -> None:
         torch.cuda.empty_cache()
 
 
+# -- phase 10: the command-line path ------------------------------------------
+
+#: the flags of phase 10 (a)'s ML-100k runs (besides --model, --device, --out
+#: and --profile-dir)
+CLI_FLAGS = ("--rank", "10", "--lambda", "1", "--n-iter", "10",
+             "--eval-holdout", "0.2", "--seed", "0")
+#: the JAX package's CLI at CLI_FLAGS on the CPU (``python -m rsparse_tpu fit
+#: --data movielens100k --model M`` + CLI_FLAGS, 4 digits; held by
+#: tests/test_torch_checkpoint.py): model -> (ndcg@k, map@k)
+REF_CLI = {"wrmf": (0.3470, 0.4121), "puresvd": (0.3257, 0.3847),
+           "linearflow": (0.3351, 0.3933)}
+#: how far phase 10 (a) may read from REF_CLI
+CLI_QUALITY_TOL = {"wrmf": 0.005, "puresvd": 0.01, "linearflow": 0.01}
+#: the kernels each model's ``fit --eval-holdout`` + ``recommend`` launches
+CLI_KERNELS = {"wrmf": ("als_cg", "als_chol", "topk"),
+               "puresvd": ("spmm", "topk"),
+               "linearflow": ("spmm", "spmm_residual", "topk")}
+
+
+def cli_lines(argv) -> list:
+    """``rsparse_tpu_torch.cli.main(argv)`` in this process: its stdout
+    lines (it must exit 0)."""
+    from rsparse_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    require(rc == 0, f"cli {' '.join(argv[:3])}: exit code {rc}")
+    return buf.getvalue().strip().splitlines()
+
+
+def check_recommend(lines, model, x, what) -> None:
+    """``recommend``'s JSON lines against ``model.predict(x, k)`` in this
+    process, formatted as the CLI prints it: the same users and items, the
+    printed scores equal (at most one unit of the 4th decimal apart: K5
+    sums a long row's chunks with float atomics, in any order)."""
+    got = [json.loads(ln) for ln in lines]
+    k = len(got[0]["items"])
+    p = model.predict(x, k=k)
+    ids = p.ids if p.ids is not None else p.indices
+    off = 0
+    for u, line in enumerate(got):
+        uid = p.user_ids[u] if p.user_ids else u
+        require(line["user"] == str(uid) and
+                line["items"] == [str(i) for i in ids[u]],
+                f"{what}: recommend line {u} != predict")
+        want = [round(float(s), 4) for s in p.scores[u]]
+        diff = max(abs(a - b) for a, b in zip(line["scores"], want))
+        require(diff <= 1.5e-4, f"{what}: recommend scores of line {u} "
+                f"off predict's by {diff}")
+        off += sum(a != b for a, b in zip(line["scores"], want))
+    log(f"  {what}: {len(got)} recommend lines == in-process predict "
+        f"(items; {off} of {len(got) * k} printed scores a unit apart)")
+
+
+def write_csv(x: sp.csr_matrix, path: str) -> np.ndarray:
+    """Write ``x`` as ``user,item,rating`` lines under a header, ratings
+    with 4 decimals, formatted with numpy: each line a row of one byte
+    array, the digits filled a column at a time by integer arithmetic, the
+    leading zeros masked out; returns the float32 of each written rating in
+    CSR order."""
+    coo = x.tocoo()
+    r = np.rint(coo.data * 1e4).astype(np.int64)
+    fields = [(coo.row.astype(np.int32), None), (b",", None),
+              (coo.col.astype(np.int32), None), (b",", None),
+              ((r // 10_000).astype(np.int32), None), (b".", None),
+              ((r % 10_000).astype(np.int32), 4), (b"\n", None)]
+    widths = [1 if isinstance(a, bytes) else w or len(str(int(a.max())))
+              for a, w in fields]
+    chars = np.empty((len(r), sum(widths)), np.uint8)
+    keep = np.ones(chars.shape, bool)
+    c = 0
+    for (a, fixed), w in zip(fields, widths):
+        if isinstance(a, bytes):
+            chars[:, c] = a[0]
+        else:
+            v = a.copy()
+            for j in range(c + w - 1, c - 1, -1):
+                chars[:, j] = v % 10 + ord("0")
+                v //= 10
+            if not fixed:
+                for j in range(w - 1):
+                    keep[:, c + j] = a >= 10 ** (w - 1 - j)
+        c += w
+    with open(path, "wb") as f:
+        f.write(b"user,item,rating\n")
+        f.write(chars[keep].tobytes())
+    return (r / 1e4).astype(np.float32)
+
+
+def run_cli_ml100k(device, tmp, smi_line, launches) -> None:
+    """Phase 10 (a): ``fit`` for each model through ``cli.main`` on ML-100k
+    at CLI_FLAGS with a checkpoint and a profiler trace, held to REF_CLI;
+    then ``recommend`` from the checkpoint against a loaded model's
+    ``predict``."""
+    import torch
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.utils import checkpoint
+    import rsparse_tpu_torch as rt
+    x = rt.load_movielens100k()
+    for model, (ref_ndcg, ref_map) in REF_CLI.items():
+        ckpt = os.path.join(tmp, f"ml100k_{model}")
+        prof = os.path.join(tmp, f"prof_{model}")
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = json.loads(cli_lines(
+            ["fit", "--data", "movielens100k", "--model", model,
+             *CLI_FLAGS, "--device", "cuda", "--out", ckpt,
+             "--profile-dir", prof])[-1])
+        fit_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lines = cli_lines(["recommend", "--checkpoint", ckpt, "--data",
+                           "movielens100k", "--device", "cuda"])
+        rec_wall = time.perf_counter() - t0
+        launches.append(check_launched(
+            _kernels, f"CLI {model} fit + recommend", CLI_KERNELS[model]))
+        tol = CLI_QUALITY_TOL[model]
+        log(f"  {model}: {json.dumps(res)}; fit command {fit_wall:.2f} s "
+            f"(with the trace), recommend {rec_wall:.2f} s [{smi_line}]; "
+            f"REF_CLI {ref_ndcg} / {ref_map} (tolerance {tol})")
+        require(abs(res["ndcg@k"] - ref_ndcg) <= tol
+                and abs(res["map@k"] - ref_map) <= tol,
+                f"CLI {model}: ndcg@k / map@k off REF_CLI")
+        check_recommend(lines, checkpoint.load(ckpt, device=device), x,
+                        f"CLI {model}")
+        traces = os.listdir(prof)
+        require(len(traces) == 1, f"CLI {model}: {len(traces)} trace files")
+        path = os.path.join(prof, traces[0])
+        if model == "wrmf":
+            with open(path) as f:
+                text = f.read()
+            require("als_cg_kernel" in text,
+                    "CLI wrmf: the trace does not name K1's kernel")
+        log(f"  {model} trace: {traces[0]}, "
+            f"{os.path.getsize(path) / 2**20:.1f} MiB"
+            + (", names als_cg_kernel" if model == "wrmf" else "")
+            + f" [{smi_line}]")
+        torch.cuda.synchronize()
+
+
+def run_cli_full_width(device, x, tmp, smi_line, launches) -> None:
+    """Phase 10 (b) and (c): phase 4's synthetic as a CSV through
+    ``load_interactions`` and ``fit`` / ``recommend`` at rank 128, then a
+    fit resumed from its state against the uninterrupted fit."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.data.io import load_interactions
+    from rsparse_tpu_torch.utils import checkpoint
+    csv = os.path.join(tmp, "ratings.csv")
+    t0 = time.perf_counter()
+    want = write_csv(x, csv)
+    size = os.path.getsize(csv)
+    log(f"  wrote {csv.rsplit(os.sep, 1)[-1]}: {x.nnz} lines, "
+        f"{size / 1e6:.1f} MB in {time.perf_counter() - t0:.2f} s of host "
+        f"time [{smi_line}]")
+    t0 = time.perf_counter()
+    xl = load_interactions(csv)
+    load_s = time.perf_counter() - t0
+    log(f"  load_interactions: {load_s:.3f} s of host time, "
+        f"{size / 1e6 / load_s:.0f} MB/s, {xl.parser} parser, "
+        f"{xl.shape} nnz={xl.nnz} [{smi_line}]")
+    require(xl.parser == "native", "the native parser did not run")
+    require(xl.shape == x.shape and np.array_equal(xl.indptr, x.indptr)
+            and np.array_equal(xl.indices, x.indices),
+            "the parsed matrix's shape or indices differ from the synthetic")
+    require(xl.row_names == [str(i) for i in range(x.shape[0])]
+            and xl.col_names == [str(j) for j in range(x.shape[1])],
+            "the parsed matrix's row / column names differ")
+    require(np.array_equal(xl.data, want.astype(np.float64)),
+            "the parsed values differ from the float32 of the text")
+
+    ckpt = os.path.join(tmp, "full_wrmf")
+    _kernels.reset_launch_counts()
+    res = json.loads(cli_lines(
+        ["fit", "--data", csv, "--model", "wrmf", "--rank", "128",
+         "--n-iter", "2", "--eval-holdout", "0.2", "--out", ckpt,
+         "--device", "cuda"])[-1])
+    t0 = time.perf_counter()
+    lines = cli_lines(["recommend", "--checkpoint", ckpt, "--data", csv,
+                       "--limit", "10", "--device", "cuda"])
+    rec_wall = time.perf_counter() - t0
+    launches.append(check_launched(
+        _kernels, "CLI full-width fit + recommend", CLI_KERNELS["wrmf"]))
+    phase4 = FIT_WALLS.get("full-width implicit main path")
+    log(f"  fit: {json.dumps(res)}; fit_seconds {res['fit_seconds']:.3f} "
+        "(80% of the entries) beside phase 4's in-process fit_transform "
+        + (f"{phase4:.3f} s" if phase4 else "(phase 4 not run)")
+        + f"; recommend (parse + load + transform of {x.shape[0]} users + "
+        f"top-k) {rec_wall:.2f} s [{smi_line}]")
+    require(res["ndcg@k"] > 0 and np.isfinite(res["map@k"]),
+            "full-width CLI fit: no quality numbers")
+    nbytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                 for f in os.listdir(ckpt))
+    t0 = time.perf_counter()
+    m = checkpoint.load(ckpt, device=device)
+    torch.cuda.synchronize()
+    load_ck = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checkpoint.save(m, os.path.join(tmp, "full_wrmf_again"))
+    save_ck = time.perf_counter() - t0
+    log(f"  checkpoint: {nbytes / 2**20:.1f} MiB, save {save_ck:.2f} s, "
+        f"load {load_ck:.2f} s [{smi_line}]")
+    check_recommend(lines, m, xl, "CLI full width")
+    del m
+
+    # (c) resume: 1 iteration with its state, resumed to 2, beside 2 in one go
+    state = os.path.join(tmp, "fit_state")
+    kw = dict(rank=128, lambda_=0.1, seed=0, device=device)
+    t0 = time.perf_counter()
+    rt.WRMF(**kw).fit_transform(xl, n_iter=1, convergence_tol=-1,
+                                checkpoint_path=state, checkpoint_every=1)
+    part_s = time.perf_counter() - t0
+    m2 = rt.WRMF(**kw)
+    t0 = time.perf_counter()
+    e2 = m2.fit_transform(xl, n_iter=2, convergence_tol=-1,
+                          checkpoint_path=state, resume=True)
+    torch.cuda.synchronize()
+    res_s = time.perf_counter() - t0
+    m3 = rt.WRMF(**kw)
+    e3 = m3.fit_transform(xl, n_iter=2, convergence_tol=-1)
+    same = (torch.equal(e2, e3) and np.array_equal(m2.components,
+                                                    m3.components)
+            and m2.loss_history == m3.loss_history)
+    nbytes = sum(os.path.getsize(os.path.join(state, f))
+                 for f in os.listdir(state))
+    log(f"  resume: 1 iteration + state {part_s:.2f} s (state "
+        f"{nbytes / 2**20:.1f} MiB), resumed to 2 {res_s:.2f} s; loss "
+        f"{m2.loss_history} vs uninterrupted {m3.loss_history}; bitwise "
+        f"equal: {same} [{smi_line}]")
+    require(same, "the resumed fit is not bitwise the uninterrupted one")
+
+
 # -----------------------------------------------------------------------------
 
 KERNELS = {
@@ -3627,7 +3883,7 @@ def main(phases) -> int:
             "with biases; NNLS)")
         run_ml100k(device, launches)
     x = f32_loss = None
-    if phases & {4, 5, 6, 9}:
+    if phases & {4, 5, 6, 9, 10}:
         t0 = time.perf_counter()
         x = synth_ml20m_like()
         log(f"  synth: {x.shape[0]} x {x.shape[1]}, {x.nnz} nnz "
@@ -3688,8 +3944,22 @@ def main(phases) -> int:
             del m
         run_full_width_lowp(device, x, results, launches, f32_loss)
         log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+    if 10 in phases:
+        t10 = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="rsparse_smoke_")
+        try:
+            log("phase 10 (a): the CLI on ML-100k (fit --eval-holdout "
+                "--out --profile-dir, then recommend)")
+            run_cli_ml100k(device, tmp, smi_line, launches)
+            log("phase 10 (b), (c): the synthetic of phase 4 as a CSV "
+                "through load_interactions and the CLI at rank 128; a "
+                "resumed fit")
+            run_cli_full_width(device, x, tmp, smi_line, launches)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
     del x
-    if phases != set(range(1, 10)):
+    if phases != set(range(1, 11)):
         log(f"phases {sorted(phases)} passed (a subset: no result line)")
         return 0
 
@@ -3715,7 +3985,7 @@ def main(phases) -> int:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (1 always runs)")
     want = {1} | {int(p) for p in ap.parse_args().phases.split(",") if p}
     try:

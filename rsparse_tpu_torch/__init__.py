@@ -5,9 +5,14 @@ Cholesky and NNLS solvers, user/item and global biases, dynamic lambda and
 the dense zipf head), the low-rank family (soft_svd / soft_impute,
 PureSVD, LinearFlow, ScaleNormalize, SparsePlusLowRank input, kmeans),
 with fitting, ``transform`` and masked top-k ``predict``, the SGD models
-FTRL, FactorizationMachine and RankMF, and GloVe.  Its eleven kernels
-are hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built with ``nvcc``
-at first use; on CPU tensors every wrapper runs its plain PyTorch version.
+FTRL, FactorizationMachine and RankMF, and GloVe; the host side around
+them: interaction logs read into CSR (``data.io.load_interactions``),
+checkpoints in the JAX package's format (``checkpoint.save`` / ``load``,
+and WRMF's mid-fit state with ``resume``), a ``torch.profiler`` trace
+(``utils.profiling.trace``) and the command line (``python -m
+rsparse_tpu_torch fit|recommend``, ``cli.py``).  Its kernels are
+hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built with ``nvcc`` at
+first use; on CPU tensors every wrapper runs its plain PyTorch version.
 Entry points run on "cuda" unless given ``device="cpu"``.
 
 The reference's Gram matrices and exact solves run at full float32, so
@@ -39,3 +44,4 @@ from .ops.topk import top_product  # noqa: E402,F401
 from .sparse.splr import SparsePlusLowRank  # noqa: E402,F401
 from .utils.metrics import ap_k, ndcg_k  # noqa: E402,F401
 from .utils.split import train_test_split  # noqa: E402,F401
+from .utils import checkpoint  # noqa: E402,F401

@@ -1,8 +1,8 @@
 """Bundled MovieLens-100k.
 
-The rating matrix ships once in the repository, inside the reference
-package (``rsparse_tpu/data/movielens100k.RData``); the port reads that file
-by path with its own RData parser and imports nothing of the reference.
+The port ships its own copy of the rating matrix
+(``rsparse_tpu_torch/data/movielens100k.RData``, the same file as the
+reference's) and reads it with its own RData parser.
 """
 
 from __future__ import annotations
@@ -13,9 +13,8 @@ import scipy.sparse as sp
 
 from .rdata import parse_rdata, s4_to_scipy
 
-DEFAULT_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "rsparse_tpu", "data", "movielens100k.RData")
+DEFAULT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "movielens100k.RData")
 
 
 def load_movielens100k(path: str | None = None) -> sp.csr_matrix:

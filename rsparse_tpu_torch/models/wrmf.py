@@ -6,7 +6,8 @@ NNMF), static or dynamic lambda, user/item and global biases, the dense
 zipf-head split (``n_hot``) stored as float32, bfloat16 or uint8 codes
 (``hot_dtype``), bf16 gathers and products with float32 sums
 (``compute_dtype="bfloat16"``), bf16 factor tables (``precision=
-"bfloat16"``), warm-start ``init`` and ``convergence_tol``.
+"bfloat16"``), warm-start ``init``, ``convergence_tol``, and a fit state
+written every ``checkpoint_every`` iterations that a later fit resumes.
 Interactions are bucketed into padded (B, L) row blocks
 (``sparse/device.py``); each ALS half-sweep solves the buckets one kernel
 launch at a time (``ops/als.py``).  The alternating item/user sweeps mirror
@@ -52,6 +53,35 @@ _ROW_ALIGN = 8
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to rsparse_tpu_torch yet (see ROADMAP.md)")
+
+
+class _FitState:
+    """Mid-fit WRMF checkpoint payload: the factor tables ``U`` and ``V``,
+    the iterations done ``it``, ``loss_history``, the loss the next
+    iteration is compared with ``loss_prev``, and ``global_bias``.  It is
+    written through ``utils/checkpoint.py`` in the JAX package's layout
+    (rsparse_tpu/models/wrmf.py:45-67), so each package resumes the
+    other's fits."""
+
+
+def _save_fit_state(path, U, V, it, loss_history, loss_prev, global_bias):
+    from ..utils import checkpoint
+    st = _FitState()
+    st.U, st.V, st.it = U, V, int(it)
+    st.loss_history = [float(v) for v in loss_history]
+    st.loss_prev = float(loss_prev)
+    st.global_bias = float(global_bias)
+    checkpoint.save(st, path)
+    logger.info("fit checkpoint written to %s (iteration %d)", path, it)
+
+
+def _load_fit_state(path, device):
+    """The fit state in ``path``, or None when there is none."""
+    import os
+    if not os.path.exists(os.path.join(path, "meta.json")):
+        return None
+    from ..utils import checkpoint
+    return checkpoint.load(path, cls=_FitState, device=device)
 
 
 class WRMF(MatrixFactorizationRecommender):
@@ -123,8 +153,15 @@ class WRMF(MatrixFactorizationRecommender):
         #: storage of the dense head: "auto" follows compute_dtype (else the
         #: factor dtype), "uint8" per-row quantised codes (implicit only)
         self.hot_dtype = hot_dtype
+        #: always None here; kept because the JAX package's checkpoint
+        #: loader reads them
+        self.mesh = self.routing = None
         self._V: Optional[torch.Tensor] = None   # (n_items, R) factors
         self._U: Optional[torch.Tensor] = None   # (n_users, R) factors
+        #: nnz per user / per item of the last fit (float32): the explicit
+        #: dynamic-lambda loss's weights, kept as the reference keeps them
+        self._cnt_u: Optional[torch.Tensor] = None
+        self._cnt_i: Optional[torch.Tensor] = None
         self._n_items: Optional[int] = None
         self.loss_history: list = []
 
@@ -270,12 +307,21 @@ class WRMF(MatrixFactorizationRecommender):
     def fit_transform(self, x: sp.spmatrix, n_iter: int = 10,
                       convergence_tol: Optional[float] = None,
                       checkpoint_path: Optional[str] = None,
+                      checkpoint_every: int = 1,
                       resume: bool = False) -> torch.Tensor:
         """Alternating sweeps over items and users; returns the user
         embeddings (n_users, rank [+2 with biases]) as a tensor on the
-        model's device."""
-        if checkpoint_path is not None or resume:
-            raise _not_ported("checkpoint_path/resume")
+        model's device.
+
+        ``checkpoint_path``: a directory to write the fit state (factor
+        tables, iterations done, loss history) to every
+        ``checkpoint_every`` iterations.  ``resume=True`` starts from the
+        state in ``checkpoint_path`` (the same ``x`` and hyperparameters
+        assumed), or from scratch when there is none; the sweeps depend on
+        (U, V) alone and sum in a fixed order, so the resumed fit is
+        bitwise the uninterrupted one."""
+        if resume and checkpoint_path is None:
+            raise ValueError("resume=True requires checkpoint_path")
         if convergence_tol is None:
             convergence_tol = 0.005 if self.feedback == "implicit" else 0.001
         row_names, col_names = get_names(x, 0), get_names(x, 1)
@@ -305,6 +351,7 @@ class WRMF(MatrixFactorizationRecommender):
                                 device=self.device)
         cnt_i = torch.as_tensor(np.diff(csr_t.indptr), dtype=torch.float32,
                                 device=self.device)
+        self._cnt_u, self._cnt_i = cnt_u, cnt_i
         nnz = max(csr.nnz, 1)
 
         # factor init (R/model_WRMF.R:203-255)
@@ -335,7 +382,19 @@ class WRMF(MatrixFactorizationRecommender):
         loss_prev = math.inf
         self.loss_history = []
         self.fit_trace = FitTrace(self.device)
-        for it in range(n_iter):
+        start_iter = 0
+        state = _load_fit_state(checkpoint_path, self.device) if resume else None
+        if state is not None:
+            U = state.U.to(self.dtype)
+            V = state.V.to(self.dtype)
+            start_iter = int(state.it)
+            self.loss_history = list(state.loss_history)
+            loss_prev = float(state.loss_prev)
+            self.global_bias = float(state.global_bias)
+            g = self._g
+            logger.info("resumed fit from %s at iteration %d",
+                        checkpoint_path, start_iter)
+        for it in range(start_iter, n_iter):
             with self.fit_trace.phase(it + 1, "items") as rec:
                 V, loss = wrmf_sweep(U, V, iu.buckets, lam, g, cfg_items,
                                      hot_users, iu_hot_rows, cnt_u)
@@ -347,6 +406,10 @@ class WRMF(MatrixFactorizationRecommender):
                 rec["loss"] = loss = float(loss) / nnz
             logger.info("iter %d (users) loss = %.4f", it + 1, loss)
             self.loss_history.append(loss)
+            if checkpoint_path and (it + 1) % max(checkpoint_every, 1) == 0:
+                # the resumed loop compares with THIS iteration's loss
+                _save_fit_state(checkpoint_path, U, V, it + 1,
+                                self.loss_history, loss, self.global_bias)
             if loss == 0.0 or loss_prev / loss - 1 < convergence_tol:
                 logger.info("converged after %d iterations", it + 1)
                 break

@@ -1,9 +1,10 @@
 """ctypes binding for the native host runtime (``native/librsparse_host.so``).
 
-The library is framework-neutral C++ (padded-bucket fill with OpenMP); the
-port loads it through its own loader.  Only ``fill_bucket`` is bound.  When
-the library is missing or cannot be loaded, callers use the numpy fallback
-in ``sparse/device.py``.
+The library is framework-neutral C++ with OpenMP; the port loads it through
+its own loader and binds two of its functions: the padded-bucket fill
+(:func:`fill_bucket`; without the library ``sparse/device.py`` fills in
+numpy) and the interaction-log parser (:func:`parse_interactions_bytes`,
+which falls back to ``numpy.genfromtxt``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,9 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.fill_bucket_f64.argtypes = [i64p, i32p, f64p, i64p, i64, i64, i64,
                                     i64, i32p, f64p, i32p, i32p]
     lib.fill_bucket_f64.restype = None
+    lib.parse_interactions.argtypes = [ctypes.c_char_p, i64, ctypes.c_char,
+                                       ctypes.c_int, i32p, i32p, f32p, i64]
+    lib.parse_interactions.restype = i64
     return lib
 
 
@@ -69,3 +73,39 @@ def fill_bucket(indptr, indices, data, rows, B: int, L: int,
     fill(indptr, indices, data, rows, len(rows), B, L, n_rows_total,
          col_idx, values, nnz, row_ids)
     return col_idx, values, nnz, row_ids
+
+
+def parse_interactions_bytes(buf: bytes, sep: str = ",",
+                             skip_header: bool = True):
+    """Parse ``user<sep>item[<sep>rating]`` lines with integer ids into COO
+    arrays ``(users int32, items int32, ratings float32, parser)``, where
+    ``parser`` is "native" (the library's OpenMP parser) or "numpy"
+    (``numpy.genfromtxt``, when the library is missing).  A missing rating
+    reads 1; a line whose ids do not parse as integers is skipped, so a log
+    of string ids gives empty arrays (``data/io.py`` then tokenizes it)."""
+    lib = get_lib()
+    n_lines = buf.count(b"\n") + 1
+    if lib is not None:
+        users = np.empty(n_lines, np.int32)
+        items = np.empty(n_lines, np.int32)
+        ratings = np.empty(n_lines, np.float32)
+        n = lib.parse_interactions(buf, len(buf), sep.encode()[0],
+                                   int(skip_header), users, items, ratings,
+                                   n_lines)
+        if n >= 0:
+            return (users[:n].copy(), items[:n].copy(), ratings[:n].copy(),
+                    "native")
+    import io
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # "empty input" on an empty log
+        arr = np.genfromtxt(io.BytesIO(buf), delimiter=sep,
+                            skip_header=1 if skip_header else 0)
+    arr = np.atleast_2d(arr)
+    if arr.size == 0:
+        arr = np.empty((0, 2))
+    arr = arr[~np.isnan(arr[:, :2]).any(axis=1)]
+    r = (np.nan_to_num(arr[:, 2], nan=1.0) if arr.shape[1] > 2
+         else np.ones(len(arr))).astype(np.float32)
+    return (arr[:, 0].astype(np.int32), arr[:, 1].astype(np.int32), r,
+            "numpy")

@@ -1,4 +1,4 @@
-"""Per-phase fit telemetry and a device-time profile.
+"""Per-phase fit telemetry, a profiler trace and a device-time profile.
 
 :class:`FitTrace` is the structured record WRMF fills during a fit
 (iteration, phase, loss, wall time).  Kernels launch asynchronously, so on a
@@ -8,16 +8,56 @@ is read; the wall time then covers the device work of the phase.
 :func:`profile_device` runs a callable under ``torch.profiler`` and returns
 the device time of each kernel and copy, and the device's busy share of the
 wall time (``chip_smoke.py`` prints it for the full-width run).
+
+:func:`trace` captures a ``torch.profiler`` trace of a block into one
+Chrome trace file (the counterpart of the reference's ``jax.profiler``
+trace, rsparse_tpu/utils/profiling.py:26-38); the CLI's ``--profile-dir``
+uses it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
+import types
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterator, List
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
+
+from ..config import logger
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str],
+          cuda: Optional[bool] = None) -> Iterator[types.SimpleNamespace]:
+    """Record the block under ``torch.profiler`` (CPU activity, and CUDA
+    activity when ``cuda``, by default when a CUDA device is available) and
+    write one Chrome trace file, which chrome://tracing, Perfetto and
+    TensorBoard's profiler open, into ``log_dir``; its path is logged and
+    left in the yielded namespace's ``path``.  With ``log_dir=None`` it
+    records nothing (``path`` stays None)."""
+    out = types.SimpleNamespace(path=None)
+    if not log_dir:
+        yield out
+        return
+    from torch.profiler import ProfilerActivity, profile
+    if cuda is None:
+        cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield out
+        if cuda:
+            torch.cuda.synchronize()
+    out.path = os.path.join(
+        log_dir, f"rsparse_tpu_torch_{os.getpid()}_{time.time_ns()}"
+        ".pt.trace.json")
+    prof.export_chrome_trace(out.path)
+    logger.info("profiler trace written to %s", out.path)
 
 
 @dataclass

@@ -125,6 +125,26 @@ line:
    ``recommend --limit 10`` against the in-process ``predict``; (c) a fit
    of 1 iteration with ``checkpoint_path``, resumed to 2, bitwise equal to
    2 iterations in one go.
+11. the wide widths (K1 and K2 above d = 160, K10 and K11 above r = 128,
+   each on its wide route, with its own row of the kernels line): (a) K1
+   and K2 against their plain versions at d = 161, 192, 256, 258, 512 and
+   514 (implicit; at 258 and 514 also a 1,024-column head, implicit and
+   explicit with presence bits, explicit with biases, and phase 9's
+   reduced-precision variants), on buckets of 256 x 128 and 16 x 8,192,
+   with their launch plans and stage times; (b) K10 and K11 on config
+   #4's first shard and tiles at r = 129, 256, 300 and 320 (at 300 as
+   phase 8 (a): straight and swapped, twice for bitwise-equal tables, the
+   edge and transposed tiles, bf16 and float32 counts, beside the cuBLAS
+   chain); (c) ML-100k: WRMF rank 192 within 0.005 of the JAX package's
+   NDCG@10 / MAP@10 (``REF_WIDE``), the explicit Cholesky model with
+   biases at d = 194 held to the RMSE gate, GloVe rank 300 (bf16 head)
+   within 1e-3 of the JAX package's cost history; (d) full width: rank
+   512 (f32, n_hot="auto", 2 iterations, transform of 65,536 users,
+   predict of 4,096), rank 256 at the headline setting and config #2 (b)
+   at rank 256 (d = 258), each with stage walls, sweep ms, user-updates/s,
+   peak memory, loss per nnz and its kernels re-checked on the heaviest
+   buckets; config #4 GloVe at rank 300 (3 epochs: walls, triplets/s,
+   peak memory, both kernels re-checked on the fitted state).
 
 The kernels' launch counters are reset right before each main-path run
 and must show every kernel of that path launched in it; K1's head term
@@ -504,8 +524,10 @@ def _record(results, name, kern, plain, args, tag, rep, limit_y, limit_loss,
     elif name.startswith("K1"):
         plan, detail = k1_detail(args)
         extra += "\n    " + detail
+    bms, bby = als_bound(args, sweeps, plan=plan)
     log(f"  {name:11s} {tag:44s} y_rel={ey:.2e} loss_rel={el:.2e} "
-        f"kernel={ms:.3f} ms plain={pms:.3f} ms{extra}")
+        f"kernel={ms:.3f} ms plain={pms:.3f} ms bound={bms:.4f} ms ({bby})"
+        f"{extra}")
     require(bool(torch.isfinite(yk).all() and torch.isfinite(lk).all()),
             f"{name} {tag}: non-finite output")
     require(ey <= limit_y and el <= limit_loss, f"{name} {tag}: disagrees "
@@ -513,7 +535,6 @@ def _record(results, name, kern, plain, args, tag, rep, limit_y, limit_loss,
     r = results[name.split()[1]]
     r["max_abs_err"] = max(r["max_abs_err"], float((yk - yp).abs().max()))
     if rep:
-        bms, bby = als_bound(args, sweeps, plan=plan)
         r.update(ms=ms, plain_ms=pms, shape=tag, bound_ms=bms, bound_by=bby,
                  library_ms=None)
     return yk
@@ -1240,7 +1261,8 @@ def run_ml100k(device, launches) -> None:
 
 
 def check_staged_buckets(m, x, results, nnls_max_iter=300,
-                         record_budget=False, k2_fit=False) -> None:
+                         record_budget=False, k2_fit=False,
+                         max_rows=None) -> None:
     """Each kernel of a fitted model's path against its plain version at
     the shapes the fit gave it: per sweep, the buckets with the most padded
     entries (B x L), the most rows and the longest rows, staged as
@@ -1264,7 +1286,10 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300,
     its plan and stages on each bucket, and runs the whole closing sweep
     (every bucket, as fit_transform and transform launch it) timed by CUDA
     events beside the sum of its buckets' bounds; with ``k2_fit`` that is
-    K2's second row of the kernels line."""
+    K2's second row of the kernels line.  At d > 160 the kernels are the
+    wide routes (their own rows of the kernels line); ``max_rows`` checks
+    the first rows of each picked bucket only (a float64 Cholesky twin of
+    a bucket of 11,272 rows at d = 514 would hold 24 GB of Grams)."""
     import torch
     from rsparse_tpu_torch.ops import als
     lam, g = m.lambda_, m._g
@@ -1292,6 +1317,8 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300,
                 "K2 als_chol", als.NNLS: "K4 als_nnls"}[cfg.solver]
         src_act, xb, XtX, rhs_init = als._sweep_prepare(src, lam, g, cfg,
                                                         torch.float32)
+        if src_act.shape[1] > als.WIDE_D:
+            name += "_wide"
         src_act = als._gather_src(src_act, cfg, torch.float32)
         rounds = als._rounds_bf16(cfg, torch.float32)
         _, tgt_sl = als._active_slices(cfg, src.shape[1])
@@ -1310,6 +1337,11 @@ def check_staged_buckets(m, x, results, nnls_max_iter=300,
                 W, bits, row_nnz, scale = rows[bi]
                 if cfg.feedback == "explicit" and cfg.dynamic_lambda:
                     nnz_tot = row_nnz
+            if max_rows is not None and b.batch > max_rows:
+                cut = lambda t: None if t is None else t[:max_rows]  # noqa
+                b = type(b)(*(t[:max_rows] for t in b))
+                W, bits, nnz_tot, scale = (cut(W), cut(bits), cut(nnz_tot),
+                                           cut(scale))
             ids = b.row_ids.clamp(max=old_act.shape[0] - 1).long()
             x0 = old_act[ids].contiguous()
             args = (src_act, xb, XtX, rhs_init, b, x0, lam, g, cfg, W, Vh,
@@ -1422,11 +1454,12 @@ def _k2_sweep(results, src_act, xb, XtX, rhs_init, buckets, lam, g, cfg,
     ms = t0.elapsed_time(t1)
     shape = (f"closing {cfg.feedback[:3]} sweep, {n_rows} rows in "
              f"{len(every)} buckets, d={src_act.shape[1]}")
-    log(f"  K2 als_chol {shape}: kernel={ms:.3f} ms over {len(every)} "
+    key = "als_chol_wide" if src_act.shape[1] > als.WIDE_D else "als_chol"
+    log(f"  K2 {key} {shape}: kernel={ms:.3f} ms over {len(every)} "
         f"launches, bound={bms:.4f} ms ({bby}), "
         f"{n_rows / ms * 1e3:.0f} rows/s")
     if results is not None:
-        results["als_chol"].update(fit_shape=shape, fit_ms=ms,
+        results[key].update(fit_shape=shape, fit_ms=ms,
                                    fit_bound_ms=bms, fit_bound_by=bby,
                                    fit_launches=len(every))
 
@@ -1549,7 +1582,8 @@ def profile_full_width(m, x) -> None:
 FIT_WALLS = {}
 
 
-def _fit_full_width(device, x, what, names, launches, n_iter=2, **kw):
+def _fit_full_width(device, x, what, names, launches, n_iter=2, rank=128,
+                    **kw):
     """One full-width fit_transform through the public entry point, its
     launch counts and per-sweep times."""
     import torch
@@ -1558,7 +1592,7 @@ def _fit_full_width(device, x, what, names, launches, n_iter=2, **kw):
     _kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2**30
-    m = rt.WRMF(rank=128, seed=0, device=device, **kw)
+    m = rt.WRMF(rank=rank, seed=0, device=device, **kw)
     t0 = time.perf_counter()
     emb = m.fit_transform(x, n_iter=n_iter, convergence_tol=-1)
     torch.cuda.synchronize()
@@ -2783,6 +2817,7 @@ def k11_sides_apart(st, rows, cols, xv, hp) -> str:
     many round apart from the same value formed with float64 sums, beside
     the float32 plain version's count."""
     import torch
+    from rsparse_tpu_torch.config import to_bf16
     from rsparse_tpu_torch.models import glove
     n_r, n_c = rows.numel(), cols.numel()
     s2 = torch.zeros((2, n_r, n_c), dtype=torch.float32, device=xv.device)
@@ -2794,9 +2829,9 @@ def k11_sides_apart(st, rows, cols, xv, hp) -> str:
     def sv_bf16(S, dt):
         x = xv.to(dt)
         lx = torch.log(torch.where(present, x, 1.0))
-        return torch.clamp(S.to(dt) + st.b_i[i][:, None].to(dt)
-                           + st.b_j[j][None, :].to(dt) - lx, -100.0,
-                           100.0).to(torch.bfloat16)
+        return to_bf16(torch.clamp(S.to(dt) + st.b_i[i][:, None].to(dt)
+                                   + st.b_j[j][None, :].to(dt) - lx, -100.0,
+                                   100.0))
 
     wi, wj = (t.to(torch.bfloat16).double() for t in (st.w_i[i], st.w_j[j]))
     ref = sv_bf16(wi @ wj.T, torch.float64)
@@ -2856,9 +2891,10 @@ def _tile_s_bf16(st, rows, cols, x, acc):
     """bf16(S) of a tile's present cells, S summed at ``acc``: which cells
     of S an f32 sum can round to another bf16 value than float64 does."""
     import torch
+    from rsparse_tpu_torch.config import to_bf16
     i, j = rows.long(), cols.long()
     xf = x.to(acc)
-    rd = lambda t: t.to(torch.bfloat16).to(acc)  # noqa: E731
+    rd = lambda t: to_bf16(t).to(acc)  # noqa: E731
     s = torch.clamp(rd(st.w_i[i]) @ rd(st.w_j[j]).T
                     + st.b_i[i][:, None].to(acc) + st.b_j[j][None, :].to(acc)
                     - torch.log(torch.where(xf > 0, xf, 1.0)), -100.0, 100.0)
@@ -2866,14 +2902,16 @@ def _tile_s_bf16(st, rows, cols, x, acc):
 
 
 def check_glove_step(name, step, plain, state, ids, tag, results, bnd,
-                     lib=None, rep=False, reps=5, flops=0):
+                     lib=None, rep=False, reps=5, flops=0, key=None):
     """K10 (``name="glove"``) or K11 (``"glove_dense"``) against its plain
     version on the same state: ``step(st)`` and ``plain(st)`` update st in
     place and return the loss term.  Each table (and the loss) is held by
     its change to 1e-5, or to twice the plain version's distance from the
     plain version at float64 (bf16 cells of S that an f32 sum rounds the
     other way); tables outside ``ids`` (the row and the column side's ids)
-    must not move.  ``flops``: the kernel's own work, printed as a rate."""
+    must not move.  ``flops``: the kernel's own work, printed as a rate.
+    ``key``: the kernel's row of the kernels line (``name``, or its wide
+    route's)."""
     import torch
     from rsparse_tpu_torch.models import glove
     fields = glove.GloveState._fields
@@ -2906,7 +2944,8 @@ def check_glove_step(name, step, plain, state, ids, tag, results, bnd,
             out[rows] = False
             require(torch.equal(a[out], t0[out]), f"{name} {tag}: {tname} "
                     "moved outside the step's ids")
-    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], worst)
+    key = key or name
+    results[key]["max_abs_err"] = max(results[key]["max_abs_err"], worst)
     dms = None
     if name == "glove":
         # K10: the same result on every run, and its device time
@@ -2931,35 +2970,41 @@ def check_glove_step(name, step, plain, state, ids, tag, results, bnd,
         + (f" cuBLAS chain={lms:.3f} ms" if lms else "")
         + f" bound={bms:.4f} ms ({bby}){bms_note}")
     if rep:
-        results[name].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                             library_ms=lms, shape=tag,
-                             **({"device_ms": dms} if dms else {}))
+        results[key].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                            library_ms=lms, shape=tag,
+                            **({"device_ms": dms} if dms else {}))
 
 
-def check_glove_kernels(head, tail, state, tag, results, rep=False):
+def check_glove_kernels(head, tail, state, tag, results, rep=False,
+                        quick=False):
     """K10 on the tail's first shard, straight and swapped (the transposed
     pass's roles); K11 on the head's first tile, its last (the reference's
     padded edge tile, cut to its real positions) and the transposed pass's
-    tile (1, 0), with the bf16 grid and with float32 counts."""
+    tile (1, 0), with the bf16 grid and with float32 counts.  ``quick``:
+    the first shard and the first tile only.  At r > 128 the kernels are
+    the wide routes (their own rows of the kernels line)."""
     import torch
     from rsparse_tpu_torch.models import glove
     hp = (GLOVE_KW["x_max"], 0.75, GLOVE_KW["learning_rate"])
     r = state.w_i.shape[1]
-    for label, sh in (("shard 0", tail.shard(0)),
-                      ("swapped shard 0", tail.swapped().shard(0))):
+    sfx = "_wide" if r > glove.GLOVE_WIDTHS[0] else ""
+    shards = (("shard 0", tail.shard(0)),) + (() if quick else (
+        ("swapped shard 0", tail.swapped().shard(0)),))
+    for label, sh in shards:
         ids = (sh.feats_r.long(), sh.feats_c.long())
         check_glove_step(
             "glove", lambda st: glove._glove_shard_cuda(st, sh, *hp),
             lambda st: glove._glove_shard_plain(st, sh, *hp), state, ids,
             f"{tag} {label}, N={sh.rows.shape[0]} U={ids[0].numel()}/"
             f"{ids[1].numel()}", results, k10_bound(sh, r),
-            rep=rep and label == "shard 0")
+            rep=rep and label == "shard 0", key="glove" + sfx)
     H, side, last = head.ids.shape[0], head.side, head.nt - 1
     span = lambda t: slice(t * side, min(H, (t + 1) * side))  # noqa: E731
     x32 = head.x.float()
     bf = torch.bfloat16
-    for (ti, tj), trans in (((0, 0), False), ((last, last), False),
-                            ((1, 0), True)):
+    tiles = (((0, 0), False),) + (() if quick else (
+        ((last, last), False), ((1, 0), True)))
+    for (ti, tj), trans in tiles:
         rows, cols = head.ids[span(ti)], head.ids[span(tj)]
         ids = (rows.long(), cols.long())
         for x, cdt in ((head.x, bf), (x32, torch.float32)):
@@ -2990,7 +3035,7 @@ def check_glove_kernels(head, tail, state, tag, results, rep=False):
                 lib=(lambda st: _tile_cublas(st, rows, cols, xv, *hp))
                 if main else None, rep=rep and main,
                 flops=12 * rows.numel() * cols.numel() * r if cdt == bf
-                else 0)
+                else 0, key="glove_dense" + sfx)
     del x32
     torch.cuda.empty_cache()
 
@@ -3166,19 +3211,20 @@ def _lowp_case(args, table_bf16, head, compute):
     return (src, xb, XtX, rhs_init, b, x0, lam, g, cfg, W, Vh, hb, nt), scale
 
 
-def check_lowp_kernels(device, results) -> None:
+def check_lowp_kernels(device, results, base=None, seed=9) -> None:
     """K1, K2 and K4 on phase 2's synthetic cases, implicit and explicit
     (presence bits with stored zero ratings, source biases), at each
     variant of LOWP_VARIANTS that the case admits, against their plain
     versions (y 1e-4, K4 y 1e-3, bf16 cells that round apart by hold_bf16;
     the loss 1e-5 against the plain loss of the kernel's own y), with their
-    times and bounds."""
+    times and bounds.  ``base`` (name, case) replaces phase 9's cases
+    (phase 11 gives the wide widths)."""
     import torch
     from rsparse_tpu_torch.ops import als
     gen = torch.Generator(device=device)
-    gen.manual_seed(9)
+    gen.manual_seed(seed)
     chol, nnls = als.CHOLESKY, als.NNLS
-    base = (("K1 als_cg", dict(B=2048, L=128, d=128, H=1024)),
+    base = base or (("K1 als_cg", dict(B=2048, L=128, d=128, H=1024)),
             ("K1 als_cg", dict(B=2048, L=128, d=128, H=1024, ugb=True)),
             ("K1 als_cg", dict(B=2048, L=128, d=128, H=1024, explicit=True,
                                bits=True)),
@@ -3811,6 +3857,344 @@ def run_cli_full_width(device, x, tmp, smi_line, launches) -> None:
 
 # -----------------------------------------------------------------------------
 
+# -- phase 11: the wide widths -------------------------------------------------
+
+#: phase 11 (a)'s widths of K1 and K2 (d = rank, + 2 with both biases): the
+#: first past the narrow instances, ranks 192, 256 and 512, with biases
+WIDE_DS = (161, 192, 256, 258, 512, 514)
+#: phase 11 (b)'s widths of K10 and K11: the first past r = 128, GloVe's
+#: published 300 dimensions and the instance's own 320
+WIDE_RS = (129, 256, 300, 320)
+#: the JAX package's results at the wide widths on ML-100k (rsparse_tpu on
+#: the CPU, float32): WRMF rank 192 (lambda 1, CG, seed 0, 80/20 split of
+#: seed 0, n_iter=10; predict k=10 masking the training items) NDCG@10 and
+#: MAP@10, and GloVe(**GLOVE_KW, rank=300).fit_transform(ml100k_cooccurrence
+#: (...), n_iter=3)'s cost history; made by
+#:   JAX_PLATFORMS=cpu python3 -c "import numpy as np, chip_smoke as c,
+#:   rsparse_tpu as r; x = r.load_movielens100k()
+#:   tr, te = r.train_test_split(x, 0.2, np.random.default_rng(0))
+#:   m = r.WRMF(rank=192, lambda_=1.0, feedback='implicit',
+#:              solver='conjugate_gradient', seed=0)
+#:   m.fit_transform(tr, n_iter=10)
+#:   p = m.predict(tr, k=10, not_recommend=tr)
+#:   print(np.nanmean(r.ndcg_k(p.indices, te)), np.nanmean(r.ap_k(p.indices, te)))
+#:   g = r.GloVe(**dict(c.GLOVE_KW, rank=300))
+#:   g.fit_transform(c.ml100k_cooccurrence(x), n_iter=3); print(g.cost_history)"
+REF_WIDE = {"wrmf_rank192": (0.16864202811174311, 0.2122274675577552),
+            "glove_rank300": (0.5800940529263338, 0.1271744864574558,
+                              0.05637187870599677)}
+
+
+def check_wide_caps() -> None:
+    """The width caps held on the Python side (``_kernels.MAX_D`` for K1
+    and K2, ``glove.MAX_RANK`` and ``GLOVE_WIDTHS`` for K10 and K11) against
+    the kernels' own checks: the library takes each cap and refuses one
+    past it, and picks the instance width the Python plan names."""
+    import ctypes
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.models import glove
+    lib = _kernels.lib()
+    info = (ctypes.c_int * 7)()
+    for d, ok in ((_kernels.MAX_D["als_cg"], True),
+                  (_kernels.MAX_D["als_cg"] + 1, False)):
+        a = _kernels.BucketArgs(B=1, L=1, d=d)
+        require((lib.rsp_als_cg_info(ctypes.byref(a), 1, info) == 0) == ok,
+                f"K1's own check disagrees with MAX_D at d = {d}")
+    for d, ok in ((_kernels.MAX_D["als_chol"], True),
+                  (_kernels.MAX_D["als_chol"] + 1, False)):
+        a = _kernels.BucketArgs(B=1, L=1, d=d)
+        require((lib.rsp_als_chol_wide_info(ctypes.byref(a), info) == 0)
+                == ok, f"K2's own check disagrees with MAX_D at d = {d}")
+    for r in (1, 128, 129, 300, 320, 321):
+        want = glove.glove_width(r) if r <= glove.MAX_RANK else 0
+        got = (lib.rsp_glove_shard_width(r), lib.rsp_glove_tile_width(r))
+        require(got == (want, want), f"K10 / K11 take r = {r} on {got}, the "
+                f"Python plan on {want}")
+    log(f"  caps: K1 and K2 d <= {_kernels.MAX_D['als_cg']}, K10 and K11 r "
+        f"<= {glove.MAX_RANK} (instances {glove.GLOVE_WIDTHS}), the "
+        "library's checks agree")
+
+
+def check_wide_kernels(device, results) -> None:
+    """Phase 11 (a): K1 and K2 on their wide routes against their plain
+    versions on phase 2's synthetic buckets (256 rows of up to 128 entries,
+    and 16 rows of up to 8,192) at every width of WIDE_DS (implicit, no
+    head), and at d = 258 and 514 with a 1,024-column head (implicit with a
+    global bias, explicit with presence bits) and explicit with source
+    biases; y 1e-4, loss 1e-5 (PERF.md section 2); then the reduced
+    precision variants of phase 9 at d = 258 and 514 (bf16 tables, bf16 and
+    uint8 heads, compute_dtype="bfloat16"), bf16 cells that round apart held
+    by the float64 twin."""
+    import torch
+    from rsparse_tpu_torch.ops import als
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    plain = als._solve_bucket_plain
+    chol = als.CHOLESKY
+    cg, k2 = "K1 als_cg_wide", "K2 als_chol_wide"
+    cases = []
+    for d in WIDE_DS:
+        cases.append((cg, dict(B=256, L=128, d=d, H=0), False))
+        cases.append((k2, dict(B=256, L=128, d=d, H=0, solver=chol),
+                      d == 514))
+    for d in (258, 514):
+        cases += [
+            (cg, dict(B=256, L=128, d=d, H=1024, ugb=True), d == 514),
+            (cg, dict(B=256, L=128, d=d, H=1024, explicit=True, bits=True),
+             False),
+            (cg, dict(B=256, L=128, d=d, H=0, explicit=True, biases=True),
+             False),
+            (k2, dict(B=256, L=128, d=d, H=1024, solver=chol), False),
+            (k2, dict(B=256, L=128, d=d, H=1024, explicit=True, bits=True,
+                      solver=chol), False),
+            (k2, dict(B=256, L=128, d=d, H=0, explicit=True, biases=True,
+                      solver=chol), False)]
+    cases += [(cg, dict(B=16, L=8192, d=514, H=1024), False),
+              (k2, dict(B=16, L=8192, d=514, H=0, solver=chol), False)]
+    for name, kw, rep in cases:
+        B, L, d, H = kw.pop("B"), kw.pop("L"), kw.pop("d"), kw.pop("H")
+        args = _bucket_case(gen, device, B, L, d, H, **kw)
+        cfg = args[8]
+        tag = (f"{cfg.feedback[:3]} B={B} L={L} d={args[0].shape[1]} H={H}"
+               + (" bias" if cfg.with_biases else "")
+               + (" bits" if args[11] is not None else "")
+               + (" gb" if cfg.use_global_bias else ""))
+        _record(results, name, als._SOLVE[cfg.solver], plain, args, tag, rep,
+                1e-4, 1e-5)
+    lowp = tuple((name, dict(B=256, L=128, d=d, H=1024, **kw))
+                 for d in (258, 514)
+                 for name, kw in ((cg, {}), (cg, dict(explicit=True,
+                                                       bits=True)),
+                                  (k2, dict(solver=chol)),
+                                  (k2, dict(explicit=True, bits=True,
+                                            solver=chol))))
+    check_lowp_kernels(device, results, base=lowp, seed=12)
+
+
+def check_wide_glove(device, results):
+    """Phase 11 (b): K10 and K11 on their wide routes against their plain
+    versions on config #4's staged head and tail, from the model's initial
+    state at each rank of WIDE_RS: at r = 300 as phase 8 (a) (the first
+    shard straight and swapped, launched twice for bitwise-equal tables
+    and loss; the first tile, the edge tile and a transposed tile, bf16 and
+    float32 counts, the first beside the cuBLAS chain of the same step), at
+    the other ranks the first shard and the first tile.  Returns config
+    #4's matrix and its staged head and tail."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch.models import glove
+    x4 = synth_glove(**CONFIG4)
+    hot, X, rem = glove._split_head(x4, GLOVE_AUTO_HOT, np.float32)
+    head = glove._stage_head(X, hot, torch.bfloat16, GLOVE_KW["batch_size"],
+                             device)
+    del X
+    tail = glove._stage_tail(rem, GLOVE_KW["batch_size"], torch.float32,
+                             device)
+    for r in WIDE_RS:
+        st = rt.GloVe(**dict(GLOVE_KW, rank=r),
+                      device=device)._init_state(x4.shape[0])
+        check_glove_kernels(head, tail, st, f"config #4 r={r}", results,
+                            rep=r == 300, quick=r != 300)
+        del st
+    return x4, head, tail
+
+
+def run_wide_ml100k(device, launches) -> None:
+    """Phase 11 (c): on ML-100k, WRMF rank 192 (implicit CG; d = 192)
+    fit_transform -> transform -> predict within 0.005 of the JAX
+    package's NDCG@10 / MAP@10 (REF_WIDE) and fit_transform == transform;
+    the explicit Cholesky model with biases at rank 192 (d = 194) held to
+    phase 3's RMSE gate; GloVe rank 300 with the bf16 head, its cost
+    history within GLOVE_REL of the JAX package's."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    x = rt.load_movielens100k()
+    train, test = rt.train_test_split(x, 0.2, np.random.default_rng(0))
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = rt.WRMF(rank=192, lambda_=1.0, feedback="implicit",
+                solver="conjugate_gradient", seed=0, device=device)
+    emb = m.fit_transform(train, n_iter=10)
+    preds = m.predict(train, k=10, not_recommend=train)
+    emb2 = m.transform(train)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.append(check_launched(_kernels, "ML-100k WRMF rank 192",
+                                   ("als_cg_wide", "als_chol_wide", "topk")))
+    ndcg = float(np.nanmean(rt.ndcg_k(preds.indices, test)))
+    mapk = float(np.nanmean(rt.ap_k(preds.indices, test)))
+    ref = REF_WIDE["wrmf_rank192"]
+    diff = float((emb - emb2).abs().max())
+    log(f"  WRMF rank 192: NDCG@10={ndcg:.4f} MAP@10={mapk:.4f} (JAX on the "
+        f"CPU {ref[0]:.4f} / {ref[1]:.4f}) |fit_transform-transform|="
+        f"{diff:.2e} wall={wall:.2f} s")
+    require(abs(ndcg - ref[0]) <= LOWP_QUALITY_TOL and
+            abs(mapk - ref[1]) <= LOWP_QUALITY_TOL,
+            "ML-100k rank 192: quality off the JAX package's")
+    require(diff <= 1e-5, "ML-100k rank 192: fit_transform != transform")
+    check_predictions(preds.indices, 10, train.shape[1], train,
+                      "ML-100k rank 192")
+
+    full = sp.csr_matrix(x)
+    tr, te = rt.train_test_split(full, 0.8, np.random.default_rng(7))
+    te = te.tocoo()
+    mean = tr.data.mean()
+    trc = tr.copy()
+    trc.data = trc.data - mean
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = rt.WRMF(rank=192, lambda_=0.3, feedback="explicit", solver="cholesky",
+                with_user_item_bias=True, seed=0, device=device)
+    emb = m.fit_transform(trc, n_iter=30)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.append(check_launched(_kernels, "ML-100k explicit rank 192",
+                                   ("als_chol_wide",)))
+    scores = emb.double().cpu().numpy() @ m.components + mean
+    rmse = float(np.sqrt(np.mean((scores[te.row, te.col] - te.data) ** 2)))
+    base = float(np.sqrt(np.mean((te.data - mean) ** 2)))
+    log(f"  explicit biases rank 192 (d = {emb.shape[1]}): RMSE={rmse:.4f} "
+        f"(global mean {base:.4f}) iters={len(m.loss_history)} "
+        f"wall={wall:.2f} s")
+    require(bool(torch.isfinite(emb).all()), "ML-100k rank 192 explicit: "
+            "non-finite")
+    require(rmse < 1.05 and rmse < base, "ML-100k rank 192: explicit RMSE "
+            "gate failed")
+
+    xg = ml100k_cooccurrence(x)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    g = rt.GloVe(**dict(GLOVE_KW, rank=300), device=device)
+    ge = g.fit_transform(xg, n_iter=3)
+    wall = time.perf_counter() - t0
+    info = g.stage_info
+    names = (("glove_dense_wide",) if info["tiles"] else ()) + (
+        ("glove_wide",) if info["shards"] else ())
+    launches.append(check_launched(_kernels, "GloVe rank 300 ML-100k", names))
+    ref = REF_WIDE["glove_rank300"]
+    rels = [abs(a / b - 1) for a, b in zip(g.cost_history, ref)]
+    log(f"  GloVe rank 300: cost history "
+        f"{[round(c, 6) for c in g.cost_history]} (JAX on the CPU "
+        f"{[round(c, 6) for c in ref]}, largest relative distance "
+        f"{max(rels):.2e}); wall {wall:.2f} s")
+    require(bool(torch.isfinite(ge).all()), "GloVe rank 300: non-finite")
+    require(len(rels) == 3 and max(rels) <= GLOVE_REL,
+            "GloVe rank 300: cost history off the JAX package's")
+
+
+def _wide_fit(device, x, what, launches, rank, q=None, **kw):
+    """A full-width WRMF fit at a wide rank (phase 11 (d)): stage walls,
+    sweep ms, user-updates/s, peak memory and loss per nnz; with ``q``,
+    transform of every user and predict of the users in ``q`` by the host
+    clock, counted with the fit's launches."""
+    import torch
+    from rsparse_tpu_torch import _kernels
+    names = ("als_chol_wide",) + (
+        ("als_cg_wide",) if kw.get("solver") == "conjugate_gradient" else ())
+    m, emb = _fit_full_width(device, x, what, names, launches, rank=rank,
+                             **kw)
+    users = [r["wall_s"] for r in m.fit_trace if r["phase"] == "users"]
+    items = [r["wall_s"] for r in m.fit_trace if r["phase"] == "items"]
+    closing = [r["wall_s"] for r in m.fit_trace if r["phase"] == "transform"]
+    log(f"  {what}: d={emb.shape[1]}; item half-sweeps "
+        f"{[round(t * 1e3, 2) for t in items]} ms, user half-sweeps "
+        f"{[round(t * 1e3, 2) for t in users]} ms, closing half-sweep "
+        f"{[round(t * 1e3, 2) for t in closing]} ms; "
+        f"{x.shape[0] / min(users or closing):.0f} user-updates/s (best "
+        f"user sweep); loss/nnz {m.loss_history}")
+    require(all(np.isfinite(m.loss_history)), f"{what}: non-finite loss")
+    if q is not None:
+        t0 = time.perf_counter()
+        e2 = m.transform(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        preds = m.predict(q, k=10, not_recommend=q)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches[-1] = check_launched(_kernels, f"{what} with transform and "
+                                      "predict", names + ("topk",))
+        log(f"  transform {x.shape[0]} users {t1 - t0:.3f} s "
+            f"({x.shape[0] / (t1 - t0):.0f} users/s); predict "
+            f"{q.shape[0]} users k=10 {t2 - t1:.3f} s")
+        require(bool(torch.isfinite(e2).all()), f"{what}: transform")
+        check_predictions(preds.indices, 10, x.shape[1], sp.csr_matrix(q),
+                          what)
+        del e2, preds
+    return m, emb
+
+
+def run_wide_full(device, x, x4, results, launches) -> None:
+    """Phase 11 (d): the wide widths at full width.  On phase 4's
+    ML-20M-shaped synthetic, implicit CG(3): rank 512 (d = 512), n_hot=
+    "auto", float32, 2 iterations, then transform of all 65,536 users and
+    predict of 4,096; rank 256 at the headline setting (compute_dtype=
+    "bfloat16", n_hot=4096), 2 iterations; config #2 (b) at rank 256
+    (explicit Cholesky with user, item and global biases, d = 258), 1
+    iteration.  Each re-checks its kernels on its heaviest buckets (their
+    first 1,024 rows) against the plain version; rank 512 times its whole
+    closing K2 sweep (K2's wide fit row).  Then config #4 GloVe at rank 300
+    (bf16 head), 3 epochs, with both kernels re-checked on the fitted
+    state."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    q = x[:4096]
+    log("  rank 512, implicit CG(3), n_hot=auto, float32")
+    m, emb = _wide_fit(device, x, "rank 512 implicit", launches, 512, q=q,
+                       lambda_=0.1, feedback="implicit",
+                       solver="conjugate_gradient", n_hot="auto")
+    check_staged_buckets(m, x, results, k2_fit=True, max_rows=1024)
+    del m, emb
+    torch.cuda.empty_cache()
+    log("  rank 256, the headline setting (compute_dtype=bfloat16, "
+        "n_hot=4096)")
+    m, emb = _wide_fit(device, x, "rank 256 headline", launches, 256,
+                       lambda_=0.1, feedback="implicit",
+                       solver="conjugate_gradient", compute_dtype="bfloat16",
+                       n_hot=4096)
+    check_staged_buckets(m, x, results, max_rows=1024)
+    del m, emb
+    torch.cuda.empty_cache()
+    log("  config #2 (b) at rank 256: explicit Cholesky, user/item + global "
+        "biases (d = 258), 1 iteration")
+    m, emb = _wide_fit(device, x, "config #2 (b) rank 256", launches, 256,
+                       n_iter=1, lambda_=0.1, feedback="explicit",
+                       solver="cholesky", with_user_item_bias=True,
+                       with_global_bias=True)
+    require(m.components.shape == (258, x.shape[1]),
+            "config #2 (b) rank 256: R")
+    check_staged_buckets(m, x, results, max_rows=1024)
+    del m, emb
+    torch.cuda.empty_cache()
+
+    log("  config #4 GloVe rank 300 (bf16 head), 3 epochs")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    g = rt.GloVe(**dict(GLOVE_KW, rank=300), device=device)
+    ge = g.fit_transform(x4, n_iter=3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches.append(check_launched(_kernels, "config #4 GloVe rank 300",
+                                   ("glove_wide", "glove_dense_wide")))
+    info, hist = g.stage_info, g.cost_history
+    log(f"  config #4 GloVe rank 300: fit_transform(n_iter=3) {wall:.3f} s ="
+        f" split {info['split_s']:.3f} s + head staging {info['head_s']:.3f}"
+        f" s + tail staging {info['tail_s']:.3f} s + epochs "
+        f"{[round(e, 4) for e in info['epoch_s']]} s; "
+        f"{x4.nnz / min(info['epoch_s']):.0f} triplets/s (best epoch); "
+        f"loss/nnz {[round(c, 6) for c in hist]}; peak device memory "
+        f"{peak:.2f} GiB ({peak - held:.2f} GiB above the {held:.2f} GiB "
+        "held before)")
+    require(bool(torch.isfinite(ge).all()) and all(np.isfinite(hist))
+            and hist[0] > hist[1] > hist[2],
+            "config #4 GloVe rank 300: loss not finite and decreasing")
+    return g
+
+
 KERNELS = {
     "als_cg": ("rsparse_tpu_torch/csrc/als_cg.cu",
                "rsparse_tpu/ops/als.py:138, rsparse_tpu/ops/als.py:269"),
@@ -3838,6 +4222,16 @@ KERNELS = {
                "scripts/exp_gather2.py:63"),
     "gather_lanes": ("rsparse_tpu_torch/csrc/gather.cu",
                      "scripts/exp_gather2.py:79"),
+    "als_cg_wide": ("rsparse_tpu_torch/csrc/als_cg.cuh",
+                    "rsparse_tpu/ops/als.py:138, rsparse_tpu/ops/als.py:269"),
+    "als_chol_wide": ("rsparse_tpu_torch/csrc/als_chol_wide.cu",
+                      "rsparse_tpu/ops/als.py:138, "
+                      "rsparse_tpu/ops/als.py:269"),
+    "glove_wide": ("rsparse_tpu_torch/csrc/glove.cu",
+                   "rsparse_tpu/models/glove.py:50, "
+                   "rsparse_tpu/models/glove.py:109"),
+    "glove_dense_wide": ("rsparse_tpu_torch/csrc/glove_dense.cu",
+                         "rsparse_tpu/models/glove.py:206"),
 }
 
 
@@ -3883,7 +4277,7 @@ def main(phases) -> int:
             "with biases; NNLS)")
         run_ml100k(device, launches)
     x = f32_loss = None
-    if phases & {4, 5, 6, 9, 10}:
+    if phases & {4, 5, 6, 9, 10, 11}:
         t0 = time.perf_counter()
         x = synth_ml20m_like()
         log(f"  synth: {x.shape[0]} x {x.shape[1]}, {x.nnz} nnz "
@@ -3958,8 +4352,28 @@ def main(phases) -> int:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+    if 11 in phases:
+        t11 = time.perf_counter()
+        log("phase 11 (a): K1 / K2 wide routes against their plain versions "
+            f"(d in {WIDE_DS})")
+        check_wide_caps()
+        check_wide_kernels(device, results)
+        log("phase 11 (b): K10 / K11 wide routes against their plain "
+            f"versions (config #4, r in {WIDE_RS})")
+        x4, head4, tail4 = check_wide_glove(device, results)
+        torch.cuda.empty_cache()
+        log("phase 11 (c): ML-100k at rank 192 (WRMF) and 300 (GloVe) "
+            "against the JAX package")
+        run_wide_ml100k(device, launches)
+        log("phase 11 (d): full width: rank 512 and 256 on the synthetic, "
+            "config #4 GloVe at rank 300")
+        g = run_wide_full(device, x, x4, results, launches)
+        check_glove_kernels(head4, tail4, g._state, "fitted config #4 r=300",
+                            results, quick=True)
+        log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
+        del g, head4, tail4, x4
     del x
-    if phases != set(range(1, 11)):
+    if phases != set(range(1, 12)):
         log(f"phases {sorted(phases)} passed (a subset: no result line)")
         return 0
 
@@ -3985,7 +4399,7 @@ def main(phases) -> int:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (1 always runs)")
     want = {1} | {int(p) for p in ap.parse_args().phases.split(",") if p}
     try:

@@ -41,17 +41,23 @@ BUILD_DIR = os.path.join(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
-#: largest width the ALS kernels take (K2 and K4 hold d x d matrices in
-#: shared memory; csrc/*.cu build a d <= 128 and a d <= 160 variant, so
-#: rank 128 with user/item biases, d = 129, runs on the card)
-MAX_D = 160
+#: widest d each ALS kernel takes on the card, one entry a kernel, held
+#: equal to the kernel's own check: K1 (csrc/als_cg.cu kMaxD; instances
+#: for d <= 128, 160, 288 and 544) and K2 (csrc/als_chol.cu d <= 160 in
+#: shared memory, csrc/als_chol_wide.cu kWideMaxD in a global workspace)
+#: take rank 512 with both biases, d = 514; K4 (csrc/als_nnls.cu, d x d
+#: matrices in shared memory) rank 128 with biases, d = 129 (d <= 160)
+MAX_D = {"als_cg": 514, "als_chol": 514, "als_nnls": 160}
 
-#: launches per kernel, counted by the wrappers
+#: launches per kernel, counted by the wrappers (the wide routes apart:
+#: K1 and K2 at d > 160, K10 and K11 at r > 128)
 launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "als_nnls": 0,
                             "topk": 0, "spmm": 0, "spmm_residual": 0,
                             "ftrl": 0, "fm": 0, "rankmf": 0, "glove": 0,
                             "glove_dense": 0, "hot_chain": 0, "gather": 0,
-                            "gather_lanes": 0}
+                            "gather_lanes": 0, "als_cg_wide": 0,
+                            "als_chol_wide": 0, "glove_wide": 0,
+                            "glove_dense_wide": 0}
 #: what the last build did: {"seconds": ..., "log": ..., "path": ...}
 build_info: Dict[str, object] = {}
 
@@ -174,10 +180,13 @@ def lib() -> ctypes.CDLL:
     # args, plan, cg_steps, tol, stream
     so.rsp_als_cg.argtypes = [args, plan, i, f, p]
     so.rsp_als_cg.restype = i
-    # args, info (7 int32 on the host: shared bytes a CTA, CTAs an SM,
-    # clusters of 1, 2, 4, 8, 16 CTAs that run at once)
-    so.rsp_als_cg_info.argtypes = [args, p]
+    # args, rows, info (7 int32 on the host: shared bytes a CTA, CTAs an
+    # SM, clusters of 1, 2, 4, 8, 16 CTAs that run at once)
+    so.rsp_als_cg_info.argtypes = [args, i, p]
     so.rsp_als_cg_info.restype = i
+    # d, H, table bytes, cluster, rows, cache (int32 out) -> shared bytes
+    so.rsp_als_cg_layout.argtypes = [i, i, i, i, i, p]
+    so.rsp_als_cg_layout.restype = i
     # args, stages (1 the Gram, 2 + the solve, 3 + the loss), stream
     so.rsp_als_chol.argtypes = [args, i, p]
     so.rsp_als_chol.restype = i
@@ -185,6 +194,12 @@ def lib() -> ctypes.CDLL:
     # entries' Gram routes, D, shared bytes)
     so.rsp_als_chol_info.argtypes = [args, p]
     so.rsp_als_chol_info.restype = i
+    # the wide K2 (d > 160): args, stages, workspace, slots, stream; info
+    # (7 int32: the five above, slots, floats a slot)
+    so.rsp_als_chol_wide.argtypes = [args, i, p, i, p]
+    so.rsp_als_chol_wide.restype = i
+    so.rsp_als_chol_wide_info.argtypes = [args, p]
+    so.rsp_als_chol_wide_info.restype = i
     # args, max_iter, rel_tol, sweeps (int32, or NULL), scratch, systems a
     # slice, counter, stream
     so.rsp_als_nnls.argtypes = [args, i, f, p, p, i, p, p]
@@ -235,6 +250,11 @@ def lib() -> ctypes.CDLL:
     so.rsp_glove_shard.argtypes = [p] * 11 + [i] * 4 + [p] * 8 + [f] * 3 + [
         p, p, p]
     so.rsp_glove_shard.restype = i
+    # r -> the instance width of K10 / K11 that takes it (0: none)
+    so.rsp_glove_shard_width.argtypes = [i]
+    so.rsp_glove_shard_width.restype = i
+    so.rsp_glove_tile_width.argtypes = [i]
+    so.rsp_glove_tile_width.restype = i
     ll = ctypes.c_longlong
     # N, U_r, r -> floats of scratch
     so.rsp_glove_shard_scratch.argtypes = [i, i, i]

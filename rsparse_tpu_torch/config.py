@@ -70,3 +70,21 @@ def np_dtype(dtype: torch.dtype) -> np.dtype:
     """numpy counterpart of a torch dtype: float64, else float32 (numpy has
     no bfloat16; values are rounded when they reach the device)."""
     return np.dtype(np.float64 if dtype == torch.float64 else np.float32)
+
+
+def to_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 once, to nearest even, from any float
+    dtype.  torch's float64 -> bfloat16 cast rounds through float32, which
+    sends a value within a float32 rounding of a bf16 midpoint the other
+    way; here float64 goes to float32 by rounding to odd (inexact results
+    keep a set last bit), from which the float32 -> bf16 rounding is the
+    single rounding (float32 keeps more than two bits beyond bf16's)."""
+    if t.dtype != torch.float64:
+        return t.to(torch.bfloat16)
+    f = t.to(torch.float32)
+    fd = f.to(torch.float64)
+    inexact = fd != t
+    away = inexact & (fd.abs() > t.abs())
+    bits = f.view(torch.int32) - away.to(torch.int32)
+    bits = bits | inexact.to(torch.int32)
+    return bits.view(torch.float32).to(torch.bfloat16)

@@ -90,12 +90,28 @@
 // the tile products by their chain of staging, two products and three
 // barriers a panel, a cost a panel whatever its cells: they overtake the
 // walk at about 72% present cells at 3xTF32, 75% at 2xTF32 and 42% on bf16
-// mma (ops/als.py CG_TAU), which is why sparser panels are walked.  Two
+// mma (ops/als.py CG_TAU), which is why sparser panels are walked.  Four
 // widths are built: d <= 128 keeps 4 values a lane, d <= 160 (rank 128
-// with biases is d = 129) 5; each for float and bf16 tables, each in its
-// own translation unit (als_cg_{128,160}_{f32,bf16}.cu, compiled in
-// parallel; als_cg.cu holds the C entry points); the source biases, the
-// rounding and the head's storage kind are runtime flags.
+// with biases is d = 129) 5, d <= 288 9 and d <= 544 17 (the port takes d
+// <= 514, rank 512 with both biases); each for float and bf16 tables, each
+// in its own translation unit (als_cg_{128,160,288,544}_{f32,bf16}.cu,
+// compiled in parallel; als_cg.cu holds the C entry points); the source
+// biases, the rounding and the head's storage kind are runtime flags.
+//
+// The wide instances (d > 160).  The layout above does not fit at d = 256
+// with a head (two 64-row panels of Vh alone are 132 KB at d = 512) nor at
+// d = 512 without one (five 16-row vectors and 32 warps' partial rows are
+// 235 KB).  So a wide CTA runs 16 warps (128 registers a thread, for the
+// walk's four staged rows of 9 or 17 values a lane), the tile's five
+// vectors hold the plan's rows only (cg_split offers only the (rows,
+// cluster) pairs whose layout fits, from rsp_als_cg_info), and no head
+// panel is a tile product: every present head cell is walked like a cold
+// entry (the cache and the stream as above), so the head costs its present
+// cells' rows, as the cold entries do, and no Vh panel is staged.  P XtX
+// stays one tile product a pass (XtX, 1 MiB at d = 512, read from L2 once
+// a tile); rows of the tile past the plan's are zeros in its operand.
+// Every rounding point, the presence bits, x_init, rhs_init, the source
+// biases and the clusters carry over unchanged.
 
 #pragma once
 
@@ -109,10 +125,9 @@ namespace cgrp = cooperative_groups;
 
 namespace rsp_cg {
 
-constexpr int kWarps = 32;
+constexpr int kWarps = 32;   // warps a CTA at d <= 160
 constexpr int kThreads = 32 * kWarps;
-// output n8 tiles a warp holds in the combine (d <= 160: 20 tiles)
-constexpr int kNT = (160 / 8 + kWarps - 1) / kWarps;
+constexpr int kNarrow = 160;  // widest d of the narrow instances
 constexpr int kTile = 16;    // rows of a tile product (mma M)
 constexpr int kPanel = 64;   // head columns a panel
 constexpr int kU = 4;        // source rows a warp loads at once
@@ -122,6 +137,20 @@ constexpr int kCacheMin = 160, kCacheMax = 1024;
 static_assert(31 + 2 * kPanel <= kCacheMin, "the stream's buffer");
 constexpr int kSmemLimit = 232448;  // shared bytes a CTA may use (H100)
 constexpr int kTw = kPanel + 4;
+
+// An instance's CTA: KD is the width it is built for (values a lane
+// holds: KD / 32).  The narrow ones (KD <= 160) run 32 warps with the head
+// as tile products; the wide ones (KD = 288, 544) run 16 warps (128
+// registers a thread, for the walk's 4 x KD / 32 staged values), walk every
+// head cell, and size the tile's vectors to the plan's rows.
+template <int KD>
+struct Shape {
+  static constexpr bool kWide = KD > kNarrow;
+  static constexpr int NW = kWide ? 16 : kWarps;
+  static constexpr int NT = 32 * NW;
+  // output n8 tiles a warp holds in the combine
+  static constexpr int KNT = (KD / 8 + NW - 1) / NW;
+};
 
 // The launch ops/als.py cg_plan chooses (ctypes mirror: _kernels.CgPlan).
 struct Plan {
@@ -137,6 +166,8 @@ __host__ __device__ constexpr bool is_bf16() {
 
 // Shared-memory layout of one CTA (byte offsets), alike on host and card.
 struct Layout {
+  int nw;    // warps a CTA
+  int vr;    // rows of the tile's vectors: kTile, or the plan's rows (wide)
   int Dk;    // d rounded up to 16 (the products' depth)
   int sp;    // row stride of the tile's vectors (floats)
   int sv;    // row stride of a staged Vh row (elements of T)
@@ -153,40 +184,45 @@ __host__ __device__ inline int take(int& o, int n) {
   return at;
 }
 
+// d > kNarrow takes a wide instance: 16 warps, vectors of `rows` rows and
+// no staged head panels (every head cell is walked).
 __host__ __device__ inline Layout make_layout(int d, int H, int tbytes,
-                                              int cluster) {
+                                              int cluster, int rows) {
   Layout L;
   int o = 0;
+  const bool wide = d > kNarrow;
+  L.nw = wide ? 16 : kWarps;
+  L.vr = wide ? rows : kTile;
   L.Dk = (d + 15) / 16 * 16;
   L.sp = L.Dk + 4;
   L.sv = tbytes == 4 ? L.Dk + 4 : L.Dk + 8;
   L.npan = (H + kPanel - 1) / kPanel;
-  const int vec = kTile * L.sp * 4;
+  const int vec = L.vr * L.sp * 4;
   L.x = take(o, vec);
   L.r = take(o, vec);
   L.p = take(o, vec);
   L.pb = take(o, vec);
   L.ap = take(o, vec);
-  L.red = take(o, kWarps * L.sp * 4);
-  const bool head = H > 0;
-  L.tw = take(o, head ? kTile * kTw * 4 : 0);
-  L.vh0 = take(o, head ? kPanel * L.sv * tbytes : 0);
-  L.vh1 = take(o, head ? kPanel * L.sv * tbytes : 0);
+  L.red = take(o, L.nw * L.sp * 4);
+  const bool head = H > 0, tiles = head && !wide;
+  L.tw = take(o, tiles ? kTile * kTw * 4 : 0);
+  L.vh0 = take(o, tiles ? kPanel * L.sv * tbytes : 0);
+  L.vh1 = take(o, tiles ? kPanel * L.sv * tbytes : 0);
   L.pbuf0 = take(o, cluster > 1 ? vec : 0);
   L.pbuf1 = take(o, cluster > 1 ? vec : 0);
   L.lbuf0 = take(o, kTile * 4);
   L.lbuf1 = take(o, kTile * 4);
-  L.lossp = take(o, (kWarps + 8) * kTile * 4);
+  L.lossp = take(o, (L.nw + 8) * kTile * 4);
   L.scal = take(o, kTile * 8 * 4);
   L.pcnt = take(o, L.npan * 4);
   L.dlist = take(o, L.npan * 4);
   L.slist = take(o, L.npan * 4);
   L.misc = take(o, 16);
-  int cap = ((kSmemLimit - o) / (kWarps * 8)) & ~31;
+  int cap = ((kSmemLimit - o) / (L.nw * 8)) & ~31;
   cap = cap < kCacheMin ? kCacheMin : (cap > kCacheMax ? kCacheMax : cap);
   L.cache = head ? cap : 0;
-  L.cache_h = take(o, kWarps * L.cache * 4);
-  L.cache_c = take(o, kWarps * L.cache * 4);
+  L.cache_h = take(o, L.nw * L.cache * 4);
+  L.cache_c = take(o, L.nw * L.cache * 4);
   L.bytes = o;
   return L;
 }
@@ -226,6 +262,9 @@ struct WarpCache {
 template <int KD, class T, bool EXPLICIT>
 struct Tile {
   static constexpr int PL = KD / 32;
+  static constexpr bool kWide = Shape<KD>::kWide;
+  static constexpr int NW = Shape<KD>::NW, NT = Shape<KD>::NT,
+                       KNT = Shape<KD>::KNT;
   const rsp::BucketArgs a;
   Layout L;
   int d, RT, CS, rank, wpr, tau, b0, nvalid;
@@ -243,12 +282,14 @@ struct Tile {
                   unsigned char* smem, int tile, int rank_)
       : a(args) {
     d = a.d;
-    L = make_layout(d, a.W != nullptr ? a.H : 0, (int)sizeof(T), pl.cluster);
+    L = make_layout(d, a.W != nullptr ? a.H : 0, (int)sizeof(T), pl.cluster,
+                    pl.rows);
     RT = pl.rows;
     CS = pl.cluster;
     rank = rank_;
-    wpr = kWarps / RT;
-    tau = pl.tau;
+    wpr = NW / RT;
+    // the wide instances stage no head panels: every present cell is walked
+    tau = kWide ? 0x7fffffff : pl.tau;
     b0 = tile * RT;
     nvalid = min(RT, a.B - b0);
     warp = threadIdx.x >> 5;
@@ -294,16 +335,16 @@ struct Tile {
   // Zero the tile's vectors (padding rows and columns stay 0) and both Vh
   // buffers (the columns past d stay 0); x = x0; the rows' ridges.
   __device__ void init() {
-    const int n = 5 * kTile * L.sp;  // x, r, p, pb, ap are contiguous
-    for (int i = threadIdx.x; i < n; i += kThreads) x[i] = 0.f;
-    if (has_head()) {
+    const int n = 5 * L.vr * L.sp;  // x, r, p, pb, ap are contiguous
+    for (int i = threadIdx.x; i < n; i += NT) x[i] = 0.f;
+    if (!kWide && has_head()) {
       const int nv = 2 * kPanel * L.sv * (int)sizeof(T) / 4;
       float* v = reinterpret_cast<float*>(vh0);
-      for (int i = threadIdx.x; i < nv; i += kThreads) v[i] = 0.f;
+      for (int i = threadIdx.x; i < nv; i += NT) v[i] = 0.f;
     }
     __syncthreads();
     if (a.x0 != nullptr) {
-      for (int i = threadIdx.x; i < nvalid * d; i += kThreads) {
+      for (int i = threadIdx.x; i < nvalid * d; i += NT) {
         const int rr = i / d, t = i - rr * d;
         x[rr * L.sp + t] = a.x0[(size_t)(b0 + rr) * d + t];
       }
@@ -329,7 +370,7 @@ struct Tile {
   // Count the tile's present cells in this CTA's panels; list its dense
   // panels (>= tau cells) and sparse ones (1 to tau - 1), in order.
   __device__ void classify() {
-    for (int i = threadIdx.x; i < L.npan; i += kThreads) pcnt[i] = 0;
+    for (int i = threadIdx.x; i < L.npan; i += NT) pcnt[i] = 0;
     __syncthreads();
     if (wr < nvalid) {
       const rsp::RowEntries<T> R = rsp::row_entries<T>(a, b0 + wr);
@@ -466,7 +507,17 @@ struct Tile {
       }
       w = ok ? w : 0.f;
       // MODE 1 sums -coef x_e (negated once in the combine); the group's
-      // sum is added to acc once (shorter chains)
+      // sum is added to acc once (shorter chains), or, at the wide
+      // widths, each entry's term straight into acc (fewer registers)
+      if constexpr (kWide) {
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const float wu = __shfl_sync(RSP_FULL_MASK, w, 8 * u);
+#pragma unroll
+          for (int m = 0; m < PL; ++m) acc[m] += wu * rr[u][m];
+        }
+        continue;
+      }
       float grp[PL];
 #pragma unroll
       for (int m = 0; m < PL; ++m) grp[m] = 0.f;
@@ -624,7 +675,7 @@ struct Tile {
     const int rb = d * (int)sizeof(T);
     if ((rb & 15) == 0 && (reinterpret_cast<size_t>(V) & 15) == 0) {
       const int gpr = rb >> 4;
-      for (int e = threadIdx.x; e < kPanel * gpr; e += kThreads) {
+      for (int e = threadIdx.x; e < kPanel * gpr; e += NT) {
         const int i = e / gpr, q = e - i * gpr;
         const int h = h0 + i;
         const char* src = reinterpret_cast<const char*>(V) +
@@ -633,7 +684,7 @@ struct Tile {
                         h < a.H ? 16 : 0);
       }
     } else {
-      for (int e = threadIdx.x; e < kPanel * d; e += kThreads) {
+      for (int e = threadIdx.x; e < kPanel * d; e += NT) {
         const int i = e / d, kk = e - i * d;
         const int h = h0 + i;
         buf[i * L.sv + kk] = h < a.H ? V[(size_t)h * d + kk] : T(0.f);
@@ -687,13 +738,13 @@ struct Tile {
 
   // acc2 += T_w Vh over the panel in buf (each k-step into fresh
   // fragments, added in f32):
-  // this warp's output columns 8 nt + [0, 8), nt = warp + kWarps i.
-  __device__ void second_product(const T* buf, float (&acc2)[kNT][4],
+  // this warp's output columns 8 nt + [0, 8), nt = warp + NW i.
+  __device__ void second_product(const T* buf, float (&acc2)[KNT][4],
                                  bool tf32) const {
     const int nN = L.Dk / 8;
-    float c[kNT][4];
+    float c[KNT][4];
 #pragma unroll
-    for (int i = 0; i < kNT; ++i)
+    for (int i = 0; i < KNT; ++i)
 #pragma unroll
       for (int q = 0; q < 4; ++q) c[i][q] = 0.f;
     if constexpr (is_bf16<T>()) {
@@ -706,8 +757,8 @@ struct Tile {
           const unsigned af[4] = {pack2(A0[0], A0[1]), pack2(A8[0], A8[1]),
                                   pack2(A0[8], A0[9]), pack2(A8[8], A8[9])};
 #pragma unroll
-          for (int i = 0; i < kNT; ++i) {
-            const int nt = warp + kWarps * i;
+          for (int i = 0; i < KNT; ++i) {
+            const int nt = warp + NW * i;
             if (nt >= nN) continue;
             const unsigned short* col = vb + (k0 + 2 * tig) * L.sv + 8 * nt + g;
             const unsigned b0 = (unsigned)col[0] | ((unsigned)col[L.sv] << 16);
@@ -720,7 +771,7 @@ struct Tile {
           }
         }
 #pragma unroll
-        for (int i = 0; i < kNT; ++i)
+        for (int i = 0; i < KNT; ++i)
 #pragma unroll
           for (int q = 0; q < 4; ++q) acc2[i][q] += c[i][q];
         return;
@@ -736,8 +787,8 @@ struct Tile {
       split_tf32(A0[4], ah[2], al[2]);
       split_tf32(A8[4], ah[3], al[3]);
 #pragma unroll
-      for (int i = 0; i < kNT; ++i) {
-        const int nt = warp + kWarps * i;
+      for (int i = 0; i < KNT; ++i) {
+        const int nt = warp + NW * i;
         if (nt >= nN) continue;
         const T* col = buf + (k0 + tig) * L.sv + 8 * nt + g;
         unsigned bh0, bl0, bh1, bl1;
@@ -752,7 +803,7 @@ struct Tile {
       }
     }
 #pragma unroll
-    for (int i = 0; i < kNT; ++i)
+    for (int i = 0; i < KNT; ++i)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc2[i][q] += c[i][q];
   }
@@ -762,7 +813,7 @@ struct Tile {
   // loss terms (P = bf16(y) or
   // y) into lg (row g) and lg8 (row g + 8).
   template <int MODE>
-  __device__ void head_tiles(const float* P, float (&acc2)[kNT][4], float& lg,
+  __device__ void head_tiles(const float* P, float (&acc2)[KNT][4], float& lg,
                              float& lg8) const {
     const int nd = misc[0];
     if (nd == 0) return;
@@ -829,22 +880,25 @@ struct Tile {
   // as the B operand straight from global memory (L2), each k-step into
   // fresh fragments added in f32.
   __device__ void xtx_product(const float* vec,
-                              float (&dense)[kNT][4]) const {
+                              float (&dense)[KNT][4]) const {
     const int nN = L.Dk / 8;
 #pragma unroll
-    for (int i = 0; i < kNT; ++i) {
-      const int nt = warp + kWarps * i;
+    for (int i = 0; i < KNT; ++i) {
+      const int nt = warp + NW * i;
       if (nt >= nN || nt % CS != rank) continue;
       const int n = 8 * nt + g;
+      // rows g and g + 8 of the tile: past the vectors' rows (a wide
+      // instance's vectors hold the plan's rows) they are zeros
+      const bool r0 = !kWide || g < L.vr, r8 = !kWide || g + 8 < L.vr;
 #pragma unroll 4
       for (int k0 = 0; k0 < L.Dk; k0 += 8) {
-        const float* P0 = vec + g * L.sp + k0 + tig;
-        const float* P8 = P0 + 8 * L.sp;
+        const float* P0 = vec + (r0 ? g : 0) * L.sp + k0 + tig;
+        const float* P8 = vec + (r8 ? g + 8 : 0) * L.sp + k0 + tig;
         unsigned ah[4], al[4];
-        split_tf32(P0[0], ah[0], al[0]);
-        split_tf32(P8[0], ah[1], al[1]);
-        split_tf32(P0[4], ah[2], al[2]);
-        split_tf32(P8[4], ah[3], al[3]);
+        split_tf32(r0 ? P0[0] : 0.f, ah[0], al[0]);
+        split_tf32(r8 ? P8[0] : 0.f, ah[1], al[1]);
+        split_tf32(r0 ? P0[4] : 0.f, ah[2], al[2]);
+        split_tf32(r8 ? P8[4] : 0.f, ah[3], al[3]);
         const int k1 = k0 + tig, k2 = k1 + 4;
         const float x1 = (k1 < d && n < d) ? __ldg(a.XtX + (size_t)k1 * d + n) : 0.f;
         const float x2 = (k2 < d && n < d) ? __ldg(a.XtX + (size_t)k2 * d + n) : 0.f;
@@ -885,21 +939,23 @@ struct Tile {
       lacc = rsp::warp_sum(lacc);
       if (lane == 0) lossp[warp] = lacc;
     }
-    float acc2[kNT][4];
+    float acc2[KNT][4];
 #pragma unroll
-    for (int i = 0; i < kNT; ++i)
+    for (int i = 0; i < KNT; ++i)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc2[i][q] = 0.f;
     float lg = 0.f, lg8 = 0.f;
-    if (has_head()) head_tiles<MODE>(vdot, acc2, lg, lg8);
+    if constexpr (!kWide) {
+      if (has_head()) head_tiles<MODE>(vdot, acc2, lg, lg8);
+    }
     if (MODE == 2) {
       lg += __shfl_xor_sync(RSP_FULL_MASK, lg, 1);
       lg += __shfl_xor_sync(RSP_FULL_MASK, lg, 2);
       lg8 += __shfl_xor_sync(RSP_FULL_MASK, lg8, 1);
       lg8 += __shfl_xor_sync(RSP_FULL_MASK, lg8, 2);
       if (warp < 8 && tig == 0) {
-        lossp[kWarps + warp * kTile + g] = lg;
-        lossp[kWarps + warp * kTile + g + 8] = lg8;
+        lossp[NW + warp * kTile + g] = lg;
+        lossp[NW + warp * kTile + g + 8] = lg8;
       }
     }
     __syncthreads();
@@ -910,17 +966,17 @@ struct Tile {
 
     // the dense terms of this thread's cells, by the columns' owner
     const int nN = L.Dk / 8;
-    float dense[kNT][4];
+    float dense[KNT][4];
 #pragma unroll
-    for (int i = 0; i < kNT; ++i)
+    for (int i = 0; i < KNT; ++i)
 #pragma unroll
       for (int q = 0; q < 4; ++q) dense[i][q] = 0.f;
     if (MODE != 0 && !EXPLICIT && a.XtX != nullptr) xtx_product(vec, dense);
 
-    float val[kNT][4];
+    float val[KNT][4];
 #pragma unroll
-    for (int i = 0; i < kNT; ++i) {
-      const int nt = warp + kWarps * i;
+    for (int i = 0; i < KNT; ++i) {
+      const int nt = warp + NW * i;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int row = g + 8 * (q >> 1), t = 8 * nt + 2 * tig + (q & 1);
@@ -943,8 +999,8 @@ struct Tile {
     if (CS == 1) {
       __syncthreads();  // red is read above; out may alias nothing read later
 #pragma unroll
-      for (int i = 0; i < kNT; ++i) {
-        const int nt = warp + kWarps * i;
+      for (int i = 0; i < KNT; ++i) {
+        const int nt = warp + NW * i;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int row = g + 8 * (q >> 1), t = 8 * nt + 2 * tig + (q & 1);
@@ -954,8 +1010,8 @@ struct Tile {
     } else {
       float* mine = pbf(par);
 #pragma unroll
-      for (int i = 0; i < kNT; ++i) {
-        const int nt = warp + kWarps * i;
+      for (int i = 0; i < KNT; ++i) {
+        const int nt = warp + NW * i;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int row = g + 8 * (q >> 1), t = 8 * nt + 2 * tig + (q & 1);
@@ -965,8 +1021,8 @@ struct Tile {
       cgrp::cluster_group cl = cgrp::this_cluster();
       cl.sync();
 #pragma unroll
-      for (int i = 0; i < kNT; ++i) {
-        const int nt = warp + kWarps * i;
+      for (int i = 0; i < KNT; ++i) {
+        const int nt = warp + NW * i;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int row = g + 8 * (q >> 1), t = 8 * nt + 2 * tig + (q & 1);
@@ -992,7 +1048,7 @@ struct Tile {
       const int row = lane;
       if (row < nvalid) {
         for (int jj = 0; jj < wpr; ++jj) s += lossp[row * wpr + jj];
-        for (int w8 = 0; w8 < 8; ++w8) s += lossp[kWarps + w8 * kTile + row];
+        for (int w8 = 0; w8 < 8; ++w8) s += lossp[NW + w8 * kTile + row];
       }
       if (row < kTile) lbf(par)[row] = s;
     }
@@ -1038,7 +1094,7 @@ struct Tile {
   // bf16(v) into pb where the solve rounds, else v itself.
   __device__ const float* dot_operand(const float* v) {
     if (!rnd) return v;
-    for (int i = threadIdx.x; i < RT * d; i += kThreads) {
+    for (int i = threadIdx.x; i < RT * d; i += NT) {
       const int row = i / d, t = i - row * d;
       pb[row * L.sp + t] = rsp::rbf(v[row * L.sp + t]);
     }
@@ -1048,8 +1104,9 @@ struct Tile {
 };
 
 template <int KD, class T, bool EXPLICIT>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Shape<KD>::NT, 1)
 als_cg_kernel(rsp::BucketArgs a, Plan pl, int cg_steps, float tol) {
+  constexpr int NT = Shape<KD>::NT;
   extern __shared__ __align__(16) unsigned char smem[];
   Tile<KD, T, EXPLICIT> S(a, pl, smem, blockIdx.x / pl.cluster,
                               blockIdx.x % pl.cluster);
@@ -1061,7 +1118,7 @@ als_cg_kernel(rsp::BucketArgs a, Plan pl, int cg_steps, float tol) {
   // r = rhs - A x0 in one pass, p = r; then the freeze rule of batched_cg:
   // live = rsold >= tol, masked alpha/beta
   S.template pass<3>(S.x, S.dot_operand(S.x), S.r, wc, true);
-  for (int i = threadIdx.x; i < RT * d; i += kThreads) {
+  for (int i = threadIdx.x; i < RT * d; i += NT) {
     const int row = i / d, o = row * sp + (i - row * d);
     S.p[o] = S.r[o];
   }
@@ -1071,7 +1128,7 @@ als_cg_kernel(rsp::BucketArgs a, Plan pl, int cg_steps, float tol) {
   for (int step = 0; step < cg_steps; ++step) {
     S.template pass<1>(S.p, S.dot_operand(S.p), S.ap, wc, false);
     S.row_dots(S.p, S.ap, kDot);
-    for (int i = threadIdx.x; i < RT * d; i += kThreads) {
+    for (int i = threadIdx.x; i < RT * d; i += NT) {
       const int row = i / d, t = i - row * d, o = row * sp + t;
       const float rsold = scal[row * 8 + kRsold], pAp = scal[row * 8 + kDot];
       const float alpha = rsold >= tol ? rsold / (pAp == 0.f ? 1.f : pAp) : 0.f;
@@ -1080,7 +1137,7 @@ als_cg_kernel(rsp::BucketArgs a, Plan pl, int cg_steps, float tol) {
     }
     __syncthreads();
     S.row_dots(S.r, S.r, kDot);  // rsnew
-    for (int i = threadIdx.x; i < RT * d; i += kThreads) {
+    for (int i = threadIdx.x; i < RT * d; i += NT) {
       const int row = i / d, t = i - row * d, o = row * sp + t;
       const float rsold = scal[row * 8 + kRsold], rsnew = scal[row * 8 + kDot];
       const float beta = rsold >= tol ? rsnew / (rsold == 0.f ? 1.f : rsold) : 0.f;
@@ -1095,7 +1152,7 @@ als_cg_kernel(rsp::BucketArgs a, Plan pl, int cg_steps, float tol) {
   }
 
   if (S.rank == 0) {
-    for (int i = threadIdx.x; i < S.nvalid * d; i += kThreads) {
+    for (int i = threadIdx.x; i < S.nvalid * d; i += NT) {
       const int row = i / d, t = i - row * d;
       a.y[(size_t)(S.b0 + row) * d + t] = S.x[row * sp + t];
     }
@@ -1108,6 +1165,7 @@ als_cg_kernel(rsp::BucketArgs a, Plan pl, int cg_steps, float tol) {
 template <int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
 hot_chain_kernel(rsp::BucketArgs a, Plan pl) {
+  constexpr int NT = kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
   Tile<128, __nv_bfloat16, false> S(a, pl, smem, blockIdx.x, 0);
   S.init();  // x = x0 (p)
@@ -1115,7 +1173,7 @@ hot_chain_kernel(rsp::BucketArgs a, Plan pl) {
   WarpCache wc{0, false};
   S.template pass<MODE>(S.x, MODE == 1 ? S.dot_operand(S.x) : S.x, S.ap, wc,
                         true);
-  for (int i = threadIdx.x; i < S.nvalid * S.d; i += kThreads) {
+  for (int i = threadIdx.x; i < S.nvalid * S.d; i += NT) {
     const int row = i / S.d, t = i - row * S.d;
     a.y[(size_t)(S.b0 + row) * S.d + t] = S.ap[row * S.L.sp + t];
   }
@@ -1129,15 +1187,17 @@ inline bool plan_ok(const Plan& pl) {
   return rows && cl && pl.tau >= 1;
 }
 
-inline int smem_bytes(const rsp::BucketArgs& a, int cluster) {
+inline int smem_bytes(const rsp::BucketArgs& a, int cluster, int rows) {
   return make_layout(a.d, a.W != nullptr ? a.H : 0,
-                     a.table_bf16 ? 2 : 4, cluster).bytes;
+                     a.table_bf16 ? 2 : 4, cluster, rows).bytes;
 }
 
-// Launch kern over the tiles of `pl`, as clusters of pl.cluster CTAs.
+// Launch kern (nt threads a CTA) over the tiles of `pl`, as clusters of
+// pl.cluster CTAs.
 template <class K, class... Args>
-cudaError_t launch(K kern, const Plan& pl, int tiles, int smem,
+cudaError_t launch(K kern, const Plan& pl, int tiles, int smem, int nt,
                    cudaStream_t st, Args... args) {
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -1148,7 +1208,7 @@ cudaError_t launch(K kern, const Plan& pl, int tiles, int smem,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * pl.cluster);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(nt);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -1167,38 +1227,48 @@ template <int KD, class T>
 cudaError_t run(const rsp::BucketArgs& a, const Plan& pl, int cg_steps,
                 float tol, cudaStream_t st) {
   const int tiles = (a.B + pl.rows - 1) / pl.rows;
-  const int smem = smem_bytes(a, pl.cluster);
+  const int smem = smem_bytes(a, pl.cluster, pl.rows);
+  constexpr int nt = Shape<KD>::NT;
   return a.explicit_fb
-             ? launch(als_cg_kernel<KD, T, true>, pl, tiles, smem, st, a, pl,
-                      cg_steps, tol)
-             : launch(als_cg_kernel<KD, T, false>, pl, tiles, smem, st, a, pl,
-                      cg_steps, tol);
+             ? launch(als_cg_kernel<KD, T, true>, pl, tiles, smem, nt, st, a,
+                      pl, cg_steps, tol)
+             : launch(als_cg_kernel<KD, T, false>, pl, tiles, smem, nt, st, a,
+                      pl, cg_steps, tol);
 }
 
-// What the card offers K1's launch at a's width, table and head: info[0]
-// the shared bytes a CTA (no cluster), info[1] CTAs an SM, info[2 + k] the
-// clusters of 2^k CTAs that can run at once (k = 0..4; 0 where a cluster
-// of that size cannot run).
+// What the card offers K1's launch at a's width, table and head, at `rows`
+// target rows a CTA (read by the wide instances only): info[0] the shared
+// bytes a CTA (no cluster), info[1] CTAs an SM, info[2 + k] the clusters
+// of 2^k CTAs that can run at once (k = 0..4; 0 where a cluster of that
+// size cannot run, or its layout is over kSmemLimit).
 template <class K>
-cudaError_t occupancy(K kern, const rsp::BucketArgs& a, int* info) {
+cudaError_t occupancy(K kern, const rsp::BucketArgs& a, int rows, int nt,
+                      int* info) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   for (int k = 0; k < 5; ++k) {
     const int cs = 1 << k;
-    const int sm = smem_bytes(a, cs);
+    const int sm = smem_bytes(a, cs, rows);
+    if (k == 0) {
+      info[0] = sm;
+      info[1] = 0;
+    }
+    if (sm > kSmemLimit) {
+      info[2 + k] = 0;
+      continue;
+    }
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sm);
     if (err != cudaSuccess) return err;
     if (k == 0) {
-      info[0] = sm;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], kern,
-                                                          kThreads, sm);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], kern, nt,
+                                                          sm);
       if (err != cudaSuccess) return err;
     }
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(16 * cs);
-    cfg.blockDim = dim3(kThreads);
+    cfg.blockDim = dim3(nt);
     cfg.dynamicSmemBytes = sm;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1218,25 +1288,29 @@ cudaError_t occupancy(K kern, const rsp::BucketArgs& a, int* info) {
 }
 
 template <int KD, class T>
-cudaError_t info(const rsp::BucketArgs& a, int* out) {
-  return a.explicit_fb ? occupancy(als_cg_kernel<KD, T, true>, a, out)
-                       : occupancy(als_cg_kernel<KD, T, false>, a, out);
+cudaError_t info(const rsp::BucketArgs& a, int rows, int* out) {
+  constexpr int nt = Shape<KD>::NT;
+  return a.explicit_fb
+             ? occupancy(als_cg_kernel<KD, T, true>, a, rows, nt, out)
+             : occupancy(als_cg_kernel<KD, T, false>, a, rows, nt, out);
 }
 
-// One translation unit each (compiled in parallel): K1 at d <= 128 / d <=
-// 160 with float / bf16 tables, and the head term alone.
-cudaError_t run_128_f32(const rsp::BucketArgs&, const Plan&, int, float,
-                        cudaStream_t);
-cudaError_t run_128_bf16(const rsp::BucketArgs&, const Plan&, int, float,
-                         cudaStream_t);
-cudaError_t run_160_f32(const rsp::BucketArgs&, const Plan&, int, float,
-                        cudaStream_t);
-cudaError_t run_160_bf16(const rsp::BucketArgs&, const Plan&, int, float,
-                         cudaStream_t);
-cudaError_t info_128_f32(const rsp::BucketArgs&, int*);
-cudaError_t info_128_bf16(const rsp::BucketArgs&, int*);
-cudaError_t info_160_f32(const rsp::BucketArgs&, int*);
-cudaError_t info_160_bf16(const rsp::BucketArgs&, int*);
+// One translation unit each (compiled in parallel): K1 at d <= 128, 160,
+// 288 and 544 (the port takes d <= 514) with float / bf16 tables, and the
+// head term alone.
+#define RSP_CG_INSTANCE(W, S)                                              \
+  cudaError_t run_##W##_##S(const rsp::BucketArgs&, const Plan&, int,      \
+                            float, cudaStream_t);                          \
+  cudaError_t info_##W##_##S(const rsp::BucketArgs&, int, int*);
+RSP_CG_INSTANCE(128, f32)
+RSP_CG_INSTANCE(128, bf16)
+RSP_CG_INSTANCE(160, f32)
+RSP_CG_INSTANCE(160, bf16)
+RSP_CG_INSTANCE(288, f32)
+RSP_CG_INSTANCE(288, bf16)
+RSP_CG_INSTANCE(544, f32)
+RSP_CG_INSTANCE(544, bf16)
+#undef RSP_CG_INSTANCE
 cudaError_t hot_chain_run(const rsp::BucketArgs&, const Plan&, int mode,
                           cudaStream_t);
 

@@ -9,16 +9,18 @@ cudaError_t run_128_bf16(const rsp::BucketArgs& a, const Plan& pl,
   return run<128, __nv_bfloat16>(a, pl, cg_steps, tol, st);
 }
 
-cudaError_t info_128_bf16(const rsp::BucketArgs& a, int* out) {
-  return info<128, __nv_bfloat16>(a, out);
+cudaError_t info_128_bf16(const rsp::BucketArgs& a, int rows, int* out) {
+  return info<128, __nv_bfloat16>(a, rows, out);
 }
 
 cudaError_t hot_chain_run(const rsp::BucketArgs& a, const Plan& pl, int mode,
                           cudaStream_t st) {
   const int tiles = (a.B + pl.rows - 1) / pl.rows;
-  const int smem = smem_bytes(a, 1);
-  return mode != 0 ? launch(hot_chain_kernel<1>, pl, tiles, smem, st, a, pl)
-                   : launch(hot_chain_kernel<0>, pl, tiles, smem, st, a, pl);
+  const int smem = smem_bytes(a, 1, pl.rows);
+  return mode != 0
+             ? launch(hot_chain_kernel<1>, pl, tiles, smem, kThreads, st, a, pl)
+             : launch(hot_chain_kernel<0>, pl, tiles, smem, kThreads, st, a,
+                      pl);
 }
 
 }  // namespace rsp_cg

@@ -9,8 +9,8 @@ cudaError_t run_128_f32(const rsp::BucketArgs& a, const Plan& pl,
   return run<128, float>(a, pl, cg_steps, tol, st);
 }
 
-cudaError_t info_128_f32(const rsp::BucketArgs& a, int* out) {
-  return info<128, float>(a, out);
+cudaError_t info_128_f32(const rsp::BucketArgs& a, int rows, int* out) {
+  return info<128, float>(a, rows, out);
 }
 
 }  // namespace rsp_cg

@@ -9,8 +9,8 @@ cudaError_t run_160_bf16(const rsp::BucketArgs& a, const Plan& pl,
   return run<160, __nv_bfloat16>(a, pl, cg_steps, tol, st);
 }
 
-cudaError_t info_160_bf16(const rsp::BucketArgs& a, int* out) {
-  return info<160, __nv_bfloat16>(a, out);
+cudaError_t info_160_bf16(const rsp::BucketArgs& a, int rows, int* out) {
+  return info<160, __nv_bfloat16>(a, rows, out);
 }
 
 }  // namespace rsp_cg

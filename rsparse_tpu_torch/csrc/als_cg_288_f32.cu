@@ -1,0 +1,16 @@
+// K1 at d <= 288 on a float32 table (als_cg.cuh).
+
+#include "als_cg.cuh"
+
+namespace rsp_cg {
+
+cudaError_t run_288_f32(const rsp::BucketArgs& a, const Plan& pl,
+                        int cg_steps, float tol, cudaStream_t st) {
+  return run<288, float>(a, pl, cg_steps, tol, st);
+}
+
+cudaError_t info_288_f32(const rsp::BucketArgs& a, int rows, int* out) {
+  return info<288, float>(a, rows, out);
+}
+
+}  // namespace rsp_cg

@@ -50,14 +50,25 @@
 // (N, r) size is written; the snapshot is U_r (r + 1) floats, read from L2.
 // The walks' registers are capped for kMinBlocks CTAs an SM (128 a thread
 // at two), so that enough entries' rows are in flight.
+//
+// Two widths are built, chosen by r: the walks hold r / 32 components a
+// lane (4 at r <= 128, 10 at r <= 320), so the wide instance's kDepth rows
+// in flight, its sums and its open feature's rows take ~130 registers a
+// thread: it runs at one CTA an SM.  A row at r = 300 is 1,200 bytes, ten
+// coalesced loads a warp.  The order of every sum is the same as at
+// r <= 128: the wide route is as deterministic.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr float kClip = 100.f;
-constexpr int kMaxR = 128;          // widest embedding (models/glove.py MAX_RANK)
-constexpr int kRpl = kMaxR / 32;    // components a lane holds at most
+// the two widths built (models/glove.py GLOVE_WIDTHS): lanes hold kRpl =
+// width / 32 components each; the walks are templated on it, so the
+// r <= 128 route keeps its registers (kMinBlocks CTAs an SM) and r <= 320
+// (GloVe's published 300) runs at one CTA an SM with up to 255 registers
+constexpr int kMaxR = 128;
+constexpr int kMaxRWide = 320;      // widest embedding (models/glove.py MAX_RANK)
 constexpr int kWarps = 8;           // tiles (warps) a CTA
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 32;           // entries a tile of the walks
@@ -83,17 +94,20 @@ struct Side {
 
 // A feature's sums as a lane holds them: g and g^2 at components
 // lane + 32 t, cost and cost^2.
+template <int kRpl>
 struct Sums {
   float g[kRpl], g2[kRpl], c, c2;
 };
 
-__device__ __forceinline__ void zero(Sums& a) {
+template <int kRpl>
+__device__ __forceinline__ void zero(Sums<kRpl>& a) {
 #pragma unroll
   for (int t = 0; t < kRpl; ++t) a.g[t] = a.g2[t] = 0.f;
   a.c = a.c2 = 0.f;
 }
 
-__device__ __forceinline__ void add(Sums& a, const Sums& b) {
+template <int kRpl>
+__device__ __forceinline__ void add(Sums<kRpl>& a, const Sums<kRpl>& b) {
 #pragma unroll
   for (int t = 0; t < kRpl; ++t) {
     a.g[t] += b.g[t];
@@ -113,7 +127,8 @@ __device__ __forceinline__ float* span_slot(float* span, int tile, int which,
   return span + ((size_t)tile * 2 + which) * (2 * r + 2);
 }
 
-__device__ __forceinline__ void store_sums(const Sums& a, float* dst,
+template <int kRpl>
+__device__ __forceinline__ void store_sums(const Sums<kRpl>& a, float* dst,
                                            int lane, int r) {
 #pragma unroll
   for (int t = 0; t < kRpl; ++t) {
@@ -129,7 +144,8 @@ __device__ __forceinline__ void store_sums(const Sums& a, float* dst,
   }
 }
 
-__device__ __forceinline__ void add_sums(Sums& a, const float* src, int lane,
+template <int kRpl>
+__device__ __forceinline__ void add_sums(Sums<kRpl>& a, const float* src, int lane,
                                          int r) {
 #pragma unroll
   for (int t = 0; t < kRpl; ++t) {
@@ -145,12 +161,14 @@ __device__ __forceinline__ void add_sums(Sums& a, const float* src, int lane,
 
 // A feature's shard-start rows as a lane holds them: w and acc_w at
 // components lane + 32 t, b and acc_b.
+template <int kRpl>
 struct Row {
   float w[kRpl], aw[kRpl], b, ab;
 };
 
+template <int kRpl>
 __device__ __forceinline__ void read_row(const Side& sd, int f, int lane,
-                                         int r, Row& e) {
+                                         int r, Row<kRpl>& e) {
 #pragma unroll
   for (int t = 0; t < kRpl; ++t) {
     const int k = lane + 32 * t;
@@ -163,8 +181,9 @@ __device__ __forceinline__ void read_row(const Side& sd, int f, int lane,
 }
 
 // accumulator-first AdaGrad of feature f from its sums and shard-start rows
-__device__ __forceinline__ void adagrad(const Sums& a, const Side& sd, int f,
-                                        const Row& e, int lane, int r,
+template <int kRpl>
+__device__ __forceinline__ void adagrad(const Sums<kRpl>& a, const Side& sd, int f,
+                                        const Row<kRpl>& e, int lane, int r,
                                         float lr) {
 #pragma unroll
   for (int t = 0; t < kRpl; ++t) {
@@ -184,6 +203,7 @@ __device__ __forceinline__ void adagrad(const Sums& a, const Side& sd, int f,
 }
 
 // A feature's shard-start row and bias, as a lane holds them
+template <int kRpl>
 struct Own {
   float w[kRpl], b;
 };
@@ -197,8 +217,8 @@ struct Own {
 // begins there), then the entries in order, so that a warp keeps kDepth
 // entries' rows in flight instead of waiting on each.  A feature's
 // accumulators are read when it begins, for its step.
-template <bool kRow>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <bool kRow, int kRpl>
+__global__ void __launch_bounds__(kThreads, kRpl <= kMaxR / 32 ? kMinBlocks : 1)
 glove_walk(Side sd, const int* __restrict__ other,
            const float* __restrict__ vals, const float* __restrict__ w_o,
            const float* __restrict__ b_o, float* snap, int r, int n_tiles,
@@ -215,10 +235,10 @@ glove_walk(Side sd, const int* __restrict__ other,
   int u_first = -1, u_last = -1;
   bool cross_in = false, own_tail = false;
   float lpart = 0.f;
-  Sums a;
+  Sums<kRpl> a;
   zero(a);
   int cu = -1, cf = 0;  // the open segment's slot and feature
-  Row ce;               // and its shard-start rows
+  Row<kRpl> ce;               // and its shard-start rows
 #pragma unroll
   for (int t = 0; t < kRpl; ++t) ce.w[t] = ce.aw[t] = 0.f;
   ce.b = ce.ab = 0.f;
@@ -261,7 +281,7 @@ glove_walk(Side sd, const int* __restrict__ other,
       // the group's loads
       int gu[kDepth], gf[kDepth];
       float fr[kDepth][kRpl], fb[kDepth];
-      Own own[kDepth];
+      Own<kRpl> own[kDepth];
 #pragma unroll
       for (int d = 0; d < kDepth; ++d) {
         const int s = min(s0 + d, n_sub - 1);
@@ -346,6 +366,7 @@ glove_walk(Side sd, const int* __restrict__ other,
 
 // Launch F: CTAs [0, n_blk) the row side's tiles, [n_blk, 2 n_blk) the
 // column side's, one warp a tile; the last CTA the loss.
+template <int kRpl>
 __global__ void __launch_bounds__(kThreads)
 glove_final(Side rs, Side cs, int r, int n_tiles, float lr,
             const float* __restrict__ loss_part, int n_part,
@@ -381,7 +402,7 @@ glove_final(Side rs, Side cs, int r, int n_tiles, float lr,
   // kSpanWays running sums, sum j over the slots tile + j, tile + j +
   // kSpanWays, ..., so that their loads are in flight together; then
   // ((0 + 1) + (2 + 3))
-  Sums p[kSpanWays];
+  Sums<kRpl> p[kSpanWays];
 #pragma unroll
   for (int j = 0; j < kSpanWays; ++j) zero(p[j]);
   for (int q0 = tile; q0 <= t1; q0 += kSpanWays) {
@@ -392,14 +413,36 @@ glove_final(Side rs, Side cs, int r, int n_tiles, float lr,
         add_sums(p[j], span_slot(sd.span, q, q == tile, r), lane, r);
     }
   }
-  Sums a = p[0];
+  Sums<kRpl> a = p[0];
   add(a, p[1]);
   add(p[2], p[3]);
   add(a, p[2]);
   const int f = sd.feats[u];
-  Row e;
+  Row<kRpl> e;
   read_row(sd, f, lane, r, e);
   adagrad(a, sd, f, e, lane, r, lr);
+}
+
+// The three launches of a shard at one instance width.
+template <int kRpl>
+int launch_shard(const Side& rs, const Side& cs, const int* cols,
+                 const int* slot_r, const float* vals, const float* w_j,
+                 const float* b_j, float* snap, int r, int n_tiles,
+                 float x_max, float alpha, float lr, float* loss_part,
+                 float* loss, cudaStream_t st) {
+  const unsigned grid = (unsigned)((n_tiles + kWarps - 1) / kWarps);
+  glove_walk<true, kRpl><<<grid, kThreads, 0, st>>>(
+      rs, cols, vals, w_j, b_j, snap, r, n_tiles, x_max, alpha, lr, loss_part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  glove_walk<false, kRpl><<<grid, kThreads, 0, st>>>(
+      cs, slot_r, vals, nullptr, nullptr, snap, r, n_tiles, x_max, alpha, lr,
+      nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  glove_final<kRpl><<<2 * grid + 1, kThreads, 0, st>>>(
+      rs, cs, r, n_tiles, lr, loss_part, n_tiles, loss);
+  return (int)cudaGetLastError();
 }
 
 // Floats of scratch a shard of N entries with U_r distinct row ids at rank
@@ -434,7 +477,7 @@ extern "C" int rsp_glove_shard(
     float* acc_b_i, float* acc_b_j, float x_max, float alpha, float lr,
     float* scratch, float* loss, void* stream) {
   if (N <= 0) return 0;
-  if (U_r < 0 || U_c < 0 || r < 1 || r > kMaxR || !scratch || !loss)
+  if (U_r < 0 || U_c < 0 || r < 1 || r > kMaxRWide || !scratch || !loss)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int n_tiles = (N + kTile - 1) / kTile;
@@ -449,17 +492,16 @@ extern "C" int rsp_glove_shard(
                 acc_w_i, acc_b_i, span_r, tail_r, U_r};
   const Side cs{cols, slot_c, order_c, bounds_c, feats_c, w_j, b_j,
                 acc_w_j, acc_b_j, span_c, tail_c, U_c};
-  const unsigned grid = (unsigned)((n_tiles + kWarps - 1) / kWarps);
-  glove_walk<true><<<grid, kThreads, 0, st>>>(
-      rs, cols, vals, w_j, b_j, snap, r, n_tiles, x_max, alpha, lr, loss_part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  glove_walk<false><<<grid, kThreads, 0, st>>>(
-      cs, slot_r, vals, nullptr, nullptr, snap, r, n_tiles, x_max, alpha, lr,
-      nullptr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  glove_final<<<2 * grid + 1, kThreads, 0, st>>>(rs, cs, r, n_tiles, lr,
-                                                 loss_part, n_tiles, loss);
-  return (int)cudaGetLastError();
+  return r <= kMaxR
+             ? launch_shard<kMaxR / 32>(rs, cs, cols, slot_r, vals, w_j, b_j,
+                                        snap, r, n_tiles, x_max, alpha, lr,
+                                        loss_part, loss, st)
+             : launch_shard<kMaxRWide / 32>(rs, cs, cols, slot_r, vals, w_j,
+                                            b_j, snap, r, n_tiles, x_max,
+                                            alpha, lr, loss_part, loss, st);
+}
+
+// The instance width that takes rank r (128 or 320), 0 above the widest.
+extern "C" int rsp_glove_shard_width(int r) {
+  return r < 1 ? 0 : r <= kMaxR ? kMaxR : r <= kMaxRWide ? kMaxRWide : 0;
 }

@@ -67,6 +67,19 @@
 // staging and latency (two warps a scheduler at ~250 registers a thread)
 // and the exact re-sums of the densest rows hold it well below the bf16
 // peak.
+//
+// Two widths are built and chosen by r: 128 and 320 (GloVe's published
+// 300 dimensions pad to 320 with zero columns, which add nothing to S, the
+// products, the rows' norms or the exact re-sums).  At 320 the f32 path
+// holds 32 + 64 staged rows of 321 floats (140 KB, one CTA an SM) and 40
+// components a thread; the bf16 path stages rows of 328 bf16 (230 KB with
+// both buffers, one CTA an SM) and splits the components over two groups
+// of four warps that share the staged rows: each group forms the same S
+// and costs (the same instructions on the same operands) and sums 160
+// components, 160 floats of G and A2 a thread.  The midpoint test's bound
+// grows with S's ceil(r / 16) k16 slices (19 at r = 300), and with it the
+// cells it flags: the wide instance takes the test a fragment (4 cells a
+// thread) at a time, so its queue of four exact sums never overflows.
 
 #include <cuda_bf16.h>
 
@@ -75,14 +88,18 @@
 namespace {
 
 constexpr float kClip = 100.f;
-constexpr int kMaxR = 128;          // widest embedding (models/glove.py MAX_RANK)
+// the two widths built (models/glove.py GLOVE_WIDTHS), chosen by r: each
+// path is templated on it (MR below), so the r <= 128 route is as it was
+constexpr int kMaxR = 128;
+constexpr int kMaxRWide = 320;      // widest embedding (models/glove.py MAX_RANK)
 constexpr int kO = 32;              // own positions per CTA
 constexpr int kN = 64;              // other positions per step
 constexpr int kThreads = 256;
-constexpr int kLd = kMaxR + 1;      // shared stride of a factor row (odd)
 constexpr int kLdc = kN + 1;        // shared stride of a cost row
 
+template <int MR>
 struct Smem {
+  static constexpr int kLd = MR + 1;  // shared stride of a factor row (odd)
   float own[kO * kLd];
   float oth[kN * kLd];
   float cost[kO * kLdc];            // counts, then bf16-rounded cost
@@ -109,8 +126,10 @@ int plan_chunks(int n_r, int n_c) {
 
 // part: side 0's (chunks, n_r, 2r + 2) then side 1's (chunks, n_c, 2r + 2)
 // sums [cost w | cost^2 w^2 | cost | cost^2]; lpart: (ceil(n_r / kO),
-// chunks) loss partials.
-__global__ void __launch_bounds__(kThreads, 2)
+// chunks) loss partials.  MR: the instance width (r <= MR); a thread's
+// products cover components px + 32 j, j < MR / 32.
+template <int MR>
+__global__ void __launch_bounds__(kThreads, MR <= kMaxR ? 2 : 1)
     glove_tile_sums(const int* __restrict__ rows, const int* __restrict__ cols,
                     int n_r, int n_c, const float* __restrict__ X,
                     long long sr, long long sc,
@@ -121,7 +140,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                     float alpha, int chunks, float* __restrict__ part,
                     float* __restrict__ lpart) {
   extern __shared__ float smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<MR>& sm = *reinterpret_cast<Smem<MR>*>(smem_raw);
+  constexpr int kLd = Smem<MR>::kLd, kJ = MR / 32;
   const int side = blockIdx.z;
   const int n_own = side ? n_c : n_r, n_oth = side ? n_r : n_c;
   const int own0 = blockIdx.x * kO;
@@ -151,11 +171,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int ty = tid >> 4, tx = tid & 15;
   // products: own py + 8 i (i < 4), component px + 32 j (j < 4)
   const int py = tid >> 5, px = tid & 31;
-  float g[4][4], a[4][4];
+  float g[4][kJ], a[4][kJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) g[i][j] = a[i][j] = 0.f;
+    for (int j = 0; j < kJ; ++j) g[i][j] = a[i][j] = 0.f;
   float rc[2] = {0.f, 0.f}, rc2[2] = {0.f, 0.f}, lsum = 0.f;
   // the count block of a step spans rows [a0, a0 + A) x cols [b0, b0 + Bn)
   const int A = side ? kN : kO, Bn = side ? kO : kN;
@@ -227,9 +247,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 #pragma unroll 2
     for (int n = 0; n < kN; ++n) {
-      float o[4], o2[4];
+      float o[kJ], o2[kJ];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         const int k = px + 32 * j;
         o[j] = k < r ? sm.oth[n * kLd + k] : 0.f;
         o2[j] = o[j] * o[j];
@@ -239,7 +259,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const float cv = sm.cost[(py + 8 * i) * kLdc + n];
         const float c2v = sm.c2[(py + 8 * i) * kLdc + n];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kJ; ++j) {
           g[i][j] = fmaf(cv, o[j], g[i][j]);
           a[i][j] = fmaf(c2v, o2[j], a[i][j]);
         }
@@ -255,7 +275,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int p = own0 + py + 8 * i;
     if (p < n_own) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         const int k = px + 32 * j;
         if (k < r) {
           P[(size_t)p * width + k] = g[i][j];
@@ -287,12 +307,29 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 constexpr int kMO = 64;             // own positions per CTA (16 a warp)
 constexpr int kMN = 64;             // other positions per step
-constexpr int kMThreads = 128;
-constexpr int kWRow = kMaxR + 8;    // bf16 a staged factor row: 272 bytes,
-                                    // so ldmatrix's 8 rows hit 8 bank groups
 constexpr int kCntLine = 144;       // bytes a staged count line: 9 granules
 
+// The tensor-core path at width MR.  A warp holds its 16 own rows' sums
+// of MR / kGroups components (G and A2: MR / kGroups floats a thread
+// each): at MR = 128 one group of four warps (as before); at MR = 320 two
+// groups, eight warps, that share the staged rows and each form the same S
+// (the same instructions on the same operands: the same costs) and sum
+// half of the components.
+template <int MR>
+struct MmaShape {
+  static constexpr int kGroups = MR <= kMaxR ? 1 : 2;
+  static constexpr int kThreads = 128 * kGroups;
+  static constexpr int kWRow = MR + 8;  // bf16 a staged factor row: 16 bytes
+                                        // past a multiple of 128 (272 bytes
+                                        // at 128), so ldmatrix's 8 rows hit
+                                        // 8 bank groups
+  static constexpr int kGran = MR / 8;  // 16-byte granules a row
+  static constexpr int kNT = MR / 8 / kGroups;  // n8 tiles a group sums
+};
+
+template <int MR>
 struct MmaSmem {
+  static constexpr int kWRow = MmaShape<MR>::kWRow;
   __nv_bfloat16 own[kMO * kWRow];
   __nv_bfloat16 oth[2][kMN * kWRow];
   __nv_bfloat16 oth2[2][kMN * kWRow];  // bf16(w^2)
@@ -304,18 +341,21 @@ struct MmaSmem {
   float n_oth[2][kMN];
   float red[32];
 };
+static_assert(sizeof(MmaSmem<kMaxRWide>) <= 232448, "one CTA's shared memory");
+static_assert(sizeof(Smem<kMaxRWide>) <= 232448, "one CTA's shared memory");
 
 // bf16 counts: 2^15 bit patterns of positive (or zero) values
 constexpr int kLut = 1 << 15;
 
 // The tile's factor rows at bf16 for the tensor cores, both sides: rows
-// side then columns side, kMaxR columns each (0 past r), w and bf16(w^2),
+// side then columns side, MR columns each (0 past r), w and bf16(w^2),
 // one warp a position; the biases and the rows' norms |bf16(w)|_2 f32, the
 // columns side's from offset round4(n_r).  Threads below kLut also fill
 // the weight table of the bf16 counts: for the count with bits b << 16,
 // (bf16(weight), log x) as the plain version computes them (logf, powf),
 // so that the sums kernel reads them instead of evaluating both in every
 // cell.
+template <int MR>
 __global__ void glove_tile_gather(const int* __restrict__ rows,
                                   const int* __restrict__ cols, int n_r,
                                   int n_c, const float* __restrict__ w_i,
@@ -341,11 +381,11 @@ __global__ void glove_tile_gather(const int* __restrict__ rows,
   const float* W = (col ? w_j : w_i) + (size_t)id * r;
   float ss = 0.f;
 #pragma unroll
-  for (int m = 0; m < kMaxR / 32; ++m) {
+  for (int m = 0; m < MR / 32; ++m) {
     const int k = lane + 32 * m;
     const float v = k < r ? rsp::rbf(W[k]) : 0.f;
-    gw[(size_t)p * kMaxR + k] = __float2bfloat16_rn(v);
-    gw2[(size_t)p * kMaxR + k] = __float2bfloat16_rn(v * v);
+    gw[(size_t)p * MR + k] = __float2bfloat16_rn(v);
+    gw2[(size_t)p * MR + k] = __float2bfloat16_rn(v * v);
     ss += v * v;
   }
   ss = rsp::warp_sum(ss);
@@ -359,16 +399,18 @@ __global__ void glove_tile_gather(const int* __restrict__ rows,
 // Whether clip(S + b_row + b_col - log x) computed in float32 from K11's
 // tensor-core S (s) may sit on the other side of a bf16 rounding midpoint
 // than the exact value: its distance from the nearest midpoint is within
-// the error bound of the sum.  S is 8 k16 slices, each summed by the
-// tensor core (at most ~2 ulp of its partial sums) and added in float32;
-// every partial is bounded by sum |a_k b_k| <= |a|_2 |b|_2 (Cauchy-
-// Schwarz), so the bound is 2^-18 |a| |b| plus the three float32 roundings
-// of the biases and the log, and the error of the __logf the test is made
-// with.
+// the error bound of the sum.  S is `slices` k16 slices (8 at r <= 128,
+// taken whatever r is; ceil(r / 16) in the wide instance), each summed by
+// the tensor core (at most ~2 ulp of its partial sums) and added in
+// float32; every partial is bounded by sum |a_k b_k| <= |a|_2 |b|_2
+// (Cauchy-Schwarz), so the bound is 2^-21 slices |a| |b| (2^-18 at 8)
+// plus the three float32 roundings of the biases and the log, and the
+// error of the __logf the test is made with.
 __device__ __forceinline__ bool near_midpoint(float sv, float s, float b_row,
                                               float b_col, float lx,
-                                              float na, float nb) {
-  const float bound = 0x1p-18f * na * nb +
+                                              float na, float nb,
+                                              float slices) {
+  const float bound = 0x1p-21f * slices * na * nb +
                       0x1p-22f * (fabsf(s) + fabsf(b_row) + fabsf(b_col) +
                                   fabsf(lx)) +
                       0x1p-21f * (1.f + fabsf(lx));
@@ -395,7 +437,9 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // cp.async into two buffers; counts are staged as lines along whichever
 // side is contiguous in X (the row side's lines are X's rows; the column
 // side reads the same rows and indexes them transposed).
-__global__ void __launch_bounds__(kMThreads, 2)
+template <int MR>
+__global__ void __launch_bounds__(MmaShape<MR>::kThreads,
+                                  MR <= kMaxR ? 2 : 1)
     glove_tile_sums_mma(int n_r, int n_c, const void* __restrict__ X,
                         long long sr, long long sc,
                         const __nv_bfloat16* __restrict__ gw,
@@ -407,7 +451,10 @@ __global__ void __launch_bounds__(kMThreads, 2)
                         float* __restrict__ part, float* __restrict__ lpart,
                         float* s_dump) {
   extern __shared__ __align__(16) unsigned char smem_mma[];
-  MmaSmem& sm = *reinterpret_cast<MmaSmem*>(smem_mma);
+  MmaSmem<MR>& sm = *reinterpret_cast<MmaSmem<MR>*>(smem_mma);
+  using Sh = MmaShape<MR>;
+  constexpr int kMThreads = Sh::kThreads, kWRow = Sh::kWRow,
+                kGran = Sh::kGran, kNT = Sh::kNT;
   const int side = blockIdx.z;
   const int n_own = side ? n_c : n_r, n_oth = side ? n_r : n_c;
   const int own0 = blockIdx.x * kMO;
@@ -416,12 +463,16 @@ __global__ void __launch_bounds__(kMThreads, 2)
   const int steps = (n_oth + kMN - 1) / kMN;
   const int s0 = (int)((long long)chunk * steps / chunks);
   const int s1 = (int)((long long)(chunk + 1) * steps / chunks);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warp's 16 own rows (warp) and its group of components (cgroup;
+  // 0 at compile time in the one-group instance, which stays as it was)
+  const int warp = Sh::kGroups > 1 ? (tid >> 5) & 3 : tid >> 5;
+  const int cgroup = Sh::kGroups > 1 ? tid >> 7 : 0;
   const int g = lane >> 2, tig = lane & 3;
   const int rb = (n_r + 3) & ~3;
-  const __nv_bfloat16* W_own = gw + (size_t)(side ? n_r : 0) * kMaxR;
-  const __nv_bfloat16* W_oth = gw + (size_t)(side ? 0 : n_r) * kMaxR;
-  const __nv_bfloat16* W2_oth = gw2 + (size_t)(side ? 0 : n_r) * kMaxR;
+  const __nv_bfloat16* W_own = gw + (size_t)(side ? n_r : 0) * MR;
+  const __nv_bfloat16* W_oth = gw + (size_t)(side ? 0 : n_r) * MR;
+  const __nv_bfloat16* W2_oth = gw2 + (size_t)(side ? 0 : n_r) * MR;
   const float* B_own = gb + (side ? rb : 0);
   const float* B_oth = gb + (side ? 0 : rb);
   const float* N_own = gn + (side ? rb : 0);
@@ -430,11 +481,15 @@ __global__ void __launch_bounds__(kMThreads, 2)
   const bool lines_own = s_oth == 1;  // count lines run along the other side
   const long long s_line = lines_own ? s_own : s_oth;
   const int kr = (r + 15) / 16;       // k16 slices of the factor rows
+  // the midpoint test's slices (near_midpoint) and the S fragments a pass
+  // of the test takes (a queue of four exact sums a thread a pass)
+  const float slices = MR <= kMaxR ? 8.f : (float)kr;
+  constexpr int kQN = MR <= kMaxR ? 2 : 1;
 
-  for (int e = tid; e < kMO * 16; e += kMThreads) {
-    const int m = e >> 4, q = e & 15, p = own0 + m;
+  for (int e = tid; e < kMO * kGran; e += kMThreads) {
+    const int m = e / kGran, q = e % kGran, p = own0 + m;
     rsp::cp_async16(&sm.own[m * kWRow + 8 * q],
-                    W_own + (size_t)(p < n_own ? p : 0) * kMaxR + 8 * q,
+                    W_own + (size_t)(p < n_own ? p : 0) * MR + 8 * q,
                     p < n_own ? 16 : 0);
   }
   if (tid < kMO / 4) {
@@ -446,9 +501,9 @@ __global__ void __launch_bounds__(kMThreads, 2)
   }
   auto issue = [&](int step) {
     const int buf = step & 1, q0 = step * kMN;
-    for (int e = tid; e < kMN * 16; e += kMThreads) {
-      const int m = e >> 4, q = e & 15, p = q0 + m;
-      const size_t o = (size_t)(p < n_oth ? p : 0) * kMaxR + 8 * q;
+    for (int e = tid; e < kMN * kGran; e += kMThreads) {
+      const int m = e / kGran, q = e % kGran, p = q0 + m;
+      const size_t o = (size_t)(p < n_oth ? p : 0) * MR + 8 * q;
       rsp::cp_async16(&sm.oth[buf][m * kWRow + 8 * q], W_oth + o,
                       p < n_oth ? 16 : 0);
       rsp::cp_async16(&sm.oth2[buf][m * kWRow + 8 * q], W2_oth + o,
@@ -483,9 +538,9 @@ __global__ void __launch_bounds__(kMThreads, 2)
     }
   };
 
-  float G[16][4], A2[16][4];
+  float G[kNT][4], A2[kNT][4];
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int n = 0; n < kNT; ++n)
 #pragma unroll
     for (int q = 0; q < 4; ++q) G[n][q] = A2[n][q] = 0.f;
   float rc[2] = {0.f, 0.f}, rc2[2] = {0.f, 0.f}, lsum = 0.f;
@@ -515,7 +570,7 @@ __global__ void __launch_bounds__(kMThreads, 2)
 #pragma unroll
       for (int q = 0; q < 4; ++q) s[2 * np][q] = s[2 * np + 1][q] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < kMaxR / 16; ++ks) {
+      for (int ks = 0; ks < MR / 16; ++ks) {
         if (ks < kr) {
           unsigned a[4], bq[4];
           rsp::ldsm_x4(a, &sm.own[(prow + (lane & 15)) * kWRow + 16 * ks +
@@ -568,12 +623,14 @@ __global__ void __launch_bounds__(kMThreads, 2)
     // sit further from the exact sum than the plain version's)
     float sc[2] = {0.f, 0.f}, sc2[2] = {0.f, 0.f}, sl = 0.f;
     // by quarters of the step's cells (two S fragments, 8 cells a thread),
-    // so that the queue of four rarely overflows
+    // so that the queue of four rarely overflows; the wide instance (whose
+    // wider bound flags more cells) by eighths (4 cells a thread), so that
+    // it never does
 #pragma unroll
-    for (int qt = 0; qt < 4; ++qt) {
+    for (int qt = 0; qt < 8 / kQN; ++qt) {
       unsigned near_mask = 0;
 #pragma unroll
-      for (int n = 2 * qt; n < 2 * qt + 2; ++n) {
+      for (int n = kQN * qt; n < kQN * qt + kQN; ++n) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int pr = prow + g + 8 * (q >> 1);
@@ -595,7 +652,7 @@ __global__ void __launch_bounds__(kMThreads, 2)
             const float sv =
                 fminf(fmaxf(s[n][q] + b_row + b_col - lx, -kClip), kClip);
             if (near_midpoint(sv, s[n][q], b_row, b_col, lx, sm.n_own[pr],
-                              sm.n_oth[buf][qr]))
+                              sm.n_oth[buf][qr], slices))
               near_mask |= 1u << (4 * n + q);
           }
         }
@@ -626,8 +683,8 @@ __global__ void __launch_bounds__(kMThreads, 2)
           const int pr = prow + (L >> 2) + 8 * (q >> 1);
           const int qr = 8 * n + 2 * (L & 3) + (q & 1);
 #pragma unroll
-          for (int e = 0; e < 16; e += 2) {
-            const int k = 16 * gl + e;
+          for (int e = 0; e < MR / 8; e += 2) {
+            const int k = (MR / 8) * gl + e;
             const __nv_bfloat162 x =
                 *reinterpret_cast<const __nv_bfloat162*>(&sm.own[pr * kWRow + k]);
             const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(
@@ -653,7 +710,7 @@ __global__ void __launch_bounds__(kMThreads, 2)
         }
       }
 #pragma unroll
-      for (int n = 2 * qt; n < 2 * qt + 2; ++n) {
+      for (int n = kQN * qt; n < kQN * qt + kQN; ++n) {
         int pr[4], qr[4];
         unsigned xb[4];
         float b_row[4], b_col[4];
@@ -690,7 +747,7 @@ __global__ void __launch_bounds__(kMThreads, 2)
           const float cost = present ? rsp::rbf(wl[q].x * svb) : 0.f;
           const float c2 = rsp::rbf(cost * cost);
           sl += cost * sv;
-          if (s_dump != nullptr && present) {
+          if (s_dump != nullptr && present && cgroup == 0) {
             const int i = side ? q0 + qr[q] : own0 + pr[q];
             const int j = side ? own0 + pr[q] : q0 + qr[q];
             s_dump[((size_t)side * n_r + i) * n_c + j] = svb;
@@ -714,9 +771,12 @@ __global__ void __launch_bounds__(kMThreads, 2)
     lsum += sl;
 
     // cost @ w_oth and cost^2 @ w_oth^2: each step's four k16 slices into
-    // fresh fragments, added to the warp's 16 x 128 sums in float32
+    // fresh fragments, added to the warp's 16 x (MR / kGroups) sums in
+    // float32; the group's components are [16 cp0, 16 cp0 + MR / kGroups)
+    const int cp0 = cgroup * (kNT / 2);
 #pragma unroll
-    for (int cp = 0; cp < kMaxR / 16; ++cp) {
+    for (int cl = 0; cl < kNT / 2; ++cl) {
+      const int cp = cp0 + cl;
       if (cp < kr) {
         float tg[2][4] = {}, ta[2][4] = {};
 #pragma unroll
@@ -733,10 +793,10 @@ __global__ void __launch_bounds__(kMThreads, 2)
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          G[2 * cp][q] += tg[0][q];
-          G[2 * cp + 1][q] += tg[1][q];
-          A2[2 * cp][q] += ta[0][q];
-          A2[2 * cp + 1][q] += ta[1][q];
+          G[2 * cl][q] += tg[0][q];
+          G[2 * cl + 1][q] += tg[1][q];
+          A2[2 * cl][q] += ta[0][q];
+          A2[2 * cl + 1][q] += ta[1][q];
         }
       }
     }
@@ -751,10 +811,10 @@ __global__ void __launch_bounds__(kMThreads, 2)
   for (int h = 0; h < 2; ++h) {
     const int p = own0 + prow + g + 8 * h;
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
+    for (int n = 0; n < kNT; ++n) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int k = 8 * n + 2 * tig + e;
+        const int k = 8 * (n + cgroup * kNT) + 2 * tig + e;
         if (p < n_own && k < r) {
           P[(size_t)p * width + k] = G[n][2 * h + e];
           P[(size_t)p * width + r + k] = A2[n][2 * h + e];
@@ -767,13 +827,14 @@ __global__ void __launch_bounds__(kMThreads, 2)
       a1 += __shfl_xor_sync(RSP_FULL_MASK, a1, o);
       a2 += __shfl_xor_sync(RSP_FULL_MASK, a2, o);
     }
-    if (tig == 0 && p < n_own) {
+    if (tig == 0 && p < n_own && cgroup == 0) {
       P[(size_t)p * width + 2 * r] = a1;
       P[(size_t)p * width + 2 * r + 1] = a2;
     }
   }
   if (side == 0) {
-    const float l = rsp::block_sum(lsum, sm.red);
+    // every group formed the same costs: the first one's loss
+    const float l = rsp::block_sum(cgroup == 0 ? lsum : 0.f, sm.red);
     if (tid == 0) lpart[blockIdx.x * chunks + chunk] = l;
   }
 }
@@ -868,14 +929,20 @@ int plan_chunks_mma(int n_r, int n_c) {
 struct MmaScratch {
   long long part, lpart, gw, gw2, gb, gn, lut, lut64, total;
 };
+// The instance width that takes rank r (128 or 320), 0 above the widest.
+int width_of(int r) {
+  return r < 1 ? 0 : r <= kMaxR ? kMaxR : r <= kMaxRWide ? kMaxRWide : 0;
+}
+
 MmaScratch mma_scratch(int n_r, int n_c, int r) {
   const long long chunks = plan_chunks_mma(n_r, n_c);
+  const long long mr = width_of(r);
   MmaScratch m;
   m.part = 0;
   m.lpart = chunks * (n_r + n_c) * (2LL * r + 2);
   m.gw = (m.lpart + chunks * ((n_r + kMO - 1) / kMO) + 3) & ~3LL;
-  m.gw2 = m.gw + (long long)(n_r + n_c) * kMaxR / 2;
-  m.gb = m.gw2 + (long long)(n_r + n_c) * kMaxR / 2;
+  m.gw2 = m.gw + (long long)(n_r + n_c) * mr / 2;
+  m.gb = m.gw2 + (long long)(n_r + n_c) * mr / 2;
   m.gn = m.gb + ((n_r + 3) & ~3) + ((n_c + 3) & ~3) + 4;
   m.lut = m.gn + ((n_r + 3) & ~3) + ((n_c + 3) & ~3) + 4;
   m.lut64 = m.lut + 2LL * kLut;
@@ -883,7 +950,68 @@ MmaScratch mma_scratch(int n_r, int n_c, int r) {
   return m;
 }
 
+// Launch A (and the gather of the bf16 path) of a tile at instance width
+// MR: sets chunks, n_lpart and lpart for launch B.
+template <int MR>
+int tile_sums(const int* rows, const int* cols, int n_r, int n_c,
+              const void* X, long long sr, long long sc, int bf16,
+              const float* w_i, const float* w_j, const float* b_i,
+              const float* b_j, int r, float x_max, float alpha,
+              float* scratch, float* s_dump, cudaStream_t st, int& chunks,
+              int& n_lpart, float*& lpart) {
+  // above 48 KB a kernel's dynamic shared memory must be opted into
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        glove_tile_sums<MR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)sizeof(Smem<MR>));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(glove_tile_sums_mma<MR>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(MmaSmem<MR>));
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  if (bf16) {
+    const MmaScratch m = mma_scratch(n_r, n_c, r);
+    chunks = plan_chunks_mma(n_r, n_c);
+    const int own_blocks = ((n_r > n_c ? n_r : n_c) + kMO - 1) / kMO;
+    n_lpart = chunks * ((n_r + kMO - 1) / kMO);
+    lpart = scratch + m.lpart;
+    auto* gw = reinterpret_cast<__nv_bfloat16*>(scratch + m.gw);
+    auto* gw2 = reinterpret_cast<__nv_bfloat16*>(scratch + m.gw2);
+    float* gb = scratch + m.gb;
+    float* gn = scratch + m.gn;
+    auto* lut = reinterpret_cast<float2*>(scratch + m.lut);
+    auto* lut64 = reinterpret_cast<double*>(scratch + m.lut64);
+    long long ng = 32LL * (n_r + n_c);
+    if (ng < kLut) ng = kLut;
+    glove_tile_gather<MR><<<(unsigned)((ng + 255) / 256), 256, 0, st>>>(
+        rows, cols, n_r, n_c, w_i, w_j, b_i, b_j, r, x_max, alpha, gw, gw2,
+        gb, gn, lut, lut64);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    glove_tile_sums_mma<MR><<<dim3(own_blocks, chunks, 2),
+                              MmaShape<MR>::kThreads, sizeof(MmaSmem<MR>),
+                              st>>>(n_r, n_c, X, sr, sc, gw, gw2, gb, gn, lut,
+                                    lut64, r, chunks, scratch, lpart, s_dump);
+  } else {
+    chunks = plan_chunks(n_r, n_c);
+    const int own_blocks = ((n_r > n_c ? n_r : n_c) + kO - 1) / kO;
+    n_lpart = chunks * ((n_r + kO - 1) / kO);
+    lpart = scratch + (size_t)chunks * (n_r + n_c) * (2 * r + 2);
+    glove_tile_sums<MR><<<dim3(own_blocks, chunks, 2), kThreads,
+                          sizeof(Smem<MR>), st>>>(
+        rows, cols, n_r, n_c, static_cast<const float*>(X), sr, sc, w_i, w_j,
+        b_i, b_j, r, x_max, alpha, chunks, scratch, lpart);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The instance width that takes rank r (128 or 320), 0 above the widest.
+extern "C" int rsp_glove_tile_width(int r) { return width_of(r); }
 
 // Floats of scratch one tile needs (the wrapper allocates it uninitialised).
 extern "C" long long rsp_glove_tile_scratch(int n_r, int n_c, int r,
@@ -912,61 +1040,23 @@ extern "C" int rsp_glove_tile(const int* rows, const int* cols, int n_r,
                               int r, float x_max, float alpha, float lr,
                               float* scratch, float* loss, float* s_dump,
                               void* stream) {
-  if (n_r <= 0 || n_c <= 0 || r < 1 || r > kMaxR || !scratch || !loss)
+  if (n_r <= 0 || n_c <= 0 || width_of(r) == 0 || !scratch || !loss)
     return (int)cudaErrorInvalidValue;
   if (bf16 && sr != 1 && sc != 1) return (int)cudaErrorInvalidValue;
   if (s_dump != nullptr && !bf16) return (int)cudaErrorInvalidValue;
-  static bool smem_set = false;
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        glove_tile_sums, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sizeof(Smem));
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(glove_tile_sums_mma,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)sizeof(MmaSmem));
-    if (e != cudaSuccess) return (int)e;
-    smem_set = true;
-  }
   cudaStream_t st = (cudaStream_t)stream;
-  int chunks, n_lpart;
-  float* lpart;
-  if (bf16) {
-    const MmaScratch m = mma_scratch(n_r, n_c, r);
-    chunks = plan_chunks_mma(n_r, n_c);
-    const int own_blocks = ((n_r > n_c ? n_r : n_c) + kMO - 1) / kMO;
-    n_lpart = chunks * ((n_r + kMO - 1) / kMO);
-    lpart = scratch + m.lpart;
-    auto* gw = reinterpret_cast<__nv_bfloat16*>(scratch + m.gw);
-    auto* gw2 = reinterpret_cast<__nv_bfloat16*>(scratch + m.gw2);
-    float* gb = scratch + m.gb;
-    float* gn = scratch + m.gn;
-    auto* lut = reinterpret_cast<float2*>(scratch + m.lut);
-    auto* lut64 = reinterpret_cast<double*>(scratch + m.lut64);
-    long long ng = 32LL * (n_r + n_c);
-    if (ng < kLut) ng = kLut;
-    glove_tile_gather<<<(unsigned)((ng + 255) / 256), 256, 0, st>>>(
-        rows, cols, n_r, n_c, w_i, w_j, b_i, b_j, r, x_max, alpha, gw, gw2,
-        gb, gn, lut, lut64);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    glove_tile_sums_mma<<<dim3(own_blocks, chunks, 2), kMThreads,
-                          sizeof(MmaSmem), st>>>(
-        n_r, n_c, X, sr, sc, gw, gw2, gb, gn, lut, lut64, r, chunks, scratch,
-        lpart, s_dump);
-    if (s_dump != nullptr) return (int)cudaGetLastError();
-  } else {
-    chunks = plan_chunks(n_r, n_c);
-    const int own_blocks = ((n_r > n_c ? n_r : n_c) + kO - 1) / kO;
-    n_lpart = chunks * ((n_r + kO - 1) / kO);
-    lpart = scratch + (size_t)chunks * (n_r + n_c) * (2 * r + 2);
-    glove_tile_sums<<<dim3(own_blocks, chunks, 2), kThreads, sizeof(Smem),
-                      st>>>(rows, cols, n_r, n_c, static_cast<const float*>(X),
-                            sr, sc, w_i, w_j, b_i, b_j, r, x_max, alpha,
-                            chunks, scratch, lpart);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int chunks = 0, n_lpart = 0;
+  float* lpart = nullptr;
+  const int rc = r <= kMaxR
+                     ? tile_sums<kMaxR>(rows, cols, n_r, n_c, X, sr, sc, bf16,
+                                        w_i, w_j, b_i, b_j, r, x_max, alpha,
+                                        scratch, s_dump, st, chunks, n_lpart,
+                                        lpart)
+                     : tile_sums<kMaxRWide>(rows, cols, n_r, n_c, X, sr, sc,
+                                            bf16, w_i, w_j, b_i, b_j, r,
+                                            x_max, alpha, scratch, s_dump, st,
+                                            chunks, n_lpart, lpart);
+  if (rc != 0 || s_dump != nullptr) return rc;
   const long long n = (long long)(n_r + n_c) * (r + 1);
   glove_tile_apply<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
       rows, cols, n_r, n_c, r, chunks, scratch, lpart, n_lpart, w_i, w_j,

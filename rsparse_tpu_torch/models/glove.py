@@ -26,8 +26,11 @@ out.  The shuffle permutes the staged shards on the device with a
 ``jax.random``), and rebuilds the shards' slot maps.
 
 On the card both kernels take float32 state and a rank of at most
-``MAX_RANK``, and the head a float32 or bfloat16 grid:
-``precision="double"`` runs on the CPU only.
+``MAX_RANK`` (320: GloVe's published 300 dimensions; each kernel is built
+at the widths ``GLOVE_WIDTHS`` and takes a rank on the narrowest that holds
+it, :func:`glove_width`), and the head a float32 or bfloat16 grid:
+``precision="double"`` runs on the CPU only.  A wider rank raises
+NotImplementedError on the card.
 """
 
 from __future__ import annotations
@@ -40,13 +43,16 @@ import scipy.sparse as sp
 import torch
 
 from .. import _kernels
-from ..config import logger, resolve_dtype, resolve_full_dtype
+from ..config import logger, resolve_dtype, resolve_full_dtype, to_bf16
 from ..ops.segsum import ShardMaps, shard_slot_maps
 
 CLIP_VALUE = 100.0
-#: widest embedding K10 and K11 take (csrc/glove.cu, csrc/glove_dense.cu
-#: kMaxR)
-MAX_RANK = 128
+#: the widths K10 and K11 are built at (csrc/glove.cu,
+#: csrc/glove_dense.cu kMaxR, kMaxRWide): a rank runs on the narrowest
+#: that holds it, so r <= 128 keeps its route
+GLOVE_WIDTHS = (128, 320)
+#: widest embedding K10 and K11 take on the card
+MAX_RANK = GLOVE_WIDTHS[-1]
 #: entries a tile of K10's walks (csrc/glove.cu kTile): a feature with
 #: entries in more than one tile is finished by launch F
 K10_TILE = 32
@@ -163,12 +169,21 @@ def _glove_shard_plain(st: GloveState, sh: Shard, x_max: float,
     return (cost * inner).sum()
 
 
+def glove_width(r: int) -> int:
+    """The instance width of K10 and K11 that runs rank r (the kernels'
+    ``rsp_glove_shard_width`` / ``rsp_glove_tile_width``); raises
+    NotImplementedError above ``MAX_RANK``."""
+    for w in GLOVE_WIDTHS:
+        if 1 <= r <= w:
+            return w
+    raise NotImplementedError(f"GloVe rank {r}: the CUDA kernels take at "
+                              f"most {MAX_RANK} (see ROADMAP.md)")
+
+
 def _check_state(st: GloveState) -> int:
     """Raise unless the tables are what K10 and K11 take; returns r."""
     n, r = st.w_i.shape
-    if r > MAX_RANK:
-        raise ValueError(f"GloVe rank {r}: the CUDA kernels take at most "
-                         f"{MAX_RANK}")
+    glove_width(r)
     for name, t in zip(GloveState._fields, st):
         _kernels.check_tensor(name, t, (n, r) if name.startswith(
             ("w_", "acc_w_")) else (n,), torch.float32)
@@ -206,7 +221,7 @@ def _glove_shard_cuda(st: GloveState, sh: Shard, x_max: float, alpha: float,
         N, U_r, U_c, r, *(_kernels.ptr(t) for t in st), x_max, alpha, lr,
         _kernels.ptr(scratch), _kernels.ptr(loss), _kernels.stream(dev))
     _kernels.check(rc, "glove")
-    _kernels.launches["glove"] += 1
+    _kernels.launches["glove_wide" if r > GLOVE_WIDTHS[0] else "glove"] += 1
     return loss
 
 
@@ -241,7 +256,9 @@ def _glove_tile_plain(st: GloveState, rows, cols, x, x_max: float,
     rounds (every product and sum at the state dtype), then the AdaGrad
     steps at the tile's rows and columns.  Returns sum(cost * S)."""
     acc = st.w_i.dtype
-    rd = (lambda t: t) if cdt == acc else (lambda t: t.to(cdt).to(acc))
+    rd = ((lambda t: t) if cdt == acc else
+          (lambda t: to_bf16(t).to(acc)) if cdt == torch.bfloat16 else
+          (lambda t: t.to(cdt).to(acc)))
     i, j = rows.long(), cols.long()
     xf = x.to(acc)
     present = xf > 0
@@ -296,7 +313,8 @@ def _glove_tile_cuda(st: GloveState, rows, cols, x, x_max: float,
         _kernels.ptr(scratch), _kernels.ptr(loss), _kernels.ptr(s_dump),
         _kernels.stream(dev))
     _kernels.check(rc, "glove_dense")
-    _kernels.launches["glove_dense"] += 1
+    _kernels.launches["glove_dense_wide" if r > GLOVE_WIDTHS[0]
+                      else "glove_dense"] += 1
     return loss
 
 

@@ -355,18 +355,19 @@ _W_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 def _bucket_args(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
                  cfg: ALSConfig, hot_W, V_hot, hot_bits, nnz_total,
-                 hot_scale=None):
-    """Validate a bucket's CUDA inputs; return (BucketArgs, y, loss) with
-    the outputs allocated.  The source table and the head's rows are read
-    as float32 or bfloat16 (with ``compute_dtype="bfloat16"`` a float32
-    table is cast to its shadow first); the head as float32, bfloat16 or
-    uint8 codes with their (B,) ``hot_scale``.  Raises on what the kernels
-    do not take."""
+                 hot_scale=None, kernel: str = "als_cg"):
+    """Validate a bucket's CUDA inputs for ``kernel`` (``als_cg``,
+    ``als_chol`` or ``als_nnls``); return (BucketArgs, y, loss) with the
+    outputs allocated.  The source table and the head's rows are read as
+    float32 or bfloat16 (with ``compute_dtype="bfloat16"`` a float32 table
+    is cast to its shadow first); the head as float32, bfloat16 or uint8
+    codes with their (B,) ``hot_scale``.  Raises on what the kernel does
+    not take, NotImplementedError above its width (``_kernels.MAX_D``)."""
     d = src.shape[1]
-    if d > _kernels.MAX_D:
+    if d > _kernels.MAX_D[kernel]:
         raise NotImplementedError(
-            f"the CUDA ALS kernels take d <= {_kernels.MAX_D}, got {d} "
-            "(see ROADMAP.md)")
+            f"the CUDA kernel {kernel} takes d <= {_kernels.MAX_D[kernel]}, "
+            f"got {d} (see ROADMAP.md)")
     B, L = bucket.batch, bucket.pad_len
     f32, i32 = torch.float32, torch.int32
     n_src = src.shape[0]
@@ -442,6 +443,14 @@ def _bucket_args(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
 #: keeps (what shared memory leaves)
 CG_WARPS, CG_TILE, CG_PANEL = 32, 16, 64
 CG_CACHE_MIN, CG_CACHE_MAX = 160, 1024
+#: the widest d of K1's and K2's narrow instances (csrc/als_cg.cuh
+#: kNarrow, csrc/als_chol.cu): above it K1 runs CG_WIDE_WARPS warps a CTA,
+#: sizes the tile's vectors to its rows and walks every head cell (no tile
+#: products: a 64-row panel of Vh is 132 KB at d = 512), and K2 keeps the
+#: factor in a global workspace (csrc/als_chol_wide.cu)
+WIDE_D, CG_WIDE_WARPS = 160, 16
+#: K1's tau at the wide widths: no panel is a tile product
+CG_TAU_WIDE = 1 << 30
 #: present cells (of a tile's rows in one panel: 1,024 at most) from which
 #: K1 takes the panel as a tensor-core tile product, by the products'
 #: route: where the tile products (a fixed cost a panel) overtake the walk
@@ -462,36 +471,44 @@ CG_PASS_COST, CG_CLUSTER_COST = 16, 16
 SMEM_LIMIT = 232_448
 
 
-def cg_layout(d: int, H: int, tbytes: int, cluster: int) -> Tuple[int, int]:
+def cg_layout(d: int, H: int, tbytes: int, cluster: int,
+              rows: int = CG_TILE) -> Tuple[int, int]:
     """(shared bytes, sparse head cells a warp keeps) of one K1 CTA
-    (``make_layout`` in ``csrc/als_cg.cuh``; ``chip_smoke.py`` holds the
-    two equal on the card)."""
+    (``make_layout`` in ``csrc/als_cg.cuh``, which ``rsp_als_cg_layout``
+    reports; ``tests/test_torch_wide_als.py`` and ``chip_smoke.py`` hold
+    the two equal).  ``rows`` (target rows a CTA) sizes the tile's vectors
+    at d > ``WIDE_D`` only."""
     up = lambda n: (n + 15) & ~15  # noqa: E731
+    wide = d > WIDE_D
+    nw = CG_WIDE_WARPS if wide else CG_WARPS
+    vr = rows if wide else CG_TILE
     Dk = -(-d // 16) * 16
     sp = Dk + 4
     sv = Dk + 4 if tbytes == 4 else Dk + 8
     npan = -(-H // CG_PANEL)
-    vec = CG_TILE * sp * 4
+    vec = vr * sp * 4
     head = H > 0
+    tiles = head and not wide
     parts = [vec] * 5 + [
-        CG_WARPS * sp * 4,
-        CG_TILE * (CG_PANEL + 4) * 4 if head else 0,
-        CG_PANEL * sv * tbytes if head else 0,
-        CG_PANEL * sv * tbytes if head else 0,
+        nw * sp * 4,
+        CG_TILE * (CG_PANEL + 4) * 4 if tiles else 0,
+        CG_PANEL * sv * tbytes if tiles else 0,
+        CG_PANEL * sv * tbytes if tiles else 0,
         vec if cluster > 1 else 0, vec if cluster > 1 else 0,
-        CG_TILE * 4, CG_TILE * 4, (CG_WARPS + 8) * CG_TILE * 4,
+        CG_TILE * 4, CG_TILE * 4, (nw + 8) * CG_TILE * 4,
         CG_TILE * 8 * 4, npan * 4, npan * 4, npan * 4, 16]
     o = sum(up(n) for n in parts)
     cache = 0
     if head:
-        cache = ((SMEM_LIMIT - o) // (CG_WARPS * 8)) & ~31
+        cache = ((SMEM_LIMIT - o) // (nw * 8)) & ~31
         cache = min(max(cache, CG_CACHE_MIN), CG_CACHE_MAX)
-    return o + 2 * up(CG_WARPS * cache * 4), cache
+    return o + 2 * up(nw * cache * 4), cache
 
 
-def cg_smem_bytes(d: int, H: int, tbytes: int, cluster: int) -> int:
+def cg_smem_bytes(d: int, H: int, tbytes: int, cluster: int,
+                  rows: int = CG_TILE) -> int:
     """Shared bytes of one K1 CTA (:func:`cg_layout`)."""
-    return cg_layout(d, H, tbytes, cluster)[0]
+    return cg_layout(d, H, tbytes, cluster, rows)[0]
 
 
 def _cg_walk(L: int, units: int) -> int:
@@ -506,12 +523,16 @@ def _cg_walk(L: int, units: int) -> int:
     return trips
 
 
-def cg_split(B: int, L: int, active, H: int = 0) -> Tuple[int, int]:
+def cg_split(B: int, L: int, active, H: int = 0,
+             warps: int = CG_WARPS) -> Tuple[int, int]:
     """K1's split of a bucket of B rows padded to L entries, with a dense
-    head of H columns: (target rows a CTA, CTAs a cluster).  ``active``
-    maps a cluster size (1, 2, 4, 8, 16) to the clusters of that size the
-    card runs at once (0 or absent: that size cannot run).  A row's
-    entries are dealt in chunks of 32 to the CG_WARPS / rows warps of each
+    head of H columns, over CTAs of ``warps`` warps (``CG_WIDE_WARPS`` at
+    d > ``WIDE_D``): (target rows a CTA, CTAs a cluster).  ``active`` maps
+    a cluster size (1, 2, 4, 8, 16), or a pair (rows, cluster size) where
+    the layout depends on the rows (the wide instances), to the clusters
+    of that size the card runs at once (0 or absent: that size cannot run,
+    or its layout does not fit a CTA's shared memory).  A row's
+    entries are dealt in chunks of 32 to the ``warps`` / rows warps of each
     CTA of its cluster, and its head panels likewise, so every (rows,
     cluster) is costed as its waves (whole while they are few) times a
     warp's round trips in a pass: the busiest warp's walk (:func:`_cg_walk`),
@@ -525,9 +546,9 @@ def cg_split(B: int, L: int, active, H: int = 0) -> Tuple[int, int]:
     options = []
     for rows in (16, 8, 4, 2, 1):
         tiles = -(-B // rows)
-        wpr = CG_WARPS // rows
+        wpr = warps // rows
         for cs in (1, 2, 4, 8, 16):
-            n = int(active.get(cs, 0))
+            n = int(active.get((rows, cs), active.get(cs, 0)))
             if n <= 0 or (cs > 1 and L < CG_MIN_SLICE * wpr * cs):
                 continue
             waves = tiles / n if tiles >= 4 * n else -(-tiles // n)
@@ -547,20 +568,31 @@ _CG_INFO: dict = {}
 
 def _cg_info(args) -> dict:
     """The driver's answer for K1 at a bucket's width, table and head
-    (cached): shared bytes, CTAs an SM, clusters of each size at once."""
+    (cached): shared bytes, CTAs an SM, clusters of each size at once (at
+    d > ``WIDE_D``, whose layout depends on the rows a CTA, keyed by (rows,
+    cluster size), shared bytes and CTAs an SM at 16 rows)."""
     key = (args.d, args.H if args.W else 0, args.table_bf16,
            args.explicit_fb, bool(args.xbias))
     if key not in _CG_INFO:
-        info = (ctypes.c_int * 7)()
-        rc = _kernels.lib().rsp_als_cg_info(ctypes.byref(args), info)
-        _kernels.check(rc, "als_cg")
-        _CG_INFO[key] = dict(smem_bytes=info[0], ctas_per_sm=info[1],
-                             active={1 << k: info[2 + k] for k in range(5)})
+        wide = args.d > WIDE_D
+        active = {}
+        for rows in ((16, 8, 4, 2, 1) if wide else (CG_TILE,)):
+            info = (ctypes.c_int * 7)()
+            rc = _kernels.lib().rsp_als_cg_info(ctypes.byref(args), rows,
+                                                info)
+            _kernels.check(rc, "als_cg")
+            if rows == CG_TILE:
+                smem, per_sm = info[0], info[1]
+            for k in range(5):
+                active[(rows, 1 << k) if wide else 1 << k] = info[2 + k]
+        _CG_INFO[key] = dict(smem_bytes=smem, ctas_per_sm=per_sm,
+                             active=active)
     return _CG_INFO[key]
 
 
 def _cg_route(args) -> str:
-    """The route of K1's tile products (head panels, P XtX) for a bucket."""
+    """The route of K1's tile products (head panels, P XtX) for a bucket
+    (at d > ``WIDE_D`` only P XtX: the head is walked)."""
     return ("bf16 mma" if args.round_bf16 else
             "2xTF32" if args.table_bf16 else "3xTF32")
 
@@ -569,9 +601,11 @@ def _cg_launch_plan(args, L: int) -> "_kernels.CgPlan":
     """K1's launch for a bucket padded to L entries: :func:`cg_split` on
     the driver's cluster occupancy, and ``CG_TAU`` of its route."""
     info = _cg_info(args)
-    rows, cs = cg_split(args.B, L, info["active"], args.H if args.W else 0)
+    wide = args.d > WIDE_D
+    rows, cs = cg_split(args.B, L, info["active"], args.H if args.W else 0,
+                        CG_WIDE_WARPS if wide else CG_WARPS)
     return _kernels.CgPlan(rows=rows, cluster=cs,
-                           tau=CG_TAU[_cg_route(args)])
+                           tau=CG_TAU_WIDE if wide else CG_TAU[_cg_route(args)])
 
 
 def _launch_cg(args, y, loss, plan, cg_steps: int, device):
@@ -581,7 +615,7 @@ def _launch_cg(args, y, loss, plan, cg_steps: int, device):
         ctypes.byref(args), ctypes.byref(plan), ctypes.c_int(cg_steps),
         ctypes.c_float(CG_TOL), _kernels.stream(device))
     _kernels.check(rc, "als_cg")
-    _kernels.launches["als_cg"] += 1
+    _kernels.launches["als_cg_wide" if args.d > WIDE_D else "als_cg"] += 1
     return y, loss
 
 
@@ -623,11 +657,14 @@ def cg_plan(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
     route = _cg_route(args)
     tb = 2 if args.table_bf16 else 4
     Hh = args.H if args.W else 0
-    smem, cache = cg_layout(args.d, Hh, tb, pl.cluster)
-    one = cg_layout(args.d, Hh, tb, 1)[0]
-    if one != info["smem_bytes"]:
-        raise RuntimeError(f"als_cg: the host's layout ({one} B) is not the "
-                           f"card's ({info['smem_bytes']} B)")
+    smem, cache = cg_layout(args.d, Hh, tb, pl.cluster, pl.rows)
+    c_cache = ctypes.c_int(0)
+    c_smem = _kernels.lib().rsp_als_cg_layout(args.d, Hh, tb, pl.cluster,
+                                              pl.rows, ctypes.byref(c_cache))
+    if (smem, cache) != (c_smem, c_cache.value):
+        raise RuntimeError(f"als_cg: the host's layout ({smem} B, {cache} "
+                           f"cells) is not the card's ({c_smem} B, "
+                           f"{c_cache.value} cells)")
     return dict(rows=pl.rows, cluster=pl.cluster, tau=pl.tau, route=route,
                 smem_bytes=smem, cache=cache,
                 ctas_per_sm=info["ctas_per_sm"], active=info["active"],
@@ -640,7 +677,8 @@ def solve_bucket_cg(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
                     cfg: ALSConfig, hot_W=None, V_hot=None, hot_bits=None,
                     nnz_total=None, hot_scale=None):
     """K1: one bucket of CG solves (``csrc/als_cg.cu``), launched as
-    :func:`cg_split` splits the bucket's shape.
+    :func:`cg_split` splits the bucket's shape (at d > ``WIDE_D`` on the
+    wide instances: 16 warps a CTA, every head cell walked).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     Returns (y (B, d), loss (B,))."""
@@ -659,7 +697,9 @@ def solve_bucket_cholesky(src, x_biases, XtX, rhs_init, bucket, x_init, lam,
                           g, cfg: ALSConfig, hot_W=None, V_hot=None,
                           hot_bits=None, nnz_total=None, hot_scale=None,
                           stages: int = 3):
-    """K2: one bucket of exact Cholesky solves (``csrc/als_chol.cu``);
+    """K2: one bucket of exact Cholesky solves (``csrc/als_chol.cu``, the
+    factor in shared memory; at d > ``WIDE_D`` ``csrc/als_chol_wide.cu``,
+    the factor in a global workspace of :func:`chol_workspace_floats`);
     ``x_init`` is not read.  CPU tensors take the plain version; CUDA
     tensors launch the kernel.  Returns (y (B, d), loss (B,)).
 
@@ -672,11 +712,20 @@ def solve_bucket_cholesky(src, x_biases, XtX, rhs_init, bucket, x_init, lam,
                                    hot_bits, nnz_total, hot_scale=hot_scale)
     args, y, loss = _bucket_args(src, x_biases, XtX, rhs_init, bucket, None,
                                  lam, g, cfg, hot_W, V_hot, hot_bits,
-                                 nnz_total, hot_scale)
-    rc = _kernels.lib().rsp_als_chol(ctypes.byref(args), int(stages),
-                                     _kernels.stream(src.device))
+                                 nnz_total, hot_scale, kernel="als_chol")
+    lib = _kernels.lib()
+    if args.d > WIDE_D:
+        info = _chol_info(args)
+        ws = torch.empty((chol_workspace_floats(args.B, info[5], info[6]),),
+                         dtype=torch.float32, device=src.device)
+        rc = lib.rsp_als_chol_wide(ctypes.byref(args), int(stages),
+                                   _kernels.ptr(ws), info[5],
+                                   _kernels.stream(src.device))
+    else:
+        rc = lib.rsp_als_chol(ctypes.byref(args), int(stages),
+                              _kernels.stream(src.device))
     _kernels.check(rc, "als_chol")
-    _kernels.launches["als_chol"] += 1
+    _kernels.launches["als_chol_wide" if args.d > WIDE_D else "als_chol"] += 1
     return y, loss
 
 
@@ -692,13 +741,35 @@ def cholesky_plan(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
     and the shared bytes a CTA."""
     args, _, _ = _bucket_args(src, x_biases, XtX, rhs_init, bucket, None,
                               lam, g, cfg, hot_W, V_hot, hot_bits, nnz_total,
-                              hot_scale)
-    info = (ctypes.c_int * 5)()
-    rc = _kernels.lib().rsp_als_chol_info(ctypes.byref(args), info)
-    _kernels.check(rc, "als_chol")
-    return dict(ctas_per_sm=info[0], cold_route=CHOL_ROUTES[info[1]],
-                head_route=CHOL_ROUTES[info[2]], D=info[3],
-                smem_bytes=info[4])
+                              hot_scale, kernel="als_chol")
+    info = _chol_info(args)
+    out = dict(ctas_per_sm=info[0], cold_route=CHOL_ROUTES[info[1]],
+               head_route=CHOL_ROUTES[info[2]], D=info[3],
+               smem_bytes=info[4], wide=args.d > WIDE_D)
+    if args.d > WIDE_D:
+        out.update(slots=info[5], slot_floats=info[6],
+                   workspace_bytes=4 * chol_workspace_floats(
+                       args.B, info[5], info[6]))
+    return out
+
+
+def _chol_info(args) -> list:
+    """K2's info for a bucket (``rsp_als_chol_info``, or at d >
+    ``WIDE_D`` ``rsp_als_chol_wide_info`` with the workspace's slots and
+    floats a slot)."""
+    wide = args.d > WIDE_D
+    info = (ctypes.c_int * (7 if wide else 5))()
+    fn = (_kernels.lib().rsp_als_chol_wide_info if wide
+          else _kernels.lib().rsp_als_chol_info)
+    _kernels.check(fn(ctypes.byref(args), info), "als_chol")
+    return list(info)
+
+
+def chol_workspace_floats(B: int, slots: int, slot_floats: int) -> int:
+    """Floats of the wide K2's global workspace for a bucket of B rows: one
+    slot ((D + 1) x (D + 4) floats) a CTA of its persistent grid of
+    min(B, slots) CTAs, whatever B is (~150 MB at d = 514 on 132 SMs)."""
+    return min(B, slots) * slot_floats
 
 
 #: largest scratch K4's build stage writes for its sweeps (packed G and mu,
@@ -731,7 +802,7 @@ def solve_bucket_nnls(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
                                    hot_bits, nnz_total, sweeps, hot_scale)
     args, y, loss = _bucket_args(src, x_biases, XtX, rhs_init, bucket,
                                  x_init, lam, g, cfg, hot_W, V_hot, hot_bits,
-                                 nnz_total, hot_scale)
+                                 nnz_total, hot_scale, kernel="als_nnls")
     if sweeps is not None:
         _kernels.check_tensor("sweeps", sweeps, (bucket.batch,), torch.int32)
     lib = _kernels.lib()

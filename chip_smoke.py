@@ -145,11 +145,30 @@ line:
    peak memory, loss per nnz and its kernels re-checked on the heaviest
    buckets; config #4 GloVe at rank 300 (3 epochs: walls, triplets/s,
    peak memory, both kernels re-checked on the fitted state).
+12. WRMF on a mesh of processes (``rsparse_tpu_torch.parallel``) at phase
+   4's settings (rank 128, 2 iterations of CG(3) on the ML-20M-shaped
+   synthetic), after one-process reference fits of the same settings with
+   and without the zipf head and of NNLS on 8,192 users: (a) one rank over
+   NCCL in this process, the plain mesh path and ``routing="alx"``, NNLS
+   routed; (b) two ranks sharing cuda:0 over gloo (spawned; the kernels
+   were built here first), the plain path, ``"alx"`` and ``"alx_ragged"``,
+   NNLS on ``"alx_ragged"``; (c) the same on two cards over NCCL where the
+   machine has them, else one line saying why not.  Each rank prints its
+   backend, each half-sweep's ms, each routed exchange's ms and the bytes
+   it sent beside ``wire_cost_report*`` (the ranks' bytes must sum to the
+   report's), and its launches of K1, K2, K3, K4 and K12 (each must be
+   above 0: K12 is the owner's row gather of the routed exchange); U and V
+   are held to the one-process fit within 1e-4 (relative Frobenius), the
+   loss within 1e-5 (NNLS: the loss within 1e-5, its factors within 1e-2,
+   ``MESH_TOL``), and ``predict`` (k = 10, training
+   mask, through ``sharded_top_product``) to the one-process indices, rows
+   that differ counted and each required to be a near tie.
 
 The kernels' launch counters are reset right before each main-path run
 and must show every kernel of that path launched in it; K1's head term
-alone and K12 are the counterparts of probes, which no model calls, so
-their counts come from their probe runs (the timed launches).  The
+alone is the counterpart of a probe, which no model calls, so its count
+comes from its probe runs (the timed launches); K12's comes from phase
+9's probe runs and from phase 12's routed exchanges.  The
 second-to-last line is a JSON object describing the kernels (times, the
 bound from the card's peak rates, launches on the main paths); the last
 line is {"ok": true, "device": {...}}.  Without a CUDA device it exits
@@ -4195,6 +4214,322 @@ def run_wide_full(device, x, x4, results, launches) -> None:
     return g
 
 
+# -- phase 12: the mesh -------------------------------------------------------
+
+#: phase 4's settings, on a mesh: rank 128, lambda 0.1, implicit CG(3)
+MESH_FIT = dict(rank=128, lambda_=0.1, feedback="implicit",
+                solver="conjugate_gradient", seed=0)
+#: the routes of a mesh fit: the plain path (with phase 4's zipf head) and
+#: the routed ALX sweeps (no head, as in the JAX package)
+MESH_ROUTES = (("plain", dict(n_hot="auto")), ("alx", dict(routing="alx")),
+               ("alx_ragged", dict(routing="alx_ragged")))
+#: NNLS (K4) on the mesh: config #2 (c)'s 8192 users, 1 iteration
+MESH_NNLS = dict(rank=128, lambda_=0.1, feedback="implicit", solver="nnls",
+                 seed=0)
+MESH_NNLS_USERS = 8192
+MESH_Q = 4096                   # users predicted (k = 10, training mask)
+#: a mesh fit against the one-process fit of the same settings: U and V
+#: by relative Frobenius distance, the loss relatively.  NNLS is held by
+#: its loss: each system stops on its own once a sweep changes it by less
+#: than 1e-4 relatively, so a Gram that differs in its last bits stops
+#: some systems a sweep apart, and a slowly converging coordinate descent
+#: then ends elsewhere on a flat objective (its factors 7.3e-4 apart in
+#: the first H100 run, its loss 1.1e-7): its factors are held to 1e-2
+MESH_TOL = {"U": 1e-4, "V": 1e-4, "loss": 1e-5, "nnls": 1e-2}
+#: near tie: a predicted item that differs from the one-process list is
+#: one whose score under the one-process model is within this share of
+#: the row's top score of the item it replaced
+MESH_TIE = 1e-3
+MESH_KERNELS = ("als_cg", "als_chol", "topk", "als_nnls", "gather")
+
+
+def mesh_main_path(mesh, x, routes, nnls_routing) -> tuple:
+    """Every rank of ``mesh`` (or this process at one rank): the mesh fits
+    of ``routes`` (2 iterations, then ``predict`` of the first MESH_Q users
+    through ``sharded_top_product``) and an NNLS fit, the launch counts set
+    to 0 just before and read just after.  Returns (arrays by route for
+    rank 0 to keep, this rank's stats)."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.ops.topk import top_product
+    from rsparse_tpu_torch.parallel.alx import EXCHANGES
+    q = x[:MESH_Q]
+    arrays, stats = {}, {"mesh": repr(mesh), "routes": {}}
+    _kernels.reset_launch_counts()
+    for name, kw in routes:
+        EXCHANGES.clear()
+        m = rt.WRMF(mesh=mesh, **MESH_FIT, **kw)
+        t0 = time.perf_counter()
+        emb = m.fit_transform(x, n_iter=2, convergence_tol=-1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p = m.predict(q, k=10, not_recommend=q)
+        predict_s = time.perf_counter() - t0
+        arrays[name] = dict(U=emb.cpu().numpy(), V=m._V.cpu().numpy(),
+                            loss=np.asarray(m.loss_history),
+                            pred_i=p.indices, pred_s=p.scores,
+                            q_emb=m.transform(q).cpu().numpy())
+        stats["routes"][name] = dict(
+            fit_s=fit_s, predict_s=predict_s, stage_info=m.stage_info,
+            sweeps=[(r["phase"], r["iter"], r["wall_s"] * 1e3)
+                    for r in m.fit_trace],
+            exchanges=list(EXCHANGES))
+        del m, emb
+    xs = x[:MESH_NNLS_USERS]
+    m = rt.WRMF(mesh=mesh, routing=nnls_routing, **MESH_NNLS)
+    t0 = time.perf_counter()
+    emb = m.fit_transform(xs, n_iter=1, convergence_tol=-1)
+    torch.cuda.synchronize()
+    stats["nnls"] = dict(routing=nnls_routing,
+                         fit_s=time.perf_counter() - t0,
+                         sweeps=[(r["phase"], r["iter"], r["wall_s"] * 1e3)
+                                 for r in m.fit_trace])
+    arrays["nnls"] = dict(U=emb.cpu().numpy(), V=m._V.cpu().numpy(),
+                          loss=np.asarray(m.loss_history))
+    stats["launches"] = dict(_kernels.launches)
+    # after the count: the mesh's embeddings through one-process retrieval
+    for name, _ in routes:
+        a = arrays[name]
+        a["solo_i"], a["solo_s"] = top_product(
+            torch.as_tensor(a["q_emb"], device=mesh.device), a["V"].T, 10,
+            not_recommend=q)
+    return arrays, stats
+
+
+def _mesh_rank(rank, world, store, out_dir, share_card, nnls_routing):
+    """One rank of phase 12 (b) / (c), started by torch.multiprocessing:
+    on ``cuda:0`` shared by every rank (gloo) or on a card of its own
+    (NCCL); the synthetic made again from its seed."""
+    if share_card:
+        os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+    os.environ["LOCAL_RANK"], os.environ["LOCAL_WORLD_SIZE"] = (
+        str(rank), str(world))
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+    from rsparse_tpu_torch.parallel import mesh as pmesh, multihost
+    multihost.initialize(f"file://{store}", world, rank, timeout_s=600)
+    try:
+        mesh = pmesh.make_mesh((world,), ("data",))
+        arrays, stats = mesh_main_path(mesh, synth_ml20m_like(),
+                                       MESH_ROUTES, nnls_routing)
+        if rank == 0:
+            for name, a in arrays.items():
+                np.savez(os.path.join(out_dir, f"{name}.npz"), **a)
+        with open(os.path.join(out_dir, f"stats.{rank}.json"), "w") as f:
+            json.dump(stats, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_refs(device, x):
+    """The one-process fits each mesh fit is held to: phase 4's settings
+    with its zipf head (the plain route) and without (ALX), and the NNLS
+    fit, each with the one-process embeddings of the predicted users."""
+    import torch
+    import rsparse_tpu_torch as rt
+    q = x[:MESH_Q]
+    refs = {}
+    for key, kw in (("head", dict(n_hot="auto")), ("cold", dict(n_hot=0))):
+        m = rt.WRMF(device=device, **MESH_FIT, **kw)
+        emb = m.fit_transform(x, n_iter=2, convergence_tol=-1)
+        p = m.predict(q, k=10, not_recommend=q)
+        refs[key] = dict(U=emb.cpu().numpy(), V=m._V.cpu().numpy(),
+                         loss=np.asarray(m.loss_history), pred_i=p.indices,
+                         pred_s=p.scores, q_emb=m.transform(q).cpu().numpy())
+    m = rt.WRMF(device=device, **MESH_NNLS)
+    emb = m.fit_transform(x[:MESH_NNLS_USERS], n_iter=1, convergence_tol=-1)
+    refs["nnls"] = dict(U=emb.cpu().numpy(), V=m._V.cpu().numpy(),
+                        loss=np.asarray(m.loss_history))
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _np_fro(a, b) -> float:
+    return float(np.linalg.norm((a.astype(np.float64) - b)) /
+                 max(np.linalg.norm(b.astype(np.float64)), 1e-30))
+
+
+def _near_ties(idx, scores, ref_idx, ref_s, q_emb, V) -> tuple:
+    """(rows whose indices differ, the largest gap): each differing row
+    must be a near tie, the sorted scores of its items under the model
+    ``(q_emb, V)`` within MESH_TIE of the row's top score from ``ref_s``."""
+    rows = np.flatnonzero((idx != ref_idx).any(axis=1))
+    worst = 0.0
+    for r in rows:
+        s = np.sort(q_emb[r].astype(np.float64) @ V[idx[r]].T.astype(
+            np.float64))[::-1]
+        worst = max(worst, float(np.abs(s - ref_s[r]).max()
+                                 / max(abs(float(ref_s[r][0])), 1e-30)))
+    return len(rows), worst
+
+
+def hold_mesh(tag, arrays, refs, q) -> None:
+    """Hold each mesh fit to its one-process fit (MESH_TOL) and its
+    predictions to the one-process indices, near ties counted: against
+    the one-process fit's own list, and against one-process retrieval on
+    the mesh's embeddings."""
+    for name, a in arrays.items():
+        ref = refs["nnls" if name == "nnls" else
+                   "head" if name == "plain" else "cold"]
+        errs = {k: _np_fro(a[k], ref[k]) for k in ("U", "V")}
+        errs["loss"] = float(np.abs(a["loss"] - ref["loss"]).max()
+                             / np.abs(ref["loss"]).max())
+        lim = MESH_TOL
+        line = (f"  {tag} {name}: U {errs['U']:.3e}, V {errs['V']:.3e}, "
+                f"loss {errs['loss']:.3e} from the one-process fit")
+        if name == "nnls":
+            log(line + f" (limits: factors {lim['nnls']:g}, loss "
+                f"{lim['loss']:g}); factors >= 0: "
+                f"{bool((a['U'] >= 0).all() and (a['V'] >= 0).all())}")
+            require(max(errs["U"], errs["V"]) <= lim["nnls"]
+                    and errs["loss"] <= lim["loss"]
+                    and (a["U"] >= 0).all() and (a["V"] >= 0).all(),
+                    f"{tag} {name}: off the one-process NNLS fit")
+            continue
+        n_fit, gap_fit = _near_ties(a["pred_i"], a["pred_s"], ref["pred_i"],
+                                    ref["pred_s"], ref["q_emb"], ref["V"])
+        n_solo, gap_solo = _near_ties(a["pred_i"], a["pred_s"], a["solo_i"],
+                                      a["solo_s"], a["q_emb"], a["V"])
+        log(line + f"; predict k=10: {n_fit} of {MESH_Q} rows differ from "
+            f"the one-process fit's (near ties, largest gap {gap_fit:.2e}), "
+            f"{n_solo} from one-process retrieval on the mesh's embeddings "
+            f"(largest gap {gap_solo:.2e})")
+        for k in ("U", "V", "loss"):
+            require(errs[k] <= lim[k], f"{tag} {name}: {k} {errs[k]:.3e} "
+                    f"from the one-process fit (limit {lim[k]:g})")
+        require(gap_fit <= MESH_TIE and gap_solo <= MESH_TIE,
+                f"{tag} {name}: predictions differ beyond near ties")
+        check_predictions(a["pred_i"], 10, a["V"].shape[0], q,
+                          f"{tag} {name}")
+
+
+def log_mesh_rank(tag, rank, stats) -> dict:
+    """Print one rank's phase-12 stats: the backend, each half-sweep's ms,
+    each exchange's ms and bytes, the launches; return the launches."""
+    log(f"  {tag} rank {rank}: {stats['mesh']}")
+    for name, st in stats["routes"].items():
+        log(f"    {name}: fit_transform {st['fit_s']:.3f} s, predict "
+            f"{MESH_Q} users {st['predict_s']:.3f} s; stages "
+            f"{st['stage_info']}; half-sweeps (ms) " + ", ".join(
+                f"{p}#{i} {ms:.2f}" for p, i, ms in st["sweeps"]))
+        ex = st["exchanges"]
+        if ex:
+            log(f"      {len(ex)} exchanges "
+                f"({'ragged' if ex[0]['ragged'] else 'padded'}; the fit's "
+                "half-sweeps, the closing one, predict's transform, the "
+                "transform): ms " + ", ".join(f"{e['ms']:.2f}" for e in ex)
+                + "; bytes this rank sent " + ", ".join(
+                    f"{e['bytes']:,}" for e in ex)
+                + "; all ranks by wire_cost_report: routed " + ", ".join(
+                    f"{e['wire']['routed_total_bytes']:,}" for e in ex)
+                + ", by all-gather " + ", ".join(
+                    f"{e['wire']['allgather_bytes']:,}" for e in ex)
+                + "; cache rows " + ", ".join(
+                    f"{e['cache_rows']:,}" for e in ex))
+    st = stats["nnls"]
+    log(f"    nnls ({st['routing']}, {MESH_NNLS_USERS} users, 1 iteration): "
+        f"fit_transform {st['fit_s']:.3f} s; half-sweeps (ms) " + ", ".join(
+            f"{p}#{i} {ms:.2f}" for p, i, ms in st["sweeps"]))
+    counts = stats["launches"]
+    log(f"    launches: " + ", ".join(f"{k} {counts[k]}"
+                                      for k in MESH_KERNELS))
+    for k in MESH_KERNELS:
+        require(counts[k] > 0, f"{tag} rank {rank}: kernel {k} was not "
+                "launched")
+    return counts
+
+
+def hold_exchange_bytes(tag, stats_by_rank) -> None:
+    """The bytes the ranks sent in each exchange sum to the plan's
+    ``wire_cost_report*`` ``routed_total_bytes``."""
+    for name in stats_by_rank[0]["routes"]:
+        ex = [s["routes"][name]["exchanges"] for s in stats_by_rank]
+        for i, e0 in enumerate(ex[0]):
+            sent = sum(e[i]["bytes"] for e in ex)
+            require(sent == e0["wire"]["routed_total_bytes"],
+                    f"{tag} {name}: exchange {i} sent {sent} B, the report "
+                    f"says {e0['wire']['routed_total_bytes']} B")
+
+
+def run_mesh(device, x, launches) -> None:
+    """Phase 12: (a) one rank over NCCL in this process, (b) two ranks
+    sharing cuda:0 over gloo, (c) two ranks on two cards over NCCL where
+    the machine has them; each held to the one-process fits."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from rsparse_tpu_torch.parallel import mesh as pmesh, multihost
+    t0 = time.perf_counter()
+    refs = _mesh_refs(device, x)
+    q = sp.csr_matrix(x[:MESH_Q])
+    log(f"  one-process reference fits (head, no head, NNLS): "
+        f"{time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="rsparse_mesh_")
+    try:
+        log("phase 12 (a): one rank over NCCL in this process (the plain "
+            "path and routing='alx'; NNLS routed)")
+        multihost.initialize(f"file://{tmp}/store_a", 1, 0, timeout_s=600)
+        try:
+            mesh = pmesh.make_mesh((1,), ("data",))
+            require(mesh.backend == "nccl", f"(a) backend {mesh.backend}")
+            arrays, stats = mesh_main_path(mesh, x, MESH_ROUTES[:2], "alx")
+        finally:
+            dist.destroy_process_group()
+        launches.append(log_mesh_rank("(a)", 0, stats))
+        hold_exchange_bytes("(a)", [stats])
+        hold_mesh("(a)", arrays, refs, q)
+        del arrays
+        torch.cuda.empty_cache()
+        for part, world, share in (("(b)", 2, True), ("(c)", 2, False)):
+            if not share and torch.cuda.device_count() < 2:
+                log("phase 12 (c): did not run: this machine has "
+                    f"{torch.cuda.device_count()} card (two ranks on two "
+                    "cards over NCCL need a second card)")
+                continue
+            log(f"phase 12 {part}: {world} ranks "
+                + ("sharing cuda:0 over gloo" if share else
+                   "on a card each over NCCL")
+                + " (the plain path, 'alx', 'alx_ragged'; NNLS on "
+                "'alx_ragged')")
+            out = os.path.join(tmp, part.strip("()"))
+            os.makedirs(out)
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(
+                _mesh_rank, args=(world, f"{out}/store", out, share,
+                                  "alx_ragged"),
+                nprocs=world, join=False, start_method="spawn")
+            try:
+                deadline = time.monotonic() + 600
+                while not ctx.join(timeout=30):
+                    require(time.monotonic() < deadline,
+                            f"{part}: ranks still running after 600 s")
+            except mp.ProcessRaisedException as e:
+                raise SmokeFailure(f"{part}: a rank failed:\n{e}") from None
+            except mp.ProcessExitedException as e:
+                raise SmokeFailure(f"{part}: a rank died: {e}") from None
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+            log(f"  {part}: {world} ranks ran in "
+                f"{time.perf_counter() - t0:.1f} s (start, synthetic, fits)")
+            stats = []
+            for r in range(world):
+                with open(os.path.join(out, f"stats.{r}.json")) as f:
+                    stats.append(json.load(f))
+                launches.append(log_mesh_rank(part, r, stats[-1]))
+            hold_exchange_bytes(part, stats)
+            arrays = {}
+            for name in [n for n, _ in MESH_ROUTES] + ["nnls"]:
+                with np.load(os.path.join(out, f"{name}.npz")) as z:
+                    arrays[name] = dict(z)
+            hold_mesh(part, arrays, refs, q)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 KERNELS = {
     "als_cg": ("rsparse_tpu_torch/csrc/als_cg.cu",
                "rsparse_tpu/ops/als.py:138, rsparse_tpu/ops/als.py:269"),
@@ -4277,7 +4612,7 @@ def main(phases) -> int:
             "with biases; NNLS)")
         run_ml100k(device, launches)
     x = f32_loss = None
-    if phases & {4, 5, 6, 9, 10, 11}:
+    if phases & {4, 5, 6, 9, 10, 11, 12}:
         t0 = time.perf_counter()
         x = synth_ml20m_like()
         log(f"  synth: {x.shape[0]} x {x.shape[1]}, {x.nnz} nnz "
@@ -4372,8 +4707,14 @@ def main(phases) -> int:
                             results, quick=True)
         log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
         del g, head4, tail4, x4
+    if 12 in phases:
+        t12 = time.perf_counter()
+        log("phase 12: WRMF on a mesh of processes (phase 4's settings; "
+            "one-process reference fits first)")
+        run_mesh(device, x, launches)
+        log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
     del x
-    if phases != set(range(1, 12)):
+    if phases != set(range(1, 13)):
         log(f"phases {sorted(phases)} passed (a subset: no result line)")
         return 0
 
@@ -4399,7 +4740,7 @@ def main(phases) -> int:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (1 always runs)")
     want = {1} | {int(p) for p in ap.parse_args().phases.split(",") if p}
     try:

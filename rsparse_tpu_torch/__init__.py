@@ -10,7 +10,9 @@ them: interaction logs read into CSR (``data.io.load_interactions``),
 checkpoints in the JAX package's format (``checkpoint.save`` / ``load``,
 and WRMF's mid-fit state with ``resume``), a ``torch.profiler`` trace
 (``utils.profiling.trace``) and the command line (``python -m
-rsparse_tpu_torch fit|recommend``, ``cli.py``).  Its kernels are
+rsparse_tpu_torch fit|recommend``, ``cli.py``); and WRMF on a mesh of
+processes (``parallel``: ``torch.distributed``, one rank a device, with the
+routed ALX sweeps and item-sharded top-k).  Its kernels are
 hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built with ``nvcc`` at
 first use; on CPU tensors every wrapper runs its plain PyTorch version.
 Entry points run on "cuda" unless given ``device="cpu"``.
@@ -26,7 +28,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-from .config import logger, resolve_dtype  # noqa: E402,F401
+from .config import default_device_count, logger, resolve_dtype  # noqa: E402,F401,E501
 from .data.movielens import load_movielens100k  # noqa: E402,F401
 from .models.base import MatrixFactorizationRecommender, TopK  # noqa: E402,F401,E501
 from .models.fm import FactorizationMachine  # noqa: E402,F401
@@ -45,3 +47,4 @@ from .sparse.splr import SparsePlusLowRank  # noqa: E402,F401
 from .utils.metrics import ap_k, ndcg_k  # noqa: E402,F401
 from .utils.split import train_test_split  # noqa: E402,F401
 from .utils import checkpoint  # noqa: E402,F401
+from . import parallel  # noqa: E402,F401

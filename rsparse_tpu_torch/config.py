@@ -61,6 +61,12 @@ def resolve_full_dtype(precision: Union[str, torch.dtype]) -> torch.dtype:
     return dt
 
 
+def default_device_count() -> int:
+    """Devices a mesh could span in this process's node: the CUDA cards
+    it sees, 1 without any (rsparse_tpu/config.py)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1
+
+
 def accum_dtype(dtype: torch.dtype) -> torch.dtype:
     """Accumulation dtype for losses and Grams: never below float32."""
     return torch.float64 if dtype == torch.float64 else torch.float32

@@ -2,7 +2,12 @@
 
 Port of ``rsparse_tpu/models/base.py`` (reference
 R/MatrixFactorizationRecommender.R:4-121).  Both go through
-``ops/topk.py`` ``top_product`` on the model's device.
+``ops/topk.py`` ``top_product`` on the model's device, or, for a model
+fitted on a mesh with a ``data`` axis, through
+``parallel/topk_sharded.py`` ``sharded_top_product`` (the item axis split
+over the ranks; every rank calls it and gets the whole result), unless k
+exceeds a rank's items: then each rank ranks alone, as the JAX package
+falls back to one device.
 """
 
 from __future__ import annotations
@@ -87,10 +92,20 @@ class MatrixFactorizationRecommender:
                 excl_idx = np.asarray(
                     [lookup[i] for i in items_exclude if i in lookup], np.int64)
         user_emb = self.transform(x)
-        idx, scores = top_product(
+        idx, scores = self._top_product(
             user_emb, self.components, k, not_recommend=not_recommend,
             exclude=excl_idx, glob_mean=self.global_bias)
         return TopK(idx, scores, self._item_ids_of(idx), get_names(x, 0))
+
+    def _top_product(self, x, y, k, **kw):
+        """``top_product``, or its sharded form on a mesh with a ``data``
+        axis while k fits a rank's items."""
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None and "data" in mesh.axis_names:
+            from ..parallel.topk_sharded import shard_cap, sharded_top_product
+            if k <= shard_cap(y.shape[1], mesh.shape["data"]):
+                return sharded_top_product(mesh, x, y, k, **kw)
+        return top_product(x, y, k, **kw)
 
     def get_similar_items(self, item_id, k: Optional[int] = None,
                           device: Optional[bool] = None) -> TopK:
@@ -99,8 +114,8 @@ class MatrixFactorizationRecommender:
         of the query's L2-normalised embedding against all items, the query
         itself excluded, so at most ``n_items - 1`` results.  ``device`` is
         the reference's choice between a host and a device ranking; it is
-        accepted and ignored, since the port always ranks through
-        ``top_product`` on the model's device."""
+        accepted and ignored, since the port always ranks on the model's
+        device (``top_product``, or sharded on a mesh)."""
         comps = np.asarray(self.components, np.float32)
         n_items = comps.shape[1]
         k = n_items - 1 if k is None else min(k, n_items - 1)
@@ -116,7 +131,7 @@ class MatrixFactorizationRecommender:
         norms = np.sqrt((comps ** 2).sum(axis=0))
         l2 = torch.as_tensor(comps / np.maximum(norms, 1e-12),
                              device=self.device)
-        idx, scores = top_product(l2[:, i][None, :], l2, k,
-                                  exclude=np.asarray([i], np.int64))
+        idx, scores = self._top_product(l2[:, i][None, :], l2, k,
+                                        exclude=np.asarray([i], np.int64))
         ids = self._item_ids_of(idx)
         return TopK(idx, scores, ids, None)

@@ -30,6 +30,15 @@ the plain versions at any width.
 Randomness comes from ``np.random.default_rng(seed)`` drawn in the same
 order as the reference (U first; V only when the solver is not CG), so the
 initial state matches it exactly.
+
+On a mesh (``mesh=parallel.mesh.make_mesh(...)``, every rank calling
+``fit_transform(x)`` with the same ``x`` and seed) each rank buckets and
+solves only its slice of the rows, the factor tables are row-sharded over
+a ``model`` axis between half-sweeps, and at the end every rank holds the
+whole embeddings, ``components`` and ``loss_history``
+(``parallel/wrmf_step.py``); ``routing="alx"`` / ``"alx_ragged"`` exchange
+only the referenced source rows (``parallel/alx.py``).  The model then
+runs on the mesh's device.
 """
 
 from __future__ import annotations
@@ -47,6 +56,11 @@ from ..ops.als import (ALSConfig, CHOLESKY, CONJUGATE_GRADIENT, NNLS,
                        solver_code, wrmf_sweep)
 from ..ops.bias_init import initialize_biases
 from ..ops.solvers import SCD_MAX_ITER
+from ..parallel.alx import ALXStage, alx_sweep, stage_alx
+from ..parallel.mesh import Mesh, shard_buckets, shard_hot
+from ..parallel.multihost import (data_spec, distributed_bucket_rows,
+                                  is_multihost, process_row_range)
+from ..parallel.wrmf_step import data_sweep, gather_factors, place_factors
 from ..sparse.device import (BucketedRows, bucket_rows, hot_bucket_rows,
                              split_hot_cold)
 from ..utils.profiling import FitTrace
@@ -55,11 +69,6 @@ from .base import MatrixFactorizationRecommender, get_names
 #: rows per bucket are padded to a multiple of this (the reference's value
 #: without a device mesh)
 _ROW_ALIGN = 8
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to rsparse_tpu_torch yet (see ROADMAP.md)")
 
 
 class _FitState:
@@ -71,15 +80,21 @@ class _FitState:
     other's fits."""
 
 
-def _save_fit_state(path, U, V, it, loss_history, loss_prev, global_bias):
+def _save_fit_state(path, U, V, it, loss_history, loss_prev, global_bias,
+                    mesh=None):
+    """Write the fit state; on a mesh rank 0 writes the whole tables it is
+    given and every rank waits for it."""
     from ..utils import checkpoint
-    st = _FitState()
-    st.U, st.V, st.it = U, V, int(it)
-    st.loss_history = [float(v) for v in loss_history]
-    st.loss_prev = float(loss_prev)
-    st.global_bias = float(global_bias)
-    checkpoint.save(st, path)
-    logger.info("fit checkpoint written to %s (iteration %d)", path, it)
+    if mesh is None or mesh.rank == 0:
+        st = _FitState()
+        st.U, st.V, st.it = U, V, int(it)
+        st.loss_history = [float(v) for v in loss_history]
+        st.loss_prev = float(loss_prev)
+        st.global_bias = float(global_bias)
+        checkpoint.save(st, path)
+        logger.info("fit checkpoint written to %s (iteration %d)", path, it)
+    if mesh is not None:
+        mesh.world.barrier()
 
 
 def _load_fit_state(path, device):
@@ -89,6 +104,36 @@ def _load_fit_state(path, device):
         return None
     from ..utils import checkpoint
     return checkpoint.load(path, cls=_FitState, device=device)
+
+
+def _check_mesh(mesh, routing, with_user_item_bias) -> None:
+    """The constructor's mesh and routing checks (rsparse_tpu/models/
+    wrmf.py:139-153, and alx_ragged on a ("dcn", "ici") mesh, which the
+    JAX package only refuses at the first sweep)."""
+    if routing not in (None, "alx", "alx_ragged"):
+        raise ValueError(f"unknown routing {routing!r}")
+    if mesh is not None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError(
+                "mesh must be a rsparse_tpu_torch.parallel.mesh.Mesh "
+                "(parallel.mesh.make_mesh or parallel.multihost."
+                f"make_multihost_mesh), not {type(mesh).__name__}")
+        if not ("data" in mesh.axis_names
+                or set(mesh.axis_names) == {"dcn", "ici"}):
+            raise ValueError(
+                "a WRMF mesh needs a 'data' axis (and optionally 'model'), or "
+                f"exactly ('dcn', 'ici'); got {mesh.axis_names}")
+    if routing is not None:
+        if mesh is None:
+            raise ValueError("routing='alx' requires a mesh with a 'data' "
+                             "axis or both 'dcn' and 'ici'")
+        if with_user_item_bias:
+            raise ValueError("routing='alx' does not support per-entity "
+                             "biases")
+        if routing == "alx_ragged" and "data" not in mesh.axis_names:
+            raise ValueError("routing='alx_ragged' takes a mesh with a "
+                             "'data' axis; on a ('dcn', 'ici') mesh use "
+                             "routing='alx'")
 
 
 class WRMF(MatrixFactorizationRecommender):
@@ -129,10 +174,7 @@ class WRMF(MatrixFactorizationRecommender):
         if hot_dtype == "uint8" and feedback != "implicit":
             raise ValueError("hot_dtype='uint8' requires implicit feedback "
                              "(quantized confidences must be positive)")
-        if mesh is not None:
-            raise _not_ported("mesh")
-        if routing is not None:
-            raise _not_ported(f"routing={routing!r}")
+        _check_mesh(mesh, routing, with_user_item_bias)
         self.feedback = feedback
         self.with_user_item_bias = bool(with_user_item_bias)
         self.with_global_bias = with_global_bias
@@ -160,9 +202,16 @@ class WRMF(MatrixFactorizationRecommender):
         #: storage of the dense head: "auto" follows compute_dtype (else the
         #: factor dtype), "uint8" per-row quantised codes (implicit only)
         self.hot_dtype = hot_dtype
-        #: always None here; kept because the JAX package's checkpoint
-        #: loader reads them
-        self.mesh = self.routing = None
+        #: a ``parallel.mesh.Mesh`` with a "data" axis (buckets split over
+        #: it) and optionally "model" (tables row-sharded over it), or a
+        #: ("dcn", "ici") mesh (each rank buckets its own rows); None runs
+        #: in this process alone
+        self.mesh = mesh
+        #: "alx" / "alx_ragged": route only the referenced source rows to
+        #: each rank by a static all-to-all plan (parallel/alx.py)
+        self.routing = routing
+        if mesh is not None:
+            self.device = mesh.device
         self._V: Optional[torch.Tensor] = None   # (n_items, R) factors
         self._U: Optional[torch.Tensor] = None   # (n_users, R) factors
         #: nnz per user / per item of the last fit (float32): the explicit
@@ -212,16 +261,81 @@ class WRMF(MatrixFactorizationRecommender):
         return {"uint8": torch.uint8, "bfloat16": torch.bfloat16,
                 "float32": torch.float32}[self.hot_dtype]
 
-    def _bucketize(self, csr, include_empty: bool) -> BucketedRows:
-        """Buckets of ``csr`` at the factor dtype; bf16 values (precision
-        "bfloat16", as the reference stores them) are held as the float32
-        they equal, which is what the kernels read."""
-        br = bucket_rows(csr, self.dtype, self.device,
-                         include_empty=include_empty, row_align=_ROW_ALIGN)
+    # -- the mesh (rsparse_tpu/models/wrmf.py:188-265) ----------------------
+
+    @property
+    def _row_align(self) -> int:
+        """Rows a bucket's batch is padded to: a multiple of 8 that the
+        data axes' size divides."""
+        if self.mesh is None:
+            return _ROW_ALIGN
+        n = self.mesh.axis_size(data_spec(self.mesh))
+        return 8 * n if 8 % n else 8
+
+    @property
+    def _multihost(self) -> bool:
+        return is_multihost(self.mesh)
+
+    def _values_f32(self, br: BucketedRows) -> BucketedRows:
+        """bf16 values (precision "bfloat16", as the reference stores them)
+        held as the float32 they equal, which is what the kernels read."""
         if self.dtype != torch.bfloat16:
             return br
         return dataclasses.replace(br, buckets=tuple(
             b._replace(values=b.values.float()) for b in br.buckets))
+
+    def _bucketize(self, csr, include_empty: bool):
+        """Buckets of ``csr`` at the factor dtype.  On a mesh, this rank's
+        slices of them (``BucketedRows`` with the global shape), or with
+        ``routing`` the ``ALXStage`` of the routed sweep; on a ("dcn",
+        "ici") mesh each rank buckets only its own row range."""
+        mesh = self.mesh
+        if mesh is None:
+            return self._values_f32(bucket_rows(
+                csr, self.dtype, self.device, include_empty=include_empty,
+                row_align=_ROW_ALIGN))
+        axis = data_spec(mesh)
+        if self.routing is not None:
+            br = self._values_f32(bucket_rows(
+                csr, self.dtype, "cpu", include_empty=include_empty,
+                row_align=self._row_align))
+            return stage_alx(br, csr.shape[1], mesh, axis,
+                             ragged=self.routing == "alx_ragged")
+        if self._multihost:
+            group = mesh.group(axis)
+            lo, hi = process_row_range(csr.shape[0], group.size, group.rank)
+            return self._values_f32(distributed_bucket_rows(
+                sp.csr_matrix(csr)[lo:hi], lo, csr.shape[0], csr.shape[1],
+                mesh, self.dtype, include_empty=include_empty))
+        br = bucket_rows(csr, self.dtype, "cpu", include_empty=include_empty,
+                         row_align=self._row_align)
+        return self._values_f32(shard_buckets(br, mesh, axis))
+
+    def _place_factors(self, arr: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a whole table (row-sharded over "model")."""
+        if self.mesh is None:
+            return arr
+        return place_factors(self.mesh, arr)
+
+    def _whole(self, arr: torch.Tensor, n_rows: int) -> torch.Tensor:
+        if self.mesh is None:
+            return arr
+        return gather_factors(self.mesh, arr, n_rows)
+
+    def _sweep(self, src, tgt, container, lam, g, cfg, hot_ids=None,
+               hot_rows=None, src_cnt=None):
+        """One half-sweep over ``container`` (``_bucketize``'s): the whole
+        new target table and the loss."""
+        if self.mesh is None:
+            return wrmf_sweep(src, tgt, container.buckets, lam, g, cfg,
+                              hot_ids, hot_rows, src_cnt)
+        n_src, n_tgt = container.n_cols, container.n_rows
+        if isinstance(container, ALXStage):
+            return alx_sweep(self.mesh, self._whole(src, n_src),
+                             self._whole(tgt, n_tgt), container, src_cnt,
+                             lam, g, cfg)
+        return data_sweep(self.mesh, src, tgt, container.buckets, n_src,
+                          n_tgt, lam, g, cfg, hot_ids, hot_rows, src_cnt)
 
     def _resolve_n_hot(self, csr: sp.csr_matrix) -> int:
         """Head size for the dense zipf-head split of one sweep orientation
@@ -231,7 +345,7 @@ class WRMF(MatrixFactorizationRecommender):
         w_bytes))`` with CG and none with the exact solvers, which pay
         ``B * H * d^2`` for the head's lhs; the width is capped by a 1 GB
         budget for the dense block and by 16384 / w_bytes."""
-        if self.with_user_item_bias:
+        if self.with_user_item_bias or self._multihost or self.routing:
             return 0
         if self.solver != CONJUGATE_GRADIENT and self.n_hot == "auto":
             return 0
@@ -264,6 +378,8 @@ class WRMF(MatrixFactorizationRecommender):
                 csr, n_hot, self.dtype, self.device,
                 with_presence=self.feedback == "explicit",
                 w_dtype=self._w_dtype)
+            if self.mesh is not None:
+                hot = shard_hot(hot, self.mesh)
         br = self._bucketize(csr, include_empty or hot is not None)
         if hot is None:
             return None, br, None
@@ -382,6 +498,7 @@ class WRMF(MatrixFactorizationRecommender):
             U[:, R - 1] = torch.as_tensor(user_bias, dtype=self.dtype)
             V[:, R - 1] = 1.0
             V[:, 0] = torch.as_tensor(item_bias, dtype=self.dtype)
+        U, V = self._place_factors(U), self._place_factors(V)
 
         cfg_items = self._cfg(bias_last_in_source=True)
         cfg_users = self._cfg(bias_last_in_source=False)
@@ -392,8 +509,8 @@ class WRMF(MatrixFactorizationRecommender):
         start_iter = 0
         state = _load_fit_state(checkpoint_path, self.device) if resume else None
         if state is not None:
-            U = state.U.to(self.dtype)
-            V = state.V.to(self.dtype)
+            U = self._place_factors(state.U.to(self.dtype))
+            V = self._place_factors(state.V.to(self.dtype))
             start_iter = int(state.it)
             self.loss_history = list(state.loss_history)
             loss_prev = float(state.loss_prev)
@@ -403,26 +520,30 @@ class WRMF(MatrixFactorizationRecommender):
                         checkpoint_path, start_iter)
         for it in range(start_iter, n_iter):
             with self.fit_trace.phase(it + 1, "items") as rec:
-                V, loss = wrmf_sweep(U, V, iu.buckets, lam, g, cfg_items,
-                                     hot_users, iu_hot_rows, cnt_u)
+                V, loss = self._sweep(U, V, iu, lam, g, cfg_items, hot_users,
+                                      iu_hot_rows, cnt_u)
+                V = self._place_factors(V)
                 rec["loss"] = loss = float(loss) / nnz
             logger.info("iter %d (items) loss = %.4f", it + 1, loss)
             with self.fit_trace.phase(it + 1, "users") as rec:
-                U, loss = wrmf_sweep(V, U, ui.buckets, lam, g, cfg_users,
-                                     hot_items, ui_hot_rows, cnt_i)
+                U, loss = self._sweep(V, U, ui, lam, g, cfg_users, hot_items,
+                                      ui_hot_rows, cnt_i)
+                U = self._place_factors(U)
                 rec["loss"] = loss = float(loss) / nnz
             logger.info("iter %d (users) loss = %.4f", it + 1, loss)
             self.loss_history.append(loss)
             if checkpoint_path and (it + 1) % max(checkpoint_every, 1) == 0:
                 # the resumed loop compares with THIS iteration's loss
-                _save_fit_state(checkpoint_path, U, V, it + 1,
-                                self.loss_history, loss, self.global_bias)
+                _save_fit_state(checkpoint_path, self._whole(U, n_users),
+                                self._whole(V, n_items), it + 1,
+                                self.loss_history, loss, self.global_bias,
+                                self.mesh)
             if loss == 0.0 or loss_prev / loss - 1 < convergence_tol:
                 logger.info("converged after %d iterations", it + 1)
                 break
             loss_prev = loss
 
-        self._set_items(V)
+        self._set_items(self._whole(V, n_items))
         with self.fit_trace.phase(len(self.loss_history), "transform"):
             self._U = self._transform_buckets(ui_full, n_users)
         return self._U
@@ -443,8 +564,9 @@ class WRMF(MatrixFactorizationRecommender):
         solver = CHOLESKY if self.solver == CONJUGATE_GRADIENT else self.solver
         tgt0 = torch.zeros((n_users, self._R), dtype=self.dtype,
                            device=self.device)
-        U, _ = wrmf_sweep(self._V, tgt0, ui.buckets, self.lambda_, self._g,
-                          self._cfg(bias_last_in_source=False, solver=solver))
+        U, _ = self._sweep(self._V, tgt0, ui, self.lambda_, self._g,
+                           self._cfg(bias_last_in_source=False,
+                                     solver=solver))
         return U
 
     def transform(self, x: sp.spmatrix) -> torch.Tensor:

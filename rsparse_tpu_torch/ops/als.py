@@ -898,10 +898,27 @@ def _check_hot_supported(hot_ids, cfg: ALSConfig):
             "hot/cold split does not support per-entity biases")
 
 
-def _sweep_prepare(src, lam, g, cfg: ALSConfig, sdt):
+def _rows_of(t: torch.Tensor, group) -> torch.Tensor:
+    """This member's contiguous share of ``t``'s rows (``ceil(n / size)``
+    a member, the last one short), or all of them without a group."""
+    if group is None:
+        return t
+    per = -(-t.shape[0] // group.size)
+    lo = min(group.rank * per, t.shape[0])
+    return t[lo:lo + per]
+
+
+def _summed(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the group's members (``t`` itself without one)."""
+    return t if group is None else group.all_reduce(t)
+
+
+def _sweep_prepare(src, lam, g, cfg: ALSConfig, sdt, group=None):
     """The sweep-invariant terms: (active source columns, contiguous;
     source biases or None; XtX Gram with the lambda ridge, implicit only;
-    rhs_init or None)."""
+    rhs_init or None).  With a ``group`` (``parallel/mesh.py``
+    ``AxisGroup``) each member sums the Gram and rhs_init over its share of
+    the source rows and the partial sums are all-reduced."""
     R = src.shape[1]
     src_sl, _ = _active_slices(cfg, R)
     src_act = src[:, src_sl].contiguous()
@@ -913,30 +930,35 @@ def _sweep_prepare(src, lam, g, cfg: ALSConfig, sdt):
         # explicit feedback builds per-entity Grams from the gathered rows
         # only (wrmf_explicit.hpp:74-78)
         return src_act, x_biases, None, None
-    s = src_act.to(sdt)
-    XtX = s.T @ s + lam * torch.eye(s.shape[1], dtype=sdt, device=s.device)
+    s = _rows_of(src_act.to(sdt), group)
+    XtX = _summed(s.T @ s, group) + lam * torch.eye(
+        s.shape[1], dtype=sdt, device=s.device)
     rhs_init = None
     if cfg.with_biases:
-        rhs_init = -(s.T @ (x_biases.to(sdt) + g))
+        xb = _rows_of(x_biases.to(sdt), group)
+        rhs_init = -_summed(s.T @ (xb + g), group)
     elif cfg.use_global_bias:
-        rhs_init = -g * s.sum(0)
+        rhs_init = -g * _summed(s.sum(0), group)
     return src_act, x_biases, XtX, rhs_init
 
 
-def _src_reg_loss(src, src_cnt, lam, cfg: ALSConfig, sdt):
+def _src_reg_loss(src, src_cnt, lam, cfg: ALSConfig, sdt, group=None):
     """Final lambda * ||learned source params||^2 term (reference
-    wrmf_implicit.hpp:286-303, wrmf_explicit.hpp:147-172)."""
+    wrmf_implicit.hpp:286-303, wrmf_explicit.hpp:147-172); with a
+    ``group``, summed over each member's share of the rows, then
+    all-reduced."""
     R = src.shape[1]
     if cfg.with_biases:
         excl = slice(1, R) if cfg.bias_last_in_source else slice(0, R - 1)
-        s = src[:, excl].to(sdt)
+        s = _rows_of(src[:, excl], group).to(sdt)
     else:
-        s = src.to(sdt)
+        s = _rows_of(src, group).to(sdt)
     if cfg.feedback == "explicit" and cfg.dynamic_lambda:
         if src_cnt is None:
             return torch.zeros((), dtype=sdt, device=src.device)
-        return lam * ((s * s).sum(1) * src_cnt.to(sdt)).sum()
-    return lam * (s * s).sum()
+        cnt = _rows_of(src_cnt, group).to(sdt)
+        return lam * _summed(((s * s).sum(1) * cnt).sum(), group)
+    return lam * _summed((s * s).sum(), group)
 
 
 def _assemble_target(result_act, cfg: ALSConfig):
@@ -948,6 +970,18 @@ def _assemble_target(result_act, cfg: ALSConfig):
     if cfg.bias_last_in_source:   # the target's ones column is last
         return torch.cat([result_act, ones], dim=1)
     return torch.cat([ones, result_act], dim=1)
+
+
+def _gather_solved(result: torch.Tensor, buckets, group) -> torch.Tensor:
+    """Every member's solved rows in one table: each member's rows of
+    ``result`` (its buckets' row ids, padding on the sentinel row) are
+    all-gathered over ``group`` and written into zeros, so rows outside
+    every bucket stay 0 as on one process."""
+    ids = (torch.cat([b.row_ids for b in buckets]).long() if buckets
+           else torch.zeros((0,), dtype=torch.long, device=result.device))
+    out = torch.zeros_like(result)
+    out[group.all_gather(ids)] = group.all_gather(result[ids])
+    return out
 
 
 def _solve_scatter(result, src_act, x_biases, XtX, rhs_init, bucket, old_act,
@@ -988,12 +1022,17 @@ def wrmf_sweep(
     hot_ids: Optional[torch.Tensor] = None,  # (H,) dense zipf-head columns
     hot_rows=None,                     # hot_bucket_rows(...) for buckets
     src_cnt: Optional[torch.Tensor] = None,  # (n_src,) nnz counts
+    group=None,                        # parallel/mesh.py AxisGroup
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ALS half-sweep: re-solve every target entity given fixed sources.
 
     Returns (new target factors (n_tgt, R), summed un-normalised loss).
     ``src_cnt`` weighs the source regulariser of explicit dynamic lambda;
-    without it that term is left out of the loss.
+    without it that term is left out of the loss.  With a ``group`` (the
+    data axis of a mesh) ``buckets`` are this member's slices: the Gram,
+    rhs_init and the source regulariser are partial sums over its share of
+    the source rows, and the loss and the solved rows are combined over the
+    group, so every member returns the whole table and loss.
     Mirrors one call of ``private$solver`` in the reference fit loop
     (R/model_WRMF.R:318-338).  The Gram and rhs_init come from ``src`` as
     it is; with ``compute_dtype="bfloat16"`` the buckets and the head
@@ -1002,7 +1041,8 @@ def wrmf_sweep(
     n_tgt, R = tgt_old.shape
     sdt = accum_dtype(src.dtype)
     _check_hot_supported(hot_ids, cfg)
-    src_act, x_biases, XtX, rhs_init = _sweep_prepare(src, lam, g, cfg, sdt)
+    src_act, x_biases, XtX, rhs_init = _sweep_prepare(src, lam, g, cfg, sdt,
+                                                      group)
     src_act = _gather_src(src_act, cfg, sdt)
     _, tgt_sl = _active_slices(cfg, R)
     old_act = tgt_old[:, tgt_sl]
@@ -1014,5 +1054,8 @@ def wrmf_sweep(
         loss = loss + _solve_scatter(
             result, src_act, x_biases, XtX, rhs_init, bucket, old_act, lam, g,
             n_tgt, cfg, V_hot, None if hot_rows is None else hot_rows[bi])
+    if group is not None:
+        loss = group.all_reduce(loss)
+        result = _gather_solved(result, buckets, group)
     tgt_new = _assemble_target(result[:n_tgt], cfg)
-    return tgt_new, loss + _src_reg_loss(src, src_cnt, lam, cfg, sdt)
+    return tgt_new, loss + _src_reg_loss(src, src_cnt, lam, cfg, sdt, group)

@@ -2,10 +2,12 @@
 
 The counterpart of the JAX package's gather probes, the Pallas kernels of
 scripts/exp_gather.py and scripts/exp_gather2.py.  It measures the card's
-random row-read rate, which bounds the port's sparse kernels; no model
-calls it.  :func:`_gather_rows_plain` is its plain PyTorch version.  The
-lane layout (P2's transposed gather) stages rows of the transposed table
-in shared memory when they fit; :func:`lane_plan` picks its case.
+random row-read rate, which bounds the port's sparse kernels, and it is
+the owner's row gather of the routed ALX exchange
+(``parallel/routing.py``).  :func:`_gather_rows_plain` is its plain
+PyTorch version.  The lane layout (P2's transposed gather) stages rows of
+the transposed table in shared memory when they fit; :func:`lane_plan`
+picks its case.
 """
 
 from __future__ import annotations
@@ -119,9 +121,10 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
     ``gather_lanes``)."""
     if table.dim() != 2 or idx.dim() != 1:
         raise ValueError("expected a 2-D table and 1-D indices")
-    if table.dtype not in (torch.float32, torch.bfloat16):
+    if table.dtype not in (torch.float32, torch.bfloat16) and not (
+            table.dtype == torch.float64 and table.device.type == "cpu"):
         raise TypeError(f"table: dtype {table.dtype} is not supported "
-                        "(float32 or bfloat16)")
+                        "(float32 or bfloat16; float64 on the CPU)")
     if idx.dtype != torch.int32 or idx.device != table.device \
             or not idx.is_contiguous():
         raise ValueError("idx must be contiguous int32 on the table's "

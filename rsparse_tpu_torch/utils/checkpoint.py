@@ -22,12 +22,17 @@ so each package loads the other's checkpoints:
   ``components`` = (V diag(d))', which is all ``transform`` needs;
 - what the reference writes and the port does not keep (``_cnt_u``,
   ``_cnt_i`` load as unused tensors; ``_components_l2`` and caches are
-  dropped) loads without effect, and a ``mesh`` or ``routing`` other than
-  None raises ``NotImplementedError``, as the port's constructors do.
+  dropped) loads without effect;
+- a model fitted on a mesh (``parallel/``) holds whole tables on every
+  rank: rank 0 writes them, every rank waits for it, and the checkpoint
+  says ``mesh`` and ``routing`` None, so one process or any number of
+  ranks loads it as a model of one process; a loaded ``routing`` is
+  dropped (it has no meaning without the mesh).
 
 The reference's orbax store (mesh-sharded tables written per device) is not
-ported: ``store="orbax"`` and an orbax checkpoint raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 5).
+ported: ``store="orbax"``, an orbax checkpoint and one that names a mesh
+(tables written per device) raise ``NotImplementedError`` (ROADMAP.md queue
+1 item 3).
 """
 
 from __future__ import annotations
@@ -86,6 +91,13 @@ def save(model: Any, path: str, store: str = "auto") -> None:
     dtypes: Dict[str, str] = {}
     meta: Dict[str, Any] = {"__class__": type(model).__name__}
     state = dict(vars(model))
+    mesh = state.get("mesh")
+    if mesh is not None:
+        # the tables are whole on every rank: rank 0 writes them for all
+        state["mesh"] = state["routing"] = None
+        if mesh.rank != 0:
+            mesh.world.barrier()
+            return
     if isinstance(model, FTRL) and state.get("zn") is not None:
         zn = state.pop("zn")
         state["z"], state["n"] = zn[:, 0].contiguous(), zn[:, 1].contiguous()
@@ -127,6 +139,8 @@ def save(model: Any, path: str, store: str = "auto") -> None:
     meta["__bf16__"] = dtypes
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f, indent=1, default=str)
+    if mesh is not None:
+        mesh.world.barrier()
 
 
 def load(path: str, cls: Optional[Type] = None, device="cuda") -> Any:
@@ -144,11 +158,13 @@ def load(path: str, cls: Optional[Type] = None, device="cuda") -> Any:
         cls = getattr(rsparse_tpu_torch, name, None)
         if not isinstance(cls, type):
             raise ValueError(f"{path}: unknown model class {name!r}")
-    for k in ("mesh", "routing"):
-        if meta.get(k) is not None:
-            raise NotImplementedError(
-                f"{path} holds a model fitted with {k}={meta[k]!r}, which "
-                "is not ported to rsparse_tpu_torch yet (see ROADMAP.md)")
+    if meta.get("mesh") is not None:
+        raise NotImplementedError(
+            f"{path} holds tables written per device of mesh="
+            f"{meta['mesh']!r} (the orbax store), which is not ported to "
+            "rsparse_tpu_torch yet (see ROADMAP.md)")
+    if meta.get("routing") is not None:
+        meta["routing"] = None
     bf16 = meta.pop("__bf16__", {})
     sparse_shapes = meta.pop("__sparse__", {})
     strarr = meta.pop("__strarr__", [])

@@ -143,9 +143,13 @@ def test_port_imports_no_jax():
     dict(routing="alx"),
 ])
 def test_options_outside_the_slice_raise(kwargs):
-    """The mesh and routing stay outside the port, with or without the
-    reduced-precision options (which now run: tests/test_torch_wrmf_lowp.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """The mesh and routing are ported (tests/test_torch_parallel.py): what
+    stays outside is a mesh that is not the port's own (a JAX mesh, any
+    other object), with or without the reduced-precision options, and
+    routing without a mesh, which the JAX package refuses too."""
+    exc, match = ((TypeError, "parallel.mesh.Mesh") if "mesh" in kwargs
+                  else (ValueError, "routing='alx' requires a mesh"))
+    with pytest.raises(exc, match=match):
         rt.WRMF(device="cpu", **kwargs)
 
 

@@ -5,7 +5,8 @@ In PyTorch every mesh spans processes already (:mod:`.mesh`), so what is
 left of the JAX module is:
 
 - :func:`initialize`: ``init_process_group`` from arguments (a ``file://``
-  or ``tcp://`` store) or from the ``torchrun`` environment;
+  or ``tcp://`` store, in the port's keywords or the reference's) or from
+  the ``torchrun`` environment;
 - :func:`make_multihost_mesh`: a ``("dcn", "ici")`` mesh, ``dcn`` the
   nodes and ``ici`` the ranks within a node, process-major, so that a
   batch axis split over both gives each node a contiguous block of rows;
@@ -43,14 +44,46 @@ def initialize(init_method: Optional[str] = None,
                world_size: Optional[int] = None,
                rank: Optional[int] = None,
                device_type: Optional[str] = None,
-               timeout_s: Optional[float] = None) -> None:
+               timeout_s: Optional[float] = None, *,
+               coordinator_address: Optional[str] = None,
+               num_processes: Optional[int] = None,
+               process_id: Optional[int] = None,
+               local_device_count: Optional[int] = None) -> None:
     """Bring up the default process group for this process, unless it is
     up.  Without arguments it reads ``torchrun``'s environment
     (``env://``).  The group carries gloo for CPU tensors, and NCCL for
     CUDA tensors when the process sees a card and ``device_type`` is not
-    "cpu"; :func:`.mesh.make_mesh` picks which one its collectives use."""
+    "cpu"; :func:`.mesh.make_mesh` picks which one its collectives use.
+
+    The reference's keywords (``rsparse_tpu/parallel/multihost.py``
+    ``initialize``) are taken too, so a caller written for it runs
+    unchanged: ``coordinator_address`` is the store, ``num_processes`` the
+    world size and ``process_id`` the rank.  A store without a scheme
+    (``host:port``, in either spelling) is read as ``tcp://host:port``;
+    one with a scheme passes through.  ``local_device_count`` is
+    accepted and ignored: the port runs one rank a device, so a process
+    never holds more than one (with ``device_type="cpu"`` it must be 1).
+    Giving one quantity in both spellings raises ``TypeError``."""
+    for port_name, port_v, ref_name, ref_v in (
+            ("init_method", init_method, "coordinator_address",
+             coordinator_address),
+            ("world_size", world_size, "num_processes", num_processes),
+            ("rank", rank, "process_id", process_id)):
+        if port_v is not None and ref_v is not None:
+            raise TypeError(f"initialize() got both {port_name}= and "
+                            f"{ref_name}= (the same quantity)")
+    init_method = init_method if init_method is not None \
+        else coordinator_address
+    world_size = world_size if world_size is not None else num_processes
+    rank = rank if rank is not None else process_id
+    if (local_device_count is not None and device_type == "cpu"
+            and int(local_device_count) != 1):
+        raise ValueError(f"local_device_count={local_device_count}: the "
+                         "port runs one rank a device (1 on the CPU)")
     if dist.is_initialized():
         return
+    if init_method is not None and "://" not in init_method:
+        init_method = f"tcp://{init_method}"
     backend = ("gloo" if device_type == "cpu" or not torch.cuda.is_available()
                else "cpu:gloo,cuda:nccl")
     kw = {}

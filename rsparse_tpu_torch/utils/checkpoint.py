@@ -143,11 +143,26 @@ def save(model: Any, path: str, store: str = "auto") -> None:
         mesh.world.barrier()
 
 
-def load(path: str, cls: Optional[Type] = None, device="cuda") -> Any:
+def load(path: str, cls: Optional[Type] = None, device="cuda",
+         sharding=None) -> Any:
     """Restore a model that :func:`save` or the JAX package's ``save`` (npz
     store) wrote.  ``cls`` may be omitted: the class is looked up among
     ``rsparse_tpu_torch``'s exports by the recorded name.  Tensors land on
-    ``device``."""
+    ``device``.
+
+    ``sharding`` (the reference's ``load(..., sharding=)``) may be a mesh
+    of :func:`rsparse_tpu_torch.parallel.mesh.make_mesh`: a WRMF then gets
+    it as its ``mesh``, with its factor tables on the mesh's device, placed
+    as ``parallel.wrmf_step.place_factors`` places them (every rank must
+    load).  Any other value raises ``ValueError``; a model with no mesh
+    path raises the ``NotImplementedError`` of its ``mesh=``."""
+    if sharding is not None:
+        from ..parallel.mesh import Mesh
+        if not isinstance(sharding, Mesh):
+            raise ValueError(
+                "sharding must be a rsparse_tpu_torch.parallel.mesh.Mesh "
+                f"(parallel.mesh.make_mesh), not {type(sharding).__name__}")
+        device = sharding.device
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     if meta.pop("__store__", "npz") == "orbax":
@@ -158,6 +173,11 @@ def load(path: str, cls: Optional[Type] = None, device="cuda") -> Any:
         cls = getattr(rsparse_tpu_torch, name, None)
         if not isinstance(cls, type):
             raise ValueError(f"{path}: unknown model class {name!r}")
+    if sharding is not None:
+        from ..models.wrmf import WRMF
+        if not issubclass(cls, WRMF):
+            raise NotImplementedError(
+                "mesh (row-sharded tables) is not ported yet; see ROADMAP.md")
     if meta.get("mesh") is not None:
         raise NotImplementedError(
             f"{path} holds tables written per device of mesh="
@@ -197,7 +217,22 @@ def load(path: str, cls: Optional[Type] = None, device="cuda") -> Any:
             (parts["val"], (parts["row"], parts["col"])),
             shape=tuple(sparse_shapes[name])))
     _restore_runtime(model, tensors, device)
+    if sharding is not None:
+        _place_on_mesh(model, sharding)
     return model
+
+
+def _place_on_mesh(model, mesh) -> None:
+    """Put a loaded WRMF on ``mesh``: its ``mesh`` and device, and its
+    factor tables as a fit on that mesh places them."""
+    from ..models.wrmf import _check_mesh
+    from ..parallel.wrmf_step import place_factors
+    _check_mesh(mesh, None, model.with_user_item_bias)
+    model.mesh = mesh
+    model.device = mesh.device
+    for k in ("_U", "_V"):
+        if getattr(model, k, None) is not None:
+            setattr(model, k, place_factors(mesh, getattr(model, k)))
 
 
 def _restore_runtime(model, tensors: Dict[str, torch.Tensor],

@@ -275,3 +275,53 @@ def test_cli_reads_the_other_clis_checkpoint(cli_runs):
         for a, b in zip(map(json.loads, own), map(json.loads, other)):
             assert (a["user"], a["items"]) == (b["user"], b["items"])
             np.testing.assert_allclose(b["scores"], a["scores"], atol=1.5e-4)
+
+
+# -- load(..., sharding=) onto a one-rank CPU mesh -----------------------------
+
+@contextlib.contextmanager
+def _one_rank_mesh(tmp_path):
+    import torch.distributed as dist
+
+    from rsparse_tpu_torch.parallel import mesh as port_mesh
+    from rsparse_tpu_torch.parallel import multihost
+    multihost.initialize(f"file://{tmp_path / 'store'}", 1, 0,
+                         device_type="cpu")
+    try:
+        yield port_mesh.make_mesh((1,), ("data",), device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_load_onto_a_mesh(fitted, tmp_path):
+    """``load(..., sharding=mesh)`` (the reference's keyword) gives a WRMF
+    on that mesh whose predict equals the unsharded load's and the JAX
+    model's."""
+    src, q = fitted("jax", "wrmf")
+    path = str(tmp_path / "w")
+    ck_jax.save(src, path)
+    flat = ck_port.load(path, device="cpu")
+    with _one_rank_mesh(tmp_path) as mesh:
+        m = ck_port.load(path, sharding=mesh)
+        assert m.mesh is mesh and m._V.device == mesh.device
+        a = flat.predict(q, k=10, not_recommend=q)
+        b = m.predict(q, k=10, not_recommend=q)
+    np.testing.assert_array_equal(b.indices, a.indices)
+    np.testing.assert_array_equal(np.asarray(b.scores), np.asarray(a.scores))
+    _check_same("wrmf", src, m, q)
+
+
+def test_load_refuses_a_bad_sharding(fitted, tmp_path):
+    """A sharding that is no port mesh raises ValueError naming its type; a
+    mesh on a model with no mesh path raises its ``mesh=`` error."""
+    wrmf, _ = fitted("port", "wrmf")
+    glove, _ = fitted("port", "glove")
+    ck_port.save(wrmf, str(tmp_path / "w"))
+    ck_port.save(glove, str(tmp_path / "g"))
+    with pytest.raises(ValueError, match="str"):
+        ck_port.load(str(tmp_path / "w"), device="cpu", sharding="data")
+    with _one_rank_mesh(tmp_path) as mesh:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            ck_port.load(str(tmp_path / "g"), sharding=mesh)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            rt.GloVe(rank=4, x_max=10.0, mesh=mesh, device="cpu")

@@ -220,3 +220,62 @@ def test_every_rank_holds_the_whole_tables(runs):
             assert r["U"].shape == (x.shape[0], W.FIT["rank"]), case
             assert r["V"].shape == (x.shape[1], W.FIT["rank"]), case
             assert np.isfinite(r["U"]).all() and np.isfinite(r["V"]).all()
+
+
+# -- bring-up in the reference's keywords (in this process, one gloo rank) ---
+
+def _free_tcp_address() -> str:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return f"localhost:{s.getsockname()[1]}"
+
+
+@pytest.mark.parametrize("spelling", ["port", "reference", "reference_tcp"])
+def test_initialize_takes_both_spellings(spelling, tmp_path):
+    """``initialize`` brings up a one-rank gloo group from the port's
+    keywords, the reference's (``rsparse_tpu/parallel/multihost.py``:
+    coordinator_address, num_processes, process_id, local_device_count),
+    and a bare ``host:port`` read as ``tcp://``; the group then carries a
+    collective."""
+    import torch
+    import torch.distributed as dist
+
+    from rsparse_tpu_torch.parallel import multihost
+    store = f"file://{tmp_path / 'store'}"
+    if spelling == "port":
+        multihost.initialize(store, 1, 0, device_type="cpu")
+    elif spelling == "reference":
+        multihost.initialize(coordinator_address=store, num_processes=1,
+                             process_id=0, local_device_count=1,
+                             device_type="cpu")
+    else:
+        multihost.initialize(coordinator_address=_free_tcp_address(),
+                             num_processes=1, process_id=0,
+                             device_type="cpu")
+    try:
+        assert dist.get_world_size() == 1 and dist.get_rank() == 0
+        assert dist.get_backend() == "gloo"
+        t = torch.arange(3.0)
+        dist.all_reduce(t)
+        assert t.tolist() == [0.0, 1.0, 2.0]
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(init_method="file:///x", coordinator_address="file:///x"),
+     TypeError),
+    (dict(world_size=1, num_processes=1), TypeError),
+    (dict(rank=0, process_id=0), TypeError),
+    (dict(coordinator_address="localhost:1", num_processes=1, process_id=0,
+          local_device_count=2, device_type="cpu"), ValueError)])
+def test_initialize_refuses_mixed_spellings(kw, err):
+    """One quantity in both spellings raises TypeError, and more than one
+    device a CPU rank ValueError, before any group is brought up."""
+    import torch.distributed as dist
+
+    from rsparse_tpu_torch.parallel import multihost
+    with pytest.raises(err):
+        multihost.initialize(**kw)
+    assert not dist.is_initialized()

@@ -2858,24 +2858,46 @@ def k11_sides_apart(st, rows, cols, xv, hp) -> str:
     plain = sv_bf16(s32, torch.float32)
     sides = [s2[k].to(torch.bfloat16) for k in (0, 1)]
     n = lambda a, b: int(((a != b) & present).sum())  # noqa: E731
-    # the cells K11 sums again exactly (csrc/glove_dense.cu near_midpoint),
-    # estimated from the float32 plain S
-    lx = torch.log(torch.where(present, xv.float(), 1.0))
-    b_r, b_c = st.b_i[i][:, None], st.b_j[j][None, :]
-    sv = torch.clamp(s32 + b_r + b_c - lx, -100.0, 100.0)
-    bound = (2.0 ** -18 * wi.float().norm(dim=1)[:, None]
-             * wj.float().norm(dim=1)[None, :]
-             + 2.0 ** -22 * (s32.abs() + b_r.abs() + b_c.abs() + lx.abs())
-             + 2.0 ** -21 * (1.0 + lx.abs()))
-    bits = sv.view(torch.int32)
-    ulp = torch.pow(2.0, ((bits >> 23) & 0xFF).float() - 150.0)
-    near = present & (((bits & 0xFFFF) - 0x8000).abs().float() * ulp
-                      <= bound)
+    near = k11_flagged(st, rows, cols, xv)
     return (f"bf16 clip(S + b - log x): {n(sides[0], sides[1])} present "
             f"cells apart between the two sides; apart from float64 sums: "
             f"row side {n(sides[0], ref)}, column side {n(sides[1], ref)}, "
             f"float32 plain {n(plain, ref)}; of {int(present.sum())} "
-            f"present, ~{int(near.sum())} summed again exactly")
+            f"present, ~{near} summed again exactly")
+
+
+def k11_flagged(st, rows, cols, x) -> int:
+    """The present cells of a bf16 tile that K11 sums again exactly, a
+    side, estimated from the float32 plain S: those whose float32 clip(S +
+    b_i + b_j - log x) lies within the kernel's error bound of a bf16
+    rounding midpoint (csrc/glove_dense.cu near_midpoint: 2^-21 x 8 slices
+    x |w_i| |w_j| at r <= 128; at 320 also near_midpoint_slices, 2^-19 x
+    the sum over the k16 slices of the slices' norms)."""
+    import torch
+    from rsparse_tpu_torch.models import glove
+    i, j = rows.long(), cols.long()
+    r = st.w_i.shape[1]
+    wi, wj = (t.to(torch.bfloat16).float() for t in (st.w_i[i], st.w_j[j]))
+    s32 = wi @ wj.T
+    present = x.float() > 0
+    lx = torch.log(torch.where(present, x.float(), 1.0))
+    b_r, b_c = st.b_i[i][:, None], st.b_j[j][None, :]
+    sv = torch.clamp(s32 + b_r + b_c - lx, -100.0, 100.0)
+    rest = (2.0 ** -22 * (s32.abs() + b_r.abs() + b_c.abs() + lx.abs())
+            + 2.0 ** -21 * (1.0 + lx.abs()))
+    bits = sv.view(torch.int32)
+    ulp = torch.pow(2.0, ((bits >> 23) & 0xFF).float() - 150.0)
+    dist = ((bits & 0xFFFF) - 0x8000).abs().float() * ulp
+    wide = r > glove.GLOVE_WIDTHS[0]
+    slices = -(-r // 16) if wide else 8
+    near = present & (dist <= 2.0 ** -21 * slices * wi.norm(dim=1)[:, None]
+                      * wj.norm(dim=1)[None, :] + rest)
+    if wide:
+        pad = lambda t: torch.nn.functional.pad(  # noqa: E731
+            t, (0, 16 * slices - r)).view(t.shape[0], slices, 16).norm(dim=2)
+        sigma = pad(wi) @ pad(wj).T
+        near &= dist <= 2.0 ** -19 * sigma + rest
+    return int(near.sum())
 
 
 def _tile_cublas(st, rows, cols, x, x_max, alpha, lr):
@@ -2928,7 +2950,9 @@ def check_glove_step(name, step, plain, state, ids, tag, results, bnd,
     its change to 1e-5, or to twice the plain version's distance from the
     plain version at float64 (bf16 cells of S that an f32 sum rounds the
     other way); tables outside ``ids`` (the row and the column side's ids)
-    must not move.  ``flops``: the kernel's own work, printed as a rate.
+    must not move.  K10 and the wide K11 run twice on the same state and
+    must give the same tables and loss, bit for bit.  ``flops``: the
+    kernel's own work, printed as a rate.
     ``key``: the kernel's row of the kernels line (``name``, or its wide
     route's)."""
     import torch
@@ -2966,14 +2990,15 @@ def check_glove_step(name, step, plain, state, ids, tag, results, bnd,
     key = key or name
     results[key]["max_abs_err"] = max(results[key]["max_abs_err"], worst)
     dms = None
-    if name == "glove":
-        # K10: the same result on every run, and its device time
+    if name == "glove" or key == "glove_dense_wide":
+        # K10 and the wide K11: the same result on every run
         s2 = glove.GloveState(*(t.clone() for t in state))
         l2 = step(s2)
         require(torch.equal(l2, lk) and all(
             torch.equal(a, b) for a, b in zip(s2, sk)),
             f"{name} {tag}: two launches on the same inputs differ")
         del s2
+    if name == "glove":  # K10's device time
         dms = graph_ms([lambda: step(sk)], reps=20)
     ms = time_ms(lambda: step(sk), reps)
     if flops:

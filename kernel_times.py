@@ -7,7 +7,9 @@ so that two checkouts can be compared within one run on the same card.
 WHAT is one or more of:
 
   k1          K1 (the bucketed CG solve) bucket by bucket over both
-              half-sweeps of the ML-20M-shaped full-width fits, as
+              half-sweeps of the ML-20M-shaped full-width fits (each
+              half-sweep's sum beside the sum of its buckets' bounds, at
+              the rates of the routes ``cg_plan`` names), as
               ``chip_smoke.py`` phase 4 fits them (rank 128, implicit CG,
               2 iterations; float32 with ``n_hot="auto"`` and the headline
               ``compute_dtype="bfloat16"``, ``n_hot=4096``), each
@@ -53,7 +55,25 @@ WHAT is one or more of:
               (``_stage_tail(...).shard(0)``, straight and swapped) from
               the model's initial state;
 
-k7 and k10 also print each launch's device time by ``torch.profiler``.
+  k2-wide     K2 at d = 514 (``csrc/als_chol_wide.cu``) on phase 11 (a)'s
+              synthetic buckets B=256 L=128 and 16 x 8,192 (implicit, no
+              head), its stages apart (the Gram, the factorisation where
+              the design stops after it, the back substitution, the loss)
+              beside the plain version and the bound, then the whole
+              closing half-sweep of a rank-512 implicit fit (1 iteration)
+              on the ML-20M-shaped synthetic, twice;
+  k11-wide    K11's bf16 head on config #4's first tile (3,063 x 3,063)
+              at r = 128 and 300, from the model's initial state: CUDA
+              events and CUDA-graph device time, the dense mma rate, the
+              plain version and the bf16 cuBLAS chain (``chip_smoke.py``
+              ``_tile_cublas``), the present cells and the cells flagged
+              for an exact re-sum; at 300 on this tree also a build with
+              RSP_K11_CLOCKS: the cycles of each phase of one CTA's
+              consumer loop and the cells it summed again;
+
+k7 and k10 also print each launch's device time by ``torch.profiler``;
+k2-wide on this tree also builds ``csrc/als_chol_wide.cu`` with
+RSP_CHOL_CLOCKS and prints the cycles of each phase of one cluster's CTAs.
 
 Needs one CUDA card.  The data and the timers are this checkout's
 ``chip_smoke.py`` (``time_ms``: CUDA events over wrapper calls after a
@@ -113,7 +133,7 @@ def bucket_times(m, x, tag, reps):
         _, tgt_sl = als._active_slices(cfg, src.shape[1])
         old_act = old[:, tgt_sl].float()
         Vh = None if hot is None else src_act[hot.long()].contiguous()
-        total = 0.0
+        total, tb, to = 0.0, 0.0, 0.0
         for bi, b in enumerate(br.buckets):
             W = bits = scale = None
             if rows is not None:
@@ -125,11 +145,18 @@ def bucket_times(m, x, tag, reps):
             ms = cs.time_ms(lambda: als.solve_bucket_cg(
                 *args, hot_scale=scale), reps=reps)
             total += ms
+            if hasattr(als, "cg_plan"):  # the bound at the route's rates
+                pb, po = cs.als_bound_parts(
+                    args, hot_scale=scale,
+                    plan=als.cg_plan(*args, hot_scale=scale))
+                tb, to = tb + pb, to + po
             H = 0 if W is None else W.shape[1]
             print(f"  {tag} {sweep} {b.batch} x {b.pad_len} H={H} "
                   f"K1 {ms:.3f} ms", flush=True)
+        bound = (f", bound {max(tb, to):.4f} ms "
+                 f"({'bytes' if tb >= to else 'operations'})" if tb else "")
         print(f"  {tag} {sweep} half-sweep, {len(br.buckets)} buckets: "
-              f"K1 {total:.3f} ms", flush=True)
+              f"K1 {total:.3f} ms{bound}", flush=True)
         torch.cuda.empty_cache()
 
 
@@ -478,9 +505,165 @@ def k10_times(dev, reps):
         del st
 
 
+#: the phases csrc/als_chol_wide.cu's RSP_CHOL_CLOCKS build times
+K2_PHASES = ("Gram", "own rows solved", "next diagonal block",
+             "panel barriers", "column block copy and trailing updates",
+             "back substitution (waits and own blocks)", "its closing barrier",
+             "loss")
+
+
+def k2_wide_clocks(args):
+    """The wide K2 built with RSP_CHOL_CLOCKS on ``args``: the clock cycles
+    of each phase, summed over the first cluster's rows, a CTA a line."""
+    import torch
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.ops import als
+    so = _variant("als_chol_wide", ["RSP_CHOL_CLOCKS"], ["rsp_als_chol_wide"])
+    a, y, loss = als._bucket_args(*args, kernel="als_chol")
+    _kernels.check(so.rsp_als_chol_wide(ctypes.byref(a), 3,
+                                        _kernels.stream(loss.device)),
+                   "als_chol")
+    torch.cuda.synchronize()
+    n = als.CHOL_CLUSTER
+    clk = loss[:8 * n].view(n, 8).double().cpu().numpy()
+    rows = -(-a.B // als.cholesky_plan(*args)["clusters"])
+    print(f"  K2 wide clocks of cluster 0 ({rows} rows), thousands of cycles"
+          f" by phase: {', '.join(K2_PHASES)}", flush=True)
+    for c in range(n):
+        print("    CTA %d: %s" % (c, " ".join(f"{v / 1e3:9.1f}"
+                                             for v in clk[c])), flush=True)
+
+
+def k2_wide_times(dev, reps):
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch.ops import als
+    cs = sys.modules["chip_smoke"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    for B, L in ((256, 128), (16, 8192)):
+        args = cs._bucket_case(gen, dev, B, L, 514, 0, solver=als.CHOLESKY)
+        plan = als.cholesky_plan(*args)
+        # the cluster design stops after the factorisation too (stages=4)
+        cluster = "clusters" in plan
+        t = {st: cs.time_ms(lambda st=st: als.solve_bucket_cholesky(
+            *args, stages=st), reps) for st in ((1, 4, 2, 3) if cluster
+                                                else (1, 2, 3))}
+        yk, lk = als.solve_bucket_cholesky(*args)
+        yp, lp = als._solve_bucket_plain(*args)
+        pms = cs.time_ms(lambda: als._solve_bucket_plain(*args), 3)
+        bms, bby = cs.als_bound(args, plan=plan)
+        parts = (f"Gram {t[1]:.3f}, factorisation {t[4] - t[1]:.3f}, back "
+                 f"substitution {t[2] - t[4]:.3f}" if cluster else
+                 f"Gram {t[1]:.3f}, factorisation and back substitution "
+                 f"{t[2] - t[1]:.3f}")
+        print(f"  K2 wide B={B} L={L} d=514: {t[3]:.3f} ms ({parts}, loss "
+              f"{t[3] - t[2]:.3f}) plain {pms:.3f} bound {bms:.4f} ({bby}); "
+              f"y_rel {cs.rel_err(yk, yp):.2e} loss_rel "
+              f"{cs.rel_err(lk, lp):.2e}; plan {plan}", flush=True)
+        if cluster and B == 256:
+            k2_wide_clocks(args)
+        del args, yk, lk, yp, lp
+        torch.cuda.empty_cache()
+    # the closing half-sweep of a rank-512 implicit fit (one iteration) on
+    # the ML-20M-shaped synthetic, every bucket as fit_transform launches
+    # them
+    x = cs.synth_ml20m_like()
+    m = rt.WRMF(rank=512, lambda_=0.1, feedback="implicit",
+                solver="conjugate_gradient", n_hot="auto", seed=0,
+                device=dev)
+    m.fit_transform(x, n_iter=1)
+    csr, _, _ = m._fit_matrix(x)
+    br = m._bucketize(csr, m._include_empty)
+    cfg = m._cfg(False, als.CHOLESKY)
+    src_act, xb, XtX, rhs_init = als._sweep_prepare(m._V, m.lambda_, m._g,
+                                                    cfg, torch.float32)
+    src_act = als._gather_src(src_act, cfg, torch.float32)
+    for _ in range(2):
+        cs._k2_sweep(None, src_act, xb, XtX, rhs_init, br.buckets,
+                     m.lambda_, m._g, cfg, br.n_rows)
+
+
+#: the phases csrc/glove_dense.cu's RSP_K11_CLOCKS build times (a consumer
+#: warpgroup's thread 0 of CTA 0)
+K11_PHASES = ("waits for a stage", "S", "cost and cost^2 (with re-sums)",
+              "exchange", "waits for the squares", "products",
+              "item ends")
+
+
+def k11_wide_clocks(st, rows, cols, x, hp):
+    """K11's wide kernel built with RSP_K11_CLOCKS on one bf16 tile: the
+    clock cycles of each phase of CTA 0's consumer loop and the cells CTA 0
+    summed again exactly."""
+    import torch
+    from rsparse_tpu_torch import _kernels
+    so = _variant("glove_dense", ["RSP_K11_CLOCKS"],
+                  ["rsp_glove_tile", "rsp_glove_tile_scratch"])
+    n_r, n_c, r = rows.numel(), cols.numel(), st.w_i.shape[1]
+    dev = x.device
+    dump = torch.zeros((2, n_r, n_c), dtype=torch.float32, device=dev)
+    scratch = torch.empty((so.rsp_glove_tile_scratch(n_r, n_c, r, 1),),
+                          dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    _kernels.check(so.rsp_glove_tile(
+        _kernels.ptr(rows), _kernels.ptr(cols), n_r, n_c, _kernels.ptr(x),
+        x.stride(0), x.stride(1), 1, *(_kernels.ptr(t) for t in st), r,
+        *hp, _kernels.ptr(scratch), _kernels.ptr(loss), _kernels.ptr(dump),
+        _kernels.stream(dev)), "glove_dense")
+    torch.cuda.synchronize()
+    v = dump.view(-1)[:9].double().cpu().numpy()
+    print("  K11 wide clocks of CTA 0's consumer loop, thousands of cycles: "
+          + ", ".join(f"{n} {c / 1e3:.1f}" for n, c in zip(K11_PHASES, v))
+          + f"; cells it summed again exactly {int(v[8])}", flush=True)
+
+
+def k11_wide_times(dev, reps):
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch.models import glove
+    cs = sys.modules["chip_smoke"]
+    x4 = cs.synth_glove(**cs.CONFIG4)
+    hot, X, _ = glove._split_head(x4, cs.GLOVE_AUTO_HOT, np.float32)
+    head = glove._stage_head(X, hot, torch.bfloat16,
+                             cs.GLOVE_KW["batch_size"], dev)
+    del X
+    hp = (cs.GLOVE_KW["x_max"], 0.75, cs.GLOVE_KW["learning_rate"])
+    span = slice(0, min(head.ids.shape[0], head.side))
+    rows = cols = head.ids[span]
+    xv = head.x[span, span]
+    n = rows.numel()
+    for r in (128, 300):
+        st0 = rt.GloVe(**dict(cs.GLOVE_KW, rank=r),
+                       device=dev)._init_state(x4.shape[0])
+        st = glove.GloveState(*(t.clone() for t in st0))
+        fn = lambda: glove._glove_tile_cuda(  # noqa: E731
+            st, rows, cols, xv, *hp, torch.bfloat16)
+        ms = cs.time_ms(fn, reps)
+        try:
+            dms = f"{cs.graph_ms([fn], reps):.4f}"
+        except Exception as e:  # noqa: BLE001 - a capture the card refuses
+            dms = f"not measured ({type(e).__name__})"
+        pms = cs.time_ms(lambda: glove._glove_tile_plain(
+            st, rows, cols, xv, *hp, torch.bfloat16), 3)
+        lms = cs.time_ms(lambda: cs._tile_cublas(st, rows, cols, xv, *hp),
+                         reps)
+        flops = 12 * n * n * r
+        print(f"  K11 config #4 tile (0, 0) {n} x {n} bf16 r={r}: {ms:.4f} ms"
+              f" (device {dms}), {flops / ms / 1e9:.1f} TFLOP/s of dense mma "
+              f"work; plain {pms:.3f}, cuBLAS chain {lms:.3f} ms; present "
+              f"{int((xv > 0).sum())}, ~{cs.k11_flagged(st0, rows, cols, xv)} "
+              "flagged for an exact re-sum a side", flush=True)
+        if r > 128 and hasattr(glove, "k11_wide_smem"):
+            k11_wide_clocks(glove.GloveState(*(t.clone() for t in st0)),
+                            rows, cols, xv, hp)
+        del st, st0
+        torch.cuda.empty_cache()
+
+
 TIMERS = {"k1": k1_times, "k8": k8_times, "k3": k3_times,
           "fm-staging": fm_staging_times, "k8-tiles": k8_tile_times,
-          "k7": k7_times, "ftrl-pass": ftrl_pass_times, "k10": k10_times}
+          "k7": k7_times, "ftrl-pass": ftrl_pass_times, "k10": k10_times,
+          "k2-wide": k2_wide_times, "k11-wide": k11_wide_times}
 
 
 def main() -> int:

@@ -44,7 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: widest d each ALS kernel takes on the card, one entry a kernel, held
 #: equal to the kernel's own check: K1 (csrc/als_cg.cu kMaxD; instances
 #: for d <= 128, 160, 288 and 544) and K2 (csrc/als_chol.cu d <= 160 in
-#: shared memory, csrc/als_chol_wide.cu kWideMaxD in a global workspace)
+#: shared memory, csrc/als_chol_wide.cu kWideMaxD across a cluster)
 #: take rank 512 with both biases, d = 514; K4 (csrc/als_nnls.cu, d x d
 #: matrices in shared memory) rank 128 with biases, d = 129 (d <= 160)
 MAX_D = {"als_cg": 514, "als_chol": 514, "als_nnls": 160}
@@ -194,9 +194,10 @@ def lib() -> ctypes.CDLL:
     # entries' Gram routes, D, shared bytes)
     so.rsp_als_chol_info.argtypes = [args, p]
     so.rsp_als_chol_info.restype = i
-    # the wide K2 (d > 160): args, stages, workspace, slots, stream; info
-    # (7 int32: the five above, slots, floats a slot)
-    so.rsp_als_chol_wide.argtypes = [args, i, p, i, p]
+    # the wide K2 (d > 160): args, stages, stream; info (7 int32: clusters
+    # at once, the two routes, D, shared bytes, CTAs a cluster, the largest
+    # CTA's panel floats)
+    so.rsp_als_chol_wide.argtypes = [args, i, p]
     so.rsp_als_chol_wide.restype = i
     so.rsp_als_chol_wide_info.argtypes = [args, p]
     so.rsp_als_chol_wide_info.restype = i

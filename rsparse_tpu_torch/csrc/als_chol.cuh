@@ -1,7 +1,7 @@
 // K2's pieces, shared by the narrow kernel (als_chol.cu, d <= 160, the
 // factor in shared memory) and the wide one (als_chol_wide.cu, d <= 514,
-// the factor in a global workspace): the Gram's operand routes and its
-// tensor-core k-steps over a run of lower m16n8 tiles, and the blocked
+// the factor in a cluster's shared memory): the Gram's operand routes and
+// its tensor-core k-steps over a run of lower m16n8 tiles, and the blocked
 // factorisation's diagonal block and trailing update.  See als_chol.cu for
 // the design.
 
@@ -95,8 +95,8 @@ __device__ __forceinline__ unsigned pack2(float lo, float hi) {
 
 // The warp's run of lower m16n8 tiles: tile (m, n), n <= 2m + 1, in
 // row-major order; MAXT covers the widest D of the template.  (The k-steps
-// below take any run type with kMaxT, count, m0 and n0: the wide kernel's
-// runs are a round's share.)
+// below take any run type with kMaxT, count, m0, n0 and next(m, n), the
+// tile after (m, n): the wide kernel's runs walk a CTA's own panels.)
 template <int KD>
 struct TileRun {
   static constexpr int kMaxT = ((KD / 16) * (KD / 16 + 1) + 7) / 8;
@@ -110,6 +110,12 @@ struct TileRun {
     while ((m + 1) * (m + 2) <= first) ++m;
     m0 = m;
     n0 = first - m * (m + 1);
+  }
+  __device__ __forceinline__ void next(int& m, int& n) const {
+    if (++n > 2 * m + 1) {
+      n = 0;
+      ++m;
+    }
   }
 };
 
@@ -150,10 +156,7 @@ __device__ __forceinline__ void tf32_step(float (&c)[Run::kMaxT][4],
       }
       rsp::mma_tf32(c[t], al, bh0, bh1);
       rsp::mma_tf32(c[t], ah, bh0, bh1);
-      if (++n > 2 * m + 1) {
-        n = 0;
-        ++m;
-      }
+      run.next(m, n);
     }
   }
 }
@@ -205,10 +208,7 @@ __device__ __forceinline__ void bf16_step(float (&c)[Run::kMaxT][4],
       } else {
         rsp::mma_bf16(c[t], ax, bx0, bx1);
       }
-      if (++n > 2 * m + 1) {
-        n = 0;
-        ++m;
-      }
+      run.next(m, n);
     }
   }
 }

@@ -1,6 +1,6 @@
 // K2 at the wide widths (160 < d <= 514): one bucket of exact ALS solves by
 // Cholesky, implicit or explicit feedback, with an optional dense zipf head,
-// the factor held in a global workspace.
+// the factor held on chip across a thread-block cluster.
 //
 // Replaces the same TPU programs as als_chol.cu (rsparse_tpu/ops/als.py:138
 // _solve_bucket_implicit exact branch :228-247 and :269
@@ -11,106 +11,376 @@
 // versions are rsparse_tpu_torch/ops/als.py _solve_bucket_implicit /
 // _explicit.
 //
-// The design: of the two that serve (the factor's row blocks over a
-// cluster's distributed shared memory, or a workspace in global memory),
-// this one takes the workspace: it keeps als_chol.cu's Gram and
-// factorisation code as it is, and one layout serves every width to 514,
-// where a cluster of 227 KB CTAs would need 5 of them and a trailing update
-// that reads panels across the cluster.  A persistent grid of `slots` CTAs
-// (one an SM) takes the bucket's rows in turn, b = blockIdx.x, + gridDim.x,
-// ..., each CTA with its own slot of (D + 1) x (D + 4) floats in a
-// workspace the wrapper allocates: 1.13 MB a slot at d = 514, ~150 MB for
-// the card's 132 slots whatever the bucket's size.
-// (1) The Gram exactly as in als_chol.cu: the same entry lists (cold
-//     entries, then the head's present cells compacted by ballots), the
-//     same cp.async staging of 16 rows a chunk, the same operand routes
-//     (3xTF32 on float32 tables, 2xTF32 on bf16 ones, bf16 mma where both
-//     operands are exact, summed both ways for the bf16-rounded implicit
-//     cold rows) and fresh fragments a chunk added in float32.  The lower
-//     m16n8 tiles no longer fit a warp's registers at once (1,122 at D =
-//     528), so they are taken in rounds of kRoundT tiles a warp (128 a
-//     round): each round walks the row's entries again and writes its tiles,
-//     with XtX or the ridge (the symmetrised halving under
-//     compute_dtype="bfloat16"), into the slot.  The rhs is summed in the
-//     first round, three values a thread.
-// (2) The factorisation right-looking in panels of 16 columns on the slot,
-//     with als_chol.cu's pieces: warp 0 factors the diagonal block (the
-//     reference's pivot guard), the rows below (the rhs row last, so z =
-//     L^-1 rhs comes out of it) are solved against it, a thread a row, and
-//     the rank-16 trailing update runs in 4 x 4 register tiles, reading and
-//     writing the slot through L1 and L2.
-// (3) The back substitution L' x = z in one warp, the running values in
-//     shared memory; then the loss as in K1.
+// The design: one cluster of kCluster = 4 CTAs (one an SM, 16 warps each)
+// solves one row; a persistent grid of as many clusters as the card runs
+// at once (cudaOccupancyMaxActiveClusters: 33 on 132 SMs) takes the
+// bucket's rows in turn.  The lower triangle of the padded D x D matrix is
+// kept by 16-row panels (panel p: rows 16p..16p + 15, columns 0..16p + 15,
+// row stride panel_lda(p) = 8 mod 32 floats), dealt over the cluster from
+// the widest panel down, kCluster a round, the direction turning each round
+// (panel_owner): at D = 528 each CTA holds 140 or 141 of the 561 16 x 16
+// blocks, ~151 KB (213 KB of shared memory with the staging).  Nothing of
+// the factor goes to device memory.  Four CTAs a row, not eight: a CTA
+// reads the other CTAs' panel rows in place through DSMEM, so no CTA holds
+// a copy of a column panel (at eight CTAs those copies, two buffers of D x
+// 16, took more shared memory than the factor's share and a copy phase
+// every panel); half the SMs a row doubles the rows in flight, and a row's
+// chain of panels, latency-bound on eight SMs, gets twice the work a step.
+// (1) The Gram in one walk of the row's entries: every CTA lists the
+//     entries and stages their source rows itself (als_chol.cu's lists,
+//     cp.async staging, two buffers of 16 rows, 8 for float32 tables) and
+//     sums only its own panels' lower m16n8 tiles, ~18 a warp, with the
+//     operand routes of als_chol.cuh unchanged (3xTF32 on float32 tables,
+//     2xTF32 or bf16 mma on bf16 ones, both ways for the bf16-rounded
+//     implicit cold rows); each chunk goes into fresh fragments added in
+//     float32 to the panel in shared memory.  Then XtX or the ridge
+//     (identity on the padding, the symmetrised halving under
+//     compute_dtype="bfloat16") is added.  The rhs rows of a panel are
+//     summed by its owner and kept beside it as z.
+// (2) The factorisation right-looking in 16-column panels, one cluster
+//     barrier a panel.  For panel k: every CTA solves its own rows below
+//     the diagonal block against L_kk (a thread a row); warp 0 of the owner
+//     of panel k + 1 meanwhile updates its diagonal block and z block with
+//     its own rows, factors the block (the reference's pivot guard), solves
+//     z_k+1 = L^-1 z and sends (L, 1 / diag, z) to every CTA (three slots);
+//     barrier; then each CTA applies the rank-16 trailing update to its own
+//     blocks (j, i) on the tensor cores (3xTF32 mma.sync into fresh
+//     fragments, added in float32), the rows of panel i read from their
+//     owner's shared memory, and z_j -= L_jk z_k to its own z blocks.  A
+//     CTA ahead writes only its rows' next column block, which no CTA still
+//     in this step reads.  z = L^-1 rhs comes out with the factor.
+// (3) The back substitution L' x = z by blocks from the last: the owner of
+//     block p sums what the blocks after it took off (one partial vector a
+//     CTA, read through DSMEM in a fixed order), solves the 16 x 16
+//     transposed block in one warp and adds L_p.' x_p into its partial,
+//     spread over its threads; then it signals the owner of block p - 1 by
+//     an mbarrier arrival in that CTA (no cluster barrier a block).  Then
+//     each CTA reads x and sums the loss over a quarter of the entries;
+//     CTA 0 adds the partials in order.
 //
 // What bounds it on the H100: per row the Gram is (n + Hp) d^2 products on
-// the tensor cores, the factorisation d^3 / 3 FMAs (67 TFLOP/s f32).  This
-// first wide version is bound by neither: every panel reads and writes
-// the trailing matrix in the slot (about D^3 / 24 floats a row, ~0.2 GB
-// at D = 528, mostly in L2: 132 slots of 1.13 MB are ~3 times the L2), and
-// each of the D back-substitution steps waits on a row of L from L2.
+// the tensor cores and the factorisation d^3 / 3 FMAs; at D = 528 that is
+// ~20 us of tensor-core time on a cluster's 4 SMs.  What is left is the
+// chain: D pivots in one warp, D / 16 cluster barriers and D / 16 signals,
+// which no SM can shorten; 33 rows run at once.  A bucket of fewer rows
+// than clusters (the 16 x 8,192 long-row bucket fills 16 of 33) leaves SMs
+// idle; there a row's long entry walk, done by each of its 4 CTAs from L2,
+// bounds the time.
+//
+// rsp_als_chol_wide's `stages` stops a launch after the Gram (1: the lhs is
+// built, nothing is written), after the factorisation (4: z = L^-1 rhs,
+// nothing is written) or after the solve (2: y written, no loss); 3 runs
+// everything.
+
+#include <cooperative_groups.h>
 
 #include "als_chol.cuh"
+
+namespace cgrp = cooperative_groups;
+
+// RSP_CHOL_CLOCKS (a timing build, kernel_times.py k2-wide): thread 0 of
+// each CTA of the first cluster sums the clock cycles of each phase, and
+// the launch writes them over loss[8 rank + phase] at its end.
+#ifdef RSP_CHOL_CLOCKS
+#define RSP_CLK(i)                   \
+  do {                               \
+    if (tid == 0) {                  \
+      const long long c_ = clock64(); \
+      clk[i] += c_ - clk_t;          \
+      clk_t = c_;                    \
+    }                                \
+  } while (0)
+#else
+#define RSP_CLK(i) \
+  do {             \
+  } while (0)
+#endif
 
 namespace {
 
 constexpr int kWideMaxD = 514;  // ops/als.py CHOL_MAX_D
-constexpr int kRoundT = 16;     // lower m16n8 tiles a warp sums a round
-constexpr int kWarpsW = kThreads / 32;
-constexpr int kRhsPer = (kWideMaxD + kThreads - 1) / kThreads;  // 3
+constexpr int kCluster = 4;     // CTAs a row
+constexpr int kMaxPanels = (kWideMaxD + kPanel - 1) / kPanel;  // 33
+constexpr int kMaxOwn = (kMaxPanels + kCluster - 1) / kCluster;  // 9
+// threads a CTA: 16 warps (18 Gram tiles a warp at most, 128 registers a
+// thread)
+constexpr int kWideThreads = 512;
+constexpr int kWarpsW = kWideThreads / 32;
+// a diagonal slot: L_kk (16 x 16), 1 / L_ii (16), z_k (16)
+constexpr int kDiagF = kPanel * kPanel + 2 * kPanel;
 constexpr int kLossPer = (kWideMaxD + 31) / 32;  // 17 values a lane
+constexpr int kSmemLimit = 232448;
 
-// A warp's share of one round: tiles [first, first + count) of the lower
-// m16n8 tiles in row-major order (tile (m, n), n <= 2m + 1).
-struct RoundRun {
-  static constexpr int kMaxT = kRoundT;
-  int count, m0, n0;
-  __device__ __forceinline__ RoundRun(int first, int nT) {
-    count = max(0, min(kRoundT, nT - first));
-    int m = 0;
-    while ((m + 1) * (m + 2) <= first) ++m;
-    m0 = m;
-    n0 = first - m * (m + 1);
+// ---- the cluster's layout, alike on the host and the card -----------------
+
+// Position of `rank` in deal round `round`: the direction turns each round.
+__host__ __device__ constexpr int deal_pos(int round, int rank) {
+  return (round & 1) ? kCluster - 1 - rank : rank;
+}
+// The CTA that holds panel p of nP: panels are dealt from the last down.
+__host__ __device__ constexpr int panel_owner(int p, int nP) {
+  return deal_pos((nP - 1 - p) / kCluster, (nP - 1 - p) % kCluster);
+}
+// The panel `rank` takes in deal round r (< 0: none).
+__host__ __device__ constexpr int own_panel(int r, int rank, int nP) {
+  return nP - 1 - (r * kCluster + deal_pos(r, rank));
+}
+// Row stride of panel p: its 16 (p + 1) columns padded to 8 mod 32 floats,
+// so a fragment's float2 accesses hit 32 banks.
+__host__ __device__ constexpr int panel_lda(int p) {
+  return 16 * (p + 1) + ((p & 1) ? 8 : 24);
+}
+__host__ __device__ constexpr int own_tiles(int rank, int nP) {
+  int t = 0;
+  for (int r = 0; r * kCluster < nP; ++r) {
+    const int p = own_panel(r, rank, nP);
+    if (p >= 0) t += 2 * (p + 1);
   }
-};
+  return t;
+}
+__host__ __device__ constexpr int own_floats(int rank, int nP) {
+  int f = 0;
+  for (int r = 0; r * kCluster < nP; ++r) {
+    const int p = own_panel(r, rank, nP);
+    if (p >= 0) f += kPanel * panel_lda(p);
+  }
+  return f;
+}
+// lower m16n8 tiles a warp sums, at most, over every width
+__host__ __device__ constexpr int max_warp_tiles() {
+  int m = 0;
+  for (int nP = 1; nP <= kMaxPanels; ++nP)
+    for (int c = 0; c < kCluster; ++c) {
+      const int t = (own_tiles(c, nP) + kWarpsW - 1) / kWarpsW;
+      m = t > m ? t : m;
+    }
+  return m;
+}
+constexpr int kMaxWarpTiles = max_warp_tiles();  // 18
 
-// Shared-memory layout of one CTA and the floats of a workspace slot,
-// alike on the host and the card.
 struct WideLayout {
-  int D;         // d padded to a multiple of 16
-  int lda;       // row stride of the factor in the slot (floats)
+  int D, nP;
   int rs;        // bytes of one staged row's slot
   int granules;  // 16-byte granules a row's window can span
-  int list;      // byte offset of the entry list (after the two buffers)
-  int totals;    // byte offset of the warps' Gram sums
-  int extra;     // byte offset of dinv, x, the running values, scratch
-  int bytes;     // total shared bytes
-  long long slot;  // floats of a workspace slot: (D + 1) x lda
+  int store;     // floats of the largest CTA's panels
+  int rows;      // entries staged a chunk: 16 (bf16 rows), 8 (float32)
+  int stage;     // bytes of the two staging buffers (or a column block)
+  int list;      // byte offset of the entry list
+  int panels;    // byte offset of the panels
+  int extra;     // byte offset of the diagonal slots and vectors
+  int signal;    // byte offset of the back substitution's mbarrier
+  int bytes;     // shared bytes a CTA
 };
 
 __host__ __device__ inline WideLayout make_wide_layout(int d, int tbytes) {
   WideLayout L;
   L.D = (d + kPanel - 1) / kPanel * kPanel;
-  L.lda = L.D + 4;
+  L.nP = L.D / kPanel;
   L.granules = (d * tbytes + 30) / 16;
   int w = 4 * L.granules;
   w += ((8 - w) % 32 + 32) % 32;
   L.rs = 4 * w;
-  L.list = 2 * kRows * L.rs;
-  L.totals = L.list + kSeg * 12 + ((2 * kRows * 4 + 65 * 4 + 15) & ~15);
-  L.extra = L.totals + kWarpsW * kRoundT * 4 * 32 * 4;
-  L.bytes = L.extra + (3 * L.D + 32) * 4;
-  L.slot = (long long)(L.D + 1) * L.lda;
+  L.store = 0;
+  for (int c = 0; c < kCluster; ++c) {
+    const int f = own_floats(c, L.nP);
+    L.store = f > L.store ? f : L.store;
+  }
+  L.rows = tbytes == 2 ? kRows : kRows / 2;
+  L.stage = 2 * L.rows * L.rs;
+  // the staging buffers hold a step's column block copy during the
+  // factorisation: 16 floats a row below the first panel
+  if (L.stage < 64 * (L.D - kPanel)) L.stage = 64 * (L.D - kPanel);
+  L.list = L.stage;
+  L.panels = L.list + kSeg * 12 + ((2 * kRows * 4 + 65 * 4 + 15) & ~15);
+  L.extra = L.panels + 4 * L.store;
+  // 3 diagonal slots; dinv, acc, x, dot operand (D each); z (kMaxOwn
+  // blocks); scratch (32), the loss partial (4); panel tables (3 x 33 int)
+  L.bytes = L.extra +
+            4 * (3 * kDiagF + 4 * L.D + kMaxOwn * kPanel + 36 +
+                 3 * kMaxPanels);
+  // the back substitution's mbarrier, 8-byte aligned, last
+  L.signal = (L.bytes + 15) & ~15;
+  L.bytes = L.signal + 16;
   return L;
 }
 
+// A warp's run of its CTA's lower m16n8 tiles: own panels ascending, tile
+// (m, n), n <= 2m + 1, within each.
+struct ClusterRun {
+  static constexpr int kMaxT = kMaxWarpTiles;
+  int count, m0, n0, rank, nP;
+  __device__ __forceinline__ ClusterRun(int rank_, int nP_, int warp)
+      : rank(rank_), nP(nP_) {
+    const int nT = own_tiles(rank, nP);
+    const int per = (nT + kWarpsW - 1) / kWarpsW;
+    int first = warp * per;
+    count = max(0, min(per, nT - first));
+    m0 = 0;
+    n0 = 0;
+    for (int r = (nP - 1) / kCluster; r >= 0; --r) {
+      const int p = own_panel(r, rank, nP);
+      if (p < 0) continue;
+      if (first < 2 * (p + 1)) {
+        m0 = p;
+        n0 = first;
+        break;
+      }
+      first -= 2 * (p + 1);
+    }
+  }
+  __device__ __forceinline__ void next(int& m, int& n) const {
+    if (++n > 2 * m + 1) {
+      n = 0;
+      const int r = (nP - 1 - m) / kCluster;
+      m = own_panel(r - 1, rank, nP);
+    }
+  }
+};
+
+// The back substitution's point-to-point signal: an mbarrier of one
+// arrival in each CTA, arrived on from another CTA of the cluster.
+__device__ __forceinline__ void signal_cta(unsigned long long* bar, int cta) {
+  unsigned ra;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(ra)
+               : "r"((unsigned)__cvta_generic_to_shared(bar)), "r"(cta));
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          ra)
+      : "memory");
+}
+__device__ __forceinline__ void wait_signal(unsigned long long* bar,
+                                            unsigned parity) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+}
+
+// The loss of row b over the cluster: the cluster's 64 warps take the cold
+// entries in turn and the head's 32-column strips (rsp::for_each_entry);
+// CTA 0 adds lam_use |y|^2; the CTA's sum.  Every lane computes each term;
+// lane k % 32 adds the warp's k-th, as rsp::row_loss does.
+template <bool EXPLICIT, class T>
+__device__ __forceinline__ float cluster_loss(const rsp::RowEntries<T>& R,
+                                              const rsp::BucketArgs& a,
+                                              const float* y,
+                                              const float* y_dot,
+                                              float lam_use, float* scratch,
+                                              int rank) {
+  constexpr int kNw = kCluster * kWarpsW;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gw = rank * kWarpsW + warp;
+  const bool has_xb = R.xbias != nullptr;
+  float acc = 0.f;
+  int k = 0;
+  for (int e = gw; e < R.nnz; e += kNw) {
+    float r[kLossPer];
+    rsp::load_row<kLossPer>(R.table + (size_t)R.col[e] * R.d, R.d, r);
+    const float xb = has_xb ? __ldg(R.xbias + R.col[e]) : 0.f;
+    const float term = rsp::entry_loss<EXPLICIT>(
+        R.val[e], xb, a.g_loss, rsp::row_dot<kLossPer>(r, y_dot, R.d));
+    if ((k++ & 31) == lane) acc += term;
+  }
+  if (R.w != nullptr) {
+    rsp::RowEntries<T> head = R;
+    head.nnz = 0;  // the cold entries are done
+    rsp::for_each_entry<true>(head, gw, kNw,
+                              [&](const T* row, float c, float xb, bool) {
+      float rr[kLossPer];
+      rsp::load_row<kLossPer>(row, R.d, rr);
+      const float term = rsp::entry_loss<EXPLICIT>(
+          c, xb, a.g_loss, rsp::row_dot<kLossPer>(rr, y_dot, R.d));
+      if ((k++ & 31) == lane) acc += term;
+    });
+  }
+  float part = acc;
+  if (rank == 0)
+    for (int t = threadIdx.x; t < R.d; t += blockDim.x)
+      part += lam_use * y[t] * y[t];
+  return rsp::block_sum(part, scratch);
+}
+
+// Element (row, col) of a step's column block copy: 16 floats a row, the
+// row's four float4 quads permuted by bits 1-2 of the row, so that a
+// fragment's 8 rows x 4 columns hit 32 banks.
+__device__ __forceinline__ float cb_at(const float* cb, int row, int col) {
+  return cb[row * kPanel + ((((col >> 2) ^ (row >> 1)) & 3) << 2) + (col & 3)];
+}
+
+// out_u -= a_u b_u' for two m16n8 tiles (u = 0, 1) on the tensor cores,
+// 3xTF32: a_u the 16 rows from ra_u and b_u the 8 rows from rb_u of the
+// column block copy cb; each k8 step into fresh fragments, added to the
+// panel (row stride lda_u) in float32.  `two` false: the second tile is the
+// first again and is not written (the same instructions, no branch).
+__device__ __forceinline__ void trail_pair(float* out0, int lda0, int ra0,
+                                           int rb0, float* out1, int lda1,
+                                           int ra1, int rb1, bool two,
+                                           const float* cb, int g, int tig) {
+  float t[2][2][4] = {};  // [tile][k8 step]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int ks = 8 * h;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int ra = u ? ra1 : ra0, rb = u ? rb1 : rb0;
+      const float av[4] = {-cb_at(cb, ra + g, ks + tig),
+                           -cb_at(cb, ra + g + 8, ks + tig),
+                           -cb_at(cb, ra + g, ks + tig + 4),
+                           -cb_at(cb, ra + g + 8, ks + tig + 4)};
+      unsigned ah[4], al[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        ah[q] = rsp::to_tf32(av[q]);
+        al[q] = rsp::to_tf32(av[q] - __uint_as_float(ah[q]));
+      }
+      const float b0 = cb_at(cb, rb + g, ks + tig);
+      const float b1 = cb_at(cb, rb + g, ks + tig + 4);
+      const unsigned bh0 = rsp::to_tf32(b0), bh1 = rsp::to_tf32(b1);
+      rsp::mma_tf32(t[u][h], ah, rsp::to_tf32(b0 - __uint_as_float(bh0)),
+                    rsp::to_tf32(b1 - __uint_as_float(bh1)));
+      rsp::mma_tf32(t[u][h], al, bh0, bh1);
+      rsp::mma_tf32(t[u][h], ah, bh0, bh1);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (u == 1 && !two) break;
+    float* out = u ? out1 : out0;
+    const int lda = u ? lda1 : lda0;
+    float2* p0 = reinterpret_cast<float2*>(out + g * lda + 2 * tig);
+    float2* p1 = reinterpret_cast<float2*>(out + (g + 8) * lda + 2 * tig);
+    float2 v0 = *p0, v1 = *p1;
+    v0.x += t[u][0][0] + t[u][1][0];
+    v0.y += t[u][0][1] + t[u][1][1];
+    v1.x += t[u][0][2] + t[u][1][2];
+    v1.y += t[u][0][3] + t[u][1][3];
+    *p0 = v0;
+    *p1 = v1;
+  }
+}
+
 template <class T, bool EXPLICIT>
-__global__ void __launch_bounds__(kThreads, 1)
-als_chol_wide_kernel(rsp::BucketArgs a, int stages, float* ws) {
+__global__ void __launch_bounds__(kWideThreads, 1)
+als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
   extern __shared__ __align__(16) unsigned char smem[];
+  cgrp::cluster_group cl = cgrp::this_cluster();
+  const int rank = (int)cl.block_rank();
   const int d = a.d, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
   const WideLayout Ly = make_wide_layout(d, (int)sizeof(T));
-  const int D = Ly.D, lda = Ly.lda, rs = Ly.rs;
+  const int D = Ly.D, nP = Ly.nP, rs = Ly.rs;
 
   unsigned char* stage = smem;
   int* lidx = reinterpret_cast<int*>(smem + Ly.list);
@@ -118,330 +388,536 @@ als_chol_wide_kernel(rsp::BucketArgs a, int stages, float* ws) {
   float* lrw = lgw + kSeg;
   int* soff = reinterpret_cast<int*>(lrw + kSeg);  // [2][kRows]
   int* cnt = soff + 2 * kRows;                      // [64] + total
-  // the warp's Gram sums of a round: [tile][component][lane]
-  float* tot = reinterpret_cast<float*>(smem + Ly.totals) +
-               warp * kRoundT * 128 + lane;
-  float* dinv = reinterpret_cast<float*>(smem + Ly.extra);
-  float* xs = dinv + D;
+  float* store = reinterpret_cast<float*>(smem + Ly.panels);
+  float* diag = reinterpret_cast<float*>(smem + Ly.extra);  // [3][kDiagF]
+  float* dinv = diag + 3 * kDiagF;  // [D], own panels' only
+  float* acc = dinv + D;            // back substitution partial
+  float* xs = acc + D;
   float* colv = xs + D;
-  float* scratch = colv + D;
-  // this CTA's slot: the factor (D rows) and the rhs row D
-  float* Lm = ws + (size_t)blockIdx.x * Ly.slot;
+  float* zl = colv + D;             // [kMaxOwn][16]
+  float* scratch = zl + kMaxOwn * kPanel;
+  float* lpart = scratch + 32;
+  // panel -> float offset in its owner's panels (any CTA's), z slot, and
+  // this CTA's slot -> panel
+  int* goff = reinterpret_cast<int*>(lpart + 4);
+  int* zslot = goff + kMaxPanels;
+  int* spanel = zslot + kMaxPanels;               // slot -> panel
+  auto* bsig = reinterpret_cast<unsigned long long*>(smem + Ly.signal);
+  unsigned bsig_waits = 0;  // the signal's phases this CTA has waited out
+
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(bsig))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    int off[kCluster] = {}, slot = 0;
+    for (int p = 0; p < nP; ++p) {
+      const int o = panel_owner(p, nP);
+      goff[p] = off[o];
+      off[o] += kPanel * panel_lda(p);
+      zslot[p] = o == rank ? slot : -1;
+      if (o == rank) spanel[slot++] = p;
+    }
+  }
+  cl.sync();  // every CTA's signal is initialised before any arrives
+  int n_own = 0;  // panels this CTA holds
+  for (int r = 0; r * kCluster < nP; ++r) n_own += own_panel(r, rank, nP) >= 0;
+  const int n_store = own_floats(rank, nP);
 
   const bool rnd = a.round_bf16 != 0;
-  const int nM = D / 16, nT = nM * (nM + 1);
-  const int rounds = (nT + kWarpsW * kRoundT - 1) / (kWarpsW * kRoundT);
   const bool doubled = rnd && !EXPLICIT && is_bf16<T>();
   const float scale = doubled ? 0.5f : 1.f;
+  const ClusterRun run(rank, nP, warp);
+  const int n_clusters = gridDim.x / kCluster;
+#ifdef RSP_CHOL_CLOCKS
+  long long clk[8] = {0, 0, 0, 0, 0, 0, 0, 0}, clk_t = clock64();
+#endif
 
-  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+  for (int b = blockIdx.x / kCluster; b < a.B; b += n_clusters) {
     const float lam_use = rsp::row_lambda(a, b);
     const rsp::RowEntries<T> R = rsp::row_entries<T>(a, b);
     const int nnz = R.nnz;
-    float rhs_acc[kRhsPer];
+    // the rhs rows of the own panels: thread tid < 16 n_own takes row
+    // 16 spanel[tid / 16] + tid % 16
+    const int rj = tid < kPanel * n_own ? kPanel * spanel[tid >> 4] + (tid & 15)
+                                        : D;
+    float rhs_acc = 0.f;
+    for (int e = tid; e < n_store; e += kWideThreads) store[e] = 0.f;
+    for (int e = tid; e < D; e += kWideThreads) acc[e] = 0.f;
+    float c[kMaxWarpTiles][4];
 #pragma unroll
-    for (int q = 0; q < kRhsPer; ++q) rhs_acc[q] = 0.f;
+    for (int t = 0; t < kMaxWarpTiles; ++t)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) c[t][q] = 0.f;
 
-    // ---- (1) the Gram, a round of tiles at a time -------------------------
-    for (int round = 0; round < rounds; ++round) {
-      const RoundRun run(round * kWarpsW * kRoundT + warp * kRoundT, nT);
-      const bool first = round == 0;
-      float c[kRoundT][4];
-#pragma unroll
-      for (int t = 0; t < kRoundT; ++t)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) c[t][q] = 0.f;
-      for (int e = 0; e < run.count * 4; ++e) tot[32 * e] = 0.f;
-
-      const int n_cold = (nnz + kSeg - 1) / kSeg;
-      const int n_head = R.w != nullptr ? (a.H + kSeg - 1) / kSeg : 0;
-      const float head_scale = (rnd && !EXPLICIT) ? 2.f : 1.f;
-      for (int sg = 0; sg < n_cold + n_head; ++sg) {
-        const bool head = sg >= n_cold;
-        int n_list;
-        if (!head) {
-          const int c0 = sg * kSeg;
-          n_list = min(kSeg, nnz - c0);
-          const int n_pad = (n_list + kRows - 1) / kRows * kRows;
-          for (int e = tid; e < n_pad; e += kThreads) {
-            int col = 0;
-            float gw = 0.f, rw = 0.f;
-            if (e < n_list) {
-              col = R.col[c0 + e];
-              const float v = R.val[c0 + e];
-              const float xb = a.xbias != nullptr ? __ldg(a.xbias + col) : 0.f;
-              gw = rsp::lhs_weight<EXPLICIT>(v);
-              rw = rnd ? rsp::rhs_weight_bf16<EXPLICIT>(v, xb, a.g_rhs, false)
-                       : rsp::rhs_weight<EXPLICIT>(v, xb, a.g_rhs);
-            }
-            lidx[e] = col;
-            lgw[e] = gw;
-            lrw[e] = rw;
+    // ---- (1) the Gram: one walk, each CTA its own panels ------------------
+    const int n_cold = (nnz + kSeg - 1) / kSeg;
+    const int n_head = R.w != nullptr ? (a.H + kSeg - 1) / kSeg : 0;
+    const float head_scale = (rnd && !EXPLICIT) ? 2.f : 1.f;
+    constexpr int kCR = is_bf16<T>() ? kRows : kRows / 2;  // = Ly.rows
+    for (int sg = 0; sg < n_cold + n_head; ++sg) {
+      const bool head = sg >= n_cold;
+      int n_list;
+      if (!head) {
+        const int c0 = sg * kSeg;
+        n_list = min(kSeg, nnz - c0);
+        const int n_pad = (n_list + kCR - 1) / kCR * kCR;
+        for (int e = tid; e < n_pad; e += kWideThreads) {
+          int col = 0;
+          float gw = 0.f, rw = 0.f;
+          if (e < n_list) {
+            col = R.col[c0 + e];
+            const float v = R.val[c0 + e];
+            const float xb = a.xbias != nullptr ? __ldg(a.xbias + col) : 0.f;
+            gw = rsp::lhs_weight<EXPLICIT>(v);
+            rw = rnd ? rsp::rhs_weight_bf16<EXPLICIT>(v, xb, a.g_rhs, false)
+                     : rsp::rhs_weight<EXPLICIT>(v, xb, a.g_rhs);
           }
-          __syncthreads();
-        } else {
-          const int h0 = (sg - n_cold) * kSeg;
-          unsigned bal[kSeg / kThreads];
-          float wv[kSeg / kThreads];
-#pragma unroll
-          for (int q = 0; q < kSeg / kThreads; ++q) {
-            const int h = h0 + q * kThreads + tid;
-            wv[q] = h < a.H ? rsp::head_value(R, h) : 0.f;
-            bal[q] = __ballot_sync(
-                RSP_FULL_MASK, h < a.H && rsp::head_present(R.bits, wv[q], h));
-            if (lane == 0) cnt[q * 8 + warp] = __popc(bal[q]);
-          }
-          __syncthreads();
-          constexpr int kCnt = kSeg / kThreads * 8;  // counts, a multiple of 32
-          if (warp == 0) {  // exclusive scan of the counts, in column order
-            constexpr int kPer = kCnt / 32;
-            int v[kPer], sum = 0;
-#pragma unroll
-            for (int e = 0; e < kPer; ++e) sum += v[e] = cnt[kPer * lane + e];
-            int incl = sum;
-#pragma unroll
-            for (int o = 1; o < 32; o <<= 1) {
-              const int y = __shfl_up_sync(RSP_FULL_MASK, incl, o);
-              if (lane >= o) incl += y;
-            }
-            int excl = incl - sum;
-#pragma unroll
-            for (int e = 0; e < kPer; ++e) {
-              cnt[kPer * lane + e] = excl;
-              excl += v[e];
-            }
-            if (lane == 31) cnt[kCnt] = incl;
-          }
-          __syncthreads();
-          n_list = cnt[kCnt];
-          const unsigned lt = (1u << lane) - 1u;
-#pragma unroll
-          for (int q = 0; q < kSeg / kThreads; ++q) {
-            if ((bal[q] >> lane) & 1u) {
-              const int pos = cnt[q * 8 + warp] + __popc(bal[q] & lt);
-              const float w = wv[q];
-              lidx[pos] = h0 + q * kThreads + tid;
-              lgw[pos] = head_scale * rsp::head_lhs_weight<EXPLICIT>(w, rnd);
-              lrw[pos] = rnd ? rsp::rhs_weight_bf16<EXPLICIT>(w, 0.f, a.g_rhs,
-                                                              true)
-                             : rsp::rhs_weight<EXPLICIT>(w, 0.f, a.g_rhs);
-            }
-          }
-          if (tid < kRows &&
-              n_list + tid < (n_list + kRows - 1) / kRows * kRows) {
-            lidx[n_list + tid] = 0;
-            lgw[n_list + tid] = 0.f;
-            lrw[n_list + tid] = 0.f;
-          }
-          __syncthreads();
+          lidx[e] = col;
+          lgw[e] = gw;
+          lrw[e] = rw;
         }
-        if (n_list == 0) continue;
+        __syncthreads();
+      } else {
+        const int h0 = (sg - n_cold) * kSeg;
+        unsigned bal[kSeg / kWideThreads];
+        float wv[kSeg / kWideThreads];
+#pragma unroll
+        for (int q = 0; q < kSeg / kWideThreads; ++q) {
+          const int h = h0 + q * kWideThreads + tid;
+          wv[q] = h < a.H ? rsp::head_value(R, h) : 0.f;
+          bal[q] = __ballot_sync(
+              RSP_FULL_MASK, h < a.H && rsp::head_present(R.bits, wv[q], h));
+          if (lane == 0) cnt[q * kWarpsW + warp] = __popc(bal[q]);
+        }
+        __syncthreads();
+        constexpr int kCnt = kSeg / 32;  // counts (one a warp a pass): 32
+        if (warp == 0) {  // exclusive scan of the counts, in column order
+          constexpr int kPer = kCnt / 32;
+          int v[kPer], sum = 0;
+#pragma unroll
+          for (int e = 0; e < kPer; ++e) sum += v[e] = cnt[kPer * lane + e];
+          int incl = sum;
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(RSP_FULL_MASK, incl, o);
+            if (lane >= o) incl += y;
+          }
+          int excl = incl - sum;
+#pragma unroll
+          for (int e = 0; e < kPer; ++e) {
+            cnt[kPer * lane + e] = excl;
+            excl += v[e];
+          }
+          if (lane == 31) cnt[kCnt] = incl;
+        }
+        __syncthreads();
+        n_list = cnt[kCnt];
+        const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+        for (int q = 0; q < kSeg / kWideThreads; ++q) {
+          if ((bal[q] >> lane) & 1u) {
+            const int pos = cnt[q * kWarpsW + warp] + __popc(bal[q] & lt);
+            const float w = wv[q];
+            lidx[pos] = h0 + q * kWideThreads + tid;
+            lgw[pos] = head_scale * rsp::head_lhs_weight<EXPLICIT>(w, rnd);
+            lrw[pos] = rnd ? rsp::rhs_weight_bf16<EXPLICIT>(w, 0.f, a.g_rhs,
+                                                            true)
+                           : rsp::rhs_weight<EXPLICIT>(w, 0.f, a.g_rhs);
+          }
+        }
+        if (tid < kCR && n_list + tid < (n_list + kCR - 1) / kCR * kCR) {
+          lidx[n_list + tid] = 0;
+          lgw[n_list + tid] = 0.f;
+          lrw[n_list + tid] = 0.f;
+        }
+        __syncthreads();
+      }
+      if (n_list == 0) continue;
 
-        const T* src = head ? R.hot_table : R.table;
-        const int row_bytes = d * (int)sizeof(T);
-        auto issue = [&](int ch) {
-          unsigned char* buf = stage + (ch & 1) * kRows * rs;
-          for (int e = tid; e < kRows * Ly.granules; e += kThreads) {
-            const int l = e / Ly.granules, q = e - l * Ly.granules;
-            const int k = ch * kRows + l;
-            unsigned char* dst = buf + l * rs + 16 * q;
-            if (k < n_list) {
-              const size_t p =
-                  reinterpret_cast<size_t>(src + (size_t)lidx[k] * d);
-              const int off = (int)(p & 15);
-              if (q == 0) soff[(ch & 1) * kRows + l] = off;
-              if (q < (off + row_bytes + 15) >> 4)
-                rsp::cp_async16(
-                    dst,
-                    reinterpret_cast<const void*>((p & ~(size_t)15) + 16 * q),
-                    16);
-            } else {
-              if (q == 0) soff[(ch & 1) * kRows + l] = 0;
-              rsp::cp_async16(dst, src, 0);  // zero fill
-            }
-          }
-        };
-        const int route = gram_route<T, EXPLICIT>(head, rnd);
-        const int n_chunks = (n_list + kRows - 1) / kRows;
-        issue(0);
-        rsp::cp_async_commit();
-        for (int ch = 0; ch < n_chunks; ++ch) {
-          if (ch + 1 < n_chunks) {
-            issue(ch + 1);
-            rsp::cp_async_commit();
-            rsp::cp_async_wait<1>();
+      const T* src = head ? R.hot_table : R.table;
+      const int row_bytes = d * (int)sizeof(T);
+      auto issue = [&](int ch) {
+        unsigned char* buf = stage + (ch & 1) * kCR * rs;
+        for (int e = tid; e < kCR * Ly.granules; e += kWideThreads) {
+          const int l = e / Ly.granules, q = e - l * Ly.granules;
+          const int k = ch * kCR + l;
+          unsigned char* dst = buf + l * rs + 16 * q;
+          if (k < n_list) {
+            const size_t p =
+                reinterpret_cast<size_t>(src + (size_t)lidx[k] * d);
+            const int off = (int)(p & 15);
+            if (q == 0) soff[(ch & 1) * kRows + l] = off;
+            if (q < (off + row_bytes + 15) >> 4)
+              rsp::cp_async16(
+                  dst,
+                  reinterpret_cast<const void*>((p & ~(size_t)15) + 16 * q),
+                  16);
           } else {
-            rsp::cp_async_wait<0>();
+            if (q == 0) soff[(ch & 1) * kRows + l] = 0;
+            rsp::cp_async16(dst, src, 0);  // zero fill
           }
-          __syncthreads();
-          const unsigned char* buf = stage + (ch & 1) * kRows * rs;
-          const int* off = soff + (ch & 1) * kRows;
-          const float* gw = lgw + ch * kRows;
-          const float* rw = lrw + ch * kRows;
-          if (first) {
-#pragma unroll
-            for (int q = 0; q < kRhsPer; ++q) {
-              const int j = tid + kThreads * q;
-              if (j < d) {
+        }
+      };
+      const int route = gram_route<T, EXPLICIT>(head, rnd);
+      const int n_chunks = (n_list + kCR - 1) / kCR;
+      issue(0);
+      rsp::cp_async_commit();
+      for (int ch = 0; ch < n_chunks; ++ch) {
+        if (ch + 1 < n_chunks) {
+          issue(ch + 1);
+          rsp::cp_async_commit();
+          rsp::cp_async_wait<1>();
+        } else {
+          rsp::cp_async_wait<0>();
+        }
+        __syncthreads();
+        const unsigned char* buf = stage + (ch & 1) * kCR * rs;
+        const int* off = soff + (ch & 1) * kRows;
+        const float* gw = lgw + ch * kCR;
+        const float* rw = lrw + ch * kCR;
+        if (rj < d) {
 #pragma unroll 8
-                for (int l = 0; l < kRows; ++l)
-                  rhs_acc[q] += rw[l] * sld<T>(buf + l * rs + off[l], j);
-              }
-            }
-          }
-          if constexpr (!is_bf16<T>()) {
+          for (int l = 0; l < kCR; ++l)
+            rhs_acc += rw[l] * sld<T>(buf + l * rs + off[l], rj);
+        }
+        if constexpr (!is_bf16<T>()) {
 #pragma unroll
-            for (int ks = 0; ks < kRows / 8; ++ks) {
-              const int lA = 8 * ks + tig, lB = lA + 4;
-              tf32_step<RoundRun, T, true>(c, run, buf + lA * rs + off[lA],
+          for (int ks = 0; ks < kCR / 8; ++ks) {
+            const int lA = 8 * ks + tig, lB = lA + 4;
+            tf32_step<ClusterRun, T, true>(c, run, buf + lA * rs + off[lA],
                                            buf + lB * rs + off[lB], gw[lA],
                                            gw[lB], d, g);
-            }
-          } else {
-            if (route == kRouteTf32x2) {
+          }
+        } else {
+          if (route == kRouteTf32x2) {
 #pragma unroll
-              for (int ks = 0; ks < kRows / 8; ++ks) {
-                const int lA = 8 * ks + tig, lB = lA + 4;
-                tf32_step<RoundRun, T, false>(c, run, buf + lA * rs + off[lA],
+            for (int ks = 0; ks < kCR / 8; ++ks) {
+              const int lA = 8 * ks + tig, lB = lA + 4;
+              tf32_step<ClusterRun, T, false>(c, run, buf + lA * rs + off[lA],
                                               buf + lB * rs + off[lB], gw[lA],
                                               gw[lB], d, g);
-              }
-            } else {
+            }
+          } else {
 #pragma unroll
-              for (int ks = 0; ks < kRows / 16; ++ks) {
-                const int r0 = 16 * ks + 2 * tig;
-                const int rr[4] = {r0, r0 + 1, r0 + 8, r0 + 9};
-                const unsigned char* const p[4] = {
-                    buf + rr[0] * rs + off[rr[0]],
-                    buf + rr[1] * rs + off[rr[1]],
-                    buf + rr[2] * rs + off[rr[2]],
-                    buf + rr[3] * rs + off[rr[3]]};
-                const float w[4] = {gw[rr[0]], gw[rr[1]], gw[rr[2]],
-                                    gw[rr[3]]};
-                if (!EXPLICIT && route == kRouteBf16Sym)
-                  bf16_step<RoundRun, T, true>(c, run, p, w, d, g);
-                else
-                  bf16_step<RoundRun, T, false>(c, run, p, w, d, g);
-              }
+            for (int ks = 0; ks < kCR / 16; ++ks) {
+              const int r0 = 16 * ks + 2 * tig;
+              const int rr[4] = {r0, r0 + 1, r0 + 8, r0 + 9};
+              const unsigned char* const p[4] = {
+                  buf + rr[0] * rs + off[rr[0]], buf + rr[1] * rs + off[rr[1]],
+                  buf + rr[2] * rs + off[rr[2]], buf + rr[3] * rs + off[rr[3]]};
+              const float w[4] = {gw[rr[0]], gw[rr[1]], gw[rr[2]], gw[rr[3]]};
+              if (!EXPLICIT && route == kRouteBf16Sym)
+                bf16_step<ClusterRun, T, true>(c, run, p, w, d, g);
+              else
+                bf16_step<ClusterRun, T, false>(c, run, p, w, d, g);
             }
           }
+        }
+        // the fresh fragments of 16 staged rows (two float32 chunks) into
+        // the panels, in float32
+        if (kCR == kRows || (ch & 1) || ch + 1 == n_chunks) {
+          int m = run.m0, n = run.n0;
 #pragma unroll
-          for (int t = 0; t < kRoundT; ++t) {
+          for (int t = 0; t < kMaxWarpTiles; ++t) {
             if (t < run.count) {
+              const int lda = panel_lda(m);
+              float* P = store + goff[m] + 8 * n + 2 * tig;
+              float2* p0 = reinterpret_cast<float2*>(P + g * lda);
+              float2* p1 = reinterpret_cast<float2*>(P + (g + 8) * lda);
+              float2 v0 = *p0, v1 = *p1;
+              v0.x += c[t][0];
+              v0.y += c[t][1];
+              v1.x += c[t][2];
+              v1.y += c[t][3];
+              *p0 = v0;
+              *p1 = v1;
 #pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                tot[32 * (4 * t + q)] += c[t][q];
-                c[t][q] = 0.f;
-              }
+              for (int q = 0; q < 4; ++q) c[t][q] = 0.f;
+              run.next(m, n);
             }
           }
-          __syncthreads();
         }
+        __syncthreads();  // the buffer is free for chunk ch + 2
       }
+    }
 
-      // the round's lower tiles into the slot: XtX or the ridge (identity
-      // on the padding) plus the sums
-      const float diag =
-          EXPLICIT ? lam_use + ((nnz == 0 && lam_use == 0.f) ? 1.f : 0.f)
-                   : 0.f;
-      int m = run.m0, n = run.n0;
+    // the own panels: XtX or the ridge (identity on the padding) plus the
+    // sums; the own z blocks: the rhs
+    const float diag_v =
+        EXPLICIT ? lam_use + ((nnz == 0 && lam_use == 0.f) ? 1.f : 0.f) : 0.f;
+    // (a column of a panel a thread, its 16 rows' XtX loads in flight)
+    for (int s = 0; s < n_own; ++s) {
+      const int p = spanel[s], w = kPanel * (p + 1), lda = panel_lda(p);
+      float* P = store + goff[p];
+      for (int j = tid; j < w; j += kWideThreads) {
+        float base[kPanel];
 #pragma unroll
-      for (int t = 0; t < kRoundT; ++t) {
-        if (t < run.count) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int i = 16 * m + g + 8 * (q >> 1),
-                      j = 8 * n + 2 * tig + (q & 1);
-            float base;
-            if (i >= d || j >= d) {
-              base = i == j ? 1.f : 0.f;
-            } else if (EXPLICIT) {
-              base = i == j ? diag : 0.f;
-            } else {
-              base = doubled ? 0.5f * (__ldg(a.XtX + i * d + j) +
-                                       __ldg(a.XtX + j * d + i))
-                             : __ldg(a.XtX + i * d + j);
-            }
-            Lm[(size_t)i * lda + j] = base + scale * tot[32 * (4 * t + q)];
-          }
-          if (++n > 2 * m + 1) {
-            n = 0;
-            ++m;
+        for (int rr = 0; rr < kPanel; ++rr) {
+          const int i = kPanel * p + rr;
+          if (i >= d || j >= d) {
+            base[rr] = i == j ? 1.f : 0.f;
+          } else if (EXPLICIT) {
+            base[rr] = i == j ? diag_v : 0.f;
+          } else {
+            base[rr] = doubled ? 0.5f * (__ldg(a.XtX + i * d + j) +
+                                         __ldg(a.XtX + j * d + i))
+                               : __ldg(a.XtX + i * d + j);
           }
         }
-      }
-      __syncthreads();  // the round's sums and list are free again
-    }
 #pragma unroll
-    for (int q = 0; q < kRhsPer; ++q) {
-      const int j = tid + kThreads * q;
-      if (j < D)
-        Lm[(size_t)D * lda + j] =
-            j < d ? rhs_acc[q] + (a.rhs_init != nullptr ? a.rhs_init[j] : 0.f)
-                  : 0.f;
+        for (int rr = 0; rr < kPanel; ++rr) {
+          float* q = P + rr * lda + j;
+          *q = base[rr] + scale * *q;
+        }
+      }
     }
+    if (rj < D)
+      zl[tid] = rj < d ? rhs_acc + (a.rhs_init != nullptr ? a.rhs_init[rj]
+                                                          : 0.f)
+                       : 0.f;
     __syncthreads();
+    RSP_CLK(0);  // the Gram
     if (stages < 2) continue;
 
-    // ---- (2) blocked right-looking Cholesky; row D carries z = L^-1 rhs ---
-    for (int s = 0;; s += kPanel) {
-      if (warp == 0) factor_diag(Lm, lda, s, dinv, lane);
-      __syncthreads();
-      const int below = D - s - kPanel;  // rows below the block, then the rhs
-      for (int i = tid; i <= below; i += kThreads) {
-        float* row = Lm + (size_t)(s + kPanel + i) * lda + s;
+    // ---- (2) the factorisation, one cluster barrier a panel ---------------
+    // Warp 0 of the owner of panel k: factor its diagonal block, solve z_k,
+    // and send (L_kk, 1 / L_ii, z_k) to every CTA's slot k % 3.
+    auto factor_send = [&](int k) {
+      const int lda = panel_lda(k);
+      float* P = store + goff[k];
+      float* dg = diag + (k % 3) * kDiagF;
+      factor_diag(P + kPanel * k, lda, 0, dg + kPanel * kPanel, lane);
+      __syncwarp();
+      const int r = lane & 15;
+      const float* Lr = P + r * lda + kPanel * k;
+      float zv = zl[zslot[k] * kPanel + r];
+#pragma unroll
+      for (int j = 0; j < kPanel; ++j) {
+        const float zj =
+            __shfl_sync(RSP_FULL_MASK, zv, j) * dg[kPanel * kPanel + j];
+        if (r == j) zv = zj;
+        if (r > j) zv -= zj * Lr[j];
+      }
+      if (lane < kPanel) {
+        zl[zslot[k] * kPanel + r] = zv;
+        dg[kPanel * kPanel + kPanel + r] = zv;
+        dinv[kPanel * k + r] = dg[kPanel * kPanel + r];
+#pragma unroll
+        for (int j = 0; j < kPanel; j += 4)
+          *reinterpret_cast<float4*>(dg + kPanel * r + j) =
+              *reinterpret_cast<const float4*>(Lr + j);
+      }
+      __syncwarp();
+      constexpr int kQ = kDiagF / 4;
+      for (int e = lane; e < (kCluster - 1) * kQ; e += 32) {
+        const int cc = e / kQ, q = e - cc * kQ;
+        float4* dst = reinterpret_cast<float4*>(
+            cl.map_shared_rank(dg, cc < rank ? cc : cc + 1));
+        dst[q] = reinterpret_cast<const float4*>(dg)[q];
+      }
+    };
+
+    if (panel_owner(0, nP) == rank && warp == 0) factor_send(0);
+    RSP_CLK(2);
+    cl.sync();  // slot 0 has arrived
+    RSP_CLK(3);
+    for (int k = 0; k < nP; ++k) {
+      const float* dg = diag + (k % 3) * kDiagF;
+      // own rows below the diagonal block against L_kk, a thread a row
+      for (int e = tid; e < kPanel * n_own; e += kWideThreads) {
+        const int p = spanel[e >> 4];
+        if (p <= k) continue;
+        float* row = store + goff[p] + (e & 15) * panel_lda(p) + kPanel * k;
         float r[kPanel];
 #pragma unroll
-        for (int k = 0; k < kPanel; k += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(row + k);
-          r[k] = v.x; r[k + 1] = v.y; r[k + 2] = v.z; r[k + 3] = v.w;
+        for (int j = 0; j < kPanel; j += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(row + j);
+          r[j] = v.x; r[j + 1] = v.y; r[j + 2] = v.z; r[j + 3] = v.w;
         }
 #pragma unroll
         for (int j = 0; j < kPanel; ++j) {
-          r[j] *= dinv[s + j];
+          r[j] *= dg[kPanel * kPanel + j];
 #pragma unroll
-          for (int k = j + 1; k < kPanel; ++k)
-            r[k] -= r[j] * Lm[(size_t)(s + k) * lda + s + j];
+          for (int q = j + 1; q < kPanel; ++q) r[q] -= r[j] * dg[kPanel * q + j];
         }
 #pragma unroll
-        for (int k = 0; k < kPanel; k += 4)
-          *reinterpret_cast<float4*>(row + k) =
-              make_float4(r[k], r[k + 1], r[k + 2], r[k + 3]);
+        for (int j = 0; j < kPanel; j += 4)
+          *reinterpret_cast<float4*>(row + j) =
+              make_float4(r[j], r[j + 1], r[j + 2], r[j + 3]);
       }
       __syncthreads();
-      if (below == 0) break;
-      const int nb = below / 4;
-      for (int t = tid; t < nb * (nb + 1) / 2 + nb; t += kThreads)
-        update_tile(Lm, lda, s, nb, t);
+      RSP_CLK(1);  // own rows solved
+      // the owner of panel k + 1: warp 0 updates its diagonal block and z
+      // block with its own rows, factors the block and sends it
+      const bool next_own = k + 1 < nP && panel_owner(k + 1, nP) == rank;
+      if (next_own && warp == 0) {
+        const int p = k + 1, lda = panel_lda(p);
+        float* P = store + goff[p];
+        // lane L: row L / 2 of the block, columns 8 (L % 2) .. + 8
+        const int i = lane >> 1, j0 = 8 * (lane & 1);
+        const float* Li = P + i * lda + kPanel * k;
+        float li[kPanel];
+#pragma unroll
+        for (int q = 0; q < kPanel; q += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(Li + q);
+          li[q] = v.x; li[q + 1] = v.y; li[q + 2] = v.z; li[q + 3] = v.w;
+        }
+        float sv[8];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float* Lj = P + (j0 + jj) * lda + kPanel * k;
+          float a = 0.f;
+#pragma unroll
+          for (int q = 0; q < kPanel; ++q) a += li[q] * Lj[q];
+          sv[jj] = a;
+        }
+        float zs = 0.f;
+        const float* dzk = dg + kPanel * kPanel + kPanel;
+        if (lane < kPanel) {
+          const float* Lz = P + lane * lda + kPanel * k;
+#pragma unroll
+          for (int q = 0; q < kPanel; ++q) zs += Lz[q] * dzk[q];
+        }
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) P[i * lda + kPanel * p + j0 + jj] -= sv[jj];
+        if (lane < kPanel) zl[zslot[p] * kPanel + lane] -= zs;
+        __syncwarp();
+        factor_send(p);
+      }
+      RSP_CLK(2);  // the next diagonal block
+      cl.sync();   // column block k of every row is solved
+      RSP_CLK(3);  // the barrier
+      // column block k of the rows below the block, to this CTA's last
+      // panel, read once from their owners (DSMEM) into the staging buffers
+      // (free until the next row)
+      float* cbuf = reinterpret_cast<float*>(smem);
+      const int last = n_own > 0 ? spanel[n_own - 1] : -1;
+      const int n_below = last > k ? kPanel * (last - k) : 0;
+      for (int e = tid; e < n_below * 4; e += kWideThreads) {
+        const int row = e >> 2, q = e & 3;
+        const int i = k + 1 + (row >> 4), rr = row & 15;
+        const float4 v = *reinterpret_cast<const float4*>(
+            cl.map_shared_rank(store, panel_owner(i, nP)) + goff[i] +
+            rr * panel_lda(i) + kPanel * k + 4 * q);
+        *reinterpret_cast<float4*>(cbuf + row * kPanel +
+                                   (((q ^ (row >> 1)) & 3) << 2)) = v;
+      }
       __syncthreads();
+      // the trailing update of the own blocks (j, i), k < i <= j, on the
+      // tensor cores: two m16n8 tiles a block, dealt over the warps a panel
+      // at a time, two tiles a warp at a time (the owner of panel k + 1
+      // updated its block (k + 1, k + 1) above)
+      for (int s = 0; s < n_own; ++s) {
+        const int p = spanel[s];
+        if (p <= k || (next_own && p == k + 1)) continue;
+        const int lda = panel_lda(p);
+        float* P = store + goff[p];
+        const int ra = kPanel * (p - k - 1);  // the block row's copy
+        const int nt = 2 * (p - k);
+        for (int t = warp; t < nt; t += 2 * kWarpsW) {
+          const int t1 = t + kWarpsW < nt ? t + kWarpsW : t;
+          const int i0 = k + 1 + (t >> 1), i1 = k + 1 + (t1 >> 1);
+          const int h0 = t & 1, h1 = t1 & 1;
+          trail_pair(P + kPanel * i0 + 8 * h0, lda, ra,
+                     kPanel * (i0 - k - 1) + 8 * h0,
+                     P + kPanel * i1 + 8 * h1, lda, ra,
+                     kPanel * (i1 - k - 1) + 8 * h1, t1 != t, cbuf, g, tig);
+        }
+      }
+      // z_j -= L_jk z_k for the own blocks j > k (z_k+1 done above)
+      const float* dz = dg + kPanel * kPanel + kPanel;
+      if (tid < kPanel * n_own) {
+        const int p = spanel[tid >> 4];
+        if (p > k && !(next_own && p == k + 1)) {
+          const float* Lr = store + goff[p] + (tid & 15) * panel_lda(p) +
+                            kPanel * k;
+          float zs = 0.f;
+#pragma unroll
+          for (int q = 0; q < kPanel; ++q) zs += Lr[q] * dz[q];
+          zl[tid] -= zs;
+        }
+      }
+      __syncthreads();
+      RSP_CLK(4);  // the trailing update
     }
 
-    // ---- (3) L' x = z in one warp, the running values in colv -------------
-    if (warp == 0) {
-      for (int j = lane; j < D; j += 32) colv[j] = Lm[(size_t)D * lda + j];
-      __syncwarp();
-      for (int i = D - 1; i >= 0; --i) {
-        const float xi = colv[i] * dinv[i];
-        if (lane == 0) xs[i] = xi;
-        const float* Li = Lm + (size_t)i * lda;
-        for (int j = lane; j < i; j += 32) colv[j] -= Li[j] * xi;
-        __syncwarp();
+    if (stages == 4) {
+      cl.sync();  // no CTA reads another's panels any more
+      continue;
+    }
+
+    // ---- (3) L' x = z by blocks from the last --------------------------
+    // The owner of block p waits for the owner of block p + 1's signal (so
+    // every later block's part has been added, in order), takes them off
+    // z_p, solves, adds its own part to its partial and signals the owner
+    // of block p - 1.
+    for (int p = nP - 1; p >= 0; --p) {
+      if (panel_owner(p, nP) != rank) continue;
+      if (p < nP - 1) wait_signal(bsig, bsig_waits++ & 1);
+      const int lda = panel_lda(p);
+      const float* P = store + goff[p];
+      if (warp == 0) {
+        const int r = lane & 15;
+        float v = zl[zslot[p] * kPanel + r];
+        for (int cc = 0; cc < kCluster; ++cc)
+          v -= cl.map_shared_rank(acc, cc)[kPanel * p + r];
+        float x = 0.f;
+#pragma unroll
+        for (int j = kPanel - 1; j >= 0; --j) {
+          const float xj =
+              __shfl_sync(RSP_FULL_MASK, v, j) * dinv[kPanel * p + j];
+          if (r == j) x = xj;
+          if (r < j) v -= P[j * lda + kPanel * p + r] * xj;
+        }
+        if (lane < kPanel) {
+          xs[kPanel * p + r] = x;
+          if (kPanel * p + r < d) a.y[(size_t)b * d + kPanel * p + r] = x;
+        }
       }
+      __syncthreads();
+      // this block's part of every earlier block: acc += L_p.' x_p
+      for (int j = tid; j < kPanel * p; j += kWideThreads) {
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < kPanel; ++i)
+          s += P[i * lda + j] * xs[kPanel * p + i];
+        acc[j] += s;
+      }
+      __syncthreads();
+      if (p > 0 && tid == 0) signal_cta(bsig, panel_owner(p - 1, nP));
+      RSP_CLK(5);  // a block of the back substitution
+    }
+    cl.sync();  // every block is solved; the partials are free again
+    RSP_CLK(6);
+    if (stages < 3) continue;
+
+    // ---- the loss, a quarter of the entries a CTA ------------------------
+    for (int j = tid; j < D; j += kWideThreads) {
+      const int o = panel_owner(j / kPanel, nP);
+      if (o != rank) xs[j] = cl.map_shared_rank(xs, o)[j];
     }
     __syncthreads();
-
-    // ---- output and loss ---------------------------------------------------
-    for (int t = tid; t < d; t += kThreads) a.y[(size_t)b * d + t] = xs[t];
-    if (stages >= 3) {
-      const float total = rsp::row_loss<kLossPer, EXPLICIT>(
-          R, a, xs, rsp::dot_operand(xs, colv, d, rnd), lam_use, scratch);
-      if (tid == 0) a.loss[b] = total;
+    const float part = cluster_loss<EXPLICIT>(
+        R, a, xs, rsp::dot_operand(xs, colv, d, rnd), lam_use, scratch, rank);
+    if (tid == 0) lpart[0] = part;
+    cl.sync();
+    if (rank == 0 && tid == 0) {
+      float total = 0.f;
+      for (int cc = 0; cc < kCluster; ++cc)
+        total += cl.map_shared_rank(lpart, cc)[0];
+      a.loss[b] = total;
     }
-    __syncthreads();  // the next row reuses the slot and the buffers
+    RSP_CLK(7);  // the loss
   }
+  cl.sync();  // no CTA leaves while another may read its shared memory
+#ifdef RSP_CHOL_CLOCKS
+  if (tid == 0 && blockIdx.x < kCluster)
+    for (int i = 0; i < 8; ++i) a.loss[8 * rank + i] = (float)clk[i];
+#endif
 }
 
-using WideKernel = void (*)(rsp::BucketArgs, int, float*);
+using WideKernel = void (*)(rsp::BucketArgs, int);
 
 WideKernel pick_wide(const rsp::BucketArgs& a) {
   using bf16 = __nv_bfloat16;
@@ -459,26 +935,62 @@ int check_wide(const rsp::BucketArgs& a) {
   return 0;
 }
 
+cudaLaunchConfig_t cluster_config(int clusters, int smem, cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * kCluster);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of the kernel that run at once at `smem` bytes a CTA (cached a
+// kernel: the layout's bytes depend on d, which changes the answer only
+// through smem).
+cudaError_t active_clusters(WideKernel kern, int smem, int* n) {
+  static WideKernel k_seen[8];
+  static int s_seen[8], n_seen[8], used = 0;
+  for (int i = 0; i < used; ++i)
+    if (k_seen[i] == kern && s_seen[i] == smem) {
+      *n = n_seen[i];
+      return cudaSuccess;
+    }
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(1, smem, 0, attr);
+  err = cudaOccupancyMaxActiveClusters(n, kern, &cfg);
+  if (err != cudaSuccess) return err;
+  if (used < 8) {
+    k_seen[used] = kern;
+    s_seen[used] = smem;
+    n_seen[used++] = *n;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// info: [0] CTAs an SM, [1] the cold entries' Gram route, [2] the head's,
-// [3] D, [4] shared bytes a CTA, [5] workspace slots (CTAs of the
-// persistent grid: SMs x CTAs an SM), [6] floats a slot.
+// info: [0] clusters that run at once, [1] the cold entries' Gram route,
+// [2] the head's, [3] D, [4] shared bytes a CTA, [5] CTAs a cluster (one
+// row), [6] floats of the largest CTA's panels.
 extern "C" int rsp_als_chol_wide_info(const rsp::BucketArgs* args,
                                       int* info) {
   const rsp::BucketArgs a = *args;
   if (int e = check_wide(a)) return e;
   const WideKernel kern = pick_wide(a);
   const WideLayout Ly = make_wide_layout(a.d, a.table_bf16 ? 2 : 4);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Ly.bytes);
-  if (err != cudaSuccess) return (int)err;
-  int n = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kThreads,
-                                                      Ly.bytes);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (Ly.bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
+  int n = 0;
+  cudaError_t err = active_clusters(kern, Ly.bytes, &n);
   if (err != cudaSuccess) return (int)err;
   const bool rnd = a.round_bf16 != 0;
   int cold, head;
@@ -497,26 +1009,31 @@ extern "C" int rsp_als_chol_wide_info(const rsp::BucketArgs* args,
   info[2] = head;
   info[3] = Ly.D;
   info[4] = Ly.bytes;
-  info[5] = n * sms;
-  info[6] = (int)Ly.slot;
+  info[5] = kCluster;
+  info[6] = Ly.store;
   return 0;
 }
 
-// ws: at least min(B, slots) x info[6] floats (uninitialised; each CTA
-// writes its slot before it reads it).  stages: 1 the Gram only, 2 also
-// the solve (y), 3 everything (y, loss).
+// stages: 1 the Gram only, 4 the Gram and the factorisation, 2 also the
+// back substitution (y), 3 everything (y, loss).
 extern "C" int rsp_als_chol_wide(const rsp::BucketArgs* args, int stages,
-                                 float* ws, int slots, void* stream) {
+                                 void* stream) {
   const rsp::BucketArgs a = *args;
   if (a.B <= 0) return 0;
   if (int e = check_wide(a)) return e;
-  if (ws == nullptr || slots <= 0) return (int)cudaErrorInvalidValue;
   const WideKernel kern = pick_wide(a);
   const int smem = make_wide_layout(a.d, a.table_bf16 ? 2 : 4).bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  int n = 0;
+  cudaError_t err = active_clusters(kern, smem, &n);
   if (err != cudaSuccess) return (int)err;
-  const int grid = a.B < slots ? a.B : slots;
-  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a, stages, ws);
-  return (int)cudaGetLastError();
+  if (n <= 0) return (int)cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(
+      a.B < n ? a.B : n, smem, (cudaStream_t)stream, attr);
+  err = cudaLaunchKernelEx(&cfg, kern, a, stages);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -72,15 +72,33 @@
 // 300 dimensions pad to 320 with zero columns, which add nothing to S, the
 // products, the rows' norms or the exact re-sums).  At 320 the f32 path
 // holds 32 + 64 staged rows of 321 floats (140 KB, one CTA an SM) and 40
-// components a thread; the bf16 path stages rows of 328 bf16 (230 KB with
-// both buffers, one CTA an SM) and splits the components over two groups
-// of four warps that share the staged rows: each group forms the same S
-// and costs (the same instructions on the same operands) and sums 160
-// components, 160 floats of G and A2 a thread.  The midpoint test's bound
-// grows with S's ceil(r / 16) k16 slices (19 at r = 300), and with it the
-// cells it flags: the wide instance takes the test a fragment (4 cells a
-// thread) at a time, so its queue of four exact sums never overflows.
+// components a thread.  The bf16 path at 320 is its own kernel,
+// glove_tile_sums_wg, written for the H100: a persistent grid of one CTA
+// an SM over the tile's (side, own block, chunk) items; a producer warp
+// keeps the other side's rows in two stages of 64 x 320 bf16 (TMA, 128-byte
+// swizzle) and their squares in one, with their biases, norms and count
+// lines (cp.async), each on a full / empty mbarrier pair; two consumer
+// warpgroups (232 registers a thread by setmaxnreg) each form S for the 64
+// own rows and half of a step's 64 other positions on wgmma (m64n32k16, so
+// S is formed once a block), make cost and cost^2 in registers, hand their
+// packed fragments to each other through shared memory, and each sums the
+// products for 160 of the 320 components on wgmma with the cost fragments
+// as the register A operand.  The numerics are the narrow path's: every
+// k16 slice of S and every step's products into fresh accumulators added
+// in float32; the midpoint test's bound grows with S's ceil(r / 16) k16
+// slices (19 at r = 300), so a cell it flags is tested again with a
+// tighter bound from the rows' k16 slices' norms (near_midpoint_slices,
+// the norms made by the gather launch), which cut the cells summed again
+// exactly in float64 from ~10% to ~3% of the present cells at config #4's
+// first tile; the test is taken a fragment (4 cells a thread) at a time,
+// so the queue of four exact sums never overflows.  What bounds it: 12 n_r n_c 320 operations a tile at the bf16
+// peak (36 GFLOP at config #4's first tile, 0.04 ms) and one read of the
+// counts; per step the CUDA cores' per-cell work (the midpoint test, the
+// lookups, the packing) sits between the two wgmma phases of a warpgroup,
+// and the other warpgroup's wgmma fills it.
 
+#include <cuda.h>
+#include <type_traits>
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -309,22 +327,19 @@ constexpr int kMO = 64;             // own positions per CTA (16 a warp)
 constexpr int kMN = 64;             // other positions per step
 constexpr int kCntLine = 144;       // bytes a staged count line: 9 granules
 
-// The tensor-core path at width MR.  A warp holds its 16 own rows' sums
-// of MR / kGroups components (G and A2: MR / kGroups floats a thread
-// each): at MR = 128 one group of four warps (as before); at MR = 320 two
-// groups, eight warps, that share the staged rows and each form the same S
-// (the same instructions on the same operands: the same costs) and sum
-// half of the components.
+// The mma.sync path at width MR <= 128 (the r = 320 instance runs on
+// wgmma, glove_tile_sums_wg below).  A warp holds its 16 own rows' sums of
+// MR components (G and A2: MR / 2 floats a thread each).
 template <int MR>
 struct MmaShape {
-  static constexpr int kGroups = MR <= kMaxR ? 1 : 2;
-  static constexpr int kThreads = 128 * kGroups;
+  static_assert(MR <= kMaxR, "the wide head runs glove_tile_sums_wg");
+  static constexpr int kThreads = 128;
   static constexpr int kWRow = MR + 8;  // bf16 a staged factor row: 16 bytes
                                         // past a multiple of 128 (272 bytes
                                         // at 128), so ldmatrix's 8 rows hit
                                         // 8 bank groups
   static constexpr int kGran = MR / 8;  // 16-byte granules a row
-  static constexpr int kNT = MR / 8 / kGroups;  // n8 tiles a group sums
+  static constexpr int kNT = MR / 8;    // n8 tiles a warp sums
 };
 
 template <int MR>
@@ -341,7 +356,6 @@ struct MmaSmem {
   float n_oth[2][kMN];
   float red[32];
 };
-static_assert(sizeof(MmaSmem<kMaxRWide>) <= 232448, "one CTA's shared memory");
 static_assert(sizeof(Smem<kMaxRWide>) <= 232448, "one CTA's shared memory");
 
 // bf16 counts: 2^15 bit patterns of positive (or zero) values
@@ -364,7 +378,8 @@ __global__ void glove_tile_gather(const int* __restrict__ rows,
                                   const float* __restrict__ b_j, int r,
                                   float x_max, float alpha,
                                   __nv_bfloat16* gw, __nv_bfloat16* gw2,
-                                  float* gb, float* gn, float2* lut,
+                                  float* gb, float* gn,
+                                  __nv_bfloat16* gsn, float2* lut,
                                   double* lut64) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < kLut) {
@@ -379,6 +394,7 @@ __global__ void glove_tile_gather(const int* __restrict__ rows,
   const int pos = col ? p - n_r : p;
   const int id = (col ? cols : rows)[pos];
   const float* W = (col ? w_j : w_i) + (size_t)id * r;
+  const int o = col ? ((n_r + 3) & ~3) + pos : pos;
   float ss = 0.f;
 #pragma unroll
   for (int m = 0; m < MR / 32; ++m) {
@@ -387,15 +403,31 @@ __global__ void glove_tile_gather(const int* __restrict__ rows,
     gw[(size_t)p * MR + k] = __float2bfloat16_rn(v);
     gw2[(size_t)p * MR + k] = __float2bfloat16_rn(v * v);
     ss += v * v;
+    if constexpr (MR > kMaxR) {
+      // the norms of the row's k16 slices 2m (lanes 0-15) and 2m + 1,
+      // rounded up (the wide kernel's midpoint bound)
+      float q = v * v;
+#pragma unroll
+      for (int h = 8; h > 0; h >>= 1) q += __shfl_xor_sync(RSP_FULL_MASK, q, h);
+      if ((lane & 15) == 0)
+        gsn[(size_t)o * (MR / 16) + 2 * m + (lane >> 4)] =
+            __float2bfloat16_ru(sqrtf(q) * (1.f + 0x1p-18f));
+    }
   }
   ss = rsp::warp_sum(ss);
   if (lane == 0) {
-    const int o = col ? ((n_r + 3) & ~3) + pos : pos;
     gb[o] = (col ? b_j : b_i)[id];
     gn[o] = sqrtf(ss);
   }
 }
 
+// Whether sv lies within `bound` of a bf16 rounding midpoint.
+__device__ __forceinline__ bool within_of_midpoint(float sv, float bound) {
+  const unsigned u = __float_as_uint(sv);
+  const float ulp = __uint_as_float(u & 0x7f800000u) * 0x1p-23f;
+  const int dist = abs((int)(u & 0xffffu) - 0x8000);
+  return (float)dist * ulp <= bound;
+}
 // Whether clip(S + b_row + b_col - log x) computed in float32 from K11's
 // tensor-core S (s) may sit on the other side of a bf16 rounding midpoint
 // than the exact value: its distance from the nearest midpoint is within
@@ -414,10 +446,7 @@ __device__ __forceinline__ bool near_midpoint(float sv, float s, float b_row,
                       0x1p-22f * (fabsf(s) + fabsf(b_row) + fabsf(b_col) +
                                   fabsf(lx)) +
                       0x1p-21f * (1.f + fabsf(lx));
-  const unsigned u = __float_as_uint(sv);
-  const float ulp = __uint_as_float(u & 0x7f800000u) * 0x1p-23f;
-  const int dist = abs((int)(u & 0xffffu) - 0x8000);
-  return (float)dist * ulp <= bound;
+  return within_of_midpoint(sv, bound);
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -438,8 +467,7 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // side is contiguous in X (the row side's lines are X's rows; the column
 // side reads the same rows and indexes them transposed).
 template <int MR>
-__global__ void __launch_bounds__(MmaShape<MR>::kThreads,
-                                  MR <= kMaxR ? 2 : 1)
+__global__ void __launch_bounds__(MmaShape<MR>::kThreads, 2)
     glove_tile_sums_mma(int n_r, int n_c, const void* __restrict__ X,
                         long long sr, long long sc,
                         const __nv_bfloat16* __restrict__ gw,
@@ -464,10 +492,7 @@ __global__ void __launch_bounds__(MmaShape<MR>::kThreads,
   const int s0 = (int)((long long)chunk * steps / chunks);
   const int s1 = (int)((long long)(chunk + 1) * steps / chunks);
   const int tid = threadIdx.x, lane = tid & 31;
-  // the warp's 16 own rows (warp) and its group of components (cgroup;
-  // 0 at compile time in the one-group instance, which stays as it was)
-  const int warp = Sh::kGroups > 1 ? (tid >> 5) & 3 : tid >> 5;
-  const int cgroup = Sh::kGroups > 1 ? tid >> 7 : 0;
+  const int warp = tid >> 5;  // the warp's 16 own rows
   const int g = lane >> 2, tig = lane & 3;
   const int rb = (n_r + 3) & ~3;
   const __nv_bfloat16* W_own = gw + (size_t)(side ? n_r : 0) * MR;
@@ -483,8 +508,8 @@ __global__ void __launch_bounds__(MmaShape<MR>::kThreads,
   const int kr = (r + 15) / 16;       // k16 slices of the factor rows
   // the midpoint test's slices (near_midpoint) and the S fragments a pass
   // of the test takes (a queue of four exact sums a thread a pass)
-  const float slices = MR <= kMaxR ? 8.f : (float)kr;
-  constexpr int kQN = MR <= kMaxR ? 2 : 1;
+  const float slices = 8.f;
+  constexpr int kQN = 2;
 
   for (int e = tid; e < kMO * kGran; e += kMThreads) {
     const int m = e / kGran, q = e % kGran, p = own0 + m;
@@ -623,9 +648,7 @@ __global__ void __launch_bounds__(MmaShape<MR>::kThreads,
     // sit further from the exact sum than the plain version's)
     float sc[2] = {0.f, 0.f}, sc2[2] = {0.f, 0.f}, sl = 0.f;
     // by quarters of the step's cells (two S fragments, 8 cells a thread),
-    // so that the queue of four rarely overflows; the wide instance (whose
-    // wider bound flags more cells) by eighths (4 cells a thread), so that
-    // it never does
+    // so that the queue of four rarely overflows
 #pragma unroll
     for (int qt = 0; qt < 8 / kQN; ++qt) {
       unsigned near_mask = 0;
@@ -747,7 +770,7 @@ __global__ void __launch_bounds__(MmaShape<MR>::kThreads,
           const float cost = present ? rsp::rbf(wl[q].x * svb) : 0.f;
           const float c2 = rsp::rbf(cost * cost);
           sl += cost * sv;
-          if (s_dump != nullptr && present && cgroup == 0) {
+          if (s_dump != nullptr && present) {
             const int i = side ? q0 + qr[q] : own0 + pr[q];
             const int j = side ? own0 + pr[q] : q0 + qr[q];
             s_dump[((size_t)side * n_r + i) * n_c + j] = svb;
@@ -771,12 +794,10 @@ __global__ void __launch_bounds__(MmaShape<MR>::kThreads,
     lsum += sl;
 
     // cost @ w_oth and cost^2 @ w_oth^2: each step's four k16 slices into
-    // fresh fragments, added to the warp's 16 x (MR / kGroups) sums in
-    // float32; the group's components are [16 cp0, 16 cp0 + MR / kGroups)
-    const int cp0 = cgroup * (kNT / 2);
+    // fresh fragments, added to the warp's 16 x MR sums in float32
 #pragma unroll
     for (int cl = 0; cl < kNT / 2; ++cl) {
-      const int cp = cp0 + cl;
+      const int cp = cl;
       if (cp < kr) {
         float tg[2][4] = {}, ta[2][4] = {};
 #pragma unroll
@@ -814,7 +835,7 @@ __global__ void __launch_bounds__(MmaShape<MR>::kThreads,
     for (int n = 0; n < kNT; ++n) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int k = 8 * (n + cgroup * kNT) + 2 * tig + e;
+        const int k = 8 * n + 2 * tig + e;
         if (p < n_own && k < r) {
           P[(size_t)p * width + k] = G[n][2 * h + e];
           P[(size_t)p * width + r + k] = A2[n][2 * h + e];
@@ -827,15 +848,765 @@ __global__ void __launch_bounds__(MmaShape<MR>::kThreads,
       a1 += __shfl_xor_sync(RSP_FULL_MASK, a1, o);
       a2 += __shfl_xor_sync(RSP_FULL_MASK, a2, o);
     }
-    if (tig == 0 && p < n_own && cgroup == 0) {
+    if (tig == 0 && p < n_own) {
       P[(size_t)p * width + 2 * r] = a1;
       P[(size_t)p * width + 2 * r + 1] = a2;
     }
   }
   if (side == 0) {
-    // every group formed the same costs: the first one's loss
-    const float l = rsp::block_sum(cgroup == 0 ? lsum : 0.f, sm.red);
+    const float l = rsp::block_sum(lsum, sm.red);
     if (tid == 0) lpart[blockIdx.x * chunks + chunk] = l;
+  }
+}
+
+// ---- the r = 320 head on wgmma -----------------------------------------------
+
+// RSP_K11_CLOCKS (a timing build, kernel_times.py k11-wide): thread 0 of
+// CTA 0 sums the clock cycles of each phase of its consumer loop and the
+// CTA counts the cells it sums again exactly; a launch with s_dump writes
+// them to s_dump[0..7] and s_dump[8] (and no cells).
+#ifdef RSP_K11_CLOCKS
+#define RSP_K11_CLK(i)                         \
+  do {                                         \
+    if (tid == 0 && blockIdx.x == 0) {          \
+      const long long c_ = clock64();           \
+      k11_clk[i] += c_ - k11_t;                 \
+      k11_t = c_;                               \
+    }                                          \
+  } while (0)
+#else
+#define RSP_K11_CLK(i) \
+  do {                 \
+  } while (0)
+#endif
+
+namespace wgk {
+
+constexpr int kR = kMaxRWide;            // components, zero past r
+constexpr int kBoxes = kR / 64;          // 64-component boxes of a row
+constexpr int kBox = 64 * 128;           // bytes of a box of 64 rows
+constexpr int kTile = kBoxes * kBox;     // bytes of 64 rows: 40,960
+constexpr int kSlices = kR / 16;         // k16 slices of S
+constexpr int kNC = 32;                  // components a product chunk
+constexpr int kChunks = kR / 2 / kNC;    // chunks a warpgroup: 160 components
+constexpr int kThreads = 384;            // two consumer warpgroups, a producer one
+constexpr int kX = 16;                   // registers a thread hands over a step
+
+// One CTA: the own rows, two stages of the other side's rows (TMA, 128-byte
+// swizzle, 64 x 64 bf16 boxes), one stage of their squares, two stages of
+// count lines, biases and norms (cp.async), the warpgroups' exchange of
+// cost fragments, and the pipeline's mbarriers.
+struct WgSmem {
+  unsigned char own[kTile];
+  unsigned char oth[2][kTile];
+  unsigned char oth2[kTile];
+  unsigned char cnt[2][64 * kCntLine];
+  // the k16 slices' norms of the own rows and of a stage's rows (bf16,
+  // rounded up): the midpoint test's tighter bound
+  __nv_bfloat16 sn_own[64 * kSlices];
+  __nv_bfloat16 sn_oth[2][64 * kSlices];
+  unsigned xch[2][2][kX][128];  // [step parity][warpgroup][register][thread]
+  int coff[2][64];
+  float b_own[64], n_own[64];
+  float b_oth[2][64], n_oth[2][64];
+  float rsum[2][64];  // warpgroup 1's row sums of cost and cost^2
+  float red[8];
+  unsigned long long full[2], empty[2], full2, empty2, own_full, own_empty;
+  unsigned flagged[8];  // RSP_K11_CLOCKS: the cells each warp summed again
+};
+constexpr int kSmemBytes = (int)sizeof(WgSmem) + 1024;  // + the alignment
+static_assert(kSmemBytes <= 232448, "one CTA's shared memory");
+
+__device__ __forceinline__ unsigned su32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void bar_init(unsigned long long* b, unsigned n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(su32(b)),
+               "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void bar_arrive(unsigned long long* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(su32(b))
+               : "memory");
+}
+__device__ __forceinline__ void bar_expect(unsigned long long* b,
+                                           unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(su32(b)),
+               "r"(bytes)
+               : "memory");
+}
+// the calling thread's cp.async copies so far arrive on b when they land
+__device__ __forceinline__ void bar_cp_async(unsigned long long* b) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                   su32(b))
+               : "memory");
+}
+// Waits for the phase of parity `parity` to complete; a wait of millions
+// of polls is a fault of the pipeline, and traps rather than hangs.
+__device__ __forceinline__ void bar_wait(unsigned long long* b,
+                                         unsigned parity) {
+  for (int n = 0;; ++n) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(su32(b)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n > (1 << 22)) __trap();
+  }
+}
+// rows [c1, c1 + 64) x components [c0, c0 + 64) of a tensor map into dst
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        int c0, int c1,
+                                        unsigned long long* b) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(su32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1),
+      "r"(su32(b))
+      : "memory");
+}
+__device__ __forceinline__ void named_sync() {  // the two consumer warpgroups
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// Shared-memory operand descriptor, 128-byte swizzle: the 8-row groups 1024
+// bytes apart (the K groups of an MN-major operand too; an operand here never
+// spans two 64-element swizzle atoms along MN).
+__device__ __forceinline__ unsigned long long desc(const void* p) {
+  return (unsigned long long)((su32(p) & 0x3FFFF) >> 4) | (64ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from reading an accumulator before the wait
+__device__ __forceinline__ void reg_fence(float (&d)[16]) {
+#pragma unroll
+  for (int q = 0; q < 16; ++q) asm volatile("" : "+f"(d[q])::"memory");
+}
+
+// d (= or +=) a b', 64 x 32 x 16: a from shared memory (K-major), b the 32
+// rows at db (K-major)
+__device__ __forceinline__ void mma_ss(float (&d)[16], unsigned long long da,
+                                       unsigned long long db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+// d (= or +=) a b, 64 x 32 x 16: a from registers (the mma.m16n8k16 A
+// layout a warp), b 16 rows x 32 components at db (MN-major)
+__device__ __forceinline__ void mma_rs(float (&d)[16], const unsigned (&a)[4],
+                                       unsigned long long db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// near_midpoint with the slices' own magnitudes: the tensor core's error
+// on k16 slice s is at most 2^-21 sum_k |a_k b_k| <= 2^-21 |a_s| |b_s|
+// (Cauchy-Schwarz a slice), and adding the kSlices slices in float32 at
+// most kSlices 2^-24 sum_s |a_s| |b_s|; together under 2^-19 sum_s |a_s|
+// |b_s|, which is at most 4 / kSlices of near_midpoint's 2^-21 kSlices
+// |a| |b|.  an, bn: the rows' slice norms, rounded up.
+__device__ __forceinline__ bool near_midpoint_slices(
+    float sv, float s, float b_row, float b_col, float lx,
+    const __nv_bfloat16* an, const __nv_bfloat16* bn) {
+  float sigma = 0.f;
+#pragma unroll
+  for (int k = 0; k < kSlices; k += 2) {
+    const __nv_bfloat162 a2 = *reinterpret_cast<const __nv_bfloat162*>(an + k);
+    const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(bn + k);
+    sigma = fmaf(__low2float(a2), __low2float(b2), sigma);
+    sigma = fmaf(__high2float(a2), __high2float(b2), sigma);
+  }
+  const float bound = 0x1p-19f * sigma * (1.f + 0x1p-18f) +
+                      0x1p-22f * (fabsf(s) + fabsf(b_row) + fabsf(b_col) +
+                                  fabsf(lx)) +
+                      0x1p-21f * (1.f + fabsf(lx));
+  return within_of_midpoint(sv, bound);
+}
+
+// Byte offset of the 16-byte chunk c (8 components) of row `row` in a
+// swizzled tile of 64-row boxes.
+__device__ __forceinline__ int chunk_at(int row, int c) {
+  return (c >> 3) * kBox + row * 128 + (((c & 7) ^ (row & 7)) << 4);
+}
+
+// The work items of a tile: (side, own block of 64, chunk of the other
+// side), side-major.
+struct Item {
+  int side, ob, chunk;
+  __device__ __forceinline__ Item(int i, int own_blocks, int chunks) {
+    chunk = i % chunks;
+    ob = (i / chunks) % own_blocks;
+    side = i / (chunks * own_blocks);
+  }
+};
+
+}  // namespace wgk
+
+// Launch A of the bf16 head at r <= 320 (one CTA an SM, a persistent grid
+// over the work items).  Warp 8 is the producer: per item the own rows
+// (TMA), biases and norms; per step of 64 other positions their rows (TMA
+// into two stages), their squares (one stage), biases, norms and count
+// lines (cp.async), each stage on a full / empty mbarrier pair.  The two
+// consumer warpgroups each form S = w_own w_oth' for the 64 own rows and
+// half of the step's other positions with wgmma (m64n32k16, both operands
+// from shared memory, every k16 slice into fresh accumulators added in
+// float32), turn their cells into cost and cost^2 in registers (the
+// midpoint test and the exact float64 re-sums of glove_tile_sums_mma, the
+// flagged cells of a fragment at a time), and hand their packed cost
+// fragments to the other warpgroup through shared memory; then each sums
+// cost @ w_oth and cost^2 @ w_oth^2 over the step's 64 other positions for
+// its 160 components with wgmma (m64n32k16, A the cost fragments from
+// registers, B the staged rows read MN-major), a step into fresh
+// accumulators added in float32.  No atomics: a chunk writes its partial
+// sums once, launch B adds them in order.
+__global__ void __launch_bounds__(wgk::kThreads, 1)
+    glove_tile_sums_wg(const __grid_constant__ CUtensorMap tw_r,
+                       const __grid_constant__ CUtensorMap tw_c,
+                       const __grid_constant__ CUtensorMap tw2_r,
+                       const __grid_constant__ CUtensorMap tw2_c, int n_r,
+                       int n_c, const void* __restrict__ X, long long sr,
+                       long long sc, const float* __restrict__ gb,
+                       const float* __restrict__ gn,
+                       const __nv_bfloat16* __restrict__ gsn,
+                       const float2* __restrict__ lut,
+                       const double* __restrict__ lut64, int r, int chunks,
+                       float* __restrict__ part, float* __restrict__ lpart,
+                       float* s_dump) {
+  using namespace wgk;
+  // the tiles start on a 1024-byte swizzle atom; the offset is added to the
+  // shared array itself, so that the compiler keeps every access in the
+  // shared window (LDS / STS, not generic loads)
+  extern __shared__ __align__(16) unsigned char smem_wg[];
+  WgSmem& sm = *reinterpret_cast<WgSmem*>(
+      smem_wg + ((1024u - (su32(smem_wg) & 1023u)) & 1023u));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int own_blocks = ((n_r > n_c ? n_r : n_c) + kMO - 1) / kMO;
+  const int n_items = 2 * own_blocks * chunks;
+  const int rb = (n_r + 3) & ~3;
+  if (tid == 0) {
+    bar_init(&sm.full[0], 1);
+    bar_init(&sm.full[1], 1);
+    bar_init(&sm.empty[0], 256);
+    bar_init(&sm.empty[1], 256);
+    bar_init(&sm.full2, 1);
+    bar_init(&sm.empty2, 256);
+    bar_init(&sm.own_full, 1);
+    bar_init(&sm.own_empty, 256);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ---- the producer warpgroup: warp 8 loads, 9 to 11 wait out ----------
+    // (registers are handed over by warpgroups: 128 x 128 of the launch's
+    // 168 a thread go to the consumers' 232)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8) {
+      int gs = 0, it = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+        const Item itm(i, own_blocks, chunks);
+        const int side = itm.side;
+        const int n_own = side ? n_c : n_r, n_oth = side ? n_r : n_c;
+        const int own0 = itm.ob * kMO;
+        if (own0 >= n_own) continue;  // the same for every warp
+        const int steps = (n_oth + kMN - 1) / kMN;
+        const int s0 = (int)((long long)itm.chunk * steps / chunks);
+        const int s1 = (int)((long long)(itm.chunk + 1) * steps / chunks);
+        const CUtensorMap* t_own = side ? &tw_c : &tw_r;
+        const CUtensorMap* t_oth = side ? &tw_r : &tw_c;
+        const CUtensorMap* t_oth2 = side ? &tw2_r : &tw2_c;
+        const float* B_own = gb + (side ? rb : 0);
+        const float* B_oth = gb + (side ? 0 : rb);
+        const float* N_own = gn + (side ? rb : 0);
+        const float* N_oth = gn + (side ? 0 : rb);
+        const __nv_bfloat16* SN_own = gsn + (size_t)(side ? rb : 0) * kSlices;
+        const __nv_bfloat16* SN_oth = gsn + (size_t)(side ? 0 : rb) * kSlices;
+        const long long s_own = side ? sc : sr, s_oth = side ? sr : sc;
+        const bool lines_own = s_oth == 1;
+        const long long s_line = lines_own ? s_own : s_oth;
+
+        bar_wait(&sm.own_empty, (it & 1) ^ 1);
+        {
+          const int q = lane & 15, p = own0 + 4 * q;
+          float* dst = lane < 16 ? &sm.b_own[4 * q] : &sm.n_own[4 * q];
+          const float* src = (lane < 16 ? B_own : N_own) + (p < n_own ? p : 0);
+          rsp::cp_async16(dst, src, p < n_own ? 16 : 0);
+        }
+        for (int e = lane; e < 64 * kSlices * 2 / 16; e += 32)
+          rsp::cp_async16(reinterpret_cast<unsigned char*>(sm.sn_own) + 16 * e,
+                          reinterpret_cast<const unsigned char*>(
+                              SN_own + (size_t)own0 * kSlices) + 16 * e, 16);
+        bar_cp_async(&sm.own_full);
+        __syncwarp();
+        if (lane == 0) {
+          bar_expect(&sm.own_full, kTile);
+          for (int b = 0; b < kBoxes; ++b)
+            tma_box(sm.own + b * kBox, t_own, 64 * b, own0, &sm.own_full);
+        }
+        for (int step = s0; step < s1; ++step, ++gs) {
+          const int slot = gs & 1, q0 = step * kMN;
+          bar_wait(&sm.empty[slot], ((gs >> 1) & 1) ^ 1);
+          {
+            const int q = lane & 15, p = q0 + 4 * q;
+            float* dst =
+                lane < 16 ? &sm.b_oth[slot][4 * q] : &sm.n_oth[slot][4 * q];
+            const float* src =
+                (lane < 16 ? B_oth : N_oth) + (p < n_oth ? p : 0);
+            rsp::cp_async16(dst, src, p < n_oth ? 16 : 0);
+          }
+          for (int e = lane; e < 64 * kSlices * 2 / 16; e += 32)
+            rsp::cp_async16(
+                reinterpret_cast<unsigned char*>(sm.sn_oth[slot]) + 16 * e,
+                reinterpret_cast<const unsigned char*>(
+                    SN_oth + (size_t)q0 * kSlices) + 16 * e, 16);
+          // count lines, as glove_tile_sums_mma stages them
+          const int n_lines = lines_own ? n_own - own0 : n_oth - q0;
+          const int first = lines_own ? q0 : own0;
+          const int n_along = (lines_own ? n_oth : n_own) - first;
+          const int len = n_along < 64 ? n_along : 64;
+          for (int e = lane; e < 64 * 9; e += 32) {
+            const int line = e / 9, q = e - line * 9;
+            if (line >= n_lines) continue;
+            const long long el =
+                (long long)((lines_own ? own0 : q0) + line) * s_line + first;
+            const size_t a = reinterpret_cast<size_t>(X) + 2 * (size_t)el;
+            const int off = (int)(a & 15);
+            if (q == 0) sm.coff[slot][line] = off;
+            if (q < ((off + 2 * len + 15) >> 4))
+              rsp::cp_async16(
+                  &sm.cnt[slot][line * kCntLine + 16 * q],
+                  reinterpret_cast<const void*>((a & ~(size_t)15) + 16 * q), 16);
+          }
+          bar_cp_async(&sm.full[slot]);
+          __syncwarp();
+          if (lane == 0) {
+            bar_expect(&sm.full[slot], kTile);
+            for (int b = 0; b < kBoxes; ++b)
+              tma_box(sm.oth[slot] + b * kBox, t_oth, 64 * b, q0,
+                      &sm.full[slot]);
+          }
+          bar_wait(&sm.empty2, (gs & 1) ^ 1);
+          if (lane == 0) {
+            bar_expect(&sm.full2, kTile);
+            for (int b = 0; b < kBoxes; ++b)
+              tma_box(sm.oth2 + b * kBox, t_oth2, 64 * b, q0, &sm.full2);
+          }
+        }
+        ++it;
+      }
+    }
+  } else {
+    // ---- the consumers --------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  #ifdef RSP_K11_CLOCKS
+    long long k11_clk[8] = {0, 0, 0, 0, 0, 0, 0, 0}, k11_t = clock64();
+    if (lane == 0) sm.flagged[warp] = 0;
+    named_sync();
+  #endif
+    const int wg = tid >> 7, t = tid & 127, w = t >> 5;
+    const int g = lane >> 2, tig = lane & 3;
+    const int prow = 16 * w;  // the warp's first own row
+    const int kr = (r + 15) / 16;
+    const float slices = (float)kr;  // the midpoint test's k16 slices
+    int gs = 0, it = 0;
+    for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+      const Item itm(i, own_blocks, chunks);
+      const int side = itm.side;
+      const int n_own = side ? n_c : n_r, n_oth = side ? n_r : n_c;
+      const int own0 = itm.ob * kMO;
+      if (own0 >= n_own) continue;
+      const int steps = (n_oth + kMN - 1) / kMN;
+      const int s0 = (int)((long long)itm.chunk * steps / chunks);
+      const int s1 = (int)((long long)(itm.chunk + 1) * steps / chunks);
+      const long long s_oth = side ? sr : sc;
+      const bool lines_own = s_oth == 1;
+
+      float G[kChunks][16], A2[kChunks][16];
+  #pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+  #pragma unroll
+        for (int q = 0; q < 16; ++q) G[c][q] = A2[c][q] = 0.f;
+      float rc[2] = {0.f, 0.f}, rc2[2] = {0.f, 0.f}, lsum = 0.f;
+      float tf[16];  // the products' fresh accumulators
+  #pragma unroll
+      for (int q = 0; q < 16; ++q) tf[q] = 0.f;
+      bar_wait(&sm.own_full, it & 1);
+
+      for (int step = s0; step < s1; ++step, ++gs) {
+        const int slot = gs & 1, q0 = step * kMN;
+        bar_wait(&sm.full[slot], (gs >> 1) & 1);
+        RSP_K11_CLK(0);  // the stage's rows and counts
+        const unsigned char* oth = sm.oth[slot];
+
+        // S for the 64 own rows x this warpgroup's 32 other positions: every
+        // k16 slice into fresh accumulators (two, so that one is added while
+        // the next is summed), added in float32
+        float s[16], f0[16], f1[16];
+  #pragma unroll
+        for (int q = 0; q < 16; ++q) s[q] = f0[q] = f1[q] = 0.f;
+        {
+          const unsigned char* bo = oth + wg * 32 * 128;
+          wg_fence();
+          mma_ss(f0, desc(sm.own), desc(bo), 0);
+          wg_commit();
+  #pragma unroll
+          for (int ks = 1; ks < kSlices; ++ks) {
+            const int o = (ks >> 2) * kBox + (ks & 3) * 32;
+            if (ks & 1)
+              mma_ss(f1, desc(sm.own + o), desc(bo + o), 0);
+            else
+              mma_ss(f0, desc(sm.own + o), desc(bo + o), 0);
+            wg_commit();
+            wg_wait<1>();
+            if (ks & 1) {
+              reg_fence(f0);
+  #pragma unroll
+              for (int q = 0; q < 16; ++q) s[q] += f0[q];
+            } else {
+              reg_fence(f1);
+  #pragma unroll
+              for (int q = 0; q < 16; ++q) s[q] += f1[q];
+            }
+            wg_fence();
+          }
+          wg_wait<0>();
+          // the last slice (kSlices - 1, odd) landed in f1
+          reg_fence(f1);
+  #pragma unroll
+          for (int q = 0; q < 16; ++q) s[q] += f1[q];
+        }
+        RSP_K11_CLK(1);  // S
+
+        // cost and cost^2 in registers, a fragment (4 cells) at a time: (1)
+        // flag the cells whose float32 clip(S + b_i + b_j - log x) may round to
+        // the other bf16 neighbour than the exact S does; (2) the warp sums
+        // the flagged cells' S exactly in float64, four cells a round, eight
+        // lanes and 40 of the 320 exact products a lane each; (3) the costs,
+        // their sums and the packed fragments.
+        const unsigned char* cb = sm.cnt[slot];
+        unsigned ca[2][4], c2a[2][4];
+        float sc_[2] = {0.f, 0.f}, sc2_[2] = {0.f, 0.f}, sl = 0.f;
+        // a fragment n (a compile-time constant: s, ca and c2a stay in
+        // registers)
+        auto fragment = [&](auto nc) {
+          constexpr int n = decltype(nc)::value;
+          unsigned near_mask = 0;
+  #pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int pr = prow + g + 8 * (q >> 1);
+            const int qr = 32 * wg + 8 * n + 2 * tig + (q & 1);
+            const int line = lines_own ? pr : qr, el = lines_own ? qr : pr;
+            const float x =
+                own0 + pr < n_own && q0 + qr < n_oth
+                    ? __uint_as_float(
+                          (unsigned)*reinterpret_cast<const unsigned short*>(
+                              cb + line * kCntLine + sm.coff[slot][line] + 2 * el)
+                          << 16)
+                    : 0.f;
+            if (x > 0.f) {
+              const float b_row = side ? sm.b_oth[slot][qr] : sm.b_own[pr];
+              const float b_col = side ? sm.b_own[pr] : sm.b_oth[slot][qr];
+              const float lx = __logf(x);
+              const float sv =
+                  fminf(fmaxf(s[4 * n + q] + b_row + b_col - lx, -kClip), kClip);
+              if (near_midpoint(sv, s[4 * n + q], b_row, b_col, lx, sm.n_own[pr],
+                                sm.n_oth[slot][qr], slices) &&
+                  near_midpoint_slices(sv, s[4 * n + q], b_row, b_col, lx,
+                                       sm.sn_own + pr * kSlices,
+                                       sm.sn_oth[slot] + qr * kSlices))
+                near_mask |= 1u << q;
+            }
+          }
+          const unsigned fixed = near_mask;
+  #ifdef RSP_K11_CLOCKS
+          if (blockIdx.x == 0) {  // the warp's flagged cells, by lane 0
+            const unsigned nf = __reduce_add_sync(RSP_FULL_MASK, __popc(fixed));
+            if (lane == 0) sm.flagged[warp] += nf;
+          }
+  #endif
+          // the queue of exact S, in cell order (at most four: a fragment)
+          double fs0 = 0.0, fs1 = 0.0, fs2 = 0.0, fs3 = 0.0;
+          int fn = 0;
+          for (unsigned any = __ballot_sync(RSP_FULL_MASK, near_mask != 0); any;
+               any = __ballot_sync(RSP_FULL_MASK, near_mask != 0)) {
+            // four cells a round, eight lanes each: group j takes the lowest
+            // flagged cell of the j-th lowest lane that has one
+            const int grp = lane >> 3, gl = lane & 7;
+            unsigned a = any;
+            for (int j = 0; j < grp && a; ++j) a &= a - 1;
+            const int L = a ? __ffs(a) - 1 : -1;
+            const int qq = __shfl_sync(RSP_FULL_MASK, __ffs(near_mask) - 1,
+                                       L < 0 ? 0 : L);
+            double part_s = 0.0;
+            if (L >= 0) {
+              const int pr = prow + (L >> 2) + 8 * (qq >> 1);
+              const int qr = 32 * wg + 8 * n + 2 * (L & 3) + (qq & 1);
+  #pragma unroll
+              for (int b = 0; b < kBoxes; ++b) {
+                const uint4 xa = *reinterpret_cast<const uint4*>(
+                    sm.own + chunk_at(pr, 8 * b + gl));
+                const uint4 ya = *reinterpret_cast<const uint4*>(
+                    oth + chunk_at(qr, 8 * b + gl));
+                const unsigned xs4[4] = {xa.x, xa.y, xa.z, xa.w};
+                const unsigned ys4[4] = {ya.x, ya.y, ya.z, ya.w};
+  #pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  part_s += (double)(__uint_as_float(xs4[e] << 16) *
+                                     __uint_as_float(ys4[e] << 16)) +
+                            (double)(__uint_as_float(xs4[e] & 0xffff0000u) *
+                                     __uint_as_float(ys4[e] & 0xffff0000u));
+              }
+            }
+  #pragma unroll
+            for (int o = 4; o > 0; o >>= 1)
+              part_s += __shfl_xor_sync(RSP_FULL_MASK, part_s, o);
+            // the owners (the four lowest lanes with a flagged cell) take
+            // their group's sum
+            const int rank = __popc(any & ((1u << lane) - 1u));
+            const double res = __shfl_sync(RSP_FULL_MASK, part_s, 8 * (rank & 3));
+            if (near_mask != 0 && rank < 4) {
+              near_mask &= near_mask - 1;
+              fs0 = fn == 0 ? res : fs0;
+              fs1 = fn == 1 ? res : fs1;
+              fs2 = fn == 2 ? res : fs2;
+              fs3 = fn == 3 ? res : fs3;
+              ++fn;
+            }
+          }
+          float cv[4], c2v[4];
+  #pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int pr = prow + g + 8 * (q >> 1);
+            const int qr = 32 * wg + 8 * n + 2 * tig + (q & 1);
+            const int line = lines_own ? pr : qr, el = lines_own ? qr : pr;
+            const bool in = own0 + pr < n_own && q0 + qr < n_oth;
+            const unsigned xb =
+                in ? *reinterpret_cast<const unsigned short*>(
+                         cb + line * kCntLine + sm.coff[slot][line] + 2 * el)
+                   : 0u;
+            const bool present = __uint_as_float(xb << 16) > 0.f;
+            float cost = 0.f;
+            if (present) {
+              // the reference adds the row's bias first: (S + b_i) + b_j
+              const float b_row = side ? sm.b_oth[slot][qr] : sm.b_own[pr];
+              const float b_col = side ? sm.b_own[pr] : sm.b_oth[slot][qr];
+              const float2 wl = __ldg(&lut[xb]);
+              float sv = fminf(
+                  fmaxf(s[4 * n + q] + b_row + b_col - wl.y, -kClip), kClip);
+              float svb = rsp::rbf(sv);
+              if ((fixed >> q) & 1u) {  // the next queued exact S
+                const double v =
+                    fmin(fmax(fs0 + (double)b_row + (double)b_col -
+                                  __ldg(&lut64[xb]),
+                              -(double)kClip),
+                         (double)kClip);
+                svb = __bfloat162float(__double2bfloat16(v));  // rounded once
+                sv = (float)v;
+                fs0 = fs1;
+                fs1 = fs2;
+                fs2 = fs3;
+              }
+              cost = rsp::rbf(wl.x * svb);
+              sl += cost * sv;
+  #ifndef RSP_K11_CLOCKS
+              if (s_dump != nullptr) {
+                const int ii = side ? q0 + qr : own0 + pr;
+                const int jj = side ? own0 + pr : q0 + qr;
+                s_dump[((size_t)side * n_r + ii) * n_c + jj] = svb;
+              }
+  #endif
+            }
+            const float c2 = rsp::rbf(cost * cost);
+            sc_[q >> 1] += cost;
+            sc2_[q >> 1] += c2;
+            cv[q] = cost;
+            c2v[q] = c2;
+          }
+          ca[n >> 1][2 * (n & 1)] = pack_bf16(cv[0], cv[1]);
+          ca[n >> 1][2 * (n & 1) + 1] = pack_bf16(cv[2], cv[3]);
+          c2a[n >> 1][2 * (n & 1)] = pack_bf16(c2v[0], c2v[1]);
+          c2a[n >> 1][2 * (n & 1) + 1] = pack_bf16(c2v[2], c2v[3]);
+        };
+        fragment(std::integral_constant<int, 0>{});
+        fragment(std::integral_constant<int, 1>{});
+        fragment(std::integral_constant<int, 2>{});
+        fragment(std::integral_constant<int, 3>{});
+  #pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          rc[h] += sc_[h];
+          rc2[h] += sc2_[h];
+        }
+        lsum += sl;
+        RSP_K11_CLK(2);  // cost and cost^2
+
+        // the other warpgroup's cost fragments (the same positions of its
+        // threads), through shared memory
+        unsigned* mine = &sm.xch[gs & 1][wg][0][t];
+        const unsigned* theirs = &sm.xch[gs & 1][wg ^ 1][0][t];
+  #pragma unroll
+        for (int k = 0; k < 2; ++k)
+  #pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            mine[128 * (4 * k + e)] = ca[k][e];
+            mine[128 * (8 + 4 * k + e)] = c2a[k][e];
+          }
+        named_sync();
+        unsigned A[4][4], A2f[4][4];  // k16 slices of the step's 64 positions
+  #pragma unroll
+        for (int k = 0; k < 2; ++k)
+  #pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const unsigned oc = theirs[128 * (4 * k + e)];
+            const unsigned oc2 = theirs[128 * (8 + 4 * k + e)];
+            A[k][e] = wg ? oc : ca[k][e];
+            A[2 + k][e] = wg ? ca[k][e] : oc;
+            A2f[k][e] = wg ? oc2 : c2a[k][e];
+            A2f[2 + k][e] = wg ? c2a[k][e] : oc2;
+          }
+
+        RSP_K11_CLK(3);  // the exchange
+        // cost @ w_oth and cost^2 @ w_oth^2 for this warpgroup's components,
+        // a chunk of 32 and a product at a time into fresh accumulators
+        bar_wait(&sm.full2, gs & 1);
+        RSP_K11_CLK(4);  // the squares' stage
+  #pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          const int comp0 = 160 * wg + kNC * c;
+          if (comp0 < r) {
+            const int o = (comp0 >> 6) * kBox + (comp0 & 63) * 2;
+            wg_fence();
+  #pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              mma_rs(tf, A[kk], desc(oth + o + kk * 2048), kk);
+            wg_commit();
+            wg_wait<0>();
+            reg_fence(tf);
+  #pragma unroll
+            for (int q = 0; q < 16; ++q) G[c][q] += tf[q];
+            wg_fence();
+  #pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              mma_rs(tf, A2f[kk], desc(sm.oth2 + o + kk * 2048), kk);
+            wg_commit();
+            wg_wait<0>();
+            reg_fence(tf);
+  #pragma unroll
+            for (int q = 0; q < 16; ++q) A2[c][q] += tf[q];
+          }
+        }
+        bar_arrive(&sm.empty[slot]);
+        bar_arrive(&sm.empty2);
+        RSP_K11_CLK(5);  // the products
+      }
+      bar_arrive(&sm.own_empty);
+
+      // the item's partial sums: [cost w | cost^2 w^2 | cost | cost^2] of
+      // each own position, this warpgroup's components
+      const int width = 2 * r + 2;
+      float* P = part + (side ? (size_t)chunks * n_r * width : 0) +
+                 (size_t)itm.chunk * n_own * width;
+  #pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = own0 + prow + g + 8 * h;
+  #pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+  #pragma unroll
+          for (int j = 0; j < 4; ++j) {
+  #pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int k = 160 * wg + kNC * c + 8 * j + 2 * tig + e;
+              if (p < n_own && k < r) {
+                P[(size_t)p * width + k] = G[c][4 * j + 2 * h + e];
+                P[(size_t)p * width + r + k] = A2[c][4 * j + 2 * h + e];
+              }
+            }
+          }
+        }
+      }
+      // the row sums: warpgroup 0's half of the positions, then 1's
+      float a1[2], a2[2];
+  #pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        a1[h] = rc[h];
+        a2[h] = rc2[h];
+  #pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {  // over the 4 lanes of one own row
+          a1[h] += __shfl_xor_sync(RSP_FULL_MASK, a1[h], o);
+          a2[h] += __shfl_xor_sync(RSP_FULL_MASK, a2[h], o);
+        }
+        if (wg == 1 && tig == 0) {
+          sm.rsum[0][prow + g + 8 * h] = a1[h];
+          sm.rsum[1][prow + g + 8 * h] = a2[h];
+        }
+      }
+      float l = side == 0 ? rsp::warp_sum(lsum) : 0.f;
+      if (lane == 0) sm.red[warp] = l;
+      named_sync();
+      if (wg == 0) {
+  #pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = own0 + prow + g + 8 * h;
+          if (tig == 0 && p < n_own) {
+            P[(size_t)p * width + 2 * r] = a1[h] + sm.rsum[0][prow + g + 8 * h];
+            P[(size_t)p * width + 2 * r + 1] =
+                a2[h] + sm.rsum[1][prow + g + 8 * h];
+          }
+        }
+        if (side == 0 && t == 0) {
+          float tot = 0.f;
+          for (int k = 0; k < 8; ++k) tot += sm.red[k];
+          lpart[itm.ob * chunks + itm.chunk] = tot;
+        }
+      }
+      ++it;
+      RSP_K11_CLK(6);  // the item's own rows and its partial sums
+    }
+#ifdef RSP_K11_CLOCKS
+    named_sync();
+    if (tid == 0 && blockIdx.x == 0 && s_dump != nullptr) {
+      for (int q = 0; q < 8; ++q) s_dump[q] = (float)k11_clk[q];
+      unsigned nf = 0;
+      for (int w8 = 0; w8 < 8; ++w8) nf += sm.flagged[w8];
+      s_dump[8] = (float)nf;
+    }
+#endif
   }
 }
 
@@ -905,11 +1676,11 @@ int n_sms() {
 
 // Chunks of the other side per CTA row of the tensor-core path: the count
 // (at most 4: each adds a tile's worth of partial sums) with the fewest
-// waves x steps a chunk, at two CTAs an SM.
-int plan_chunks_mma(int n_r, int n_c) {
+// waves x steps a chunk, at two CTAs an SM at r <= 128 and one at 320.
+int plan_chunks_mma(int n_r, int n_c, int r) {
   const int n = n_r > n_c ? n_r : n_c;
   const int own_blocks = (n + kMO - 1) / kMO, steps = (n + kMN - 1) / kMN;
-  const int slots = 2 * n_sms();
+  const int slots = (r <= kMaxR ? 2 : 1) * n_sms();
   int best = 1;
   long long best_t = -1;
   for (int c = 1; c <= 4 && c <= steps; ++c) {
@@ -923,11 +1694,49 @@ int plan_chunks_mma(int n_r, int n_c) {
   return best;
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime (no libcuda link).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of n_rows rows of 320 bf16 at base, read in 64 x 64 boxes
+// with the 128-byte swizzle (rows past n_rows read as zero).
+int row_map(CUtensorMap* m, const void* base, int n_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)wgk::kR, (cuuint64_t)n_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)wgk::kR * 2};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // Scratch floats of the tensor-core path: partials, loss partials, then
 // (16-byte aligned) the gathered bf16 rows and squares, the biases, the
 // rows' norms and the weight table.
 struct MmaScratch {
-  long long part, lpart, gw, gw2, gb, gn, lut, lut64, total;
+  long long part, lpart, gw, gw2, gb, gn, gsn, lut, lut64, total;
 };
 // The instance width that takes rank r (128 or 320), 0 above the widest.
 int width_of(int r) {
@@ -935,7 +1744,7 @@ int width_of(int r) {
 }
 
 MmaScratch mma_scratch(int n_r, int n_c, int r) {
-  const long long chunks = plan_chunks_mma(n_r, n_c);
+  const long long chunks = plan_chunks_mma(n_r, n_c, r);
   const long long mr = width_of(r);
   MmaScratch m;
   m.part = 0;
@@ -944,7 +1753,12 @@ MmaScratch mma_scratch(int n_r, int n_c, int r) {
   m.gw2 = m.gw + (long long)(n_r + n_c) * mr / 2;
   m.gb = m.gw2 + (long long)(n_r + n_c) * mr / 2;
   m.gn = m.gb + ((n_r + 3) & ~3) + ((n_c + 3) & ~3) + 4;
-  m.lut = m.gn + ((n_r + 3) & ~3) + ((n_c + 3) & ~3) + 4;
+  m.gsn = m.gn + ((n_r + 3) & ~3) + ((n_c + 3) & ~3) + 4;
+  // the wide kernel's slice norms: 20 bf16 a row, each side from a multiple
+  // of 4 rows, and 64 rows past the end (a last block's stage reads them)
+  const long long sn_rows =
+      mr > kMaxR ? ((n_r + 3) & ~3) + ((n_c + 3) & ~3) + 64 : 0;
+  m.lut = m.gsn + sn_rows * (wgk::kR / 16) / 2;
   m.lut64 = m.lut + 2LL * kLut;
   m.total = m.lut64 + 2LL * kLut;
   return m;
@@ -965,16 +1779,23 @@ int tile_sums(const int* rows, const int* cols, int n_r, int n_c,
     cudaError_t e = cudaFuncSetAttribute(
         glove_tile_sums<MR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)sizeof(Smem<MR>));
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(glove_tile_sums_mma<MR>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)sizeof(MmaSmem<MR>));
+    if constexpr (MR <= kMaxR) {
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(glove_tile_sums_mma<MR>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)sizeof(MmaSmem<MR>));
+    } else {
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(glove_tile_sums_wg,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 wgk::kSmemBytes);
+    }
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
   if (bf16) {
     const MmaScratch m = mma_scratch(n_r, n_c, r);
-    chunks = plan_chunks_mma(n_r, n_c);
+    chunks = plan_chunks_mma(n_r, n_c, r);
     const int own_blocks = ((n_r > n_c ? n_r : n_c) + kMO - 1) / kMO;
     n_lpart = chunks * ((n_r + kMO - 1) / kMO);
     lpart = scratch + m.lpart;
@@ -982,19 +1803,35 @@ int tile_sums(const int* rows, const int* cols, int n_r, int n_c,
     auto* gw2 = reinterpret_cast<__nv_bfloat16*>(scratch + m.gw2);
     float* gb = scratch + m.gb;
     float* gn = scratch + m.gn;
+    auto* gsn = reinterpret_cast<__nv_bfloat16*>(scratch + m.gsn);
     auto* lut = reinterpret_cast<float2*>(scratch + m.lut);
     auto* lut64 = reinterpret_cast<double*>(scratch + m.lut64);
     long long ng = 32LL * (n_r + n_c);
     if (ng < kLut) ng = kLut;
     glove_tile_gather<MR><<<(unsigned)((ng + 255) / 256), 256, 0, st>>>(
         rows, cols, n_r, n_c, w_i, w_j, b_i, b_j, r, x_max, alpha, gw, gw2,
-        gb, gn, lut, lut64);
+        gb, gn, gsn, lut, lut64);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    glove_tile_sums_mma<MR><<<dim3(own_blocks, chunks, 2),
-                              MmaShape<MR>::kThreads, sizeof(MmaSmem<MR>),
-                              st>>>(n_r, n_c, X, sr, sc, gw, gw2, gb, gn, lut,
-                                    lut64, r, chunks, scratch, lpart, s_dump);
+    if constexpr (MR <= kMaxR) {
+      glove_tile_sums_mma<MR><<<dim3(own_blocks, chunks, 2),
+                                MmaShape<MR>::kThreads, sizeof(MmaSmem<MR>),
+                                st>>>(n_r, n_c, X, sr, sc, gw, gw2, gb, gn,
+                                      lut, lut64, r, chunks, scratch, lpart,
+                                      s_dump);
+    } else {
+      // the four row maps: w and bf16(w^2) of each side
+      CUtensorMap maps[4];
+      const __nv_bfloat16* bases[4] = {gw, gw + (size_t)n_r * MR, gw2,
+                                       gw2 + (size_t)n_r * MR};
+      for (int q = 0; q < 4; ++q)
+        if (int e = row_map(&maps[q], bases[q], q & 1 ? n_c : n_r)) return e;
+      const int items = 2 * own_blocks * chunks;
+      glove_tile_sums_wg<<<items < n_sms() ? items : n_sms(), wgk::kThreads,
+                           wgk::kSmemBytes, st>>>(
+          maps[0], maps[1], maps[2], maps[3], n_r, n_c, X, sr, sc, gb, gn,
+          gsn, lut, lut64, r, chunks, scratch, lpart, s_dump);
+    }
   } else {
     chunks = plan_chunks(n_r, n_c);
     const int own_blocks = ((n_r > n_c ? n_r : n_c) + kO - 1) / kO;

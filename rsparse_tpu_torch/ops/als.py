@@ -447,7 +447,7 @@ CG_CACHE_MIN, CG_CACHE_MAX = 160, 1024
 #: kNarrow, csrc/als_chol.cu): above it K1 runs CG_WIDE_WARPS warps a CTA,
 #: sizes the tile's vectors to its rows and walks every head cell (no tile
 #: products: a 64-row panel of Vh is 132 KB at d = 512), and K2 keeps the
-#: factor in a global workspace (csrc/als_chol_wide.cu)
+#: factor in a cluster's shared memory (csrc/als_chol_wide.cu)
 WIDE_D, CG_WIDE_WARPS = 160, 16
 #: K1's tau at the wide widths: no panel is a tile product
 CG_TAU_WIDE = 1 << 30
@@ -699,13 +699,14 @@ def solve_bucket_cholesky(src, x_biases, XtX, rhs_init, bucket, x_init, lam,
                           stages: int = 3):
     """K2: one bucket of exact Cholesky solves (``csrc/als_chol.cu``, the
     factor in shared memory; at d > ``WIDE_D`` ``csrc/als_chol_wide.cu``,
-    the factor in a global workspace of :func:`chol_workspace_floats`);
+    the factor across a cluster's shared memory, :func:`chol_wide_layout`);
     ``x_init`` is not read.  CPU tensors take the plain version; CUDA
     tensors launch the kernel.  Returns (y (B, d), loss (B,)).
 
-    ``stages`` < 3 stops the kernel early, for timing its parts: 1 after
-    the Gram (y and loss are left unwritten), 2 after the solve (no
-    loss)."""
+    ``stages`` other than 3 stops the kernel early, for timing its parts:
+    1 after the Gram (y and loss are left unwritten), 2 after the solve (no
+    loss); at d > ``WIDE_D`` also 4, after the factorisation (nothing
+    written)."""
     if src.device.type == "cpu":
         return _solve_bucket_plain(src, x_biases, XtX, rhs_init, bucket,
                                    x_init, lam, g, cfg, hot_W, V_hot,
@@ -714,18 +715,13 @@ def solve_bucket_cholesky(src, x_biases, XtX, rhs_init, bucket, x_init, lam,
                                  lam, g, cfg, hot_W, V_hot, hot_bits,
                                  nnz_total, hot_scale, kernel="als_chol")
     lib = _kernels.lib()
-    if args.d > WIDE_D:
-        info = _chol_info(args)
-        ws = torch.empty((chol_workspace_floats(args.B, info[5], info[6]),),
-                         dtype=torch.float32, device=src.device)
-        rc = lib.rsp_als_chol_wide(ctypes.byref(args), int(stages),
-                                   _kernels.ptr(ws), info[5],
-                                   _kernels.stream(src.device))
-    else:
-        rc = lib.rsp_als_chol(ctypes.byref(args), int(stages),
-                              _kernels.stream(src.device))
+    wide = args.d > WIDE_D
+    if stages not in ((1, 2, 3, 4) if wide else (1, 2, 3)):
+        raise ValueError(f"stages={stages} (K2 at d = {args.d})")
+    fn = lib.rsp_als_chol_wide if wide else lib.rsp_als_chol
+    rc = fn(ctypes.byref(args), int(stages), _kernels.stream(src.device))
     _kernels.check(rc, "als_chol")
-    _kernels.launches["als_chol_wide" if args.d > WIDE_D else "als_chol"] += 1
+    _kernels.launches["als_chol_wide" if wide else "als_chol"] += 1
     return y, loss
 
 
@@ -736,27 +732,29 @@ CHOL_ROUTES = ("bf16 mma", "bf16 mma, both ways", "2xTF32", "3xTF32")
 def cholesky_plan(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
                   cfg: ALSConfig, hot_W=None, V_hot=None, hot_bits=None,
                   nnz_total=None, hot_scale=None) -> dict:
-    """How K2 runs a bucket on the card (nothing is launched): CTAs an SM,
-    the Gram route of the cold and of the head entries, the padded width D
-    and the shared bytes a CTA."""
+    """How K2 runs a bucket on the card (nothing is launched): CTAs an SM
+    (at d > ``WIDE_D``: clusters at once and CTAs a cluster, one row a
+    cluster), the Gram route of the cold and of the head entries, the
+    padded width D and the shared bytes a CTA."""
     args, _, _ = _bucket_args(src, x_biases, XtX, rhs_init, bucket, None,
                               lam, g, cfg, hot_W, V_hot, hot_bits, nnz_total,
                               hot_scale, kernel="als_chol")
     info = _chol_info(args)
-    out = dict(ctas_per_sm=info[0], cold_route=CHOL_ROUTES[info[1]],
+    wide = args.d > WIDE_D
+    out = dict(ctas_per_sm=1 if wide else info[0],
+               cold_route=CHOL_ROUTES[info[1]],
                head_route=CHOL_ROUTES[info[2]], D=info[3],
-               smem_bytes=info[4], wide=args.d > WIDE_D)
-    if args.d > WIDE_D:
-        out.update(slots=info[5], slot_floats=info[6],
-                   workspace_bytes=4 * chol_workspace_floats(
-                       args.B, info[5], info[6]))
+               smem_bytes=info[4], wide=wide)
+    if wide:
+        out.update(clusters=info[0], cluster=info[5],
+                   panel_floats=info[6])
     return out
 
 
 def _chol_info(args) -> list:
     """K2's info for a bucket (``rsp_als_chol_info``, or at d >
-    ``WIDE_D`` ``rsp_als_chol_wide_info`` with the workspace's slots and
-    floats a slot)."""
+    ``WIDE_D`` ``rsp_als_chol_wide_info``: clusters at once in place of
+    CTAs an SM, then CTAs a cluster and the largest CTA's panel floats)."""
     wide = args.d > WIDE_D
     info = (ctypes.c_int * (7 if wide else 5))()
     fn = (_kernels.lib().rsp_als_chol_wide_info if wide
@@ -765,11 +763,56 @@ def _chol_info(args) -> list:
     return list(info)
 
 
-def chol_workspace_floats(B: int, slots: int, slot_floats: int) -> int:
-    """Floats of the wide K2's global workspace for a bucket of B rows: one
-    slot ((D + 1) x (D + 4) floats) a CTA of its persistent grid of
-    min(B, slots) CTAs, whatever B is (~150 MB at d = 514 on 132 SMs)."""
-    return min(B, slots) * slot_floats
+#: the wide K2's cluster (csrc/als_chol_wide.cu kCluster: CTAs a row), its
+#: warps a CTA (kWarpsW) and its panels' rows
+CHOL_CLUSTER, CHOL_WARPS, CHOL_PANEL = 4, 16, 16
+#: K2's entry list and chunk (csrc/als_chol.cuh kSeg, kRows)
+CHOL_SEG, CHOL_ROWS = 1024, 16
+
+
+def chol_panel_owner(p: int, n_panels: int) -> int:
+    """The CTA of the wide K2's cluster that holds 16-row panel ``p``:
+    panels are dealt from the last (widest) down, ``CHOL_CLUSTER`` a
+    round, the direction turning each round (csrc/als_chol_wide.cu
+    panel_owner)."""
+    i = n_panels - 1 - p
+    rnd, pos = divmod(i, CHOL_CLUSTER)
+    return CHOL_CLUSTER - 1 - pos if rnd % 2 else pos
+
+
+def chol_panel_lda(p: int) -> int:
+    """Row stride (floats) of panel ``p``: its 16 (p + 1) columns padded to
+    8 mod 32."""
+    return 16 * (p + 1) + (8 if p % 2 else 24)
+
+
+def chol_wide_layout(d: int, tbytes: int) -> dict:
+    """The wide K2's cluster layout at width ``d`` and table bytes
+    ``tbytes``, as csrc/als_chol_wide.cu make_wide_layout computes it: D,
+    the panels, each panel's owner, the floats of each CTA's panels, the
+    entries staged a chunk, and the shared bytes a CTA (two staging
+    buffers, also a factorisation step's column block copy, the entry list,
+    the largest CTA's panels, the diagonal slots and vectors, the back
+    substitution's mbarrier)."""
+    D = -(-d // CHOL_PANEL) * CHOL_PANEL
+    n_p = D // CHOL_PANEL
+    owner = [chol_panel_owner(p, n_p) for p in range(n_p)]
+    floats = [sum(CHOL_PANEL * chol_panel_lda(p) for p in range(n_p)
+                  if owner[p] == c) for c in range(CHOL_CLUSTER)]
+    w = 4 * ((d * tbytes + 30) // 16)
+    w += (8 - w) % 32
+    rows = CHOL_ROWS if tbytes == 2 else CHOL_ROWS // 2
+    # the staging buffers, which also hold a step's column block copy
+    stage = max(2 * rows * 4 * w, 64 * (D - CHOL_PANEL))
+    panels = stage + CHOL_SEG * 12 + ((2 * CHOL_ROWS * 4 + 65 * 4 + 15) & ~15)
+    n_max = -(-514 // CHOL_PANEL)
+    extra = panels + 4 * max(floats)
+    nbytes = extra + 4 * (3 * (CHOL_PANEL * CHOL_PANEL + 2 * CHOL_PANEL)
+                          + 4 * D + (-(-n_max // CHOL_CLUSTER)) * CHOL_PANEL
+                          + 36 + 3 * n_max)
+    nbytes = ((nbytes + 15) & ~15) + 16     # the back substitution's mbarrier
+    return dict(D=D, panels=n_p, owner=owner, floats=floats, rows=rows,
+                smem_bytes=nbytes)
 
 
 #: largest scratch K4's build stage writes for its sweeps (packed G and mu,

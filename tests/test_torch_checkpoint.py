@@ -11,10 +11,9 @@ within 1e-5 of the largest (2e-3 for bf16 tables: the two packages round
 the transform's bf16 products in their own order).  The recommenders on
 ML-100k are fitted at the settings of ``chip_smoke.CLI_FLAGS``, at which
 the CLI tests run both CLIs: the JAX package compiles each model's programs
-once for the whole file.  (The file holds 21 tests, as
-tests/test_torch_io_cli.py does: pytest-xdist's ``--dist loadfile`` queues
-files by their number of tests, then by name, so both sit right after
-tests/test_topk_metrics.py.  Its ~570 s test is its second-to-last, and the
+once for the whole file.  (The file holds 23 tests, tests/test_torch_io_cli.py
+21: pytest-xdist's ``--dist loadfile`` queues files by their number of
+tests, then by name, so both sit right after tests/test_topk_metrics.py.  Its ~570 s test is its second-to-last, and the
 worker that runs it takes the next file in the queue as that test starts;
 with these two files queued ahead of tests/test_parallel.py (~330 s), that
 worker seldom gets it.)

@@ -301,17 +301,69 @@ def test_wide_layout_at_514_needs_fewer_rows():
     assert port.cg_smem_bytes(514, 0, 4, 2, 8) <= port.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("d", [161, 258, 514])
-def test_chol_workspace_is_bounded_by_the_grid(d):
-    """The wide K2's workspace: (D + 1) x (D + 4) floats a slot, one slot
-    a CTA of its persistent grid (132 SMs, one CTA each), so a bucket of
-    2,048 rows gets no more than a bucket of 132."""
-    D = -(-d // 16) * 16
-    slot = (D + 1) * (D + 4)
-    assert port.chol_workspace_floats(5, 132, slot) == 5 * slot
-    big = port.chol_workspace_floats(2048, 132, slot)
-    assert big == port.chol_workspace_floats(132, 132, slot) == 132 * slot
-    assert 4 * big <= 160 * 2**20
+#: the widths chip_smoke.py phase 11 runs K1 and K2 at
+WIDE_DS = (161, 192, 256, 258, 512, 514)
+
+
+def _chol_runs(d):
+    """Each (CTA, warp)'s run of the wide K2's lower m16n8 tiles, as
+    csrc/als_chol_wide.cu ClusterRun deals them: a CTA's own panels
+    ascending, tile (m, n), n <= 2m + 1, in each; kMaxWarpTiles a warp at
+    most (from the tiles a CTA holds, over its CHOL_WARPS warps)."""
+    L = port.chol_wide_layout(d, 4)
+    runs, nw = {}, port.CHOL_WARPS
+    for c in range(port.CHOL_CLUSTER):
+        tiles = [(p, n) for p in range(L["panels"]) if L["owner"][p] == c
+                 for n in range(2 * (p + 1))]
+        per = -(-len(tiles) // nw)
+        for w in range(nw):
+            runs[c, w] = tiles[w * per:(w + 1) * per]
+    return L, runs
+
+
+@pytest.mark.parametrize("tb", [4, 2])
+@pytest.mark.parametrize("d", WIDE_DS)
+def test_chol_cluster_layout_fits(d, tb):
+    """The wide K2's CTA (two staging buffers, the entry list, its panels,
+    the diagonal slots and vectors) fits 232,448 bytes of
+    shared memory at every width, and a warp of its 16 never sums more than
+    the 18 tiles its registers hold (kMaxWarpTiles, 128 registers a
+    thread)."""
+    L, runs = _chol_runs(d)
+    assert port.chol_wide_layout(d, tb)["smem_bytes"] <= port.SMEM_LIMIT
+    assert L["D"] == -(-d // 16) * 16 and L["panels"] == L["D"] // 16
+    assert max(len(r) for r in runs.values()) <= 18
+
+
+@pytest.mark.parametrize("d", WIDE_DS)
+def test_chol_every_lower_tile_has_one_owner(d):
+    """Every lower m16n8 tile of the padded D x D matrix is summed by
+    exactly one warp of the cluster, the one on the CTA that holds its
+    panel (so the Gram needs no exchange)."""
+    L, runs = _chol_runs(d)
+    n_p = L["panels"]
+    seen = {}
+    for (c, w), run in runs.items():
+        for t in run:
+            assert t not in seen, (t, c, w, seen.get(t))
+            assert L["owner"][t[0]] == c
+            seen[t] = c
+    assert set(seen) == {(p, n) for p in range(n_p) for n in range(2 * (p + 1))}
+
+
+@pytest.mark.parametrize("d", WIDE_DS)
+def test_chol_deal_balances_the_triangle(d):
+    """The deal (from the widest panel down, the direction turning each
+    round) gives every CTA of the cluster at most one panel more than
+    another's share: the floats of the CTAs' panels differ by at most the
+    largest panel's."""
+    L = port.chol_wide_layout(d, 4)
+    biggest = 16 * port.chol_panel_lda(L["panels"] - 1)
+    assert max(L["floats"]) - min(L["floats"]) <= biggest
+    assert sum(L["floats"]) == sum(16 * port.chol_panel_lda(p)
+                                   for p in range(L["panels"]))
+    # a row stride of 8 mod 32 floats spreads a fragment's float2 accesses
+    assert all(port.chol_panel_lda(p) % 32 == 8 for p in range(33))
 
 
 def test_caps_raise_above_each_kernel_width():

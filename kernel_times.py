@@ -524,9 +524,10 @@ def k2_wide_clocks(args):
                                         _kernels.stream(loss.device)),
                    "als_chol")
     torch.cuda.synchronize()
-    n = als.CHOL_CLUSTER
+    plan = als.cholesky_plan(*args)
+    n = plan["cluster"]
     clk = loss[:8 * n].view(n, 8).double().cpu().numpy()
-    rows = -(-a.B // als.cholesky_plan(*args)["clusters"])
+    rows = -(-a.B // plan["clusters"])
     print(f"  K2 wide clocks of cluster 0 ({rows} rows), thousands of cycles"
           f" by phase: {', '.join(K2_PHASES)}", flush=True)
     for c in range(n):

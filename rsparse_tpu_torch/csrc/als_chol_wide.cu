@@ -11,21 +11,23 @@
 // versions are rsparse_tpu_torch/ops/als.py _solve_bucket_implicit /
 // _explicit.
 //
-// The design: one cluster of kCluster = 4 CTAs (one an SM, 16 warps each)
-// solves one row; a persistent grid of as many clusters as the card runs
-// at once (cudaOccupancyMaxActiveClusters: 33 on 132 SMs) takes the
-// bucket's rows in turn.  The lower triangle of the padded D x D matrix is
-// kept by 16-row panels (panel p: rows 16p..16p + 15, columns 0..16p + 15,
-// row stride panel_lda(p) = 8 mod 32 floats), dealt over the cluster from
-// the widest panel down, kCluster a round, the direction turning each round
-// (panel_owner): at D = 528 each CTA holds 140 or 141 of the 561 16 x 16
-// blocks, ~151 KB (213 KB of shared memory with the staging).  Nothing of
-// the factor goes to device memory.  Four CTAs a row, not eight: a CTA
-// reads the other CTAs' panel rows in place through DSMEM, so no CTA holds
-// a copy of a column panel (at eight CTAs those copies, two buffers of D x
-// 16, took more shared memory than the factor's share and a copy phase
-// every panel); half the SMs a row doubles the rows in flight, and a row's
-// chain of panels, latency-bound on eight SMs, gets twice the work a step.
+// The design: one cluster of C CTAs (one an SM, 16 warps each) solves one
+// row, C the smallest of 1, 2 and 4 whose layout fits (cluster_size: 1
+// through d = 256 at float32, 2 at 258, 4 at 512 and 514); a persistent
+// grid of as many clusters as the card runs at once
+// (cudaOccupancyMaxActiveClusters: 30 of 4 on 132 SMs) takes the bucket's
+// rows in turn.  The lower triangle of the padded D x D matrix is kept by
+// 16-row panels (panel p: rows 16p..16p + 15, columns 0..16p + 15, row
+// stride panel_lda(p) = 8 mod 32 floats), dealt over the cluster from the
+// widest panel down, C a round, the direction turning each round
+// (panel_owner): at D = 528 each of 4 CTAs holds 140 or 141 of the 561 16
+// x 16 blocks, ~151 KB (215 KB of shared memory with the staging).  Nothing
+// of the factor goes to device memory.  A CTA reads the other CTAs' panel
+// rows in place through DSMEM, so no CTA holds a copy of a column panel (at
+// 8 CTAs a row those copies, two buffers of D x 16, took more shared
+// memory than the factor's share and a copy phase every panel); fewer
+// SMs a row means more rows in flight, and a row's chain of panels,
+// latency-bound on eight SMs, gets more work a step.
 // (1) The Gram in one walk of the row's entries: every CTA lists the
 //     entries and stages their source rows itself (als_chol.cu's lists,
 //     cp.async staging, two buffers of 16 rows, 8 for float32 tables) and
@@ -55,17 +57,17 @@
 //     transposed block in one warp and adds L_p.' x_p into its partial,
 //     spread over its threads; then it signals the owner of block p - 1 by
 //     an mbarrier arrival in that CTA (no cluster barrier a block).  Then
-//     each CTA reads x and sums the loss over a quarter of the entries;
+//     each CTA reads x and sums the loss over 1 / C of the entries;
 //     CTA 0 adds the partials in order.
 //
 // What bounds it on the H100: per row the Gram is (n + Hp) d^2 products on
 // the tensor cores and the factorisation d^3 / 3 FMAs; at D = 528 that is
 // ~20 us of tensor-core time on a cluster's 4 SMs.  What is left is the
 // chain: D pivots in one warp, D / 16 cluster barriers and D / 16 signals,
-// which no SM can shorten; 33 rows run at once.  A bucket of fewer rows
-// than clusters (the 16 x 8,192 long-row bucket fills 16 of 33) leaves SMs
-// idle; there a row's long entry walk, done by each of its 4 CTAs from L2,
-// bounds the time.
+// which no SM can shorten; 30 rows run at once at D = 528, 132 through D =
+// 256.  A bucket of fewer rows than clusters (the 16 x 8,192 long-row
+// bucket fills 16 of 30) leaves SMs idle; there a row's long entry walk,
+// done by each of its CTAs from L2, bounds the time.
 //
 // rsp_als_chol_wide's `stages` stops a launch after the Gram (1: the lhs is
 // built, nothing is written), after the factorisation (4: z = L^-1 rhs,
@@ -99,9 +101,10 @@ namespace cgrp = cooperative_groups;
 namespace {
 
 constexpr int kWideMaxD = 514;  // ops/als.py CHOL_MAX_D
-constexpr int kCluster = 4;     // CTAs a row
+// CTAs a row: the smallest of 1, 2 and 4 whose layout fits (cluster_size)
+constexpr int kMaxCluster = 4;
 constexpr int kMaxPanels = (kWideMaxD + kPanel - 1) / kPanel;  // 33
-constexpr int kMaxOwn = (kMaxPanels + kCluster - 1) / kCluster;  // 9
+constexpr int kMaxOwn = kMaxPanels;  // panels a CTA holds, at most
 // threads a CTA: 16 warps (18 Gram tiles a warp at most, 128 registers a
 // thread)
 constexpr int kWideThreads = 512;
@@ -113,50 +116,42 @@ constexpr int kSmemLimit = 232448;
 
 // ---- the cluster's layout, alike on the host and the card -----------------
 
-// Position of `rank` in deal round `round`: the direction turns each round.
-__host__ __device__ constexpr int deal_pos(int round, int rank) {
-  return (round & 1) ? kCluster - 1 - rank : rank;
+// Position of `rank` in deal round `round` of a cluster of C CTAs: the
+// direction turns each round.
+__host__ __device__ constexpr int deal_pos(int round, int rank, int C) {
+  return (round & 1) ? C - 1 - rank : rank;
 }
 // The CTA that holds panel p of nP: panels are dealt from the last down.
-__host__ __device__ constexpr int panel_owner(int p, int nP) {
-  return deal_pos((nP - 1 - p) / kCluster, (nP - 1 - p) % kCluster);
+__host__ __device__ constexpr int panel_owner(int p, int nP, int C) {
+  return deal_pos((nP - 1 - p) / C, (nP - 1 - p) % C, C);
 }
 // The panel `rank` takes in deal round r (< 0: none).
-__host__ __device__ constexpr int own_panel(int r, int rank, int nP) {
-  return nP - 1 - (r * kCluster + deal_pos(r, rank));
+__host__ __device__ constexpr int own_panel(int r, int rank, int nP, int C) {
+  return nP - 1 - (r * C + deal_pos(r, rank, C));
 }
 // Row stride of panel p: its 16 (p + 1) columns padded to 8 mod 32 floats,
 // so a fragment's float2 accesses hit 32 banks.
 __host__ __device__ constexpr int panel_lda(int p) {
   return 16 * (p + 1) + ((p & 1) ? 8 : 24);
 }
-__host__ __device__ constexpr int own_tiles(int rank, int nP) {
+__host__ __device__ constexpr int own_tiles(int rank, int nP, int C) {
   int t = 0;
-  for (int r = 0; r * kCluster < nP; ++r) {
-    const int p = own_panel(r, rank, nP);
+  for (int r = 0; r * C < nP; ++r) {
+    const int p = own_panel(r, rank, nP, C);
     if (p >= 0) t += 2 * (p + 1);
   }
   return t;
 }
-__host__ __device__ constexpr int own_floats(int rank, int nP) {
+__host__ __device__ constexpr int own_floats(int rank, int nP, int C) {
   int f = 0;
-  for (int r = 0; r * kCluster < nP; ++r) {
-    const int p = own_panel(r, rank, nP);
+  for (int r = 0; r * C < nP; ++r) {
+    const int p = own_panel(r, rank, nP, C);
     if (p >= 0) f += kPanel * panel_lda(p);
   }
   return f;
 }
-// lower m16n8 tiles a warp sums, at most, over every width
-__host__ __device__ constexpr int max_warp_tiles() {
-  int m = 0;
-  for (int nP = 1; nP <= kMaxPanels; ++nP)
-    for (int c = 0; c < kCluster; ++c) {
-      const int t = (own_tiles(c, nP) + kWarpsW - 1) / kWarpsW;
-      m = t > m ? t : m;
-    }
-  return m;
-}
-constexpr int kMaxWarpTiles = max_warp_tiles();  // 18
+// lower m16n8 tiles a warp sums, at most (cluster_size keeps to it)
+constexpr int kMaxWarpTiles = 18;
 
 struct WideLayout {
   int D, nP;
@@ -172,7 +167,8 @@ struct WideLayout {
   int bytes;     // shared bytes a CTA
 };
 
-__host__ __device__ inline WideLayout make_wide_layout(int d, int tbytes) {
+__host__ __device__ inline WideLayout make_wide_layout(int d, int tbytes,
+                                                       int C) {
   WideLayout L;
   L.D = (d + kPanel - 1) / kPanel * kPanel;
   L.nP = L.D / kPanel;
@@ -181,8 +177,8 @@ __host__ __device__ inline WideLayout make_wide_layout(int d, int tbytes) {
   w += ((8 - w) % 32 + 32) % 32;
   L.rs = 4 * w;
   L.store = 0;
-  for (int c = 0; c < kCluster; ++c) {
-    const int f = own_floats(c, L.nP);
+  for (int c = 0; c < C; ++c) {
+    const int f = own_floats(c, L.nP, C);
     L.store = f > L.store ? f : L.store;
   }
   L.rows = tbytes == 2 ? kRows : kRows / 2;
@@ -204,21 +200,36 @@ __host__ __device__ inline WideLayout make_wide_layout(int d, int tbytes) {
   return L;
 }
 
+// The cluster size of width d: the smallest of 1, 2 and 4 CTAs a row whose
+// layout fits a CTA's shared memory and whose warps sum at most
+// kMaxWarpTiles Gram tiles (one CTA a row through d = 256 at float32).
+__host__ __device__ inline int cluster_size(int d, int tbytes) {
+  for (int C = 1; C < kMaxCluster; C *= 2) {
+    const WideLayout L = make_wide_layout(d, tbytes, C);
+    bool ok = L.bytes <= kSmemLimit;
+    for (int c = 0; c < C; ++c)
+      ok = ok && own_tiles(c, L.nP, C) <= kMaxWarpTiles * kWarpsW;
+    if (ok) return C;
+  }
+  return kMaxCluster;
+}
+
 // A warp's run of its CTA's lower m16n8 tiles: own panels ascending, tile
 // (m, n), n <= 2m + 1, within each.
+template <int C>
 struct ClusterRun {
   static constexpr int kMaxT = kMaxWarpTiles;
   int count, m0, n0, rank, nP;
   __device__ __forceinline__ ClusterRun(int rank_, int nP_, int warp)
       : rank(rank_), nP(nP_) {
-    const int nT = own_tiles(rank, nP);
+    const int nT = own_tiles(rank, nP, C);
     const int per = (nT + kWarpsW - 1) / kWarpsW;
     int first = warp * per;
     count = max(0, min(per, nT - first));
     m0 = 0;
     n0 = 0;
-    for (int r = (nP - 1) / kCluster; r >= 0; --r) {
-      const int p = own_panel(r, rank, nP);
+    for (int r = (nP - 1) / C; r >= 0; --r) {
+      const int p = own_panel(r, rank, nP, C);
       if (p < 0) continue;
       if (first < 2 * (p + 1)) {
         m0 = p;
@@ -231,8 +242,8 @@ struct ClusterRun {
   __device__ __forceinline__ void next(int& m, int& n) const {
     if (++n > 2 * m + 1) {
       n = 0;
-      const int r = (nP - 1 - m) / kCluster;
-      m = own_panel(r - 1, rank, nP);
+      const int r = (nP - 1 - m) / C;
+      m = own_panel(r - 1, rank, nP, C);
     }
   }
 };
@@ -268,18 +279,18 @@ __device__ __forceinline__ void wait_signal(unsigned long long* bar,
   }
 }
 
-// The loss of row b over the cluster: the cluster's 64 warps take the cold
+// The loss of row b over the cluster: the cluster's 16 C warps take the cold
 // entries in turn and the head's 32-column strips (rsp::for_each_entry);
 // CTA 0 adds lam_use |y|^2; the CTA's sum.  Every lane computes each term;
 // lane k % 32 adds the warp's k-th, as rsp::row_loss does.
-template <bool EXPLICIT, class T>
+template <bool EXPLICIT, int C, class T>
 __device__ __forceinline__ float cluster_loss(const rsp::RowEntries<T>& R,
                                               const rsp::BucketArgs& a,
                                               const float* y,
                                               const float* y_dot,
                                               float lam_use, float* scratch,
                                               int rank) {
-  constexpr int kNw = kCluster * kWarpsW;
+  constexpr int kNw = C * kWarpsW;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gw = rank * kWarpsW + warp;
   const bool has_xb = R.xbias != nullptr;
@@ -371,7 +382,7 @@ __device__ __forceinline__ void trail_pair(float* out0, int lda0, int ra0,
   }
 }
 
-template <class T, bool EXPLICIT>
+template <class T, bool EXPLICIT, int C>
 __global__ void __launch_bounds__(kWideThreads, 1)
 als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -379,7 +390,7 @@ als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
   const int rank = (int)cl.block_rank();
   const int d = a.d, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
-  const WideLayout Ly = make_wide_layout(d, (int)sizeof(T));
+  const WideLayout Ly = make_wide_layout(d, (int)sizeof(T), C);
   const int D = Ly.D, nP = Ly.nP, rs = Ly.rs;
 
   unsigned char* stage = smem;
@@ -410,9 +421,9 @@ als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
                      (unsigned)__cvta_generic_to_shared(bsig))
                  : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    int off[kCluster] = {}, slot = 0;
+    int off[C] = {}, slot = 0;
     for (int p = 0; p < nP; ++p) {
-      const int o = panel_owner(p, nP);
+      const int o = panel_owner(p, nP, C);
       goff[p] = off[o];
       off[o] += kPanel * panel_lda(p);
       zslot[p] = o == rank ? slot : -1;
@@ -421,19 +432,19 @@ als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
   }
   cl.sync();  // every CTA's signal is initialised before any arrives
   int n_own = 0;  // panels this CTA holds
-  for (int r = 0; r * kCluster < nP; ++r) n_own += own_panel(r, rank, nP) >= 0;
-  const int n_store = own_floats(rank, nP);
+  for (int r = 0; r * C < nP; ++r) n_own += own_panel(r, rank, nP, C) >= 0;
+  const int n_store = own_floats(rank, nP, C);
 
   const bool rnd = a.round_bf16 != 0;
   const bool doubled = rnd && !EXPLICIT && is_bf16<T>();
   const float scale = doubled ? 0.5f : 1.f;
-  const ClusterRun run(rank, nP, warp);
-  const int n_clusters = gridDim.x / kCluster;
+  const ClusterRun<C> run(rank, nP, warp);
+  const int n_clusters = gridDim.x / C;
 #ifdef RSP_CHOL_CLOCKS
   long long clk[8] = {0, 0, 0, 0, 0, 0, 0, 0}, clk_t = clock64();
 #endif
 
-  for (int b = blockIdx.x / kCluster; b < a.B; b += n_clusters) {
+  for (int b = blockIdx.x / C; b < a.B; b += n_clusters) {
     const float lam_use = rsp::row_lambda(a, b);
     const rsp::RowEntries<T> R = rsp::row_entries<T>(a, b);
     const int nnz = R.nnz;
@@ -585,7 +596,7 @@ als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
 #pragma unroll
           for (int ks = 0; ks < kCR / 8; ++ks) {
             const int lA = 8 * ks + tig, lB = lA + 4;
-            tf32_step<ClusterRun, T, true>(c, run, buf + lA * rs + off[lA],
+            tf32_step<ClusterRun<C>, T, true>(c, run, buf + lA * rs + off[lA],
                                            buf + lB * rs + off[lB], gw[lA],
                                            gw[lB], d, g);
           }
@@ -594,7 +605,7 @@ als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
 #pragma unroll
             for (int ks = 0; ks < kCR / 8; ++ks) {
               const int lA = 8 * ks + tig, lB = lA + 4;
-              tf32_step<ClusterRun, T, false>(c, run, buf + lA * rs + off[lA],
+              tf32_step<ClusterRun<C>, T, false>(c, run, buf + lA * rs + off[lA],
                                               buf + lB * rs + off[lB], gw[lA],
                                               gw[lB], d, g);
             }
@@ -608,9 +619,9 @@ als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
                   buf + rr[2] * rs + off[rr[2]], buf + rr[3] * rs + off[rr[3]]};
               const float w[4] = {gw[rr[0]], gw[rr[1]], gw[rr[2]], gw[rr[3]]};
               if (!EXPLICIT && route == kRouteBf16Sym)
-                bf16_step<ClusterRun, T, true>(c, run, p, w, d, g);
+                bf16_step<ClusterRun<C>, T, true>(c, run, p, w, d, g);
               else
-                bf16_step<ClusterRun, T, false>(c, run, p, w, d, g);
+                bf16_step<ClusterRun<C>, T, false>(c, run, p, w, d, g);
             }
           }
         }
@@ -710,7 +721,7 @@ als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
       }
       __syncwarp();
       constexpr int kQ = kDiagF / 4;
-      for (int e = lane; e < (kCluster - 1) * kQ; e += 32) {
+      for (int e = lane; e < (C - 1) * kQ; e += 32) {
         const int cc = e / kQ, q = e - cc * kQ;
         float4* dst = reinterpret_cast<float4*>(
             cl.map_shared_rank(dg, cc < rank ? cc : cc + 1));
@@ -718,7 +729,7 @@ als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
       }
     };
 
-    if (panel_owner(0, nP) == rank && warp == 0) factor_send(0);
+    if (panel_owner(0, nP, C) == rank && warp == 0) factor_send(0);
     RSP_CLK(2);
     cl.sync();  // slot 0 has arrived
     RSP_CLK(3);
@@ -750,7 +761,7 @@ als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
       RSP_CLK(1);  // own rows solved
       // the owner of panel k + 1: warp 0 updates its diagonal block and z
       // block with its own rows, factors the block and sends it
-      const bool next_own = k + 1 < nP && panel_owner(k + 1, nP) == rank;
+      const bool next_own = k + 1 < nP && panel_owner(k + 1, nP, C) == rank;
       if (next_own && warp == 0) {
         const int p = k + 1, lda = panel_lda(p);
         float* P = store + goff[p];
@@ -798,7 +809,7 @@ als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
         const int row = e >> 2, q = e & 3;
         const int i = k + 1 + (row >> 4), rr = row & 15;
         const float4 v = *reinterpret_cast<const float4*>(
-            cl.map_shared_rank(store, panel_owner(i, nP)) + goff[i] +
+            cl.map_shared_rank(store, panel_owner(i, nP, C)) + goff[i] +
             rr * panel_lda(i) + kPanel * k + 4 * q);
         *reinterpret_cast<float4*>(cbuf + row * kPanel +
                                    (((q ^ (row >> 1)) & 3) << 2)) = v;
@@ -853,14 +864,14 @@ als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
     // z_p, solves, adds its own part to its partial and signals the owner
     // of block p - 1.
     for (int p = nP - 1; p >= 0; --p) {
-      if (panel_owner(p, nP) != rank) continue;
+      if (panel_owner(p, nP, C) != rank) continue;
       if (p < nP - 1) wait_signal(bsig, bsig_waits++ & 1);
       const int lda = panel_lda(p);
       const float* P = store + goff[p];
       if (warp == 0) {
         const int r = lane & 15;
         float v = zl[zslot[p] * kPanel + r];
-        for (int cc = 0; cc < kCluster; ++cc)
+        for (int cc = 0; cc < C; ++cc)
           v -= cl.map_shared_rank(acc, cc)[kPanel * p + r];
         float x = 0.f;
 #pragma unroll
@@ -885,26 +896,26 @@ als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
         acc[j] += s;
       }
       __syncthreads();
-      if (p > 0 && tid == 0) signal_cta(bsig, panel_owner(p - 1, nP));
+      if (p > 0 && tid == 0) signal_cta(bsig, panel_owner(p - 1, nP, C));
       RSP_CLK(5);  // a block of the back substitution
     }
     cl.sync();  // every block is solved; the partials are free again
     RSP_CLK(6);
     if (stages < 3) continue;
 
-    // ---- the loss, a quarter of the entries a CTA ------------------------
+    // ---- the loss, 1 / C of the entries a CTA ----------------------------
     for (int j = tid; j < D; j += kWideThreads) {
-      const int o = panel_owner(j / kPanel, nP);
+      const int o = panel_owner(j / kPanel, nP, C);
       if (o != rank) xs[j] = cl.map_shared_rank(xs, o)[j];
     }
     __syncthreads();
-    const float part = cluster_loss<EXPLICIT>(
+    const float part = cluster_loss<EXPLICIT, C>(
         R, a, xs, rsp::dot_operand(xs, colv, d, rnd), lam_use, scratch, rank);
     if (tid == 0) lpart[0] = part;
     cl.sync();
     if (rank == 0 && tid == 0) {
       float total = 0.f;
-      for (int cc = 0; cc < kCluster; ++cc)
+      for (int cc = 0; cc < C; ++cc)
         total += cl.map_shared_rank(lpart, cc)[0];
       a.loss[b] = total;
     }
@@ -912,20 +923,27 @@ als_chol_wide_kernel(rsp::BucketArgs a, int stages) {
   }
   cl.sync();  // no CTA leaves while another may read its shared memory
 #ifdef RSP_CHOL_CLOCKS
-  if (tid == 0 && blockIdx.x < kCluster)
+  if (tid == 0 && blockIdx.x < C)
     for (int i = 0; i < 8; ++i) a.loss[8 * rank + i] = (float)clk[i];
 #endif
 }
 
 using WideKernel = void (*)(rsp::BucketArgs, int);
 
-WideKernel pick_wide(const rsp::BucketArgs& a) {
+template <int C>
+WideKernel pick_wide_c(const rsp::BucketArgs& a) {
   using bf16 = __nv_bfloat16;
   // [bf16 table][explicit]
   static const WideKernel kernels[2][2] = {
-      {als_chol_wide_kernel<float, false>, als_chol_wide_kernel<float, true>},
-      {als_chol_wide_kernel<bf16, false>, als_chol_wide_kernel<bf16, true>}};
+      {als_chol_wide_kernel<float, false, C>,
+       als_chol_wide_kernel<float, true, C>},
+      {als_chol_wide_kernel<bf16, false, C>,
+       als_chol_wide_kernel<bf16, true, C>}};
   return kernels[a.table_bf16 != 0][a.explicit_fb != 0];
+}
+WideKernel pick_wide(const rsp::BucketArgs& a, int C) {
+  return C == 1 ? pick_wide_c<1>(a) : C == 2 ? pick_wide_c<2>(a)
+                                             : pick_wide_c<4>(a);
 }
 
 int check_wide(const rsp::BucketArgs& a) {
@@ -935,15 +953,15 @@ int check_wide(const rsp::BucketArgs& a) {
   return 0;
 }
 
-cudaLaunchConfig_t cluster_config(int clusters, int smem, cudaStream_t st,
-                                  cudaLaunchAttribute* attr) {
+cudaLaunchConfig_t cluster_config(int clusters, int C, int smem,
+                                  cudaStream_t st, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * kCluster);
+  cfg.gridDim = dim3(clusters * C);
   cfg.blockDim = dim3(kWideThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -954,9 +972,9 @@ cudaLaunchConfig_t cluster_config(int clusters, int smem, cudaStream_t st,
 // Clusters of the kernel that run at once at `smem` bytes a CTA (cached a
 // kernel: the layout's bytes depend on d, which changes the answer only
 // through smem).
-cudaError_t active_clusters(WideKernel kern, int smem, int* n) {
-  static WideKernel k_seen[8];
-  static int s_seen[8], n_seen[8], used = 0;
+cudaError_t active_clusters(WideKernel kern, int C, int smem, int* n) {
+  static WideKernel k_seen[16];
+  static int s_seen[16], n_seen[16], used = 0;
   for (int i = 0; i < used; ++i)
     if (k_seen[i] == kern && s_seen[i] == smem) {
       *n = n_seen[i];
@@ -966,10 +984,10 @@ cudaError_t active_clusters(WideKernel kern, int smem, int* n) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = cluster_config(1, smem, 0, attr);
+  cudaLaunchConfig_t cfg = cluster_config(1, C, smem, 0, attr);
   err = cudaOccupancyMaxActiveClusters(n, kern, &cfg);
   if (err != cudaSuccess) return err;
-  if (used < 8) {
+  if (used < 16) {
     k_seen[used] = kern;
     s_seen[used] = smem;
     n_seen[used++] = *n;
@@ -986,11 +1004,12 @@ extern "C" int rsp_als_chol_wide_info(const rsp::BucketArgs* args,
                                       int* info) {
   const rsp::BucketArgs a = *args;
   if (int e = check_wide(a)) return e;
-  const WideKernel kern = pick_wide(a);
-  const WideLayout Ly = make_wide_layout(a.d, a.table_bf16 ? 2 : 4);
+  const int tb = a.table_bf16 ? 2 : 4, C = cluster_size(a.d, tb);
+  const WideKernel kern = pick_wide(a, C);
+  const WideLayout Ly = make_wide_layout(a.d, tb, C);
   if (Ly.bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
   int n = 0;
-  cudaError_t err = active_clusters(kern, Ly.bytes, &n);
+  cudaError_t err = active_clusters(kern, C, Ly.bytes, &n);
   if (err != cudaSuccess) return (int)err;
   const bool rnd = a.round_bf16 != 0;
   int cold, head;
@@ -1009,7 +1028,7 @@ extern "C" int rsp_als_chol_wide_info(const rsp::BucketArgs* args,
   info[2] = head;
   info[3] = Ly.D;
   info[4] = Ly.bytes;
-  info[5] = kCluster;
+  info[5] = C;
   info[6] = Ly.store;
   return 0;
 }
@@ -1021,11 +1040,12 @@ extern "C" int rsp_als_chol_wide(const rsp::BucketArgs* args, int stages,
   const rsp::BucketArgs a = *args;
   if (a.B <= 0) return 0;
   if (int e = check_wide(a)) return e;
-  const WideKernel kern = pick_wide(a);
-  const int smem = make_wide_layout(a.d, a.table_bf16 ? 2 : 4).bytes;
+  const int tb = a.table_bf16 ? 2 : 4, C = cluster_size(a.d, tb);
+  const WideKernel kern = pick_wide(a, C);
+  const int smem = make_wide_layout(a.d, tb, C).bytes;
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   int n = 0;
-  cudaError_t err = active_clusters(kern, smem, &n);
+  cudaError_t err = active_clusters(kern, C, smem, &n);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaErrorInvalidConfiguration;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1033,7 +1053,7 @@ extern "C" int rsp_als_chol_wide(const rsp::BucketArgs* args, int stages,
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(
-      a.B < n ? a.B : n, smem, (cudaStream_t)stream, attr);
+      a.B < n ? a.B : n, C, smem, (cudaStream_t)stream, attr);
   err = cudaLaunchKernelEx(&cfg, kern, a, stages);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -763,21 +763,22 @@ def _chol_info(args) -> list:
     return list(info)
 
 
-#: the wide K2's cluster (csrc/als_chol_wide.cu kCluster: CTAs a row), its
-#: warps a CTA (kWarpsW) and its panels' rows
-CHOL_CLUSTER, CHOL_WARPS, CHOL_PANEL = 4, 16, 16
+#: the wide K2's cluster sizes (csrc/als_chol_wide.cu cluster_size: CTAs a
+#: row, the smallest that fits), its warps a CTA (kWarpsW), the Gram tiles
+#: a warp holds at most (kMaxWarpTiles) and its panels' rows
+CHOL_CLUSTERS, CHOL_WARPS, CHOL_WARP_TILES, CHOL_PANEL = (1, 2, 4), 16, 18, 16
 #: K2's entry list and chunk (csrc/als_chol.cuh kSeg, kRows)
 CHOL_SEG, CHOL_ROWS = 1024, 16
 
 
-def chol_panel_owner(p: int, n_panels: int) -> int:
-    """The CTA of the wide K2's cluster that holds 16-row panel ``p``:
-    panels are dealt from the last (widest) down, ``CHOL_CLUSTER`` a
-    round, the direction turning each round (csrc/als_chol_wide.cu
-    panel_owner)."""
+def chol_panel_owner(p: int, n_panels: int, cluster: int) -> int:
+    """The CTA of the wide K2's cluster of ``cluster`` CTAs that holds
+    16-row panel ``p``: panels are dealt from the last (widest) down,
+    ``cluster`` a round, the direction turning each round
+    (csrc/als_chol_wide.cu panel_owner)."""
     i = n_panels - 1 - p
-    rnd, pos = divmod(i, CHOL_CLUSTER)
-    return CHOL_CLUSTER - 1 - pos if rnd % 2 else pos
+    rnd, pos = divmod(i, cluster)
+    return cluster - 1 - pos if rnd % 2 else pos
 
 
 def chol_panel_lda(p: int) -> int:
@@ -786,19 +787,15 @@ def chol_panel_lda(p: int) -> int:
     return 16 * (p + 1) + (8 if p % 2 else 24)
 
 
-def chol_wide_layout(d: int, tbytes: int) -> dict:
-    """The wide K2's cluster layout at width ``d`` and table bytes
-    ``tbytes``, as csrc/als_chol_wide.cu make_wide_layout computes it: D,
-    the panels, each panel's owner, the floats of each CTA's panels, the
-    entries staged a chunk, and the shared bytes a CTA (two staging
-    buffers, also a factorisation step's column block copy, the entry list,
-    the largest CTA's panels, the diagonal slots and vectors, the back
-    substitution's mbarrier)."""
+def _chol_cluster_layout(d: int, tbytes: int, cluster: int) -> dict:
+    """csrc/als_chol_wide.cu make_wide_layout at one cluster size."""
     D = -(-d // CHOL_PANEL) * CHOL_PANEL
     n_p = D // CHOL_PANEL
-    owner = [chol_panel_owner(p, n_p) for p in range(n_p)]
+    owner = [chol_panel_owner(p, n_p, cluster) for p in range(n_p)]
     floats = [sum(CHOL_PANEL * chol_panel_lda(p) for p in range(n_p)
-                  if owner[p] == c) for c in range(CHOL_CLUSTER)]
+                  if owner[p] == c) for c in range(cluster)]
+    tiles = [sum(2 * (p + 1) for p in range(n_p) if owner[p] == c)
+             for c in range(cluster)]
     w = 4 * ((d * tbytes + 30) // 16)
     w += (8 - w) % 32
     rows = CHOL_ROWS if tbytes == 2 else CHOL_ROWS // 2
@@ -808,11 +805,28 @@ def chol_wide_layout(d: int, tbytes: int) -> dict:
     n_max = -(-514 // CHOL_PANEL)
     extra = panels + 4 * max(floats)
     nbytes = extra + 4 * (3 * (CHOL_PANEL * CHOL_PANEL + 2 * CHOL_PANEL)
-                          + 4 * D + (-(-n_max // CHOL_CLUSTER)) * CHOL_PANEL
-                          + 36 + 3 * n_max)
+                          + 4 * D + n_max * CHOL_PANEL + 36 + 3 * n_max)
     nbytes = ((nbytes + 15) & ~15) + 16     # the back substitution's mbarrier
-    return dict(D=D, panels=n_p, owner=owner, floats=floats, rows=rows,
-                smem_bytes=nbytes)
+    return dict(D=D, panels=n_p, cluster=cluster, owner=owner,
+                floats=floats, tiles=tiles, rows=rows, smem_bytes=nbytes)
+
+
+def chol_wide_layout(d: int, tbytes: int) -> dict:
+    """The wide K2's cluster layout at width ``d`` and table bytes
+    ``tbytes``, as csrc/als_chol_wide.cu cluster_size and make_wide_layout
+    choose it: the smallest cluster of ``CHOL_CLUSTERS`` whose CTA fits
+    ``SMEM_LIMIT`` and whose warps hold at most ``CHOL_WARP_TILES`` Gram
+    tiles; D, the panels, each panel's owner, the floats and Gram tiles of
+    each CTA's panels, the entries staged a chunk, and the shared bytes a
+    CTA (two staging buffers, also a factorisation step's column block
+    copy, the entry list, the largest CTA's panels, the diagonal slots and
+    vectors, the back substitution's mbarrier)."""
+    for cluster in CHOL_CLUSTERS:
+        L = _chol_cluster_layout(d, tbytes, cluster)
+        if (L["smem_bytes"] <= SMEM_LIMIT
+                and max(L["tiles"]) <= CHOL_WARP_TILES * CHOL_WARPS):
+            return L
+    return L
 
 
 #: largest scratch K4's build stage writes for its sweeps (packed G and mu,

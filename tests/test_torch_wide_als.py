@@ -312,7 +312,7 @@ def _chol_runs(d):
     most (from the tiles a CTA holds, over its CHOL_WARPS warps)."""
     L = port.chol_wide_layout(d, 4)
     runs, nw = {}, port.CHOL_WARPS
-    for c in range(port.CHOL_CLUSTER):
+    for c in range(L["cluster"]):
         tiles = [(p, n) for p in range(L["panels"]) if L["owner"][p] == c
                  for n in range(2 * (p + 1))]
         per = -(-len(tiles) // nw)
@@ -324,15 +324,20 @@ def _chol_runs(d):
 @pytest.mark.parametrize("tb", [4, 2])
 @pytest.mark.parametrize("d", WIDE_DS)
 def test_chol_cluster_layout_fits(d, tb):
-    """The wide K2's CTA (two staging buffers, the entry list, its panels,
-    the diagonal slots and vectors) fits 232,448 bytes of
+    """The wide K2's CTA at the cluster size its width takes (two staging
+    buffers, the entry list, its panels, the diagonal slots and vectors)
+    fits 232,448 bytes of
     shared memory at every width, and a warp of its 16 never sums more than
     the 18 tiles its registers hold (kMaxWarpTiles, 128 registers a
     thread)."""
     L, runs = _chol_runs(d)
     assert port.chol_wide_layout(d, tb)["smem_bytes"] <= port.SMEM_LIMIT
     assert L["D"] == -(-d // 16) * 16 and L["panels"] == L["D"] // 16
-    assert max(len(r) for r in runs.values()) <= 18
+    # one CTA a row through d = 256, two at 258 (rank 256 with biases),
+    # four at 512 and 514
+    assert L["cluster"] == {161: 1, 192: 1, 256: 1, 258: 2, 512: 4,
+                            514: 4}[d]
+    assert max(len(r) for r in runs.values()) <= port.CHOL_WARP_TILES == 18
 
 
 @pytest.mark.parametrize("d", WIDE_DS)
@@ -354,14 +359,15 @@ def test_chol_every_lower_tile_has_one_owner(d):
 @pytest.mark.parametrize("d", WIDE_DS)
 def test_chol_deal_balances_the_triangle(d):
     """The deal (from the widest panel down, the direction turning each
-    round) gives every CTA of the cluster at most one panel more than
-    another's share: the floats of the CTAs' panels differ by at most the
-    largest panel's."""
-    L = port.chol_wide_layout(d, 4)
-    biggest = 16 * port.chol_panel_lda(L["panels"] - 1)
-    assert max(L["floats"]) - min(L["floats"]) <= biggest
-    assert sum(L["floats"]) == sum(16 * port.chol_panel_lda(p)
-                                   for p in range(L["panels"]))
+    round) gives every CTA of a cluster of 1, 2 or 4 at most one panel more
+    than another's share: the floats of the CTAs' panels differ by at most
+    the largest panel's."""
+    for cluster in port.CHOL_CLUSTERS:
+        L = port._chol_cluster_layout(d, 4, cluster)
+        biggest = 16 * port.chol_panel_lda(L["panels"] - 1)
+        assert max(L["floats"]) - min(L["floats"]) <= biggest
+        assert sum(L["floats"]) == sum(16 * port.chol_panel_lda(p)
+                                       for p in range(L["panels"]))
     # a row stride of 8 mod 32 floats spreads a fragment's float2 accesses
     assert all(port.chol_panel_lda(p) % 32 == 8 for p in range(33))
 

@@ -3995,6 +3995,7 @@ def check_wide_kernels(device, results) -> None:
                       solver=chol), False)]
     cases += [(cg, dict(B=16, L=8192, d=514, H=1024), False),
               (k2, dict(B=16, L=8192, d=514, H=0, solver=chol), False)]
+    hold_chol_mirror(device)
     for name, kw, rep in cases:
         B, L, d, H = kw.pop("B"), kw.pop("L"), kw.pop("d"), kw.pop("H")
         args = _bucket_case(gen, device, B, L, d, H, **kw)
@@ -4013,6 +4014,48 @@ def check_wide_kernels(device, results) -> None:
                                   (k2, dict(explicit=True, bits=True,
                                             solver=chol))))
     check_lowp_kernels(device, results, base=lowp, seed=12)
+
+
+def hold_chol_mirror(device) -> None:
+    """Phase 11 (a): the wide K2's layout as ops/als.py mirrors it
+    (``chol_wide_layout``, ``_chol_cluster_layout``; the CPU tests read the
+    mirror) against what the library reports for a bucket
+    (``cholesky_plan``): at every width of WIDE_DS, float32 and bf16
+    tables, 256 rows of up to 128 entries and 16 of up to 8,192, the
+    cluster (the width's, or for the long rows a larger one of
+    CHOL_SIZES), D, the shared bytes a CTA and the largest CTA's
+    panel floats must agree.  Raises where they do not."""
+    import torch
+    from rsparse_tpu_torch.ops import als
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    for d in WIDE_DS:
+        seen = []
+        for B, L in ((256, 128), (16, 8192)):
+            args = _bucket_case(gen, device, B, L, d, 0, solver=als.CHOLESKY,
+                                n_src=4096)
+            for src in (args[0], args[0].to(torch.bfloat16)):
+                plan = als.cholesky_plan(src, *args[1:])
+                tb = plan["table_bytes"]
+                base = als.chol_wide_layout(d, tb)["cluster"]
+                M = als._chol_cluster_layout(d, tb, plan["cluster"])
+                mirror = (M["D"], M["smem_bytes"], max(M["floats"]))
+                got = (plan["D"], plan["smem_bytes"], plan["panel_floats"])
+                ok = plan["d"] == d and mirror == got and (
+                    plan["cluster"] == base or (
+                        L >= 2 * M["D"]
+                        and base < plan["cluster"] in als.CHOL_SIZES))
+                if not ok:
+                    raise RuntimeError(
+                        f"ops/als.py's wide K2 layout disagrees with the "
+                        f"library at d={d} B={B} L={L} table bytes {tb}: "
+                        f"mirror cluster >= {base}, (D, bytes, floats) "
+                        f"{mirror}; library {plan}")
+                seen.append(f"B={B} {tb} B: {plan['cluster']} CTAs, "
+                            f"{plan['smem_bytes']} bytes")
+            del args
+        print(f"  K2 wide layout d={d}, ops/als.py's mirror held to the "
+              f"library: {'; '.join(seen)}", flush=True)
 
 
 def check_wide_glove(device, results):

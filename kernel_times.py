@@ -56,12 +56,14 @@ WHAT is one or more of:
               the model's initial state;
 
   k2-wide     K2 at d = 514 (``csrc/als_chol_wide.cu``) on phase 11 (a)'s
-              synthetic buckets B=256 L=128 and 16 x 8,192 (implicit, no
-              head), its stages apart (the Gram, the factorisation where
+              synthetic buckets B=256 L=128 and 16 x 8,192 and on 4 x
+              2,048 (implicit, no head), with the plan each takes, its
+              stages apart (the Gram, the factorisation where
               the design stops after it, the back substitution, the loss)
               beside the plain version and the bound, then the whole
               closing half-sweep of a rank-512 implicit fit (1 iteration)
               on the ML-20M-shaped synthetic, twice;
+  k2-wide-buckets  k2-wide's buckets alone (no sweep, no clock build);
   k11-wide    K11's bf16 head on config #4's first tile (3,063 x 3,063)
               at r = 128 and 300, from the model's initial state: CUDA
               events and CUDA-graph device time, the dense mma rate, the
@@ -267,6 +269,14 @@ def _variant(source, defines, entries):
         fn, ref = getattr(so, name), getattr(_kernels.lib(), name)
         fn.argtypes, fn.restype = ref.argtypes, ref.restype
     return so
+
+
+def _has_define(source, name):
+    """Whether ``csrc/<source>.cu`` of the package under test reads the
+    -D flag ``name`` (an older checkout may not have a timing build)."""
+    from rsparse_tpu_torch import _kernels
+    with open(os.path.join(_kernels.CSRC, f"{source}.cu")) as f:
+        return f"#ifdef {name}" in f.read()
 
 
 def _fm_variant(tile):
@@ -535,14 +545,14 @@ def k2_wide_clocks(args):
                                              for v in clk[c])), flush=True)
 
 
-def k2_wide_times(dev, reps):
+def k2_wide_times(dev, reps, sweep=True):
     import torch
     import rsparse_tpu_torch as rt
     from rsparse_tpu_torch.ops import als
     cs = sys.modules["chip_smoke"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
-    for B, L in ((256, 128), (16, 8192)):
+    for B, L in ((256, 128), (16, 8192), (4, 2048)):
         args = cs._bucket_case(gen, dev, B, L, 514, 0, solver=als.CHOLESKY)
         plan = als.cholesky_plan(*args)
         # the cluster design stops after the factorisation too (stages=4)
@@ -562,10 +572,12 @@ def k2_wide_times(dev, reps):
               f"{t[3] - t[2]:.3f}) plain {pms:.3f} bound {bms:.4f} ({bby}); "
               f"y_rel {cs.rel_err(yk, yp):.2e} loss_rel "
               f"{cs.rel_err(lk, lp):.2e}; plan {plan}", flush=True)
-        if cluster and B == 256:
+        if cluster and B == 256 and sweep:
             k2_wide_clocks(args)
         del args, yk, lk, yp, lp
         torch.cuda.empty_cache()
+    if not sweep:
+        return
     # the closing half-sweep of a rank-512 implicit fit (one iteration) on
     # the ML-20M-shaped synthetic, every bucket as fit_transform launches
     # them
@@ -654,7 +666,7 @@ def k11_wide_times(dev, reps):
               f"work; plain {pms:.3f}, cuBLAS chain {lms:.3f} ms; present "
               f"{int((xv > 0).sum())}, ~{cs.k11_flagged(st0, rows, cols, xv)} "
               "flagged for an exact re-sum a side", flush=True)
-        if r > 128 and hasattr(glove, "k11_wide_smem"):
+        if r > 128 and _has_define("glove_dense", "RSP_K11_CLOCKS"):
             k11_wide_clocks(glove.GloveState(*(t.clone() for t in st0)),
                             rows, cols, xv, hp)
         del st, st0
@@ -664,7 +676,9 @@ def k11_wide_times(dev, reps):
 TIMERS = {"k1": k1_times, "k8": k8_times, "k3": k3_times,
           "fm-staging": fm_staging_times, "k8-tiles": k8_tile_times,
           "k7": k7_times, "ftrl-pass": ftrl_pass_times, "k10": k10_times,
-          "k2-wide": k2_wide_times, "k11-wide": k11_wide_times}
+          "k2-wide": k2_wide_times,
+          "k2-wide-buckets": lambda dev, reps: k2_wide_times(dev, reps, False),
+          "k11-wide": k11_wide_times}
 
 
 def main() -> int:

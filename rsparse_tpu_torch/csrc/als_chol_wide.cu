@@ -13,8 +13,9 @@
 //
 // The design: one cluster of C CTAs (one an SM, 16 warps each) solves one
 // row, C the smallest of 1, 2 and 4 whose layout fits (cluster_size: 1
-// through d = 256 at float32, 2 at 258, 4 at 512 and 514); a persistent
-// grid of as many clusters as the card runs at once
+// through d = 256 at float32, 2 at 258, 4 at 512 and 514), or, for a
+// bucket of few long rows, 6 or 8 (bucket_plan); a persistent grid of
+// as many clusters as the card runs at once
 // (cudaOccupancyMaxActiveClusters: 30 of 4 on 132 SMs) takes the bucket's
 // rows in turn.  The lower triangle of the padded D x D matrix is kept by
 // 16-row panels (panel p: rows 16p..16p + 15, columns 0..16p + 15, row
@@ -65,9 +66,13 @@
 // ~20 us of tensor-core time on a cluster's 4 SMs.  What is left is the
 // chain: D pivots in one warp, D / 16 cluster barriers and D / 16 signals,
 // which no SM can shorten; 30 rows run at once at D = 528, 132 through D =
-// 256.  A bucket of fewer rows than clusters (the 16 x 8,192 long-row
-// bucket fills 16 of 30) leaves SMs idle; there a row's long entry walk,
-// done by each of its CTAs from L2, bounds the time.
+// 256.  A row of many entries is bound by its Gram instead, whose time
+// falls with the tiles a warp sums: a bucket whose rows hold at least 2 D
+// entries takes the cluster of 1, 2, 4, 6 or 8 CTAs (no fewer than the
+// width's) with the fewest waves of rows times tiles a warp (bucket_plan):
+// the 16 x 8,192 long-row bucket at d = 514 runs on 6 CTAs a row (96 SMs,
+// one wave; 8 would take two: the H100 runs 15 clusters of 8).  Every CTA
+// stages the row's entries itself; the cluster's copies are read from L2.
 //
 // rsp_als_chol_wide's `stages` stops a launch after the Gram (1: the lhs is
 // built, nothing is written), after the factorisation (4: z = L^-1 rhs,
@@ -75,6 +80,8 @@
 // everything.
 
 #include <cooperative_groups.h>
+
+#include <mutex>
 
 #include "als_chol.cuh"
 
@@ -101,8 +108,10 @@ namespace cgrp = cooperative_groups;
 namespace {
 
 constexpr int kWideMaxD = 514;  // ops/als.py CHOL_MAX_D
-// CTAs a row: the smallest of 1, 2 and 4 whose layout fits (cluster_size)
-constexpr int kMaxCluster = 4;
+// CTAs a row: the smallest of 1, 2 and 4 whose layout fits (cluster_size),
+// or for a bucket of few long rows one of kSizes (bucket_plan)
+constexpr int kWidthCluster = 4;
+constexpr int kSizes[] = {1, 2, 4, 6, 8};
 constexpr int kMaxPanels = (kWideMaxD + kPanel - 1) / kPanel;  // 33
 constexpr int kMaxOwn = kMaxPanels;  // panels a CTA holds, at most
 // threads a CTA: 16 warps (18 Gram tiles a warp at most, 128 registers a
@@ -204,14 +213,14 @@ __host__ __device__ inline WideLayout make_wide_layout(int d, int tbytes,
 // layout fits a CTA's shared memory and whose warps sum at most
 // kMaxWarpTiles Gram tiles (one CTA a row through d = 256 at float32).
 __host__ __device__ inline int cluster_size(int d, int tbytes) {
-  for (int C = 1; C < kMaxCluster; C *= 2) {
+  for (int C = 1; C < kWidthCluster; C *= 2) {
     const WideLayout L = make_wide_layout(d, tbytes, C);
     bool ok = L.bytes <= kSmemLimit;
     for (int c = 0; c < C; ++c)
       ok = ok && own_tiles(c, L.nP, C) <= kMaxWarpTiles * kWarpsW;
     if (ok) return C;
   }
-  return kMaxCluster;
+  return kWidthCluster;
 }
 
 // A warp's run of its CTA's lower m16n8 tiles: own panels ascending, tile
@@ -942,8 +951,11 @@ WideKernel pick_wide_c(const rsp::BucketArgs& a) {
   return kernels[a.table_bf16 != 0][a.explicit_fb != 0];
 }
 WideKernel pick_wide(const rsp::BucketArgs& a, int C) {
-  return C == 1 ? pick_wide_c<1>(a) : C == 2 ? pick_wide_c<2>(a)
-                                             : pick_wide_c<4>(a);
+  return C == 1   ? pick_wide_c<1>(a)
+         : C == 2 ? pick_wide_c<2>(a)
+         : C == 4 ? pick_wide_c<4>(a)
+         : C == 6 ? pick_wide_c<6>(a)
+                  : pick_wide_c<8>(a);
 }
 
 int check_wide(const rsp::BucketArgs& a) {
@@ -969,28 +981,86 @@ cudaLaunchConfig_t cluster_config(int clusters, int C, int smem,
   return cfg;
 }
 
-// Clusters of the kernel that run at once at `smem` bytes a CTA (cached a
-// kernel: the layout's bytes depend on d, which changes the answer only
-// through smem).
+// Clusters of the kernel that run at once at `smem` bytes a CTA on the
+// current device (cached by device, kernel and bytes).
 cudaError_t active_clusters(WideKernel kern, int C, int smem, int* n) {
-  static WideKernel k_seen[16];
-  static int s_seen[16], n_seen[16], used = 0;
-  for (int i = 0; i < used; ++i)
-    if (k_seen[i] == kern && s_seen[i] == smem) {
-      *n = n_seen[i];
-      return cudaSuccess;
-    }
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  struct Seen {
+    int dev;
+    WideKernel kern;
+    int smem, n;
+  };
+  static std::mutex mu;
+  static Seen seen[64];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < used; ++i)
+      if (seen[i].dev == dev && seen[i].kern == kern && seen[i].smem == smem) {
+        *n = seen[i].n;
+        return cudaSuccess;
+      }
+  }
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = cluster_config(1, C, smem, 0, attr);
   err = cudaOccupancyMaxActiveClusters(n, kern, &cfg);
   if (err != cudaSuccess) return err;
-  if (used < 16) {
-    k_seen[used] = kern;
-    s_seen[used] = smem;
-    n_seen[used++] = *n;
+  std::lock_guard<std::mutex> lock(mu);
+  if (used < 64) seen[used++] = {dev, kern, smem, *n};
+  return cudaSuccess;
+}
+
+// How a bucket runs: CTAs a cluster (one row), the kernel, the layout and
+// the clusters that run at once.
+struct WidePlan {
+  int C, n;
+  WideKernel kern;
+  WideLayout Ly;
+};
+
+// The bucket's plan: cluster_size's cluster, or, when the rows hold at
+// least 2 D cold entries (then the Gram, whose time falls with the tiles a
+// warp sums, outweighs the factorisation's chain, which more CTAs
+// lengthen), the larger size of kSizes with the fewest waves of rows times
+// tiles a warp (ties: the smaller).  A size the card cannot launch is
+// passed over.
+cudaError_t bucket_plan(const rsp::BucketArgs& a, WidePlan* w) {
+  const int tb = a.table_bf16 ? 2 : 4, C0 = cluster_size(a.d, tb);
+  long best = 0;
+  for (const int C : kSizes) {
+    if (C < C0) continue;
+    const WideKernel kern = pick_wide(a, C);
+    const WideLayout Ly = make_wide_layout(a.d, tb, C);
+    if (C > C0 && a.L < 2 * Ly.D) break;
+    if (Ly.bytes > kSmemLimit) {
+      if (C == C0) return cudaErrorInvalidValue;
+      continue;
+    }
+    int n = 0;
+    const cudaError_t err = active_clusters(kern, C, Ly.bytes, &n);
+    if (err != cudaSuccess) {
+      if (C == C0) return err;
+      (void)cudaGetLastError();
+      continue;
+    }
+    int tiles = 0;
+    for (int c = 0; c < C; ++c) {
+      const int t = own_tiles(c, Ly.nP, C);
+      tiles = t > tiles ? t : tiles;
+    }
+    const long score = n > 0 ? (long)((a.B + n - 1) / n) *
+                                   ((tiles + kWarpsW - 1) / kWarpsW)
+                             : -1;
+    if (C == C0 || (score > 0 && score < best)) {
+      *w = {C, n, kern, Ly};
+      best = score;
+    }
+    if (best <= 0) return cudaSuccess;  // the width's size cannot run
   }
   return cudaSuccess;
 }
@@ -1004,13 +1074,8 @@ extern "C" int rsp_als_chol_wide_info(const rsp::BucketArgs* args,
                                       int* info) {
   const rsp::BucketArgs a = *args;
   if (int e = check_wide(a)) return e;
-  const int tb = a.table_bf16 ? 2 : 4, C = cluster_size(a.d, tb);
-  const WideKernel kern = pick_wide(a, C);
-  const WideLayout Ly = make_wide_layout(a.d, tb, C);
-  if (Ly.bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
-  int n = 0;
-  cudaError_t err = active_clusters(kern, C, Ly.bytes, &n);
-  if (err != cudaSuccess) return (int)err;
+  WidePlan w;
+  if (cudaError_t err = bucket_plan(a, &w)) return (int)err;
   const bool rnd = a.round_bf16 != 0;
   int cold, head;
   if (!a.table_bf16) {
@@ -1023,13 +1088,13 @@ extern "C" int rsp_als_chol_wide_info(const rsp::BucketArgs* args,
     cold = gram_route<__nv_bfloat16, false>(false, rnd);
     head = gram_route<__nv_bfloat16, false>(true, rnd);
   }
-  info[0] = n;
+  info[0] = w.n;
   info[1] = cold;
   info[2] = head;
-  info[3] = Ly.D;
-  info[4] = Ly.bytes;
-  info[5] = C;
-  info[6] = Ly.store;
+  info[3] = w.Ly.D;
+  info[4] = w.Ly.bytes;
+  info[5] = w.C;
+  info[6] = w.Ly.store;
   return 0;
 }
 
@@ -1040,20 +1105,16 @@ extern "C" int rsp_als_chol_wide(const rsp::BucketArgs* args, int stages,
   const rsp::BucketArgs a = *args;
   if (a.B <= 0) return 0;
   if (int e = check_wide(a)) return e;
-  const int tb = a.table_bf16 ? 2 : 4, C = cluster_size(a.d, tb);
-  const WideKernel kern = pick_wide(a, C);
-  const int smem = make_wide_layout(a.d, tb, C).bytes;
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  int n = 0;
-  cudaError_t err = active_clusters(kern, C, smem, &n);
+  WidePlan w;
+  cudaError_t err = bucket_plan(a, &w);
   if (err != cudaSuccess) return (int)err;
-  if (n <= 0) return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  if (w.n <= 0) return (int)cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(
+      w.kern, cudaFuncAttributeMaxDynamicSharedMemorySize, w.Ly.bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(
-      a.B < n ? a.B : n, C, smem, (cudaStream_t)stream, attr);
-  err = cudaLaunchKernelEx(&cfg, kern, a, stages);
+      a.B < w.n ? a.B : w.n, w.C, w.Ly.bytes, (cudaStream_t)stream, attr);
+  err = cudaLaunchKernelEx(&cfg, w.kern, a, stages);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

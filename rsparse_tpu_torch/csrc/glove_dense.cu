@@ -942,11 +942,10 @@ __device__ __forceinline__ void bar_cp_async(unsigned long long* b) {
                    su32(b))
                : "memory");
 }
-// Waits for the phase of parity `parity` to complete; a wait of millions
-// of polls is a fault of the pipeline, and traps rather than hangs.
+// Waits for the phase of parity `parity` to complete.
 __device__ __forceinline__ void bar_wait(unsigned long long* b,
                                          unsigned parity) {
-  for (int n = 0;; ++n) {
+  for (;;) {
     unsigned done;
     asm volatile(
         "{\n"
@@ -958,7 +957,6 @@ __device__ __forceinline__ void bar_wait(unsigned long long* b,
         : "r"(su32(b)), "r"(parity)
         : "memory");
     if (done) return;
-    if (n > (1 << 22)) __trap();
   }
 }
 // rows [c1, c1 + 64) x components [c0, c0 + 64) of a tensor map into dst

@@ -180,36 +180,6 @@ def glove_width(r: int) -> int:
                               f"most {MAX_RANK} (see ROADMAP.md)")
 
 
-#: shared memory one CTA of a kernel may take on the H100
-SMEM_LIMIT = 232_448
-
-
-def k11_wide_smem() -> dict:
-    """The shared memory of the wide K11's CTA (csrc/glove_dense.cu
-    ``wgk::WgSmem``, in its order): the own rows, two stages of the other
-    side's rows and one of their squares (64 rows x 320 bf16 each, five
-    64 x 64 TMA boxes with the 128-byte swizzle), two stages of count lines
-    (64 of 144 bytes), the norms of the own rows' and of two stages' rows'
-    20 k16 slices (bf16), the warpgroups' exchange of cost fragments (two
-    steps x two warpgroups x 16 registers x 128 threads), the line offsets,
-    the biases and norms, warpgroup 1's row sums, the loss partials, the
-    eight mbarriers and a counter (with its padding); ``bytes`` adds the
-    1,024 that align the tiles."""
-    tile = 64 * 320 * 2
-    parts = dict(own=tile, oth=2 * tile, oth2=tile, counts=2 * 64 * 144,
-                 slice_norms=3 * 64 * 20 * 2,
-                 exchange=2 * 2 * 16 * 128 * 4, line_offsets=2 * 64 * 4,
-                 own_bias_norm=2 * 64 * 4, oth_bias_norm=2 * 2 * 64 * 4,
-                 row_sums=2 * 64 * 4, loss=8 * 4, mbarriers=8 * 8,
-                 flagged=4 + 4)
-    offsets, at = {}, 0
-    for name, size in parts.items():
-        offsets[name] = at
-        at += size
-    return dict(parts=parts, offsets=offsets, box=64 * 128, stages=2,
-                bytes=at + 1024)
-
-
 def _check_state(st: GloveState) -> int:
     """Raise unless the tables are what K10 and K11 take; returns r."""
     n, r = st.w_i.shape

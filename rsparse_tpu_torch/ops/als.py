@@ -734,7 +734,8 @@ def cholesky_plan(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
                   nnz_total=None, hot_scale=None) -> dict:
     """How K2 runs a bucket on the card (nothing is launched): CTAs an SM
     (at d > ``WIDE_D``: clusters at once and CTAs a cluster, one row a
-    cluster), the Gram route of the cold and of the head entries, the
+    cluster, the floats of the largest CTA's panels, the kernel's width and
+    table bytes), the Gram route of the cold and of the head entries, the
     padded width D and the shared bytes a CTA."""
     args, _, _ = _bucket_args(src, x_biases, XtX, rhs_init, bucket, None,
                               lam, g, cfg, hot_W, V_hot, hot_bits, nnz_total,
@@ -747,7 +748,8 @@ def cholesky_plan(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
                smem_bytes=info[4], wide=wide)
     if wide:
         out.update(clusters=info[0], cluster=info[5],
-                   panel_floats=info[6])
+                   panel_floats=info[6], d=args.d,
+                   table_bytes=2 if args.table_bf16 else 4)
     return out
 
 
@@ -763,10 +765,12 @@ def _chol_info(args) -> list:
     return list(info)
 
 
-#: the wide K2's cluster sizes (csrc/als_chol_wide.cu cluster_size: CTAs a
-#: row, the smallest that fits), its warps a CTA (kWarpsW), the Gram tiles
-#: a warp holds at most (kMaxWarpTiles) and its panels' rows
-CHOL_CLUSTERS, CHOL_WARPS, CHOL_WARP_TILES, CHOL_PANEL = (1, 2, 4), 16, 18, 16
+#: the wide K2's cluster sizes by width (csrc/als_chol_wide.cu
+#: cluster_size: CTAs a row, the smallest that fits), the sizes a bucket of
+#: few long rows may take (kSizes, bucket_plan), its warps a CTA (kWarpsW),
+#: the Gram tiles a warp holds at most (kMaxWarpTiles) and its panels' rows
+CHOL_CLUSTERS, CHOL_SIZES = (1, 2, 4), (1, 2, 4, 6, 8)
+CHOL_WARPS, CHOL_WARP_TILES, CHOL_PANEL = 16, 18, 16
 #: K2's entry list and chunk (csrc/als_chol.cuh kSeg, kRows)
 CHOL_SEG, CHOL_ROWS = 1024, 16
 
@@ -814,7 +818,9 @@ def _chol_cluster_layout(d: int, tbytes: int, cluster: int) -> dict:
 def chol_wide_layout(d: int, tbytes: int) -> dict:
     """The wide K2's cluster layout at width ``d`` and table bytes
     ``tbytes``, as csrc/als_chol_wide.cu cluster_size and make_wide_layout
-    choose it: the smallest cluster of ``CHOL_CLUSTERS`` whose CTA fits
+    choose it (a bucket of few long rows may take a larger cluster of
+    ``CHOL_SIZES``: :func:`cholesky_plan` says which): the smallest
+    cluster of ``CHOL_CLUSTERS`` whose CTA fits
     ``SMEM_LIMIT`` and whose warps hold at most ``CHOL_WARP_TILES`` Gram
     tiles; D, the panels, each panel's owner, the floats and Gram tiles of
     each CTA's panels, the entries staged a chunk, and the shared bytes a

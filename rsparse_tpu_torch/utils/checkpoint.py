@@ -152,10 +152,10 @@ def load(path: str, cls: Optional[Type] = None, device="cuda",
 
     ``sharding`` (the reference's ``load(..., sharding=)``) may be a mesh
     of :func:`rsparse_tpu_torch.parallel.mesh.make_mesh`: a WRMF then gets
-    it as its ``mesh``, with its factor tables on the mesh's device, placed
-    as ``parallel.wrmf_step.place_factors`` places them (every rank must
-    load).  Any other value raises ``ValueError``; a model with no mesh
-    path raises the ``NotImplementedError`` of its ``mesh=``."""
+    it as its ``mesh``, with its factor tables whole on the mesh's device,
+    as a fit on that mesh leaves them (every rank must load).  Any other
+    value raises ``ValueError``; a model with no mesh path raises the
+    ``NotImplementedError`` of its ``mesh=``."""
     if sharding is not None:
         from ..parallel.mesh import Mesh
         if not isinstance(sharding, Mesh):
@@ -223,16 +223,16 @@ def load(path: str, cls: Optional[Type] = None, device="cuda",
 
 
 def _place_on_mesh(model, mesh) -> None:
-    """Put a loaded WRMF on ``mesh``: its ``mesh`` and device, and its
-    factor tables as a fit on that mesh places them."""
+    """Put a loaded WRMF on ``mesh``: its ``mesh`` and device, its factor
+    tables whole on every rank, as a fit on that mesh ends (so ``save``
+    writes them whole again)."""
     from ..models.wrmf import _check_mesh
-    from ..parallel.wrmf_step import place_factors
     _check_mesh(mesh, None, model.with_user_item_bias)
     model.mesh = mesh
     model.device = mesh.device
     for k in ("_U", "_V"):
         if getattr(model, k, None) is not None:
-            setattr(model, k, place_factors(mesh, getattr(model, k)))
+            setattr(model, k, getattr(model, k).to(mesh.device))
 
 
 def _restore_runtime(model, tensors: Dict[str, torch.Tensor],

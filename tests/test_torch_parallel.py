@@ -27,7 +27,7 @@ import torch_mesh_worker as W
 WORLDS = {
     2: ("data2_cg_head", "data2_chol", "model2_cg", "model2_chol_head",
         "alx_cg", "alx_nnls", "ragged_cg", "ragged_nnls", "dcn_chol",
-        "dcn_alx", "retrieval", "checkpoint", "exchange"),
+        "dcn_alx", "retrieval", "checkpoint", "mesh_load", "exchange"),
     4: ("mesh22_cg_head", "mesh22_chol", "alx4_chol", "step", "exchange"),
 }
 FIT_CASES = [c for cases in WORLDS.values() for c in cases if c in W.CASES]
@@ -209,6 +209,27 @@ def test_mesh_checkpoint_loads_in_one_process(runs):
     p = m.predict(runs["x"][:300], k=10)
     np.testing.assert_array_equal(p.indices, g["pred_i"])
     np.testing.assert_array_equal(p.scores, g["pred_s"])
+
+
+def test_mesh_load_keeps_the_tables_whole(runs):
+    """``load(..., sharding=)`` onto a (1, 2) mesh, whose model axis
+    divides the rows: every rank holds the whole tables, as a fit on that
+    mesh ends, predicts what the one-process load does, and a save from
+    the mesh writes the whole tables again."""
+    flat = rt.checkpoint.load(runs["model_dir"], device="cpu")
+    p = flat.predict(runs["x"][:300], k=10)
+    V = flat._V.numpy()
+    assert V.shape[0] % 2 == 0
+    for r in runs["ranks"]["mesh_load"]:
+        assert r["on_mesh"]
+        np.testing.assert_array_equal(r["U"], flat._U.numpy())
+        np.testing.assert_array_equal(r["V"], V)
+        np.testing.assert_array_equal(r["pred_i"], p.indices)
+        np.testing.assert_allclose(r["pred_s"], p.scores, rtol=1e-12)
+        assert r["V_again"].shape == V.shape
+        np.testing.assert_array_equal(r["V_again"], V)
+        np.testing.assert_array_equal(r["comps_again"],
+                                      np.asarray(flat.components))
 
 
 def test_every_rank_holds_the_whole_tables(runs):

@@ -340,13 +340,30 @@ def test_chol_cluster_layout_fits(d, tb):
     assert max(len(r) for r in runs.values()) <= port.CHOL_WARP_TILES == 18
 
 
+def _dealt(n_p, cluster):
+    """The panels' owners by the deal csrc/als_chol_wide.cu's note
+    describes, replayed card by card: from the widest panel down,
+    ``cluster`` a round, the direction turning each round."""
+    owner, order, p = {}, list(range(cluster)), n_p - 1
+    while p >= 0:
+        for c in order[:p + 1]:
+            owner[p] = c
+            p -= 1
+        order.reverse()
+    return [owner[p] for p in range(n_p)]
+
+
 @pytest.mark.parametrize("d", WIDE_DS)
 def test_chol_every_lower_tile_has_one_owner(d):
     """Every lower m16n8 tile of the padded D x D matrix is summed by
     exactly one warp of the cluster, the one on the CTA that holds its
-    panel (so the Gram needs no exchange)."""
+    panel (so the Gram needs no exchange); the owner of every panel, at
+    every cluster size the kernel takes, is the one the deal gives."""
     L, runs = _chol_runs(d)
     n_p = L["panels"]
+    for cluster in port.CHOL_SIZES:
+        assert [port.chol_panel_owner(p, n_p, cluster)
+                for p in range(n_p)] == _dealt(n_p, cluster), cluster
     seen = {}
     for (c, w), run in runs.items():
         for t in run:
@@ -359,13 +376,16 @@ def test_chol_every_lower_tile_has_one_owner(d):
 @pytest.mark.parametrize("d", WIDE_DS)
 def test_chol_deal_balances_the_triangle(d):
     """The deal (from the widest panel down, the direction turning each
-    round) gives every CTA of a cluster of 1, 2 or 4 at most one panel more
-    than another's share: the floats of the CTAs' panels differ by at most
-    the largest panel's."""
-    for cluster in port.CHOL_CLUSTERS:
+    round) gives every CTA of a cluster of 1, 2, 4, 6 or 8 (6 and 8 for a
+    bucket of few long rows) at most one panel more than another's share:
+    the floats of the CTAs' panels differ by at most the largest panel's,
+    and a larger cluster than the width's fits a CTA's shared memory too."""
+    for cluster in port.CHOL_SIZES:
         L = port._chol_cluster_layout(d, 4, cluster)
         biggest = 16 * port.chol_panel_lda(L["panels"] - 1)
         assert max(L["floats"]) - min(L["floats"]) <= biggest
+        if cluster >= port.chol_wide_layout(d, 4)["cluster"]:
+            assert L["smem_bytes"] <= port.SMEM_LIMIT
         assert sum(L["floats"]) == sum(16 * port.chol_panel_lda(p)
                                        for p in range(L["panels"]))
     # a row stride of 8 mod 32 floats spreads a fragment's float2 accesses

@@ -131,20 +131,3 @@ def test_convert_carries_wide_tables():
     np.testing.assert_array_equal(m.bias_i, a[2])
     np.testing.assert_array_equal(m.bias_j, a[3])
 
-
-def test_wide_k11_layout_fits_and_aligns():
-    """The wide K11's CTA (TMA stages of the other side's rows, one of
-    their squares, the own rows, count lines, the warpgroups' exchange)
-    fits 232,448 bytes of shared memory, and every TMA tile and box starts
-    on the 1,024-byte swizzle atom the wgmma descriptors assume."""
-    L = port_glove.k11_wide_smem()
-    assert L["bytes"] <= port_glove.SMEM_LIMIT
-    assert L["stages"] == 2 and L["parts"]["oth"] == 2 * L["parts"]["own"]
-    for name in ("own", "oth", "oth2"):
-        assert L["offsets"][name] % 1024 == 0, name
-    assert L["parts"]["own"] == 5 * L["box"] and L["box"] % 1024 == 0
-    # a stage of the other rows and the squares hold one 64-position step
-    assert L["parts"]["oth2"] == 64 * port_glove.GLOVE_WIDTHS[-1] * 2
-    # the exchange carries a step's packed cost and cost^2 fragments of
-    # one warpgroup's 32 positions: 64 x 32 x 2 x 2 bytes each way
-    assert L["parts"]["exchange"] // 2 // 2 == 64 * 32 * 2 * 2

@@ -157,6 +157,24 @@ def checkpoint_case(x, out_dir):
                 pred_i=p.indices, pred_s=p.scores)
 
 
+def mesh_load_case(x, out_dir):
+    """The model the checkpoint case saved, loaded onto a (1, 2) mesh with
+    ``load(..., sharding=mesh)``: its tables, its predictions, and the
+    tables of the checkpoint it saves again (rank 0 writes)."""
+    from rsparse_tpu_torch import checkpoint
+    from rsparse_tpu_torch.parallel import mesh as pmesh
+    mesh = pmesh.make_mesh((1, 2), ("data", "model"), device_type="cpu")
+    m = checkpoint.load(os.path.join(out_dir, "model"), sharding=mesh)
+    p = m.predict(x[:300], k=10)
+    again = os.path.join(out_dir, "model_again")
+    checkpoint.save(m, again)
+    m2 = checkpoint.load(again, device="cpu")
+    return dict(U=m._U.numpy(), V=m._V.numpy(), pred_i=p.indices,
+                pred_s=p.scores, V_again=m2._V.numpy(),
+                comps_again=np.asarray(m2.components),
+                on_mesh=np.asarray(m.mesh is mesh))
+
+
 def step_case():
     """``shard_problem`` + ``train_step`` on a (2, world / 2) mesh against
     the two half-sweeps of one process, on a seeded 128 x 96 problem."""
@@ -234,6 +252,8 @@ def run(rank: int, world: int, store: str, out_dir: str, cases) -> None:
             out = exchange_case()
         elif case == "checkpoint":
             out = checkpoint_case(x, out_dir)
+        elif case == "mesh_load":
+            out = mesh_load_case(x, out_dir)
         else:
             out = fit_case(case, x)
         np.savez(os.path.join(out_dir, f"{case}.{rank}.npz"), **out)

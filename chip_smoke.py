@@ -73,7 +73,10 @@ line:
    (RankMF) on S = 8192, K = 20 batches (BPR / WARP, AdaGrad / RMSprop,
    identity and side features, r = 8 and 16) with the same bits, against their plain versions (each table by its change,
    1e-5; K9's counters exactly), K9's launches' device times apart, its
-   candidate window and mean candidates tried; (b) FTRL and FM on the
+   candidate window and mean candidates tried, and every K9 case again in
+   K9's row-map mode (a mesh batch: compact tables of the rows the bits
+   reach) against that mode's plain version, its time beside the
+   one-process mode's on the same batch; (b) FTRL and FM on the
    reference benchmark's GLM synthetic within 0.01 of the reference's
    train accuracy, FM XOR, RankMF BPR on ML-100k through predict (K3);
    (c) FTRL and FM rank 8 at the hashed shape (100,000 x 40M features)
@@ -162,7 +165,19 @@ line:
    loss within 1e-5 (NNLS: the loss within 1e-5, its factors within 1e-2,
    ``MESH_TOL``), and ``predict`` (k = 10, training
    mask, through ``sharded_top_product``) to the one-process indices, rows
-   that differ counted and each required to be a near tie.
+   that differ counted and each required to be a near tie.  Then, on the
+   same ranks, the SGD family with its state tables row-sharded
+   (``parallel/sgd_sharded.py``) at its widths: hashed FTRL and FM rank 8
+   (100,000 x 40M features x 32 nnz), config #5 RankMF WARP rank 8 (10M
+   users, batch 8,192, 20 negatives), config #4 GloVe rank 128 with the
+   bf16 head, depth cut (one fit pass, 8 RankMF batches, one GloVe epoch;
+   printed), each held to the one-process fit of the same settings:
+   FTRL, FM and GloVe bitwise (every state table's digest summed over the
+   ranks' own rows, the predictions, embeddings and costs), RankMF within
+   ``MESH_RANKMF_TOL``; each rank prints its resident table bytes, the
+   gather all-reduce's bytes and ms a step, the kernel's and the
+   write-back's ms a step, the draws' check, and its launches of K7, K8,
+   K9's row-map mode, K10 and K11 (each must be above 0).
 
 The kernels' launch counters are reset right before each main-path run
 and must show every kernel of that path launched in it; K1's head term
@@ -2292,6 +2307,8 @@ def check_rankmf_batch(tables, bits, pos, uf, itf, hp, cfg, n_item, tag,
     log(f"  K9 rankmf   {tag} counters auc {auc_n}/{auc_d} found {found} "
         f"tried {tried} of S={S} (equal) {text} kernel={ms:.3f} ms "
         f"plain={pms:.3f} ms bound={bms:.4f} ms ({bby})")
+    check_rankmf_rowmap(tables, bits, pos, uf, itf, hp, cfg, n_item, tag,
+                        results, ms, (bms, bby) if rep else None, reps)
     if rep:
         results["rankmf"].update(ms=ms, plain_ms=pms, bound_ms=bms,
                                  bound_by=bby, library_ms=None, shape=tag)
@@ -2307,6 +2324,56 @@ def check_rankmf_batch(tables, bits, pos, uf, itf, hp, cfg, n_item, tag,
         results["rankmf"]["device_ms"] = dms
     del tk, tp
     return tried
+
+
+def check_rankmf_rowmap(tables, bits, pos, uf, itf, hp, cfg, n_item, tag,
+                        results, one_ms, rep=None, reps=5):
+    """K9's row-map mode (a mesh batch, models/rankmf.py ``_mesh_batch``)
+    against its plain version on the same batch: the compact tables of the
+    rows the bits reach (``batch_rows``), the maps, counters exactly and
+    each compact table by its change (1e-5, as the one-process mode); its
+    time beside the one-process mode's ``one_ms`` on the same batch.
+    ``rep`` = (bound ms, bound by) records the row for the kernels line."""
+    import torch
+    from rsparse_tpu_torch.models import rankmf
+    rows_w, rows_h = rankmf.batch_rows(bits, pos, uf, itf, n_item)
+    maps = []
+    for rows, n in ((rows_w, tables[0].shape[0]),
+                    (rows_h, tables[1].shape[0])):
+        m = torch.full((n,), -1, dtype=torch.int32, device=bits.device)
+        m[rows] = torch.arange(rows.shape[0], dtype=torch.int32,
+                               device=bits.device)
+        maps.append(m)
+    # tables are (W, H, accW, accH): rows_w, rows_h, rows_w, rows_h
+    comp = [t[r].clone() for t, r in zip(tables, (rows_w, rows_h) * 2)]
+    ck = [t.clone() for t in comp]
+    cp = [t.clone() for t in comp]
+    kw = dict(wmap=maps[0], hmap=maps[1])
+    a = rankmf._rankmf_batch(*ck, bits, pos, uf, itf, hp, cfg, n_item, **kw)
+    b = rankmf._rankmf_batch_plain(*cp, bits, pos, uf, itf, hp, cfg, n_item,
+                                   **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(a, b), f"K9 row map {tag}: counters {a.tolist()} "
+            f"!= plain {b.tolist()}")
+    errs = {}
+    for name, x, y, t0 in zip(("W", "H", "accW", "accH"), ck, cp, comp):
+        ch = (x != t0) | (y != t0)
+        ch = ch.any(1) if ch.dim() == 2 else ch
+        errs[name] = _delta_err(x, y, t0, ch)
+    text = _hold("rankmf_rowmap", tag, errs, results)
+    line = (f"  K9 row map  {tag} ({rows_w.shape[0]:,} W rows, "
+            f"{rows_h.shape[0]:,} H rows) counters equal {text}")
+    if rep is not None:
+        ms = time_ms(lambda: rankmf._rankmf_batch(
+            *ck, bits, pos, uf, itf, hp, cfg, n_item, **kw), reps)
+        pms = time_ms(lambda: rankmf._rankmf_batch_plain(
+            *cp, bits, pos, uf, itf, hp, cfg, n_item, **kw), reps)
+        results["rankmf_rowmap"].update(
+            ms=ms, plain_ms=pms, bound_ms=rep[0], bound_by=rep[1],
+            library_ms=None, shape=tag, one_process_ms=one_ms)
+        line += (f" kernel={ms:.3f} ms (one-process mode {one_ms:.3f} ms "
+                 f"on the same batch) plain={pms:.3f} ms")
+    log(line)
 
 
 def k9_device_ms(tables, bits, pos, uf, itf, hp, cfg, n_item, reps=50):
@@ -4311,6 +4378,225 @@ MESH_TIE = 1e-3
 MESH_KERNELS = ("als_cg", "als_chol", "topk", "als_nnls", "gather")
 
 
+#: phase 12's SGD parts: phase 7 (c)'s hashed FTRL and FM (rank 8,
+#: 100,000 rows x 40,000,000 features x 32 nnz), config #5's RankMF WARP
+#: rank 8 (10M users x 131,072 items, batch 8,192, 20 negatives) and phase
+#: 8 (c)'s config #4 GloVe (rank 128, bf16 head), each at its widths with
+#: its state tables row-sharded over the mesh.  Depth is cut (printed): one
+#: fit pass of FTRL and FM (phase 7 (c): a first pass and 3), RankMF's
+#: ``n_iter=0``, one chunk of 8 batches (an epoch of config #5 is 1,221),
+#: and one GloVe epoch (phase 8 (c): 3)
+MESH_SGD_PASSES = 1
+MESH_RANKMF_ITER = 0
+MESH_GLOVE_EPOCHS = 1
+#: a mesh RankMF fit against the one-process fit, W, H, accW and accH
+#: absolutely: K9 sums duplicate rows with atomics, so neither fit repeats
+#: itself bit for bit (tests/test_sgd_sharded.py holds the JAX package's
+#: mesh fit to 1e-6); FTRL, FM and GloVe are held bitwise
+MESH_RANKMF_TOL = 1e-6
+MESH_SGD_KERNELS = ("ftrl", "fm", "rankmf_rowmap", "glove", "glove_dense")
+
+
+def mesh_sgd_data():
+    """The SGD parts' inputs, made from their seeds: the hashed GLM rows
+    and labels, config #5's interactions, config #4's co-occurrences."""
+    x, truth = synth_glm(n_feat=HASHED_FEATURES)
+    x5, _, _ = synth_config5(**dict(CONFIG5, fm_rows=0))
+    return x, truth, x5, synth_glove(**CONFIG4)
+
+
+def mesh_sgd_models(**where):
+    """(name, model) of each SGD part, on ``where`` (``device=`` or
+    ``mesh=``), in the order they run."""
+    import rsparse_tpu_torch as rt
+    yield "ftrl", rt.FTRL(learning_rate=0.1, lambda_=1.0, seed=0, **where)
+    yield "fm", rt.FactorizationMachine(rank=8, learning_rate_w=0.2, seed=0,
+                                        **where)
+    yield "rankmf", rt.RankMF(rank=8, learning_rate=0.5, loss="warp", seed=0,
+                              batch_size=K9_BATCH[0],
+                              max_negative_samples=K9_BATCH[1], **where)
+    yield "glove", rt.GloVe(**GLOVE_KW, **where)
+
+
+def shard_digest(t, row0: int, n: int) -> int:
+    """A position-weighted sum of the bit patterns of rows ``row0..`` of
+    table ``t`` that lie below global row ``n`` (mod 2^64): the sum over a
+    table's row shards is the whole table's, and one flipped bit changes
+    it."""
+    import torch
+    rows = max(0, min(t.shape[0], n - row0))
+    if rows == 0:
+        return 0
+    b = t[:rows].contiguous()
+    bits = b.view(torch.int32 if b.element_size() == 4 else torch.int64)
+    bits = bits.reshape(rows, -1).long()
+    c = bits.shape[1]
+    g = (torch.arange(row0, row0 + rows, device=b.device)[:, None] * c
+         + torch.arange(c, device=b.device))
+    return int((bits * (g % 65521 + 1)).sum()) % 2 ** 64
+
+
+def _sgd_tables(name, m):
+    """{table: (tensor, logical rows)} of an SGD model's state (this
+    rank's shards on a mesh)."""
+    if name == "glove":
+        import rsparse_tpu_torch.models.glove as glove
+        return {f: (t, m._n_vocab if m.mesh is not None else t.shape[0])
+                for f, t in zip(glove.GloveState._fields, m._state)}
+    return {k: (getattr(m, k), n) for k, n in m._sharded_tables().items()}
+
+
+def _sgd_fit(name, m, data):
+    """Fit one SGD model of :func:`mesh_sgd_models` (depth cut as
+    MESH_SGD_PASSES etc. say); returns (wall s, outputs to hold)."""
+    import torch
+    x, truth, x5, x4 = data
+    t0 = time.perf_counter()
+    if name in ("ftrl", "fm"):
+        y_fit = m.fit(x, truth, n_iter=MESH_SGD_PASSES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = dict(y_fit=y_fit, y_pred=m.predict(x))
+        if name == "fm":
+            out.update(w0=m.w0.cpu().numpy(), acc_w0=m.acc_w0.cpu().numpy())
+    elif name == "rankmf":
+        emb = m.partial_fit_transform(x5, n_iter=MESH_RANKMF_ITER)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = dict(auc=np.asarray(m.auc_history),
+                   finite=np.asarray(bool(torch.isfinite(emb).all())))
+    else:
+        emb = m.fit_transform(x4, n_iter=MESH_GLOVE_EPOCHS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = dict(w_i=emb.cpu().numpy(), components=m.components,
+                   bias_i=m.bias_i, bias_j=m.bias_j,
+                   cost=np.asarray(m.cost_history))
+    return wall, out
+
+
+def mesh_sgd_refs(device, data, ref_dir):
+    """The one-process fits each SGD part is held to: outputs and table
+    digests; RankMF's tables written to ``ref_dir`` (every rank compares
+    its own rows)."""
+    import torch
+    refs = {}
+    for name, m in mesh_sgd_models(device=device):
+        wall, out = _sgd_fit(name, m, data)
+        tabs = _sgd_tables(name, m)
+        out["digests"] = {k: shard_digest(t, 0, n)
+                          for k, (t, n) in tabs.items()}
+        if name == "rankmf":
+            for k, (t, n) in tabs.items():
+                np.save(os.path.join(ref_dir, f"rankmf_{k}.npy"),
+                        t[:n].cpu().numpy())
+        out["wall_s"] = wall
+        refs[name] = out
+        log(f"  one-process {name}: {wall:.3f} s")
+        del m
+        torch.cuda.empty_cache()
+    return refs
+
+
+def mesh_sgd_path(mesh, data, ref_dir) -> dict:
+    """Every rank: the four SGD models on ``mesh`` (row-sharded tables),
+    the launch counts set to 0 just before and read just after, then each
+    model's stats: the fit's wall, this rank's resident table bytes, the
+    gathers (one all-reduce a step: a block, a batch, a head pass or a tail
+    shard) with their bytes and ms, the kernels' and write-backs' ms, the
+    draws' check, its tables' digests over its own rows and (RankMF) its
+    rows' largest distance from the one-process tables."""
+    import torch
+    from rsparse_tpu_torch import _kernels
+    stats, outs = {"models": {}}, {}
+    models = list(mesh_sgd_models(mesh=mesh))
+    for _, m in models:
+        m._ops.timed = True
+    _kernels.reset_launch_counts()
+    for name, m in models:
+        wall, out = _sgd_fit(name, m, data)
+        st = dict(m._ops.stats)
+        tabs = _sgd_tables(name, m)
+        i = m._ops.index     # table t's rows here start at i * t.shape[0]
+        st.update(wall_s=wall, resident_bytes=sum(
+            t.numel() * t.element_size() for t, _ in tabs.values()),
+            digests={k: shard_digest(t, i * t.shape[0], n)
+                     for k, (t, n) in tabs.items()},
+            rows={k: t.shape[0] for k, (t, _) in tabs.items()})
+        if name == "rankmf":
+            st["map_bytes"] = sum(t.numel() * 4 for t in m._maps)
+            st["max_abs"] = {}
+            for k, (t, n) in tabs.items():
+                ref = np.load(os.path.join(ref_dir, f"rankmf_{k}.npy"),
+                              mmap_mode="r")
+                row0 = i * t.shape[0]
+                hi = min(row0 + t.shape[0], n)
+                mine = t[:max(hi - row0, 0)].cpu().numpy()
+                st["max_abs"][k] = float(np.abs(
+                    mine - ref[row0:hi]).max()) if hi > row0 else 0.0
+        stats["models"][name] = st
+        outs[name] = out
+    stats["launches"] = dict(_kernels.launches)
+    del models
+    torch.cuda.empty_cache()
+    return stats, outs
+
+
+def log_mesh_sgd(tag, stats_by_rank, outs, refs) -> dict:
+    """Print the SGD parts of one mesh run and hold each model to its
+    one-process fit: FTRL, FM and GloVe bitwise (every table's digest
+    summed over the ranks, the predictions or embeddings, the cost),
+    RankMF within MESH_RANKMF_TOL.  Returns the launches by rank."""
+    world = len(stats_by_rank)
+    for name in stats_by_rank[0]["models"]:
+        per_rank = [s["models"][name] for s in stats_by_rank]
+        ref = refs[name]
+        s0 = per_rank[0]
+        steps = max(s0["gathers"], 1)
+        walls = ", ".join(f"{s['wall_s']:.3f}" for s in per_rank)
+        log(f"  {tag} {name}: fit {walls} s by rank (one process "
+            f"{ref['wall_s']:.3f} s); resident table "
+            f"bytes by rank {[s['resident_bytes'] for s in per_rank]} "
+            f"(rows a table on each of {world}: {s0['rows']})"
+            + (f", row maps {s0['map_bytes']:,} B" if "map_bytes" in s0
+               else "")
+            + f"; {s0['gathers']} gathers (one all-reduce a step): "
+            f"{s0['gather_bytes'] / steps:,.0f} B and "
+            f"{s0['gather_s'] * 1e3 / steps:.3f} ms a step, kernel "
+            f"{s0['kernel_s'] * 1e3 / steps:.3f} ms a step, write-back "
+            f"{s0['put_s'] * 1e3 / steps:.3f} ms a step (rank 0, the fit "
+            f"and the reads after it); draws checked "
+            f"{s0['draw_checks']} time(s), spread {s0['draw_spread']}")
+        want = ref["digests"]
+        got = {k: sum(s["digests"][k] for s in per_rank) % 2 ** 64
+               for k in want}
+        if name == "rankmf":
+            worst = {k: max(s["max_abs"][k] for s in per_rank)
+                     for k in want}
+            log(f"    {tag} rankmf: largest |mesh - one process| {worst} "
+                f"(limit {MESH_RANKMF_TOL:g}); AUC {outs[name]['auc']} "
+                f"against {ref['auc']}")
+            require(all(v <= MESH_RANKMF_TOL for v in worst.values())
+                    and bool(outs[name]["finite"]),
+                    f"{tag} rankmf: off the one-process fit")
+            continue
+        same = {k: got[k] == want[k] for k in want}
+        keys = [k for k in ref if k not in ("digests", "wall_s")]
+        eq = {k: bool(np.array_equal(outs[name][k], ref[k])) for k in keys}
+        log(f"    {tag} {name}: tables bitwise the one-process fit's "
+            f"{same}; outputs equal {eq}")
+        require(all(same.values()) and all(eq.values()),
+                f"{tag} {name}: not bitwise the one-process fit")
+    counts = [s["launches"] for s in stats_by_rank]
+    for r, c in enumerate(counts):
+        log(f"  {tag} rank {r} SGD launches: "
+            + ", ".join(f"{k} {c[k]}" for k in MESH_SGD_KERNELS))
+        for k in MESH_SGD_KERNELS:
+            require(c[k] > 0, f"{tag} rank {r}: kernel {k} was not launched "
+                    "in the SGD parts")
+    return counts
+
+
 def mesh_main_path(mesh, x, routes, nnls_routing) -> tuple:
     """Every rank of ``mesh`` (or this process at one rank): the mesh fits
     of ``routes`` (2 iterations, then ``predict`` of the first MESH_Q users
@@ -4366,10 +4652,11 @@ def mesh_main_path(mesh, x, routes, nnls_routing) -> tuple:
     return arrays, stats
 
 
-def _mesh_rank(rank, world, store, out_dir, share_card, nnls_routing):
+def _mesh_rank(rank, world, store, out_dir, share_card, nnls_routing,
+               ref_dir):
     """One rank of phase 12 (b) / (c), started by torch.multiprocessing:
     on ``cuda:0`` shared by every rank (gloo) or on a card of its own
-    (NCCL); the synthetic made again from its seed."""
+    (NCCL); the synthetics made again from their seeds."""
     if share_card:
         os.environ["CUDA_VISIBLE_DEVICES"] = "0"
     os.environ["LOCAL_RANK"], os.environ["LOCAL_WORLD_SIZE"] = (
@@ -4385,6 +4672,13 @@ def _mesh_rank(rank, world, store, out_dir, share_card, nnls_routing):
         if rank == 0:
             for name, a in arrays.items():
                 np.savez(os.path.join(out_dir, f"{name}.npz"), **a)
+        del arrays
+        import torch
+        torch.cuda.empty_cache()
+        stats["sgd"], outs = mesh_sgd_path(mesh, mesh_sgd_data(), ref_dir)
+        if rank == 0:
+            for name, a in outs.items():
+                np.savez(os.path.join(out_dir, f"sgd_{name}.npz"), **a)
         with open(os.path.join(out_dir, f"stats.{rank}.json"), "w") as f:
             json.dump(stats, f)
     finally:
@@ -4536,6 +4830,15 @@ def run_mesh(device, x, launches) -> None:
         f"{time.perf_counter() - t0:.1f} s")
     tmp = tempfile.mkdtemp(prefix="rsparse_mesh_")
     try:
+        t0 = time.perf_counter()
+        sgd_data = mesh_sgd_data()
+        log(f"  SGD inputs: hashed GLM {sgd_data[0].shape}, config #5 "
+            f"{sgd_data[2].shape}, config #4 {sgd_data[3].shape} "
+            f"({sgd_data[3].nnz} nnz) in {time.perf_counter() - t0:.1f} s; "
+            f"depth cut: FTRL / FM {MESH_SGD_PASSES} fit pass, RankMF "
+            f"n_iter={MESH_RANKMF_ITER} (8 batches), GloVe "
+            f"{MESH_GLOVE_EPOCHS} epoch")
+        sgd_refs = mesh_sgd_refs(device, sgd_data, tmp)
         log("phase 12 (a): one rank over NCCL in this process (the plain "
             "path and routing='alx'; NNLS routed)")
         multihost.initialize(f"file://{tmp}/store_a", 1, 0, timeout_s=600)
@@ -4543,12 +4846,15 @@ def run_mesh(device, x, launches) -> None:
             mesh = pmesh.make_mesh((1,), ("data",))
             require(mesh.backend == "nccl", f"(a) backend {mesh.backend}")
             arrays, stats = mesh_main_path(mesh, x, MESH_ROUTES[:2], "alx")
+            torch.cuda.empty_cache()
+            sgd_stats, sgd_outs = mesh_sgd_path(mesh, sgd_data, tmp)
         finally:
             dist.destroy_process_group()
         launches.append(log_mesh_rank("(a)", 0, stats))
         hold_exchange_bytes("(a)", [stats])
         hold_mesh("(a)", arrays, refs, q)
-        del arrays
+        launches.extend(log_mesh_sgd("(a)", [sgd_stats], sgd_outs, sgd_refs))
+        del arrays, sgd_outs, sgd_data
         torch.cuda.empty_cache()
         for part, world, share in (("(b)", 2, True), ("(c)", 2, False)):
             if not share and torch.cuda.device_count() < 2:
@@ -4566,7 +4872,7 @@ def run_mesh(device, x, launches) -> None:
             t0 = time.perf_counter()
             ctx = mp.start_processes(
                 _mesh_rank, args=(world, f"{out}/store", out, share,
-                                  "alx_ragged"),
+                                  "alx_ragged", tmp),
                 nprocs=world, join=False, start_method="spawn")
             try:
                 deadline = time.monotonic() + 600
@@ -4594,6 +4900,12 @@ def run_mesh(device, x, launches) -> None:
                 with np.load(os.path.join(out, f"{name}.npz")) as z:
                     arrays[name] = dict(z)
             hold_mesh(part, arrays, refs, q)
+            outs = {}
+            for name in sgd_refs:
+                with np.load(os.path.join(out, f"sgd_{name}.npz")) as z:
+                    outs[name] = dict(z)
+            launches.extend(log_mesh_sgd(part, [s["sgd"] for s in stats],
+                                         outs, sgd_refs))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4614,6 +4926,8 @@ KERNELS = {
     "fm": ("rsparse_tpu_torch/csrc/fm.cu", "rsparse_tpu/models/fm.py:39"),
     "rankmf": ("rsparse_tpu_torch/csrc/rankmf.cu",
                "rsparse_tpu/models/rankmf.py:202"),
+    "rankmf_rowmap": ("rsparse_tpu_torch/csrc/rankmf.cu",
+                      "rsparse_tpu/models/rankmf.py:202"),
     "glove": ("rsparse_tpu_torch/csrc/glove.cu",
               "rsparse_tpu/models/glove.py:50, rsparse_tpu/models/glove.py:109"),
     "glove_dense": ("rsparse_tpu_torch/csrc/glove_dense.cu",

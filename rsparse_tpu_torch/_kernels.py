@@ -53,7 +53,8 @@ MAX_D = {"als_cg": 514, "als_chol": 514, "als_nnls": 160}
 #: K1 and K2 at d > 160, K10 and K11 at r > 128)
 launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "als_nnls": 0,
                             "topk": 0, "spmm": 0, "spmm_residual": 0,
-                            "ftrl": 0, "fm": 0, "rankmf": 0, "glove": 0,
+                            "ftrl": 0, "fm": 0, "rankmf": 0,
+                            "rankmf_rowmap": 0, "glove": 0,
                             "glove_dense": 0, "hot_chain": 0, "gather": 0,
                             "gather_lanes": 0, "als_cg_wide": 0,
                             "als_chol_wide": 0, "glove_wide": 0,
@@ -162,7 +163,7 @@ class RankMFArgs(ctypes.Structure):
         "bits", "flat_idx", "indptr", "row_nnz", "table", "boff", "bmask",
         "bshift", "uf_idx", "uf_val", "uf_mask", "if_idx", "if_val",
         "if_mask", "W", "H", "accW", "accH", "iscratch", "fscratch", "cntW",
-        "cntH", "counters")] + [
+        "cntH", "counters", "wmap", "hmap")] + [
         (name, ctypes.c_int) for name in (
             "S", "K", "r", "n_user", "n_item", "flat_len", "lanes", "Fu",
             "Fi", "loss", "kernel", "optimizer", "update_items")] + [

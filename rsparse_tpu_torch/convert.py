@@ -22,6 +22,10 @@ and ``get_similar_items`` then compute what the reference's do:
   :func:`glove_state_from_numpy` the port's ``GloveState`` from the
   reference's (``m._state``, 8 arrays).
 
+The SGD functions take ``mesh=`` (a ``parallel.mesh.Mesh``, every rank
+calling with the same arrays): the model is made on that mesh with the
+state carried across row-sharded (``parallel/sgd_sharded.py``).
+
 Nothing of the reference is imported.
 """
 
@@ -128,11 +132,21 @@ def _tensor(a, m):
     return torch.tensor(np.asarray(a), dtype=m.dtype, device=m.device)
 
 
+def _table(a, m):
+    """A state table on the model's device, or its row shard on the
+    model's mesh."""
+    if m.mesh is None:
+        return _tensor(a, m)
+    from .parallel.sgd_sharded import shard_table
+    return shard_table(np.asarray(a), m.mesh, dtype=m.dtype)
+
+
 def ftrl_from_numpy(z: np.ndarray, n: np.ndarray, **ftrl_kwargs) -> FTRL:
     """A fitted port FTRL from the reference model's (F + 1,) ``z`` and
     ``n`` (the last row is the padding feature); ``ftrl_kwargs`` go to
     :class:`FTRL` (pass its learning rates, ``lambda_``, ``l1_ratio``,
-    ``dropout``, ``family`` and ``precision``)."""
+    ``dropout``, ``family`` and ``precision``, and ``mesh`` to shard the
+    table)."""
     m = FTRL(**ftrl_kwargs)
     m._set_state(z, n)
     return m
@@ -145,7 +159,8 @@ def fm_from_numpy(w0, acc_w0, w: np.ndarray, v: np.ndarray,
     scalars ``w0``/``acc_w0``, (F + 1,) ``w``/``acc_w`` and (F + 1, r)
     ``v``/``acc_v``; ``fm_kwargs`` go to :class:`FactorizationMachine`
     (pass its learning rates, lambdas, ``family``, ``intercept`` and
-    ``precision``); ``rank`` defaults to ``v.shape[1]``."""
+    ``precision``, and ``mesh`` to shard the tables); ``rank`` defaults to
+    ``v.shape[1]``."""
     v = np.asarray(v)
     if v.ndim != 2 or np.shape(w) != (v.shape[0],):
         raise ValueError("expected w (F + 1,) and v (F + 1, r)")
@@ -153,8 +168,8 @@ def fm_from_numpy(w0, acc_w0, w: np.ndarray, v: np.ndarray,
     m = FactorizationMachine(**fm_kwargs)
     m.n_features = v.shape[0] - 1
     m.w0, m.acc_w0 = _tensor(w0, m), _tensor(acc_w0, m)
-    m.w, m.v = _tensor(w, m), _tensor(v, m)
-    m.acc_w, m.acc_v = _tensor(acc_w, m), _tensor(acc_v, m)
+    m.w, m.v = _table(w, m), _table(v, m)
+    m.acc_w, m.acc_v = _table(acc_w, m), _table(acc_v, m)
     return m
 
 
@@ -166,17 +181,17 @@ def rankmf_from_numpy(user_emb: np.ndarray, item_emb: np.ndarray,
     """A fitted port RankMF from the reference model's (n_user_feat, r) and
     (n_item_feat, r) feature embeddings and their accumulators, with the
     side-feature matrices it was fitted with (None: identity features);
-    ``rankmf_kwargs`` go to :class:`RankMF`; ``rank`` defaults to
-    ``user_emb.shape[1]``.  ``transform``, ``components`` and ``predict``
-    then give the reference's, and ``partial_fit_transform`` continues from
-    this state."""
+    ``rankmf_kwargs`` go to :class:`RankMF` (``mesh`` shards the tables);
+    ``rank`` defaults to ``user_emb.shape[1]``.  ``transform``,
+    ``components`` and ``predict`` then give the reference's, and
+    ``partial_fit_transform`` continues from this state."""
     import scipy.sparse as sp
     user_emb, item_emb = np.asarray(user_emb), np.asarray(item_emb)
     rankmf_kwargs.setdefault("rank", user_emb.shape[1])
     m = RankMF(**rankmf_kwargs)
-    m.user_features_embeddings = _tensor(user_emb, m)
-    m.item_features_embeddings = _tensor(item_emb, m)
-    m._accW, m._accH = _tensor(acc_user, m), _tensor(acc_item, m)
+    m.user_features_embeddings = _table(user_emb, m)
+    m.item_features_embeddings = _table(item_emb, m)
+    m._accW, m._accH = _table(acc_user, m), _table(acc_item, m)
     m._nuf, m._nif = user_emb.shape[0], item_emb.shape[0]
     m._identity_user_feats = user_features is None
     m._identity_item_feats = item_features is None
@@ -206,9 +221,10 @@ def glove_from_numpy(w_i: np.ndarray, w_j: np.ndarray, b_i: np.ndarray,
     """A fitted port GloVe from the reference model's (n, r) embeddings
     ``w_i`` (what ``fit_transform`` returned) and context embeddings ``w_j``
     (``m.components.T``), and its (n,) biases; ``glove_kwargs`` go to
-    :class:`GloVe` (pass its ``x_max`` and ``precision``); ``rank``
-    defaults to ``w_i.shape[1]``.  Sets ``components``, ``bias_i``,
-    ``bias_j`` and the state (accumulators at ones)."""
+    :class:`GloVe` (pass its ``x_max`` and ``precision``, and ``mesh`` to
+    shard the state); ``rank`` defaults to ``w_i.shape[1]``.  Sets
+    ``components``, ``bias_i``, ``bias_j`` and the state (accumulators at
+    ones)."""
     w_i, w_j = np.asarray(w_i), np.asarray(w_j)
     n = w_i.shape[0]
     if (w_i.ndim != 2 or w_j.shape != w_i.shape or np.shape(b_i) != (n,)
@@ -217,6 +233,11 @@ def glove_from_numpy(w_i: np.ndarray, w_j: np.ndarray, b_i: np.ndarray,
     glove_kwargs.setdefault("rank", w_i.shape[1])
     m = GloVe(**glove_kwargs)
     ones = [np.ones_like(a) for a in (w_i, w_j, b_i, b_j)]
-    m._set_fitted(glove_state_from_numpy(
-        [w_i, w_j, b_i, b_j, *ones], m.dtype, m.device))
+    st = glove_state_from_numpy([w_i, w_j, b_i, b_j, *ones], m.dtype,
+                                m.device if m.mesh is None else "cpu")
+    if m.mesh is not None:
+        from .parallel.sgd_sharded import shard_table
+        st = GloveState(*(shard_table(t, m.mesh) for t in st))
+        m._n_vocab = n
+    m._set_fitted(st)
     return m

@@ -51,6 +51,15 @@
 // sample keeps S = 8192 samples in flight at once.  The atomic sums over
 // duplicate features add in an order that changes from run to run (f32
 // rounding).
+//
+// Row-map mode (a mesh fit, rsparse_tpu_torch/parallel/sgd_sharded.py):
+// with `wmap` / `hmap` set, W / accW (cntW) and H / accH (cntH) are compact
+// tables of the rows the batch reaches, and every read and write of feature
+// row f goes to row map[f] (global feature row -> compact row, built by
+// the caller from the same bits).  The entity ids the bits decode, the
+// feature lists and the hash sets stay global, so the samples, their
+// candidates and their order are the one-process batch's; one more
+// dependent load a row.  Both maps null is the one-process launch.
 
 #include "common.cuh"
 
@@ -97,6 +106,8 @@ struct RankMFArgs {
   float* cntH;                    // (n_item_feat,) zeroed (RMSprop, items)
   unsigned long long* counters;   // (4,) auc_num, valid (at least 1),
                                   // found, tried: zeroed here
+  const int* wmap;                // (n_user_feat,) compact row, or null
+  const int* hmap;                // (n_item_feat,) compact row, or null
   int S, K, r, n_user, n_item, flat_len, lanes, Fu, Fi, loss, kernel,
       optimizer, update_items;
   float lr, gamma, lam_u, lam_ip, lam_in, margin, norm;
@@ -109,19 +120,20 @@ struct FeatList {
   const float* val;
   const unsigned char* mask;
   int F;
+  const int* map;                 // feature row -> table row, or null
 
   __device__ int count() const { return idx ? F : 1; }
-  // The l-th feature of entity id: false at padding.
+  // The table row of the l-th feature of entity id: false at padding.
   __device__ bool at(int id, int l, int* f, float* x) const {
-    if (!idx) {
-      *f = id;
-      *x = 1.f;
-      return true;
+    int g = id;
+    *x = 1.f;
+    if (idx) {
+      const size_t q = (size_t)id * F + l;
+      if (!mask[q]) return false;
+      g = idx[q];
+      *x = val[q];
     }
-    const size_t q = (size_t)id * F + l;
-    if (!mask[q]) return false;
-    *f = idx[q];
-    *x = val[q];
+    *f = map ? __ldg(map + g) : g;
     return true;
   }
 };
@@ -158,10 +170,10 @@ __device__ __forceinline__ float dot(const float (&a)[kRpl],
 }
 
 __device__ __forceinline__ FeatList user_feats(const RankMFArgs& a) {
-  return FeatList{a.uf_idx, a.uf_val, a.uf_mask, a.Fu};
+  return FeatList{a.uf_idx, a.uf_val, a.uf_mask, a.Fu, a.wmap};
 }
 __device__ __forceinline__ FeatList item_feats(const RankMFArgs& a) {
-  return FeatList{a.if_idx, a.if_val, a.if_mask, a.Fi};
+  return FeatList{a.if_idx, a.if_val, a.if_mask, a.Fi, a.hmap};
 }
 // Features per entity in the RMSprop snapshot: max(Fu, Fi, 1).
 __host__ __device__ __forceinline__ int old_stride(const RankMFArgs& a) {
@@ -545,7 +557,8 @@ extern "C" int rsp_rankmf_batch(const RankMFArgs* args, int stages,
   if (a.r < 1 || a.r > kMaxR || a.K < 1 || a.n_user < 1 || a.n_item < 1 ||
       a.flat_len < 1 || a.lanes < 1 || a.lanes > 32 ||
       (stages != 1 && stages != 2) ||
-      (a.optimizer == 1 && (!a.cntW || (a.update_items && !a.cntH))))
+      (a.optimizer == 1 && (!a.cntW || (a.update_items && !a.cntH))) ||
+      (!a.wmap != !a.hmap))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(a.counters, 0, 4 * sizeof(*a.counters), st);

@@ -25,6 +25,14 @@ by 1/(1 - dropout) (:133-143); the keep mask comes from the model's
 
 (z, n) are updated in place.  On the card the kernel takes float32:
 ``precision="double"`` runs on the CPU only.
+
+On a mesh (``mesh=parallel.mesh.make_mesh(...)``, every rank calling the
+same code) ``zn`` is this rank's row shard of the (F + 1, 2) table
+(``parallel/sgd_sharded.py``): each block gathers its features' pairs into
+one contiguous compact pair table (one all-reduce), runs K7 on it with the
+block relabelled (``ops/segsum.py`` ``compact_glm_block``) and writes back
+the pairs this rank owns.  Every rank draws the same keep masks (the same
+seed); ``z``, ``n``, ``coef``, ``dump`` and ``predict`` see whole tables.
 """
 
 from __future__ import annotations
@@ -37,7 +45,9 @@ import torch
 
 from .. import _kernels
 from ..config import logger, resolve_full_dtype
-from ..ops.segsum import GLMBlock, staged_glm_blocks, staged_label_gathers
+from ..ops.segsum import (GLMBlock, compact_glm_block, staged_glm_blocks,
+                          staged_label_gathers)
+from ..parallel import sgd_sharded as sgd
 
 _FAMILY_CODES = {"binomial": 1, "gaussian": 2, "poisson": 3}
 CLIP_GRAD = 1000.0
@@ -196,9 +206,6 @@ class FTRL:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (row-sharded tables) is not ported yet; see ROADMAP.md")
         if not 0 <= dropout < 1:
             raise ValueError("dropout must be in [0, 1)")
         if not 0 <= l1_ratio <= 1:
@@ -217,31 +224,55 @@ class FTRL:
         self.precision = precision
         self.dtype = resolve_full_dtype(precision)
         self.device = torch.device(device)
-        self.mesh = None
+        #: a ``parallel.mesh.Mesh``: (z, n) row-sharded over its table axes
+        #: (``parallel/sgd_sharded.py``); None runs on ``device``
+        self.mesh = mesh
+        self._ops = None
+        if mesh is not None:
+            self._ops = sgd.ShardedOps(mesh)
+            self.device = mesh.device
         self.n_features: Optional[int] = None
         #: the (F + 1, 2) table of (z, n), the last row the padding feature
+        #: (on a mesh this rank's row shard of it)
         self.zn: Optional[torch.Tensor] = None
         self._seed = seed if seed is not None else 0
         self._generator: Optional[torch.Generator] = None
 
+    def _zn_whole(self) -> Optional[torch.Tensor]:
+        """The whole (F + 1, 2) table (on a mesh an all-gather: every rank
+        calls it)."""
+        if self.zn is None or self.mesh is None:
+            return self.zn
+        return sgd.unshard(self.zn, self.n_features + 1, self.mesh)
+
     @property
     def z(self) -> Optional[torch.Tensor]:
-        """(F + 1,) z: column 0 of ``zn``, a view."""
-        return None if self.zn is None else self.zn[:, 0]
+        """(F + 1,) z: column 0 of ``zn``, a view (on a mesh, of the whole
+        table gathered)."""
+        zn = self._zn_whole()
+        return None if zn is None else zn[:, 0]
 
     @property
     def n(self) -> Optional[torch.Tensor]:
-        """(F + 1,) n: column 1 of ``zn``, a view."""
-        return None if self.zn is None else self.zn[:, 1]
+        """(F + 1,) n: column 1 of ``zn``, a view (on a mesh, of the whole
+        table gathered)."""
+        zn = self._zn_whole()
+        return None if zn is None else zn[:, 1]
+
+    def _sharded_tables(self) -> Dict[str, int]:
+        """The row-sharded tables on a mesh and their logical rows."""
+        return {} if self.n_features is None else {
+            "zn": self.n_features + 1}
 
     def _set_state(self, z, n) -> None:
-        """``zn`` from (F + 1,) arrays z and n."""
+        """``zn`` from (F + 1,) arrays z and n (row-sharded on a mesh)."""
         z, n = np.asarray(z), np.asarray(n)
         if z.ndim != 1 or z.shape != n.shape:
             raise ValueError("expected z and n of one (F + 1,) shape")
         self.n_features = z.shape[0] - 1
-        self.zn = torch.tensor(np.stack([z, n], 1), dtype=self.dtype,
-                               device=self.device)
+        zn = torch.tensor(np.stack([z, n], 1), dtype=self.dtype)
+        self.zn = (zn.to(self.device) if self.mesh is None
+                   else sgd.shard_table(zn, self.mesh))
 
     @property
     def _gen(self) -> torch.Generator:
@@ -263,8 +294,10 @@ class FTRL:
     def _ensure_state(self, n_features: int):
         if self.n_features is None:
             self.n_features = n_features
-            self.zn = torch.zeros((n_features + 1, 2), dtype=self.dtype,
-                                  device=self.device)
+            self.zn = (torch.zeros((n_features + 1, 2), dtype=self.dtype,
+                                   device=self.device) if self.mesh is None
+                       else sgd.full_table(n_features + 1, (2,), 0.0,
+                                           self.mesh, self.dtype))
         elif n_features != self.n_features:
             raise ValueError(
                 f"feature count mismatch: model has {self.n_features}, "
@@ -288,20 +321,39 @@ class FTRL:
                                       zero_pad_weight=False)
         return n_rows, blocks, labels
 
+    def _block(self, blk, y_b, w_b, keep, do_update):
+        """One block on the model's tables; on a mesh, on the compact pair
+        table of its features (module docstring)."""
+        args = (y_b, w_b, self.learning_rate, self.learning_rate_decay,
+                self._l1, self._l2, self.dropout, keep, self.family_code,
+                do_update)
+        if self.mesh is None:
+            return _ftrl_block(self.zn[:, 0], self.zn[:, 1], blk, *args)
+        ops, cb = self._ops, compact_glm_block(blk)
+        zc = ops.gather(self.zn, cb.ids)
+        with ops.phase("kernel_s"):
+            yh = _ftrl_block(zc[:, 0], zc[:, 1], cb.block, *args)
+        if do_update:
+            U = blk.feats.shape[0]
+            sgd.put_rows(ops, (self.zn,), cb.ids[:U], (zc[:U],))
+        return yh
+
     def _run_staged(self, staged, do_update=False, materialize=True):
         n_rows, blocks, labels = staged
         use_dropout = do_update and self.dropout > 0
         outs = []
+        draws = 0    # on a mesh: the masks' running checksum
         for blk, (y_b, w_b) in zip(blocks, labels):
             keep = None
             if use_dropout:
                 keep = torch.rand(blk.values.shape, generator=self._gen,
                                   device=self.device) > self.dropout
-            yh = _ftrl_block(self.z, self.n, blk, y_b, w_b,
-                             self.learning_rate, self.learning_rate_decay,
-                             self._l1, self._l2, self.dropout, keep,
-                             self.family_code, do_update)
+                if self.mesh is not None:
+                    draws = draws + sgd.checksum(keep)
+            yh = self._block(blk, y_b, w_b, keep, do_update)
             outs.append((blk.row_ids, yh))
+        if use_dropout and self.mesh is not None:
+            self._ops.check_same(draws, "FTRL dropout masks")
         if not materialize:
             return None
         y_hat = np.empty(n_rows, np.float64)
@@ -339,7 +391,8 @@ class FTRL:
         """Regression weights from the (z, n) state, (n_features,)
         (reference src/FTRL.cpp:59-75)."""
         F = self.n_features
-        w = _lazy_weights(self.z[:F], self.n[:F], self.learning_rate,
+        zn = self._zn_whole()
+        w = _lazy_weights(zn[:F, 0], zn[:F, 1], self.learning_rate,
                           self.learning_rate_decay, self._l1, self._l2)
         return w.double().cpu().numpy()
 
@@ -348,6 +401,7 @@ class FTRL:
     def dump(self) -> Dict:
         if self.n_features is None:
             raise RuntimeError("model is not fitted")
+        zn = self._zn_whole()
         return {
             "kind": "ftrl_model_dump",
             "learning_rate": self.learning_rate,
@@ -355,22 +409,23 @@ class FTRL:
             "lambda": self.lambda_, "l1_ratio": self.l1_ratio,
             "dropout": self.dropout, "family": self.family,
             "n_features": self.n_features,
-            "z": self.z.cpu().numpy().copy(),
-            "n": self.n.cpu().numpy().copy(),
+            "z": zn[:, 0].cpu().numpy().copy(),
+            "n": zn[:, 1].cpu().numpy().copy(),
         }
 
     @classmethod
-    def load(cls, d: Dict, precision: str = "float32",
-             device="cuda") -> "FTRL":
+    def load(cls, d: Dict, precision: str = "float32", device="cuda",
+             mesh=None) -> "FTRL":
         """A model from :meth:`dump`'s dict (the reference's dump loads
-        too: its z and n are numpy arrays)."""
+        too: its z and n are numpy arrays); with ``mesh`` its tables are
+        row-sharded there."""
         if d.get("kind") != "ftrl_model_dump":
             raise ValueError("input should be an ftrl_model_dump dict")
         m = cls(learning_rate=d["learning_rate"],
                 learning_rate_decay=d["learning_rate_decay"],
                 lambda_=d["lambda"], l1_ratio=d["l1_ratio"],
                 dropout=d["dropout"], family=d["family"],
-                precision=precision, device=device)
+                precision=precision, device=device, mesh=mesh)
         m._set_state(d["z"], d["n"])
         if m.n_features != int(d["n_features"]):
             raise ValueError("n_features does not match z and n")

@@ -31,6 +31,18 @@ at the widths ``GLOVE_WIDTHS`` and takes a rank on the narrowest that holds
 it, :func:`glove_width`), and the head a float32 or bfloat16 grid:
 ``precision="double"`` runs on the CPU only.  A wider rank raises
 NotImplementedError on the card.
+
+On a mesh (``mesh=parallel.mesh.make_mesh(...)``, every rank calling the
+same code) the eight ``GloveState`` tables are this rank's row shards of a
+vocabulary padded to the mesh (``parallel/sgd_sharded.py``).  A head pass
+gathers the head tokens' rows of all eight tables once (one all-reduce),
+runs every tile on them with the tiles' ids relabelled to head positions,
+and writes back the rows this rank owns; a tail shard gathers its row
+side's four tables at its row ids and its column side's at its column ids
+and runs K10 with the shard relabelled to slots (:func:`compact_shard`).
+Every rank draws the same shuffle (the same seed; checked at the end of
+each fit); the embeddings returned, ``components`` and the biases are
+whole.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ import torch
 from .. import _kernels
 from ..config import logger, resolve_dtype, resolve_full_dtype, to_bf16
 from ..ops.segsum import ShardMaps, shard_slot_maps
+from ..parallel import sgd_sharded as sgd
 
 CLIP_VALUE = 100.0
 #: the widths K10 and K11 are built at (csrc/glove.cu,
@@ -181,10 +194,13 @@ def glove_width(r: int) -> int:
 
 
 def _check_state(st: GloveState) -> int:
-    """Raise unless the tables are what K10 and K11 take; returns r."""
-    n, r = st.w_i.shape
+    """Raise unless the tables are what K10 and K11 take; returns r.  The
+    row side's four tables share one row count and the column side's
+    another (a mesh step's compact tables; one process: both n)."""
+    r = st.w_i.shape[1]
     glove_width(r)
     for name, t in zip(GloveState._fields, st):
+        n = (st.w_i if name.endswith("_i") else st.w_j).shape[0]
         _kernels.check_tensor(name, t, (n, r) if name.startswith(
             ("w_", "acc_w_")) else (n,), torch.float32)
     return r
@@ -235,11 +251,45 @@ def _glove_shard(st: GloveState, sh: Shard, x_max: float, alpha: float,
     return fn(st, sh, float(x_max), float(alpha), float(lr))
 
 
+def compact_shard(sh: Shard) -> Shard:
+    """``sh`` relabelled onto compact tables (a mesh step): each side's
+    ids become its slots (the compact row of ``feats[u]`` is u), its
+    ``feats`` ``0..U-1``; padding entries read row 0 (neither K10 nor its
+    plain version reads them)."""
+    U_r, U_c = sh.feats_r.shape[0], sh.feats_c.shape[0]
+    valid = sh.slot_r < U_r
+    ar = lambda n: torch.arange(n, dtype=torch.int32,  # noqa: E731
+                                device=sh.rows.device)
+    return sh._replace(rows=torch.where(valid, sh.slot_r, 0),
+                       cols=torch.where(valid, sh.slot_c, 0),
+                       feats_r=ar(U_r), feats_c=ar(U_c))
+
+
+def _mesh_shard(ops, st: GloveState, sh: Shard, x_max: float, alpha: float,
+                lr: float) -> torch.Tensor:
+    """One tail shard on row-sharded tables: the row side's four tables
+    gathered at ``feats_r``, the column side's at ``feats_c`` (one
+    all-reduce), K10 on the compact shard, this rank's rows written
+    back."""
+    row_t, col_t = st[0::2], st[1::2]     # (w, b, acc_w, acc_b) a side
+    parts = ops.gather_many([(t, sh.feats_r) for t in row_t]
+                            + [(t, sh.feats_c) for t in col_t])
+    cst = GloveState(*(parts[k // 2 + 4 * (k % 2)] for k in range(8)))
+    with ops.phase("kernel_s"):
+        loss = _glove_shard(cst, compact_shard(sh), x_max, alpha, lr)
+    sgd.put_rows(ops, row_t, sh.feats_r, cst[0::2])
+    sgd.put_rows(ops, col_t, sh.feats_c, cst[1::2])
+    return loss
+
+
 def _glove_epoch(st: GloveState, shards: Shards, x_max: float, alpha: float,
-                 lr: float) -> torch.Tensor:
+                 lr: float, ops=None) -> torch.Tensor:
     """One pass over the staged tail (rsparse_tpu/models/glove.py:103):
-    its loss 0.5 * sum(cost * inner), on the device."""
-    losses = [_glove_shard(st, shards.shard(s), x_max, alpha, lr)
+    its loss 0.5 * sum(cost * inner), on the device.  With ``ops`` (a
+    mesh's ``ShardedOps``) the tables are row shards."""
+    step = (_glove_shard if ops is None
+            else lambda *a: _mesh_shard(ops, *a))  # noqa: E731
+    losses = [step(st, shards.shard(s), x_max, alpha, lr)
               for s in range(shards.rows.shape[0])]
     if not losses:
         return torch.zeros((), dtype=st.w_i.dtype, device=st.w_i.device)
@@ -329,9 +379,23 @@ def _glove_tile(st: GloveState, rows, cols, x, x_max: float, alpha: float,
 
 
 def _glove_dense_step(st: GloveState, head: HeadGrid, x_max: float,
-                      alpha: float, lr: float, cdt: torch.dtype):
+                      alpha: float, lr: float, cdt: torch.dtype, ops=None):
     """One pass over the head's tiles in the reference's order ti * nt +
-    tj (rsparse_tpu/models/glove.py:296): its loss 0.5 * sum(cost * S)."""
+    tj (rsparse_tpu/models/glove.py:296): its loss 0.5 * sum(cost * S).
+    With ``ops`` (a mesh's ``ShardedOps``) the tables are row shards: the
+    head's rows of all eight are gathered once for the pass, the tiles run
+    on them (ids relabelled to head positions) and this rank's rows are
+    written back."""
+    if ops is not None:
+        ids = head.ids
+        cst = GloveState(*ops.gather_many([(t, ids) for t in st]))
+        pos = torch.arange(ids.shape[0], dtype=torch.int32,
+                           device=ids.device)
+        with ops.phase("kernel_s"):
+            loss = _glove_dense_step(cst, head._replace(ids=pos), x_max,
+                                     alpha, lr, cdt)
+        sgd.put_rows(ops, st, ids, cst)
+        return loss
     H, side = head.ids.shape[0], head.side
     spans = [(t * side, min(H, (t + 1) * side)) for t in range(head.nt)]
     losses = [_glove_tile(st, head.ids[a0:a1], head.ids[b0:b1],
@@ -458,14 +522,15 @@ class GloVe:
         compute_dtype: Optional[str] = None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (row-sharded tables) is not ported yet; see ROADMAP.md")
         self.rank = int(rank)
         #: dense-head grid and product-operand dtype ("bfloat16"); state,
         #: biases, accumulators and the loss stay at ``precision``
         self.compute_dtype = compute_dtype
-        self.mesh = None
+        #: a ``parallel.mesh.Mesh``: the eight state tables row-sharded
+        #: over its table axes (``parallel/sgd_sharded.py``); None runs on
+        #: ``device``
+        self.mesh = mesh
+        self._ops = None
         self.x_max = float(x_max)
         self.learning_rate = float(learning_rate)
         self.alpha = float(alpha)
@@ -476,6 +541,9 @@ class GloVe:
         self.dtype = resolve_full_dtype(precision)
         self._cdt = _compute_dtype(compute_dtype, self.dtype)
         self.device = torch.device(device)
+        if mesh is not None:
+            self._ops = sgd.ShardedOps(mesh)
+            self.device = mesh.device
         self._rng = np.random.default_rng(seed)
         self._init = init or {}
         self.components = None   # (rank, n) context embeddings w_j
@@ -487,8 +555,17 @@ class GloVe:
         self.stage_info = {}
 
     def _init_state(self, n: int) -> GloveState:
+        """The eight tables (on a mesh every rank draws them whole and
+        keeps its row shards)."""
+        st = self._init_whole(n)
+        if self.mesh is None:
+            return st
+        return GloveState(*(sgd.shard_table(t, self.mesh) for t in st))
+
+    def _init_whole(self, n: int) -> GloveState:
         k = self.rank
-        kw = dict(dtype=self.dtype, device=self.device)
+        kw = dict(dtype=self.dtype,
+                  device=self.device if self.mesh is None else "cpu")
 
         def initm(name, shape):
             v = self._init.get(name)
@@ -552,6 +629,7 @@ class GloVe:
             "shards": 0 if tail is None else tail.rows.shape[0],
             "epoch_s": []}
         hp = (self.x_max, self.alpha, self.learning_rate)
+        draws = 0    # on a mesh: the shuffles' running checksum
         for it in range(n_iter):
             t0 = time.perf_counter()
             if self.shuffle:
@@ -561,6 +639,8 @@ class GloVe:
                 seed = int(self._rng.integers(2 ** 31))
                 if tail is not None:
                     tail = _shuffle_shards(tail, seed)
+                    if self.mesh is not None:
+                        draws = draws + sgd.checksum(tail.rows)
             parts = []
             passes = [(head, tail)]
             if is_triangular:
@@ -568,9 +648,10 @@ class GloVe:
                                tail and tail.swapped()))
             for h, t in passes:
                 if h is not None:
-                    parts.append(_glove_dense_step(st, h, *hp, self._cdt))
+                    parts.append(_glove_dense_step(st, h, *hp, self._cdt,
+                                                   ops=self._ops))
                 if t is not None:
-                    parts.append(_glove_epoch(st, t, *hp))
+                    parts.append(_glove_epoch(st, t, *hp, ops=self._ops))
             cost = sum(float(p) for p in parts)
             info["epoch_s"].append(time.perf_counter() - t0)
             if np.isnan(cost):
@@ -587,14 +668,27 @@ class GloVe:
                 logger.info("early stopping at epoch %d", it + 1)
                 break
 
+        if self.shuffle and self.mesh is not None:
+            self._ops.check_same(draws, "GloVe shuffles")
+        self._n_vocab = n
         self._set_fitted(st)
-        return st.w_i
+        return self._whole(st.w_i)
+
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        """A state table whole (on a mesh an all-gather: every rank calls
+        it)."""
+        if self.mesh is None:
+            return t
+        return sgd.unshard(t, self._n_vocab, self.mesh)
 
     def _set_fitted(self, st: GloveState) -> None:
+        """Keep the state (on a mesh its row shards) and the whole
+        ``components``, ``bias_i`` and ``bias_j``."""
         self._state = st
-        self.components = st.w_j.T.cpu().numpy()  # (rank, n), like w_j
-        self.bias_i = st.b_i.cpu().numpy()
-        self.bias_j = st.b_j.cpu().numpy()
+        # (rank, n), like w_j
+        self.components = self._whole(st.w_j).T.cpu().numpy()
+        self.bias_i = self._whole(st.b_i).cpu().numpy()
+        self.bias_j = self._whole(st.b_j).cpu().numpy()
 
     def get_history(self):
         return {"cost_history": list(self.cost_history)}

@@ -21,6 +21,17 @@ read the batch-start tables; duplicates accumulate (accumulator first).
 On the card one batch is K9 (``csrc/rankmf.cu``); :func:`_rankmf_batch_plain`
 is its plain PyTorch version, which CPU tensors take.  K9 takes float32
 and a rank of at most ``MAX_RANK``.
+
+On a mesh (``mesh=parallel.mesh.make_mesh(...)``, every rank calling the
+same code) W, H, accW and accH are this rank's row shards
+(``parallel/sgd_sharded.py``).  K9 turns the bits into table rows inside
+the kernel, so a batch's rows cannot be relabelled beforehand: each batch
+finds the feature rows its bits reach (:func:`batch_rows`, on the device),
+gathers them of the four tables (one all-reduce), runs K9 in its row-map
+mode (feature row -> compact row, two (n_feat,) int32 maps kept by the
+model and reset after each batch) and writes back the rows this rank owns.
+Every rank draws the same bits (the same seed; checked at the end of each
+call); ``components``, ``transform`` and the embeddings returned are whole.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import torch
 
 from .. import _kernels
 from ..config import logger, resolve_full_dtype
+from ..parallel import sgd_sharded as sgd
 from ..sparse.device import staged_cached
 from .base import MatrixFactorizationRecommender, get_names
 
@@ -94,13 +106,20 @@ def _pad_features(feats: sp.csr_matrix, dtype, device) -> _Feats:
                   torch.from_numpy(mask).to(device))
 
 
+def _rows(rowmap: Optional[torch.Tensor], f: torch.Tensor) -> torch.Tensor:
+    """Table rows of feature rows ``f``: ``rowmap[f]`` in K9's row-map mode
+    (compact tables), else ``f``."""
+    return f.long() if rowmap is None else rowmap[f.long()].long()
+
+
 def _combine(emb: torch.Tensor, feats: Optional[_Feats],
-             ids: torch.Tensor) -> torch.Tensor:
+             ids: torch.Tensor,
+             rowmap: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Feature-combined embeddings of entities ``ids``: (..., r).
     ``feats=None`` is the identity feature matrix: one row gather."""
     if feats is None:
-        return emb[ids]
-    fi = feats.idx[ids].long()                  # (..., F)
+        return emb[_rows(rowmap, ids)]
+    fi = _rows(rowmap, feats.idx[ids])          # (..., F)
     fv = torch.where(feats.mask[ids], feats.val[ids], 0.0)
     return torch.einsum("...f,...fr->...r", fv, emb[fi])
 
@@ -189,16 +208,17 @@ class BatchParams(NamedTuple):
     margin: float
 
 
-def _apply_plain(emb, acc, feats, ids, grad, lam, comb, lr, gamma, optimizer):
+def _apply_plain(emb, acc, feats, ids, grad, lam, comb, lr, gamma, optimizer,
+                 rowmap=None):
     """Scatter one stacked entity set's update into its feature embeddings
     (rsparse_tpu/models/rankmf.py:290-329)."""
     r = emb.shape[1]
     nz = (grad != 0).any(1)
     if feats is None:
-        fi = ids[:, None]
+        fi = _rows(rowmap, ids[:, None])
         fmask = nz[:, None]
     else:
-        fi = feats.idx[ids].long()
+        fi = _rows(rowmap, feats.idx[ids])
         fmask = feats.mask[ids] & nz[:, None]
     g2 = (grad * grad).sum(1) / r
     flat = fi.reshape(-1)
@@ -231,12 +251,16 @@ def _first_acceptable(acceptable: torch.Tensor, valid: torch.Tensor):
 
 def _rankmf_batch_plain(W, H, accW, accH, bits, pos: _Positives,
                         uf: Optional[_Feats], itf: Optional[_Feats],
-                        hp: BatchParams, cfg: BatchConfig, n_item: int):
+                        hp: BatchParams, cfg: BatchConfig, n_item: int,
+                        wmap: Optional[torch.Tensor] = None,
+                        hmap: Optional[torch.Tensor] = None):
     """Plain version of K9 (rsparse_tpu/models/rankmf.py:202) on the JAX
     package's arithmetic: samples from ``bits`` (S, K + 2), scores every
     candidate, takes the first acceptable one, then updates W, H, accW
     and accH in place.  Returns int64 counters [auc_num, auc_den, found,
-    n_tried] (auc_den = max(valid samples, 1))."""
+    n_tried] (auc_den = max(valid samples, 1)).  With ``wmap`` / ``hmap``
+    (K9's row-map mode, :func:`batch_rows`) the tables are compact and
+    feature row f is table row ``map[f]``."""
     S, K = cfg.S, cfg.K
     b = bits.long() & 0xFFFFFFFF
     n_user = pos.row_nnz.shape[0]
@@ -247,12 +271,12 @@ def _rankmf_batch_plain(W, H, accW, accH, bits, pos: _Positives,
     pos_off = b[:, 1] % nnz_u.clamp(min=1)
     i = pos.flat_idx[(p1 + pos_off).clamp(0, pos.flat_idx.shape[0] - 1)
                      ].long()
-    w_u = _combine(W, uf, u)
-    h_i = _combine(H, itf, i)
+    w_u = _combine(W, uf, u, wmap)
+    h_i = _combine(H, itf, i, hmap)
     j_cand = b[:, 2:] % n_item
     is_neg = ~_in_hash_set(pos.table, pos.boff, pos.bmask, pos.bshift, u,
                            j_cand)
-    h_j_all = _combine(H, itf, j_cand)                   # (S, K, r)
+    h_j_all = _combine(H, itf, j_cand, hmap)             # (S, K, r)
     r_ui = (w_u * h_i).sum(1)
     r_uj = torch.einsum("sr,skr->sk", w_u, h_j_all)
     if cfg.kernel == SIGMOID:
@@ -286,12 +310,13 @@ def _rankmf_batch_plain(W, H, accW, accH, bits, pos: _Positives,
     full = lambda v: torch.full((S,), v, dtype=W.dtype,  # noqa: E731
                                 device=W.device)
     _apply_plain(W, accW, uf, u, grad_u, full(hp.lam_u), w_u, hp.lr,
-                 hp.gamma, cfg.optimizer)
+                 hp.gamma, cfg.optimizer, wmap)
     if cfg.update_items:
         _apply_plain(H, accH, itf, torch.cat([i, j]),
                      torch.cat([grad_ip, grad_in]),
                      torch.cat([full(hp.lam_ip), full(hp.lam_in)]),
-                     torch.cat([h_i, h_j]), hp.lr, hp.gamma, cfg.optimizer)
+                     torch.cat([h_i, h_j]), hp.lr, hp.gamma, cfg.optimizer,
+                     hmap)
     return torch.stack([auc_num, auc_den, found.sum(), tried.sum()]).long()
 
 
@@ -308,6 +333,8 @@ def _feat_args(f: Optional[_Feats], name: str, n: int):
 def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
                        uf: Optional[_Feats], itf: Optional[_Feats],
                        hp: BatchParams, cfg: BatchConfig, n_item: int,
+                       wmap: Optional[torch.Tensor] = None,
+                       hmap: Optional[torch.Tensor] = None,
                        stages: int = 2):
     """K9 on CUDA tensors (see :func:`_rankmf_batch`).  ``stages`` 1 stops
     after launch A, for timing it apart: the counters are left unclamped
@@ -334,6 +361,11 @@ def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
         _kernels.check_tensor(name, getattr(pos, name), (n_user,), i32)
     (ui, uv, um), Fu = _feat_args(uf, "user_features", n_user)
     (ii, iv, im), Fi = _feat_args(itf, "item_features", n_item)
+    if (wmap is None) != (hmap is None):
+        raise ValueError("K9's row-map mode takes both wmap and hmap")
+    for name, t in (("wmap", wmap), ("hmap", hmap)):
+        if t is not None:
+            _kernels.check_tensor(name, t, (t.shape[0],), i32)
     dev = W.device
     F = max(Fu, Fi, 1)
     rms = cfg.optimizer == RMSPROP
@@ -348,7 +380,7 @@ def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
         *(_kernels.ptr(t) for t in (
             bits, pos.flat_idx, pos.indptr, pos.row_nnz, pos.table, pos.boff,
             pos.bmask, pos.bshift, ui, uv, um, ii, iv, im, W, H, accW, accH,
-            iscr, fscr, cntW, cntH, counters)),
+            iscr, fscr, cntW, cntH, counters, wmap, hmap)),
         S, K, r, n_user, n_item, pos.flat_idx.shape[0], lanes, Fu, Fi,
         cfg.loss, cfg.kernel, cfg.optimizer, int(cfg.update_items),
         hp.lr, hp.gamma, hp.lam_u, hp.lam_ip, hp.lam_in, hp.margin,
@@ -357,20 +389,45 @@ def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
                                          ctypes.c_int(int(stages)),
                                          _kernels.stream(dev))
     _kernels.check(rc, "rankmf")
-    _kernels.launches["rankmf"] += 1
+    _kernels.launches["rankmf" if wmap is None else "rankmf_rowmap"] += 1
     return counters
 
 
 def _rankmf_batch(W, H, accW, accH, bits, pos: _Positives,
                   uf: Optional[_Feats], itf: Optional[_Feats],
-                  hp: BatchParams, cfg: BatchConfig, n_item: int):
+                  hp: BatchParams, cfg: BatchConfig, n_item: int,
+                  wmap: Optional[torch.Tensor] = None,
+                  hmap: Optional[torch.Tensor] = None):
     """One minibatch of pairwise updates from the uint32 ``bits`` (S, K + 2)
     held in an int64 tensor; W, H and their accumulators change in place.
-    Returns int64 counters [auc_num, auc_den, found, n_tried].  CPU tensors
+    Returns int64 counters [auc_num, auc_den, found, n_tried].  With
+    ``wmap`` / ``hmap`` the tables are compact and feature row f is table
+    row ``map[f]`` (K9's row-map mode, :func:`batch_rows`).  CPU tensors
     take the plain version; CUDA tensors launch K9."""
     fn = (_rankmf_batch_plain if W.device.type == "cpu"
           else _rankmf_batch_cuda)
-    return fn(W, H, accW, accH, bits, pos, uf, itf, hp, cfg, n_item)
+    return fn(W, H, accW, accH, bits, pos, uf, itf, hp, cfg, n_item,
+              wmap=wmap, hmap=hmap)
+
+
+def batch_rows(bits, pos: _Positives, uf: Optional[_Feats],
+               itf: Optional[_Feats], n_item: int):
+    """The feature rows of W and of H that a batch of ``bits`` can read or
+    write, each sorted and distinct (int64, on the bits' device): the
+    sampled users' features, the positives' and every candidate's (a
+    padding feature slot counts: the plain version reads its row times
+    0).  Decoded as K9 decodes them."""
+    b = bits.long() & 0xFFFFFFFF
+    n_user = pos.row_nnz.shape[0]
+    u = b[:, 0] % n_user
+    nnz_u = pos.row_nnz[u].long()
+    p = (pos.indptr[u].long() + b[:, 1] % nnz_u.clamp(min=1)).clamp(
+        0, pos.flat_idx.shape[0] - 1)
+    items = torch.cat([pos.flat_idx[p].long(), (b[:, 2:] % n_item)
+                       .reshape(-1)])
+    rows_w = u if uf is None else uf.idx[u].reshape(-1)
+    rows_h = items if itf is None else itf.idx[items].reshape(-1)
+    return torch.unique(rows_w.long()), torch.unique(rows_h.long())
 
 
 def _stage_positives(csr: sp.csr_matrix, device) -> _Positives:
@@ -400,11 +457,16 @@ class RankMF(MatrixFactorizationRecommender):
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (row-sharded tables) is not ported yet; see ROADMAP.md")
         super().__init__(device)
-        self.mesh = None
+        #: a ``parallel.mesh.Mesh``: W, H and their accumulators row-sharded
+        #: over its table axes (``parallel/sgd_sharded.py``); None runs on
+        #: ``device``
+        self.mesh = mesh
+        self._ops = None
+        if mesh is not None:
+            self._ops = sgd.ShardedOps(mesh)
+            self.device = mesh.device
+        self._maps = None
         self.rank = int(rank)
         self.learning_rate = float(learning_rate)
         self.optimizer = {"adagrad": ADAGRAD, "rmsprop": RMSPROP}[optimizer]
@@ -442,16 +504,68 @@ class RankMF(MatrixFactorizationRecommender):
             self._generator.manual_seed(self._seed)
         return self._generator
 
+    def _draw_bits(self, S: int, K: int) -> torch.Tensor:
+        """One batch's (S, K + 2) uint32 sampling bits, as int64."""
+        return torch.randint(0, 1 << 32, (S, K + 2), generator=self._gen,
+                             dtype=torch.int64, device=self.device)
+
+    def _sharded_tables(self):
+        """The row-sharded tables on a mesh and their logical rows."""
+        if self.user_features_embeddings is None:
+            return {}
+        return {"user_features_embeddings": self._nuf, "_accW": self._nuf,
+                "item_features_embeddings": self._nif, "_accH": self._nif}
+
+    def _whole(self, name: str) -> torch.Tensor:
+        """Table ``name`` whole (on a mesh an all-gather: every rank calls
+        it)."""
+        t = getattr(self, name)
+        if self.mesh is None:
+            return t
+        return sgd.unshard(t, self._sharded_tables()[name], self.mesh)
+
     def _init_tables(self, nuf: int, nif: int):
         kw = dict(dtype=self.dtype, device=self.device)
+        # on a mesh every rank draws each table whole and keeps its shard
+        place = ((lambda a: torch.tensor(a, **kw)) if self.mesh is None else
+                 (lambda a: sgd.shard_table(a, self.mesh, dtype=self.dtype)))
         if self.user_features_embeddings is None:
-            self.user_features_embeddings = torch.tensor(
-                self._rng.standard_normal((nuf, self.rank)) * 1e-3, **kw)
-            self._accW = torch.ones((nuf,), **kw)
+            self.user_features_embeddings = place(
+                self._rng.standard_normal((nuf, self.rank)) * 1e-3)
+            self._accW = place(np.ones((nuf,)))
         if self.item_features_embeddings is None:
-            self.item_features_embeddings = torch.tensor(
-                self._rng.standard_normal((nif, self.rank)) * 1e-3, **kw)
-            self._accH = torch.ones((nif,), **kw)
+            self.item_features_embeddings = place(
+                self._rng.standard_normal((nif, self.rank)) * 1e-3)
+            self._accH = place(np.ones((nif,)))
+
+    def _mesh_batch(self, bits, pos, uf, itf, hp, cfg, n_item):
+        """One batch on the mesh: gather the rows the bits reach, K9 in its
+        row-map mode on them, write back this rank's rows (module
+        docstring)."""
+        ops = self._ops
+        tabs = (self.user_features_embeddings, self._accW,
+                self.item_features_embeddings, self._accH)
+        if self._maps is None or self._maps[0].shape[0] != self._nuf or \
+                self._maps[1].shape[0] != self._nif:
+            self._maps = tuple(torch.full((n,), -1, dtype=torch.int32,
+                                          device=self.device)
+                               for n in (self._nuf, self._nif))
+        wmap, hmap = self._maps
+        rows_w, rows_h = batch_rows(bits, pos, uf, itf, n_item)
+        Wc, aWc, Hc, aHc = ops.gather_many(
+            [(tabs[0], rows_w), (tabs[1], rows_w), (tabs[2], rows_h),
+             (tabs[3], rows_h)])
+        for m, rows in ((wmap, rows_w), (hmap, rows_h)):
+            m[rows] = torch.arange(rows.shape[0], dtype=torch.int32,
+                                   device=m.device)
+        with ops.phase("kernel_s"):
+            c = _rankmf_batch(Wc, Hc, aWc, aHc, bits, pos, uf, itf, hp, cfg,
+                              n_item, wmap=wmap, hmap=hmap)
+        sgd.put_rows(ops, tabs[:2], rows_w, (Wc, aWc))
+        sgd.put_rows(ops, tabs[2:], rows_h, (Hc, aHc))
+        wmap[rows_w] = -1
+        hmap[rows_h] = -1
+        return c
 
     def partial_fit_transform(self, x: sp.spmatrix, item_features=None,
                               user_features=None, n_iter: int = 100,
@@ -515,13 +629,19 @@ class RankMF(MatrixFactorizationRecommender):
                            "batches": n_batches, "updates": n_batches * S}
         W, H = self.user_features_embeddings, self.item_features_embeddings
         counts = []
+        draws = 0    # on a mesh: the bits' running checksum
         for bi in range(n_batches):
-            bits = torch.randint(0, 1 << 32, (S, K + 2), generator=self._gen,
-                                 dtype=torch.int64, device=self.device)
-            c = _rankmf_batch(W, H, self._accW, self._accH, bits, pos, uf,
-                              itf, hp, cfg, n_item)
+            bits = self._draw_bits(S, K)
+            if self.mesh is None:
+                c = _rankmf_batch(W, H, self._accW, self._accH, bits, pos,
+                                  uf, itf, hp, cfg, n_item)
+            else:
+                draws = draws + sgd.checksum(bits)
+                c = self._mesh_batch(bits, pos, uf, itf, hp, cfg, n_item)
             if bi >= n_batches - CHUNK:
                 counts.append(c)
+        if self.mesh is not None:
+            self._ops.check_same(draws, "RankMF sampling bits")
         # the last chunk's counters (the freshest estimate)
         tot = torch.stack(counts).sum(0).cpu()
         self.auc_history.append(int(tot[0]) / max(int(tot[1]), 1))
@@ -529,15 +649,19 @@ class RankMF(MatrixFactorizationRecommender):
                     self.auc_history[-1])
 
         self._components_cache = None
+        W = self._whole("user_features_embeddings")
         if self._identity_user_feats:
             return W.clone()
         return user_features @ W.double().cpu().numpy()
 
     @property
     def components(self):
+        """(rank, n_items) item embeddings (on a mesh the first read
+        gathers H: every rank reads it)."""
         if (self._components_cache is None
                 and self.item_features_embeddings is not None):
-            H = self.item_features_embeddings.double().cpu().numpy()
+            H = self._whole("item_features_embeddings").double().cpu(
+                ).numpy()
             if self._identity_item_feats:
                 self._components_cache = np.ascontiguousarray(H.T)
             else:
@@ -553,7 +677,7 @@ class RankMF(MatrixFactorizationRecommender):
         """Embed known users (by their trained feature embeddings)."""
         if self.user_features_embeddings is None:
             raise RuntimeError("model is not fitted")
-        W = self.user_features_embeddings
+        W = self._whole("user_features_embeddings")
         if self._user_features is None or self._identity_user_feats:
             if x.shape[0] != self._nuf:
                 raise ValueError(

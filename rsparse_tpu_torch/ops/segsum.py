@@ -74,6 +74,28 @@ class GLMBlock(NamedTuple):
         return iota[None, :] < self.nnz[:, None]
 
 
+class CompactBlock(NamedTuple):
+    """A GLM block relabelled onto a compact table (mesh fits,
+    ``parallel/sgd_sharded.py``): ``ids`` are the global rows of the compact
+    table, the block's ``feats`` then the row its padding entries read
+    (``col_idx`` 0 there, as in one process); ``block`` reads compact row
+    ``slot`` at a valid entry and row ``U`` at padding, and its ``feats``
+    are ``0..U-1``."""
+
+    ids: torch.Tensor      # (U + 1,) int64
+    block: GLMBlock
+
+
+def compact_glm_block(blk: GLMBlock) -> CompactBlock:
+    """:class:`CompactBlock` of ``blk``, on its device."""
+    U = blk.feats.shape[0]
+    pad = blk.col_idx.new_zeros(1)
+    ids = torch.cat([blk.feats, pad]).long()
+    col = torch.where(blk.mask(), blk.slot, U).to(torch.int32)
+    feats = torch.arange(U, dtype=torch.int32, device=blk.feats.device)
+    return CompactBlock(ids, blk._replace(col_idx=col, feats=feats))
+
+
 def slot_map(col_idx: np.ndarray, nnz: np.ndarray):
     """``(feats, slot, order, offs)`` of one host block: the distinct
     feature ids of the valid entries, each entry's index into them

@@ -23,11 +23,13 @@ so each package loads the other's checkpoints:
 - what the reference writes and the port does not keep (``_cnt_u``,
   ``_cnt_i`` load as unused tensors; ``_components_l2`` and caches are
   dropped) loads without effect;
-- a model fitted on a mesh (``parallel/``) holds whole tables on every
-  rank: rank 0 writes them, every rank waits for it, and the checkpoint
-  says ``mesh`` and ``routing`` None, so one process or any number of
-  ranks loads it as a model of one process; a loaded ``routing`` is
-  dropped (it has no meaning without the mesh).
+- a model fitted on a mesh (``parallel/``) is written whole by rank 0,
+  every rank waiting for it, and the checkpoint says ``mesh`` (and a
+  WRMF's ``routing``) None, so one process or any number of ranks loads it
+  as a model of one process; a loaded ``routing`` is dropped (it has no
+  meaning without the mesh).  A WRMF holds whole tables on every rank; an
+  SGD model's row-sharded tables (``_sharded_tables()``) are all-gathered
+  first, by every rank, and written without the mesh's padding rows.
 
 The reference's orbax store (mesh-sharded tables written per device) is not
 ported: ``store="orbax"``, an orbax checkpoint and one that names a mesh
@@ -49,7 +51,8 @@ import torch
 _SKIP = ("_rng", "_key", "preprocess", "_init", "_train_ui")
 #: the port's own runtime state and telemetry, re-made on load
 _PORT_ONLY = ("device", "dtype", "_cdt", "_generator", "_positives",
-              "_state", "stage_info", "fit_trace", "svd_trace", "trace")
+              "_state", "stage_info", "fit_trace", "svd_trace", "trace",
+              "_ops", "_maps", "_n_vocab")
 #: caches: written as None (the reference's classes read them), dropped on
 #: load
 _CACHES = ("_components_cache", "_components_l2")
@@ -93,8 +96,15 @@ def save(model: Any, path: str, store: str = "auto") -> None:
     state = dict(vars(model))
     mesh = state.get("mesh")
     if mesh is not None:
-        # the tables are whole on every rank: rank 0 writes them for all
-        state["mesh"] = state["routing"] = None
+        # whole tables (an SGD model gathers its shards, every rank taking
+        # part): rank 0 writes them for all
+        if hasattr(model, "_sharded_tables"):
+            from ..parallel.sgd_sharded import unshard
+            for k, n in model._sharded_tables().items():
+                state[k] = unshard(state[k], n, mesh)
+        state["mesh"] = None
+        if "routing" in state:
+            state["routing"] = None
         if mesh.rank != 0:
             mesh.world.barrier()
             return
@@ -151,11 +161,12 @@ def load(path: str, cls: Optional[Type] = None, device="cuda",
     ``device``.
 
     ``sharding`` (the reference's ``load(..., sharding=)``) may be a mesh
-    of :func:`rsparse_tpu_torch.parallel.mesh.make_mesh`: a WRMF then gets
-    it as its ``mesh``, with its factor tables whole on the mesh's device,
-    as a fit on that mesh leaves them (every rank must load).  Any other
-    value raises ``ValueError``; a model with no mesh path raises the
-    ``NotImplementedError`` of its ``mesh=``."""
+    of :func:`rsparse_tpu_torch.parallel.mesh.make_mesh`: the model then
+    gets it as its ``mesh``, as a fit on that mesh leaves it (every rank
+    must load): a WRMF with its factor tables whole on the mesh's device,
+    FTRL, FM, RankMF and GloVe with their state tables row-sharded.  Any
+    other value raises ``ValueError``; a model with no mesh path raises
+    ``NotImplementedError``."""
     if sharding is not None:
         from ..parallel.mesh import Mesh
         if not isinstance(sharding, Mesh):
@@ -174,10 +185,16 @@ def load(path: str, cls: Optional[Type] = None, device="cuda",
         if not isinstance(cls, type):
             raise ValueError(f"{path}: unknown model class {name!r}")
     if sharding is not None:
+        from ..models.fm import FactorizationMachine
+        from ..models.ftrl import FTRL
+        from ..models.glove import GloVe
+        from ..models.rankmf import RankMF
         from ..models.wrmf import WRMF
-        if not issubclass(cls, WRMF):
+        if not issubclass(cls, (WRMF, FTRL, FactorizationMachine, RankMF,
+                                GloVe)):
             raise NotImplementedError(
-                "mesh (row-sharded tables) is not ported yet; see ROADMAP.md")
+                f"{cls.__name__} has no mesh path in rsparse_tpu_torch "
+                "(sharding=)")
     if meta.get("mesh") is not None:
         raise NotImplementedError(
             f"{path} holds tables written per device of mesh="
@@ -223,10 +240,22 @@ def load(path: str, cls: Optional[Type] = None, device="cuda",
 
 
 def _place_on_mesh(model, mesh) -> None:
-    """Put a loaded WRMF on ``mesh``: its ``mesh`` and device, its factor
-    tables whole on every rank, as a fit on that mesh ends (so ``save``
-    writes them whole again)."""
-    from ..models.wrmf import _check_mesh
+    """Put a loaded model on ``mesh``: its ``mesh`` and device; a WRMF's
+    factor tables whole on every rank, as a fit on that mesh ends (so
+    ``save`` writes them whole again); an SGD model's state tables
+    row-sharded (``parallel/sgd_sharded.py``)."""
+    from ..models.wrmf import WRMF, _check_mesh
+    if not isinstance(model, WRMF):
+        from ..parallel.sgd_sharded import ShardedOps, shard_table
+        model.mesh = mesh
+        model.device = mesh.device
+        model._ops = ShardedOps(mesh)
+        for k in getattr(model, "_sharded_tables", dict)():
+            setattr(model, k, shard_table(getattr(model, k), mesh))
+        for k in ("w0", "acc_w0"):
+            if isinstance(getattr(model, k, None), torch.Tensor):
+                setattr(model, k, getattr(model, k).to(mesh.device))
+        return
     _check_mesh(mesh, None, model.with_user_item_bias)
     model.mesh = mesh
     model.device = mesh.device
@@ -241,6 +270,7 @@ def _restore_runtime(model, tensors: Dict[str, torch.Tensor],
     write: the device, the dtype, fresh generators, the identity
     preprocess, and each class's own runtime state."""
     from ..config import resolve_dtype, resolve_full_dtype
+    from ..models.fm import FactorizationMachine
     from ..models.ftrl import FTRL
     from ..models.glove import GloVe, _compute_dtype
     from ..models.pure_svd import PureSVD
@@ -270,6 +300,10 @@ def _restore_runtime(model, tensors: Dict[str, torch.Tensor],
     if isinstance(model, (FTRL, RankMF)):
         model._seed = getattr(model, "_seed", 0)
         model._generator = None
+    if isinstance(model, (FTRL, FactorizationMachine, RankMF, GloVe)):
+        model._ops = None
+    if isinstance(model, RankMF):
+        model._maps = None
     if isinstance(model, FTRL):
         model.zn = None
         if z is not None:

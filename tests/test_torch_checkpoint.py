@@ -312,15 +312,20 @@ def test_load_onto_a_mesh(fitted, tmp_path):
 
 def test_load_refuses_a_bad_sharding(fitted, tmp_path):
     """A sharding that is no port mesh raises ValueError naming its type; a
-    mesh on a model with no mesh path raises its ``mesh=`` error."""
+    mesh on a model with no mesh path (PureSVD) raises
+    NotImplementedError.  The SGD models have one: a GloVe checkpoint
+    loads onto the mesh."""
     wrmf, _ = fitted("port", "wrmf")
     glove, _ = fitted("port", "glove")
+    svd, _ = fitted("port", "puresvd")
     ck_port.save(wrmf, str(tmp_path / "w"))
     ck_port.save(glove, str(tmp_path / "g"))
+    ck_port.save(svd, str(tmp_path / "s"))
     with pytest.raises(ValueError, match="str"):
         ck_port.load(str(tmp_path / "w"), device="cpu", sharding="data")
     with _one_rank_mesh(tmp_path) as mesh:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ck_port.load(str(tmp_path / "g"), sharding=mesh)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            rt.GloVe(rank=4, x_max=10.0, mesh=mesh, device="cpu")
+        with pytest.raises(NotImplementedError, match="no mesh path"):
+            ck_port.load(str(tmp_path / "s"), sharding=mesh)
+        g = ck_port.load(str(tmp_path / "g"), sharding=mesh)
+        assert g.mesh is mesh
+        np.testing.assert_array_equal(g.components, glove.components)

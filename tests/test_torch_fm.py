@@ -214,7 +214,7 @@ def test_fm_errors_and_options():
     with pytest.raises(ValueError):
         fm.partial_fit(sp.random(10, 6, density=0.5, format="csr"),
                        np.ones(10))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         rt.FactorizationMachine(mesh=object(), device="cpu")
     assert rt.FactorizationMachine().device.type == "cuda"
 

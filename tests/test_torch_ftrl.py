@@ -285,7 +285,7 @@ def test_ftrl_errors_and_options():
     m.partial_fit(x, y)
     with pytest.raises(ValueError):
         m.partial_fit(sp.random(20, 7, density=0.3, format="csr"), y)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         rt.FTRL(mesh=object(), device="cpu")
     assert rt.FTRL().device.type == "cuda"
 

@@ -318,7 +318,7 @@ def test_guards():
     with pytest.raises(FloatingPointError):
         rt.GloVe(rank=4, x_max=10, learning_rate=500.0, seed=0,
                  device="cpu").fit_transform(m.tocoo(), n_iter=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         rt.GloVe(rank=4, x_max=10, mesh=object(), device="cpu")
     assert rt.GloVe(rank=4, x_max=10).device.type == "cuda"
 

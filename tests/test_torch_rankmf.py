@@ -244,7 +244,7 @@ def test_rankmf_errors_and_options():
         m.transform(x)
     with pytest.raises(ValueError):
         m.partial_fit_transform(x, item_features=sp.identity(7, format="csr"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         rt.RankMF(mesh=object(), device="cpu")
     assert rt.RankMF().device.type == "cuda"
 

@@ -2,8 +2,8 @@
 and their wire-cost reports against the JAX package's on the same seeded
 column ids, the bucket slices a rank keeps, ``process_row_range``,
 ``distributed_bucket_rows`` and a WRMF fit on a one-rank ``("dcn", "ici")``
-mesh, the WRMF constructor's mesh checks, and the SGD models' ``mesh=``,
-which still raises (ROADMAP.md)."""
+mesh, the WRMF constructor's mesh checks, and the SGD models' ``mesh=``
+(a port mesh taken, anything else refused)."""
 
 import os
 
@@ -241,9 +241,15 @@ def test_reference_refuses_the_same_routings_late_or_early():
     lambda mesh: rt.GloVe(rank=4, x_max=10, mesh=mesh, device="cpu"),
 ], ids=["ftrl", "fm", "rankmf", "glove"])
 def test_sgd_models_still_refuse_a_mesh(make):
-    """The sharded SGD models (sgd_sharded.py) are the next slice."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make(_cpu_mesh((2,), ("data",), (0,)))
+    """The SGD models take a port mesh (their tables row-sharded over its
+    axes, parallel/sgd_sharded.py: here rank 1 of 2) and refuse anything
+    else, as WRMF does."""
+    mesh = _cpu_mesh((2,), ("data",), (1,))
+    m = make(mesh)
+    assert m.mesh is mesh and m.device == mesh.device
+    assert (m._ops.axes, m._ops.index, m._ops.size) == (("data",), 1, 2)
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+        make(object())
 
 
 def test_exports():

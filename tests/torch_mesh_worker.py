@@ -1,4 +1,5 @@
-"""One rank of the port's CPU mesh runs (tests/test_torch_parallel.py).
+"""One rank of the port's CPU mesh runs (tests/test_torch_parallel.py,
+tests/test_torch_sgd_sharded.py).
 
 Started by ``torch.multiprocessing`` (spawn) with ``run(rank, world, store,
 out_dir, cases)``: brings up gloo on a ``file://`` store, then runs each
@@ -235,6 +236,302 @@ def exchange_case():
     return out
 
 
+# -- the SGD family (tests/test_torch_sgd_sharded.py) -----------------------
+#
+# The sizes of tests/test_sgd_sharded.py.  Each model runs twice: at the
+# JAX package's mesh-test settings from its own seed (held to the port's
+# one-process fit), and at float64 from weights carried across by
+# ``convert`` with the JAX package's bits, no dropout and no shuffle (held
+# to the JAX package's mesh fit, ``*_ref``).
+
+SGD_FTRL = dict(learning_rate=0.1, lambda_=0.01, l1_ratio=0.5, dropout=0.2,
+                seed=7)
+SGD_FTRL_REF = dict(learning_rate=0.1, lambda_=0.01, l1_ratio=0.5,
+                    precision="double", seed=7)
+SGD_FM = dict(learning_rate_w=0.2, rank=4, lambda_w=0.001, lambda_v=0.001,
+              seed=7)
+SGD_RANKMF = {
+    "warp": dict(rank=8, optimizer="adagrad", gamma=0.9, loss="warp",
+                 seed=7, batch_size=64, max_negative_samples=10,
+                 lambda_=0.01),
+    "bpr": dict(rank=8, optimizer="rmsprop", gamma=0.9, loss="bpr", seed=7,
+                batch_size=64, max_negative_samples=10, lambda_=0.01),
+    "side": dict(rank=8, seed=3, batch_size=64, max_negative_samples=8)}
+SGD_RANKMF_ITER = {"warp": 3, "bpr": 3, "side": 2}
+SGD_GLOVE = dict(rank=8, x_max=10, learning_rate=0.05, seed=42,
+                 batch_size=256, n_hot=32)
+SGD_GLOVE_SMALL = dict(rank=4, x_max=10, learning_rate=0.05, seed=0,
+                       batch_size=128, n_hot=0)
+
+
+def sgd_glm():
+    rng = np.random.default_rng(0)
+    x = sp.random(500, 80, density=0.1, random_state=1, format="csr")
+    return x, rng.integers(0, 2, 500).astype(float)
+
+
+def sgd_interactions():
+    return (sp.random(120, 60, density=0.1, random_state=1) > 0).astype(
+        np.float64).tocsr()
+
+
+def sgd_side_features():
+    uf = sp.random(120, 30, density=0.2, random_state=2, format="csr")
+    uf.data[:] = 1.0
+    itf = sp.random(60, 25, density=0.3, random_state=3, format="csr")
+    itf.data[:] = 1.0
+    return uf, itf
+
+
+def sgd_cooc():
+    """A triangular co-occurrence (the head and both passes)."""
+    rng = np.random.default_rng(0)
+    n = 100
+    rows = rng.integers(0, n, 3000)
+    cols = rng.integers(0, n, 3000)
+    keep = rows <= cols
+    coo = sp.coo_matrix(
+        (rng.uniform(1, 5, keep.sum()), (rows[keep], cols[keep])),
+        shape=(n, n))
+    coo.sum_duplicates()
+    return coo
+
+
+def sgd_cooc_small():
+    rng = np.random.default_rng(1)
+    n = 40
+    coo = sp.coo_matrix(
+        (rng.uniform(1, 5, 300), (rng.integers(0, n, 300),
+                                  rng.integers(0, n, 300))), shape=(n, n))
+    coo.sum_duplicates()
+    return coo
+
+
+def sgd_weights():
+    """The float64 starting weights the ``*_ref`` fits carry across."""
+    rng = np.random.default_rng(11)
+    F1, r = 81, 4
+    uf, itf = sgd_side_features()
+    return {
+        "ftrl": (rng.standard_normal(F1) * 0.1, rng.uniform(0, 1, F1)),
+        "fm": (np.float64(0.1), np.float64(1.5), rng.standard_normal(F1)
+               * 0.01, rng.standard_normal((F1, r)) * 0.01,
+               rng.uniform(1, 2, F1), rng.uniform(1, 2, (F1, r))),
+        "rankmf": (rng.standard_normal((120, 8)) * 0.1,
+                   rng.standard_normal((60, 8)) * 0.1,
+                   rng.uniform(1, 2, 120), rng.uniform(1, 2, 60)),
+        "rankmf_side": (rng.standard_normal((uf.shape[1], 8)) * 0.1,
+                        rng.standard_normal((itf.shape[1], 8)) * 0.1,
+                        rng.uniform(1, 2, uf.shape[1]),
+                        rng.uniform(1, 2, itf.shape[1])),
+        "glove": {k: rng.uniform(-0.5, 0.5, s) for k, s in (
+            ("w_i", (100, 8)), ("w_j", (100, 8)), ("b_i", (100,)),
+            ("b_j", (100,)))}}
+
+
+def _sgd_mesh(world):
+    """World 2: a ("data",) mesh; world 4: ("dcn", "ici") = (2, 2), the
+    tables sharded over both axes."""
+    from rsparse_tpu_torch.parallel import mesh as pmesh
+    if world == 2:
+        return pmesh.make_mesh((2,), ("data",), device_type="cpu")
+    return pmesh.make_mesh((2, 2), ("dcn", "ici"), device_type="cpu")
+
+
+def _sgd_prims(mesh):
+    """ShardedOps on a 43-row table (not divisible by the mesh) against
+    DirectOps: gather, gather_many (float32 with float64: the byte path),
+    scatter_add, add_dense, add_dense_cols, put, each unsharded."""
+    import torch
+
+    from rsparse_tpu_torch.parallel import sgd_sharded as sgd
+    rng = np.random.default_rng(0)
+    n, r = 43, 5
+    table = torch.as_tensor(rng.standard_normal((n, r)), dtype=torch.float32)
+    t64 = torch.as_tensor(rng.standard_normal((n,)))
+    ids = torch.as_tensor(rng.integers(0, n, (7, 11)))
+    upd = torch.as_tensor(rng.standard_normal((7, 11, r)),
+                          dtype=torch.float32)
+    dense = torch.as_tensor(rng.standard_normal((sgd.padded_rows(n, mesh),
+                                                 r)), dtype=torch.float32)
+    uniq = torch.as_tensor(rng.permutation(n)[:20])
+    rows = torch.as_tensor(rng.standard_normal((20, r)), dtype=torch.float32)
+    out = {}
+    for tag, ops in (("direct", sgd.DirectOps()),
+                     ("sharded", sgd.ShardedOps(mesh))):
+        whole = (lambda t: t) if tag == "direct" else (  # noqa: E731
+            lambda t: sgd.unshard(t, n, mesh))
+        place = (lambda t: t.clone()) if tag == "direct" else (  # noqa: E731
+            lambda t: sgd.shard_table(t, mesh))
+        out[f"{tag}_gather"] = ops.gather(place(table), ids).numpy()
+        g0, g1 = ops.gather_many([(place(table), ids), (place(t64), ids)])
+        out[f"{tag}_gm0"], out[f"{tag}_gm1"] = g0.numpy(), g1.numpy()
+        out[f"{tag}_scatter"] = whole(ops.scatter_add(place(table), ids,
+                                                      upd)).numpy()
+        d = dense if tag == "sharded" else dense[:n]
+        out[f"{tag}_dense"] = whole(ops.add_dense(place(table), d)).numpy()
+        out[f"{tag}_cols"] = whole(ops.add_dense_cols(
+            place(table), d[:, :2], 3)).numpy()
+        out[f"{tag}_put"] = whole(ops.put(place(table), uniq, rows)).numpy()
+        if tag == "sharded":
+            out["shard_rows"] = np.asarray(place(table).shape[0])
+            out["pad_rows"] = np.asarray(
+                sgd.shard_table(table, mesh)[-1].abs().sum().item()
+                if mesh.rank == ops.size - 1 else 0.0)
+    return out
+
+
+def _rows_of(m):
+    return {k: getattr(m, k).shape[0] for k in m._sharded_tables()}
+
+
+def _glm_case(mesh, out_dir, x, y):
+    """FTRL and FM on the mesh: fits from their seeds (with FTRL's dropout,
+    its masks checked alike on every rank), dumps, checkpoints saved and
+    loaded back onto the mesh; and the float64 fits from carried
+    weights."""
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import checkpoint, convert
+    from rsparse_tpu_torch.parallel import sgd_sharded as sgd
+    out = {}
+    w = sgd_weights()
+    m = rt.FTRL(mesh=mesh, **SGD_FTRL)
+    out["ftrl_fit"] = m.fit(x, y, n_iter=2)
+    out["ftrl_pred"] = m.predict(x)
+    out["ftrl_z"], out["ftrl_n"] = m.z.numpy(), m.n.numpy()
+    out["ftrl_coef"] = m.coef()
+    out["ftrl_dump_z"] = m.dump()["z"]
+    out["ftrl_rows"] = np.asarray(m.zn.shape[0])
+    out["ftrl_draws"] = np.asarray(m._ops.stats["draw_checks"])
+    checkpoint.save(m, os.path.join(out_dir, "ftrl_ckpt"))
+    back = checkpoint.load(os.path.join(out_dir, "ftrl_ckpt"), sharding=mesh)
+    out["ftrl_load_pred"] = back.predict(x)
+    out["ftrl_load_rows"] = np.asarray(back.zn.shape[0])
+    d = rt.FTRL.load(m.dump(), mesh=mesh)
+    out["ftrl_dumpload_pred"] = d.predict(x)
+    m = convert.ftrl_from_numpy(*w["ftrl"], mesh=mesh, **SGD_FTRL_REF)
+    out["ftrl_ref_fit"] = m.fit(x, y, n_iter=2)
+    out["ftrl_ref_z"], out["ftrl_ref_n"] = m.z.numpy(), m.n.numpy()
+
+    m = rt.FactorizationMachine(mesh=mesh, **SGD_FM)
+    out["fm_fit"] = m.fit(x, y, n_iter=2)
+    out["fm_pred"] = m.predict(x)
+    for k, n in m._sharded_tables().items():
+        out[f"fm_{k}"] = sgd.unshard(getattr(m, k), n, mesh).numpy()
+    out["fm_w0"] = m.w0.numpy()
+    out["fm_rows"] = np.asarray([m.w.shape[0], m.v.shape[0]])
+    checkpoint.save(m, os.path.join(out_dir, "fm_ckpt"))
+    back = checkpoint.load(os.path.join(out_dir, "fm_ckpt"), sharding=mesh)
+    out["fm_load_pred"] = back.predict(x)
+    m = convert.fm_from_numpy(*w["fm"], mesh=mesh, precision="double",
+                              **{k: v for k, v in SGD_FM.items()
+                                 if k != "rank"})
+    out["fm_ref_fit"] = m.fit(x, y, n_iter=2)
+    out["fm_ref_v"] = sgd.unshard(m.v, 81, mesh).numpy()
+    # ranks that draw apart are refused
+    bad = rt.FTRL(mesh=mesh, **dict(SGD_FTRL, seed=mesh.rank))
+    try:
+        bad.fit(x, y)
+        out["draws_apart_refused"] = np.asarray(False)
+    except RuntimeError as e:
+        out["draws_apart_refused"] = np.asarray("differ" in str(e))
+    return out
+
+
+def _rankmf_case(mesh, out_dir, bits):
+    """RankMF on the mesh: the two optimizer / loss settings and side
+    features from their seeds, and the float64 fits from carried weights
+    with the JAX package's bits (``bits[name]``: one (S, K + 2) array a
+    batch)."""
+    import torch
+
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import checkpoint, convert
+    x = sgd_interactions()
+    uf, itf = sgd_side_features()
+    w = sgd_weights()
+    out = {}
+    for name, kw in SGD_RANKMF.items():
+        feats = (dict(user_features=uf, item_features=itf)
+                 if name == "side" else {})
+        m = rt.RankMF(mesh=mesh, **kw)
+        emb = m.partial_fit_transform(x, n_iter=SGD_RANKMF_ITER[name],
+                                      **feats)
+        out[f"rankmf_{name}_emb"] = np.asarray(emb)
+        out[f"rankmf_{name}_comps"] = m.components
+        out[f"rankmf_{name}_T"] = np.asarray(m.transform(x))
+        out[f"rankmf_{name}_auc"] = np.asarray(m.auc_history)
+        out[f"rankmf_{name}_rows"] = np.asarray(list(_rows_of(m).values()))
+        out[f"rankmf_{name}_draws"] = np.asarray(
+            m._ops.stats["draw_checks"])
+        if name == "warp":
+            checkpoint.save(m, os.path.join(out_dir, "rankmf_ckpt"))
+            back = checkpoint.load(os.path.join(out_dir, "rankmf_ckpt"),
+                                   sharding=mesh)
+            out["rankmf_load_comps"] = back.components
+    for name, wk, feats in (("warp", "rankmf", {}),
+                            ("side", "rankmf_side",
+                             dict(user_features=uf, item_features=itf))):
+        kw = dict(SGD_RANKMF[name], precision="double")
+        kw.pop("rank")
+        m = convert.rankmf_from_numpy(*w[wk], mesh=mesh, **kw)
+        it = iter(bits[name])
+        m._draw_bits = lambda S, K: torch.as_tensor(  # noqa: E731
+            next(it).astype(np.int64))
+        emb = m.partial_fit_transform(x, n_iter=SGD_RANKMF_ITER[name],
+                                      **feats)
+        out[f"rankmf_ref_{name}_emb"] = np.asarray(emb)
+        out[f"rankmf_ref_{name}_comps"] = m.components
+        out[f"rankmf_ref_{name}_auc"] = np.asarray(m.auc_history)
+    return out
+
+
+def _glove_case(mesh, out_dir):
+    """GloVe on the mesh: the triangular input (head and tail, both
+    passes) with and without the shuffle, the small square input, the
+    float64 fit from carried weights; a checkpoint and convert."""
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import checkpoint, convert
+    out = {}
+    for name, kw, coo, it in (
+            ("glove", SGD_GLOVE, sgd_cooc(), 3),
+            ("glove_shuffle", dict(SGD_GLOVE, shuffle=True), sgd_cooc(), 3),
+            ("glove_small", SGD_GLOVE_SMALL, sgd_cooc_small(), 2),
+            ("glove_ref", dict(SGD_GLOVE, precision="double",
+                               init=sgd_weights()["glove"]), sgd_cooc(), 3)):
+        m = rt.GloVe(mesh=mesh, **kw)
+        out[f"{name}_emb"] = m.fit_transform(coo, n_iter=it).numpy()
+        out[f"{name}_comps"] = m.components
+        out[f"{name}_bias_i"], out[f"{name}_bias_j"] = m.bias_i, m.bias_j
+        out[f"{name}_cost"] = np.asarray(m.cost_history)
+        out[f"{name}_rows"] = np.asarray([t.shape[0] for t in m._state])
+        out[f"{name}_draws"] = np.asarray(m._ops.stats["draw_checks"])
+        if name == "glove":
+            checkpoint.save(m, os.path.join(out_dir, "glove_ckpt"))
+            st = m._state
+            c = convert.glove_from_numpy(
+                out["glove_emb"], m.components.T, m.bias_i, m.bias_j,
+                mesh=mesh, x_max=10)
+            out["glove_convert_comps"] = c.components
+            out["glove_convert_rows"] = np.asarray(c._state.w_i.shape[0])
+            out["glove_convert_same"] = np.asarray(all(
+                bool((a == b).all()) for a, b in zip(c._state[:4], st[:4])))
+    return out
+
+
+def sgd_case(world, out_dir):
+    """Every SGD case on this world's mesh (collective: every rank runs
+    them in the same order)."""
+    mesh = _sgd_mesh(world)
+    bits = dict(np.load(os.path.join(out_dir, "..", "rankmf_bits.npz")))
+    x, y = sgd_glm()
+    out = _sgd_prims(mesh)
+    out.update(_glm_case(mesh, out_dir, x, y))
+    out.update(_rankmf_case(mesh, out_dir, bits))
+    out.update(_glove_case(mesh, out_dir))
+    return out
+
+
 def run(rank: int, world: int, store: str, out_dir: str, cases) -> None:
     import torch
 
@@ -254,6 +551,8 @@ def run(rank: int, world: int, store: str, out_dir: str, cases) -> None:
             out = checkpoint_case(x, out_dir)
         elif case == "mesh_load":
             out = mesh_load_case(x, out_dir)
+        elif case == "sgd":
+            out = sgd_case(world, out_dir)
         else:
             out = fit_case(case, x)
         np.savez(os.path.join(out_dir, f"{case}.{rank}.npz"), **out)

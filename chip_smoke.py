@@ -82,7 +82,15 @@ line:
    (c) FTRL and FM rank 8 at the hashed shape (100,000 x 40M features)
    and config #5 on one card (RankMF WARP on 10M users, FM rank 4 on 2M
    one-hot rows): stage walls, rows or updates per second, peak memory,
-   each kernel re-checked on the fitted state;
+   each kernel re-checked on the fitted state.  At bf16 state
+   (``precision="bfloat16"``): (a) K9's bf16 instance in every mode (BPR /
+   WARP x identity / sigmoid x AdaGrad / RMSprop x identity / side
+   features) at r = 8 and WARP AdaGrad at r = 64, on bf16 tables on the
+   grid, against its plain version: counters equal, every cell within one
+   bf16 spacing (the share one spacing apart printed), two launches
+   bitwise, and its row-map mode the same way and bitwise the one-process
+   batch's rows; (c) config #5's RankMF at bf16, one epoch, beside the
+   float32 fit: updates/s, table bytes, AUC;
 8. GloVe: (a) K10 (tail shard) on config #4's first tail shard, straight
    and swapped (also by CUDA graphs, and launched twice on the same inputs
    for bitwise-equal tables and loss), and K11 (head tile) on its first
@@ -94,7 +102,20 @@ line:
    (pinned, 1e-3 relative); (c) config #4 (vocabulary 50,000, 4.97M
    triplets, head H = 23,170) through GloVe.fit_transform, 3 epochs: stage
    walls, triplets/s, the head / tail split of an epoch, peak memory, both
-   kernels re-checked on the fitted state;
+   kernels re-checked on the fitted state.  At bf16 state: (b) GloVe and
+   RankMF at precision="bfloat16" on ML-100k held to the JAX package's
+   (``REF_BF16``: the cost history within 2e-3 per epoch, RankMF's AUC
+   within 0.01 and the gate); (a) K10's bf16 instance on config #4's first
+   shard, straight and swapped, on both tail paths (the scheduled sums;
+   the ordered scatter of a shuffled tail), and K11's bf16-state instance
+   on the first tile beside the bf16 cuBLAS chain, each against its plain
+   version (every cell within one bf16 spacing of the larger of its value
+   and its change; K11's cells beyond it held to a float64 twin: S and
+   the products summed at float64, each rounded once) and bitwise over
+   two launches; (c)
+   config #4 at bf16
+   state, 3 epochs, beside the float32-state fit: triplets/s, each
+   epoch's cost, state bytes, peak memory;
 9. reduced precision: (a) K1, K2 and K4 with a bf16 table and a bf16 head
    at compute_dtype="bfloat16", a bf16 table and a uint8 head, a float32
    table and a uint8 head, and a bf16 table at float32 compute, against
@@ -147,7 +168,8 @@ line:
    at rank 256 (d = 258), each with stage walls, sweep ms, user-updates/s,
    peak memory, loss per nnz and its kernels re-checked on the heaviest
    buckets; config #4 GloVe at rank 300 (3 epochs: walls, triplets/s,
-   peak memory, both kernels re-checked on the fitted state).
+   peak memory, both kernels re-checked on the fitted state), then phase
+   8's bf16-state checks and fit at rank 300 (the wide bf16 instances).
 12. WRMF on a mesh of processes (``rsparse_tpu_torch.parallel``) at phase
    4's settings (rank 128, 2 iterations of CG(3) on the ML-20M-shaped
    synthetic), after one-process reference fits of the same settings with
@@ -174,7 +196,11 @@ line:
    printed), each held to the one-process fit of the same settings:
    FTRL, FM and GloVe bitwise (every state table's digest summed over the
    ranks' own rows, the predictions, embeddings and costs), RankMF within
-   ``MESH_RANKMF_TOL``; each rank prints its resident table bytes, the
+   ``MESH_RANKMF_TOL``; then a small RankMF and a small GloVe at
+   precision="bfloat16" (``REF_BF16``'s settings on ML-100k, depth cut:
+   20 RankMF iterations, 2 GloVe epochs), bitwise the one-process bf16
+   fits (no atomics on either bf16 path); each rank prints its resident
+   table bytes, the
    gather all-reduce's bytes and ms a step, the kernel's and the
    write-back's ms a step, the draws' check, and its launches of K7, K8,
    K9's row-map mode, K10 and K11 (each must be above 0).
@@ -2244,8 +2270,9 @@ def _glm_state(gen, device, n_feat, r=None):
             1 + torch.rand((F1, r), **kw))
 
 
-def rankmf_bound(bits, pos, uf, itf, counters, r):
-    """Bound of K9 on one batch: bytes of the uint32 bits (4 each), of
+def rankmf_bound(bits, pos, uf, itf, counters, r, tb=4):
+    """Bound of K9 on one batch (tables of ``tb`` bytes a value: 4, or 2 at
+    bf16): bytes of the uint32 bits (4 each), of
     each sample's three CSR reads (12), of one hash bucket row and one H
     row per candidate tried, and of one read and one write of the
     embedding row and the accumulator of each distinct user feature and
@@ -2268,8 +2295,8 @@ def rankmf_bound(bits, pos, uf, itf, counters, r):
             return int(torch.unique(ids).numel())
         return int(torch.unique(feats.idx[ids][feats.mask[ids]]).numel())
     tried = int(counters[3])
-    nbytes = (S * K2 * 4 + S * 12 + tried * (pos.table.shape[1] + r) * 4
-              + (rows(uf, u) + rows(itf, i)) * (8 * r + 8))
+    nbytes = (S * K2 * 4 + S * 12 + tried * (pos.table.shape[1] * 4 + r * tb)
+              + (rows(uf, u) + rows(itf, i)) * (2 * tb * r + 2 * tb))
     return bound(nbytes, 2 * r * (S + tried) + 12 * r * S)
 
 
@@ -2769,6 +2796,11 @@ def run_sgd_full_width(device, results, launches) -> None:
         "GiB")
     require(bool(torch.isfinite(emb).all()) and
             np.isfinite(m.components).all(), "config #5 RankMF: non-finite")
+    mib32 = sum(t.numel() * t.element_size() for t in (
+        m.user_features_embeddings, m.item_features_embeddings, m._accW,
+        m._accH)) / 2**20
+    f32_line = (f"{info['updates'] / wall:.0f} updates/s, tables "
+                f"{mib32:.1f} MiB, AUC~{m.auc_history[-1]:.3f}")
     # K9 on one batch from the fitted tables, each rounded to the finest
     # power-of-two grid on which every score is exact, with the model's own
     # parameters.  Its scores are ~1e-5 against config #5's margin of 0.1,
@@ -2803,7 +2835,9 @@ def run_sgd_full_width(device, results, launches) -> None:
     log(f"  config #5 fitted state: mean tried per sample {c[3] / (8 * S):.3f}"
         f" (found {c[2] / (8 * S):.3f} of samples)")
     del tk
-    del m, emb, W, H, tables, pos, x
+    del m, emb, W, H, tables, pos
+    run_rankmf_bf16_full(device, x, f32_line, results, launches)
+    del x
     _glm_full_width(device, "fm", lambda: rt.FactorizationMachine(
         rank=4, learning_rate_w=0.2, seed=0, device=device), fmx, fmy,
         results, launches, "config #5 FM rank 4", passes=0)
@@ -2870,20 +2904,21 @@ def glove_bound(nbytes, prod_flops, elem_flops, bf16):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def k10_bound(sh, r):
-    """Bound of K10 on one shard: bytes of each valid entry (two ids and a
-    count, 12) and one read and one write of the four table rows (w, acc_w:
-    r floats; b, acc_b: one) of each distinct id of each side, 16 (r + 1);
+def k10_bound(sh, r, tb=4):
+    """Bound of K10 on one shard (values of ``tb`` bytes: 4, or 2 at bf16
+    state): bytes of each valid entry (two ids and a count, 8 + tb) and one
+    read and one write of the four table rows (w, acc_w: r values; b,
+    acc_b: one) of each distinct id of each side, 4 tb (r + 1);
     operations ~10 r + 30 an entry (the dot product, g and g² on both
     sides, weight, log, clip) and 6 a component in the apply.  The slot
     maps are the port's own layout and are not counted."""
     n = int((sh.slot_r < sh.feats_r.shape[0]).sum())
     U = sh.feats_r.shape[0] + sh.feats_c.shape[0]
-    return glove_bound(n * 12 + U * 16 * (r + 1), 0,
+    return glove_bound(n * (8 + tb) + U * 4 * tb * (r + 1), 0,
                        n * (10 * r + 30) + U * 6 * (r + 1), False)
 
 
-def k11_bound(n_r, n_c, r, grid_bytes, bf16, present):
+def k11_bound(n_r, n_c, r, grid_bytes, bf16, present, tb=4):
     """Bound of K11 on one tile: bytes of the counts, the ids and one read
     and one write of each row's and column's four table rows; operations
     of what the ``present`` cells need (the cost is zero at every other
@@ -2892,7 +2927,8 @@ def k11_bound(n_r, n_c, r, grid_bytes, bf16, present):
     (K11 computes the products densely: 12 n_r n_c r on the tensor cores
     for a bf16 head, the five products on the FMA units for f32.)"""
     cells = n_r * n_c
-    return glove_bound(cells * grid_bytes + (n_r + n_c) * (4 + 16 * (r + 1)),
+    return glove_bound(cells * grid_bytes
+                       + (n_r + n_c) * (4 + 4 * tb * (r + 1)),
                        10 * present * r, 20 * present, bf16)
 
 
@@ -3211,6 +3247,10 @@ def run_glove(device, results, launches) -> None:
                 f"GloVe {what}: cost history off the JAX package's by more "
                 f"than {GLOVE_REL}")
 
+    log("phase 8 (b), bf16: GloVe and RankMF at precision='bfloat16' on "
+        "ML-100k against the JAX package's (REF_BF16)")
+    run_ml100k_bf16(device, launches)
+
     log("phase 8 (c): config #4 at full width through GloVe.fit_transform")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3255,6 +3295,10 @@ def run_glove(device, results, launches) -> None:
         f"{t_ms / tail.rows.shape[0]:.3f} ms a shard)")
     del st
     check_glove_kernels(head, tail, m._state, "fitted config #4", results)
+    del head, tail, m, emb
+    log("phase 8 (a, c), bf16: K10 / K11's bf16 instances on config #4 and "
+        "config #4 at bf16 state")
+    run_glove_bf16(device, x4, results, launches, GLOVE_KW["rank"], hist)
 
 
 # -- phase 9: reduced precision ------------------------------------------------
@@ -4346,6 +4390,9 @@ def run_wide_full(device, x, x4, results, launches) -> None:
     require(bool(torch.isfinite(ge).all()) and all(np.isfinite(hist))
             and hist[0] > hist[1] > hist[2],
             "config #4 GloVe rank 300: loss not finite and decreasing")
+    log("phase 11 (b, d), bf16: K10 / K11's wide bf16 instances on config "
+        "#4 and config #4 at bf16 state, rank 300")
+    run_glove_bf16(device, x4, results, launches, 300, hist)
     return g
 
 
@@ -4394,7 +4441,12 @@ MESH_GLOVE_EPOCHS = 1
 #: itself bit for bit (tests/test_sgd_sharded.py holds the JAX package's
 #: mesh fit to 1e-6); FTRL, FM and GloVe are held bitwise
 MESH_RANKMF_TOL = 1e-6
-MESH_SGD_KERNELS = ("ftrl", "fm", "rankmf_rowmap", "glove", "glove_dense")
+MESH_SGD_KERNELS = ("ftrl", "fm", "rankmf_rowmap", "glove", "glove_dense",
+                    "rankmf_rowmap_bf16", "glove_bf16", "glove_dense_bf16")
+#: the bf16 parts' depth: RankMF (REF_BF16's setting) batches of ML-100k's
+#: users, GloVe (REF_BF16's) epochs
+MESH_BF16_RANKMF_ITER = 20
+MESH_BF16_GLOVE_EPOCHS = 2
 
 
 def mesh_sgd_data():
@@ -4402,7 +4454,8 @@ def mesh_sgd_data():
     and labels, config #5's interactions, config #4's co-occurrences."""
     x, truth = synth_glm(n_feat=HASHED_FEATURES)
     x5, _, _ = synth_config5(**dict(CONFIG5, fm_rows=0))
-    return x, truth, x5, synth_glove(**CONFIG4)
+    xg, tr, _ = ml100k_bf16_inputs()
+    return x, truth, x5, synth_glove(**CONFIG4), xg, tr
 
 
 def mesh_sgd_models(**where):
@@ -4416,6 +4469,9 @@ def mesh_sgd_models(**where):
                               batch_size=K9_BATCH[0],
                               max_negative_samples=K9_BATCH[1], **where)
     yield "glove", rt.GloVe(**GLOVE_KW, **where)
+    # the small bf16 parts: REF_BF16's settings on ML-100k
+    yield "rankmf_bf16", rt.RankMF(**REF_BF16_KW["rankmf"], **where)
+    yield "glove_bf16", rt.GloVe(**REF_BF16_KW["glove"], **where)
 
 
 def shard_digest(t, row0: int, n: int) -> int:
@@ -4428,7 +4484,8 @@ def shard_digest(t, row0: int, n: int) -> int:
     if rows == 0:
         return 0
     b = t[:rows].contiguous()
-    bits = b.view(torch.int32 if b.element_size() == 4 else torch.int64)
+    bits = b.view({2: torch.int16, 4: torch.int32}.get(b.element_size(),
+                                                       torch.int64))
     bits = bits.reshape(rows, -1).long()
     c = bits.shape[1]
     g = (torch.arange(row0, row0 + rows, device=b.device)[:, None] * c
@@ -4439,7 +4496,7 @@ def shard_digest(t, row0: int, n: int) -> int:
 def _sgd_tables(name, m):
     """{table: (tensor, logical rows)} of an SGD model's state (this
     rank's shards on a mesh)."""
-    if name == "glove":
+    if name.startswith("glove"):
         import rsparse_tpu_torch.models.glove as glove
         return {f: (t, m._n_vocab if m.mesh is not None else t.shape[0])
                 for f, t in zip(glove.GloveState._fields, m._state)}
@@ -4450,7 +4507,7 @@ def _sgd_fit(name, m, data):
     """Fit one SGD model of :func:`mesh_sgd_models` (depth cut as
     MESH_SGD_PASSES etc. say); returns (wall s, outputs to hold)."""
     import torch
-    x, truth, x5, x4 = data
+    x, truth, x5, x4, xg, tr = data
     t0 = time.perf_counter()
     if name in ("ftrl", "fm"):
         y_fit = m.fit(x, truth, n_iter=MESH_SGD_PASSES)
@@ -4459,17 +4516,25 @@ def _sgd_fit(name, m, data):
         out = dict(y_fit=y_fit, y_pred=m.predict(x))
         if name == "fm":
             out.update(w0=m.w0.cpu().numpy(), acc_w0=m.acc_w0.cpu().numpy())
-    elif name == "rankmf":
-        emb = m.partial_fit_transform(x5, n_iter=MESH_RANKMF_ITER)
+    elif name.startswith("rankmf"):
+        bf16 = name == "rankmf_bf16"
+        emb = m.partial_fit_transform(
+            tr if bf16 else x5,
+            n_iter=MESH_BF16_RANKMF_ITER if bf16 else MESH_RANKMF_ITER)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         out = dict(auc=np.asarray(m.auc_history),
-                   finite=np.asarray(bool(torch.isfinite(emb).all())))
+                   finite=np.asarray(bool(torch.isfinite(emb.float()).all())))
+        if bf16:
+            out["emb"] = emb.float().cpu().numpy()
     else:
-        emb = m.fit_transform(x4, n_iter=MESH_GLOVE_EPOCHS)
+        bf16 = name == "glove_bf16"
+        emb = m.fit_transform(
+            xg if bf16 else x4,
+            n_iter=MESH_BF16_GLOVE_EPOCHS if bf16 else MESH_GLOVE_EPOCHS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        out = dict(w_i=emb.cpu().numpy(), components=m.components,
+        out = dict(w_i=emb.float().cpu().numpy(), components=m.components,
                    bias_i=m.bias_i, bias_j=m.bias_j,
                    cost=np.asarray(m.cost_history))
     return wall, out
@@ -4910,6 +4975,518 @@ def run_mesh(device, x, launches) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- bf16 state: the bf16 instances of K9, K10 and K11 ------------------------
+
+#: RankMF and GloVe at precision="bfloat16" on ML-100k: the JAX package's
+#: results (rsparse_tpu on the CPU with float64 enabled, as its tests run;
+#: recomputed and held by tests/test_torch_glove_bf16.py and
+#: tests/test_torch_rankmf_bf16.py), made by
+#:   JAX_PLATFORMS=cpu python3 -c "import jax, numpy as np, chip_smoke as c
+#:   import rsparse_tpu as rj; jax.config.update('jax_enable_x64', True)
+#:   x, tr, test = c.ml100k_bf16_inputs()
+#:   g = rj.GloVe(**c.REF_BF16_KW['glove']); g.fit_transform(x, n_iter=3)
+#:   m = rj.RankMF(**c.REF_BF16_KW['rankmf'])
+#:   m.partial_fit_transform(tr, n_iter=200)
+#:   p = m.predict(tr, k=10, not_recommend=tr)
+#:   print(g.cost_history, m.auc_history[-1],
+#:         np.nanmean(rj.ndcg_k(p.indices, test)))"
+#: GloVe on the upper triangle of crossprod(sign(x)): cost_history of three
+#: epochs (no shuffle: the port's fit is deterministic, held per epoch to
+#: GLOVE_BF16_REL); RankMF BPR on the 80/20 split: (AUC, NDCG@10), the port
+#: drawing its own bits (AUC held within RANKMF_BF16_AUC, and the gate)
+REF_BF16 = {"glove": (0.6498200810650551, 0.11316616711747934,
+                      0.0829007968418744),
+            "rankmf": (0.8722163308589608, 0.2308303976518771)}
+REF_BF16_KW = {"glove": dict(rank=16, x_max=10.0, learning_rate=0.05,
+                             n_hot=256, seed=0, precision="bfloat16"),
+               "rankmf": dict(rank=16, learning_rate=0.5, loss="bpr",
+                              seed=0, batch_size=2048,
+                              precision="bfloat16")}
+GLOVE_BF16_REL = 2e-3
+RANKMF_BF16_AUC = 0.01
+
+
+def ml100k_bf16_inputs():
+    """REF_BF16's inputs: ML-100k's upper-triangular co-occurrence, and its
+    80/20 split (train CSR, test)."""
+    import rsparse_tpu_torch as rt
+    ml = rt.load_movielens100k()
+    x = sp.triu(ml100k_cooccurrence(ml)).tocoo()
+    train, test = rt.train_test_split(ml, 0.2, np.random.default_rng(0))
+    return x, sp.csr_matrix(train), test
+
+
+def bf16_spacing(*ts):
+    """The bf16 spacing at the largest magnitude of float32 tensors ``ts``,
+    cell by cell."""
+    import torch
+    m = ts[0].abs()
+    for t in ts[1:]:
+        m = torch.maximum(m, t.abs())
+    e = ((m.view(torch.int32) >> 23) & 0xFF).clamp(min=1)
+    return torch.pow(2.0, (e - 134).float())
+
+
+def bf16_apart(a, b, before):
+    """Two bf16 tables cell by cell, each grown from ``before``: (cells
+    more than one bf16 spacing apart, the spacing taken at the largest of
+    the two values and their changes, so that a step that cancels the
+    value is held to its own spacing; cells apart at all; cells; the
+    largest |a - b|)."""
+    af, bf_ = a.float().reshape(-1), b.float().reshape(-1)
+    t0 = before.float().reshape(-1)
+    d = (af - bf_).abs()
+    sp = bf16_spacing(af, bf_, af - t0, bf_ - t0)
+    return (int((d > sp).sum()), int((d > 0).sum()), d.numel(),
+            float(d.max()) if d.numel() else 0.0)
+
+
+def hold_bf16_tables(key, tag, names, ka, pa, before, results,
+                     twin=None) -> str:
+    """A bf16 instance's tables ``ka`` against its plain version's ``pa``,
+    both from ``before``: every cell within one bf16 spacing (of the larger
+    of its value and its change), or, given ``twin`` (K11: the plain
+    version with S and the products summed at float64, each rounded once:
+    bf16(S) as K11 forms it, where the plain version's float32 sum can
+    round the other way, and a product whose terms cancel read without
+    either float32 order's error), within two spacings of the twin's (a
+    sum one spacing off reaches the step through three rounded ops: -lr
+    s1, the quotient, the add) or no further from it than twice the plain
+    version; returns the share of cells one spacing apart, a table."""
+    parts, worst = [], 0.0
+    for q, (name, a, b, t0) in enumerate(zip(names, ka, pa, before)):
+        over, apart, n, dmax = bf16_apart(a, b, t0)
+        note = ""
+        if over and twin is not None:
+            ak, bp = a.float().reshape(-1), b.float().reshape(-1)
+            tw, t0f = twin[q].float().reshape(-1), t0.float().reshape(-1)
+            far = (ak - bp).abs() > bf16_spacing(ak, bp, ak - t0f, bp - t0f)
+            near = ((ak - tw).abs() <= 2 * bf16_spacing(ak, tw, ak - t0f,
+                                                       tw - t0f)) | (
+                (ak - tw).abs() <= 2 * (bp - tw).abs())
+            worse = int((far & ~near).sum())
+            require(worse == 0, f"{key} {tag}: {name} has {over} cells more "
+                    f"than one bf16 spacing from the plain version's, "
+                    f"{worse} of them also from the float64 twin's")
+            note = f" ({over} beyond a spacing, at the float64 twin)"
+            over = 0
+        require(over == 0, f"{key} {tag}: {name} has {over} cells more than "
+                f"one bf16 spacing from the plain version's")
+        parts.append(f"{name} {apart}/{n}{note}")
+        worst = max(worst, dmax)
+    results[key]["max_abs_err"] = max(results[key]["max_abs_err"], worst)
+    return "cells one bf16 spacing apart: " + ", ".join(parts)
+
+
+def check_rankmf_bf16_batch(tables, bits, pos, uf, itf, hp, cfg, n_item,
+                            tag, results, rep=False, reps=3):
+    """K9's bf16 instance against its plain version on one batch from the
+    same bf16 tables (on a grid on which every score is exact, so that both
+    take the same decisions): counters equal, every cell within one bf16
+    spacing, two launches bitwise; then its row-map mode the same way.
+    ``hp`` is rounded to bf16 as the model rounds it."""
+    import torch
+    from rsparse_tpu_torch.models import rankmf
+    hp = rankmf.BatchParams(*(rankmf.bf16_value(v) for v in hp))
+    names = ("W", "H", "accW", "accH")
+    runs = []
+    for _ in range(2):
+        tk = [t.clone() for t in tables]
+        runs.append((tk, rankmf._rankmf_batch(*tk, bits, pos, uf, itf, hp,
+                                              cfg, n_item)))
+    tp = [t.clone() for t in tables]
+    cp = rankmf._rankmf_batch_plain_bf16(*tp, bits, pos, uf, itf, hp, cfg,
+                                         n_item)
+    torch.cuda.synchronize()
+    (tk, ck), (tk2, ck2) = runs
+    require(all(bool(torch.isfinite(t.float()).all()) for t in tk),
+            f"K9 bf16 {tag}: non-finite output")
+    require(torch.equal(ck, cp), f"K9 bf16 {tag}: counters {ck.tolist()} != "
+            f"plain {cp.tolist()}")
+    require(torch.equal(ck, ck2) and all(torch.equal(a, b)
+                                         for a, b in zip(tk, tk2)),
+            f"K9 bf16 {tag}: two launches on the same inputs differ")
+    text = hold_bf16_tables("rankmf_bf16", tag, names, tk, tp, tables,
+                            results)
+    auc_n, auc_d, found, tried = cp.tolist()
+    line = (f"  K9 bf16     {tag} counters auc {auc_n}/{auc_d} found {found} "
+            f"tried {tried} (equal; two launches bitwise) {text}")
+    # the row-map mode (a mesh batch) on the compact tables
+    rows_w, rows_h = rankmf.batch_rows(bits, pos, uf, itf, n_item)
+    maps = []
+    for rows, n in ((rows_w, tables[0].shape[0]),
+                    (rows_h, tables[1].shape[0])):
+        m = torch.full((n,), -1, dtype=torch.int32, device=bits.device)
+        m[rows] = torch.arange(rows.shape[0], dtype=torch.int32,
+                               device=bits.device)
+        maps.append(m)
+    comp = [t[r].clone() for t, r in zip(tables, (rows_w, rows_h) * 2)]
+    mk, mp = [t.clone() for t in comp], [t.clone() for t in comp]
+    kw = dict(wmap=maps[0], hmap=maps[1])
+    a = rankmf._rankmf_batch(*mk, bits, pos, uf, itf, hp, cfg, n_item, **kw)
+    b = rankmf._rankmf_batch_plain_bf16(*mp, bits, pos, uf, itf, hp, cfg,
+                                        n_item, **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(a, b), f"K9 bf16 row map {tag}: counters "
+            f"{a.tolist()} != plain {b.tolist()}")
+    # the compact rows are the one-process batch's rows, bit for bit
+    for t1, tm, rows in zip(tk, mk, (rows_w, rows_h) * 2):
+        require(torch.equal(t1[rows], tm), f"K9 bf16 row map {tag}: the "
+                "compact tables differ from the one-process batch's rows")
+    hold_bf16_tables("rankmf_rowmap_bf16", tag, names, mk, mp, comp,
+                     results)
+    line += "; row map: counters equal, rows bitwise the one-process batch's"
+    if rep:
+        ms = time_ms(lambda: rankmf._rankmf_batch(*tk, bits, pos, uf, itf,
+                                                  hp, cfg, n_item), reps)
+        pms = time_ms(lambda: rankmf._rankmf_batch_plain_bf16(
+            *tp, bits, pos, uf, itf, hp, cfg, n_item), reps)
+        rms = time_ms(lambda: rankmf._rankmf_batch(
+            *mk, bits, pos, uf, itf, hp, cfg, n_item, **kw), reps)
+        rpms = time_ms(lambda: rankmf._rankmf_batch_plain_bf16(
+            *mp, bits, pos, uf, itf, hp, cfg, n_item, **kw), reps)
+        bms, bby = rankmf_bound(bits, pos, uf, itf, cp, tables[0].shape[1],
+                                tb=2)
+        try:   # device time: launch A, the pairs' sort, launch W
+            dms = graph_ms([lambda: rankmf._rankmf_batch(
+                *tk, bits, pos, uf, itf, hp, cfg, n_item)], reps=20)
+        except RuntimeError as e:   # a capture the card refuses
+            dms = None
+            log(f"    K9 bf16 {tag}: device time not measured ({e})")
+        results["rankmf_bf16"].update(ms=ms, plain_ms=pms, bound_ms=bms,
+                                      bound_by=bby, library_ms=None,
+                                      shape=tag,
+                                      **({"device_ms": dms} if dms else {}))
+        line += f" device={dms:.4f} ms" if dms else ""
+        results["rankmf_rowmap_bf16"].update(ms=rms, plain_ms=rpms,
+                                             bound_ms=bms, bound_by=bby,
+                                             library_ms=None, shape=tag)
+        line += (f" kernel={ms:.3f} ms (row map {rms:.3f} ms) plain="
+                 f"{pms:.3f} ms (row map {rpms:.3f} ms) bound={bms:.4f} ms "
+                 f"({bby})")
+    log(line)
+
+
+def check_rankmf_bf16(device, results) -> None:
+    """Phase 7 (a), bf16: K9's bf16 instance in every mode (BPR / WARP x
+    identity / sigmoid x AdaGrad / RMSprop x identity / side features) at r
+    = 8 (candidates side by side) and at r = 64 (one after another, WARP
+    AdaGrad), S = 8192, K = 20, over phase 7's 200,000 users."""
+    import torch
+    t0 = time.perf_counter()
+    from rsparse_tpu_torch.models import rankmf
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    x, _, _ = synth_config5(**dict(CONFIG5, n_users=K9_USERS, fm_rows=0),
+                            seed=1)
+    pos = rankmf._stage_positives(x, device)
+    n_user, n_item = x.shape
+    uf_m = _side_features(n_user, 4096, 11)
+    if_m = _side_features(n_item, 2048, 12)
+    bf = torch.bfloat16
+    feats = {"identity": (None, None),
+             "side": (rankmf._pad_features(uf_m, bf, device),
+                      rankmf._pad_features(if_m, bf, device))}
+    S, K = K9_BATCH
+    hp = rankmf.BatchParams(lr=0.5, gamma=0.9, lam_u=0.01, lam_ip=0.01,
+                            lam_in=0.01, margin=0.1)
+    cases = [(8, loss, kern, opt, fk)
+             for loss in (rankmf.BPR, rankmf.WARP)
+             for kern in (rankmf.IDENTITY, rankmf.SIGMOID)
+             for opt in (rankmf.ADAGRAD, rankmf.RMSPROP)
+             for fk in ("identity", "side")]
+    cases.append((64, rankmf.WARP, rankmf.IDENTITY, rankmf.ADAGRAD,
+                  "identity"))
+    for r, loss, kern, opt, fk in cases:
+        uf, itf = feats[fk]
+        nuf = n_user if uf is None else uf_m.shape[1]
+        nif = n_item if itf is None else if_m.shape[1]
+        sc = 0.25 if r <= 32 else 0.125
+        tables = tuple(t.to(bf) for t in (
+            _grid(torch.randn((nuf, r), generator=gen, device=device) * sc),
+            _grid(torch.randn((nif, r), generator=gen, device=device) * sc),
+            1 + torch.rand((nuf,), generator=gen, device=device),
+            1 + torch.rand((nif,), generator=gen, device=device)))
+        bits = torch.randint(0, 1 << 32, (S, K + 2), generator=gen,
+                             device=device, dtype=torch.int64)
+        cfg = rankmf.BatchConfig(S, K, loss, kern, opt, True)
+        tag = (f"S={S} K={K} r={r} {('bpr', 'warp')[loss]} "
+               f"{('identity', 'sigmoid')[kern]} "
+               f"{('adagrad', 'rmsprop')[opt]} {fk} features")
+        check_rankmf_bf16_batch(
+            tables, bits, pos, uf, itf, hp, cfg, n_item, tag, results,
+            rep=(r, loss, kern, opt, fk) == (8, rankmf.WARP, rankmf.IDENTITY,
+                                             rankmf.ADAGRAD, "identity"))
+    del pos, feats
+    torch.cuda.empty_cache()
+    log(f"  (bf16 part: {time.perf_counter() - t0:.1f} s)")
+
+
+def _tile_cublas_bf16(st, rows, cols, x, x_max, alpha, lr):
+    """K11's bf16-state step as a chain of PyTorch calls: the five products
+    through cuBLAS on the tensor cores with bf16 outputs, the elementwise
+    work at bf16 and the applies.  Timed as the library column only."""
+    import torch
+    from rsparse_tpu_torch.models import glove
+    i, j = rows.long(), cols.long()
+    xf = x.float()
+    present = xf > 0
+    lx = torch.log(torch.where(present, xf, 1.0)).bfloat16()
+    w = torch.where(present, torch.where(
+        xf < x_max, torch.pow(xf / x_max, alpha), 1.0), 0.0).bfloat16()
+    wi, wj = st.w_i[i], st.w_j[j]
+    s = torch.clamp(wi @ wj.T + st.b_i[i][:, None] + st.b_j[j][None, :]
+                    - lx, -100.0, 100.0)
+    cost = w * s
+    c2 = cost * cost
+    f = lambda t: t.float()  # noqa: E731
+    glove._adagrad_apply_bf16(st.w_i, st.b_i, st.acc_w_i, st.acc_b_i, i,
+                              f(cost @ wj), f(c2 @ (wj * wj)),
+                              f(cost.sum(1)), f(c2.sum(1)), lr)
+    glove._adagrad_apply_bf16(st.w_j, st.b_j, st.acc_w_j, st.acc_b_j, j,
+                              f(cost.T @ wi), f(c2.T @ (wi * wi)),
+                              f(cost.sum(0)), f(c2.sum(0)), lr)
+    return (cost * s).float().sum()
+
+
+def check_glove_bf16_step(key, step, plain, state, tag, results, bnd,
+                          lib=None, rep=False, reps=5, graphs=False,
+                          plain_reps=None, twin=None):
+    """A bf16 instance of K10 or K11 against its plain version on the same
+    bf16 state: every cell of the eight tables and the loss within one bf16
+    spacing of the larger of its value and its change (K11: or at its
+    ``twin``, :func:`hold_bf16_tables`), and two launches on the same
+    inputs bitwise."""
+    import torch
+    from rsparse_tpu_torch.models import glove
+    fields = glove.GloveState._fields
+    sk = glove.GloveState(*(t.clone() for t in state))
+    sk2 = glove.GloveState(*(t.clone() for t in state))
+    sp_ = glove.GloveState(*(t.clone() for t in state))
+    lk, lk2, lp = step(sk), step(sk2), plain(sp_)
+    tw = None
+    if twin is not None:
+        st_t = glove.GloveState(*(t.clone() for t in state))
+        tw = (*st_t, twin(st_t).reshape(1))
+    torch.cuda.synchronize()
+    require(all(bool(torch.isfinite(t.float()).all()) for t in (lk, *sk)),
+            f"{key} {tag}: non-finite output")
+    require(torch.equal(lk, lk2) and all(torch.equal(a, b)
+                                         for a, b in zip(sk, sk2)),
+            f"{key} {tag}: two launches on the same inputs differ")
+    text = hold_bf16_tables(key, tag, fields + ("loss",),
+                            (*sk, lk.reshape(1)), (*sp_, lp.reshape(1)),
+                            (*state, torch.zeros(1, device=lk.device)),
+                            results, twin=tw)
+    ms = time_ms(lambda: step(sk), reps)
+    pms = (None if plain_reps == 0 else
+           time_ms(lambda: plain(sp_), plain_reps or reps))
+    lms = time_ms(lambda: lib(sp_), reps) if lib is not None else None
+    dms = None
+    if graphs:
+        try:
+            dms = graph_ms([lambda: step(sk)], reps=20)
+        except RuntimeError as e:   # a capture the card refuses
+            log(f"    {key} {tag}: device time not measured ({e})")
+    bms, bby = bnd
+    log(f"  {key:21s} {tag} (two launches bitwise) {text} kernel={ms:.3f} "
+        f"ms" + (f" (device {dms:.4f} ms by CUDA graphs)" if dms else "")
+        + (f" plain={pms:.3f} ms" if pms is not None else
+           " plain not timed (its ordered adds take ~0.7 s a call)")
+        + (f" cuBLAS bf16 chain={lms:.3f} ms" if lms else "")
+        + f" bound={bms:.4f} ms ({bby})")
+    if rep:
+        results[key].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                            library_ms=lms, shape=tag,
+                            **({"device_ms": dms} if dms else {}))
+
+
+def check_glove_bf16(head, tail, state, tag, results, rep=False) -> None:
+    """K10's bf16 instance on the tail's first shard, straight and swapped,
+    on both tail paths (the scheduled sums, shuffle off; the ordered
+    scatter, shuffle on), and K11's bf16-state instance on the head's first
+    tile, each against its plain version (:func:`check_glove_bf16_step`).
+    At r > 128 the wide instances."""
+    import torch
+    from rsparse_tpu_torch.models import glove
+    hp = (GLOVE_KW["x_max"], 0.75, GLOVE_KW["learning_rate"])
+    r = state.w_i.shape[1]
+    sfx = "_wide" if r > glove.GLOVE_WIDTHS[0] else ""
+    for label, sh in (("shard 0", tail.shard(0)),
+                      ("swapped shard 0", tail.swapped().shard(0))):
+        for ordered in (False, True):
+            path = "ordered (shuffle on)" if ordered else "sums (shuffle off)"
+            check_glove_bf16_step(
+                "glove" + sfx + "_bf16",
+                lambda st: glove._glove_shard_cuda(st, sh, *hp,
+                                                   ordered=ordered),
+                lambda st: glove._glove_shard_plain_bf16(st, sh, *hp,
+                                                         ordered=ordered),
+                state, f"{tag} {label} {path}, N={sh.rows.shape[0]} "
+                f"U={sh.feats_r.shape[0]}/{sh.feats_c.shape[0]}", results,
+                k10_bound(sh, r, tb=2),
+                rep=rep and label == "shard 0" and not ordered, graphs=True,
+                plain_reps=0 if ordered else None)
+    side = head.side
+    rows = cols = head.ids[:side]
+    xv = head.x[:side, :side]
+    check_glove_bf16_step(
+        "glove_dense" + sfx + "_bf16",
+        lambda st: glove._glove_tile_cuda(st, rows, cols, xv, *hp,
+                                          torch.bfloat16),
+        lambda st: glove._glove_tile_plain_bf16(st, rows, cols, xv, *hp),
+        state, f"{tag} tile (0, 0) {rows.numel()} x {cols.numel()}", results,
+        k11_bound(rows.numel(), cols.numel(), r, 2, True,
+                  int((xv > 0).sum()), tb=2),
+        lib=lambda st: _tile_cublas_bf16(st, rows, cols, xv, *hp), rep=rep,
+        graphs=True,
+        twin=lambda st: glove._glove_tile_plain_bf16(st, rows, cols, xv, *hp,
+                                                     exact=True))
+    torch.cuda.empty_cache()
+
+
+def run_glove_bf16(device, x4, results, launches, rank, f32_hist,
+                   check=True) -> None:
+    """Config #4 at bf16 state through GloVe.fit_transform, 3 epochs, beside
+    the float32-state fit of the same run (``f32_hist``): triplets/s, each
+    epoch's cost, peak memory; with ``check`` first the bf16 instances on
+    its staged shards and tile from the initial state."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.models import glove
+    t_part = time.perf_counter()
+    kw = dict(GLOVE_KW, rank=rank, precision="bfloat16")
+    sfx = "_wide" if rank > glove.GLOVE_WIDTHS[0] else ""
+    if check:
+        hot, X, rem = glove._split_head(x4, GLOVE_AUTO_HOT, np.float32)
+        head = glove._stage_head(X, hot, torch.bfloat16, kw["batch_size"],
+                                 device)
+        del X
+        tail = glove._stage_tail(rem, kw["batch_size"], torch.bfloat16,
+                                 device)
+        st0 = rt.GloVe(**kw, device=device)._init_state(x4.shape[0])
+        check_glove_bf16(head, tail, st0, f"config #4 r={rank} bf16 state",
+                         results, rep=True)
+        del head, tail, st0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = rt.GloVe(**kw, device=device)
+    emb = m.fit_transform(x4, n_iter=3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 - base
+    launches.append(check_launched(
+        _kernels, f"config #4 GloVe r={rank} bf16",
+        ("glove" + sfx + "_bf16", "glove_dense" + sfx + "_bf16")))
+    hist, info = m.cost_history, m.stage_info
+    require(emb.dtype == torch.bfloat16 and all(
+        t.dtype == torch.bfloat16 for t in m._state),
+        "config #4 GloVe bf16: a state table is not bfloat16")
+    require(bool(torch.isfinite(emb.float()).all())
+            and all(np.isfinite(hist)) and hist[0] > hist[1] > hist[2],
+            f"config #4 GloVe r={rank} bf16: loss not finite and decreasing")
+    best = min(info["epoch_s"])
+    tb = sum(t.numel() * t.element_size() for t in m._state) / 2**20
+    log(f"  config #4 GloVe rank {rank} bf16 state: fit_transform(n_iter=3)"
+        f" {wall:.3f} s, epochs {[round(e, 4) for e in info['epoch_s']]} s;"
+        f" {x4.nnz / best:.0f} triplets/s (best epoch); loss/nnz "
+        f"{[round(c, 6) for c in hist]} (float32 state, this run: "
+        f"{[round(c, 6) for c in f32_hist]}); state {tb:.1f} MiB; peak "
+        f"device memory {peak:.2f} GiB (above {base:.2f} GiB held)")
+    del m, emb
+    log(f"  (bf16 part: {time.perf_counter() - t_part:.1f} s)")
+
+
+def run_ml100k_bf16(device, launches) -> None:
+    """GloVe and RankMF at precision="bfloat16" on ML-100k against the JAX
+    package's (REF_BF16): GloVe's cost history per epoch within
+    GLOVE_BF16_REL; RankMF's AUC within RANKMF_BF16_AUC (its own bits) and
+    the reference's gate (AUC > 0.8, NDCG@10 > 0.15), through predict."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    t0 = time.perf_counter()
+    x, tr, test = ml100k_bf16_inputs()
+    _kernels.reset_launch_counts()
+    g = rt.GloVe(**REF_BF16_KW["glove"], device=device)
+    emb = g.fit_transform(x, n_iter=3)
+    launches.append(check_launched(_kernels, "ML-100k GloVe bf16",
+                                   ("glove_bf16", "glove_dense_bf16")))
+    ref = REF_BF16["glove"]
+    rels = [abs(a / b - 1) for a, b in zip(g.cost_history, ref)]
+    log(f"  ML-100k GloVe bf16: cost history "
+        f"{[round(c, 6) for c in g.cost_history]} (JAX on the CPU "
+        f"{[round(c, 6) for c in ref]}, largest relative distance "
+        f"{max(rels):.2e})")
+    require(emb.dtype == torch.bfloat16
+            and bool(torch.isfinite(emb.float()).all()),
+            "ML-100k GloVe bf16: not bf16 or not finite")
+    require(len(rels) == 3 and max(rels) <= GLOVE_BF16_REL,
+            f"ML-100k GloVe bf16: off the JAX package's history by more "
+            f"than {GLOVE_BF16_REL}")
+    _kernels.reset_launch_counts()
+    m = rt.RankMF(**REF_BF16_KW["rankmf"], device=device)
+    emb = m.partial_fit_transform(tr, n_iter=200)
+    launches.append(check_launched(_kernels, "ML-100k RankMF bf16",
+                                   ("rankmf_bf16",)))
+    p = m.predict(tr, k=10, not_recommend=tr)
+    ndcg = float(np.nanmean(rt.ndcg_k(p.indices, test)))
+    auc = m.auc_history[-1]
+    log(f"  ML-100k RankMF BPR rank 16 bf16: AUC {auc:.4f} NDCG@10 "
+        f"{ndcg:.4f} (JAX on the CPU, its own bits: "
+        f"{REF_BF16['rankmf'][0]:.4f} / {REF_BF16['rankmf'][1]:.4f})")
+    require(emb.dtype == torch.bfloat16 and
+            m.user_features_embeddings.dtype == torch.bfloat16,
+            "ML-100k RankMF bf16: tables not bf16")
+    require(abs(auc - REF_BF16["rankmf"][0]) <= RANKMF_BF16_AUC
+            and auc > 0.8 and ndcg > 0.15,
+            f"ML-100k RankMF bf16: AUC {auc:.4f} / NDCG {ndcg:.4f} off the "
+            "reference's or below the gate")
+    log(f"  (bf16 part: {time.perf_counter() - t0:.1f} s)")
+
+
+def run_rankmf_bf16_full(device, x, f32_line, results, launches) -> None:
+    """Config #5 RankMF WARP rank 8 at bf16, one epoch, beside the float32
+    fit of the same run (``f32_line``: its updates/s, table MiB, AUC)."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    m = rt.RankMF(rank=8, learning_rate=0.5, loss="warp", seed=0,
+                  batch_size=K9_BATCH[0], max_negative_samples=K9_BATCH[1],
+                  precision="bfloat16", device=device)
+    m.partial_fit_transform(x, n_iter=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = m.partial_fit_transform(x, n_iter=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    info = m.stage_info
+    launches.append(check_launched(_kernels, "config #5 RankMF bf16",
+                                   ("rankmf_bf16",)))
+    tabs = (m.user_features_embeddings, m.item_features_embeddings,
+            m._accW, m._accH)
+    require(all(t.dtype == torch.bfloat16 for t in tabs),
+            "config #5 RankMF bf16: a table is not bfloat16")
+    require(bool(torch.isfinite(emb.float()).all()),
+            "config #5 RankMF bf16: non-finite")
+    mib = sum(t.numel() * t.element_size() for t in tabs) / 2**20
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  config #5 RankMF WARP rank 8 bf16: epoch {wall:.3f} s = "
+        f"{info['updates'] / wall:.0f} pairwise updates/s; tables "
+        f"{mib:.1f} MiB; AUC~{m.auc_history[-1]:.3f}; peak device memory "
+        f"{peak:.2f} GiB (float32, this run: {f32_line})")
+    del m, emb, tabs
+    log(f"  (bf16 part: {time.perf_counter() - t0:.1f} s)")
+
+
 KERNELS = {
     "als_cg": ("rsparse_tpu_torch/csrc/als_cg.cu",
                "rsparse_tpu/ops/als.py:138, rsparse_tpu/ops/als.py:269"),
@@ -4949,6 +5526,21 @@ KERNELS = {
                    "rsparse_tpu/models/glove.py:109"),
     "glove_dense_wide": ("rsparse_tpu_torch/csrc/glove_dense.cu",
                          "rsparse_tpu/models/glove.py:206"),
+    # the bf16-state instances (RankMF, GloVe precision="bfloat16")
+    "rankmf_bf16": ("rsparse_tpu_torch/csrc/rankmf.cu",
+                    "rsparse_tpu/models/rankmf.py:202"),
+    "rankmf_rowmap_bf16": ("rsparse_tpu_torch/csrc/rankmf.cu",
+                           "rsparse_tpu/models/rankmf.py:202"),
+    "glove_bf16": ("rsparse_tpu_torch/csrc/glove.cu",
+                   "rsparse_tpu/models/glove.py:50, "
+                   "rsparse_tpu/models/glove.py:109"),
+    "glove_wide_bf16": ("rsparse_tpu_torch/csrc/glove.cu",
+                        "rsparse_tpu/models/glove.py:50, "
+                        "rsparse_tpu/models/glove.py:109"),
+    "glove_dense_bf16": ("rsparse_tpu_torch/csrc/glove_dense.cu",
+                         "rsparse_tpu/models/glove.py:206"),
+    "glove_dense_wide_bf16": ("rsparse_tpu_torch/csrc/glove_dense.cu",
+                              "rsparse_tpu/models/glove.py:206"),
 }
 
 
@@ -4956,6 +5548,7 @@ def main(phases) -> int:
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false")
+    t_main = time.perf_counter()
     sys.path.insert(0, REPO)
     import rsparse_tpu_torch  # noqa: F401  (sets full-f32 matmuls)
     from rsparse_tpu_torch import _kernels
@@ -5022,19 +5615,26 @@ def main(phases) -> int:
             "32,768)")
         run_config3(device, x, results, launches)
     if 7 in phases:
+        t7 = time.perf_counter()
         log("phase 7 (a): the SGD family's kernels against their plain "
             "versions")
         check_sgd_kernels(device, results)
+        log("phase 7 (a), bf16: K9's bf16 instance against its plain "
+            "version in every mode")
+        check_rankmf_bf16(device, results)
         log("phase 7 (b): quality (FTRL / FM on bench.py:396's synthetic, "
             "FM XOR, RankMF on ML-100k)")
         run_sgd_quality(device, launches)
         log("phase 7 (c): full width (hashed FTRL / FM; config #5 RankMF and"
             " FM)")
         run_sgd_full_width(device, results, launches)
+        log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
     if 8 in phases:
+        t8 = time.perf_counter()
         log("phase 8: GloVe (config #4: vocabulary 50,000, rank 128, bf16 "
             "head)")
         run_glove(device, results, launches)
+        log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
     if 9 in phases:
         t9 = time.perf_counter()
         log("phase 9 (a): reduced precision: K1/K2/K4 variants, K1's bf16 "
@@ -5112,6 +5712,7 @@ def main(phases) -> int:
                 **{key: v for key, v in results[name].items()
                    if key.startswith("fit_") or key == "device_ms"}}
                for name, (src, rep) in KERNELS.items()]
+    log(f"  the whole run took {time.perf_counter() - t_main:.1f} s")
     log(smi_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -73,6 +73,21 @@ WHAT is one or more of:
               RSP_K11_CLOCKS: the cycles of each phase of one CTA's
               consumer loop and the cells it summed again;
 
+  k9-bf16     K9 at config #5's shape (S = 8,192, K = 20, r = 8, WARP,
+              AdaGrad, 200,000 users x 131,072 items) with float32 and with
+              bf16 tables from the same seeded values and bits, and at r =
+              64: CUDA events over wrapper calls, device time by CUDA
+              graphs (the bf16 instance's launch A, its pairs' sort and its
+              launch W), and the bf16 wrapper's host time by op
+              (``torch.profiler``, CPU);
+  k10-bf16    K10's bf16 instance on config #4's first tail shard at r =
+              128 and 300 on both tail paths (the scheduled sums, the
+              ordered scatter), beside the float32 instance on the same
+              shard;
+  k11-bf16    K11's bf16-state instance on config #4's first tile at r =
+              128 and 300, beside the float32-state bf16 head and the bf16
+              cuBLAS chain (``chip_smoke.py`` ``_tile_cublas_bf16``);
+
 k7 and k10 also print each launch's device time by ``torch.profiler``;
 k2-wide on this tree also builds ``csrc/als_chol_wide.cu`` with
 RSP_CHOL_CLOCKS and prints the cycles of each phase of one cluster's CTAs.
@@ -673,12 +688,127 @@ def k11_wide_times(dev, reps):
         torch.cuda.empty_cache()
 
 
+def k9_bf16_times(dev, reps):
+    import torch
+    from rsparse_tpu_torch.models import rankmf
+    cs = sys.modules["chip_smoke"]
+    x, _, _ = cs.synth_config5(**dict(cs.CONFIG5, n_users=cs.K9_USERS,
+                                      fm_rows=0), seed=1)
+    pos = rankmf._stage_positives(x, dev)
+    n_user, n_item = x.shape
+    S, K = cs.K9_BATCH
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    hp = rankmf.BatchParams(lr=0.5, gamma=0.9, lam_u=0.01, lam_ip=0.01,
+                            lam_in=0.01, margin=0.1)
+    cfg = rankmf.BatchConfig(S, K, rankmf.WARP, rankmf.IDENTITY,
+                             rankmf.ADAGRAD, True)
+    for r in (8, 64):
+        base = (torch.randn((n_user, r), generator=gen, device=dev) * 0.1,
+                torch.randn((n_item, r), generator=gen, device=dev) * 0.1,
+                1 + torch.rand((n_user,), generator=gen, device=dev),
+                1 + torch.rand((n_item,), generator=gen, device=dev))
+        bits = torch.randint(0, 1 << 32, (S, K + 2), generator=gen,
+                             device=dev, dtype=torch.int64)
+        for dt in (torch.float32, torch.bfloat16):
+            tabs = [t.to(dt) for t in base]
+            h = hp if dt == torch.float32 else rankmf.BatchParams(
+                *(rankmf.bf16_value(v) for v in hp))
+            fn = lambda: rankmf._rankmf_batch(  # noqa: E731
+                *tabs, bits, pos, None, None, h, cfg, n_item)
+            ms, dms = cs.time_ms(fn, reps), cs.graph_ms([fn], reps)
+            print(f"  K9 S={S} K={K} r={r} WARP AdaGrad {str(dt)[6:]} "
+                  f"tables: {ms:.4f} ms (device {dms:.4f})", flush=True)
+            if dt == torch.bfloat16 and r == 8:
+                # where a wrapper call's host time goes
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU]) as prof:
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                print(prof.key_averages().table(
+                    sort_by="self_cpu_time_total", row_limit=12), flush=True)
+        del base, tabs
+    torch.cuda.empty_cache()
+
+
+def _glove_config4(dev, dt):
+    """Config #4's staged head (bf16 grid) and tail (counts at ``dt``)."""
+    import torch
+    from rsparse_tpu_torch.models import glove
+    cs = sys.modules["chip_smoke"]
+    x4 = cs.synth_glove(**cs.CONFIG4)
+    hot, X, rem = glove._split_head(x4, cs.GLOVE_AUTO_HOT, np.float32)
+    head = glove._stage_head(X, hot, torch.bfloat16,
+                             cs.GLOVE_KW["batch_size"], dev)
+    tail = glove._stage_tail(rem, cs.GLOVE_KW["batch_size"], dt, dev)
+    return x4, head, tail
+
+
+def k10_bf16_times(dev, reps):
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch.models import glove
+    cs = sys.modules["chip_smoke"]
+    hp = (cs.GLOVE_KW["x_max"], 0.75, cs.GLOVE_KW["learning_rate"])
+    for dt in (torch.float32, torch.bfloat16):
+        x4, _, tail = _glove_config4(dev, dt)
+        sh = tail.shard(0)
+        prec = "bfloat16" if dt == torch.bfloat16 else "float32"
+        for r in (128, 300):
+            st0 = rt.GloVe(**dict(cs.GLOVE_KW, rank=r, precision=prec),
+                           device=dev)._init_state(x4.shape[0])
+            for ordered in ((False, True) if prec == "bfloat16"
+                            else (False,)):
+                st = glove.GloveState(*(t.clone() for t in st0))
+                fn = lambda: glove._glove_shard(  # noqa: E731
+                    st, sh, *hp, ordered=ordered)
+                ms, dms = cs.time_ms(fn, reps), cs.graph_ms([fn], reps)
+                print(f"  K10 config #4 shard 0 r={r} {prec} state"
+                      + (" ordered" if ordered else "")
+                      + f" (N={sh.rows.shape[0]}): {ms:.4f} ms (device "
+                      f"{dms:.4f})", flush=True)
+                del st
+            del st0
+        del tail
+        torch.cuda.empty_cache()
+
+
+def k11_bf16_times(dev, reps):
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch.models import glove
+    cs = sys.modules["chip_smoke"]
+    x4, head, _ = _glove_config4(dev, torch.float32)
+    hp = (cs.GLOVE_KW["x_max"], 0.75, cs.GLOVE_KW["learning_rate"])
+    span = slice(0, min(head.ids.shape[0], head.side))
+    rows = cols = head.ids[span]
+    xv = head.x[span, span]
+    for r in (128, 300):
+        for prec in ("float32", "bfloat16"):
+            st0 = rt.GloVe(**dict(cs.GLOVE_KW, rank=r, precision=prec),
+                           device=dev)._init_state(x4.shape[0])
+            st = glove.GloveState(*(t.clone() for t in st0))
+            fn = lambda: glove._glove_tile_cuda(  # noqa: E731
+                st, rows, cols, xv, *hp, torch.bfloat16)
+            ms, dms = cs.time_ms(fn, reps), cs.graph_ms([fn], reps)
+            lib = (cs._tile_cublas_bf16 if prec == "bfloat16"
+                   else cs._tile_cublas)
+            lms = cs.time_ms(lambda: lib(st, rows, cols, xv, *hp), reps)
+            print(f"  K11 config #4 tile (0, 0) {rows.numel()}^2 r={r} "
+                  f"{prec} state: {ms:.4f} ms (device {dms:.4f}); cuBLAS "
+                  f"chain {lms:.3f} ms", flush=True)
+            del st, st0
+            torch.cuda.empty_cache()
+
+
 TIMERS = {"k1": k1_times, "k8": k8_times, "k3": k3_times,
           "fm-staging": fm_staging_times, "k8-tiles": k8_tile_times,
           "k7": k7_times, "ftrl-pass": ftrl_pass_times, "k10": k10_times,
           "k2-wide": k2_wide_times,
           "k2-wide-buckets": lambda dev, reps: k2_wide_times(dev, reps, False),
-          "k11-wide": k11_wide_times}
+          "k11-wide": k11_wide_times, "k9-bf16": k9_bf16_times,
+          "k10-bf16": k10_bf16_times, "k11-bf16": k11_bf16_times}
 
 
 def main() -> int:

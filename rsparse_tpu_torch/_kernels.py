@@ -50,7 +50,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_D = {"als_cg": 514, "als_chol": 514, "als_nnls": 160}
 
 #: launches per kernel, counted by the wrappers (the wide routes apart:
-#: K1 and K2 at d > 160, K10 and K11 at r > 128)
+#: K1 and K2 at d > 160, K10 and K11 at r > 128; and the bf16-state
+#: instances of K9, K10 and K11, "_bf16")
 launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "als_nnls": 0,
                             "topk": 0, "spmm": 0, "spmm_residual": 0,
                             "ftrl": 0, "fm": 0, "rankmf": 0,
@@ -58,7 +59,10 @@ launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "als_nnls": 0,
                             "glove_dense": 0, "hot_chain": 0, "gather": 0,
                             "gather_lanes": 0, "als_cg_wide": 0,
                             "als_chol_wide": 0, "glove_wide": 0,
-                            "glove_dense_wide": 0}
+                            "glove_dense_wide": 0, "rankmf_bf16": 0,
+                            "rankmf_rowmap_bf16": 0, "glove_bf16": 0,
+                            "glove_wide_bf16": 0, "glove_dense_bf16": 0,
+                            "glove_dense_wide_bf16": 0}
 #: what the last build did: {"seconds": ..., "log": ..., "path": ...}
 build_info: Dict[str, object] = {}
 
@@ -166,7 +170,8 @@ class RankMFArgs(ctypes.Structure):
         "cntH", "counters", "wmap", "hmap")] + [
         (name, ctypes.c_int) for name in (
             "S", "K", "r", "n_user", "n_item", "flat_len", "lanes", "Fu",
-            "Fi", "loss", "kernel", "optimizer", "update_items")] + [
+            "Fi", "loss", "kernel", "optimizer", "update_items",
+            "table_bf16")] + [
         (name, ctypes.c_float) for name in (
             "lr", "gamma", "lam_u", "lam_ip", "lam_in", "margin", "norm")]
 
@@ -246,11 +251,16 @@ def lib() -> ctypes.CDLL:
     # args, stages (1 launch A, 2 the batch), stream
     so.rsp_rankmf_batch.argtypes = [ctypes.POINTER(RankMFArgs), i, p]
     so.rsp_rankmf_batch.restype = i
+    # args, W's pairs (keys, codes, count), H's, stream (the bf16 instance)
+    so.rsp_rankmf_walk.argtypes = [ctypes.POINTER(RankMFArgs), p, p, i, p, p,
+                                   i, p]
+    so.rsp_rankmf_walk.restype = i
     # rows, cols, vals, slot_r, slot_c, feats_r, feats_c, order_r, order_c,
     # bounds_r, bounds_c, N, U_r, U_c, r, w_i, w_j, b_i, b_j, acc_w_i,
-    # acc_w_j, acc_b_i, acc_b_j, x_max, alpha, lr, scratch, loss, stream
+    # acc_w_j, acc_b_i, acc_b_j, x_max, alpha, lr, bf16, ordered, scratch,
+    # loss, stream
     so.rsp_glove_shard.argtypes = [p] * 11 + [i] * 4 + [p] * 8 + [f] * 3 + [
-        p, p, p]
+        i, i, p, p, p]
     so.rsp_glove_shard.restype = i
     # r -> the instance width of K10 / K11 that takes it (0: none)
     so.rsp_glove_shard_width.argtypes = [i]
@@ -258,15 +268,16 @@ def lib() -> ctypes.CDLL:
     so.rsp_glove_tile_width.argtypes = [i]
     so.rsp_glove_tile_width.restype = i
     ll = ctypes.c_longlong
-    # N, U_r, r -> floats of scratch
-    so.rsp_glove_shard_scratch.argtypes = [i, i, i]
+    # N, U_r, U_c, r, bf16 -> floats of scratch
+    so.rsp_glove_shard_scratch.argtypes = [i, i, i, i, i]
     so.rsp_glove_shard_scratch.restype = ll
     # n_r, n_c, r, bf16 -> floats of scratch
     so.rsp_glove_tile_scratch.argtypes = [i, i, i, i]
     so.rsp_glove_tile_scratch.restype = ll
-    # rows, cols, n_r, n_c, X, row stride, col stride, bf16, the 8 tables,
-    # r, x_max, alpha, lr, scratch, loss, S of both sides (or NULL), stream
-    so.rsp_glove_tile.argtypes = [p, p, i, i, p, ll, ll, i] + [p] * 8 + [
+    # rows, cols, n_r, n_c, X, row stride, col stride, bf16, state_bf16,
+    # the 8 tables, r, x_max, alpha, lr, scratch, loss, S of both sides (or
+    # NULL), stream
+    so.rsp_glove_tile.argtypes = [p, p, i, i, p, ll, ll, i, i] + [p] * 8 + [
         i, f, f, f, p, p, p, p]
     so.rsp_glove_tile.restype = i
     # table, row stride, col stride, bf16, int32 idx, n, d, out, row

@@ -2,8 +2,9 @@
 
 Mirrors ``rsparse_tpu/config.py`` with torch dtypes.  The reference's
 precision vocabulary ("double"/"float", reference R/model_WRMF.R:102) maps
-to float64/float32, and "bfloat16"/"bf16" to bfloat16, which only WRMF takes
-so far (:func:`resolve_full_dtype` is what the other models call; ROADMAP.md).
+to float64/float32, and "bfloat16"/"bf16" to bfloat16, which WRMF, RankMF and
+GloVe take so far (:func:`resolve_full_dtype` is what the other models call;
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -52,12 +53,13 @@ def resolve_dtype(precision: Union[str, torch.dtype]) -> torch.dtype:
 
 def resolve_full_dtype(precision: Union[str, torch.dtype]) -> torch.dtype:
     """:func:`resolve_dtype` for the models that keep their state at float32
-    or float64: ``precision="bfloat16"`` is ported for WRMF only."""
+    or float64: ``precision="bfloat16"`` is ported for WRMF, RankMF and
+    GloVe only."""
     dt = resolve_dtype(precision)
     if dt == torch.bfloat16:
         raise NotImplementedError(
-            "precision bfloat16 is ported for WRMF only, not for this model "
-            "yet (see ROADMAP.md)")
+            "precision bfloat16 is ported for WRMF, RankMF and GloVe only, "
+            "not for this model yet (see ROADMAP.md)")
     return dt
 
 
@@ -76,6 +78,20 @@ def np_dtype(dtype: torch.dtype) -> np.dtype:
     """numpy counterpart of a torch dtype: float64, else float32 (numpy has
     no bfloat16; values are rounded when they reach the device)."""
     return np.dtype(np.float64 if dtype == torch.float64 else np.float32)
+
+
+def bf16_value(v: float) -> float:
+    """A Python scalar rounded to bf16 through float32: the value a weakly
+    typed scalar (or one the JAX package stores at the table dtype) takes
+    at bf16."""
+    return float(torch.tensor(float(v), dtype=torch.float32).to(
+        torch.bfloat16))
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to bf16 and kept as float32: one op of the JAX
+    package's bf16 arithmetic (computed at float32, rounded)."""
+    return t.to(torch.bfloat16).float()
 
 
 def to_bf16(t: torch.Tensor) -> torch.Tensor:

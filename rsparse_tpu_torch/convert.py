@@ -26,6 +26,12 @@ The SGD functions take ``mesh=`` (a ``parallel.mesh.Mesh``, every rank
 calling with the same arrays): the model is made on that mesh with the
 state carried across row-sharded (``parallel/sgd_sharded.py``).
 
+A bf16 model (RankMF, GloVe ``precision="bfloat16"``) takes the
+reference's bf16 parameters exactly: ``np.asarray`` of a JAX bf16 array is
+a 2-byte bfloat16 array (of the ``ml_dtypes`` package, which the port does
+not import), taken by its bit pattern; float32 or float64 arrays holding
+bf16 values cast to bf16 without change.
+
 Nothing of the reference is imported.
 """
 
@@ -36,7 +42,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .config import resolve_full_dtype
+from .config import resolve_dtype, resolve_full_dtype
 from .models.fm import FactorizationMachine
 from .models.ftrl import FTRL
 from .models.glove import GloVe, GloveState
@@ -128,8 +134,20 @@ def linear_flow_from_numpy(v: np.ndarray, components: np.ndarray,
     return m
 
 
+def as_tensor(a) -> torch.Tensor:
+    """A host tensor of array ``a``: numpy floats as they are, a 2-byte
+    bfloat16 array (``np.asarray`` of a JAX bf16 array) by its bit
+    pattern, as torch.bfloat16."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.itemsize == 2 and a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
 def _tensor(a, m):
-    return torch.tensor(np.asarray(a), dtype=m.dtype, device=m.device)
+    return as_tensor(a).to(device=m.device, dtype=m.dtype)
 
 
 def _table(a, m):
@@ -138,7 +156,7 @@ def _table(a, m):
     if m.mesh is None:
         return _tensor(a, m)
     from .parallel.sgd_sharded import shard_table
-    return shard_table(np.asarray(a), m.mesh, dtype=m.dtype)
+    return shard_table(as_tensor(a), m.mesh, dtype=m.dtype)
 
 
 def ftrl_from_numpy(z: np.ndarray, n: np.ndarray, **ftrl_kwargs) -> FTRL:
@@ -211,9 +229,9 @@ def glove_state_from_numpy(state: Sequence, precision: str = "float32",
     if len(state) != len(GloveState._fields):
         raise ValueError(f"expected {len(GloveState._fields)} arrays "
                          f"({', '.join(GloveState._fields)})")
-    dtype = resolve_full_dtype(precision)
-    return GloveState(*(torch.tensor(np.asarray(a), dtype=dtype,
-                                     device=device) for a in state))
+    dtype = resolve_dtype(precision)
+    return GloveState(*(as_tensor(a).to(device=device, dtype=dtype)
+                        for a in state))
 
 
 def glove_from_numpy(w_i: np.ndarray, w_j: np.ndarray, b_i: np.ndarray,

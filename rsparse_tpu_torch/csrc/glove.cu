@@ -57,10 +57,34 @@
 // thread: it runs at one CTA an SM.  A row at r = 300 is 1,200 bytes, ten
 // coalesced loads a warp.  The order of every sum is the same as at
 // r <= 128: the wide route is as deterministic.
+//
+// The bf16 instance (bf16 != 0, GloVe(precision="bfloat16"), T =
+// __nv_bfloat16): the eight tables and the counts are bf16, and every
+// value is rounded where the JAX function run op by op rounds it (log x,
+// x / x_max, its power, the products of w_i . w_j before their f32 sum,
+// each of + b_i, + b_j, - log x, cost, g = cost w, g^2, cost^2, each step
+// term).  A tile is one feature's entries (bounds[u], bounds[u + 1]), so
+// one warp walks all of a feature's entries in order and launch F only
+// sums the loss; its updates follow the JAX path of the same settings:
+//   ordered = 0 (shuffle off, rsparse_tpu/models/glove.py:109, the
+//     scheduled sums): the entries in chunks of kChunk, each chunk's sums
+//     taken at f32 and rounded to bf16, the chunks' sum rounded again, then
+//     acc += sum g^2 and w += -lr sum g / sqrt(acc), each op rounded;
+//   ordered = 1 (shuffle on, :50, the scatter-adds): two passes over the
+//     entries, the first adding each g^2 (cost^2) to the accumulator with
+//     one rounding an entry, the second each -lr g / sqrt(acc) to the row
+//     (bias), one rounding an entry, with the final accumulator.
+// Every sum keeps its order: the bf16 instance is as deterministic.
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
+
+using bf16_t = __nv_bfloat16;
+template <typename T>
+constexpr bool kIsBf16 = std::is_same<T, bf16_t>::value;
 
 constexpr float kClip = 100.f;
 // the two widths built (models/glove.py GLOVE_WIDTHS): lanes hold kRpl =
@@ -78,15 +102,36 @@ constexpr int kDepth = 4;           // entries whose rows a walk's warp loads
                                     // together
 constexpr int kMinBlocks = 2;       // CTAs an SM the walks' register cap is
                                     // set for
+// entries of a feature a chunk of the bf16 scheduled sums takes
+// (rsparse_tpu/ops/segsum.py build_stacked_col_schedule chunk_len,
+// ops/segsum.py SCHED_CHUNK)
+constexpr int kChunk = 128;
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16_t* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(bf16_t* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+template <typename T>
+__device__ __forceinline__ float rd(float x) {
+  if constexpr (kIsBf16<T>)
+    return rsp::rbf(x);
+  else
+    return x;
+}
 
 // One side of a shard as its walk takes it.
+template <typename T>
 struct Side {
   const int* own;     // (N,) the side's ids (rows or cols)
   const int* slot;    // (N,) each entry's index into feats
   const int* order;   // (N,) the valid entries grouped by slot
   const int* bounds;  // (U + 1,) slot u's range in order; bounds[U] entries
   const int* feats;   // (U,) the side's distinct ids
-  float *w, *b, *acc_w, *acc_b;  // the side's own tables
+  T *w, *b, *acc_w, *acc_b;  // the side's own tables
   float* span;        // (n_tiles, 2, 2r + 2) the tiles' head / tail sums
   int* tail_u;        // (n_tiles,) the slot whose tail a tile holds, or -1
   int U;
@@ -115,6 +160,20 @@ __device__ __forceinline__ void add(Sums<kRpl>& a, const Sums<kRpl>& b) {
   }
   a.c += b.c;
   a.c2 += b.c2;
+}
+
+// a += bf16(b) (the bf16 scheduled sums: a chunk's sums rounded, added to
+// the chunks' running sums)
+template <int kRpl>
+__device__ __forceinline__ void add_rounded(Sums<kRpl>& a,
+                                            const Sums<kRpl>& b) {
+#pragma unroll
+  for (int t = 0; t < kRpl; ++t) {
+    a.g[t] += rsp::rbf(b.g[t]);
+    a.g2[t] += rsp::rbf(b.g2[t]);
+  }
+  a.c += rsp::rbf(b.c);
+  a.c2 += rsp::rbf(b.c2);
 }
 
 // running sums launch F keeps for a feature over tiles
@@ -166,39 +225,48 @@ struct Row {
   float w[kRpl], aw[kRpl], b, ab;
 };
 
-template <int kRpl>
-__device__ __forceinline__ void read_row(const Side& sd, int f, int lane,
+template <int kRpl, typename T>
+__device__ __forceinline__ void read_row(const Side<T>& sd, int f, int lane,
                                          int r, Row<kRpl>& e) {
 #pragma unroll
   for (int t = 0; t < kRpl; ++t) {
     const int k = lane + 32 * t;
     const size_t i = (size_t)f * r + k;
-    e.w[t] = k < r ? sd.w[i] : 0.f;
-    e.aw[t] = k < r ? sd.acc_w[i] : 0.f;
+    e.w[t] = k < r ? ld(sd.w + i) : 0.f;
+    e.aw[t] = k < r ? ld(sd.acc_w + i) : 0.f;
   }
-  e.b = sd.b[f];
-  e.ab = sd.acc_b[f];
+  e.b = ld(sd.b + f);
+  e.ab = ld(sd.acc_b + f);
 }
 
 // accumulator-first AdaGrad of feature f from its sums and shard-start rows
-template <int kRpl>
-__device__ __forceinline__ void adagrad(const Sums<kRpl>& a, const Side& sd, int f,
-                                        const Row<kRpl>& e, int lane, int r,
-                                        float lr) {
+// (at bf16 from the rounded sums, each op rounded, as the reference's
+// -lr * s1 / sqrt(acc + s2))
+template <int kRpl, typename T>
+__device__ __forceinline__ void adagrad(const Sums<kRpl>& a, const Side<T>& sd,
+                                        int f, const Row<kRpl>& e, int lane,
+                                        int r, float lr) {
 #pragma unroll
   for (int t = 0; t < kRpl; ++t) {
     const int k = lane + 32 * t;
     if (k < r) {
       const size_t i = (size_t)f * r + k;
-      const float acc = e.aw[t] + a.g2[t];
-      sd.w[i] = e.w[t] + -lr * a.g[t] / sqrtf(acc);
-      sd.acc_w[i] = acc;
+      const float acc = rd<T>(e.aw[t] + a.g2[t]);
+      if constexpr (kIsBf16<T>)
+        st(sd.w + i,
+           e.w[t] + rsp::rbf(rsp::rbf(-lr * a.g[t]) / rsp::rbf(sqrtf(acc))));
+      else
+        sd.w[i] = e.w[t] + -lr * a.g[t] / sqrtf(acc);
+      st(sd.acc_w + i, acc);
     }
   }
   if (lane == 0) {
-    const float acc = e.ab + a.c2;
-    sd.b[f] = e.b + -lr * a.c / sqrtf(acc);
-    sd.acc_b[f] = acc;
+    const float acc = rd<T>(e.ab + a.c2);
+    if constexpr (kIsBf16<T>)
+      st(sd.b + f, e.b + rsp::rbf(rsp::rbf(-lr * a.c) / rsp::rbf(sqrtf(acc))));
+    else
+      sd.b[f] = e.b + -lr * a.c / sqrtf(acc);
+    st(sd.acc_b + f, acc);
   }
 }
 
@@ -216,27 +284,31 @@ struct Own {
 // loads (the other side's rows, and the own row of each feature that
 // begins there), then the entries in order, so that a warp keeps kDepth
 // entries' rows in flight instead of waiting on each.  A feature's
-// accumulators are read when it begins, for its step.
-template <bool kRow, int kRpl>
+// accumulators are read when it begins, for its step.  The bf16 instance
+// takes one feature a tile, its entries once (ordered = 0) or twice (1).
+template <bool kRow, int kRpl, typename T>
 __global__ void __launch_bounds__(kThreads, kRpl <= kMaxR / 32 ? kMinBlocks : 1)
-glove_walk(Side sd, const int* __restrict__ other,
-           const float* __restrict__ vals, const float* __restrict__ w_o,
-           const float* __restrict__ b_o, float* snap, int r, int n_tiles,
-           float x_max, float alpha, float lr,
+glove_walk(Side<T> sd, const int* __restrict__ other,
+           const T* __restrict__ vals, const T* __restrict__ w_o,
+           const T* __restrict__ b_o, float* snap, int r, int n_tiles,
+           float x_max, float alpha, float lr, int ordered,
            float* __restrict__ loss_part) {
+  constexpr bool kB = kIsBf16<T>;
   const int lane = threadIdx.x & 31;
   const int tile = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (tile >= n_tiles) return;  // the whole warp
   const int R1 = r + 1;
   const int n_valid = sd.bounds[sd.U];
-  const int e0 = tile * kTile, e1 = min(e0 + kTile, n_valid);
+  const int e0 = kB ? sd.bounds[tile] : tile * kTile;
+  const int e1 = kB ? sd.bounds[tile + 1] : min(e0 + kTile, n_valid);
   // the tile's first and last slots, and whether their entries run past
   // the tile (read with the first and the last 32 entries)
   int u_first = -1, u_last = -1;
   bool cross_in = false, own_tail = false;
   float lpart = 0.f;
-  Sums<kRpl> a;
+  Sums<kRpl> a, tot;  // tot: the bf16 scheduled sums' rounded chunks
   zero(a);
+  if constexpr (kB) zero(tot);
   int cu = -1, cf = 0;  // the open segment's slot and feature
   Row<kRpl> ce;               // and its shard-start rows
 #pragma unroll
@@ -250,9 +322,16 @@ glove_walk(Side sd, const int* __restrict__ other,
     else if (cu == u_last && own_tail)
       store_sums(a, span_slot(sd.span, tile, 1, r), lane, r);
     else
-      adagrad(a, sd, cf, ce, lane, r, lr);
+      adagrad<kRpl, T>(a, sd, cf, ce, lane, r, lr);
   };
 
+  const int passes = kB && ordered ? 2 : 1;
+  for (int pass = 0; pass < passes; ++pass) {
+    if (kB && pass == 1) {  // the rows' own running values
+#pragma unroll
+      for (int t = 0; t < kRpl; ++t) a.g[t] = ce.w[t];
+      a.c = ce.b;
+    }
   for (int sb = e0; sb < e1; sb += 32) {
     // 32 entries at a time, one a lane: slot, own id, the other side's id
     // (R) or slot (C), log x and the weight
@@ -264,15 +343,20 @@ glove_walk(Side sd, const int* __restrict__ other,
       u = sd.slot[p];
       f = sd.own[p];
       o = other[p];
-      const float v = vals[p];
-      lx = logf(v);
-      wt = v < x_max ? powf(v / x_max, alpha) : 1.f;
+      const float v = ld(vals + p);
+      if constexpr (kB) {
+        lx = rsp::rbf(logf(v));
+        wt = v < x_max ? rsp::rbf(powf(rsp::rbf(v / x_max), alpha)) : 1.f;
+      } else {
+        lx = logf(v);
+        wt = v < x_max ? powf(v / x_max, alpha) : 1.f;
+      }
     }
-    if (sb == e0) {
+    if (!kB && sb == e0) {
       u_first = __shfl_sync(RSP_FULL_MASK, u, 0);
       cross_in = sd.bounds[u_first] < e0;
     }
-    if (sb + 32 >= e1) {
+    if (!kB && sb + 32 >= e1) {
       u_last = __shfl_sync(RSP_FULL_MASK, u, n_sub - 1);
       own_tail = sd.bounds[u_last + 1] > e1 &&
                  !(u_last == u_first && cross_in);
@@ -288,21 +372,30 @@ glove_walk(Side sd, const int* __restrict__ other,
         gu[d] = __shfl_sync(RSP_FULL_MASK, u, s);
         gf[d] = __shfl_sync(RSP_FULL_MASK, f, s);
         const int oe = __shfl_sync(RSP_FULL_MASK, o, s);
-        const float* orow =
-            kRow ? w_o + (size_t)oe * r : snap + (size_t)oe * R1;
+        if (kRow) {
+          const T* orow = w_o + (size_t)oe * r;
 #pragma unroll
-        for (int t = 0; t < kRpl; ++t) {
-          const int k = lane + 32 * t;
-          fr[d][t] = k < r ? orow[k] : 0.f;
+          for (int t = 0; t < kRpl; ++t) {
+            const int k = lane + 32 * t;
+            fr[d][t] = k < r ? ld(orow + k) : 0.f;
+          }
+          fb[d] = ld(b_o + oe);
+        } else {
+          const float* orow = snap + (size_t)oe * R1;
+#pragma unroll
+          for (int t = 0; t < kRpl; ++t) {
+            const int k = lane + 32 * t;
+            fr[d][t] = k < r ? orow[k] : 0.f;
+          }
+          fb[d] = orow[r];
         }
-        fb[d] = kRow ? b_o[oe] : orow[r];
         if (gu[d] != (d == 0 ? cu : gu[d - 1])) {
 #pragma unroll
           for (int t = 0; t < kRpl; ++t) {
             const int k = lane + 32 * t;
-            own[d].w[t] = k < r ? sd.w[(size_t)gf[d] * r + k] : 0.f;
+            own[d].w[t] = k < r ? ld(sd.w + (size_t)gf[d] * r + k) : 0.f;
           }
-          own[d].b = sd.b[gf[d]];
+          own[d].b = ld(sd.b + gf[d]);
         }
       }
       // the group's entries, in order
@@ -317,11 +410,16 @@ glove_walk(Side sd, const int* __restrict__ other,
             for (int t = 0; t < kRpl; ++t) {
               const int k = lane + 32 * t;
               ce.w[t] = own[d].w[t];
-              ce.aw[t] = k < r ? sd.acc_w[(size_t)cf * r + k] : 0.f;
+              ce.aw[t] = k < r ? ld(sd.acc_w + (size_t)cf * r + k) : 0.f;
             }
             ce.b = own[d].b;
-            ce.ab = sd.acc_b[cf];
+            ce.ab = ld(sd.acc_b + cf);
             zero(a);
+            if (kB && ordered) {  // the accumulators' running values
+#pragma unroll
+              for (int t = 0; t < kRpl; ++t) a.g2[t] = ce.aw[t];
+              a.c2 = ce.ab;
+            }
             if (kRow && !(cu == u_first && cross_in)) {
               // the feature begins in this tile: its snapshot, once
               float* dst = snap + (size_t)cu * R1;
@@ -336,39 +434,107 @@ glove_walk(Side sd, const int* __restrict__ other,
           const int s = s0 + d;
           float dot = 0.f;
 #pragma unroll
-          for (int t = 0; t < kRpl; ++t) dot += ce.w[t] * fr[d][t];
-          dot = rsp::warp_sum(dot);
+          for (int t = 0; t < kRpl; ++t) dot += rd<T>(ce.w[t] * fr[d][t]);
+          dot = rd<T>(rsp::warp_sum(dot));
           const float bi = kRow ? ce.b : fb[d], bj = kRow ? fb[d] : ce.b;
+          const float lxs = __shfl_sync(RSP_FULL_MASK, lx, s);
           const float inner =
-              fminf(fmaxf(dot + bi + bj - __shfl_sync(RSP_FULL_MASK, lx, s),
-                          -kClip),
-                    kClip);
-          const float cost = __shfl_sync(RSP_FULL_MASK, wt, s) * inner;
-          if (kRow) lpart += cost * inner;
+              kB ? fminf(fmaxf(rsp::rbf(rsp::rbf(rsp::rbf(dot + bi) + bj) -
+                                        lxs),
+                               -kClip),
+                         kClip)
+                 : fminf(fmaxf(dot + bi + bj - lxs, -kClip), kClip);
+          const float cost = rd<T>(__shfl_sync(RSP_FULL_MASK, wt, s) * inner);
+          if (kRow && pass == 0) lpart += rd<T>(cost * inner);
+          if constexpr (kB) {
+            if (ordered && pass == 0) {  // the accumulators, an entry each
 #pragma unroll
-          for (int t = 0; t < kRpl; ++t) {
-            const float g = cost * fr[d][t];
-            a.g[t] += g;
-            a.g2[t] += g * g;
+              for (int t = 0; t < kRpl; ++t) {
+                const float g = rsp::rbf(cost * fr[d][t]);
+                a.g2[t] = rsp::rbf(a.g2[t] + rsp::rbf(g * g));
+              }
+              a.c2 = rsp::rbf(a.c2 + rsp::rbf(cost * cost));
+            } else if (ordered) {  // the rows, an entry each
+#pragma unroll
+              for (int t = 0; t < kRpl; ++t) {
+                const float g = rsp::rbf(cost * fr[d][t]);
+                a.g[t] = rsp::rbf(
+                    a.g[t] + rsp::rbf(rsp::rbf(-lr * g) /
+                                      rsp::rbf(sqrtf(a.g2[t]))));
+              }
+              a.c = rsp::rbf(a.c + rsp::rbf(rsp::rbf(-lr * cost) /
+                                            rsp::rbf(sqrtf(a.c2))));
+            } else {  // the scheduled sums, in chunks
+#pragma unroll
+              for (int t = 0; t < kRpl; ++t) {
+                const float g = rsp::rbf(cost * fr[d][t]);
+                a.g[t] += g;
+                a.g2[t] += rsp::rbf(g * g);
+              }
+              a.c += cost;
+              a.c2 += rsp::rbf(cost * cost);
+              if ((sb + s - e0) % kChunk == kChunk - 1) {
+                add_rounded(tot, a);
+                zero(a);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int t = 0; t < kRpl; ++t) {
+              const float g = cost * fr[d][t];
+              a.g[t] += g;
+              a.g2[t] += g * g;
+            }
+            a.c += cost;
+            a.c2 += cost * cost;
           }
-          a.c += cost;
-          a.c2 += cost * cost;
         }
       }
     }
   }
-  if (cu >= 0) finish();  // the tile's last segment
-  if (lane == 0) {
-    sd.tail_u[tile] = own_tail ? u_last : -1;
-    if (kRow) loss_part[tile] = lpart;
+  }
+  if constexpr (kB) {
+    if (cu >= 0 && ordered) {  // the walked rows and accumulators
+#pragma unroll
+      for (int t = 0; t < kRpl; ++t) {
+        const int k = lane + 32 * t;
+        if (k < r) {
+          const size_t i = (size_t)cf * r + k;
+          st(sd.w + i, a.g[t]);
+          st(sd.acc_w + i, a.g2[t]);
+        }
+      }
+      if (lane == 0) {
+        st(sd.b + cf, a.c);
+        st(sd.acc_b + cf, a.c2);
+      }
+    } else if (cu >= 0) {  // the last chunk, then the chunks' sums rounded
+      add_rounded(tot, a);
+#pragma unroll
+      for (int t = 0; t < kRpl; ++t) {
+        a.g[t] = rsp::rbf(tot.g[t]);
+        a.g2[t] = rsp::rbf(tot.g2[t]);
+      }
+      a.c = rsp::rbf(tot.c);
+      a.c2 = rsp::rbf(tot.c2);
+      adagrad<kRpl, T>(a, sd, cf, ce, lane, r, lr);
+    }
+    if (lane == 0 && kRow) loss_part[tile] = lpart;
+  } else {
+    if (cu >= 0) finish();  // the tile's last segment
+    if (lane == 0) {
+      sd.tail_u[tile] = own_tail ? u_last : -1;
+      if (kRow) loss_part[tile] = lpart;
+    }
   }
 }
 
 // Launch F: CTAs [0, n_blk) the row side's tiles, [n_blk, 2 n_blk) the
-// column side's, one warp a tile; the last CTA the loss.
-template <int kRpl>
+// column side's, one warp a tile; the last CTA the loss (bf16: rounded
+// once, as the reference's bf16 sum of its rounded terms).
+template <int kRpl, typename T>
 __global__ void __launch_bounds__(kThreads)
-glove_final(Side rs, Side cs, int r, int n_tiles, float lr,
+glove_final(Side<T> rs, Side<T> cs, int r, int n_tiles, float lr,
             const float* __restrict__ loss_part, int n_part,
             float* __restrict__ loss) {
   const int n_blk = (n_tiles + kWarps - 1) / kWarps;
@@ -386,14 +552,14 @@ glove_final(Side rs, Side cs, int r, int n_tiles, float lr,
       float t = 0.f;
 #pragma unroll
       for (int i = 0; i < kWarps; ++i) t += red[i];
-      loss[0] = t;
+      loss[0] = rd<T>(t);
     }
     return;
   }
   const bool col = blockIdx.x >= n_blk;
   // a copy, not a reference: a reference to a parameter puts both sides
   // in every thread's local memory
-  const Side sd = col ? cs : rs;
+  const Side<T> sd = col ? cs : rs;
   const int tile = (blockIdx.x - (col ? n_blk : 0)) * kWarps + warp;
   if (tile >= n_tiles) return;  // the whole warp
   const int u = sd.tail_u[tile];
@@ -420,85 +586,127 @@ glove_final(Side rs, Side cs, int r, int n_tiles, float lr,
   const int f = sd.feats[u];
   Row<kRpl> e;
   read_row(sd, f, lane, r, e);
-  adagrad(a, sd, f, e, lane, r, lr);
+  adagrad<kRpl, T>(a, sd, f, e, lane, r, lr);
 }
 
-// The three launches of a shard at one instance width.
-template <int kRpl>
-int launch_shard(const Side& rs, const Side& cs, const int* cols,
-                 const int* slot_r, const float* vals, const float* w_j,
-                 const float* b_j, float* snap, int r, int n_tiles,
-                 float x_max, float alpha, float lr, float* loss_part,
-                 float* loss, cudaStream_t st) {
-  const unsigned grid = (unsigned)((n_tiles + kWarps - 1) / kWarps);
-  glove_walk<true, kRpl><<<grid, kThreads, 0, st>>>(
-      rs, cols, vals, w_j, b_j, snap, r, n_tiles, x_max, alpha, lr, loss_part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  glove_walk<false, kRpl><<<grid, kThreads, 0, st>>>(
-      cs, slot_r, vals, nullptr, nullptr, snap, r, n_tiles, x_max, alpha, lr,
-      nullptr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  glove_final<kRpl><<<2 * grid + 1, kThreads, 0, st>>>(
-      rs, cs, r, n_tiles, lr, loss_part, n_tiles, loss);
+// The three launches of a shard at one instance width (the bf16 instance:
+// a tile a feature on each side, launch F the loss alone).
+template <int kRpl, typename T>
+int launch_shard(const Side<T>& rs, const Side<T>& cs, const int* cols,
+                 const int* slot_r, const T* vals, const T* w_j,
+                 const T* b_j, float* snap, int r, int n_tiles,
+                 float x_max, float alpha, float lr, int ordered,
+                 float* loss_part, float* loss, cudaStream_t st) {
+  const int t_r = kIsBf16<T> ? rs.U : n_tiles;
+  const int t_c = kIsBf16<T> ? cs.U : n_tiles;
+  const unsigned g_r = (unsigned)((t_r + kWarps - 1) / kWarps);
+  const unsigned g_c = (unsigned)((t_c + kWarps - 1) / kWarps);
+  if (g_r > 0) {
+    glove_walk<true, kRpl, T><<<g_r, kThreads, 0, st>>>(
+        rs, cols, vals, w_j, b_j, snap, r, t_r, x_max, alpha, lr, ordered,
+        loss_part);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (g_c > 0) {
+    glove_walk<false, kRpl, T><<<g_c, kThreads, 0, st>>>(
+        cs, slot_r, vals, nullptr, nullptr, snap, r, t_c, x_max, alpha, lr,
+        ordered, nullptr);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int t_f = kIsBf16<T> ? 0 : n_tiles;
+  const unsigned g_f = (unsigned)((t_f + kWarps - 1) / kWarps);
+  glove_final<kRpl, T><<<2 * g_f + 1, kThreads, 0, st>>>(
+      rs, cs, r, t_f, lr, loss_part, t_r, loss);
   return (int)cudaGetLastError();
 }
 
 // Floats of scratch a shard of N entries with U_r distinct row ids at rank
 // r takes: the snapshot (U_r, r + 1), the two sides' span slots
 // (n_tiles, 2, 2r + 2) each, one loss partial a tile, and the two sides'
-// tail slots (n_tiles) int32.
-__host__ __device__ constexpr long long shard_scratch(int N, int U_r, int r) {
+// tail slots (n_tiles) int32; the bf16 instance the snapshot and one loss
+// partial a row feature.
+__host__ __device__ constexpr long long shard_scratch(int N, int U_r, int r,
+                                                      int bf16) {
   const long long n_tiles = (N + kTile - 1) / kTile;
+  if (bf16) return (long long)U_r * (r + 1) + U_r + 1;
   return (long long)U_r * (r + 1) + 2 * n_tiles * 2 * (2 * r + 2) + n_tiles +
          2 * n_tiles;
 }
 
-}  // namespace
-
-extern "C" long long rsp_glove_shard_scratch(int N, int U_r, int r) {
-  return shard_scratch(N, U_r, r);
-}
-
-// rows/cols/slot_r/slot_c/order_r/order_c (N,) int32, vals (N,) f32 of one
-// shard; feats_r (U_r,), feats_c (U_c,) the distinct ids of its valid
-// entries, bounds_r (U_r + 1,), bounds_c (U_c + 1,) each slot's range in
-// its side's order (ops/segsum.py ShardMaps); the eight state tables
-// (n, r) / (n,) f32, updated in place; scratch of rsp_glove_shard_scratch
-// floats (written before it is read: no zeroing); loss one float, the
-// shard's sum(cost * inner).
-extern "C" int rsp_glove_shard(
-    const int* rows, const int* cols, const float* vals, const int* slot_r,
-    const int* slot_c, const int* feats_r, const int* feats_c,
-    const int* order_r, const int* order_c, const int* bounds_r,
-    const int* bounds_c, int N, int U_r, int U_c, int r, float* w_i,
-    float* w_j, float* b_i, float* b_j, float* acc_w_i, float* acc_w_j,
-    float* acc_b_i, float* acc_b_j, float x_max, float alpha, float lr,
-    float* scratch, float* loss, void* stream) {
-  if (N <= 0) return 0;
-  if (U_r < 0 || U_c < 0 || r < 1 || r > kMaxRWide || !scratch || !loss)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+template <typename T>
+int shard(const int* rows, const int* cols, const void* vals,
+          const int* slot_r, const int* slot_c, const int* feats_r,
+          const int* feats_c, const int* order_r, const int* order_c,
+          const int* bounds_r, const int* bounds_c, int N, int U_r, int U_c,
+          int r, void* const* tabs, float x_max, float alpha, float lr,
+          int ordered, float* scratch, float* loss, cudaStream_t st) {
   const int n_tiles = (N + kTile - 1) / kTile;
   const size_t span_n = (size_t)n_tiles * 2 * (2 * r + 2);
   float* snap = scratch;
   float* span_r = snap + (size_t)U_r * (r + 1);
-  float* span_c = span_r + span_n;
-  float* loss_part = span_c + span_n;
+  float* span_c = kIsBf16<T> ? span_r : span_r + span_n;
+  float* loss_part = kIsBf16<T> ? span_r : span_c + span_n;
   int* tail_r = reinterpret_cast<int*>(loss_part + n_tiles);
   int* tail_c = tail_r + n_tiles;
-  const Side rs{rows, slot_r, order_r, bounds_r, feats_r, w_i, b_i,
-                acc_w_i, acc_b_i, span_r, tail_r, U_r};
-  const Side cs{cols, slot_c, order_c, bounds_c, feats_c, w_j, b_j,
-                acc_w_j, acc_b_j, span_c, tail_c, U_c};
+  T* const* t = reinterpret_cast<T* const*>(tabs);
+  // tabs: w_i, w_j, b_i, b_j, acc_w_i, acc_w_j, acc_b_i, acc_b_j
+  const Side<T> rs{rows, slot_r, order_r, bounds_r, feats_r, t[0], t[2],
+                   t[4], t[6], span_r, tail_r, U_r};
+  const Side<T> cs{cols, slot_c, order_c, bounds_c, feats_c, t[1], t[3],
+                   t[5], t[7], span_c, tail_c, U_c};
+  const T* v = static_cast<const T*>(vals);
   return r <= kMaxR
-             ? launch_shard<kMaxR / 32>(rs, cs, cols, slot_r, vals, w_j, b_j,
-                                        snap, r, n_tiles, x_max, alpha, lr,
-                                        loss_part, loss, st)
-             : launch_shard<kMaxRWide / 32>(rs, cs, cols, slot_r, vals, w_j,
-                                            b_j, snap, r, n_tiles, x_max,
-                                            alpha, lr, loss_part, loss, st);
+             ? launch_shard<kMaxR / 32, T>(rs, cs, cols, slot_r, v, t[1],
+                                           t[3], snap, r, n_tiles, x_max,
+                                           alpha, lr, ordered, loss_part,
+                                           loss, st)
+             : launch_shard<kMaxRWide / 32, T>(rs, cs, cols, slot_r, v, t[1],
+                                               t[3], snap, r, n_tiles, x_max,
+                                               alpha, lr, ordered, loss_part,
+                                               loss, st);
+}
+
+}  // namespace
+
+extern "C" long long rsp_glove_shard_scratch(int N, int U_r, int U_c, int r,
+                                             int bf16) {
+  (void)U_c;
+  return shard_scratch(N, U_r, r, bf16);
+}
+
+// rows/cols/slot_r/slot_c/order_r/order_c (N,) int32, vals (N,) of one
+// shard; feats_r (U_r,), feats_c (U_c,) the distinct ids of its valid
+// entries, bounds_r (U_r + 1,), bounds_c (U_c + 1,) each slot's range in
+// its side's order (ops/segsum.py ShardMaps); the eight state tables
+// (n, r) / (n,), updated in place, and vals f32, or bf16 when bf16 != 0
+// (then `ordered` picks the JAX path whose roundings the updates follow,
+// and x_max, alpha and lr are bf16 values); scratch of
+// rsp_glove_shard_scratch floats (written before it is read: no zeroing);
+// loss one float, the shard's sum(cost * inner).
+extern "C" int rsp_glove_shard(
+    const int* rows, const int* cols, const void* vals, const int* slot_r,
+    const int* slot_c, const int* feats_r, const int* feats_c,
+    const int* order_r, const int* order_c, const int* bounds_r,
+    const int* bounds_c, int N, int U_r, int U_c, int r, void* w_i,
+    void* w_j, void* b_i, void* b_j, void* acc_w_i, void* acc_w_j,
+    void* acc_b_i, void* acc_b_j, float x_max, float alpha, float lr,
+    int bf16, int ordered, float* scratch, float* loss, void* stream) {
+  if (N <= 0) return 0;
+  if (U_r < 0 || U_c < 0 || r < 1 || r > kMaxRWide || !scratch || !loss)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  void* const tabs[8] = {w_i, w_j, b_i, b_j, acc_w_i, acc_w_j, acc_b_i,
+                         acc_b_j};
+  return bf16 ? shard<bf16_t>(rows, cols, vals, slot_r, slot_c, feats_r,
+                              feats_c, order_r, order_c, bounds_r, bounds_c,
+                              N, U_r, U_c, r, tabs, x_max, alpha, lr,
+                              ordered, scratch, loss, st)
+              : shard<float>(rows, cols, vals, slot_r, slot_c, feats_r,
+                             feats_c, order_r, order_c, bounds_r, bounds_c,
+                             N, U_r, U_c, r, tabs, x_max, alpha, lr, 0,
+                             scratch, loss, st);
 }
 
 // The instance width that takes rank r (128 or 320), 0 above the widest.

@@ -97,6 +97,23 @@
 // lookups, the packing) sits between the two wgmma phases of a warpgroup,
 // and the other warpgroup's wgmma fills it.
 
+// The bf16-state instance (state_bf16 != 0, GloVe(precision="bfloat16"),
+// which runs the bf16 head): the eight tables are bf16 and read directly
+// (the gather launch widens nothing), the weight table holds
+// (bf16(pow(bf16(x / x_max), alpha)), bf16(log x)) as the reference forms
+// them at bf16, and a cell's S is the bf16 rounding of the exact sum
+// w_own . w_oth (the midpoint test above, taken on S itself with the sum's
+// error bound, the flagged cells summed again in float64 and rounded once),
+// then + b_i, + b_j and - log x each rounded before the clip, as the
+// reference's bf16 ops are (rsparse_tpu/models/glove.py:230-241); cost and
+// cost^2 as before, the loss terms cost S rounded before their sum.
+// Launch B rounds each product and sum to bf16 and takes the step op by op
+// (acc + s2, -lr s1, sqrt, the quotient, the add, each rounded).  The
+// reference's two sums over a tile's cells with dtype=bf16 (the biases'
+// sum cost and sum cost^2) accumulate at bf16 in XLA's own order; K11 and
+// its plain version round their f32 sums once (ROADMAP.md lists the
+// difference).
+
 #include <cuda.h>
 #include <type_traits>
 #include <cuda_bf16.h>
@@ -369,13 +386,18 @@ constexpr int kLut = 1 << 15;
 // (bf16(weight), log x) as the plain version computes them (logf, powf),
 // so that the sums kernel reads them instead of evaluating both in every
 // cell.
-template <int MR>
+__device__ __forceinline__ float ldt(const float* p) { return *p; }
+__device__ __forceinline__ float ldt(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <int MR, typename T>
 __global__ void glove_tile_gather(const int* __restrict__ rows,
                                   const int* __restrict__ cols, int n_r,
-                                  int n_c, const float* __restrict__ w_i,
-                                  const float* __restrict__ w_j,
-                                  const float* __restrict__ b_i,
-                                  const float* __restrict__ b_j, int r,
+                                  int n_c, const T* __restrict__ w_i,
+                                  const T* __restrict__ w_j,
+                                  const T* __restrict__ b_i,
+                                  const T* __restrict__ b_j, int r,
                                   float x_max, float alpha,
                                   __nv_bfloat16* gw, __nv_bfloat16* gw2,
                                   float* gb, float* gn,
@@ -384,8 +406,18 @@ __global__ void glove_tile_gather(const int* __restrict__ rows,
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < kLut) {
     const float x = __uint_as_float((unsigned)idx << 16);
-    const float w = x > 0.f ? (x < x_max ? powf(x / x_max, alpha) : 1.f) : 0.f;
-    lut[idx] = make_float2(rsp::rbf(w), logf(x > 0.f ? x : 1.f));
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      // at bf16 state every op of the weight and the log rounds
+      const float w =
+          x > 0.f ? (x < x_max ? rsp::rbf(powf(rsp::rbf(x / x_max), alpha))
+                               : 1.f)
+                  : 0.f;
+      lut[idx] = make_float2(w, rsp::rbf(logf(x > 0.f ? x : 1.f)));
+    } else {
+      const float w =
+          x > 0.f ? (x < x_max ? powf(x / x_max, alpha) : 1.f) : 0.f;
+      lut[idx] = make_float2(rsp::rbf(w), logf(x > 0.f ? x : 1.f));
+    }
     lut64[idx] = log(x > 0.f ? (double)x : 1.0);
   }
   const int p = (int)(idx >> 5), lane = threadIdx.x & 31;
@@ -393,13 +425,13 @@ __global__ void glove_tile_gather(const int* __restrict__ rows,
   const bool col = p >= n_r;
   const int pos = col ? p - n_r : p;
   const int id = (col ? cols : rows)[pos];
-  const float* W = (col ? w_j : w_i) + (size_t)id * r;
+  const T* W = (col ? w_j : w_i) + (size_t)id * r;
   const int o = col ? ((n_r + 3) & ~3) + pos : pos;
   float ss = 0.f;
 #pragma unroll
   for (int m = 0; m < MR / 32; ++m) {
     const int k = lane + 32 * m;
-    const float v = k < r ? rsp::rbf(W[k]) : 0.f;
+    const float v = k < r ? rsp::rbf(ldt(W + k)) : 0.f;
     gw[(size_t)p * MR + k] = __float2bfloat16_rn(v);
     gw2[(size_t)p * MR + k] = __float2bfloat16_rn(v * v);
     ss += v * v;
@@ -416,7 +448,7 @@ __global__ void glove_tile_gather(const int* __restrict__ rows,
   }
   ss = rsp::warp_sum(ss);
   if (lane == 0) {
-    gb[o] = (col ? b_j : b_i)[id];
+    gb[o] = ldt((col ? b_j : b_i) + id);
     gn[o] = sqrtf(ss);
   }
 }
@@ -449,6 +481,14 @@ __device__ __forceinline__ bool near_midpoint(float sv, float s, float b_row,
   return within_of_midpoint(sv, bound);
 }
 
+// At bf16 state: whether S itself (the tensor core's float32 sum of
+// `slices` k16 slices) may round to the other bf16 neighbour than the exact
+// sum does (the sum's part of near_midpoint's bound).
+__device__ __forceinline__ bool near_midpoint_dot(float s, float na, float nb,
+                                                  float slices) {
+  return within_of_midpoint(s, 0x1p-21f * slices * na * nb);
+}
+
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
          ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
@@ -466,7 +506,7 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // cp.async into two buffers; counts are staged as lines along whichever
 // side is contiguous in X (the row side's lines are X's rows; the column
 // side reads the same rows and indexes them transposed).
-template <int MR>
+template <int MR, bool BS>
 __global__ void __launch_bounds__(MmaShape<MR>::kThreads, 2)
     glove_tile_sums_mma(int n_r, int n_c, const void* __restrict__ X,
                         long long sr, long long sc,
@@ -667,16 +707,22 @@ __global__ void __launch_bounds__(MmaShape<MR>::kThreads, 2)
                         << 16)
                   : 0.f;
           if (x > 0.f) {  // (absent cells, most of a sparse tile, skip)
-            const float b_row = side ? sm.b_oth[buf][qr] : sm.b_own[pr];
-            const float b_col = side ? sm.b_own[pr] : sm.b_oth[buf][qr];
-            // log x by the fast intrinsic, its error (at most 2^-21 (1 +
-            // |log x|)) added to the test's bound: no global memory here
-            const float lx = __logf(x);
-            const float sv =
-                fminf(fmaxf(s[n][q] + b_row + b_col - lx, -kClip), kClip);
-            if (near_midpoint(sv, s[n][q], b_row, b_col, lx, sm.n_own[pr],
-                              sm.n_oth[buf][qr], slices))
-              near_mask |= 1u << (4 * n + q);
+            bool near;
+            if constexpr (BS) {
+              near = near_midpoint_dot(s[n][q], sm.n_own[pr],
+                                       sm.n_oth[buf][qr], slices);
+            } else {
+              const float b_row = side ? sm.b_oth[buf][qr] : sm.b_own[pr];
+              const float b_col = side ? sm.b_own[pr] : sm.b_oth[buf][qr];
+              // log x by the fast intrinsic, its error (at most 2^-21 (1 +
+              // |log x|)) added to the test's bound: no global memory here
+              const float lx = __logf(x);
+              const float sv =
+                  fminf(fmaxf(s[n][q] + b_row + b_col - lx, -kClip), kClip);
+              near = near_midpoint(sv, s[n][q], b_row, b_col, lx,
+                                   sm.n_own[pr], sm.n_oth[buf][qr], slices);
+            }
+            if (near) near_mask |= 1u << (4 * n + q);
           }
         }
       }
@@ -752,24 +798,41 @@ __global__ void __launch_bounds__(MmaShape<MR>::kThreads, 2)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const bool present = __uint_as_float(xb[q] << 16) > 0.f;
-          float sv =
-              fminf(fmaxf(s[n][q] + b_row[q] + b_col[q] - wl[q].y, -kClip),
-                    kClip);
-          float svb = rsp::rbf(sv);
-          if ((fixed >> (4 * n + q)) & 1u) {  // the next queued exact S
-            const double v = fmin(
-                fmax(fs0 + (double)b_row[q] + (double)b_col[q] - lx64[q],
-                     -(double)kClip),
-                (double)kClip);
-            svb = __bfloat162float(__double2bfloat16(v));  // rounded once
-            sv = (float)v;
-            fs0 = fs1;
-            fs1 = fs2;
-            fs2 = fs3;
+          float sv, svb;
+          if constexpr (BS) {  // bf16(S), then each op rounded
+            float sd = rsp::rbf(s[n][q]);
+            if ((fixed >> (4 * n + q)) & 1u) {  // the next queued exact S
+              sd = __bfloat162float(__double2bfloat16(fs0));
+              fs0 = fs1;
+              fs1 = fs2;
+              fs2 = fs3;
+            }
+            svb = fminf(fmaxf(rsp::rbf(rsp::rbf(rsp::rbf(sd + b_row[q]) +
+                                                b_col[q]) -
+                                       wl[q].y),
+                              -kClip),
+                        kClip);
+            sv = svb;
+          } else {
+            sv = fminf(fmaxf(s[n][q] + b_row[q] + b_col[q] - wl[q].y,
+                             -kClip),
+                       kClip);
+            svb = rsp::rbf(sv);
+            if ((fixed >> (4 * n + q)) & 1u) {  // the next queued exact S
+              const double v = fmin(
+                  fmax(fs0 + (double)b_row[q] + (double)b_col[q] - lx64[q],
+                       -(double)kClip),
+                  (double)kClip);
+              svb = __bfloat162float(__double2bfloat16(v));  // rounded once
+              sv = (float)v;
+              fs0 = fs1;
+              fs1 = fs2;
+              fs2 = fs3;
+            }
           }
           const float cost = present ? rsp::rbf(wl[q].x * svb) : 0.f;
           const float c2 = rsp::rbf(cost * cost);
-          sl += cost * sv;
+          sl += BS ? rsp::rbf(cost * sv) : cost * sv;
           if (s_dump != nullptr && present) {
             const int i = side ? q0 + qr[q] : own0 + pr[q];
             const int j = side ? own0 + pr[q] : q0 + qr[q];
@@ -1058,6 +1121,21 @@ __device__ __forceinline__ bool near_midpoint_slices(
   return within_of_midpoint(sv, bound);
 }
 
+// near_midpoint_dot with the slices' own magnitudes (bf16 state: the
+// bound of S alone).
+__device__ __forceinline__ bool near_midpoint_dot_slices(
+    float s, const __nv_bfloat16* an, const __nv_bfloat16* bn) {
+  float sigma = 0.f;
+#pragma unroll
+  for (int k = 0; k < kSlices; k += 2) {
+    const __nv_bfloat162 a2 = *reinterpret_cast<const __nv_bfloat162*>(an + k);
+    const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(bn + k);
+    sigma = fmaf(__low2float(a2), __low2float(b2), sigma);
+    sigma = fmaf(__high2float(a2), __high2float(b2), sigma);
+  }
+  return within_of_midpoint(s, 0x1p-19f * sigma * (1.f + 0x1p-18f));
+}
+
 // Byte offset of the 16-byte chunk c (8 components) of row `row` in a
 // swizzled tile of 64-row boxes.
 __device__ __forceinline__ int chunk_at(int row, int c) {
@@ -1094,6 +1172,7 @@ struct Item {
 // registers, B the staged rows read MN-major), a step into fresh
 // accumulators added in float32.  No atomics: a chunk writes its partial
 // sums once, launch B adds them in order.
+template <bool BS>
 __global__ void __launch_bounds__(wgk::kThreads, 1)
     glove_tile_sums_wg(const __grid_constant__ CUtensorMap tw_r,
                        const __grid_constant__ CUtensorMap tw_c,
@@ -1339,17 +1418,27 @@ __global__ void __launch_bounds__(wgk::kThreads, 1)
                           << 16)
                     : 0.f;
             if (x > 0.f) {
-              const float b_row = side ? sm.b_oth[slot][qr] : sm.b_own[pr];
-              const float b_col = side ? sm.b_own[pr] : sm.b_oth[slot][qr];
-              const float lx = __logf(x);
-              const float sv =
-                  fminf(fmaxf(s[4 * n + q] + b_row + b_col - lx, -kClip), kClip);
-              if (near_midpoint(sv, s[4 * n + q], b_row, b_col, lx, sm.n_own[pr],
-                                sm.n_oth[slot][qr], slices) &&
-                  near_midpoint_slices(sv, s[4 * n + q], b_row, b_col, lx,
-                                       sm.sn_own + pr * kSlices,
-                                       sm.sn_oth[slot] + qr * kSlices))
-                near_mask |= 1u << q;
+              bool near;
+              if constexpr (BS) {  // S itself, by both bounds
+                near = near_midpoint_dot(s[4 * n + q], sm.n_own[pr],
+                                         sm.n_oth[slot][qr], slices) &&
+                       near_midpoint_dot_slices(
+                           s[4 * n + q], sm.sn_own + pr * kSlices,
+                           sm.sn_oth[slot] + qr * kSlices);
+              } else {
+                const float b_row = side ? sm.b_oth[slot][qr] : sm.b_own[pr];
+                const float b_col = side ? sm.b_own[pr] : sm.b_oth[slot][qr];
+                const float lx = __logf(x);
+                const float sv = fminf(
+                    fmaxf(s[4 * n + q] + b_row + b_col - lx, -kClip), kClip);
+                near = near_midpoint(sv, s[4 * n + q], b_row, b_col, lx,
+                                     sm.n_own[pr], sm.n_oth[slot][qr],
+                                     slices) &&
+                       near_midpoint_slices(sv, s[4 * n + q], b_row, b_col,
+                                            lx, sm.sn_own + pr * kSlices,
+                                            sm.sn_oth[slot] + qr * kSlices);
+              }
+              if (near) near_mask |= 1u << q;
             }
           }
           const unsigned fixed = near_mask;
@@ -1426,23 +1515,40 @@ __global__ void __launch_bounds__(wgk::kThreads, 1)
               const float b_row = side ? sm.b_oth[slot][qr] : sm.b_own[pr];
               const float b_col = side ? sm.b_own[pr] : sm.b_oth[slot][qr];
               const float2 wl = __ldg(&lut[xb]);
-              float sv = fminf(
-                  fmaxf(s[4 * n + q] + b_row + b_col - wl.y, -kClip), kClip);
-              float svb = rsp::rbf(sv);
-              if ((fixed >> q) & 1u) {  // the next queued exact S
-                const double v =
-                    fmin(fmax(fs0 + (double)b_row + (double)b_col -
-                                  __ldg(&lut64[xb]),
-                              -(double)kClip),
-                         (double)kClip);
-                svb = __bfloat162float(__double2bfloat16(v));  // rounded once
-                sv = (float)v;
-                fs0 = fs1;
-                fs1 = fs2;
-                fs2 = fs3;
+              float sv, svb;
+              if constexpr (BS) {  // bf16(S), then each op rounded
+                float sd = rsp::rbf(s[4 * n + q]);
+                if ((fixed >> q) & 1u) {  // the next queued exact S
+                  sd = __bfloat162float(__double2bfloat16(fs0));
+                  fs0 = fs1;
+                  fs1 = fs2;
+                  fs2 = fs3;
+                }
+                svb = fminf(
+                    fmaxf(rsp::rbf(rsp::rbf(rsp::rbf(sd + b_row) + b_col) -
+                                   wl.y),
+                          -kClip),
+                    kClip);
+                sv = svb;
+              } else {
+                sv = fminf(fmaxf(s[4 * n + q] + b_row + b_col - wl.y, -kClip),
+                           kClip);
+                svb = rsp::rbf(sv);
+                if ((fixed >> q) & 1u) {  // the next queued exact S
+                  const double v =
+                      fmin(fmax(fs0 + (double)b_row + (double)b_col -
+                                    __ldg(&lut64[xb]),
+                                -(double)kClip),
+                           (double)kClip);
+                  svb = __bfloat162float(__double2bfloat16(v));  // rounded once
+                  sv = (float)v;
+                  fs0 = fs1;
+                  fs1 = fs2;
+                  fs2 = fs3;
+                }
               }
               cost = rsp::rbf(wl.x * svb);
-              sl += cost * sv;
+              sl += BS ? rsp::rbf(cost * sv) : cost * sv;
   #ifndef RSP_K11_CLOCKS
               if (s_dump != nullptr) {
                 const int ii = side ? q0 + qr : own0 + pr;
@@ -1611,20 +1717,27 @@ __global__ void __launch_bounds__(wgk::kThreads, 1)
 // Threads [0, n_r (r + 1)) apply the row side, the rest the column side;
 // within a side, thread p (r + 1) + k is component k of position p, k = r
 // its bias.
+// (T = bf16: the sums rounded to bf16, then the step op by op at bf16.)
+__device__ __forceinline__ void stt(float* p, float v) { *p = v; }
+__device__ __forceinline__ void stt(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+template <typename T>
 __global__ void glove_tile_apply(const int* __restrict__ rows,
                                  const int* __restrict__ cols, int n_r,
                                  int n_c, int r, int chunks,
                                  const float* __restrict__ part,
                                  const float* __restrict__ lpart, int n_lpart,
-                                 float* w_i, float* w_j, float* b_i, float* b_j,
-                                 float* acc_w_i, float* acc_w_j,
-                                 float* acc_b_i, float* acc_b_j, float lr,
+                                 T* w_i, T* w_j, T* b_i, T* b_j,
+                                 T* acc_w_i, T* acc_w_j,
+                                 T* acc_b_i, T* acc_b_j, float lr,
                                  float* loss) {
+  constexpr bool kB = std::is_same<T, __nv_bfloat16>::value;
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx == 0) {
     float l = 0.f;
     for (int t = 0; t < n_lpart; ++t) l += lpart[t];
-    *loss = l;
+    *loss = kB ? rsp::rbf(l) : l;
   }
   const long long n0 = (long long)n_r * (r + 1);
   if (idx >= n0 + (long long)n_c * (r + 1)) return;
@@ -1644,19 +1757,20 @@ __global__ void glove_tile_apply(const int* __restrict__ rows,
     s1 += P[c * stride + k1];
     s2 += P[c * stride + k2];
   }
-  if (k < r) {
-    float* w = col ? w_j : w_i;
-    float* acc = col ? acc_w_j : acc_w_i;
-    const size_t e = (size_t)f * r + k;
+  T* w = k < r ? (col ? w_j : w_i) : (col ? b_j : b_i);
+  T* acc = k < r ? (col ? acc_w_j : acc_w_i) : (col ? acc_b_j : acc_b_i);
+  const size_t e = k < r ? (size_t)f * r + k : (size_t)f;
+  if constexpr (kB) {
+    s1 = rsp::rbf(s1);
+    s2 = rsp::rbf(s2);
+    const float av = rsp::rbf(ldt(acc + e) + s2);
+    stt(w + e, ldt(w + e) + rsp::rbf(rsp::rbf(-lr * s1) /
+                                     rsp::rbf(sqrtf(av))));
+    stt(acc + e, av);
+  } else {
     const float av = acc[e] + s2;
     w[e] += -lr * s1 / sqrtf(av);
     acc[e] = av;
-  } else {
-    float* b = col ? b_j : b_i;
-    float* acc = col ? acc_b_j : acc_b_i;
-    const float av = acc[f] + s2;
-    b[f] += -lr * s1 / sqrtf(av);
-    acc[f] = av;
   }
 }
 
@@ -1764,13 +1878,16 @@ MmaScratch mma_scratch(int n_r, int n_c, int r) {
 
 // Launch A (and the gather of the bf16 path) of a tile at instance width
 // MR: sets chunks, n_lpart and lpart for launch B.
-template <int MR>
+// T: the state's table type (bf16: the bf16-state instance, BS below,
+// which takes the bf16 head only).
+template <int MR, typename T>
 int tile_sums(const int* rows, const int* cols, int n_r, int n_c,
               const void* X, long long sr, long long sc, int bf16,
-              const float* w_i, const float* w_j, const float* b_i,
-              const float* b_j, int r, float x_max, float alpha,
+              const T* w_i, const T* w_j, const T* b_i,
+              const T* b_j, int r, float x_max, float alpha,
               float* scratch, float* s_dump, cudaStream_t st, int& chunks,
               int& n_lpart, float*& lpart) {
+  constexpr bool BS = std::is_same<T, __nv_bfloat16>::value;
   // above 48 KB a kernel's dynamic shared memory must be opted into
   static bool smem_set = false;
   if (!smem_set) {
@@ -1779,12 +1896,12 @@ int tile_sums(const int* rows, const int* cols, int n_r, int n_c,
         (int)sizeof(Smem<MR>));
     if constexpr (MR <= kMaxR) {
       if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(glove_tile_sums_mma<MR>,
+        e = cudaFuncSetAttribute(glove_tile_sums_mma<MR, BS>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)sizeof(MmaSmem<MR>));
     } else {
       if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(glove_tile_sums_wg,
+        e = cudaFuncSetAttribute(glove_tile_sums_wg<BS>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  wgk::kSmemBytes);
     }
@@ -1806,13 +1923,13 @@ int tile_sums(const int* rows, const int* cols, int n_r, int n_c,
     auto* lut64 = reinterpret_cast<double*>(scratch + m.lut64);
     long long ng = 32LL * (n_r + n_c);
     if (ng < kLut) ng = kLut;
-    glove_tile_gather<MR><<<(unsigned)((ng + 255) / 256), 256, 0, st>>>(
+    glove_tile_gather<MR, T><<<(unsigned)((ng + 255) / 256), 256, 0, st>>>(
         rows, cols, n_r, n_c, w_i, w_j, b_i, b_j, r, x_max, alpha, gw, gw2,
         gb, gn, gsn, lut, lut64);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     if constexpr (MR <= kMaxR) {
-      glove_tile_sums_mma<MR><<<dim3(own_blocks, chunks, 2),
+      glove_tile_sums_mma<MR, BS><<<dim3(own_blocks, chunks, 2),
                                 MmaShape<MR>::kThreads, sizeof(MmaSmem<MR>),
                                 st>>>(n_r, n_c, X, sr, sc, gw, gw2, gb, gn,
                                       lut, lut64, r, chunks, scratch, lpart,
@@ -1825,12 +1942,13 @@ int tile_sums(const int* rows, const int* cols, int n_r, int n_c,
       for (int q = 0; q < 4; ++q)
         if (int e = row_map(&maps[q], bases[q], q & 1 ? n_c : n_r)) return e;
       const int items = 2 * own_blocks * chunks;
-      glove_tile_sums_wg<<<items < n_sms() ? items : n_sms(), wgk::kThreads,
+      glove_tile_sums_wg<BS><<<items < n_sms() ? items : n_sms(),
+                               wgk::kThreads,
                            wgk::kSmemBytes, st>>>(
           maps[0], maps[1], maps[2], maps[3], n_r, n_c, X, sr, sc, gb, gn,
           gsn, lut, lut64, r, chunks, scratch, lpart, s_dump);
     }
-  } else {
+  } else if constexpr (!BS) {
     chunks = plan_chunks(n_r, n_c);
     const int own_blocks = ((n_r > n_c ? n_r : n_c) + kO - 1) / kO;
     n_lpart = chunks * ((n_r + kO - 1) / kO);
@@ -1839,7 +1957,36 @@ int tile_sums(const int* rows, const int* cols, int n_r, int n_c,
                           sizeof(Smem<MR>), st>>>(
         rows, cols, n_r, n_c, static_cast<const float*>(X), sr, sc, w_i, w_j,
         b_i, b_j, r, x_max, alpha, chunks, scratch, lpart);
+  } else {
+    return (int)cudaErrorInvalidValue;  // bf16 state takes the bf16 head
   }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int tile(const int* rows, const int* cols, int n_r, int n_c, const void* X,
+         long long sr, long long sc, int bf16, void* const* tabs, int r,
+         float x_max, float alpha, float lr, float* scratch, float* loss,
+         float* s_dump, cudaStream_t st) {
+  // tabs: w_i, w_j, b_i, b_j, acc_w_i, acc_w_j, acc_b_i, acc_b_j
+  T* const* t = reinterpret_cast<T* const*>(tabs);
+  int chunks = 0, n_lpart = 0;
+  float* lpart = nullptr;
+  const int rc = r <= kMaxR
+                     ? tile_sums<kMaxR, T>(rows, cols, n_r, n_c, X, sr, sc,
+                                           bf16, t[0], t[1], t[2], t[3], r,
+                                           x_max, alpha, scratch, s_dump, st,
+                                           chunks, n_lpart, lpart)
+                     : tile_sums<kMaxRWide, T>(rows, cols, n_r, n_c, X, sr,
+                                               sc, bf16, t[0], t[1], t[2],
+                                               t[3], r, x_max, alpha, scratch,
+                                               s_dump, st, chunks, n_lpart,
+                                               lpart);
+  if (rc != 0 || s_dump != nullptr) return rc;
+  const long long n = (long long)(n_r + n_c) * (r + 1);
+  glove_tile_apply<T><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      rows, cols, n_r, n_c, r, chunks, scratch, lpart, n_lpart, t[0], t[1],
+      t[2], t[3], t[4], t[5], t[6], t[7], lr, loss);
   return (int)cudaGetLastError();
 }
 
@@ -1861,40 +2008,33 @@ extern "C" long long rsp_glove_tile_scratch(int n_r, int n_c, int r,
 // tile's counts, element (a, b) at X[a sr + b sc] (f32, or bf16 when bf16
 // != 0, which also rounds the products' operands to bf16 and runs them on
 // the tensor cores; then sr or sc must be 1); the eight state tables f32,
-// updated in place; scratch of rsp_glove_tile_scratch floats; loss (one
-// float) receives the tile's sum(cost * S).  s_dump, for checks only, is
-// null or (2, n_r, n_c) floats that receive, at the present cells, the
-// bf16 value of clip(S + b_i + b_j - log x) that each side of the bf16 path
-// formed (the row side's [i, j], the column side's [j, i]); then the state
-// is left as it was.
+// or bf16 when state_bf16 != 0 (the bf16-state instance: bf16 != 0, and
+// x_max, alpha and lr bf16 values), updated in place; scratch of
+// rsp_glove_tile_scratch floats; loss (one float) receives the tile's
+// sum(cost * S).  s_dump, for checks only, is null or (2, n_r, n_c) floats
+// that receive, at the present cells, the bf16 value of clip(S + b_i + b_j
+// - log x) that each side of the bf16 path formed (the row side's [i, j],
+// the column side's [j, i]); then the state is left as it was.
 extern "C" int rsp_glove_tile(const int* rows, const int* cols, int n_r,
                               int n_c, const void* X, long long sr,
-                              long long sc, int bf16, float* w_i, float* w_j,
-                              float* b_i, float* b_j, float* acc_w_i,
-                              float* acc_w_j, float* acc_b_i, float* acc_b_j,
-                              int r, float x_max, float alpha, float lr,
-                              float* scratch, float* loss, float* s_dump,
-                              void* stream) {
+                              long long sc, int bf16, int state_bf16,
+                              void* w_i, void* w_j, void* b_i, void* b_j,
+                              void* acc_w_i, void* acc_w_j, void* acc_b_i,
+                              void* acc_b_j, int r, float x_max, float alpha,
+                              float lr, float* scratch, float* loss,
+                              float* s_dump, void* stream) {
   if (n_r <= 0 || n_c <= 0 || width_of(r) == 0 || !scratch || !loss)
     return (int)cudaErrorInvalidValue;
   if (bf16 && sr != 1 && sc != 1) return (int)cudaErrorInvalidValue;
   if (s_dump != nullptr && !bf16) return (int)cudaErrorInvalidValue;
+  if (state_bf16 && !bf16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int chunks = 0, n_lpart = 0;
-  float* lpart = nullptr;
-  const int rc = r <= kMaxR
-                     ? tile_sums<kMaxR>(rows, cols, n_r, n_c, X, sr, sc, bf16,
-                                        w_i, w_j, b_i, b_j, r, x_max, alpha,
-                                        scratch, s_dump, st, chunks, n_lpart,
-                                        lpart)
-                     : tile_sums<kMaxRWide>(rows, cols, n_r, n_c, X, sr, sc,
-                                            bf16, w_i, w_j, b_i, b_j, r,
-                                            x_max, alpha, scratch, s_dump, st,
-                                            chunks, n_lpart, lpart);
-  if (rc != 0 || s_dump != nullptr) return rc;
-  const long long n = (long long)(n_r + n_c) * (r + 1);
-  glove_tile_apply<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      rows, cols, n_r, n_c, r, chunks, scratch, lpart, n_lpart, w_i, w_j,
-      b_i, b_j, acc_w_i, acc_w_j, acc_b_i, acc_b_j, lr, loss);
-  return (int)cudaGetLastError();
+  void* const tabs[8] = {w_i, w_j, b_i, b_j, acc_w_i, acc_w_j, acc_b_i,
+                         acc_b_j};
+  return state_bf16
+             ? tile<__nv_bfloat16>(rows, cols, n_r, n_c, X, sr, sc, bf16,
+                                   tabs, r, x_max, alpha, lr, scratch, loss,
+                                   s_dump, st)
+             : tile<float>(rows, cols, n_r, n_c, X, sr, sc, bf16, tabs, r,
+                           x_max, alpha, lr, scratch, loss, s_dump, st);
 }

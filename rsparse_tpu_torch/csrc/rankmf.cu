@@ -60,6 +60,29 @@
 // feature lists and the hash sets stay global, so the samples, their
 // candidates and their order are the one-process batch's; one more
 // dependent load a row.  Both maps null is the one-process launch.
+//
+// The bf16 instance (table_bf16 != 0, RankMF(precision="bfloat16"), T =
+// __nv_bfloat16): W, H, accW, accH and the feature values are bf16, every
+// value is computed at f32 and rounded to bf16 where the JAX function run
+// op by op rounds it (each op whose result is bf16: the products of r_ui
+// before their sum, r_uj and the combined embeddings as one f32 sum each,
+// the logistic as bf16(1 / bf16(1 + bf16(exp(-x)))), the WARP weight's
+// log1p factor cast to bf16 through f32, every gradient and step term).
+// There every scatter-add is a bf16 scatter of bf16 updates, which adds a
+// feature row's duplicates one at a time in the batch's update order,
+// rounding each (a hot row's accumulator stalls when its increments are
+// below half a spacing).  Atomics cannot keep that order, so launch A
+// leaves the accumulators alone and launch W replaces A2 and B: the
+// caller sorts the batch's (table row, update) pairs stably by row, one
+// list a table in the JAX scatter's update order (W: sample, feature
+// slot; H: the positives' updates, then the negatives'), and one warp a
+// row walks its updates in that order: the accumulator first (AdaGrad:
+// acc += g^2 / r per update; RMSprop: the duplicate count, then acc +=
+// (gamma - 1) old / count + (1 - gamma) g^2 per update, old the
+// batch-start value), then each component of the row, one rounded add an
+// update.  No atomics: the bf16 batch gives the same tables every run.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -110,14 +133,38 @@ struct RankMFArgs {
   const int* hmap;                // (n_item_feat,) compact row, or null
   int S, K, r, n_user, n_item, flat_len, lanes, Fu, Fi, loss, kernel,
       optimizer, update_items;
-  float lr, gamma, lam_u, lam_ip, lam_in, margin, norm;
+  int table_bf16;                 // W, H, accW, accH, feature values bf16
+  float lr, gamma, lam_u, lam_ip, lam_in, margin, norm;  // (bf16 values
+                                                          // at bf16)
 };
 
 namespace {
 
+using bf16_t = __nv_bfloat16;
+template <typename T>
+constexpr bool kIsBf16 = std::is_same<T, bf16_t>::value;
+
+// Loads of a table value (T = float as before: plain and read-only-cache
+// loads; T = bf16 widened exactly), and the rounding of a value the
+// reference holds at the table dtype (none at float).
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16_t* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const bf16_t* p) { return rsp::ldf(p); }
+template <typename T>
+__device__ __forceinline__ float rd(float x) {
+  if constexpr (kIsBf16<T>)
+    return rsp::rbf(x);
+  else
+    return x;
+}
+
+template <typename T>
 struct FeatList {
   const int* idx;                 // null: identity features
-  const float* val;
+  const T* val;
   const unsigned char* mask;
   int F;
   const int* map;                 // feature row -> table row, or null
@@ -131,19 +178,27 @@ struct FeatList {
       const size_t q = (size_t)id * F + l;
       if (!mask[q]) return false;
       g = idx[q];
-      *x = val[q];
+      *x = ld(val + q);
     }
     *f = map ? __ldg(map + g) : g;
     return true;
   }
 };
 
+// The logistic as the reference computes it at the table dtype: at bf16
+// XLA expands it to 1 / (1 + exp(-x)) with each op rounded.
+template <typename T>
 __device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
+  if constexpr (kIsBf16<T>)
+    return rsp::rbf(1.f / rsp::rbf(1.f + rsp::rbf(expf(-x))));
+  else
+    return 1.f / (1.f + expf(-x));
 }
 
-// out[j] = component lane + 32 j of the entity's combined embedding.
-__device__ __forceinline__ void combine(const float* emb, const FeatList& fl,
+// out[j] = component lane + 32 j of the entity's combined embedding (at
+// bf16 the feature sum rounded once, as the reference's einsum).
+template <typename T>
+__device__ __forceinline__ void combine(const T* emb, const FeatList<T>& fl,
                                         int id, int r, int lane,
                                         float (&out)[kRpl]) {
 #pragma unroll
@@ -152,28 +207,43 @@ __device__ __forceinline__ void combine(const float* emb, const FeatList& fl,
     int f;
     float x;
     if (!fl.at(id, l, &f, &x)) continue;
-    const float* row = emb + (size_t)f * r;
+    const T* row = emb + (size_t)f * r;
 #pragma unroll
     for (int j = 0; j < kRpl; ++j) {
       const int k = lane + 32 * j;
-      if (k < r) out[j] = fl.idx ? out[j] + x * row[k] : row[k];
+      if (k < r) out[j] = fl.idx ? out[j] + x * ld(row + k) : ld(row + k);
+    }
+  }
+  if constexpr (kIsBf16<T>) {
+    if (fl.idx) {
+#pragma unroll
+      for (int j = 0; j < kRpl; ++j) out[j] = rsp::rbf(out[j]);
     }
   }
 }
 
+// sum_k a_k b_k over the warp; `round_terms` (r_ui at bf16, a sum of the
+// elementwise product) rounds each product first
+template <typename T>
 __device__ __forceinline__ float dot(const float (&a)[kRpl],
-                                     const float (&b)[kRpl]) {
+                                     const float (&b)[kRpl],
+                                     bool round_terms) {
   float s = 0.f;
 #pragma unroll
-  for (int j = 0; j < kRpl; ++j) s += a[j] * b[j];
-  return rsp::warp_sum(s);
+  for (int j = 0; j < kRpl; ++j)
+    s += round_terms ? rd<T>(a[j] * b[j]) : a[j] * b[j];
+  return rd<T>(rsp::warp_sum(s));
 }
 
-__device__ __forceinline__ FeatList user_feats(const RankMFArgs& a) {
-  return FeatList{a.uf_idx, a.uf_val, a.uf_mask, a.Fu, a.wmap};
+template <typename T>
+__device__ __forceinline__ FeatList<T> user_feats(const RankMFArgs& a) {
+  return FeatList<T>{a.uf_idx, reinterpret_cast<const T*>(a.uf_val),
+                     a.uf_mask, a.Fu, a.wmap};
 }
-__device__ __forceinline__ FeatList item_feats(const RankMFArgs& a) {
-  return FeatList{a.if_idx, a.if_val, a.if_mask, a.Fi, a.hmap};
+template <typename T>
+__device__ __forceinline__ FeatList<T> item_feats(const RankMFArgs& a) {
+  return FeatList<T>{a.if_idx, reinterpret_cast<const T*>(a.if_val),
+                     a.if_mask, a.Fi, a.hmap};
 }
 // Features per entity in the RMSprop snapshot: max(Fu, Fi, 1).
 __host__ __device__ __forceinline__ int old_stride(const RankMFArgs& a) {
@@ -182,7 +252,9 @@ __host__ __device__ __forceinline__ int old_stride(const RankMFArgs& a) {
 }
 
 // Write one entity's update to scratch (slot q = 3 s + e) and start its
-// accumulator step.  Every lane of the warp calls it.
+// accumulator step (the float instance; the bf16 instance's walk takes the
+// accumulators).  Every lane of the warp calls it.
+template <typename T>
 __device__ void stage_entity(const RankMFArgs& a, int q, int id,
                              const float (&grad)[kRpl],
                              const float (&comb)[kRpl], bool enabled,
@@ -195,11 +267,11 @@ __device__ void stage_entity(const RankMFArgs& a, int q, int id,
     const int k = lane + 32 * j;
     if (k < r) {
       nz |= grad[j] != 0.f;
-      sq += grad[j] * grad[j];
+      sq += rd<T>(grad[j] * grad[j]);
     }
   }
   const bool flag = enabled && __any_sync(RSP_FULL_MASK, nz);
-  const float g2 = rsp::warp_sum(sq) / (float)r;
+  const float g2 = rd<T>(rd<T>(rsp::warp_sum(sq)) / rd<T>((float)r));
   float* g2s = a.fscratch;
   float* grads = g2s + S3;
   float* combs = grads + (size_t)S3 * r;
@@ -217,21 +289,23 @@ __device__ void stage_entity(const RankMFArgs& a, int q, int id,
       combs[(size_t)q * r + k] = comb[j];
     }
   }
-  const bool user = q % 3 == 0;
-  const FeatList fl = user ? user_feats(a) : item_feats(a);
-  float* acc = user ? a.accW : a.accH;
-  float* cnt = user ? a.cntW : a.cntH;
-  float* old = combs + (size_t)S3 * r;
-  const int F = old_stride(a);
-  for (int l = lane; l < fl.count(); l += 32) {
-    int f;
-    float x;
-    if (!fl.at(id, l, &f, &x)) continue;
-    if (a.optimizer == 0) {
-      atomicAdd(acc + f, g2);
-    } else {
-      atomicAdd(cnt + f, 1.f);
-      old[(size_t)q * F + l] = acc[f];
+  if constexpr (!kIsBf16<T>) {
+    const bool user = q % 3 == 0;
+    const FeatList<T> fl = user ? user_feats<T>(a) : item_feats<T>(a);
+    float* acc = user ? a.accW : a.accH;
+    float* cnt = user ? a.cntW : a.cntH;
+    float* old = combs + (size_t)S3 * r;
+    const int F = old_stride(a);
+    for (int l = lane; l < fl.count(); l += 32) {
+      int f;
+      float x;
+      if (!fl.at(id, l, &f, &x)) continue;
+      if (a.optimizer == 0) {
+        atomicAdd(acc + f, g2);
+      } else {
+        atomicAdd(cnt + f, 1.f);
+        old[(size_t)q * F + l] = acc[f];
+      }
     }
   }
 }
@@ -245,8 +319,21 @@ __device__ __forceinline__ void count(int* cnt, bool auc_hit, bool valid,
   atomicAdd(cnt + 3, found ? first_k + 1 : K);
 }
 
+// The WARP rank weight's factor log1p((n_item - 1)/(k + 1) + 1): at bf16
+// the reference forms it at float64 (a weak Python float) and casts it to
+// bf16 through float32.
+template <typename T>
+__device__ __forceinline__ float warp_factor(int n_item, int first_k) {
+  if constexpr (kIsBf16<T>)
+    return rsp::rbf(
+        (float)log1p((double)(n_item - 1) / (double)(first_k + 1) + 1.0));
+  else
+    return log1pf((float)(n_item - 1) / (float)(first_k + 1) + 1.f);
+}
+
 // The gradients of a sample whose first acceptable candidate is found at
 // first_k (j, d_sel, hj_adj), in lanes over the rank, staged to scratch.
+template <typename T>
 __device__ void finish_sample(const RankMFArgs& a, int s, int u, int i,
                               bool found, int first_k, int j, float d_sel,
                               float hi_adj, float hj_adj,
@@ -255,34 +342,41 @@ __device__ void finish_sample(const RankMFArgs& a, int s, int u, int i,
                               int lane) {
   float weight = 0.f;
   if (found) {
-    weight = sigmoid(d_sel);
+    weight = sigmoid<T>(d_sel);
     if (a.loss == 1)
-      weight = weight *
-               log1pf((float)(a.n_item - 1) / (float)(first_k + 1) + 1.f) /
-               a.norm;
+      weight = rd<T>(rd<T>(weight * warp_factor<T>(a.n_item, first_k)) /
+                     a.norm);
   } else {
 #pragma unroll
     for (int q = 0; q < kRpl; ++q) hj[q] = 0.f;
   }
   float gu[kRpl], gp[kRpl], gn[kRpl];
+  const float wp = rd<T>(-weight * hi_adj), wn = rd<T>(weight * hj_adj);
 #pragma unroll
   for (int q = 0; q < kRpl; ++q) {
-    gu[q] = weight * (hj_adj * hj[q] - hi_adj * hi[q]);
-    gp[q] = -weight * hi_adj * wu[q];
-    gn[q] = weight * hj_adj * wu[q];
+    if constexpr (kIsBf16<T>) {
+      gu[q] = rsp::rbf(weight * rsp::rbf(rsp::rbf(hj_adj * hj[q]) -
+                                         rsp::rbf(hi_adj * hi[q])));
+      gp[q] = rsp::rbf(wp * wu[q]);
+      gn[q] = rsp::rbf(wn * wu[q]);
+    } else {
+      gu[q] = weight * (hj_adj * hj[q] - hi_adj * hi[q]);
+      gp[q] = -weight * hi_adj * wu[q];
+      gn[q] = weight * hj_adj * wu[q];
+    }
   }
-  stage_entity(a, 3 * s, u, gu, wu, found, lane);
-  stage_entity(a, 3 * s + 1, i, gp, hi, found && a.update_items, lane);
-  stage_entity(a, 3 * s + 2, j, gn, hj, found && a.update_items, lane);
+  stage_entity<T>(a, 3 * s, u, gu, wu, found, lane);
+  stage_entity<T>(a, 3 * s + 1, i, gp, hi, found && a.update_items, lane);
+  stage_entity<T>(a, 3 * s + 2, j, gn, hj, found && a.update_items, lane);
 }
 
 // ---- candidates side by side (r <= RL <= 32) ---------------------------------
 
 // out = the entity's combined embedding, all r values in this lane
-// (float4 loads where rows are 16-byte aligned).
-template <int RL>
-__device__ __forceinline__ void combine_whole(const float* emb,
-                                              const FeatList& fl, int id,
+// (float4 loads where float rows are 16-byte aligned).
+template <int RL, typename T>
+__device__ __forceinline__ void combine_whole(const T* emb,
+                                              const FeatList<T>& fl, int id,
                                               int r, float (&out)[RL]) {
 #pragma unroll
   for (int k = 0; k < RL; ++k) out[k] = 0.f;
@@ -290,8 +384,8 @@ __device__ __forceinline__ void combine_whole(const float* emb,
     int f;
     float x;
     if (!fl.at(id, l, &f, &x)) continue;
-    const float* row = emb + (size_t)f * r;
-    if ((r & 3) == 0) {
+    const T* row = emb + (size_t)f * r;
+    if (!kIsBf16<T> && (r & 3) == 0) {
 #pragma unroll
       for (int k = 0; k < RL; k += 4) {
         if (k < r) {
@@ -305,18 +399,24 @@ __device__ __forceinline__ void combine_whole(const float* emb,
     } else {
 #pragma unroll
       for (int k = 0; k < RL; ++k)
-        if (k < r) out[k] = fl.idx ? out[k] + x * __ldg(row + k) : __ldg(row + k);
+        if (k < r) out[k] = fl.idx ? out[k] + x * ldg(row + k) : ldg(row + k);
+    }
+  }
+  if constexpr (kIsBf16<T>) {
+    if (fl.idx) {
+#pragma unroll
+      for (int k = 0; k < RL; ++k) out[k] = rsp::rbf(out[k]);
     }
   }
 }
 
-template <int RL>
+template <int RL, typename T>
 __device__ __forceinline__ float dot_whole(const float (&u)[RL],
                                            const float (&v)[RL]) {
   float s = 0.f;
 #pragma unroll
   for (int k = 0; k < RL; ++k) s += u[k] * v[k];
-  return s;
+  return rd<T>(s);
 }
 
 // Whether item jc is in the user's hash set: its bucket's `lanes` entries.
@@ -336,13 +436,26 @@ __device__ __forceinline__ bool probe(const int* bucket0, unsigned hmask,
   return member;
 }
 
-template <int RL>
+// d of a candidate, its acceptability (WARP: d + margin >= 0, the sum at
+// the table dtype) and its sigmoid adjustment.
+template <typename T>
+__device__ __forceinline__ float cand_d(const RankMFArgs& a, bool sig,
+                                        float r_uj, float r_ui, float rui_k,
+                                        float* hja) {
+  const float ruj_k = sig ? sigmoid<T>(r_uj) : r_uj;
+  *hja = sig ? rd<T>(ruj_k * rd<T>(1.f - ruj_k)) : 1.f;
+  return rd<T>(sig ? ruj_k - rui_k : r_uj - r_ui);
+}
+
+template <int RL, typename T>
 __global__ void rankmf_samples_lanes(RankMFArgs a) {
   __shared__ int cnt[4];
   if (threadIdx.x < 4) cnt[threadIdx.x] = 0;
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const T* W = reinterpret_cast<const T*>(a.W);
+  const T* H = reinterpret_cast<const T*>(a.H);
   if (s < a.S) {  // s is the same on every lane of the warp
     const int r = a.r, K = a.K;
     const long long* bs = a.bits + (size_t)s * (K + 2);
@@ -353,14 +466,22 @@ __global__ void rankmf_samples_lanes(RankMFArgs a) {
     long long pi = (long long)a.indptr[u] + pos_off;
     pi = pi < 0 ? 0 : (pi > a.flat_len - 1 ? a.flat_len - 1 : pi);
     const int i = a.flat_idx[pi];
-    const FeatList ufl = user_feats(a), ifl = item_feats(a);
+    const FeatList<T> ufl = user_feats<T>(a), ifl = item_feats<T>(a);
     float wu[RL], hi[RL];
-    combine_whole<RL>(a.W, ufl, u, r, wu);
-    combine_whole<RL>(a.H, ifl, i, r, hi);
-    const float r_ui = dot_whole<RL>(wu, hi);
+    combine_whole<RL, T>(W, ufl, u, r, wu);
+    combine_whole<RL, T>(H, ifl, i, r, hi);
+    float r_ui;
+    if constexpr (kIsBf16<T>) {  // a sum of the rounded products
+      float t = 0.f;
+#pragma unroll
+      for (int k = 0; k < RL; ++k) t += rsp::rbf(wu[k] * hi[k]);
+      r_ui = rsp::rbf(t);
+    } else {
+      r_ui = dot_whole<RL, T>(wu, hi);
+    }
     const bool sig = a.kernel == 1;
-    const float rui_k = sig ? sigmoid(r_ui) : r_ui;
-    const float hi_adj = sig ? rui_k * (1.f - rui_k) : 1.f;
+    const float rui_k = sig ? sigmoid<T>(r_ui) : r_ui;
+    const float hi_adj = sig ? rd<T>(rui_k * rd<T>(1.f - rui_k)) : 1.f;
     const int* bucket0 = a.table + (size_t)a.boff[u] * a.lanes;
     const unsigned hmask = (unsigned)a.bmask[u], hshift = (unsigned)a.bshift[u];
 
@@ -377,12 +498,10 @@ __global__ void rankmf_samples_lanes(RankMFArgs a) {
         member = probe(bucket0, hmask, hshift, a.lanes, jc);
         if (!member) {
           float hj[RL];
-          combine_whole<RL>(a.H, ifl, jc, r, hj);
-          const float r_uj = dot_whole<RL>(wu, hj);
-          const float ruj_k = sig ? sigmoid(r_uj) : r_uj;
-          d = sig ? ruj_k - rui_k : r_uj - r_ui;
-          hja = sig ? ruj_k * (1.f - ruj_k) : 1.f;
-          ok = a.loss == 0 || d + a.margin >= 0.f;
+          combine_whole<RL, T>(H, ifl, jc, r, hj);
+          const float r_uj = dot_whole<RL, T>(wu, hj);
+          d = cand_d<T>(a, sig, r_uj, r_ui, rui_k, &hja);
+          ok = a.loss == 0 || rd<T>(d + a.margin) >= 0.f;
         }
       }
       // AUC reads candidate 0 where it is not a positive
@@ -403,11 +522,11 @@ __global__ void rankmf_samples_lanes(RankMFArgs a) {
     if (lane == 0) count(cnt, auc_hit, valid, found, first_k, K);
     // the update in lanes over the rank
     float wl[kRpl], hl[kRpl], jl[kRpl];
-    combine(a.W, ufl, u, r, lane, wl);
-    combine(a.H, ifl, i, r, lane, hl);
-    if (found) combine(a.H, ifl, j, r, lane, jl);
-    finish_sample(a, s, u, i, found, first_k, j, d_sel, hi_adj, hj_adj, wl,
-                  hl, jl, lane);
+    combine<T>(W, ufl, u, r, lane, wl);
+    combine<T>(H, ifl, i, r, lane, hl);
+    if (found) combine<T>(H, ifl, j, r, lane, jl);
+    finish_sample<T>(a, s, u, i, found, first_k, j, d_sel, hi_adj, hj_adj,
+                     wl, hl, jl, lane);
   }
   __syncthreads();
   if (threadIdx.x < 4 && cnt[threadIdx.x] != 0)
@@ -418,9 +537,12 @@ __global__ void rankmf_samples_lanes(RankMFArgs a) {
 
 // One sample with lanes over the rank: each candidate's bucket, then its
 // row, in turn.
+template <typename T>
 __device__ void sample_serial(const RankMFArgs& a, int s, int lane,
                               int* cnt) {
   const int r = a.r;
+  const T* W = reinterpret_cast<const T*>(a.W);
+  const T* H = reinterpret_cast<const T*>(a.H);
   const long long* bs = a.bits + (size_t)s * (a.K + 2);
   const int u = (int)((unsigned)bs[0] % (unsigned)a.n_user);
   const int nnz_u = a.row_nnz[u];
@@ -429,14 +551,14 @@ __device__ void sample_serial(const RankMFArgs& a, int s, int lane,
   long long pi = (long long)a.indptr[u] + pos_off;
   pi = pi < 0 ? 0 : (pi > a.flat_len - 1 ? a.flat_len - 1 : pi);
   const int i = a.flat_idx[pi];
-  const FeatList ufl = user_feats(a), ifl = item_feats(a);
+  const FeatList<T> ufl = user_feats<T>(a), ifl = item_feats<T>(a);
   float wu[kRpl], hi[kRpl], hj[kRpl];
-  combine(a.W, ufl, u, r, lane, wu);
-  combine(a.H, ifl, i, r, lane, hi);
-  const float r_ui = dot(wu, hi);
+  combine<T>(W, ufl, u, r, lane, wu);
+  combine<T>(H, ifl, i, r, lane, hi);
+  const float r_ui = dot<T>(wu, hi, kIsBf16<T>);
   const bool sig = a.kernel == 1;
-  const float rui_k = sig ? sigmoid(r_ui) : r_ui;
-  const float hi_adj = sig ? rui_k * (1.f - rui_k) : 1.f;
+  const float rui_k = sig ? sigmoid<T>(r_ui) : r_ui;
+  const float hi_adj = sig ? rd<T>(rui_k * rd<T>(1.f - rui_k)) : 1.f;
 
   const int* bucket0 = a.table + (size_t)a.boff[u] * a.lanes;
   const unsigned hmask = (unsigned)a.bmask[u], hshift = (unsigned)a.bshift[u];
@@ -450,33 +572,34 @@ __device__ void sample_serial(const RankMFArgs& a, int s, int lane,
     const bool member = __any_sync(
         RSP_FULL_MASK, lane < a.lanes && bucket[lane] == jc);
     if (member) continue;  // not acceptable; AUC needs candidate 0 negative
-    combine(a.H, ifl, jc, r, lane, hj);
-    const float r_uj = dot(wu, hj);
-    const float ruj_k = sig ? sigmoid(r_uj) : r_uj;
-    const float d = sig ? ruj_k - rui_k : r_uj - r_ui;
+    combine<T>(H, ifl, jc, r, lane, hj);
+    const float r_uj = dot<T>(wu, hj, false);
+    float hja;
+    const float d = cand_d<T>(a, sig, r_uj, r_ui, rui_k, &hja);
     if (k == 0) auc_hit = valid && d < 0.f;
-    if (a.loss == 0 || d + a.margin >= 0.f) {
+    if (a.loss == 0 || rd<T>(d + a.margin) >= 0.f) {
       found = true;
       first_k = k;
       j = jc;
       d_sel = d;
-      hj_adj = sig ? ruj_k * (1.f - ruj_k) : 1.f;
+      hj_adj = hja;
       break;
     }
   }
   found = found && valid;
   if (lane == 0) count(cnt, auc_hit, valid, found, first_k, a.K);
-  finish_sample(a, s, u, i, found, first_k, j, d_sel, hi_adj, hj_adj, wu, hi,
-                hj, lane);
+  finish_sample<T>(a, s, u, i, found, first_k, j, d_sel, hi_adj, hj_adj, wu,
+                   hi, hj, lane);
 }
 
+template <typename T>
 __global__ void rankmf_samples(RankMFArgs a) {
   __shared__ int cnt[4];
   if (threadIdx.x < 4) cnt[threadIdx.x] = 0;
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (s < a.S) sample_serial(a, s, lane, cnt);  // s is warp-uniform
+  if (s < a.S) sample_serial<T>(a, s, lane, cnt);  // s is warp-uniform
   __syncthreads();
   if (threadIdx.x < 4 && cnt[threadIdx.x] != 0)
     atomicAdd(a.counters + threadIdx.x, (unsigned long long)cnt[threadIdx.x]);
@@ -491,7 +614,8 @@ __global__ void rankmf_rmsprop(RankMFArgs a) {
   const int q = (int)(idx / F), l = (int)(idx % F);
   if (!a.iscratch[S3 + q]) return;
   const bool user = q % 3 == 0;
-  const FeatList fl = user ? user_feats(a) : item_feats(a);
+  const FeatList<float> fl =
+      user ? user_feats<float>(a) : item_feats<float>(a);
   if (l >= fl.count()) return;
   int f;
   float x;
@@ -516,7 +640,8 @@ __global__ void rankmf_apply(RankMFArgs a) {
   if (q == 0 && lane == 0 && a.counters[1] == 0) a.counters[1] = 1;
   if (q >= S3 || !a.iscratch[S3 + q]) return;
   const int e = q % 3, id = a.iscratch[q];
-  const FeatList fl = e == 0 ? user_feats(a) : item_feats(a);
+  const FeatList<float> fl = e == 0 ? user_feats<float>(a)
+                                    : item_feats<float>(a);
   float* emb = e == 0 ? a.W : a.H;
   const float* acc = e == 0 ? a.accW : a.accH;
   const float lam = e == 0 ? a.lam_u : (e == 1 ? a.lam_ip : a.lam_in);
@@ -543,6 +668,75 @@ __global__ void rankmf_apply(RankMFArgs a) {
   }
 }
 
+// Launch W of the bf16 instance: one warp a table row, over one table's
+// (row, update) pairs sorted stably by row (`keys` the rows, -1 for a
+// pair that updates nothing, sorted first; `codes` q F + l: staged entity
+// q = 3 s + e, feature slot l), at a position where the row's run begins.
+// Its updates in order: the accumulator (one rounded add each), then every
+// component (one rounded add each), as a bf16 scatter-add of bf16 updates.
+__global__ void rankmf_walk(RankMFArgs a, const int* __restrict__ keys,
+                            const int* __restrict__ codes, int n_pairs,
+                            int user_side) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (p == 0 && lane == 0 && user_side && a.counters[1] == 0)
+    a.counters[1] = 1;
+  if (p >= n_pairs) return;  // the whole warp
+  const int f = keys[p];
+  if (f < 0 || (p > 0 && keys[p - 1] == f)) return;
+  int end = p + 1;
+  while (end < n_pairs && keys[end] == f) ++end;
+  const int S3 = 3 * a.S, r = a.r, F = old_stride(a);
+  bf16_t* emb = reinterpret_cast<bf16_t*>(user_side ? a.W : a.H);
+  bf16_t* accp = reinterpret_cast<bf16_t*>(user_side ? a.accW : a.accH);
+  const float* g2s = a.fscratch;
+  const float* grads = g2s + S3;
+  const float* combs = grads + (size_t)S3 * r;
+  float acc = ld(accp + f);
+  if (a.optimizer == 0) {
+    for (int t = p; t < end; ++t) acc = rsp::rbf(acc + g2s[codes[t] / F]);
+  } else {
+    float cnt = 0.f;
+    for (int t = p; t < end; ++t) cnt = rsp::rbf(cnt + 1.f);
+    const float n_dup = fmaxf(cnt, 1.f), old = acc;
+    const float gm1 = rsp::rbf(a.gamma - 1.f), omg = rsp::rbf(1.f - a.gamma);
+    const float od = rsp::rbf(rsp::rbf(gm1 * old) / n_dup);
+    for (int t = p; t < end; ++t)
+      acc = rsp::rbf(acc + rsp::rbf(od + rsp::rbf(omg * g2s[codes[t] / F])));
+  }
+  const float denom = rsp::rbf(sqrtf(rsp::rbf(acc + rsp::rbf(kEps))));
+  if (lane == 0) accp[f] = __float2bfloat16_rn(acc);
+  const float nlr = -a.lr;
+  bf16_t* row = emb + (size_t)f * r;
+  for (int k = lane; k < r; k += 32) {
+    float w = ld(row + k);
+    for (int t = p; t < end; ++t) {
+      const int q = codes[t] / F, e = q % 3;
+      const float lam = e == 0 ? a.lam_u : (e == 1 ? a.lam_ip : a.lam_in);
+      const float step =
+          rsp::rbf(rsp::rbf(grads[(size_t)q * r + k] / denom) +
+                   rsp::rbf(lam * combs[(size_t)q * r + k]));
+      w = rsp::rbf(w + rsp::rbf(nlr * step));
+    }
+    row[k] = __float2bfloat16_rn(w);
+  }
+}
+
+template <typename T>
+int launch_samples(const RankMFArgs& a, cudaStream_t st) {
+  const dim3 grid((a.S + kWarps - 1) / kWarps), block(kWarps * 32);
+  if (a.r <= 8) {
+    rankmf_samples_lanes<8, T><<<grid, block, 0, st>>>(a);
+  } else if (a.r <= 16) {
+    rankmf_samples_lanes<16, T><<<grid, block, 0, st>>>(a);
+  } else if (a.r <= 32) {
+    rankmf_samples_lanes<32, T><<<grid, block, 0, st>>>(a);
+  } else {
+    rankmf_samples<T><<<grid, block, 0, st>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Scratch, counters and (RMSprop) the duplicate counts are allocated by
@@ -550,6 +744,8 @@ __global__ void rankmf_apply(RankMFArgs a) {
 // counters are zeroed here.  `stages`: 2 runs the batch; 1 stops after
 // launch A (the counters are left unclamped and the tables unchanged but
 // AdaGrad's accumulators), so that chip_smoke.py times launch A apart.
+// The bf16 instance (table_bf16) runs launch A here, whatever `stages`,
+// and its launch W by rsp_rankmf_walk.
 extern "C" int rsp_rankmf_batch(const RankMFArgs* args, int stages,
                                 void* stream) {
   const RankMFArgs a = *args;
@@ -557,24 +753,16 @@ extern "C" int rsp_rankmf_batch(const RankMFArgs* args, int stages,
   if (a.r < 1 || a.r > kMaxR || a.K < 1 || a.n_user < 1 || a.n_item < 1 ||
       a.flat_len < 1 || a.lanes < 1 || a.lanes > 32 ||
       (stages != 1 && stages != 2) ||
-      (a.optimizer == 1 && (!a.cntW || (a.update_items && !a.cntH))) ||
+      (!a.table_bf16 && a.optimizer == 1 &&
+       (!a.cntW || (a.update_items && !a.cntH))) ||
       (!a.wmap != !a.hmap))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(a.counters, 0, 4 * sizeof(*a.counters), st);
   if (err != cudaSuccess) return (int)err;
+  if (a.table_bf16) return launch_samples<bf16_t>(a, st);
   const int S3 = 3 * a.S;
-  const dim3 grid((a.S + kWarps - 1) / kWarps), block(kWarps * 32);
-  if (a.r <= 8) {
-    rankmf_samples_lanes<8><<<grid, block, 0, st>>>(a);
-  } else if (a.r <= 16) {
-    rankmf_samples_lanes<16><<<grid, block, 0, st>>>(a);
-  } else if (a.r <= 32) {
-    rankmf_samples_lanes<32><<<grid, block, 0, st>>>(a);
-  } else {
-    rankmf_samples<<<grid, block, 0, st>>>(a);
-  }
-  err = cudaGetLastError();
+  err = (cudaError_t)launch_samples<float>(a, st);
   if (err != cudaSuccess || stages == 1) return (int)err;
   if (a.optimizer == 1) {
     const long long n = (long long)S3 * old_stride(a);
@@ -583,5 +771,25 @@ extern "C" int rsp_rankmf_batch(const RankMFArgs* args, int stages,
     if (err != cudaSuccess) return (int)err;
   }
   rankmf_apply<<<(S3 + kWarps - 1) / kWarps, kWarps * 32, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Launch W of the bf16 instance, after rsp_rankmf_batch: W's pairs
+// (n_w of wkeys / wcodes), then H's (n_h), each sorted stably by table
+// row in the reference's update order (launch W above).
+extern "C" int rsp_rankmf_walk(const RankMFArgs* args, const int* wkeys,
+                               const int* wcodes, int n_w, const int* hkeys,
+                               const int* hcodes, int n_h, void* stream) {
+  const RankMFArgs a = *args;
+  if (a.S <= 0) return 0;
+  if (!a.table_bf16 || n_w < 0 || n_h < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  // the W walk runs even without pairs: it clamps the AUC denominator
+  const int grid_w = n_w > 0 ? (n_w + kWarps - 1) / kWarps : 1;
+  rankmf_walk<<<grid_w, kWarps * 32, 0, st>>>(a, wkeys, wcodes, n_w, 1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_h == 0) return (int)err;
+  rankmf_walk<<<(n_h + kWarps - 1) / kWarps, kWarps * 32, 0, st>>>(
+      a, hkeys, hcodes, n_h, 0);
   return (int)cudaGetLastError();
 }

@@ -25,12 +25,50 @@ out.  The shuffle permutes the staged shards on the device with a
 ``torch.Generator`` seeded from the model's numpy RNG (other bits than
 ``jax.random``), and rebuilds the shards' slot maps.
 
-On the card both kernels take float32 state and a rank of at most
-``MAX_RANK`` (320: GloVe's published 300 dimensions; each kernel is built
-at the widths ``GLOVE_WIDTHS`` and takes a rank on the narrowest that holds
-it, :func:`glove_width`), and the head a float32 or bfloat16 grid:
+On the card both kernels take float32 or bfloat16 state and a rank of at
+most ``MAX_RANK`` (320: GloVe's published 300 dimensions; each kernel is
+built at the widths ``GLOVE_WIDTHS`` and takes a rank on the narrowest that
+holds it, :func:`glove_width`), and the head a float32 or bfloat16 grid:
 ``precision="double"`` runs on the CPU only.  A wider rank raises
 NotImplementedError on the card.
+
+``precision="bfloat16"`` keeps all eight tables at bf16, as the JAX
+package does, and gives its bf16 results: every value is rounded where the
+JAX function run op by op rounds it (each op whose result is bf16; sums
+and products accumulate at float32 and round once), and the two tail
+paths round their updates as their JAX counterparts do:
+
+  =================  ======================================  ============
+  path               JAX function (rsparse_tpu/models/...)   updates
+  =================  ======================================  ============
+  head tile          glove.py:206 (both shuffle settings)    each product
+                                                             and sum
+                                                             rounded, then
+                                                             one rounded
+                                                             add a row
+  tail, shuffle off  glove.py:109 (scheduled sums)           a feature's
+                                                             entries in
+                                                             chunks of 128,
+                                                             each chunk sum
+                                                             rounded, their
+                                                             sum rounded,
+                                                             then one
+                                                             rounded add
+  tail, shuffle on   glove.py:50 (scatter-adds)              one rounded
+                                                             add an entry,
+                                                             in entry order
+                                                             (accumulators
+                                                             first)
+  =================  ======================================  ============
+
+The tail's counts are staged at bf16 (a count of 257 reads 256) and the
+head's at the grid dtype, bf16 here: ``compute_dtype`` None and
+``"bfloat16"`` run one program over bf16 state, and ``"float32"`` over
+bf16 state raises NotImplementedError (ROADMAP.md).  The losses are bf16
+sums as the reference's are (a shard's or tile's, then the pass's).
+XLA's CPU ``jit`` fuses some elementwise chains and skips their bf16
+roundings, so a jitted fit of the JAX package sits a little apart from
+these op-by-op semantics (tests/test_torch_glove_bf16.py measures both).
 
 On a mesh (``mesh=parallel.mesh.make_mesh(...)``, every rank calling the
 same code) the eight ``GloveState`` tables are this rank's row shards of a
@@ -55,8 +93,11 @@ import scipy.sparse as sp
 import torch
 
 from .. import _kernels
-from ..config import logger, resolve_dtype, resolve_full_dtype, to_bf16
-from ..ops.segsum import ShardMaps, shard_slot_maps
+from ..config import bf16_value as _bf16_value
+from ..config import logger, resolve_dtype, to_bf16
+from ..config import round_bf16 as _rb
+from ..ops.segsum import (ShardMaps, chunked_sums_bf16, ordered_add_,
+                          shard_slot_maps)
 from ..parallel import sgd_sharded as sgd
 
 CLIP_VALUE = 100.0
@@ -182,6 +223,67 @@ def _glove_shard_plain(st: GloveState, sh: Shard, x_max: float,
     return (cost * inner).sum()
 
 
+def _weight_bf16(v: torch.Tensor, x_max: float, alpha: float):
+    """bf16(min((v / x_max)^alpha, 1)) of bf16 counts ``v`` (float32), each
+    op and scalar at bf16."""
+    xm = _bf16_value(x_max)
+    return torch.where(v < xm, _rb(torch.pow(_rb(v / xm),
+                                             _bf16_value(alpha))), 1.0)
+
+
+def _adagrad_apply_bf16(w, b, acc_w, acc_b, ids, sg, sg2, sc, sc2, lr):
+    """:func:`_adagrad_apply` on bf16 tables from bf16 sums (float32):
+    acc + sum g^2 rounded, the step -lr sum g / sqrt(acc) rounded op by
+    op, one rounded add a row (distinct ``ids``)."""
+    nlr = _bf16_value(-lr)
+    for t, a, s1, s2 in ((w, acc_w, sg, sg2), (b, acc_b, sc, sc2)):
+        av = _rb(a[ids].float() + s2)
+        step = _rb(_rb(nlr * s1) / _rb(torch.sqrt(av)))
+        t[ids] = (t[ids].float() + step).to(torch.bfloat16)
+        a[ids] = av.to(torch.bfloat16)
+
+
+def _glove_shard_plain_bf16(st: GloveState, sh: Shard, x_max: float,
+                            alpha: float, lr: float,
+                            ordered: bool) -> torch.Tensor:
+    """:func:`_glove_shard_plain` on bf16 state, rounding op by op as the
+    JAX function does at bf16: with ``ordered`` the scatter path
+    (rsparse_tpu/models/glove.py:50, shuffle on: the accumulators, then
+    the tables, one rounded add an entry in entry order), else the
+    scheduled path (:109: per-feature sums in chunks of 128, then one
+    rounded add a row).  Returns the shard's bf16 sum(cost * inner)."""
+    valid = sh.slot_r < sh.feats_r.shape[0]
+    i, j = sh.rows[valid].long(), sh.cols[valid].long()
+    v = sh.vals[valid].float()
+    wi, wj = st.w_i[i].float(), st.w_j[j].float()
+    dot = _rb(_rb(wi * wj).sum(1))
+    inner = torch.clamp(_rb(_rb(_rb(dot + st.b_i[i].float())
+                                + st.b_j[j].float()) - _rb(torch.log(v))),
+                        -CLIP_VALUE, CLIP_VALUE)
+    cost = _rb(_weight_bf16(v, x_max, alpha) * inner)
+    nlr = _bf16_value(-lr)
+    sides = ((sh.feats_r, sh.slot_r, i, _rb(cost[:, None] * wj), st[0::2]),
+             (sh.feats_c, sh.slot_c, j, _rb(cost[:, None] * wi), st[1::2]))
+    if ordered:
+        for _, _, ids, g, (w, b, acc_w, acc_b) in sides:
+            ordered_add_(acc_w, ids, _rb(g * g))
+            ordered_add_(acc_b, ids, _rb(cost * cost))
+        for _, _, ids, g, (w, b, acc_w, acc_b) in sides:
+            ordered_add_(w, ids, _rb(_rb(nlr * g) / _rb(torch.sqrt(
+                acc_w[ids].float()))))
+            ordered_add_(b, ids, _rb(_rb(nlr * cost) / _rb(torch.sqrt(
+                acc_b[ids].float()))))
+    else:
+        r = wi.shape[1]
+        for feats, slot, _, g, t in sides:
+            s = chunked_sums_bf16(torch.cat(
+                [g, _rb(g * g), cost[:, None], _rb(cost * cost)[:, None]], 1),
+                slot[valid], feats.shape[0])
+            _adagrad_apply_bf16(*t, feats.long(), s[:, :r], s[:, r:2 * r],
+                                s[:, 2 * r], s[:, 2 * r + 1], lr)
+    return _rb(_rb(cost * inner).sum()).to(torch.bfloat16)
+
+
 def glove_width(r: int) -> int:
     """The instance width of K10 and K11 that runs rank r (the kernels'
     ``rsp_glove_shard_width`` / ``rsp_glove_tile_width``); raises
@@ -194,24 +296,33 @@ def glove_width(r: int) -> int:
 
 
 def _check_state(st: GloveState) -> int:
-    """Raise unless the tables are what K10 and K11 take; returns r.  The
-    row side's four tables share one row count and the column side's
-    another (a mesh step's compact tables; one process: both n)."""
+    """Raise unless the tables are what K10 and K11 take (all eight float32
+    or all bfloat16); returns r.  The row side's four tables share one row
+    count and the column side's another (a mesh step's compact tables; one
+    process: both n)."""
     r = st.w_i.shape[1]
     glove_width(r)
+    dt = st.w_i.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"GloVe state {dt}: the CUDA kernels take float32 "
+                        "or bfloat16 tables")
     for name, t in zip(GloveState._fields, st):
         n = (st.w_i if name.endswith("_i") else st.w_j).shape[0]
         _kernels.check_tensor(name, t, (n, r) if name.startswith(
-            ("w_", "acc_w_")) else (n,), torch.float32)
+            ("w_", "acc_w_")) else (n,), dt)
     return r
 
 
 def _glove_shard_cuda(st: GloveState, sh: Shard, x_max: float, alpha: float,
-                      lr: float) -> torch.Tensor:
+                      lr: float, ordered: bool = False) -> torch.Tensor:
+    """K10 on the card; bf16 state runs its bf16 instance, rounding as the
+    scheduled JAX path (``ordered`` False) or the scatter path (True)
+    does (:func:`_glove_shard_plain_bf16`)."""
     r = _check_state(st)
     N, U_r, U_c = sh.rows.shape[0], sh.feats_r.shape[0], sh.feats_c.shape[0]
     f32, i32 = torch.float32, torch.int32
-    _kernels.check_tensor("vals", sh.vals, (N,), f32)
+    bf16 = st.w_i.dtype == torch.bfloat16
+    _kernels.check_tensor("vals", sh.vals, (N,), st.w_i.dtype)
     for name, t, shape in (("rows", sh.rows, (N,)), ("cols", sh.cols, (N,)),
                            ("slot_r", sh.slot_r, (N,)),
                            ("slot_c", sh.slot_c, (N,)),
@@ -225,30 +336,40 @@ def _glove_shard_cuda(st: GloveState, sh: Shard, x_max: float, alpha: float,
     dev = st.w_i.device
     loss = torch.empty((), dtype=f32, device=dev)
     if N == 0:
-        return loss.zero_()
+        return loss.zero_().to(st.w_i.dtype)
     so = _kernels.lib()
-    scratch = torch.empty((so.rsp_glove_shard_scratch(N, U_r, r),),
+    scratch = torch.empty((so.rsp_glove_shard_scratch(N, U_r, U_c, r,
+                                                      int(bf16)),),
                           dtype=f32, device=dev)
+    if bf16:   # the reference's scalars at bf16
+        x_max, alpha, lr = (_bf16_value(v) for v in (x_max, alpha, lr))
     rc = so.rsp_glove_shard(
         *(_kernels.ptr(t) for t in (sh.rows, sh.cols, sh.vals, sh.slot_r,
                                     sh.slot_c, sh.feats_r, sh.feats_c,
                                     sh.order_r, sh.order_c, sh.bounds_r,
                                     sh.bounds_c)),
         N, U_r, U_c, r, *(_kernels.ptr(t) for t in st), x_max, alpha, lr,
-        _kernels.ptr(scratch), _kernels.ptr(loss), _kernels.stream(dev))
+        int(bf16), int(bool(ordered)), _kernels.ptr(scratch),
+        _kernels.ptr(loss), _kernels.stream(dev))
     _kernels.check(rc, "glove")
-    _kernels.launches["glove_wide" if r > GLOVE_WIDTHS[0] else "glove"] += 1
-    return loss
+    _kernels.launches[("glove_wide" if r > GLOVE_WIDTHS[0] else "glove")
+                      + ("_bf16" if bf16 else "")] += 1
+    return loss.to(st.w_i.dtype) if bf16 else loss
 
 
 def _glove_shard(st: GloveState, sh: Shard, x_max: float, alpha: float,
-                 lr: float) -> torch.Tensor:
+                 lr: float, ordered: bool = False) -> torch.Tensor:
     """One shard's AdaGrad step, in place; returns its sum(cost * inner) as
-    a 0-d tensor.  CPU tensors take the plain version; CUDA tensors launch
-    K10."""
-    fn = _glove_shard_plain if st.w_i.device.type == "cpu" else \
-        _glove_shard_cuda
-    return fn(st, sh, float(x_max), float(alpha), float(lr))
+    a 0-d tensor (bf16 at bf16 state).  ``ordered`` (the shuffled tail)
+    selects, at bf16, the rounding of the JAX scatter path over the
+    scheduled one; at float32 and float64 the two are the same sums.  CPU
+    tensors take the plain version; CUDA tensors launch K10."""
+    args = (st, sh, float(x_max), float(alpha), float(lr))
+    if st.w_i.device.type != "cpu":
+        return _glove_shard_cuda(*args, ordered=ordered)
+    if st.w_i.dtype == torch.bfloat16:
+        return _glove_shard_plain_bf16(*args, ordered=ordered)
+    return _glove_shard_plain(*args)
 
 
 def compact_shard(sh: Shard) -> Shard:
@@ -266,7 +387,7 @@ def compact_shard(sh: Shard) -> Shard:
 
 
 def _mesh_shard(ops, st: GloveState, sh: Shard, x_max: float, alpha: float,
-                lr: float) -> torch.Tensor:
+                lr: float, ordered: bool = False) -> torch.Tensor:
     """One tail shard on row-sharded tables: the row side's four tables
     gathered at ``feats_r``, the column side's at ``feats_c`` (one
     all-reduce), K10 on the compact shard, this rank's rows written
@@ -276,20 +397,22 @@ def _mesh_shard(ops, st: GloveState, sh: Shard, x_max: float, alpha: float,
                             + [(t, sh.feats_c) for t in col_t])
     cst = GloveState(*(parts[k // 2 + 4 * (k % 2)] for k in range(8)))
     with ops.phase("kernel_s"):
-        loss = _glove_shard(cst, compact_shard(sh), x_max, alpha, lr)
+        loss = _glove_shard(cst, compact_shard(sh), x_max, alpha, lr,
+                            ordered)
     sgd.put_rows(ops, row_t, sh.feats_r, cst[0::2])
     sgd.put_rows(ops, col_t, sh.feats_c, cst[1::2])
     return loss
 
 
 def _glove_epoch(st: GloveState, shards: Shards, x_max: float, alpha: float,
-                 lr: float, ops=None) -> torch.Tensor:
+                 lr: float, ops=None, ordered: bool = False) -> torch.Tensor:
     """One pass over the staged tail (rsparse_tpu/models/glove.py:103):
     its loss 0.5 * sum(cost * inner), on the device.  With ``ops`` (a
-    mesh's ``ShardedOps``) the tables are row shards."""
+    mesh's ``ShardedOps``) the tables are row shards; ``ordered`` as in
+    :func:`_glove_shard`."""
     step = (_glove_shard if ops is None
             else lambda *a: _mesh_shard(ops, *a))  # noqa: E731
-    losses = [step(st, shards.shard(s), x_max, alpha, lr)
+    losses = [step(st, shards.shard(s), x_max, alpha, lr, ordered)
               for s in range(shards.rows.shape[0])]
     if not losses:
         return torch.zeros((), dtype=st.w_i.dtype, device=st.w_i.device)
@@ -327,6 +450,42 @@ def _glove_tile_plain(st: GloveState, rows, cols, x, x_max: float,
     return (cost * s).sum()
 
 
+def _glove_tile_plain_bf16(st: GloveState, rows, cols, x, x_max: float,
+                           alpha: float, lr: float,
+                           exact: bool = False) -> torch.Tensor:
+    """:func:`_glove_tile_plain` on bf16 state (compute dtype bf16), as the
+    JAX function rounds op by op at ``acc`` = bf16: the weight and log x
+    at bf16, S = bf16(w_i w_j') (an f32 sum rounded once), then each of
+    + b_i, + b_j, - log x rounded, cost and cost^2 rounded, each of the
+    five products and sums an f32 sum rounded once, then the AdaGrad
+    step op by op and one rounded add a row.  Returns the tile's bf16
+    sum(cost * S).  ``exact`` (checks only): S and the products summed at
+    float64, each rounded to bf16 once (K11 rounds S so)."""
+    i, j = rows.long(), cols.long()
+    xf = x.float()
+    present = xf > 0
+    lx = _rb(torch.log(torch.where(present, xf, 1.0)))
+    w = torch.where(present, _weight_bf16(xf, x_max, alpha), 0.0)
+    wi, wj = st.w_i[i].float(), st.w_j[j].float()
+    if exact:
+        mm = lambda a, b: to_bf16(a.double() @ b.double()).float()  # noqa
+    else:
+        mm = lambda a, b: _rb(a @ b)  # noqa: E731
+    s = mm(wi, wj.T)
+    s = torch.clamp(_rb(_rb(_rb(s + st.b_i[i].float()[:, None])
+                            + st.b_j[j].float()[None, :]) - lx),
+                    -CLIP_VALUE, CLIP_VALUE)
+    cost = _rb(w * s)
+    c2 = _rb(cost * cost)
+    _adagrad_apply_bf16(st.w_i, st.b_i, st.acc_w_i, st.acc_b_i, i,
+                        mm(cost, wj), mm(c2, _rb(wj * wj)),
+                        _rb(cost.sum(1)), _rb(c2.sum(1)), lr)
+    _adagrad_apply_bf16(st.w_j, st.b_j, st.acc_w_j, st.acc_b_j, j,
+                        mm(cost.T, wi), mm(c2.T, _rb(wi * wi)),
+                        _rb(cost.sum(0)), _rb(c2.sum(0)), lr)
+    return _rb(_rb(cost * s).sum()).to(torch.bfloat16)
+
+
 def _glove_tile_cuda(st: GloveState, rows, cols, x, x_max: float,
                      alpha: float, lr: float, cdt: torch.dtype,
                      s_dump: Optional[torch.Tensor] = None):
@@ -342,6 +501,13 @@ def _glove_tile_cuda(st: GloveState, rows, cols, x, x_max: float,
         raise TypeError(f"GloVe head: the CUDA kernel takes a float32 or "
                         f"bfloat16 grid at the compute dtype (got grid "
                         f"{x.dtype}, compute {cdt})")
+    state_bf16 = st.w_i.dtype == torch.bfloat16
+    if state_bf16 and cdt != torch.bfloat16:
+        raise NotImplementedError(
+            "GloVe head: bfloat16 state takes the bf16 compute dtype "
+            "(see ROADMAP.md)")
+    if state_bf16:   # the reference's scalars at bf16
+        x_max, alpha, lr = (_bf16_value(v) for v in (x_max, alpha, lr))
     if x.device.type != "cuda" or tuple(x.shape) != (n_r, n_c):
         raise ValueError(f"x: expected a CUDA tensor of shape {(n_r, n_c)}")
     _kernels.check_tensor("rows", rows, (n_r,), torch.int32)
@@ -358,14 +524,15 @@ def _glove_tile_cuda(st: GloveState, rows, cols, x, x_max: float,
     loss = torch.empty((), dtype=f32, device=dev)
     rc = so.rsp_glove_tile(
         _kernels.ptr(rows), _kernels.ptr(cols), n_r, n_c, _kernels.ptr(x),
-        x.stride(0), x.stride(1), bf16,
+        x.stride(0), x.stride(1), bf16, int(state_bf16),
         *(_kernels.ptr(t) for t in st), r, x_max, alpha, lr,
         _kernels.ptr(scratch), _kernels.ptr(loss), _kernels.ptr(s_dump),
         _kernels.stream(dev))
     _kernels.check(rc, "glove_dense")
-    _kernels.launches["glove_dense_wide" if r > GLOVE_WIDTHS[0]
-                      else "glove_dense"] += 1
-    return loss
+    _kernels.launches[("glove_dense_wide" if r > GLOVE_WIDTHS[0]
+                       else "glove_dense")
+                      + ("_bf16" if state_bf16 else "")] += 1
+    return loss.to(torch.bfloat16) if state_bf16 else loss
 
 
 def _glove_tile(st: GloveState, rows, cols, x, x_max: float, alpha: float,
@@ -373,9 +540,16 @@ def _glove_tile(st: GloveState, rows, cols, x, x_max: float, alpha: float,
     """One head tile's AdaGrad step, in place; returns its sum(cost * S) as
     a 0-d tensor.  CPU tensors take the plain version; CUDA tensors launch
     K11."""
-    fn = _glove_tile_plain if st.w_i.device.type == "cpu" else \
-        _glove_tile_cuda
-    return fn(st, rows, cols, x, float(x_max), float(alpha), float(lr), cdt)
+    args = (st, rows, cols, x, float(x_max), float(alpha), float(lr))
+    if st.w_i.device.type != "cpu":
+        return _glove_tile_cuda(*args, cdt)
+    if st.w_i.dtype == torch.bfloat16:
+        if cdt != torch.bfloat16:
+            raise NotImplementedError(
+                "GloVe head: bfloat16 state takes the bf16 compute dtype "
+                "(see ROADMAP.md)")
+        return _glove_tile_plain_bf16(*args)
+    return _glove_tile_plain(*args, cdt)
 
 
 def _glove_dense_step(st: GloveState, head: HeadGrid, x_max: float,
@@ -538,8 +712,13 @@ class GloVe:
         self.shuffle = shuffle
         self.batch_size = int(batch_size)
         self.n_hot = n_hot
-        self.dtype = resolve_full_dtype(precision)
+        self.dtype = resolve_dtype(precision)
         self._cdt = _compute_dtype(compute_dtype, self.dtype)
+        if self.dtype == torch.bfloat16 and self._cdt != torch.bfloat16:
+            raise NotImplementedError(
+                f"GloVe: compute_dtype={compute_dtype!r} over bfloat16 "
+                "state is not ported (see ROADMAP.md); None and "
+                "'bfloat16' run the reference's bf16-state program")
         self.device = torch.device(device)
         if mesh is not None:
             self._ops = sgd.ShardedOps(mesh)
@@ -651,7 +830,8 @@ class GloVe:
                     parts.append(_glove_dense_step(st, h, *hp, self._cdt,
                                                    ops=self._ops))
                 if t is not None:
-                    parts.append(_glove_epoch(st, t, *hp, ops=self._ops))
+                    parts.append(_glove_epoch(st, t, *hp, ops=self._ops,
+                                              ordered=self.shuffle))
             cost = sum(float(p) for p in parts)
             info["epoch_s"].append(time.perf_counter() - t0)
             if np.isnan(cost):
@@ -685,10 +865,13 @@ class GloVe:
         """Keep the state (on a mesh its row shards) and the whole
         ``components``, ``bias_i`` and ``bias_j``."""
         self._state = st
+        # numpy has no bfloat16: bf16 state's values as float32
+        host = lambda t: (t.float() if t.dtype == torch.bfloat16  # noqa: E731
+                          else t).cpu().numpy()
         # (rank, n), like w_j
-        self.components = self._whole(st.w_j).T.cpu().numpy()
-        self.bias_i = self._whole(st.b_i).cpu().numpy()
-        self.bias_j = self._whole(st.b_j).cpu().numpy()
+        self.components = host(self._whole(st.w_j).T)
+        self.bias_i = host(self._whole(st.b_i))
+        self.bias_j = host(self._whole(st.b_j))
 
     def get_history(self):
         return {"cost_history": list(self.cost_history)}

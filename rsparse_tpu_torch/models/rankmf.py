@@ -20,7 +20,38 @@ read the batch-start tables; duplicates accumulate (accumulator first).
 
 On the card one batch is K9 (``csrc/rankmf.cu``); :func:`_rankmf_batch_plain`
 is its plain PyTorch version, which CPU tensors take.  K9 takes float32
-and a rank of at most ``MAX_RANK``.
+or bfloat16 tables and a rank of at most ``MAX_RANK``.
+
+``precision="bfloat16"`` keeps W, H, accW, accH and the side features'
+values at bf16, as the JAX package does, and gives its bf16 results: the
+scalars (learning rate, gamma, lambdas, margin) are rounded to bf16 as
+the reference's are (``jnp.asarray(v, W.dtype)``), and every value is
+rounded where the JAX function run op by op rounds it, each op whose
+result is bf16 (:func:`_rankmf_batch_plain_bf16` spells them out).  Which
+rule each scatter-add of the batch meets, read from ``jax.make_jaxpr`` of
+``rsparse_tpu/models/rankmf.py:_rankmf_batch`` in each mode (BPR / WARP x
+identity / sigmoid x AdaGrad / RMSprop, with and without side features,
+with and without x64):
+
+  ==========================  ===============  ==============================
+  scatter                     update dtype     rule
+  ==========================  ===============  ==============================
+  accW / accH (AdaGrad g^2)   bfloat16         one rounding a duplicate
+  RMSprop count, accW / accH  bfloat16         one rounding a duplicate
+  W / H (-lr step)            bfloat16         one rounding a duplicate
+  ==========================  ===============  ==============================
+
+Every mode meets the same rule: in WARP the rank weight's factor
+``log1p((n_item - 1.0) / (first_k + 1.0) + 1.0)`` is a weakly typed float
+and is cast to bf16 (through float32) before it multiplies the bf16
+weight, so no gradient is promoted to float32.  So a feature row's
+duplicate updates are added one at a time in the batch's update order
+(the users' by sample; the items' positives, then negatives), each add
+rounded to bf16: a hot row whose increments are below half a spacing
+stays where it is.  XLA's CPU ``jit`` fuses some elementwise chains and
+skips their bf16 roundings, so a jitted fit of the JAX package sits a
+little apart from the op-by-op semantics the port follows
+(tests/test_torch_rankmf_bf16.py measures both).
 
 On a mesh (``mesh=parallel.mesh.make_mesh(...)``, every rank calling the
 same code) W, H, accW and accH are this rank's row shards
@@ -38,14 +69,16 @@ from __future__ import annotations
 
 import ctypes
 import time
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from .. import _kernels
-from ..config import logger, resolve_full_dtype
+from ..config import bf16_value, logger, resolve_dtype
+from ..config import round_bf16 as _rb
+from ..ops.segsum import ordered_add_
 from ..parallel import sgd_sharded as sgd
 from ..sparse.device import staged_cached
 from .base import MatrixFactorizationRecommender, get_names
@@ -249,6 +282,19 @@ def _first_acceptable(acceptable: torch.Tensor, valid: torch.Tensor):
     return found, first_k, torch.where(found, first_k + 1, K)
 
 
+def _decode(bits, pos: _Positives, n_item: int):
+    """A batch's samples from its uint32 ``bits`` (S, K + 2), as K9 decodes
+    them (rsparse_tpu/models/rankmf.py:226-237): users u, whether each has
+    positives, the positives i and the K candidates (S, K), all int64."""
+    b = bits.long() & 0xFFFFFFFF
+    n_user = pos.row_nnz.shape[0]
+    u = b[:, 0] % n_user
+    nnz_u = pos.row_nnz[u].long()
+    p = (pos.indptr[u].long() + b[:, 1] % nnz_u.clamp(min=1)).clamp(
+        0, pos.flat_idx.shape[0] - 1)
+    return u, nnz_u > 0, pos.flat_idx[p].long(), b[:, 2:] % n_item
+
+
 def _rankmf_batch_plain(W, H, accW, accH, bits, pos: _Positives,
                         uf: Optional[_Feats], itf: Optional[_Feats],
                         hp: BatchParams, cfg: BatchConfig, n_item: int,
@@ -262,18 +308,9 @@ def _rankmf_batch_plain(W, H, accW, accH, bits, pos: _Positives,
     (K9's row-map mode, :func:`batch_rows`) the tables are compact and
     feature row f is table row ``map[f]``."""
     S, K = cfg.S, cfg.K
-    b = bits.long() & 0xFFFFFFFF
-    n_user = pos.row_nnz.shape[0]
-    u = b[:, 0] % n_user
-    nnz_u = pos.row_nnz[u].long()
-    valid = nnz_u > 0
-    p1 = pos.indptr[u].long()
-    pos_off = b[:, 1] % nnz_u.clamp(min=1)
-    i = pos.flat_idx[(p1 + pos_off).clamp(0, pos.flat_idx.shape[0] - 1)
-                     ].long()
+    u, valid, i, j_cand = _decode(bits, pos, n_item)
     w_u = _combine(W, uf, u, wmap)
     h_i = _combine(H, itf, i, hmap)
-    j_cand = b[:, 2:] % n_item
     is_neg = ~_in_hash_set(pos.table, pos.boff, pos.bmask, pos.bshift, u,
                            j_cand)
     h_j_all = _combine(H, itf, j_cand, hmap)             # (S, K, r)
@@ -320,14 +357,152 @@ def _rankmf_batch_plain(W, H, accW, accH, bits, pos: _Positives,
     return torch.stack([auc_num, auc_den, found.sum(), tried.sum()]).long()
 
 
-def _feat_args(f: Optional[_Feats], name: str, n: int):
+def _sigmoid_bf16(x: torch.Tensor) -> torch.Tensor:
+    """The logistic of bf16 values as XLA expands it at bf16: 1 / (1 +
+    exp(-x)), each op rounded."""
+    return _rb(1.0 / _rb(1.0 + _rb(torch.exp(-x))))
+
+
+def _combine_bf16(emb, feats, ids, rowmap=None) -> torch.Tensor:
+    """:func:`_combine` of a bf16 table as float32 bf16 values: a feature
+    combination is one f32 sum rounded once (the reference's einsum)."""
+    if feats is None:
+        return emb[_rows(rowmap, ids)].float()
+    fi = _rows(rowmap, feats.idx[ids])
+    fv = torch.where(feats.mask[ids], feats.val[ids].float(), 0.0)
+    return _rb(torch.einsum("...f,...fr->...r", fv, emb[fi].float()))
+
+
+def _apply_plain_bf16(emb, acc, feats, ids, grad, lam, comb, lr, gamma,
+                      optimizer, rowmap=None):
+    """:func:`_apply_plain` on bf16 tables (float32 ``grad``, ``lam``,
+    ``comb`` holding bf16 values): each op rounded, every scatter-add one
+    rounding a duplicate in update order (:func:`ordered_add_`)."""
+    r = emb.shape[1]
+    nz = (grad != 0).any(1)
+    if feats is None:
+        fi = _rows(rowmap, ids[:, None])
+        fmask = nz[:, None]
+    else:
+        fi = _rows(rowmap, feats.idx[ids])
+        fmask = feats.mask[ids] & nz[:, None]
+    g2 = _rb(_rb(_rb(grad * grad).sum(1)) / bf16_value(r))
+    rows = fi[fmask]                                  # update order
+    if optimizer == ADAGRAD:
+        ordered_add_(acc, rows, g2[:, None].expand(fi.shape)[fmask])
+    else:
+        old = acc[fi].float()
+        cnt = torch.zeros_like(acc)
+        ordered_add_(cnt, rows, torch.ones_like(rows, dtype=torch.float32))
+        n_dup = cnt[fi].float().clamp(min=1.0)
+        gm1, omg = bf16_value(gamma - 1.0), bf16_value(1.0 - gamma)
+        delta = _rb(_rb(_rb(gm1 * old) / n_dup) + _rb(omg * g2[:, None]))
+        ordered_add_(acc, rows, delta[fmask])
+    denom = _rb(torch.sqrt(_rb(acc[fi].float() + bf16_value(EPS))))
+    step = _rb(_rb(grad[:, None, :] / denom[..., None])
+               + _rb(lam[:, None, None] * comb[:, None, :]))
+    ordered_add_(emb, rows, _rb(-lr * step)[fmask])
+
+
+def _rankmf_batch_plain_bf16(W, H, accW, accH, bits, pos: _Positives,
+                             uf: Optional[_Feats], itf: Optional[_Feats],
+                             hp: BatchParams, cfg: BatchConfig, n_item: int,
+                             wmap: Optional[torch.Tensor] = None,
+                             hmap: Optional[torch.Tensor] = None):
+    """:func:`_rankmf_batch_plain` on bf16 tables (``hp`` bf16 values),
+    rounding where the JAX function run op by op rounds: every op whose
+    result is bf16, the products of r_ui before their sum, r_uj and each
+    feature combination as one f32 sum, the logistic as
+    bf16(1 / bf16(1 + bf16(exp(-x)))), the WARP factor cast to bf16
+    through float32; every scatter-add one rounding a duplicate in the
+    batch's update order."""
+    S = cfg.S
+    u, valid, i, j_cand = _decode(bits, pos, n_item)
+    w_u = _combine_bf16(W, uf, u, wmap)
+    h_i = _combine_bf16(H, itf, i, hmap)
+    is_neg = ~_in_hash_set(pos.table, pos.boff, pos.bmask, pos.bshift, u,
+                           j_cand)
+    h_j_all = _combine_bf16(H, itf, j_cand, hmap)
+    r_ui = _rb(_rb(w_u * h_i).sum(1))
+    r_uj = _rb(torch.einsum("sr,skr->sk", w_u, h_j_all))
+    if cfg.kernel == SIGMOID:
+        r_ui_k, r_uj_k = _sigmoid_bf16(r_ui), _sigmoid_bf16(r_uj)
+        hi_adj = _rb(r_ui_k * _rb(1 - r_ui_k))
+        hj_adj_all = _rb(r_uj_k * _rb(1 - r_uj_k))
+        d = _rb(r_uj_k - r_ui_k[:, None])
+    else:
+        hi_adj = torch.ones_like(r_ui)
+        hj_adj_all = torch.ones_like(r_uj)
+        d = _rb(r_uj - r_ui[:, None])
+    acceptable = (is_neg if cfg.loss == BPR
+                  else is_neg & (_rb(d + hp.margin) >= 0))
+    found, first_k, tried = _first_acceptable(acceptable, valid)
+    sel = lambda a: a.gather(1, first_k[:, None])[:, 0]  # noqa: E731
+    j = sel(j_cand)
+    d_sel, hj_adj = sel(d), sel(hj_adj_all)
+    h_j = h_j_all[torch.arange(S, device=W.device), first_k]
+    weight = _sigmoid_bf16(d_sel)
+    if cfg.loss == WARP:
+        fac = torch.log1p((n_item - 1.0) / (first_k.double() + 1.0) + 1.0)
+        norm = bf16_value(np.log1p(float(n_item) + 1.0))
+        weight = _rb(_rb(weight * _rb(fac.float())) / norm)
+    weight = torch.where(found, weight, 0.0)
+    auc_num = (is_neg[:, 0] & (d[:, 0] < 0) & valid).sum()
+    auc_den = valid.sum().clamp(min=1)
+
+    grad_u = _rb(weight[:, None] * _rb(_rb(hj_adj[:, None] * h_j)
+                                       - _rb(hi_adj[:, None] * h_i)))
+    grad_ip = _rb(_rb(-weight[:, None] * hi_adj[:, None]) * w_u)
+    grad_in = _rb(_rb(weight[:, None] * hj_adj[:, None]) * w_u)
+    full = lambda v: torch.full((S,), v, dtype=torch.float32,  # noqa: E731
+                                device=W.device)
+    _apply_plain_bf16(W, accW, uf, u, grad_u, full(hp.lam_u), w_u, hp.lr,
+                      hp.gamma, cfg.optimizer, wmap)
+    if cfg.update_items:
+        _apply_plain_bf16(H, accH, itf, torch.cat([i, j]),
+                          torch.cat([grad_ip, grad_in]),
+                          torch.cat([full(hp.lam_ip), full(hp.lam_in)]),
+                          torch.cat([h_i, h_j]), hp.lr, hp.gamma,
+                          cfg.optimizer, hmap)
+    return torch.stack([auc_num, auc_den, found.sum(), tried.sum()]).long()
+
+
+def _feat_args(f: Optional[_Feats], name: str, n: int, dtype):
     if f is None:
         return (None, None, None), 0
     F = f.idx.shape[1]
     _kernels.check_tensor(f"{name}.idx", f.idx, (n, F), torch.int32)
-    _kernels.check_tensor(f"{name}.val", f.val, (n, F), torch.float32)
+    _kernels.check_tensor(f"{name}.val", f.val, (n, F), dtype)
     _kernels.check_tensor(f"{name}.mask", f.mask, (n, F), torch.bool)
     return (f.idx, f.val, f.mask), F
+
+
+def _walk_pairs(iscr: torch.Tensor, S: int, F: int, feats, rowmap,
+                es) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (table row, update) pairs of one table for the bf16 instance's
+    launch W, sorted stably by row: ``es`` the staged entity kinds that
+    update it, in the reference's update order (W: (0,) users; H: (1, 2)
+    positives, then negatives), each by sample and feature slot.  Returns
+    int32 (keys, codes): the row, -1 where the pair updates nothing, and
+    q F + l (staged entity q = 3 s + e, slot l)."""
+    ids = iscr[:3 * S].view(S, 3).long()
+    flag = iscr[3 * S:].view(S, 3) != 0
+    s3 = 3 * torch.arange(S, device=iscr.device)
+    keys, codes = [], []
+    for e in es:
+        if feats is None:
+            rows = ids[:, e:e + 1]
+            m = flag[:, e:e + 1]
+        else:
+            rows = feats.idx[ids[:, e]].long()
+            m = feats.mask[ids[:, e]] & flag[:, e:e + 1]
+        if rowmap is not None:
+            rows = rowmap[rows].long()
+        keys.append(torch.where(m, rows, -1).reshape(-1))
+        codes.append(((s3 + e)[:, None] * F + torch.arange(
+            rows.shape[1], device=iscr.device)[None, :]).reshape(-1))
+    k, perm = torch.sort(torch.cat(keys), stable=True)
+    return k.to(torch.int32), torch.cat(codes)[perm].to(torch.int32)
 
 
 def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
@@ -336,9 +511,10 @@ def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
                        wmap: Optional[torch.Tensor] = None,
                        hmap: Optional[torch.Tensor] = None,
                        stages: int = 2):
-    """K9 on CUDA tensors (see :func:`_rankmf_batch`).  ``stages`` 1 stops
-    after launch A, for timing it apart: the counters are left unclamped
-    and the tables unchanged, but AdaGrad's accumulators."""
+    """K9 on CUDA tensors (see :func:`_rankmf_batch`), float32 or bf16
+    tables (``hp`` bf16 values at bf16).  ``stages`` 1 stops after launch
+    A, for timing it apart: the counters are left unclamped and the tables
+    unchanged, but AdaGrad's accumulators (the float32 instance)."""
     S, K = cfg.S, cfg.K
     nuf, r = W.shape
     nif = H.shape[0]
@@ -346,11 +522,15 @@ def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
     if r > MAX_RANK:
         raise ValueError(f"RankMF rank {r}: the CUDA kernel takes at most "
                          f"{MAX_RANK}")
+    tdt = W.dtype
+    if tdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K9 takes float32 or bfloat16 tables, not {tdt}")
+    bf16 = tdt == torch.bfloat16
     f32, i32 = torch.float32, torch.int32
-    _kernels.check_tensor("W", W, (nuf, r), f32)
-    _kernels.check_tensor("H", H, (nif, r), f32)
-    _kernels.check_tensor("accW", accW, (nuf,), f32)
-    _kernels.check_tensor("accH", accH, (nif,), f32)
+    _kernels.check_tensor("W", W, (nuf, r), tdt)
+    _kernels.check_tensor("H", H, (nif, r), tdt)
+    _kernels.check_tensor("accW", accW, (nuf,), tdt)
+    _kernels.check_tensor("accH", accH, (nif,), tdt)
     _kernels.check_tensor("bits", bits, (S, K + 2), torch.int64)
     _kernels.check_tensor("flat_idx", pos.flat_idx, pos.flat_idx.shape, i32)
     lanes = pos.table.shape[1]
@@ -359,8 +539,8 @@ def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
     _kernels.check_tensor("table", pos.table, pos.table.shape, i32)
     for name in ("indptr", "row_nnz", "boff", "bmask", "bshift"):
         _kernels.check_tensor(name, getattr(pos, name), (n_user,), i32)
-    (ui, uv, um), Fu = _feat_args(uf, "user_features", n_user)
-    (ii, iv, im), Fi = _feat_args(itf, "item_features", n_item)
+    (ui, uv, um), Fu = _feat_args(uf, "user_features", n_user, tdt)
+    (ii, iv, im), Fi = _feat_args(itf, "item_features", n_item, tdt)
     if (wmap is None) != (hmap is None):
         raise ValueError("K9's row-map mode takes both wmap and hmap")
     for name, t in (("wmap", wmap), ("hmap", hmap)):
@@ -368,7 +548,7 @@ def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
             _kernels.check_tensor(name, t, (t.shape[0],), i32)
     dev = W.device
     F = max(Fu, Fi, 1)
-    rms = cfg.optimizer == RMSPROP
+    rms = cfg.optimizer == RMSPROP and not bf16
     iscr = torch.empty((2 * 3 * S,), dtype=i32, device=dev)
     fscr = torch.empty((3 * S * (1 + 2 * r + (F if rms else 0)),),
                        dtype=f32, device=dev)
@@ -376,20 +556,31 @@ def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
     cntH = (torch.zeros((nif,), dtype=f32, device=dev)
             if rms and cfg.update_items else None)
     counters = torch.empty((4,), dtype=torch.int64, device=dev)
+    norm = float(np.log1p(float(n_item) + 1.0))
     args = _kernels.RankMFArgs(
         *(_kernels.ptr(t) for t in (
             bits, pos.flat_idx, pos.indptr, pos.row_nnz, pos.table, pos.boff,
             pos.bmask, pos.bshift, ui, uv, um, ii, iv, im, W, H, accW, accH,
             iscr, fscr, cntW, cntH, counters, wmap, hmap)),
         S, K, r, n_user, n_item, pos.flat_idx.shape[0], lanes, Fu, Fi,
-        cfg.loss, cfg.kernel, cfg.optimizer, int(cfg.update_items),
+        cfg.loss, cfg.kernel, cfg.optimizer, int(cfg.update_items), int(bf16),
         hp.lr, hp.gamma, hp.lam_u, hp.lam_ip, hp.lam_in, hp.margin,
-        float(np.log1p(float(n_item) + 1.0)))
-    rc = _kernels.lib().rsp_rankmf_batch(ctypes.byref(args),
-                                         ctypes.c_int(int(stages)),
-                                         _kernels.stream(dev))
+        bf16_value(norm) if bf16 else norm)
+    so = _kernels.lib()
+    rc = so.rsp_rankmf_batch(ctypes.byref(args), ctypes.c_int(int(stages)),
+                             _kernels.stream(dev))
     _kernels.check(rc, "rankmf")
-    _kernels.launches["rankmf" if wmap is None else "rankmf_rowmap"] += 1
+    if bf16 and stages == 2:
+        wk, wc = _walk_pairs(iscr, S, F, uf, wmap, (0,))
+        hk, hc = (_walk_pairs(iscr, S, F, itf, hmap, (1, 2))
+                  if cfg.update_items else (wk[:0], wc[:0]))
+        rc = so.rsp_rankmf_walk(
+            ctypes.byref(args), _kernels.ptr(wk), _kernels.ptr(wc),
+            wk.shape[0], _kernels.ptr(hk), _kernels.ptr(hc), hk.shape[0],
+            _kernels.stream(dev))
+        _kernels.check(rc, "rankmf")
+    _kernels.launches[("rankmf" if wmap is None else "rankmf_rowmap")
+                      + ("_bf16" if bf16 else "")] += 1
     return counters
 
 
@@ -403,9 +594,14 @@ def _rankmf_batch(W, H, accW, accH, bits, pos: _Positives,
     Returns int64 counters [auc_num, auc_den, found, n_tried].  With
     ``wmap`` / ``hmap`` the tables are compact and feature row f is table
     row ``map[f]`` (K9's row-map mode, :func:`batch_rows`).  CPU tensors
-    take the plain version; CUDA tensors launch K9."""
-    fn = (_rankmf_batch_plain if W.device.type == "cpu"
-          else _rankmf_batch_cuda)
+    take the plain version (bf16 tables :func:`_rankmf_batch_plain_bf16`);
+    CUDA tensors launch K9."""
+    if W.device.type != "cpu":
+        fn = _rankmf_batch_cuda
+    elif W.dtype == torch.bfloat16:
+        fn = _rankmf_batch_plain_bf16
+    else:
+        fn = _rankmf_batch_plain
     return fn(W, H, accW, accH, bits, pos, uf, itf, hp, cfg, n_item,
               wmap=wmap, hmap=hmap)
 
@@ -417,14 +613,8 @@ def batch_rows(bits, pos: _Positives, uf: Optional[_Feats],
     sampled users' features, the positives' and every candidate's (a
     padding feature slot counts: the plain version reads its row times
     0).  Decoded as K9 decodes them."""
-    b = bits.long() & 0xFFFFFFFF
-    n_user = pos.row_nnz.shape[0]
-    u = b[:, 0] % n_user
-    nnz_u = pos.row_nnz[u].long()
-    p = (pos.indptr[u].long() + b[:, 1] % nnz_u.clamp(min=1)).clamp(
-        0, pos.flat_idx.shape[0] - 1)
-    items = torch.cat([pos.flat_idx[p].long(), (b[:, 2:] % n_item)
-                       .reshape(-1)])
+    u, _, i, j_cand = _decode(bits, pos, n_item)
+    items = torch.cat([i, j_cand.reshape(-1)])
     rows_w = u if uf is None else uf.idx[u].reshape(-1)
     rows_h = items if itf is None else itf.idx[items].reshape(-1)
     return torch.unique(rows_w.long()), torch.unique(rows_h.long())
@@ -482,7 +672,7 @@ class RankMF(MatrixFactorizationRecommender):
         self.margin = float(margin)
         self.max_negative_samples = int(max_negative_samples)
         self.batch_size = int(batch_size)
-        self.dtype = resolve_full_dtype(precision)
+        self.dtype = resolve_dtype(precision)
         self._rng = np.random.default_rng(seed)
         self._seed = seed if seed is not None else 0
         self._generator: Optional[torch.Generator] = None
@@ -622,6 +812,9 @@ class RankMF(MatrixFactorizationRecommender):
         hp = BatchParams(self.learning_rate, self.gamma, self.lambda_user,
                          self.lambda_item_positive,
                          self.lambda_item_negative, self.margin)
+        if self.dtype == torch.bfloat16:
+            # the reference's scalars ride at the table dtype
+            hp = BatchParams(*(bf16_value(v) for v in hp))
         #: host walls of this call's set-up (the table draw; the staging of
         #: the positives, hash sets and features, ~0 on a cache hit) and its
         #: batch count

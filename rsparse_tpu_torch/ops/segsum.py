@@ -224,3 +224,58 @@ def staged_label_gathers(tag: str, csr, y: np.ndarray, weights: np.ndarray,
     return staged_aux_cached(tag, fp, build,
                              extra=(str(dtype), str(torch.device(device)),
                                     zero_pad_weight))
+
+
+def ordered_add_(table: torch.Tensor, idx: torch.Tensor,
+                 upd: torch.Tensor) -> torch.Tensor:
+    """``table[idx[n]] += upd[n]`` one update at a time in the order given,
+    each add rounded to the table's dtype, in place: what the JAX package's
+    scatter-add of bf16 updates into a bf16 table does (a row's duplicates
+    round once each, so increments below half a spacing leave it where it
+    is).  The plain version of the bf16 kernels' ordered walks: one
+    indexed add a rank among equal ids, on any device."""
+    idx = idx.reshape(-1).long()
+    upd = upd.reshape((idx.numel(),) + tuple(table.shape[1:]))
+    if idx.numel() == 0:
+        return table
+    key, perm = torch.sort(idx, stable=True)
+    ar = torch.arange(key.numel(), device=key.device)
+    start = torch.ones_like(key, dtype=torch.bool)
+    start[1:] = key[1:] != key[:-1]
+    rank = ar - torch.cummax(torch.where(start, ar, 0), 0).values
+    for k in range(int(rank.max()) + 1):
+        p = perm[rank == k]
+        rows = idx[p]
+        table[rows] = (table[rows].float() + upd[p].float()).to(table.dtype)
+    return table
+
+
+#: occurrences of a feature a chunk of the JAX package's scheduled sums
+#: takes (rsparse_tpu/ops/segsum.py build_stacked_col_schedule chunk_len)
+SCHED_CHUNK = 128
+
+
+def chunked_sums_bf16(vals: torch.Tensor, slot: torch.Tensor,
+                      n_slots: int) -> torch.Tensor:
+    """Per-slot sums of ``vals`` (N, w) as the JAX package's scheduled
+    segment sums form them at bf16 (rsparse_tpu/ops/segsum.py :600, :551):
+    a slot's entries in order, cut into chunks of ``SCHED_CHUNK``, each
+    chunk summed at float32 and rounded to bf16, the chunks summed at
+    float32 and rounded again.  Returns (n_slots, w) float32 holding bf16
+    values."""
+    slot = slot.long()
+    n = slot.numel()
+    key, perm = torch.sort(slot, stable=True)
+    ar = torch.arange(n, device=slot.device)
+    start = torch.ones_like(key, dtype=torch.bool)
+    start[1:] = key[1:] != key[:-1]
+    rank = ar - torch.cummax(torch.where(start, ar, 0), 0).values
+    chunk = torch.zeros(n, dtype=torch.long, device=slot.device)
+    chunk[perm] = rank // SCHED_CHUNK
+    n_chunk = int(chunk.max()) + 1 if n else 1
+    w = vals.shape[1]
+    part = torch.zeros((n_slots * n_chunk, w), dtype=torch.float32,
+                       device=vals.device)
+    part.index_add_(0, slot * n_chunk + chunk, vals.float())
+    part = part.to(torch.bfloat16).float().view(n_slots, n_chunk, w)
+    return part.sum(1).to(torch.bfloat16).float()

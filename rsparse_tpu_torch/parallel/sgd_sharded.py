@@ -44,8 +44,9 @@ from .mesh import Mesh
 
 Axes = Union[str, Tuple[str, ...]]
 
-#: the integer type each float width's bits are summed as
-_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+#: the integer type each float width's bits are summed as (2-byte tables,
+#: bf16 state, as bytes: NCCL has no 16-bit integer)
+_BITS = {1: torch.uint8, 2: torch.uint8, 4: torch.int32, 8: torch.int64}
 
 
 def _rows_like(upd: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -325,7 +326,12 @@ def unshard(arr: torch.Tensor, n: Optional[int] = None,
     (The JAX package returns a numpy array; the port keeps tensors.)"""
     if mesh is not None:
         axes = axes if axes is not None else mesh_table_axes(mesh)
-        arr = mesh.group(axes).all_gather(arr.contiguous())
+        t = arr.contiguous()
+        if t.element_size() == 2:     # bf16 state, gathered as its bytes
+            arr = mesh.group(axes).all_gather(t.view(torch.uint8)).view(
+                t.dtype)
+        else:
+            arr = mesh.group(axes).all_gather(t)
     return arr if n is None else arr[:n]
 
 

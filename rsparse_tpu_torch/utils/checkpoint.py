@@ -14,8 +14,9 @@ so each package loads the other's checkpoints:
 - the port's runtime state (``device``, a torch ``dtype``, its generators,
   staged inputs and caches) and its telemetry (``stage_info``,
   ``fit_trace``, ``svd_trace``, ``trace``) are not written; ``load``
-  re-derives ``dtype`` from ``precision`` (or from the arrays) and places
-  the tensors on its ``device`` argument;
+  re-derives ``dtype`` from ``precision`` (or from the arrays: bfloat16
+  where ``__bf16__`` names any, for RankMF and GloVe) and places the
+  tensors on its ``device`` argument;
 - PureSVD's fitted triple is written as ``_svd_u``, ``_svd_d``, ``_svd_v``
   (the reference writes it as text, which no loader can read back); from a
   checkpoint without them ``load`` rebuilds ``d`` and ``v`` from
@@ -34,7 +35,7 @@ so each package loads the other's checkpoints:
 The reference's orbax store (mesh-sharded tables written per device) is not
 ported: ``store="orbax"``, an orbax checkpoint and one that names a mesh
 (tables written per device) raise ``NotImplementedError`` (ROADMAP.md queue
-1 item 3).
+1 item 5).
 """
 
 from __future__ import annotations
@@ -141,10 +142,13 @@ def save(model: Any, path: str, store: str = "auto") -> None:
             meta.setdefault("__sparse__", {})[k] = list(coo.shape)
         elif isinstance(v, (int, float, str, bool, type(None), list, tuple)):
             meta[k] = v
-    # a bf16 model's components are float32 numpy here (numpy has no
-    # bfloat16) holding bf16 values exactly: mark them as the reference's
-    if getattr(model, "dtype", None) == torch.bfloat16 and "components" in arrays:
-        dtypes["components"] = "bfloat16"
+    # a bf16 model's host arrays (components; GloVe's biases) are float32
+    # numpy here (numpy has no bfloat16) holding bf16 values exactly: mark
+    # them as the reference's
+    if getattr(model, "dtype", None) == torch.bfloat16:
+        for k in _HOST_ARRAYS:
+            if k in arrays and arrays[k].dtype.kind == "f":
+                dtypes[k] = "bfloat16"
     np.savez_compressed(os.path.join(path, "arrays.npz"), **arrays)
     meta["__bf16__"] = dtypes
     with open(os.path.join(path, "meta.json"), "w") as f:
@@ -233,7 +237,7 @@ def load(path: str, cls: Optional[Type] = None, device="cuda",
         setattr(model, name, sp.csr_matrix(
             (parts["val"], (parts["row"], parts["col"])),
             shape=tuple(sparse_shapes[name])))
-    _restore_runtime(model, tensors, device)
+    _restore_runtime(model, tensors, device, bf16)
     if sharding is not None:
         _place_on_mesh(model, sharding)
     return model
@@ -265,7 +269,7 @@ def _place_on_mesh(model, mesh) -> None:
 
 
 def _restore_runtime(model, tensors: Dict[str, torch.Tensor],
-                     device: torch.device) -> None:
+                     device: torch.device, bf16=()) -> None:
     """Set the loaded tensors and re-make what :func:`save` does not
     write: the device, the dtype, fresh generators, the identity
     preprocess, and each class's own runtime state."""
@@ -284,10 +288,12 @@ def _restore_runtime(model, tensors: Dict[str, torch.Tensor],
         model.dtype = (resolve_dtype if takes_bf16
                        else resolve_full_dtype)(model.precision)
     else:   # RankMF and GloVe keep no precision name: their arrays' dtype
+        # (bfloat16 where the checkpoint marks any of them so)
         first = next((a for a in (*tensors.values(),
                                   getattr(model, "components", None))
                       if a is not None), None)
-        model.dtype = (torch.float64 if first is not None
+        model.dtype = (torch.bfloat16 if bf16 else
+                       torch.float64 if first is not None
                        and str(first.dtype).endswith("float64")
                        else torch.float32)
     z, n = tensors.pop("z", None), tensors.pop("n", None)

@@ -11,7 +11,7 @@ within 1e-5 of the largest (2e-3 for bf16 tables: the two packages round
 the transform's bf16 products in their own order).  The recommenders on
 ML-100k are fitted at the settings of ``chip_smoke.CLI_FLAGS``, at which
 the CLI tests run both CLIs: the JAX package compiles each model's programs
-once for the whole file.  (The file holds 23 tests, tests/test_torch_io_cli.py
+once for the whole file.  (The file holds 24 tests, tests/test_torch_io_cli.py
 21: pytest-xdist's ``--dist loadfile`` queues files by their number of
 tests, then by name, so both sit right after tests/test_topk_metrics.py.  Its ~570 s test is its second-to-last, and the
 worker that runs it takes the next file in the queue as that test starts;
@@ -165,6 +165,63 @@ def test_checkpoint_across_packages(fitted, kind, direction, tmp_path):
         dst = ck_jax.load(path)
         assert type(dst) is getattr(rj, type(src).__name__)
     _check_same(kind, src, dst, q)
+
+
+def _bf16_values(a):
+    """A bf16 array of either package (a tensor, a JAX array, or numpy
+    float32 holding bf16 values) as float32 numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.float().cpu().numpy()
+    return np.asarray(a, np.float32)
+
+
+def test_bf16_checkpoints_across_packages(tmp_path):
+    """RankMF and GloVe at precision="bfloat16": each package's checkpoint
+    loads in the other and back in its own as a bf16 model with the same
+    tables bit for bit (the store keeps bf16 arrays as float32 marked
+    ``__bf16__``); the loaded RankMF predicts the source's items, and the
+    port's load -> predict round trip gives the source's scores."""
+    x = _small_implicit()
+    s = sp.csr_matrix(x).sign()
+    cooc = (s.T @ s).tocoo()
+    fits = {}
+    for name, pkg in (("jax", rj), ("port", rt)):
+        dev = {} if pkg is rj else {"device": "cpu"}
+        m = pkg.RankMF(rank=4, learning_rate=0.1, seed=0,
+                       precision="bfloat16", **dev)
+        m.partial_fit_transform(x, n_iter=2)
+        g = pkg.GloVe(rank=4, x_max=10.0, learning_rate=0.05, seed=0,
+                      precision="bfloat16", **dev)
+        g.fit_transform(cooc, n_iter=2)
+        fits[name] = (m, g)
+    tables = ("user_features_embeddings", "item_features_embeddings",
+              "_accW", "_accH")
+    for src_name, (m, g) in fits.items():
+        for model, names in ((m, tables),
+                             (g, ("components", "bias_i", "bias_j"))):
+            path = str(tmp_path / f"{src_name}_{type(model).__name__}")
+            (ck_jax if src_name == "jax" else ck_port).save(model, path)
+            port = ck_port.load(path, device="cpu")
+            jx = ck_jax.load(path)
+            assert port.dtype == torch.bfloat16
+            for k in names:
+                want = _bf16_values(getattr(model, k))
+                np.testing.assert_array_equal(
+                    _bf16_values(getattr(port, k)), want, err_msg=k)
+                np.testing.assert_array_equal(
+                    _bf16_values(getattr(jx, k)), want, err_msg=k)
+                if k in tables:
+                    assert getattr(port, k).dtype == torch.bfloat16
+                    assert str(getattr(jx, k).dtype) == "bfloat16"
+            if model is m:
+                a = m.predict(x, k=5, not_recommend=x)
+                for dst in (port, jx):
+                    b = dst.predict(x, k=5, not_recommend=x)
+                    np.testing.assert_array_equal(b.indices, a.indices)
+                if src_name == "port":
+                    np.testing.assert_array_equal(
+                        port.predict(x, k=5, not_recommend=x).scores,
+                        a.scores)
 
 
 def test_warm_start_from_a_jax_checkpoint(fitted, tmp_path):

@@ -11,7 +11,9 @@ process holds them:
 - to the port's one-process fit of the same settings: FTRL, FM and GloVe
   bit for bit (the gather sums bit patterns, the plain versions add in the
   one-process order), RankMF within 1e-6 (the JAX package's mesh tests'
-  limit; on the CPU it reads 0);
+  limit; on the CPU it reads 0); GloVe (with and without the shuffle) and
+  two RankMF settings also at ``precision="bfloat16"``, bit for bit (the
+  gather sums a bf16 table's bytes);
 - to the JAX package's mesh fit on its 8 virtual CPU devices, at float64
   from the same weights carried across by ``convert``, with no dropout, no
   shuffle and, for RankMF, the JAX package's own bits: 1e-10, the port's
@@ -84,6 +86,11 @@ def _one_process(x, y):
     for name, kw in W.SGD_RANKMF.items():
         feats = (dict(user_features=uf, item_features=itf)
                  if name == "side" else {})
+        if name in W.SGD_RANKMF_BF16:
+            b = rt.RankMF(device="cpu", **dict(kw, precision="bfloat16"))
+            emb = b.partial_fit_transform(
+                xi, n_iter=W.SGD_RANKMF_ITER[name], **feats)
+            out.update(W.rankmf_bf16_outputs(name, b, emb, xi))
         m = rt.RankMF(device="cpu", **kw)
         emb = m.partial_fit_transform(xi, n_iter=W.SGD_RANKMF_ITER[name],
                                       **feats)
@@ -95,9 +102,10 @@ def _one_process(x, y):
             ("glove", W.SGD_GLOVE, W.sgd_cooc(), 3),
             ("glove_shuffle", dict(W.SGD_GLOVE, shuffle=True), W.sgd_cooc(),
              3),
-            ("glove_small", W.SGD_GLOVE_SMALL, W.sgd_cooc_small(), 2)):
+            ("glove_small", W.SGD_GLOVE_SMALL, W.sgd_cooc_small(), 2),
+            *W.GLOVE_BF16):
         m = rt.GloVe(device="cpu", **kw)
-        out[f"{name}_emb"] = m.fit_transform(coo, n_iter=it).numpy()
+        out[f"{name}_emb"] = W.host(m.fit_transform(coo, n_iter=it))
         out[f"{name}_comps"] = m.components
         out[f"{name}_bias_i"], out[f"{name}_bias_j"] = m.bias_i, m.bias_j
         out[f"{name}_cost"] = np.asarray(m.cost_history)
@@ -222,9 +230,11 @@ def test_sharded_ops_match_direct_ops(runs):
 
 @pytest.mark.parametrize("model", BITWISE)
 def test_mesh_fit_is_the_one_process_fit(runs, model):
-    """FTRL (with dropout), FM and GloVe (with and without the shuffle)
-    fitted on the mesh equal the one-process fit bit for bit: predictions,
-    tables, embeddings, biases, cost history; on every rank."""
+    """FTRL (with dropout), FM and GloVe (with and without the shuffle, at
+    float32 and at bfloat16: the ``glove`` case reads every ``glove_*``
+    key) fitted on the mesh equal the one-process fit bit for bit:
+    predictions, tables, embeddings, biases, cost history; on every
+    rank."""
     one = runs["one"]
     for _, r in _every_rank(runs):
         keys = _keys(one, model)
@@ -238,9 +248,14 @@ def test_rankmf_mesh_fit_matches_one_process(runs, name):
     """RankMF (WARP + AdaGrad, BPR + RMSprop, side features) on the mesh,
     K9's row-map mode in its plain version, against the one-process fit:
     the embeddings, components and transform within 1e-6, the AUC
-    counters equal."""
+    counters equal; at ``precision="bfloat16"`` (WARP, side features; the
+    bf16 plain version's ordered adds) bit for bit, every table bf16."""
     one = runs["one"]
     for _, r in _every_rank(runs):
+        for k in (k for k in one if k.startswith(f"rankmf_bf16_{name}_")):
+            np.testing.assert_array_equal(r[k], one[k], err_msg=k)
+        if name in W.SGD_RANKMF_BF16:
+            assert bool(r[f"rankmf_bf16_{name}_bf16"])
         for k in ("emb", "comps", "T"):
             np.testing.assert_allclose(r[f"rankmf_{name}_{k}"],
                                        one[f"rankmf_{name}_{k}"], rtol=0,

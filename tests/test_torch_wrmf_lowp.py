@@ -410,12 +410,9 @@ def test_options_validated_as_reference():
     lambda: rt.LinearFlow(precision="bfloat16", device="cpu"),
     lambda: rt.FTRL(precision="bfloat16", device="cpu"),
     lambda: rt.FactorizationMachine(precision="bfloat16", device="cpu"),
-    lambda: rt.RankMF(precision="bfloat16", device="cpu"),
-    lambda: rt.GloVe(rank=4, x_max=10, precision="bfloat16", device="cpu"),
     lambda: rt.soft_impute(sp.random(20, 10, 0.3, format="csr"), rank=2,
                            precision="bfloat16", device="cpu"),
-], ids=["pure_svd", "linear_flow", "ftrl", "fm", "rankmf", "glove",
-        "soft_impute"])
+], ids=["pure_svd", "linear_flow", "ftrl", "fm", "soft_impute"])
 def test_bf16_precision_is_wrmf_only(make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make()

@@ -258,6 +258,9 @@ SGD_RANKMF = {
                 batch_size=64, max_negative_samples=10, lambda_=0.01),
     "side": dict(rank=8, seed=3, batch_size=64, max_negative_samples=8)}
 SGD_RANKMF_ITER = {"warp": 3, "bpr": 3, "side": 2}
+#: the RankMF settings also fitted at precision="bfloat16" (K9's bf16
+#: plain version in its row-map mode on the mesh)
+SGD_RANKMF_BF16 = ("warp", "side")
 SGD_GLOVE = dict(rank=8, x_max=10, learning_rate=0.05, seed=42,
                  batch_size=256, n_hot=32)
 SGD_GLOVE_SMALL = dict(rank=4, x_max=10, learning_rate=0.05, seed=0,
@@ -464,6 +467,11 @@ def _rankmf_case(mesh, out_dir, bits):
         out[f"rankmf_{name}_rows"] = np.asarray(list(_rows_of(m).values()))
         out[f"rankmf_{name}_draws"] = np.asarray(
             m._ops.stats["draw_checks"])
+        if name in SGD_RANKMF_BF16:
+            b = rt.RankMF(mesh=mesh, **dict(kw, precision="bfloat16"))
+            emb = b.partial_fit_transform(x, n_iter=SGD_RANKMF_ITER[name],
+                                          **feats)
+            out.update(rankmf_bf16_outputs(name, b, emb, x))
         if name == "warp":
             checkpoint.save(m, os.path.join(out_dir, "rankmf_ckpt"))
             back = checkpoint.load(os.path.join(out_dir, "rankmf_ckpt"),
@@ -486,6 +494,36 @@ def _rankmf_case(mesh, out_dir, bits):
     return out
 
 
+def host(t):
+    """A tensor as numpy (bf16 as its float32 values: numpy has no bf16)."""
+    import torch
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def rankmf_bf16_outputs(name, m, emb, x) -> dict:
+    """A bf16 RankMF fit's outputs as float32 arrays (numpy has no bf16):
+    the embeddings, components, transform, AUC and the tables' dtypes."""
+    import torch
+    f = lambda t: (t.float().numpy() if isinstance(t, torch.Tensor)  # noqa
+                   else np.asarray(t, np.float64))
+    return {f"rankmf_bf16_{name}_emb": f(emb),
+            f"rankmf_bf16_{name}_comps": f(m.components),
+            f"rankmf_bf16_{name}_T": f(m.transform(x)),
+            f"rankmf_bf16_{name}_auc": np.asarray(m.auc_history),
+            f"rankmf_bf16_{name}_bf16": np.asarray(all(
+                t.dtype == torch.bfloat16 for t in (
+                    m.user_features_embeddings, m.item_features_embeddings,
+                    m._accW, m._accH)))}
+
+
+#: the GloVe fits also run at precision="bfloat16" (name, settings, input,
+#: epochs): the triangular input with and without the shuffle
+GLOVE_BF16 = (("glove_bf16", dict(SGD_GLOVE, precision="bfloat16"),
+               sgd_cooc(), 3),
+              ("glove_bf16_shuffle", dict(SGD_GLOVE, precision="bfloat16",
+                                          shuffle=True), sgd_cooc(), 3))
+
+
 def _glove_case(mesh, out_dir):
     """GloVe on the mesh: the triangular input (head and tail, both
     passes) with and without the shuffle, the small square input, the
@@ -498,9 +536,10 @@ def _glove_case(mesh, out_dir):
             ("glove_shuffle", dict(SGD_GLOVE, shuffle=True), sgd_cooc(), 3),
             ("glove_small", SGD_GLOVE_SMALL, sgd_cooc_small(), 2),
             ("glove_ref", dict(SGD_GLOVE, precision="double",
-                               init=sgd_weights()["glove"]), sgd_cooc(), 3)):
+                               init=sgd_weights()["glove"]), sgd_cooc(), 3),
+            *GLOVE_BF16):
         m = rt.GloVe(mesh=mesh, **kw)
-        out[f"{name}_emb"] = m.fit_transform(coo, n_iter=it).numpy()
+        out[f"{name}_emb"] = host(m.fit_transform(coo, n_iter=it))
         out[f"{name}_comps"] = m.components
         out[f"{name}_bias_i"], out[f"{name}_bias_j"] = m.bias_i, m.bias_j
         out[f"{name}_cost"] = np.asarray(m.cost_history)

@@ -2872,6 +2872,8 @@ REF_GLOVE = {"ml100k": (0.45488280793498687, 0.07597071868772529,
              "quick": (0.4630190852547191, 0.14129658496505335,
                        0.07906985425764775)}
 GLOVE_REL = 1e-3
+#: GloVe's default compute dtype (the state's: K11's f32 head)
+GLOVE_F32_KW = {k: v for k, v in GLOVE_KW.items() if k != "compute_dtype"}
 
 
 def synth_glove(vocab, nnz, seed=0):
@@ -3031,6 +3033,33 @@ def _tile_cublas(st, rows, cols, x, x_max, alpha, lr):
     return (cost.float() * s).sum()
 
 
+def _tile_cublas_f32(st, rows, cols, x, x_max, alpha, lr):
+    """K11's f32-head step as a chain of PyTorch calls: the five products
+    through cuBLAS at the port's full-f32 matmul setting (no TF32), the
+    elementwise work over the whole grid and the applies.  Timed as the
+    library column's yardstick only."""
+    import torch
+    from rsparse_tpu_torch.models import glove
+    i, j = rows.long(), cols.long()
+    xf = x.float()
+    present = xf > 0
+    lx = torch.log(torch.where(present, xf, 1.0))
+    w = torch.where(present, torch.where(
+        xf < x_max, torch.pow(xf / x_max, alpha), 1.0), 0.0)
+    wi, wj = st.w_i[i], st.w_j[j]
+    s = torch.clamp(wi @ wj.T + st.b_i[i][:, None] + st.b_j[j][None, :]
+                    - lx, -100.0, 100.0)
+    cost = w * s
+    c2 = cost * cost
+    glove._adagrad_apply(st.w_i, st.b_i, st.acc_w_i, st.acc_b_i, i,
+                         cost @ wj, c2 @ (wj * wj), cost.sum(1), c2.sum(1),
+                         lr)
+    glove._adagrad_apply(st.w_j, st.b_j, st.acc_w_j, st.acc_b_j, j,
+                         cost.T @ wi, c2.T @ (wi * wi), cost.sum(0),
+                         c2.sum(0), lr)
+    return (cost * s).sum()
+
+
 def _tile_s_bf16(st, rows, cols, x, acc):
     """bf16(S) of a tile's present cells, S summed at ``acc``: which cells
     of S an f32 sum can round to another bf16 value than float64 does."""
@@ -3093,8 +3122,9 @@ def check_glove_step(name, step, plain, state, ids, tag, results, bnd,
     key = key or name
     results[key]["max_abs_err"] = max(results[key]["max_abs_err"], worst)
     dms = None
-    if name == "glove" or key == "glove_dense_wide":
-        # K10 and the wide K11: the same result on every run
+    if name == "glove" or key in ("glove_dense_wide", "glove_dense_f32",
+                                  "glove_dense_wide_f32"):
+        # K10, the wide K11 and the f32 head: the same result on every run
         s2 = glove.GloveState(*(t.clone() for t in state))
         l2 = step(s2)
         require(torch.equal(l2, lk) and all(
@@ -3166,9 +3196,10 @@ def check_glove_kernels(head, tail, state, tag, results, rep=False,
                     + ("bf16" if cdt == bf else "f32")
                     + f" (bf16 S cells rounding apart f32/f64: {apart} of "
                     f"{int((xv > 0).sum())})")
-            main = cdt == bf and (ti, tj) == (0, 0) and not trans
+            main = (ti, tj) == (0, 0) and not trans
             if cdt == bf:
                 log("    " + k11_sides_apart(state, rows, cols, xv, hp))
+            lib = _tile_cublas if cdt == bf else _tile_cublas_f32
             check_glove_step(
                 "glove_dense",
                 lambda st: glove._glove_tile_cuda(st, rows, cols, xv, *hp,
@@ -3179,10 +3210,11 @@ def check_glove_kernels(head, tail, state, tag, results, rep=False,
                 state, ids, name, results,
                 k11_bound(rows.numel(), cols.numel(), r, x.element_size(),
                           cdt == bf, int((xv > 0).sum())),
-                lib=(lambda st: _tile_cublas(st, rows, cols, xv, *hp))
+                lib=(lambda st: lib(st, rows, cols, xv, *hp))
                 if main else None, rep=rep and main,
                 flops=12 * rows.numel() * cols.numel() * r if cdt == bf
-                else 0, key="glove_dense" + sfx)
+                else 0, key="glove_dense" + sfx + ("" if cdt == bf
+                                                   else "_f32"))
     del x32
     torch.cuda.empty_cache()
 
@@ -5541,6 +5573,11 @@ KERNELS = {
                          "rsparse_tpu/models/glove.py:206"),
     "glove_dense_wide_bf16": ("rsparse_tpu_torch/csrc/glove_dense.cu",
                               "rsparse_tpu/models/glove.py:206"),
+    # K11's f32 head (GloVe's default compute dtype)
+    "glove_dense_f32": ("rsparse_tpu_torch/csrc/glove_dense.cu",
+                        "rsparse_tpu/models/glove.py:206"),
+    "glove_dense_wide_f32": ("rsparse_tpu_torch/csrc/glove_dense.cu",
+                             "rsparse_tpu/models/glove.py:206"),
 }
 
 

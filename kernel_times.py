@@ -77,9 +77,9 @@ WHAT is one or more of:
               AdaGrad, 200,000 users x 131,072 items) with float32 and with
               bf16 tables from the same seeded values and bits, and at r =
               64: CUDA events over wrapper calls, device time by CUDA
-              graphs (the bf16 instance's launch A, its pairs' sort and its
-              launch W), and the bf16 wrapper's host time by op
-              (``torch.profiler``, CPU);
+              graphs (the bf16 instance's launches A, G and W), and one
+              bf16 wrapper call by op and kernel (``torch.profiler``, CPU
+              and CUDA);
   k10-bf16    K10's bf16 instance on config #4's first tail shard at r =
               128 and 300 on both tail paths (the scheduled sums, the
               ordered scatter), beside the float32 instance on the same
@@ -87,6 +87,13 @@ WHAT is one or more of:
   k11-bf16    K11's bf16-state instance on config #4's first tile at r =
               128 and 300, beside the float32-state bf16 head and the bf16
               cuBLAS chain (``chip_smoke.py`` ``_tile_cublas_bf16``);
+  k11-f32     K11's f32 head (GloVe's default compute dtype) on config
+              #4's first tile (0, 0), its last (the padded edge tile, cut to
+              its real positions) and the transposed pass's tile (1, 0), at
+              r = 128 and 300, from the model's initial state: CUDA events,
+              CUDA-graph device time, the present cells, the bound
+              (``chip_smoke.py`` ``k11_bound``), the plain version and, at
+              tile (0, 0), the f32 cuBLAS chain (``_tile_cublas_f32``);
 
 k7 and k10 also print each launch's device time by ``torch.profiler``;
 k2-wide on this tree also builds ``csrc/als_chol_wide.cu`` with
@@ -720,14 +727,17 @@ def k9_bf16_times(dev, reps):
             print(f"  K9 S={S} K={K} r={r} WARP AdaGrad {str(dt)[6:]} "
                   f"tables: {ms:.4f} ms (device {dms:.4f})", flush=True)
             if dt == torch.bfloat16 and r == 8:
-                # where a wrapper call's host time goes
-                with torch.profiler.profile(activities=[
-                        torch.profiler.ProfilerActivity.CPU]) as prof:
-                    for _ in range(reps):
-                        fn()
+                # one wrapper call by op and kernel
+                act = torch.profiler.ProfilerActivity
+                with torch.profiler.profile(
+                        activities=[act.CPU, act.CUDA]) as prof:
+                    fn()
                     torch.cuda.synchronize()
-                print(prof.key_averages().table(
-                    sort_by="self_cpu_time_total", row_limit=12), flush=True)
+                avg = prof.key_averages()
+                print(avg.table(sort_by="self_cpu_time_total", row_limit=12),
+                      flush=True)
+                print(avg.table(sort_by="self_cuda_time_total", row_limit=6),
+                      flush=True)
         del base, tabs
     torch.cuda.empty_cache()
 
@@ -802,13 +812,73 @@ def k11_bf16_times(dev, reps):
             torch.cuda.empty_cache()
 
 
+def k11_f32_times(dev, reps):
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch.models import glove
+    cs = sys.modules["chip_smoke"]
+    x4, head, _ = _glove_config4(dev, torch.float32)
+    hp = (cs.GLOVE_KW["x_max"], 0.75, cs.GLOVE_KW["learning_rate"])
+    H, side, last = head.ids.shape[0], head.side, head.nt - 1
+    span = lambda t: slice(t * side, min(H, (t + 1) * side))  # noqa: E731
+    x32 = head.x.float()
+    for r in (128, 300):
+        st0 = rt.GloVe(**dict(cs.GLOVE_F32_KW, rank=r),
+                       device=dev)._init_state(x4.shape[0])
+        for (ti, tj), trans in (((0, 0), False), ((last, last), False),
+                                ((1, 0), True)):
+            rows, cols = head.ids[span(ti)], head.ids[span(tj)]
+            xv = (x32.T if trans else x32)[span(ti), span(tj)]
+            # agreement: each table's distance from the plain version's
+            # by its change, and the loss's
+            sk = glove.GloveState(*(t.clone() for t in st0))
+            sp = glove.GloveState(*(t.clone() for t in st0))
+            lk = glove._glove_tile_cuda(sk, rows, cols, xv, *hp,
+                                        torch.float32)
+            lp = glove._glove_tile_plain(sp, rows, cols, xv, *hp,
+                                         torch.float32)
+            rel = max(float((a - b).abs().max())
+                      / max(float((b - t).abs().max()), 1e-30)
+                      for a, b, t in zip(sk, sp, st0))
+            rel = max(rel, abs(float(lk) / float(lp) - 1))
+            del sk, sp
+            st = glove.GloveState(*(t.clone() for t in st0))
+            fn = lambda: glove._glove_tile_cuda(  # noqa: E731
+                st, rows, cols, xv, *hp, torch.float32)
+            ms = cs.time_ms(fn, reps)
+            try:
+                dms = f"{cs.graph_ms([fn], reps):.4f}"
+            except Exception as e:  # noqa: BLE001 - a capture refused
+                dms = f"not measured ({type(e).__name__})"
+            pms = cs.time_ms(lambda: glove._glove_tile_plain(
+                st, rows, cols, xv, *hp, torch.float32), 3)
+            present = int((xv > 0).sum())
+            bms, bby = cs.k11_bound(rows.numel(), cols.numel(), r, 4, False,
+                                    present)
+            lib = ""
+            if (ti, tj) == (0, 0):
+                lms = cs.time_ms(lambda: cs._tile_cublas_f32(
+                    st, rows, cols, xv, *hp), reps)
+                lib = f", f32 cuBLAS chain {lms:.4f} ms"
+            print(f"  K11 f32 head config #4 tile ({ti}, {tj})"
+                  + (" transposed" if trans else "")
+                  + f" {rows.numel()} x {cols.numel()} r={r}: {ms:.4f} ms "
+                  f"(device {dms}); present {present}; bound {bms:.4f} ms "
+                  f"({bby}); plain {pms:.3f} ms{lib}; largest distance from "
+                  f"the plain version {rel:.2e} of the change", flush=True)
+            del st
+        del st0
+        torch.cuda.empty_cache()
+
+
 TIMERS = {"k1": k1_times, "k8": k8_times, "k3": k3_times,
           "fm-staging": fm_staging_times, "k8-tiles": k8_tile_times,
           "k7": k7_times, "ftrl-pass": ftrl_pass_times, "k10": k10_times,
           "k2-wide": k2_wide_times,
           "k2-wide-buckets": lambda dev, reps: k2_wide_times(dev, reps, False),
           "k11-wide": k11_wide_times, "k9-bf16": k9_bf16_times,
-          "k10-bf16": k10_bf16_times, "k11-bf16": k11_bf16_times}
+          "k10-bf16": k10_bf16_times, "k11-bf16": k11_bf16_times,
+          "k11-f32": k11_f32_times}
 
 
 def main() -> int:

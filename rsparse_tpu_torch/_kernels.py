@@ -50,8 +50,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_D = {"als_cg": 514, "als_chol": 514, "als_nnls": 160}
 
 #: launches per kernel, counted by the wrappers (the wide routes apart:
-#: K1 and K2 at d > 160, K10 and K11 at r > 128; and the bf16-state
-#: instances of K9, K10 and K11, "_bf16")
+#: K1 and K2 at d > 160, K10 and K11 at r > 128; the bf16-state
+#: instances of K9, K10 and K11, "_bf16"; K11's f32 head, "_f32")
 launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "als_nnls": 0,
                             "topk": 0, "spmm": 0, "spmm_residual": 0,
                             "ftrl": 0, "fm": 0, "rankmf": 0,
@@ -62,7 +62,9 @@ launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "als_nnls": 0,
                             "glove_dense_wide": 0, "rankmf_bf16": 0,
                             "rankmf_rowmap_bf16": 0, "glove_bf16": 0,
                             "glove_wide_bf16": 0, "glove_dense_bf16": 0,
-                            "glove_dense_wide_bf16": 0}
+                            "glove_dense_wide_bf16": 0,
+                            "glove_dense_f32": 0,
+                            "glove_dense_wide_f32": 0}
 #: what the last build did: {"seconds": ..., "log": ..., "path": ...}
 build_info: Dict[str, object] = {}
 

@@ -531,7 +531,8 @@ def _glove_tile_cuda(st: GloveState, rows, cols, x, x_max: float,
     _kernels.check(rc, "glove_dense")
     _kernels.launches[("glove_dense_wide" if r > GLOVE_WIDTHS[0]
                        else "glove_dense")
-                      + ("_bf16" if state_bf16 else "")] += 1
+                      + ("_bf16" if state_bf16 else "" if bf16 else "_f32")
+                      ] += 1
     return loss.to(torch.bfloat16) if state_bf16 else loss
 
 

@@ -2872,8 +2872,14 @@ REF_GLOVE = {"ml100k": (0.45488280793498687, 0.07597071868772529,
              "quick": (0.4630190852547191, 0.14129658496505335,
                        0.07906985425764775)}
 GLOVE_REL = 1e-3
-#: GloVe's default compute dtype (the state's: K11's f32 head)
+#: the same as REF_GLOVE["ml100k"] at GloVe's default compute dtype (the
+#: state's, float32: K11's f32 head), from the same command with
+#: compute_dtype left out of GLOVE_KW (GLOVE_F32_KW); held to GLOVE_REL
+#: (tests/test_torch_k11_f32_walk.py test_reference_cost_history_f32
+#: recomputes it)
 GLOVE_F32_KW = {k: v for k, v in GLOVE_KW.items() if k != "compute_dtype"}
+REF_GLOVE_F32 = (0.4548168812058774, 0.07594763162989167,
+                 0.03504821400171943)
 
 
 def synth_glove(vocab, nnz, seed=0):
@@ -3219,6 +3225,39 @@ def check_glove_kernels(head, tail, state, tag, results, rep=False,
     torch.cuda.empty_cache()
 
 
+def run_glove_f32_head(device, x4, launches, rank, bf16_rate) -> None:
+    """Config #4 at GloVe's default compute dtype (float32 state, K11's f32
+    head) through GloVe.fit_transform, 3 epochs, beside the bf16-head fit
+    of the same run (``bf16_rate``: its triplets/s)."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.models import glove
+    sfx = "_wide" if rank > glove.GLOVE_WIDTHS[0] else ""
+    torch.cuda.empty_cache()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = rt.GloVe(**dict(GLOVE_F32_KW, rank=rank), device=device)
+    emb = m.fit_transform(x4, n_iter=3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.append(check_launched(
+        _kernels, f"config #4 GloVe r={rank} f32 head",
+        ("glove" + sfx, "glove_dense" + sfx + "_f32")))
+    info, hist = m.stage_info, m.cost_history
+    require(bool(torch.isfinite(emb).all()) and all(np.isfinite(hist))
+            and hist[0] > hist[1] > hist[2],
+            f"config #4 GloVe r={rank} f32 head: loss not finite and "
+            "decreasing")
+    best = min(info["epoch_s"])
+    log(f"  config #4 GloVe rank {rank}, f32 head (default compute dtype): "
+        f"fit_transform(n_iter=3) {wall:.3f} s, epochs "
+        f"{[round(e, 4) for e in info['epoch_s']]} s; {x4.nnz / best:.0f} "
+        f"triplets/s (best epoch; the bf16 head in this run: "
+        f"{bf16_rate:.0f}); loss/nnz {[round(c, 6) for c in hist]}")
+    del m, emb
+
+
 def run_glove(device, results, launches) -> None:
     """Phase 8: (a) K10 / K11 on config #4's staged shards and tiles from
     the model's initial state; (b) GloVe on ML-100k and on the quick shape
@@ -3279,6 +3318,21 @@ def run_glove(device, results, launches) -> None:
                 f"GloVe {what}: cost history off the JAX package's by more "
                 f"than {GLOVE_REL}")
 
+    x = ml100k_cooccurrence(rt.load_movielens100k())
+    _kernels.reset_launch_counts()
+    m = rt.GloVe(**GLOVE_F32_KW, device=device)
+    emb = m.fit_transform(x, n_iter=3)
+    launches.append(check_launched(_kernels, "GloVe ml100k f32 head",
+                                   ("glove_dense_f32",)))
+    rels = [abs(a / b - 1) for a, b in zip(m.cost_history, REF_GLOVE_F32)]
+    log(f"  GloVe ml100k, f32 head (the default compute dtype): cost history "
+        f"{[round(c, 6) for c in m.cost_history]} (JAX on the CPU "
+        f"{[round(c, 6) for c in REF_GLOVE_F32]}, largest relative distance "
+        f"{max(rels):.2e})")
+    require(bool(torch.isfinite(emb).all()) and len(rels) == 3
+            and max(rels) <= GLOVE_REL,
+            "GloVe ml100k f32 head: cost history off the JAX package's")
+
     log("phase 8 (b), bf16: GloVe and RankMF at precision='bfloat16' on "
         "ML-100k against the JAX package's (REF_BF16)")
     run_ml100k_bf16(device, launches)
@@ -3328,6 +3382,8 @@ def run_glove(device, results, launches) -> None:
     del st
     check_glove_kernels(head, tail, m._state, "fitted config #4", results)
     del head, tail, m, emb
+    run_glove_f32_head(device, x4, launches, GLOVE_KW["rank"],
+                       x4.nnz / best)
     log("phase 8 (a, c), bf16: K10 / K11's bf16 instances on config #4 and "
         "config #4 at bf16 state")
     run_glove_bf16(device, x4, results, launches, GLOVE_KW["rank"], hist)
@@ -4422,6 +4478,8 @@ def run_wide_full(device, x, x4, results, launches) -> None:
     require(bool(torch.isfinite(ge).all()) and all(np.isfinite(hist))
             and hist[0] > hist[1] > hist[2],
             "config #4 GloVe rank 300: loss not finite and decreasing")
+    run_glove_f32_head(device, x4, launches, 300,
+                       x4.nnz / min(info["epoch_s"]))
     log("phase 11 (b, d), bf16: K10 / K11's wide bf16 instances on config "
         "#4 and config #4 at bf16 state, rank 300")
     run_glove_bf16(device, x4, results, launches, 300, hist)
@@ -5179,7 +5237,7 @@ def check_rankmf_bf16_batch(tables, bits, pos, uf, itf, hp, cfg, n_item,
             *mp, bits, pos, uf, itf, hp, cfg, n_item, **kw), reps)
         bms, bby = rankmf_bound(bits, pos, uf, itf, cp, tables[0].shape[1],
                                 tb=2)
-        try:   # device time: launch A, the pairs' sort, launch W
+        try:   # device time: launches A, G and W
             dms = graph_ms([lambda: rankmf._rankmf_batch(
                 *tk, bits, pos, uf, itf, hp, cfg, n_item)], reps=20)
         except RuntimeError as e:   # a capture the card refuses
@@ -5196,7 +5254,59 @@ def check_rankmf_bf16_batch(tables, bits, pos, uf, itf, hp, cfg, n_item,
         line += (f" kernel={ms:.3f} ms (row map {rms:.3f} ms) plain="
                  f"{pms:.3f} ms (row map {rpms:.3f} ms) bound={bms:.4f} ms "
                  f"({bby})")
+        line += "; " + k9_bf16_audit(lambda: rankmf._rankmf_batch(
+            *tk, bits, pos, uf, itf, hp, cfg, n_item), tag)
+        line += "; row map: " + k9_bf16_audit(lambda: rankmf._rankmf_batch(
+            *mk, bits, pos, uf, itf, hp, cfg, n_item, **kw), tag)
     log(line)
+
+
+def k9_bf16_audit(fn, tag) -> str:
+    """What one K9 bf16 wrapper call ``fn`` puts on the card: its kernel
+    launches and memsets (torch.profiler's CUDA runtime events and device
+    kernels, after a warm call).  Fails if the call reaches torch.sort, the
+    plain pair order (``_walk_pairs``) or the plain batch, or launches more
+    than four kernels or a sort kernel."""
+    import torch
+    from rsparse_tpu_torch.models import rankmf
+    calls = []
+
+    def spy(name, f):
+        def g(*a, **k):
+            calls.append(name)
+            return f(*a, **k)
+        return g
+
+    saved = {n: getattr(rankmf, n) for n in ("_walk_pairs",
+                                             "_rankmf_batch_plain_bf16")}
+    sort0 = torch.sort
+    fn()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    try:
+        for n, f in saved.items():
+            setattr(rankmf, n, spy(n, f))
+        torch.sort = spy("torch.sort", sort0)
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for n, f in saved.items():
+            setattr(rankmf, n, f)
+        torch.sort = sort0
+    names = [e.name for e in prof.events()]
+    api = sum(n.startswith("cudaLaunchKernel") for n in names)
+    memsets = sum(n.startswith("cudaMemset") for n in names)
+    dev = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.lower().startswith("memset")]
+    sorts = [n for n in dev + names if "sort" in n.lower()]
+    require(not calls, f"K9 bf16 {tag}: the call reached {sorted(set(calls))}")
+    require(not sorts, f"K9 bf16 {tag}: a sort ran: {sorts[:3]}")
+    require(max(api, len(dev)) <= 4, f"K9 bf16 {tag}: {max(api, len(dev))} "
+            "kernel launches a batch (at most 4)")
+    return (f"{api} kernel launches and {memsets} memsets a batch "
+            f"(device kernels seen: {len(dev)}; no sort, no plain version)")
 
 
 def check_rankmf_bf16(device, results) -> None:

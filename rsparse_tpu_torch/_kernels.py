@@ -169,11 +169,11 @@ class RankMFArgs(ctypes.Structure):
         "bits", "flat_idx", "indptr", "row_nnz", "table", "boff", "bmask",
         "bshift", "uf_idx", "uf_val", "uf_mask", "if_idx", "if_val",
         "if_mask", "W", "H", "accW", "accH", "iscratch", "fscratch", "cntW",
-        "cntH", "counters", "wmap", "hmap")] + [
+        "cntH", "counters", "wmap", "hmap", "gscratch")] + [
         (name, ctypes.c_int) for name in (
             "S", "K", "r", "n_user", "n_item", "flat_len", "lanes", "Fu",
             "Fi", "loss", "kernel", "optimizer", "update_items",
-            "table_bf16")] + [
+            "table_bf16", "n_wrows", "n_hrows")] + [
         (name, ctypes.c_float) for name in (
             "lr", "gamma", "lam_u", "lam_ip", "lam_in", "margin", "norm")]
 
@@ -253,10 +253,9 @@ def lib() -> ctypes.CDLL:
     # args, stages (1 launch A, 2 the batch), stream
     so.rsp_rankmf_batch.argtypes = [ctypes.POINTER(RankMFArgs), i, p]
     so.rsp_rankmf_batch.restype = i
-    # args, W's pairs (keys, codes, count), H's, stream (the bf16 instance)
-    so.rsp_rankmf_walk.argtypes = [ctypes.POINTER(RankMFArgs), p, p, i, p, p,
-                                   i, p]
-    so.rsp_rankmf_walk.restype = i
+    # S, Fu, Fi, update_items: ints of the bf16 instance's gscratch
+    so.rsp_rankmf_group_ints.argtypes = [i, i, i, i]
+    so.rsp_rankmf_group_ints.restype = ctypes.c_longlong
     # rows, cols, vals, slot_r, slot_c, feats_r, feats_c, order_r, order_c,
     # bounds_r, bounds_c, N, U_r, U_c, r, w_i, w_j, b_i, b_j, acc_w_i,
     # acc_w_j, acc_b_i, acc_b_j, x_max, alpha, lr, bf16, ordered, scratch,

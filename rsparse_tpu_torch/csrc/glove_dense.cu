@@ -54,10 +54,31 @@
 // clip(S + b_i + b_j - log x) lies within the sum's error bound of a bf16
 // rounding midpoint (bound from |w_own| |w_oth|, by Cauchy-Schwarz) is
 // summed again exactly in float64 by the warp (eight lanes a cell), so the
-// bf16 costs are those of the exactly summed S.  The f32 head keeps the
-// first version: S and the products on the FMA units (a 2 x 4 micro-tile
-// a thread for S, 4 x 4 x 2 for the products, operands from shared
-// memory).
+// bf16 costs are those of the exactly summed S.
+//
+// The f32 head (bf16 == 0, GloVe's default compute dtype) follows the
+// tile's present cells: an absent cell's cost is exactly 0, so it adds
+// nothing to any product or sum.  A CTA of 8 warps owns kO = 32 positions
+// and walks its chunk in steps of kN = 64 other positions.  Per step it
+// stages the 32 x 64 count block (cp.async, along X's unit stride) and
+// compacts its present cells by ballots in own-major order, other
+// positions rising, with a slot for each other position that a present
+// cell needs; only those other rows (and biases) are staged, by cp.async
+// into one of two buffers, and a step without a present cell stages and
+// computes nothing.  The next step's counts load while this step's S is
+// formed, and its rows while this step's products run.  S, the cost and
+// the loss term are formed one present cell a thread, S summed over k in
+// order on the FMA units at f32; then each warp adds cost w_oth and cost^2
+// w_oth^2 for its own lines warp + 8 i, a lane 32-strided components, and
+// the lines' sums of cost and cost^2.  The order is the dense walk's that
+// the first version (a dense FMA walk) took for S and the four products,
+// less its zero terms, so the factor tables and their accumulators come
+// out bitwise that kernel's under the same chunks (by construction: an
+// absent cell only added exact zeros); the bias sums and the loss add the
+// same terms in another order.  No atomics.  Dynamic shared memory
+// (sizeof(Smem<MR>)): 106 KB a CTA at r <= 128, 224 KB at 320; ptxas -v:
+// 119 and 159 registers a thread; so two CTAs an SM at r <= 128, one at
+// 320.
 //
 // What bounds it on the H100: at config #4 a tile is 3,063 x 3,063 cells,
 // r = 128, of which ~0.7% (a tail tile) to 14% (the first) are present:
@@ -66,13 +87,17 @@
 // = 13.5 GFLOP a tile on the tensor cores whatever the density; the steps'
 // staging and latency (two warps a scheduler at ~250 registers a thread)
 // and the exact re-sums of the densest rows hold it well below the bf16
-// peak.
+// peak.  The f32 head's work follows the present cells (~2.5 GFLOP of FMA
+// at the first tile, both sides); what remains is the staging of the other
+// rows from L2 (each CTA row reads the needed other side once: ~300 MB at
+// r = 128, ~750 MB at 320 on the first tile) and the shared-memory reads
+// of S's dot products, one row pair a cell.
 //
 // Two widths are built and chosen by r: 128 and 320 (GloVe's published
 // 300 dimensions pad to 320 with zero columns, which add nothing to S, the
 // products, the rows' norms or the exact re-sums).  At 320 the f32 path
-// holds 32 + 64 staged rows of 321 floats (140 KB, one CTA an SM) and 40
-// components a thread.  The bf16 path at 320 is its own kernel,
+// holds 32 + 2 x 64 staged rows of 324 floats and 40 components a thread
+// a line.  The bf16 path at 320 is its own kernel,
 // glove_tile_sums_wg, written for the H100: a persistent grid of one CTA
 // an SM over the tile's (side, own block, chunk) items; a producer warp
 // keeps the other side's rows in two stages of 64 x 320 bf16 (TMA, 128-byte
@@ -130,20 +155,33 @@ constexpr int kMaxRWide = 320;      // widest embedding (models/glove.py MAX_RAN
 constexpr int kO = 32;              // own positions per CTA
 constexpr int kN = 64;              // other positions per step
 constexpr int kThreads = 256;
-constexpr int kLdc = kN + 1;        // shared stride of a cost row
+constexpr int kLdc = kN + 1;        // shared stride of a staged count line
+constexpr int kCells = kO * kN;     // cells of a step's count block
 
+// Launch A of the f32 head at instance width MR.  A step's counts are
+// staged (cp.async, zero past the tile) into the other-row buffer that no
+// step is reading, then compacted into the step's present cells; the other
+// rows that a present cell needs are staged into that buffer, so the next
+// step's rows load while this step's products run.
 template <int MR>
 struct Smem {
-  static constexpr int kLd = MR + 1;  // shared stride of a factor row (odd)
+  static constexpr int kLd = MR + 4;  // floats a staged factor row: float4
+                                      // reads, and 16 bytes past a multiple
+                                      // of 128, so 8 rows hit 8 bank groups
   float own[kO * kLd];
-  float oth[kN * kLd];
-  float cost[kO * kLdc];            // counts, then bf16-rounded cost
-  float c2[kO * kLdc];
+  float oth[2][kN * kLd];             // the needed other rows, by slot
+  float val[2][kCells];               // present cells, own-major: x, then cost
+  unsigned char slot[2][kCells];      // the cell's other row: its slot in oth
+  unsigned char slot_pos[2][kN];      // slot -> other position in the step
+  short row0[2][kO + 1];              // own line m's cells [row0[m], row0[m + 1])
   float b_own[kO];
-  float b_oth[kN];
+  float b_oth[2][kN];
+  int rowcnt[kO];
+  unsigned need[kThreads / 32][2];    // other positions a warp's cells need
   float red[32];
 };
-
+static_assert(sizeof(Smem<kMaxR>) <= 232448 / 2 - 1024,
+              "two CTAs of the f32 head an SM at r <= 128");
 
 // Chunks of the other side per CTA row: enough CTAs for ~8 a multiprocessor
 // over both sides, at most one step of kN positions per chunk.
@@ -159,10 +197,47 @@ int plan_chunks(int n_r, int n_c) {
   return chunks < 1 ? 1 : chunks;
 }
 
+// 4 bytes global -> shared; src_bytes 0 writes a zero.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+
+// n factor rows (and their biases) into dst at stride kLd: row s is table
+// row ids[p0 + (pos ? pos[s] : s)].  vec: r % 4 == 0 and the table 16-byte
+// aligned, so rows go in 16-byte granules.
+template <int kLd>
+__device__ __forceinline__ void stage_rows(float* dst, float* bdst,
+                                           const float* W, const float* B,
+                                           const int* ids, int p0,
+                                           const unsigned char* pos, int n,
+                                           int r, bool vec) {
+  const int tid = threadIdx.x;
+  if (vec) {
+    const int g4 = r >> 2;
+    for (int q = tid; q < n * g4; q += kThreads) {
+      const int s = q / g4, g = q - s * g4;
+      const int id = ids[p0 + (pos ? pos[s] : s)];
+      rsp::cp_async16(dst + s * kLd + 4 * g, W + (size_t)id * r + 4 * g, 16);
+    }
+  } else {
+    for (int q = tid; q < n * r; q += kThreads) {
+      const int s = q / r, k = q - s * r;
+      const int id = ids[p0 + (pos ? pos[s] : s)];
+      cp_async4(dst + s * kLd + k, W + (size_t)id * r + k, 4);
+    }
+  }
+  for (int s = tid; s < n; s += kThreads)
+    cp_async4(bdst + s, B + ids[p0 + (pos ? pos[s] : s)], 4);
+}
+
 // part: side 0's (chunks, n_r, 2r + 2) then side 1's (chunks, n_c, 2r + 2)
 // sums [cost w | cost^2 w^2 | cost | cost^2]; lpart: (ceil(n_r / kO),
-// chunks) loss partials.  MR: the instance width (r <= MR); a thread's
-// products cover components px + 32 j, j < MR / 32.
+// chunks) loss partials.  MR: the instance width (r <= MR); a warp's
+// products cover own lines warp + 8 i (i < 4), a lane components lane +
+// 32 j (j < MR / 32).
 template <int MR>
 __global__ void __launch_bounds__(kThreads, MR <= kMaxR ? 2 : 1)
     glove_tile_sums(const int* __restrict__ rows, const int* __restrict__ cols,
@@ -171,9 +246,9 @@ __global__ void __launch_bounds__(kThreads, MR <= kMaxR ? 2 : 1)
                     const float* __restrict__ w_i,
                     const float* __restrict__ w_j,
                     const float* __restrict__ b_i,
-                    const float* __restrict__ b_j, int r, float x_max,
-                    float alpha, int chunks, float* __restrict__ part,
-                    float* __restrict__ lpart) {
+                    const float* __restrict__ b_j, int r, int vec,
+                    float x_max, float alpha, int chunks,
+                    float* __restrict__ part, float* __restrict__ lpart) {
   extern __shared__ float smem_raw[];
   Smem<MR>& sm = *reinterpret_cast<Smem<MR>*>(smem_raw);
   constexpr int kLd = Smem<MR>::kLd, kJ = MR / 32;
@@ -191,112 +266,181 @@ __global__ void __launch_bounds__(kThreads, MR <= kMaxR ? 2 : 1)
   const int steps = (n_oth + kN - 1) / kN;
   const int s0 = (int)((long long)chunk * steps / chunks);
   const int s1 = (int)((long long)(chunk + 1) * steps / chunks);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_own_blk = n_own - own0 < kO ? n_own - own0 : kO;
 
-  for (int q = tid; q < kO * r; q += kThreads) {
-    const int m = q / r, k = q % r, p = own0 + m;
-    sm.own[m * kLd + k] = p < n_own ? W_own[(size_t)own_ids[p] * r + k] : 0.f;
-  }
-  if (tid < kO) {
-    const int p = own0 + tid;
-    sm.b_own[tid] = p < n_own ? B_own[own_ids[p]] : 0.f;
-  }
+  // the count block of a step spans rows [a0, a0 + A) x cols [b0, b0 + Bn);
+  // staged own-major (line ol, other position tl) along X's unit stride
+  const int A = side ? kN : kO, Bn = side ? kO : kN;
+  const bool b_fast = sc == 1;  // columns are contiguous in X
+  auto load_counts = [&](int step, float* cnt) {
+    const int oth0 = step * kN;
+    const int a0 = side ? oth0 : own0, b0 = side ? own0 : oth0;
+    for (int q = tid; q < kCells; q += kThreads) {
+      const int al = b_fast ? q / Bn : q % A, bl = b_fast ? q % Bn : q / A;
+      const int ra = a0 + al, cb = b0 + bl;
+      const bool in = ra < n_r && cb < n_c;
+      const int ol = side ? bl : al, tl = side ? al : bl;
+      cp_async4(cnt + ol * kLdc + tl, in ? X + ra * sr + cb * sc : X,
+                in ? 4 : 0);
+    }
+  };
+  // The step's present cells in own-major order, other positions rising
+  // (the order the dense walk summed them in), by ballots: warp w compacts
+  // own lines 4 w .. 4 w + 3; each needed other position gets a slot.
+  // Returns the slots.  One barrier inside; the caller synchronises before
+  // and after.
+  auto compact = [&](const float* cnt, int bb) {
+    unsigned lo[4], hi[4], nlo = 0, nhi = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = 4 * warp + i;
+      lo[i] = __ballot_sync(RSP_FULL_MASK, cnt[m * kLdc + lane] > 0.f);
+      hi[i] = __ballot_sync(RSP_FULL_MASK, cnt[m * kLdc + lane + 32] > 0.f);
+      nlo |= lo[i];
+      nhi |= hi[i];
+      if (lane == 0) sm.rowcnt[m] = __popc(lo[i]) + __popc(hi[i]);
+    }
+    if (lane == 0) {
+      sm.need[warp][0] = nlo;
+      sm.need[warp][1] = nhi;
+    }
+    __syncthreads();
+    nlo = nhi = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      nlo |= sm.need[w][0];
+      nhi |= sm.need[w][1];
+    }
+    const int c = sm.rowcnt[lane];  // kO == 32 lines: one a lane
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(RSP_FULL_MASK, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const unsigned lt = (1u << lane) - 1;
+    if (warp == 0) {
+      sm.row0[bb][lane + 1] = (short)incl;
+      if (lane == 0) sm.row0[bb][0] = 0;
+      if ((nlo >> lane) & 1)
+        sm.slot_pos[bb][__popc(nlo & lt)] = (unsigned char)lane;
+      if ((nhi >> lane) & 1)
+        sm.slot_pos[bb][__popc(nlo) + __popc(nhi & lt)] =
+            (unsigned char)(lane + 32);
+    }
+    const int slot_lo = __popc(nlo & lt);
+    const int slot_hi = __popc(nlo) + __popc(nhi & lt);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = 4 * warp + i;
+      const int base = __shfl_sync(RSP_FULL_MASK, incl - c, m);
+      if ((lo[i] >> lane) & 1) {
+        const int e = base + __popc(lo[i] & lt);
+        sm.val[bb][e] = cnt[m * kLdc + lane];
+        sm.slot[bb][e] = (unsigned char)slot_lo;
+      }
+      if ((hi[i] >> lane) & 1) {
+        const int e = base + __popc(lo[i]) + __popc(hi[i] & lt);
+        sm.val[bb][e] = cnt[m * kLdc + lane + 32];
+        sm.slot[bb][e] = (unsigned char)slot_hi;
+      }
+    }
+    return __popc(nlo) + __popc(nhi);
+  };
 
-  // S and cost cells: own ty + 16 i (i < 2), other tx + 16 j (j < 4)
-  const int ty = tid >> 4, tx = tid & 15;
-  // products: own py + 8 i (i < 4), component px + 32 j (j < 4)
-  const int py = tid >> 5, px = tid & 31;
   float g[4][kJ], a[4][kJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < kJ; ++j) g[i][j] = a[i][j] = 0.f;
-  float rc[2] = {0.f, 0.f}, rc2[2] = {0.f, 0.f}, lsum = 0.f;
-  // the count block of a step spans rows [a0, a0 + A) x cols [b0, b0 + Bn)
-  const int A = side ? kN : kO, Bn = side ? kO : kN;
-  const bool b_fast = sc == 1;  // columns are contiguous in X
+  float rc[4] = {0.f, 0.f, 0.f, 0.f}, rc2[4] = {0.f, 0.f, 0.f, 0.f};
+  float lsum = 0.f;
 
+  stage_rows<kLd>(sm.own, sm.b_own, W_own, B_own, own_ids, own0, nullptr,
+                  n_own_blk, r, vec);
+  if (s0 < s1) {
+    load_counts(s0, sm.oth[1]);
+    rsp::cp_async_commit();
+    rsp::cp_async_wait<0>();
+    __syncthreads();
+    const int n_need = compact(sm.oth[1], 0);
+    __syncthreads();
+    stage_rows<kLd>(sm.oth[0], sm.b_oth[0], W_oth, B_oth, oth_ids, s0 * kN,
+                    sm.slot_pos[0], n_need, r, vec);
+    rsp::cp_async_commit();
+  }
   for (int step = s0; step < s1; ++step) {
-    const int oth0 = step * kN;
-    __syncthreads();  // the previous step's products are done with oth, cost
-    for (int q = tid; q < kN * r; q += kThreads) {
-      const int n = q / r, k = q % r, p = oth0 + n;
-      sm.oth[n * kLd + k] = p < n_oth ? W_oth[(size_t)oth_ids[p] * r + k] : 0.f;
+    const int bb = (step - s0) & 1, nb = bb ^ 1;
+    const bool next = step + 1 < s1;
+    rsp::cp_async_wait<0>();  // this step's rows (and the own rows)
+    __syncthreads();          // ... and the step before is done with nb
+    if (next) {
+      load_counts(step + 1, sm.oth[nb]);
+      rsp::cp_async_commit();
     }
-    if (tid < kN) {
-      const int p = oth0 + tid;
-      sm.b_oth[tid] = p < n_oth ? B_oth[oth_ids[p]] : 0.f;
-    }
-    const int a0 = side ? oth0 : own0, b0 = side ? own0 : oth0;
-    for (int q = tid; q < A * Bn; q += kThreads) {
-      const int al = b_fast ? q / Bn : q % A, bl = b_fast ? q % Bn : q / A;
-      const int ra = a0 + al, cb = b0 + bl;
-      const float x = (ra < n_r && cb < n_c) ? X[ra * sr + cb * sc] : 0.f;
-      const int ol = side ? bl : al, tl = side ? al : bl;
-      sm.cost[ol * kLdc + tl] = x;
-    }
-    __syncthreads();
-
-    float s[2][4];
+    // S, the cost and the loss term of each present cell, one a thread: S
+    // summed over k in order, as the dense walk summed it
+    const float* oth = sm.oth[bb];
+    const int n_cells = sm.row0[bb][kO];
+    for (int e = tid; e < n_cells; e += kThreads) {
+      int m = 0;  // the last own line whose cells start at or before e
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int h = 16; h > 0; h >>= 1)
+        if (sm.row0[bb][m + h] <= e) m += h;
+      const int s = sm.slot[bb][e];
+      const float* ow = sm.own + m * kLd;
+      const float* ot = oth + s * kLd;
+      float acc = 0.f;
+      int k = 0;
 #pragma unroll 4
-    for (int k = 0; k < r; ++k) {
-      float av[2], bv[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) av[i] = sm.own[(ty + 16 * i) * kLd + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = sm.oth[(tx + 16 * j) * kLd + k];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = ty + 16 * i, n = tx + 16 * j;
-        const float x = sm.cost[m * kLdc + n];
-        // the reference adds the row's bias first: (S + b_i) + b_j
-        const float b_row = side ? sm.b_oth[n] : sm.b_own[m];
-        const float b_col = side ? sm.b_own[m] : sm.b_oth[n];
-        const bool present = x > 0.f;
-        const float lx = logf(present ? x : 1.f);
-        const float w =
-            present ? (x < x_max ? powf(x / x_max, alpha) : 1.f) : 0.f;
-        const float sv =
-            fminf(fmaxf(s[i][j] + b_row + b_col - lx, -kClip), kClip);
-        const float cost = w * sv;
-        const float c2 = cost * cost;
-        lsum += cost * sv;
-        rc[i] += cost;
-        rc2[i] += c2;
-        sm.cost[m * kLdc + n] = cost;
-        sm.c2[m * kLdc + n] = c2;
+      for (; k + 4 <= r; k += 4) {
+        const float4 u = *reinterpret_cast<const float4*>(ow + k);
+        const float4 v = *reinterpret_cast<const float4*>(ot + k);
+        acc = fmaf(u.x, v.x, acc);
+        acc = fmaf(u.y, v.y, acc);
+        acc = fmaf(u.z, v.z, acc);
+        acc = fmaf(u.w, v.w, acc);
       }
+      for (; k < r; ++k) acc = fmaf(ow[k], ot[k], acc);
+      const float x = sm.val[bb][e];
+      // the reference adds the row's bias first: (S + b_i) + b_j
+      const float b_row = side ? sm.b_oth[bb][s] : sm.b_own[m];
+      const float b_col = side ? sm.b_own[m] : sm.b_oth[bb][s];
+      const float lx = logf(x);
+      const float w = x < x_max ? powf(x / x_max, alpha) : 1.f;
+      const float sv = fminf(fmaxf(acc + b_row + b_col - lx, -kClip), kClip);
+      const float cost = w * sv;
+      lsum += cost * sv;
+      sm.val[bb][e] = cost;
     }
+    rsp::cp_async_wait<0>();  // the next step's counts
     __syncthreads();
-
-#pragma unroll 2
-    for (int n = 0; n < kN; ++n) {
-      float o[kJ], o2[kJ];
+    if (next) {
+      const int n_need = compact(sm.oth[nb], nb);
+      __syncthreads();
+      stage_rows<kLd>(sm.oth[nb], sm.b_oth[nb], W_oth, B_oth, oth_ids,
+                      (step + 1) * kN, sm.slot_pos[nb], n_need, r, vec);
+      rsp::cp_async_commit();
+    }
+    // the products over the present cells of the warp's own lines, other
+    // positions rising (the dense walk's order without its zero terms)
 #pragma unroll
-      for (int j = 0; j < kJ; ++j) {
-        const int k = px + 32 * j;
-        o[j] = k < r ? sm.oth[n * kLd + k] : 0.f;
-        o2[j] = o[j] * o[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float cv = sm.cost[(py + 8 * i) * kLdc + n];
-        const float c2v = sm.c2[(py + 8 * i) * kLdc + n];
+    for (int i = 0; i < 4; ++i) {
+      const int m = warp + 8 * i;
+      const int e1 = sm.row0[bb][m + 1];
+      for (int e = sm.row0[bb][m]; e < e1; ++e) {
+        const float cv = sm.val[bb][e];
+        const float c2v = cv * cv;
+        const float* ot = oth + sm.slot[bb][e] * kLd;
+        rc[i] += cv;
+        rc2[i] += c2v;
 #pragma unroll
         for (int j = 0; j < kJ; ++j) {
-          g[i][j] = fmaf(cv, o[j], g[i][j]);
-          a[i][j] = fmaf(c2v, o2[j], a[i][j]);
+          const int k = lane + 32 * j;
+          const float o = k < r ? ot[k] : 0.f;
+          g[i][j] = fmaf(cv, o, g[i][j]);
+          a[i][j] = fmaf(c2v, o * o, a[i][j]);
         }
       }
     }
@@ -307,29 +451,20 @@ __global__ void __launch_bounds__(kThreads, MR <= kMaxR ? 2 : 1)
              (size_t)chunk * n_own * width;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int p = own0 + py + 8 * i;
+    const int p = own0 + warp + 8 * i;
     if (p < n_own) {
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {
-        const int k = px + 32 * j;
+        const int k = lane + 32 * j;
         if (k < r) {
           P[(size_t)p * width + k] = g[i][j];
           P[(size_t)p * width + r + k] = a[i][j];
         }
       }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int o = 1; o < 16; o <<= 1) {  // over the 16 lanes of one own row
-      rc[i] += __shfl_xor_sync(RSP_FULL_MASK, rc[i], o);
-      rc2[i] += __shfl_xor_sync(RSP_FULL_MASK, rc2[i], o);
-    }
-    const int p = own0 + ty + 16 * i;
-    if (tx == 0 && p < n_own) {
-      P[(size_t)p * width + 2 * r] = rc[i];
-      P[(size_t)p * width + 2 * r + 1] = rc2[i];
+      if (lane == 0) {
+        P[(size_t)p * width + 2 * r] = rc[i];
+        P[(size_t)p * width + 2 * r + 1] = rc2[i];
+      }
     }
   }
   if (side == 0) {
@@ -1953,10 +2088,12 @@ int tile_sums(const int* rows, const int* cols, int n_r, int n_c,
     const int own_blocks = ((n_r > n_c ? n_r : n_c) + kO - 1) / kO;
     n_lpart = chunks * ((n_r + kO - 1) / kO);
     lpart = scratch + (size_t)chunks * (n_r + n_c) * (2 * r + 2);
+    const int vec = (r & 3) == 0 && (reinterpret_cast<size_t>(w_i) & 15) == 0 &&
+                    (reinterpret_cast<size_t>(w_j) & 15) == 0;
     glove_tile_sums<MR><<<dim3(own_blocks, chunks, 2), kThreads,
                           sizeof(Smem<MR>), st>>>(
         rows, cols, n_r, n_c, static_cast<const float*>(X), sr, sc, w_i, w_j,
-        b_i, b_j, r, x_max, alpha, chunks, scratch, lpart);
+        b_i, b_j, r, vec, x_max, alpha, chunks, scratch, lpart);
   } else {
     return (int)cudaErrorInvalidValue;  // bf16 state takes the bf16 head
   }

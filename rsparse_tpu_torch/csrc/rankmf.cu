@@ -72,15 +72,22 @@
 // feature row's duplicates one at a time in the batch's update order,
 // rounding each (a hot row's accumulator stalls when its increments are
 // below half a spacing).  Atomics cannot keep that order, so launch A
-// leaves the accumulators alone and launch W replaces A2 and B: the
-// caller sorts the batch's (table row, update) pairs stably by row, one
-// list a table in the JAX scatter's update order (W: sample, feature
-// slot; H: the positives' updates, then the negatives'), and one warp a
-// row walks its updates in that order: the accumulator first (AdaGrad:
-// acc += g^2 / r per update; RMSprop: the duplicate count, then acc +=
-// (gamma - 1) old / count + (1 - gamma) g^2 per update, old the
-// batch-start value), then each component of the row, one rounded add an
-// update.  No atomics: the bf16 batch gives the same tables every run.
+// leaves the accumulators alone and two launches replace A2 and B, with
+// no host work between them.  Launch A writes each update's table row
+// (-1 where it changes nothing) at its rank in the JAX scatter's update
+// order, one list a table (W: sample, feature slot; H: the positives'
+// updates, then the negatives'); launch G sorts each table's list stably
+// by row on the device (one CTA a chunk of up to 16,384 pairs: a radix
+// sort in shared memory over only the row bits the chunk needs) and
+// compacts the starts of its runs; launch W walks the runs, a group of
+// lanes a row (several rows a warp at r <= 16), its updates in that order:
+// the accumulator first (AdaGrad: acc += g^2 / r per update; RMSprop: the
+// duplicate count, then acc += (gamma - 1) old / count + (1 - gamma) g^2
+// per update, old the batch-start value), then each component of the row,
+// one rounded add an update.  A table of more than one chunk (item
+// features) has each row walked by its first chunk's run, which looks up
+// the row's runs in the later chunks.  No atomics: the bf16 batch gives
+// the same tables every run.
 
 #include <type_traits>
 
@@ -131,9 +138,11 @@ struct RankMFArgs {
                                   // found, tried: zeroed here
   const int* wmap;                // (n_user_feat,) compact row, or null
   const int* hmap;                // (n_item_feat,) compact row, or null
+  int* gscratch;                  // bf16: rsp_rankmf_group_ints ints
   int S, K, r, n_user, n_item, flat_len, lanes, Fu, Fi, loss, kernel,
       optimizer, update_items;
   int table_bf16;                 // W, H, accW, accH, feature values bf16
+  int n_wrows, n_hrows;           // rows of W and H (bf16: the sort's keys)
   float lr, gamma, lam_u, lam_ip, lam_in, margin, norm;  // (bf16 values
                                                           // at bf16)
 };
@@ -251,6 +260,41 @@ __host__ __device__ __forceinline__ int old_stride(const RankMFArgs& a) {
   return F > 1 ? F : 1;
 }
 
+// The bf16 instance's pair lists in gscratch (ints): each table's pairs
+// in the reference's update order, W's S Fw (sample, feature slot), then
+// H's 2 S Fh (the positives' (sample, slot), then the negatives'); launch
+// A writes each pair's table row (-1: it updates nothing) into keys; the
+// group launch sorts each chunk of up to kChunk pairs of a table by row
+// into skey / sval (row, update rank) and lists where its runs of one row
+// start (runs: kChunk + 1 a chunk, the last entry the chunk's valid pairs;
+// nruns: the runs a chunk).
+constexpr int kSortThreads = 1024;
+constexpr int kChunk = 16 * kSortThreads;
+struct GroupLayout {
+  int nW, nH, chW, chH;
+  long long keys, skey, sval, runs, nruns, total;
+};
+__host__ __device__ __forceinline__ GroupLayout group_layout(
+    int S, int Fu, int Fi, int update_items) {
+  GroupLayout L;
+  L.nW = S * (Fu > 0 ? Fu : 1);
+  L.nH = update_items ? 2 * S * (Fi > 0 ? Fi : 1) : 0;
+  L.chW = (L.nW + kChunk - 1) / kChunk;
+  L.chH = (L.nH + kChunk - 1) / kChunk;
+  const long long n = (long long)L.nW + L.nH;
+  L.keys = 0;
+  L.skey = n;
+  L.sval = 2 * n;
+  L.runs = 3 * n;
+  L.nruns = L.runs + (long long)(L.chW + L.chH) * (kChunk + 1);
+  L.total = L.nruns + L.chW + L.chH;
+  return L;
+}
+__host__ __device__ __forceinline__ GroupLayout group_layout(
+    const RankMFArgs& a) {
+  return group_layout(a.S, a.Fu, a.Fi, a.update_items);
+}
+
 // Write one entity's update to scratch (slot q = 3 s + e) and start its
 // accumulator step (the float instance; the bf16 instance's walk takes the
 // accumulators).  Every lane of the warp calls it.
@@ -279,6 +323,24 @@ __device__ void stage_entity(const RankMFArgs& a, int q, int id,
     a.iscratch[q] = id;
     a.iscratch[S3 + q] = flag;
     g2s[q] = g2;
+  }
+  if constexpr (kIsBf16<T>) {
+    // the entity's pairs: its table row at each feature slot, at its
+    // update rank (the reference's scatter order)
+    const int e = q % 3, s = q / 3;
+    if (e == 0 || a.update_items) {
+      const FeatList<T> fl = e == 0 ? user_feats<T>(a) : item_feats<T>(a);
+      const int Fe = fl.count();
+      const GroupLayout L = group_layout(a);
+      int* keys = a.gscratch + L.keys +
+                  (e == 0 ? 0 : L.nW + (size_t)(e - 1) * a.S * Fe) +
+                  (size_t)s * Fe;
+      for (int l = lane; l < Fe; l += 32) {
+        int f;
+        float x;
+        keys[l] = flag && fl.at(id, l, &f, &x) ? f : -1;
+      }
+    }
   }
   if (!flag) return;
 #pragma unroll
@@ -668,60 +730,6 @@ __global__ void rankmf_apply(RankMFArgs a) {
   }
 }
 
-// Launch W of the bf16 instance: one warp a table row, over one table's
-// (row, update) pairs sorted stably by row (`keys` the rows, -1 for a
-// pair that updates nothing, sorted first; `codes` q F + l: staged entity
-// q = 3 s + e, feature slot l), at a position where the row's run begins.
-// Its updates in order: the accumulator (one rounded add each), then every
-// component (one rounded add each), as a bf16 scatter-add of bf16 updates.
-__global__ void rankmf_walk(RankMFArgs a, const int* __restrict__ keys,
-                            const int* __restrict__ codes, int n_pairs,
-                            int user_side) {
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (p == 0 && lane == 0 && user_side && a.counters[1] == 0)
-    a.counters[1] = 1;
-  if (p >= n_pairs) return;  // the whole warp
-  const int f = keys[p];
-  if (f < 0 || (p > 0 && keys[p - 1] == f)) return;
-  int end = p + 1;
-  while (end < n_pairs && keys[end] == f) ++end;
-  const int S3 = 3 * a.S, r = a.r, F = old_stride(a);
-  bf16_t* emb = reinterpret_cast<bf16_t*>(user_side ? a.W : a.H);
-  bf16_t* accp = reinterpret_cast<bf16_t*>(user_side ? a.accW : a.accH);
-  const float* g2s = a.fscratch;
-  const float* grads = g2s + S3;
-  const float* combs = grads + (size_t)S3 * r;
-  float acc = ld(accp + f);
-  if (a.optimizer == 0) {
-    for (int t = p; t < end; ++t) acc = rsp::rbf(acc + g2s[codes[t] / F]);
-  } else {
-    float cnt = 0.f;
-    for (int t = p; t < end; ++t) cnt = rsp::rbf(cnt + 1.f);
-    const float n_dup = fmaxf(cnt, 1.f), old = acc;
-    const float gm1 = rsp::rbf(a.gamma - 1.f), omg = rsp::rbf(1.f - a.gamma);
-    const float od = rsp::rbf(rsp::rbf(gm1 * old) / n_dup);
-    for (int t = p; t < end; ++t)
-      acc = rsp::rbf(acc + rsp::rbf(od + rsp::rbf(omg * g2s[codes[t] / F])));
-  }
-  const float denom = rsp::rbf(sqrtf(rsp::rbf(acc + rsp::rbf(kEps))));
-  if (lane == 0) accp[f] = __float2bfloat16_rn(acc);
-  const float nlr = -a.lr;
-  bf16_t* row = emb + (size_t)f * r;
-  for (int k = lane; k < r; k += 32) {
-    float w = ld(row + k);
-    for (int t = p; t < end; ++t) {
-      const int q = codes[t] / F, e = q % 3;
-      const float lam = e == 0 ? a.lam_u : (e == 1 ? a.lam_ip : a.lam_in);
-      const float step =
-          rsp::rbf(rsp::rbf(grads[(size_t)q * r + k] / denom) +
-                   rsp::rbf(lam * combs[(size_t)q * r + k]));
-      w = rsp::rbf(w + rsp::rbf(nlr * step));
-    }
-    row[k] = __float2bfloat16_rn(w);
-  }
-}
-
 template <typename T>
 int launch_samples(const RankMFArgs& a, cudaStream_t st) {
   const dim3 grid((a.S + kWarps - 1) / kWarps), block(kWarps * 32);
@@ -737,15 +745,357 @@ int launch_samples(const RankMFArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// ---- the bf16 instance's ordered scatter -----------------------------------
+
+// Launch G's radix sort: 8 bits a pass; a warp holds 512 consecutive
+// pairs, lane l its pairs 32 j + l (j < 16), so (j, l) is their order.
+constexpr int kItems = kChunk / kSortThreads;  // pairs a thread
+constexpr int kWarpsG = kSortThreads / 32;
+constexpr int kHistLd = kWarpsG + 1;           // hist[d * kHistLd + warp]
+constexpr size_t kGroupSmem =
+    (size_t)(2 * kChunk + 256 * kHistLd) * sizeof(unsigned);
+static_assert(kGroupSmem <= 232448, "one CTA's shared memory");
+static_assert(kWarpsG == 32, "block_scan and the warp offsets take 32 warps");
+
+// Exclusive scan of v over the block (kSortThreads threads); *total gets
+// the sum.  Two barriers; every thread calls it.
+__device__ __forceinline__ unsigned block_scan(unsigned v, unsigned* wsum,
+                                               unsigned* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned t = __shfl_up_sync(RSP_FULL_MASK, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  unsigned w = wsum[lane], wi = w;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned t = __shfl_up_sync(RSP_FULL_MASK, wi, o);
+    if (lane >= o) wi += t;
+  }
+  const unsigned before = __shfl_sync(RSP_FULL_MASK, wi - w, warp);
+  *total = __shfl_sync(RSP_FULL_MASK, wi, 31);
+  __syncthreads();  // wsum may be written by the next call
+  return before + incl - v;
+}
+
+// Launch G: one CTA a chunk of up to kChunk pairs of one table (the
+// chunks of W, then those of H).  A stable LSD radix sort of the chunk's
+// table rows, 8 bits a pass over only the bits its largest row needs (a
+// pair that updates nothing sorts last), in shared memory.  Per pass each
+// warp ranks its pairs among its own by digit (the lanes with the same
+// digit found by 8 ballots, in (j, lane) order), the warps' digit counts
+// are scanned digit-major (digit, warp), and each pair goes to its
+// digit's offset plus its rank, so equal rows keep their update order.
+// Writes the sorted (row, update rank) and the starts of the chunk's runs
+// in order.
+__global__ void __launch_bounds__(kSortThreads, 1)
+    rankmf_group(RankMFArgs a) {
+  extern __shared__ unsigned gsm[];
+  __shared__ unsigned wsum[32];
+  const GroupLayout L = group_layout(a);
+  const int cg = blockIdx.x;
+  const bool hside = cg >= L.chW;
+  const int c = hside ? cg - L.chW : cg;
+  const int n_t = hside ? L.nH : L.nW;
+  const long long off = (hside ? L.nW : 0) + (long long)c * kChunk;
+  const int len = min(kChunk, n_t - c * kChunk);
+  unsigned* skeys = gsm;
+  unsigned* svals = gsm + kChunk;
+  unsigned* hist = gsm + 2 * kChunk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned lt = (1u << lane) - 1;
+  const int p0 = warp * 32 * kItems + lane;  // pair j at p0 + 32 j
+  const int* keys = a.gscratch + L.keys + off;
+  unsigned k[kItems], v[kItems];
+  unsigned mx = 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = p0 + 32 * j;
+    const int key = i < len ? keys[i] : -1;
+    k[j] = key < 0 ? 0xffffffffu : (unsigned)key;
+    v[j] = (unsigned)(c * kChunk + i);
+    if (key >= 0 && (unsigned)key > mx) mx = key;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    mx = max(mx, __shfl_xor_sync(RSP_FULL_MASK, mx, o));
+  if (lane == 0) wsum[warp] = mx;
+  __syncthreads();
+  mx = wsum[lane];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    mx = max(mx, __shfl_xor_sync(RSP_FULL_MASK, mx, o));
+  __syncthreads();
+  // rows < 2^bits - 1: the sentinel's low bits sort after every row's
+  const int bits = 32 - __clz(mx + 1);
+  for (int shift = 0; shift < bits; shift += 8) {
+    for (int i = tid; i < 256 * kHistLd; i += kSortThreads) hist[i] = 0;
+    __syncthreads();
+    unsigned rk[kItems / 2];  // two 16-bit ranks a word
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const unsigned d = (k[j] >> shift) & 255u;
+      unsigned peers = RSP_FULL_MASK;
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const unsigned m = __ballot_sync(RSP_FULL_MASK, (d >> b) & 1u);
+        peers &= (d >> b) & 1u ? m : ~m;
+      }
+      unsigned* h = hist + d * kHistLd + warp;
+      const unsigned before = __popc(peers & lt);
+      const unsigned rank = *h + before;
+      __syncwarp();
+      if (before == 0) *h = rank + __popc(peers);
+      __syncwarp();
+      if (j & 1)
+        rk[j >> 1] |= rank << 16;
+      else
+        rk[j >> 1] = rank;
+    }
+    __syncthreads();
+    // exclusive scan of the counts in (digit, warp) order: thread t takes
+    // the 8 counts from 8 t
+    unsigned sum = 0, total;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int i = 8 * tid + q;
+      sum += hist[(i >> 5) * kHistLd + (i & 31)];
+    }
+    unsigned run = block_scan(sum, wsum, &total);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int i = 8 * tid + q;
+      unsigned* h = hist + (i >> 5) * kHistLd + (i & 31);
+      const unsigned cq = *h;
+      *h = run;
+      run += cq;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const unsigned d = (k[j] >> shift) & 255u;
+      const unsigned p = hist[d * kHistLd + warp] +
+                         ((rk[j >> 1] >> (16 * (j & 1))) & 0xffffu);
+      skeys[p] = k[j];
+      svals[p] = v[j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      k[j] = skeys[p0 + 32 * j];
+      v[j] = svals[p0 + 32 * j];
+    }
+    __syncthreads();
+  }
+  // the sorted pairs, and the runs' starts in position order: the warp's
+  // positions run j-major, so a start's place is the starts before it in
+  // earlier warps, in earlier j of this warp, and in lower lanes
+  unsigned* gk = reinterpret_cast<unsigned*>(a.gscratch + L.skey + off);
+  int* gv = a.gscratch + L.sval + off;
+  unsigned hbits = 0, starts = 0, valid = 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = p0 + 32 * j;
+    const unsigned prev = i > 0 ? skeys[i - 1] : 0xffffffffu;
+    const bool ok = i < len && k[j] != 0xffffffffu;
+    const bool head = ok && k[j] != prev;
+    hbits |= (unsigned)head << j;
+    starts += __popc(__ballot_sync(RSP_FULL_MASK, head));
+    valid += ok;
+    if (i < len) {
+      gk[i] = k[j];
+      gv[i] = (int)v[j];
+    }
+  }
+  unsigned n_runs, n_valid;
+  // each warp's starts, one value a warp (its lane 0), scanned over warps
+  unsigned at = block_scan(lane == 0 ? starts : 0u, wsum, &n_runs);
+  at = __shfl_sync(RSP_FULL_MASK, at, 0);
+  block_scan(valid, wsum, &n_valid);
+  int* runs = a.gscratch + L.runs + (long long)cg * (kChunk + 1);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const bool head = (hbits >> j) & 1u;
+    const unsigned b = __ballot_sync(RSP_FULL_MASK, head);
+    if (head) runs[at + __popc(b & lt)] = p0 + 32 * j;
+    at += __popc(b);
+  }
+  if (tid == 0) {
+    runs[n_runs] = (int)n_valid;
+    a.gscratch[L.nruns + cg] = (int)n_runs;
+  }
+}
+
+// The first position in a sorted chunk of n rows whose row is >= f.
+__device__ __forceinline__ int lower_bound(const unsigned* p, int n,
+                                           unsigned f) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (p[mid] < f)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Launch W: a group of G lanes a run of one row (G = 8 at r <= 8, 16 at r
+// <= 16, else a warp), over the compacted run list of one chunk, a slice of
+// kWalkRuns(G) runs a CTA.  A row whose pairs also lie in other chunks of
+// its table is walked by its run in the first of them: the group's lanes
+// look the row up in the other chunks side by side.  Its updates in
+// order: the accumulator (one rounded add each), then every component
+// (one rounded add each), as a bf16 scatter-add of bf16 updates.
+constexpr int kWalkThreads = 256;
+template <int G>
+constexpr int kWalkRuns = 2 * kWalkThreads / G;
+
+template <int G>
+__global__ void __launch_bounds__(kWalkThreads)
+    rankmf_walk(RankMFArgs a) {
+  const GroupLayout L = group_layout(a);
+  const int cg = blockIdx.x;
+  if (cg == 0 && blockIdx.y == 0 && threadIdx.x == 0 && a.counters[1] == 0)
+    a.counters[1] = 1;  // launch A's counters are complete
+  const int n_runs = a.gscratch[L.nruns + cg];
+  const int r0 = blockIdx.y * kWalkRuns<G>;
+  if (r0 >= n_runs) return;  // the whole CTA
+  const bool hside = cg >= L.chW;
+  const int c = hside ? cg - L.chW : cg;
+  const int nch = hside ? L.chH : L.chW, n_t = hside ? L.nH : L.nW;
+  const long long tbase = hside ? L.nW : 0;
+  const unsigned* skey =
+      reinterpret_cast<const unsigned*>(a.gscratch + L.skey + tbase);
+  const int* sval = a.gscratch + L.sval + tbase;
+  const int* runs = a.gscratch + L.runs + (long long)cg * (kChunk + 1);
+  const int lane = threadIdx.x & 31, gl = lane & (G - 1);
+  const int gbase = lane - gl;
+  const unsigned gmask =
+      G == 32 ? RSP_FULL_MASK : (((1u << G) - 1) << gbase);
+  const int S = a.S, S3 = 3 * S, r = a.r;
+  const int Fe = hside ? (a.Fi > 0 ? a.Fi : 1) : (a.Fu > 0 ? a.Fu : 1);
+  const int half = S * Fe;
+  bf16_t* emb = reinterpret_cast<bf16_t*>(hside ? a.H : a.W);
+  bf16_t* accp = reinterpret_cast<bf16_t*>(hside ? a.accH : a.accW);
+  const float* g2s = a.fscratch;
+  const float* grads = g2s + S3;
+  const float* combs = grads + (size_t)S3 * r;
+  const int r1 = min(r0 + kWalkRuns<G>, n_runs);
+  for (int ri = r0 + (int)threadIdx.x / G; ri < r1;
+       ri += kWalkThreads / G) {
+    const int start = runs[ri], end = runs[ri + 1];
+    const unsigned f = skey[(long long)c * kChunk + start];
+    // the row in the table's other chunks: lane gl looks in chunks gl,
+    // gl + G, ...; it keeps where the row starts in chunk gl
+    int lo_own = 0;
+    if (nch > 1) {
+      bool earlier = false;
+      for (int c2 = gl; c2 < nch; c2 += G) {
+        if (c2 == c) continue;
+        const int n2 = min(kChunk, n_t - c2 * kChunk);
+        const unsigned* k2 = skey + (long long)c2 * kChunk;
+        const int lo = lower_bound(k2, n2, f);
+        if (c2 == gl) lo_own = lo;
+        earlier |= c2 < c && lo < n2 && k2[lo] == f;
+      }
+      if (__any_sync(gmask, earlier)) continue;
+    }
+    // every update of the row in order: this chunk's run, then the later
+    // chunks' runs of the same row
+    auto for_each = [&](auto&& fn) {
+      for (int t = start; t < end; ++t) fn(sval[(long long)c * kChunk + t]);
+      for (int c2 = c + 1; c2 < nch; ++c2) {
+        const int n2 = min(kChunk, n_t - c2 * kChunk);
+        const unsigned* k2 = skey + (long long)c2 * kChunk;
+        int t = c2 < G ? __shfl_sync(gmask, lo_own, gbase + c2)
+                       : lower_bound(k2, n2, f);
+        for (; t < n2 && k2[t] == f; ++t)
+          fn(sval[(long long)c2 * kChunk + t]);
+      }
+    };
+    // the staged entity q = 3 s + e of update rank p
+    auto entity = [&](int p) {
+      if (!hside) return 3 * (p / Fe);
+      const int e = p < half ? 1 : 2;
+      return 3 * ((p - (e - 1) * half) / Fe) + e;
+    };
+    float acc = ld(accp + f);
+    if (a.optimizer == 0) {
+      for_each([&](int p) { acc = rsp::rbf(acc + g2s[entity(p)]); });
+    } else {
+      float cnt = 0.f;
+      for_each([&](int) { cnt = rsp::rbf(cnt + 1.f); });
+      const float n_dup = fmaxf(cnt, 1.f), old = acc;
+      const float gm1 = rsp::rbf(a.gamma - 1.f), omg = rsp::rbf(1.f - a.gamma);
+      const float od = rsp::rbf(rsp::rbf(gm1 * old) / n_dup);
+      for_each([&](int p) {
+        acc = rsp::rbf(acc + rsp::rbf(od + rsp::rbf(omg * g2s[entity(p)])));
+      });
+    }
+    const float denom = rsp::rbf(sqrtf(rsp::rbf(acc + rsp::rbf(kEps))));
+    if (gl == 0) accp[f] = __float2bfloat16_rn(acc);
+    const float nlr = -a.lr;
+    bf16_t* row = emb + (size_t)f * r;
+    // (the group's lanes stay together: for_each may exchange among them)
+    for (int k0 = 0; k0 < r; k0 += G) {
+      const int k = k0 + gl;
+      const bool on = k < r;
+      float w = on ? ld(row + k) : 0.f;
+      for_each([&](int p) {
+        if (!on) return;
+        const int q = entity(p), e = q % 3;
+        const float lam = e == 0 ? a.lam_u : (e == 1 ? a.lam_ip : a.lam_in);
+        const float step =
+            rsp::rbf(rsp::rbf(grads[(size_t)q * r + k] / denom) +
+                     rsp::rbf(lam * combs[(size_t)q * r + k]));
+        w = rsp::rbf(w + rsp::rbf(nlr * step));
+      });
+      if (on) row[k] = __float2bfloat16_rn(w);
+    }
+  }
+}
+
+template <int G>
+int launch_walk(const RankMFArgs& a, const GroupLayout& L, cudaStream_t st) {
+  const dim3 grid(L.chW + L.chH, (kChunk + kWalkRuns<G> - 1) / kWalkRuns<G>);
+  rankmf_walk<G><<<grid, kWalkThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Launches G and W of the bf16 instance, after launch A.
+int launch_group_walk(const RankMFArgs& a, cudaStream_t st) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rankmf_group, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kGroupSmem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const GroupLayout L = group_layout(a);
+  rankmf_group<<<L.chW + L.chH, kSortThreads, kGroupSmem, st>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return a.r <= 8    ? launch_walk<8>(a, L, st)
+         : a.r <= 16 ? launch_walk<16>(a, L, st)
+                     : launch_walk<32>(a, L, st);
+}
+
 }  // namespace
 
 // Scratch, counters and (RMSprop) the duplicate counts are allocated by
 // the caller (_kernels.RankMFArgs), the duplicate counts zeroed; the
 // counters are zeroed here.  `stages`: 2 runs the batch; 1 stops after
 // launch A (the counters are left unclamped and the tables unchanged but
-// AdaGrad's accumulators), so that chip_smoke.py times launch A apart.
-// The bf16 instance (table_bf16) runs launch A here, whatever `stages`,
-// and its launch W by rsp_rankmf_walk.
+// the float32 instance's AdaGrad accumulators), so that chip_smoke.py
+// times launch A apart.  The bf16 instance (table_bf16) runs launch A,
+// the group launch and launch W: three launches and the counters' memset,
+// no host work between them.
 extern "C" int rsp_rankmf_batch(const RankMFArgs* args, int stages,
                                 void* stream) {
   const RankMFArgs a = *args;
@@ -755,12 +1105,18 @@ extern "C" int rsp_rankmf_batch(const RankMFArgs* args, int stages,
       (stages != 1 && stages != 2) ||
       (!a.table_bf16 && a.optimizer == 1 &&
        (!a.cntW || (a.update_items && !a.cntH))) ||
+      (a.table_bf16 && (!a.gscratch || a.n_wrows < 1 ||
+                        (a.update_items && a.n_hrows < 1))) ||
       (!a.wmap != !a.hmap))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(a.counters, 0, 4 * sizeof(*a.counters), st);
   if (err != cudaSuccess) return (int)err;
-  if (a.table_bf16) return launch_samples<bf16_t>(a, st);
+  if (a.table_bf16) {
+    err = (cudaError_t)launch_samples<bf16_t>(a, st);
+    if (err != cudaSuccess || stages == 1) return (int)err;
+    return launch_group_walk(a, st);
+  }
   const int S3 = 3 * a.S;
   err = (cudaError_t)launch_samples<float>(a, st);
   if (err != cudaSuccess || stages == 1) return (int)err;
@@ -774,22 +1130,9 @@ extern "C" int rsp_rankmf_batch(const RankMFArgs* args, int stages,
   return (int)cudaGetLastError();
 }
 
-// Launch W of the bf16 instance, after rsp_rankmf_batch: W's pairs
-// (n_w of wkeys / wcodes), then H's (n_h), each sorted stably by table
-// row in the reference's update order (launch W above).
-extern "C" int rsp_rankmf_walk(const RankMFArgs* args, const int* wkeys,
-                               const int* wcodes, int n_w, const int* hkeys,
-                               const int* hcodes, int n_h, void* stream) {
-  const RankMFArgs a = *args;
-  if (a.S <= 0) return 0;
-  if (!a.table_bf16 || n_w < 0 || n_h < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  // the W walk runs even without pairs: it clamps the AUC denominator
-  const int grid_w = n_w > 0 ? (n_w + kWarps - 1) / kWarps : 1;
-  rankmf_walk<<<grid_w, kWarps * 32, 0, st>>>(a, wkeys, wcodes, n_w, 1);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_h == 0) return (int)err;
-  rankmf_walk<<<(n_h + kWarps - 1) / kWarps, kWarps * 32, 0, st>>>(
-      a, hkeys, hcodes, n_h, 0);
-  return (int)cudaGetLastError();
+// Ints of the bf16 instance's gscratch (its pair lists, sorted lists and
+// runs) for S samples with Fu / Fi feature slots (0: identity).
+extern "C" long long rsp_rankmf_group_ints(int S, int Fu, int Fi,
+                                           int update_items) {
+  return group_layout(S, Fu, Fi, update_items).total;
 }

@@ -479,8 +479,10 @@ def _feat_args(f: Optional[_Feats], name: str, n: int, dtype):
 
 def _walk_pairs(iscr: torch.Tensor, S: int, F: int, feats, rowmap,
                 es) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (table row, update) pairs of one table for the bf16 instance's
-    launch W, sorted stably by row: ``es`` the staged entity kinds that
+    """The (table row, update) pairs of one table in the order K9's bf16
+    instance walks them (its launch A writes the rows, its launch G sorts
+    them on the device), sorted stably by row: the plain oracle of that
+    order, for the tests.  ``es`` the staged entity kinds that
     update it, in the reference's update order (W: (0,) users; H: (1, 2)
     positives, then negatives), each by sample and feature slot.  Returns
     int32 (keys, codes): the row, -1 where the pair updates nothing, and
@@ -503,6 +505,32 @@ def _walk_pairs(iscr: torch.Tensor, S: int, F: int, feats, rowmap,
             rows.shape[1], device=iscr.device)[None, :]).reshape(-1))
     k, perm = torch.sort(torch.cat(keys), stable=True)
     return k.to(torch.int32), torch.cat(codes)[perm].to(torch.int32)
+
+
+#: K9's scratch of the last batch shape: (key, (iscratch, fscratch,
+#: gscratch)), reused by every batch of a fit (the batches run in order on
+#: one stream)
+_SCRATCH: list = [None, None]
+
+
+def _scratch(dev, S: int, r: int, F: int, rms: bool, bf16: bool, Fu: int,
+             Fi: int, update_items: bool):
+    """K9's int and float scratch and, at bf16, the ints of its device
+    pair lists and sort (``rsp_rankmf_group_ints``); allocated when the
+    batch shape changes."""
+    key = (str(dev), S, r, F, rms, bf16, Fu, Fi, bool(update_items))
+    if _SCRATCH[0] != key:
+        _SCRATCH[:] = [None, None]   # free the last shape's first
+        n_g = (_kernels.lib().rsp_rankmf_group_ints(S, Fu, Fi,
+                                                    int(update_items))
+               if bf16 else 0)
+        _SCRATCH[:] = [key, (
+            torch.empty((2 * 3 * S,), dtype=torch.int32, device=dev),
+            torch.empty((3 * S * (1 + 2 * r + (F if rms else 0)),),
+                        dtype=torch.float32, device=dev),
+            torch.empty((n_g,), dtype=torch.int32, device=dev)
+            if bf16 else None)]
+    return _SCRATCH[1]
 
 
 def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
@@ -549,9 +577,8 @@ def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
     dev = W.device
     F = max(Fu, Fi, 1)
     rms = cfg.optimizer == RMSPROP and not bf16
-    iscr = torch.empty((2 * 3 * S,), dtype=i32, device=dev)
-    fscr = torch.empty((3 * S * (1 + 2 * r + (F if rms else 0)),),
-                       dtype=f32, device=dev)
+    iscr, fscr, gscr = _scratch(dev, S, r, F, rms, bf16, Fu, Fi,
+                                cfg.update_items)
     cntW = torch.zeros((nuf,), dtype=f32, device=dev) if rms else None
     cntH = (torch.zeros((nif,), dtype=f32, device=dev)
             if rms and cfg.update_items else None)
@@ -561,24 +588,14 @@ def _rankmf_batch_cuda(W, H, accW, accH, bits, pos: _Positives,
         *(_kernels.ptr(t) for t in (
             bits, pos.flat_idx, pos.indptr, pos.row_nnz, pos.table, pos.boff,
             pos.bmask, pos.bshift, ui, uv, um, ii, iv, im, W, H, accW, accH,
-            iscr, fscr, cntW, cntH, counters, wmap, hmap)),
+            iscr, fscr, cntW, cntH, counters, wmap, hmap, gscr)),
         S, K, r, n_user, n_item, pos.flat_idx.shape[0], lanes, Fu, Fi,
         cfg.loss, cfg.kernel, cfg.optimizer, int(cfg.update_items), int(bf16),
-        hp.lr, hp.gamma, hp.lam_u, hp.lam_ip, hp.lam_in, hp.margin,
+        nuf, nif, hp.lr, hp.gamma, hp.lam_u, hp.lam_ip, hp.lam_in, hp.margin,
         bf16_value(norm) if bf16 else norm)
-    so = _kernels.lib()
-    rc = so.rsp_rankmf_batch(ctypes.byref(args), ctypes.c_int(int(stages)),
-                             _kernels.stream(dev))
+    rc = _kernels.lib().rsp_rankmf_batch(
+        ctypes.byref(args), ctypes.c_int(int(stages)), _kernels.stream(dev))
     _kernels.check(rc, "rankmf")
-    if bf16 and stages == 2:
-        wk, wc = _walk_pairs(iscr, S, F, uf, wmap, (0,))
-        hk, hc = (_walk_pairs(iscr, S, F, itf, hmap, (1, 2))
-                  if cfg.update_items else (wk[:0], wc[:0]))
-        rc = so.rsp_rankmf_walk(
-            ctypes.byref(args), _kernels.ptr(wk), _kernels.ptr(wc),
-            wk.shape[0], _kernels.ptr(hk), _kernels.ptr(hc), hk.shape[0],
-            _kernels.stream(dev))
-        _kernels.check(rc, "rankmf")
     _kernels.launches[("rankmf" if wmap is None else "rankmf_rowmap")
                       + ("_bf16" if bf16 else "")] += 1
     return counters

@@ -2932,8 +2932,9 @@ def k11_bound(n_r, n_c, r, grid_bytes, bf16, present, tb=4):
     of what the ``present`` cells need (the cost is zero at every other
     cell): S and the four products, 10 r a present cell (at the bf16 peak
     for a bf16 head), and ~20 for the log, weight, clip and roundings.
-    (K11 computes the products densely: 12 n_r n_c r on the tensor cores
-    for a bf16 head, the five products on the FMA units for f32.)"""
+    (K11's f32 head and its bf16-state head walk only the present cells,
+    on the FMA units; the bf16 head over float32 state computes the
+    products densely, 12 n_r n_c r on the tensor cores.)"""
     cells = n_r * n_c
     return glove_bound(cells * grid_bytes
                        + (n_r + n_c) * (4 + 4 * tb * (r + 1)),
@@ -3225,10 +3226,11 @@ def check_glove_kernels(head, tail, state, tag, results, rep=False,
     torch.cuda.empty_cache()
 
 
-def run_glove_f32_head(device, x4, launches, rank, bf16_rate) -> None:
+def run_glove_f32_head(device, x4, launches, rank, bf16_rate) -> float:
     """Config #4 at GloVe's default compute dtype (float32 state, K11's f32
     head) through GloVe.fit_transform, 3 epochs, beside the bf16-head fit
-    of the same run (``bf16_rate``: its triplets/s)."""
+    of the same run (``bf16_rate``: its triplets/s).  Returns its
+    triplets/s."""
     import torch
     import rsparse_tpu_torch as rt
     from rsparse_tpu_torch import _kernels
@@ -3256,6 +3258,7 @@ def run_glove_f32_head(device, x4, launches, rank, bf16_rate) -> None:
         f"triplets/s (best epoch; the bf16 head in this run: "
         f"{bf16_rate:.0f}); loss/nnz {[round(c, 6) for c in hist]}")
     del m, emb
+    return x4.nnz / best
 
 
 def run_glove(device, results, launches) -> None:
@@ -3382,11 +3385,12 @@ def run_glove(device, results, launches) -> None:
     del st
     check_glove_kernels(head, tail, m._state, "fitted config #4", results)
     del head, tail, m, emb
-    run_glove_f32_head(device, x4, launches, GLOVE_KW["rank"],
-                       x4.nnz / best)
+    f32_rate = run_glove_f32_head(device, x4, launches, GLOVE_KW["rank"],
+                                  x4.nnz / best)
     log("phase 8 (a, c), bf16: K10 / K11's bf16 instances on config #4 and "
         "config #4 at bf16 state")
-    run_glove_bf16(device, x4, results, launches, GLOVE_KW["rank"], hist)
+    run_glove_bf16(device, x4, results, launches, GLOVE_KW["rank"], hist,
+                   (x4.nnz / best, f32_rate))
 
 
 # -- phase 9: reduced precision ------------------------------------------------
@@ -4478,11 +4482,12 @@ def run_wide_full(device, x, x4, results, launches) -> None:
     require(bool(torch.isfinite(ge).all()) and all(np.isfinite(hist))
             and hist[0] > hist[1] > hist[2],
             "config #4 GloVe rank 300: loss not finite and decreasing")
-    run_glove_f32_head(device, x4, launches, 300,
-                       x4.nnz / min(info["epoch_s"]))
+    f32_rate = run_glove_f32_head(device, x4, launches, 300,
+                                  x4.nnz / min(info["epoch_s"]))
     log("phase 11 (b, d), bf16: K10 / K11's wide bf16 instances on config "
         "#4 and config #4 at bf16 state, rank 300")
-    run_glove_bf16(device, x4, results, launches, 300, hist)
+    run_glove_bf16(device, x4, results, launches, 300, hist,
+                   (x4.nnz / min(info["epoch_s"]), f32_rate))
     return g
 
 
@@ -5446,8 +5451,9 @@ def check_glove_bf16_step(key, step, plain, state, tag, results, bnd,
 def check_glove_bf16(head, tail, state, tag, results, rep=False) -> None:
     """K10's bf16 instance on the tail's first shard, straight and swapped,
     on both tail paths (the scheduled sums, shuffle off; the ordered
-    scatter, shuffle on), and K11's bf16-state instance on the head's first
-    tile, each against its plain version (:func:`check_glove_bf16_step`).
+    scatter, shuffle on), its audit (:func:`k10_bf16_audit`), and K11's
+    bf16-state instance on the head's tiles (0, 0), (1, 0) transposed and
+    the last, each against its plain version (:func:`check_glove_bf16_step`).
     At r > 128 the wide instances."""
     import torch
     from rsparse_tpu_torch.models import glove
@@ -5469,30 +5475,111 @@ def check_glove_bf16(head, tail, state, tag, results, rep=False) -> None:
                 k10_bound(sh, r, tb=2),
                 rep=rep and label == "shard 0" and not ordered, graphs=True,
                 plain_reps=0 if ordered else None)
-    side = head.side
-    rows = cols = head.ids[:side]
-    xv = head.x[:side, :side]
-    check_glove_bf16_step(
-        "glove_dense" + sfx + "_bf16",
-        lambda st: glove._glove_tile_cuda(st, rows, cols, xv, *hp,
-                                          torch.bfloat16),
-        lambda st: glove._glove_tile_plain_bf16(st, rows, cols, xv, *hp),
-        state, f"{tag} tile (0, 0) {rows.numel()} x {cols.numel()}", results,
-        k11_bound(rows.numel(), cols.numel(), r, 2, True,
-                  int((xv > 0).sum()), tb=2),
-        lib=lambda st: _tile_cublas_bf16(st, rows, cols, xv, *hp), rep=rep,
-        graphs=True,
-        twin=lambda st: glove._glove_tile_plain_bf16(st, rows, cols, xv, *hp,
-                                                     exact=True))
+    sh = tail.shard(0)
+    log("  " + k10_bf16_audit(
+        lambda ordered: glove._glove_shard_cuda(
+            glove.GloveState(*(t.clone() for t in state)), sh, *hp,
+            ordered=ordered), sh, r, f"{tag} shard 0"))
+    for (ti, tj), trans, xv, rows, cols in k11_tiles(head):
+        check_glove_bf16_step(
+            "glove_dense" + sfx + "_bf16",
+            lambda st: glove._glove_tile_cuda(st, rows, cols, xv, *hp,
+                                              torch.bfloat16),
+            lambda st: glove._glove_tile_plain_bf16(st, rows, cols, xv, *hp),
+            state, f"{tag} tile ({ti}, {tj})"
+            + (" transposed" if trans else "")
+            + f" {rows.numel()} x {cols.numel()} (present "
+            f"{int((xv > 0).sum())})", results,
+            k11_bound(rows.numel(), cols.numel(), r, 2, True,
+                      int((xv > 0).sum()), tb=2),
+            lib=lambda st: _tile_cublas_bf16(st, rows, cols, xv, *hp),
+            rep=rep and (ti, tj) == (0, 0), graphs=True,
+            twin=lambda st: glove._glove_tile_plain_bf16(
+                st, rows, cols, xv, *hp, exact=True))
     torch.cuda.empty_cache()
 
 
+def k11_tiles(head):
+    """Config #4's head tiles that K11's checks take: (0, 0), the densest;
+    (1, 0) of the transposed pass (a view with a unit row stride); the
+    last tile (the padded edge, cut to its real positions), the sparsest.
+    Yields ((ti, tj), transposed, counts, rows, cols)."""
+    H, side, last = head.ids.shape[0], head.side, head.nt - 1
+    span = lambda t: slice(t * side, min(H, (t + 1) * side))  # noqa: E731
+    for (ti, tj), trans in (((0, 0), False), ((1, 0), True),
+                            ((last, last), False)):
+        x = head.x.T if trans else head.x
+        yield ((ti, tj), trans, x[span(ti), span(tj)],
+               head.ids[span(ti)], head.ids[span(tj)])
+
+
+def k10_bf16_audit(fn, sh, r, tag) -> str:
+    """What one K10 bf16 call ``fn(ordered)`` puts on the card on both tail
+    paths (torch.profiler's device kernels after a warm call), and how many
+    warps the shard's hottest feature of each side takes from its work
+    list.  Fails if a path launches more than K10's three kernels and the
+    loss's bf16 copy, reaches the plain version, or leaves a feature's
+    entries to a single warp: on the scheduled path every item holds at
+    most a chunk (128 entries) and a longer feature takes a CTA a chunk."""
+    import torch
+    from rsparse_tpu_torch.models import glove
+    from rsparse_tpu_torch.ops import segsum
+    act = torch.profiler.ProfilerActivity
+    warps = glove.glove_width(r) // 32    # a CTA of the walk: a component
+                                          # a thread
+    out = []
+    for ordered in (False, True):
+        fn(ordered)
+        torch.cuda.synchronize()
+        saved = glove._glove_shard_plain_bf16
+        calls = []
+        glove._glove_shard_plain_bf16 = lambda *a, **k: calls.append(1)
+        try:
+            with torch.profiler.profile(
+                    activities=[act.CPU, act.CUDA]) as prof:
+                fn(ordered)
+                torch.cuda.synchronize()
+        finally:
+            glove._glove_shard_plain_bf16 = saved
+        names = [e.name for e in prof.events()]
+        api = sum(n.startswith("cudaLaunchKernel") for n in names)
+        dev = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "glove" in e.name]
+        require(not calls, f"K10 bf16 {tag}: the call reached the plain "
+                "version")
+        require(len(dev) <= 3 and api <= 4, f"K10 bf16 {tag}: {len(dev)} "
+                f"K10 kernels and {api} launches a shard (three: the costs, "
+                "the walk, the finish; and the loss's bf16 copy)")
+        out.append(f"{'ordered' if ordered else 'sums'} path {api} kernel "
+                   f"launches a shard (K10's seen on the device: "
+                   f"{len(dev)}; the rest the loss's bf16 copy)")
+    for side, bounds, work in (("row", sh.bounds_r, sh.work_r),
+                               ("column", sh.bounds_c, sh.work_c)):
+        n = (bounds[1:] - bounds[:-1]).long()
+        hot = int(n.max())
+        items = work.items.long()
+        require(int((items[:, 1] - items[:, 0]).max())
+                <= segsum.SCHED_CHUNK, f"K10 bf16 {tag}: an item over a "
+                "chunk")
+        ctas = -(-hot // segsum.SCHED_CHUNK)
+        out.append(f"{side} side: hottest feature {hot} entries on "
+                   f"{ctas} CTAs x {warps} warps (sums; chains of at most "
+                   f"{min(hot, segsum.SCHED_CHUNK)} entries), one CTA of "
+                   f"{warps} warps (ordered; chains of {hot}); "
+                   f"{items.shape[0]} items, {work.multi.shape[0]} features "
+                   "over chunks")
+    return f"K10 bf16 audit {tag}: " + "; ".join(out)
+
+
 def run_glove_bf16(device, x4, results, launches, rank, f32_hist,
-                   check=True) -> None:
+                   f32_rates=None, check=True) -> None:
     """Config #4 at bf16 state through GloVe.fit_transform, 3 epochs, beside
-    the float32-state fit of the same run (``f32_hist``): triplets/s, each
-    epoch's cost, peak memory; with ``check`` first the bf16 instances on
-    its staged shards and tile from the initial state."""
+    the float32-state fits of the same run (``f32_hist``, the bf16-head
+    fit's cost history; ``f32_rates``, the bf16-head and the f32-head fits'
+    triplets/s): triplets/s, each epoch's cost, peak memory; with ``check``
+    first the bf16 instances on its staged shards and tiles from the
+    initial state."""
     import torch
     import rsparse_tpu_torch as rt
     from rsparse_tpu_torch import _kernels
@@ -5533,9 +5620,12 @@ def run_glove_bf16(device, x4, results, launches, rank, f32_hist,
             f"config #4 GloVe r={rank} bf16: loss not finite and decreasing")
     best = min(info["epoch_s"])
     tb = sum(t.numel() * t.element_size() for t in m._state) / 2**20
+    rates = ("" if f32_rates is None else
+             f" (float32 state, this run: {f32_rates[0]:.0f} with the bf16 "
+             f"head, {f32_rates[1]:.0f} with the f32 head)")
     log(f"  config #4 GloVe rank {rank} bf16 state: fit_transform(n_iter=3)"
         f" {wall:.3f} s, epochs {[round(e, 4) for e in info['epoch_s']]} s;"
-        f" {x4.nnz / best:.0f} triplets/s (best epoch); loss/nnz "
+        f" {x4.nnz / best:.0f} triplets/s (best epoch){rates}; loss/nnz "
         f"{[round(c, 6) for c in hist]} (float32 state, this run: "
         f"{[round(c, 6) for c in f32_hist]}); state {tb:.1f} MiB; peak "
         f"device memory {peak:.2f} GiB (above {base:.2f} GiB held)")

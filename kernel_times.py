@@ -80,13 +80,17 @@ WHAT is one or more of:
               graphs (the bf16 instance's launches A, G and W), and one
               bf16 wrapper call by op and kernel (``torch.profiler``, CPU
               and CUDA);
-  k10-bf16    K10's bf16 instance on config #4's first tail shard at r =
-              128 and 300 on both tail paths (the scheduled sums, the
-              ordered scatter), beside the float32 instance on the same
-              shard;
-  k11-bf16    K11's bf16-state instance on config #4's first tile at r =
-              128 and 300, beside the float32-state bf16 head and the bf16
-              cuBLAS chain (``chip_smoke.py`` ``_tile_cublas_bf16``);
+  k10-bf16    K10's bf16 instance on config #4's first tail shard,
+              straight and swapped, at r = 128 and 300 on both tail paths
+              (the scheduled sums, the ordered scatter), beside the float32
+              instance on the same shards and the bound
+              (``chip_smoke.py`` ``k10_bound``);
+  k11-bf16    K11's bf16-state instance on config #4's tiles (0, 0), (1,
+              0) transposed and the last (``chip_smoke.py`` ``k11_tiles``)
+              at r = 128 and 300, beside the float32-state bf16 head, the
+              bf16 cuBLAS chain (``_tile_cublas_bf16``) and the bound
+              (``k11_bound``), each launch's device time by
+              ``torch.profiler``;
   k11-f32     K11's f32 head (GloVe's default compute dtype) on config
               #4's first tile (0, 0), its last (the padded edge tile, cut to
               its real positions) and the transposed pass's tile (1, 0), at
@@ -94,6 +98,11 @@ WHAT is one or more of:
               CUDA-graph device time, the present cells, the bound
               (``chip_smoke.py`` ``k11_bound``), the plain version and, at
               tile (0, 0), the f32 cuBLAS chain (``_tile_cublas_f32``);
+
+  k11-walk    K11's bf16-state walk built with RSP_K11_WALK_CLOCKS on
+              k11-bf16's tiles at r = 128 and 300: the clock cycles of each
+              phase of one CTA's steps, its present cells and those it
+              summed again in float64 (this tree only);
 
 k7 and k10 also print each launch's device time by ``torch.profiler``;
 k2-wide on this tree also builds ``csrc/als_chol_wide.cu`` with
@@ -637,12 +646,17 @@ def k11_wide_clocks(st, rows, cols, x, hp):
     n_r, n_c, r = rows.numel(), cols.numel(), st.w_i.shape[1]
     dev = x.device
     dump = torch.zeros((2, n_r, n_c), dtype=torch.float32, device=dev)
-    scratch = torch.empty((so.rsp_glove_tile_scratch(n_r, n_c, r, 1),),
-                          dtype=torch.float32, device=dev)
+    # an older checkout's entry points may take no state_bf16 flag, or no
+    # such flag in the scratch size
+    flags = (0,)[:len(so.rsp_glove_tile.argtypes) - 24]
+    scratch = torch.empty((so.rsp_glove_tile_scratch(
+        n_r, n_c, r, 1, *flags[:len(so.rsp_glove_tile_scratch.argtypes)
+                              - 4]),), dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     _kernels.check(so.rsp_glove_tile(
         _kernels.ptr(rows), _kernels.ptr(cols), n_r, n_c, _kernels.ptr(x),
-        x.stride(0), x.stride(1), 1, *(_kernels.ptr(t) for t in st), r,
+        x.stride(0), x.stride(1), 1, *flags,
+        *(_kernels.ptr(t) for t in st), r,
         *hp, _kernels.ptr(scratch), _kernels.ptr(loss), _kernels.ptr(dump),
         _kernels.stream(dev)), "glove_dense")
     torch.cuda.synchronize()
@@ -692,6 +706,57 @@ def k11_wide_times(dev, reps):
             k11_wide_clocks(glove.GloveState(*(t.clone() for t in st0)),
                             rows, cols, xv, hp)
         del st, st0
+        torch.cuda.empty_cache()
+
+
+#: the phases csrc/glove_dense.cu's RSP_K11_WALK_CLOCKS build times (thread
+#: 0 of the bf16-state walk's CTA (0, 0, 0), over its steps)
+K11_WALK_PHASES = ("wait for the step's rows", "the step's S on mma",
+                   "the present cells' S, cost", "wait for the next counts",
+                   "compaction and the next rows' issue", "the cost block",
+                   "its barrier", "the products on mma")
+
+
+def k11_walk_times(dev, reps):
+    """K11's bf16-state walk built with RSP_K11_WALK_CLOCKS on config #4's
+    three tiles at r = 128 and 300: the cycles of each phase of CTA (0, 0,
+    0)'s steps, its present cells and those it summed again in float64."""
+    import torch
+    import rsparse_tpu_torch as rt
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.models import glove
+    cs = sys.modules["chip_smoke"]
+    so = _variant("glove_dense", ["RSP_K11_WALK_CLOCKS"],
+                  ["rsp_glove_tile", "rsp_glove_tile_scratch"])
+    x4, head, _ = _glove_config4(dev, torch.float32)
+    hp = (cs.GLOVE_KW["x_max"], 0.75, cs.GLOVE_KW["learning_rate"])
+    for r in (128, 300):
+        st0 = rt.GloVe(**dict(cs.GLOVE_KW, rank=r, precision="bfloat16"),
+                       device=dev)._init_state(x4.shape[0])
+        hpb = tuple(glove._bf16_value(v) for v in hp)
+        for (ti, tj), trans, xv, rows, cols in cs.k11_tiles(head):
+            st = glove.GloveState(*(t.clone() for t in st0))
+            n_r, n_c = rows.numel(), cols.numel()
+            scratch = torch.empty((so.rsp_glove_tile_scratch(
+                n_r, n_c, r, 1, 1),), dtype=torch.float32, device=dev)
+            loss = torch.empty((), dtype=torch.float32, device=dev)
+            _kernels.check(so.rsp_glove_tile(
+                _kernels.ptr(rows), _kernels.ptr(cols), n_r, n_c,
+                _kernels.ptr(xv), xv.stride(0), xv.stride(1), 1, 1,
+                *(_kernels.ptr(t) for t in st), r, *hpb,
+                _kernels.ptr(scratch), _kernels.ptr(loss), None,
+                _kernels.stream(dev)), "glove_dense")
+            torch.cuda.synchronize()
+            v = scratch[:10].double().cpu().numpy()
+            print(f"  K11 walk clocks r={r} tile ({ti}, {tj})"
+                  + (" transposed" if trans else "")
+                  + ": thousands of cycles of CTA (0, 0, 0)'s steps: "
+                  + ", ".join(f"{n} {c / 1e3:.1f}"
+                              for n, c in zip(K11_WALK_PHASES, v))
+                  + f"; its present cells {int(v[9])}, summed again "
+                  f"{int(v[8])}", flush=True)
+            del st
+        del st0
         torch.cuda.empty_cache()
 
 
@@ -763,22 +828,25 @@ def k10_bf16_times(dev, reps):
     hp = (cs.GLOVE_KW["x_max"], 0.75, cs.GLOVE_KW["learning_rate"])
     for dt in (torch.float32, torch.bfloat16):
         x4, _, tail = _glove_config4(dev, dt)
-        sh = tail.shard(0)
         prec = "bfloat16" if dt == torch.bfloat16 else "float32"
         for r in (128, 300):
             st0 = rt.GloVe(**dict(cs.GLOVE_KW, rank=r, precision=prec),
                            device=dev)._init_state(x4.shape[0])
-            for ordered in ((False, True) if prec == "bfloat16"
-                            else (False,)):
-                st = glove.GloveState(*(t.clone() for t in st0))
-                fn = lambda: glove._glove_shard(  # noqa: E731
-                    st, sh, *hp, ordered=ordered)
-                ms, dms = cs.time_ms(fn, reps), cs.graph_ms([fn], reps)
-                print(f"  K10 config #4 shard 0 r={r} {prec} state"
-                      + (" ordered" if ordered else "")
-                      + f" (N={sh.rows.shape[0]}): {ms:.4f} ms (device "
-                      f"{dms:.4f})", flush=True)
-                del st
+            for label, sh in (("shard 0", tail.shard(0)),
+                              ("swapped shard 0", tail.swapped().shard(0))):
+                bnd = cs.k10_bound(sh, r, tb=2 if prec == "bfloat16" else 4)
+                for ordered in ((False, True) if prec == "bfloat16"
+                                else (False,)):
+                    st = glove.GloveState(*(t.clone() for t in st0))
+                    fn = lambda: glove._glove_shard(  # noqa: E731
+                        st, sh, *hp, ordered=ordered)
+                    ms, dms = cs.time_ms(fn, reps), cs.graph_ms([fn], reps)
+                    print(f"  K10 config #4 {label} r={r} {prec} state"
+                          + (" ordered" if ordered else "")
+                          + f" (N={sh.rows.shape[0]}): {ms:.4f} ms (device "
+                          f"{dms:.4f}); bound {bnd[0]:.4f} ms ({bnd[1]}); "
+                          f"by launch: {launch_split(fn, reps)}", flush=True)
+                    del st
             del st0
         del tail
         torch.cuda.empty_cache()
@@ -791,25 +859,32 @@ def k11_bf16_times(dev, reps):
     cs = sys.modules["chip_smoke"]
     x4, head, _ = _glove_config4(dev, torch.float32)
     hp = (cs.GLOVE_KW["x_max"], 0.75, cs.GLOVE_KW["learning_rate"])
-    span = slice(0, min(head.ids.shape[0], head.side))
-    rows = cols = head.ids[span]
-    xv = head.x[span, span]
     for r in (128, 300):
-        for prec in ("float32", "bfloat16"):
-            st0 = rt.GloVe(**dict(cs.GLOVE_KW, rank=r, precision=prec),
-                           device=dev)._init_state(x4.shape[0])
-            st = glove.GloveState(*(t.clone() for t in st0))
-            fn = lambda: glove._glove_tile_cuda(  # noqa: E731
-                st, rows, cols, xv, *hp, torch.bfloat16)
-            ms, dms = cs.time_ms(fn, reps), cs.graph_ms([fn], reps)
-            lib = (cs._tile_cublas_bf16 if prec == "bfloat16"
-                   else cs._tile_cublas)
-            lms = cs.time_ms(lambda: lib(st, rows, cols, xv, *hp), reps)
-            print(f"  K11 config #4 tile (0, 0) {rows.numel()}^2 r={r} "
-                  f"{prec} state: {ms:.4f} ms (device {dms:.4f}); cuBLAS "
-                  f"chain {lms:.3f} ms", flush=True)
-            del st, st0
-            torch.cuda.empty_cache()
+        for (ti, tj), trans, xv, rows, cols in cs.k11_tiles(head):
+            present = int((xv > 0).sum())
+            name = (f"tile ({ti}, {tj})" + (" transposed" if trans else "")
+                    + f" {rows.numel()} x {cols.numel()} (present "
+                    f"{present})")
+            bnd = cs.k11_bound(rows.numel(), cols.numel(), r, 2, True,
+                               present, tb=2)
+            for prec in ("float32", "bfloat16"):
+                st0 = rt.GloVe(**dict(cs.GLOVE_KW, rank=r, precision=prec),
+                               device=dev)._init_state(x4.shape[0])
+                st = glove.GloveState(*(t.clone() for t in st0))
+                fn = lambda: glove._glove_tile_cuda(  # noqa: E731
+                    st, rows, cols, xv, *hp, torch.bfloat16)
+                ms, dms = cs.time_ms(fn, reps), cs.graph_ms([fn], reps)
+                print(f"  K11 config #4 {name} r={r} {prec} state: "
+                      f"{ms:.4f} ms (device {dms:.4f}); bound {bnd[0]:.4f} "
+                      f"ms ({bnd[1]}); by launch: {launch_split(fn, reps)}",
+                      flush=True)
+                lib = (cs._tile_cublas_bf16 if prec == "bfloat16"
+                       else cs._tile_cublas)
+                lms = cs.time_ms(lambda: lib(st, rows, cols, xv, *hp), reps)
+                print(f"  K11 config #4 {name} r={r} {prec} state: cuBLAS "
+                      f"chain {lms:.3f} ms", flush=True)
+                del st, st0
+                torch.cuda.empty_cache()
 
 
 def k11_f32_times(dev, reps):
@@ -878,7 +953,7 @@ TIMERS = {"k1": k1_times, "k8": k8_times, "k3": k3_times,
           "k2-wide-buckets": lambda dev, reps: k2_wide_times(dev, reps, False),
           "k11-wide": k11_wide_times, "k9-bf16": k9_bf16_times,
           "k10-bf16": k10_bf16_times, "k11-bf16": k11_bf16_times,
-          "k11-f32": k11_f32_times}
+          "k11-f32": k11_f32_times, "k11-walk": k11_walk_times}
 
 
 def main() -> int:

@@ -258,10 +258,11 @@ def lib() -> ctypes.CDLL:
     so.rsp_rankmf_group_ints.restype = ctypes.c_longlong
     # rows, cols, vals, slot_r, slot_c, feats_r, feats_c, order_r, order_c,
     # bounds_r, bounds_c, N, U_r, U_c, r, w_i, w_j, b_i, b_j, acc_w_i,
-    # acc_w_j, acc_b_i, acc_b_j, x_max, alpha, lr, bf16, ordered, scratch,
+    # acc_w_j, acc_b_i, acc_b_j, x_max, alpha, lr, bf16, ordered, the work
+    # lists (items_r, n_items_r, multi_r, n_multi_r, the same _c), scratch,
     # loss, stream
     so.rsp_glove_shard.argtypes = [p] * 11 + [i] * 4 + [p] * 8 + [f] * 3 + [
-        i, i, p, p, p]
+        i, i] + [p, i] * 4 + [p, p, p]
     so.rsp_glove_shard.restype = i
     # r -> the instance width of K10 / K11 that takes it (0: none)
     so.rsp_glove_shard_width.argtypes = [i]
@@ -272,8 +273,8 @@ def lib() -> ctypes.CDLL:
     # N, U_r, U_c, r, bf16 -> floats of scratch
     so.rsp_glove_shard_scratch.argtypes = [i, i, i, i, i]
     so.rsp_glove_shard_scratch.restype = ll
-    # n_r, n_c, r, bf16 -> floats of scratch
-    so.rsp_glove_tile_scratch.argtypes = [i, i, i, i]
+    # n_r, n_c, r, bf16, state_bf16 -> floats of scratch
+    so.rsp_glove_tile_scratch.argtypes = [i, i, i, i, i]
     so.rsp_glove_tile_scratch.restype = ll
     # rows, cols, n_r, n_c, X, row stride, col stride, bf16, state_bf16,
     # the 8 tables, r, x_max, alpha, lr, scratch, loss, S of both sides (or

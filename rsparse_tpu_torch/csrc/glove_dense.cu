@@ -123,21 +123,26 @@
 // and the other warpgroup's wgmma fills it.
 
 // The bf16-state instance (state_bf16 != 0, GloVe(precision="bfloat16"),
-// which runs the bf16 head): the eight tables are bf16 and read directly
-// (the gather launch widens nothing), the weight table holds
-// (bf16(pow(bf16(x / x_max), alpha)), bf16(log x)) as the reference forms
-// them at bf16, and a cell's S is the bf16 rounding of the exact sum
-// w_own . w_oth (the midpoint test above, taken on S itself with the sum's
-// error bound, the flagged cells summed again in float64 and rounded once),
-// then + b_i, + b_j and - log x each rounded before the clip, as the
-// reference's bf16 ops are (rsparse_tpu/models/glove.py:230-241); cost and
-// cost^2 as before, the loss terms cost S rounded before their sum.
-// Launch B rounds each product and sum to bf16 and takes the step op by op
-// (acc + s2, -lr s1, sqrt, the quotient, the add, each rounded).  The
-// reference's two sums over a tile's cells with dtype=bf16 (the biases'
-// sum cost and sum cost^2) accumulate at bf16 in XLA's own order; K11 and
-// its plain version round their f32 sums once (ROADMAP.md lists the
-// difference).
+// which runs the bf16 head) walks only the present cells at both widths
+// (glove_tile_walk_bf16 below: the f32 head's steps and compaction, S and
+// the products of each step's slots on mma.sync; it replaced the two
+// dense routes' bf16-state instances, which it beat on config #4's
+// densest, transposed and last tiles at r = 128 and 300, kernel_times.py
+// k11-bf16).
+// The eight tables are bf16 and read directly (the gather launch widens
+// nothing), the weight table holds (bf16(pow(bf16(x / x_max), alpha)),
+// bf16(log x)) as the reference forms them at bf16, and a cell's S is the
+// bf16 rounding of the exact sum w_own . w_oth (a midpoint test on S with
+// the sum's error bound, the flagged cells summed again in float64 and
+// rounded once), then + b_i, + b_j and - log x each rounded before the
+// clip, as the reference's bf16 ops are (rsparse_tpu/models/glove.py:
+// 230-241); cost and cost^2 at bf16, the loss terms cost S rounded before
+// their sum.  Launch B rounds each product and sum to bf16 and takes the
+// step op by op (acc + s2, -lr s1, sqrt, the quotient, the add, each
+// rounded).  The reference's two sums over a tile's cells with dtype=bf16
+// (the biases' sum cost and sum cost^2) accumulate at bf16 in XLA's own
+// order; K11 and its plain version round their f32 sums once (ROADMAP.md
+// lists the difference).
 
 #include <cuda.h>
 #include <type_traits>
@@ -516,7 +521,8 @@ constexpr int kLut = 1 << 15;
 // The tile's factor rows at bf16 for the tensor cores, both sides: rows
 // side then columns side, MR columns each (0 past r), w and bf16(w^2),
 // one warp a position; the biases and the rows' norms |bf16(w)|_2 f32, the
-// columns side's from offset round4(n_r).  Threads below kLut also fill
+// columns side's from offset round4(n_r).  (gw2, gsn and lut64 may be
+// null: the bf16-state walk reads none of them.)  Threads below kLut also fill
 // the weight table of the bf16 counts: for the count with bits b << 16,
 // (bf16(weight), log x) as the plain version computes them (logf, powf),
 // so that the sums kernel reads them instead of evaluating both in every
@@ -539,7 +545,7 @@ __global__ void glove_tile_gather(const int* __restrict__ rows,
                                   __nv_bfloat16* gsn, float2* lut,
                                   double* lut64) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < kLut) {
+  if (idx < kLut && lut != nullptr) {
     const float x = __uint_as_float((unsigned)idx << 16);
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       // at bf16 state every op of the weight and the log rounds
@@ -553,7 +559,7 @@ __global__ void glove_tile_gather(const int* __restrict__ rows,
           x > 0.f ? (x < x_max ? powf(x / x_max, alpha) : 1.f) : 0.f;
       lut[idx] = make_float2(rsp::rbf(w), logf(x > 0.f ? x : 1.f));
     }
-    lut64[idx] = log(x > 0.f ? (double)x : 1.0);
+    if (lut64 != nullptr) lut64[idx] = log(x > 0.f ? (double)x : 1.0);
   }
   const int p = (int)(idx >> 5), lane = threadIdx.x & 31;
   if (p >= n_r + n_c) return;  // the same for the whole warp
@@ -568,7 +574,7 @@ __global__ void glove_tile_gather(const int* __restrict__ rows,
     const int k = lane + 32 * m;
     const float v = k < r ? rsp::rbf(ldt(W + k)) : 0.f;
     gw[(size_t)p * MR + k] = __float2bfloat16_rn(v);
-    gw2[(size_t)p * MR + k] = __float2bfloat16_rn(v * v);
+    if (gw2 != nullptr) gw2[(size_t)p * MR + k] = __float2bfloat16_rn(v * v);
     ss += v * v;
     if constexpr (MR > kMaxR) {
       // the norms of the row's k16 slices 2m (lanes 0-15) and 2m + 1,
@@ -576,7 +582,7 @@ __global__ void glove_tile_gather(const int* __restrict__ rows,
       float q = v * v;
 #pragma unroll
       for (int h = 8; h > 0; h >>= 1) q += __shfl_xor_sync(RSP_FULL_MASK, q, h);
-      if ((lane & 15) == 0)
+      if ((lane & 15) == 0 && gsn != nullptr)
         gsn[(size_t)o * (MR / 16) + 2 * m + (lane >> 4)] =
             __float2bfloat16_ru(sqrtf(q) * (1.f + 0x1p-18f));
     }
@@ -616,14 +622,6 @@ __device__ __forceinline__ bool near_midpoint(float sv, float s, float b_row,
   return within_of_midpoint(sv, bound);
 }
 
-// At bf16 state: whether S itself (the tensor core's float32 sum of
-// `slices` k16 slices) may round to the other bf16 neighbour than the exact
-// sum does (the sum's part of near_midpoint's bound).
-__device__ __forceinline__ bool near_midpoint_dot(float s, float na, float nb,
-                                                  float slices) {
-  return within_of_midpoint(s, 0x1p-21f * slices * na * nb);
-}
-
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
          ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
@@ -641,7 +639,7 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // cp.async into two buffers; counts are staged as lines along whichever
 // side is contiguous in X (the row side's lines are X's rows; the column
 // side reads the same rows and indexes them transposed).
-template <int MR, bool BS>
+template <int MR>
 __global__ void __launch_bounds__(MmaShape<MR>::kThreads, 2)
     glove_tile_sums_mma(int n_r, int n_c, const void* __restrict__ X,
                         long long sr, long long sc,
@@ -842,22 +840,16 @@ __global__ void __launch_bounds__(MmaShape<MR>::kThreads, 2)
                         << 16)
                   : 0.f;
           if (x > 0.f) {  // (absent cells, most of a sparse tile, skip)
-            bool near;
-            if constexpr (BS) {
-              near = near_midpoint_dot(s[n][q], sm.n_own[pr],
-                                       sm.n_oth[buf][qr], slices);
-            } else {
-              const float b_row = side ? sm.b_oth[buf][qr] : sm.b_own[pr];
-              const float b_col = side ? sm.b_own[pr] : sm.b_oth[buf][qr];
-              // log x by the fast intrinsic, its error (at most 2^-21 (1 +
-              // |log x|)) added to the test's bound: no global memory here
-              const float lx = __logf(x);
-              const float sv =
-                  fminf(fmaxf(s[n][q] + b_row + b_col - lx, -kClip), kClip);
-              near = near_midpoint(sv, s[n][q], b_row, b_col, lx,
-                                   sm.n_own[pr], sm.n_oth[buf][qr], slices);
-            }
-            if (near) near_mask |= 1u << (4 * n + q);
+            const float b_row = side ? sm.b_oth[buf][qr] : sm.b_own[pr];
+            const float b_col = side ? sm.b_own[pr] : sm.b_oth[buf][qr];
+            // log x by the fast intrinsic, its error (at most 2^-21 (1 +
+            // |log x|)) added to the test's bound: no global memory here
+            const float lx = __logf(x);
+            const float sv =
+                fminf(fmaxf(s[n][q] + b_row + b_col - lx, -kClip), kClip);
+            if (near_midpoint(sv, s[n][q], b_row, b_col, lx, sm.n_own[pr],
+                              sm.n_oth[buf][qr], slices))
+              near_mask |= 1u << (4 * n + q);
           }
         }
       }
@@ -933,41 +925,24 @@ __global__ void __launch_bounds__(MmaShape<MR>::kThreads, 2)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const bool present = __uint_as_float(xb[q] << 16) > 0.f;
-          float sv, svb;
-          if constexpr (BS) {  // bf16(S), then each op rounded
-            float sd = rsp::rbf(s[n][q]);
-            if ((fixed >> (4 * n + q)) & 1u) {  // the next queued exact S
-              sd = __bfloat162float(__double2bfloat16(fs0));
-              fs0 = fs1;
-              fs1 = fs2;
-              fs2 = fs3;
-            }
-            svb = fminf(fmaxf(rsp::rbf(rsp::rbf(rsp::rbf(sd + b_row[q]) +
-                                                b_col[q]) -
-                                       wl[q].y),
-                              -kClip),
-                        kClip);
-            sv = svb;
-          } else {
-            sv = fminf(fmaxf(s[n][q] + b_row[q] + b_col[q] - wl[q].y,
-                             -kClip),
-                       kClip);
-            svb = rsp::rbf(sv);
-            if ((fixed >> (4 * n + q)) & 1u) {  // the next queued exact S
-              const double v = fmin(
-                  fmax(fs0 + (double)b_row[q] + (double)b_col[q] - lx64[q],
-                       -(double)kClip),
-                  (double)kClip);
-              svb = __bfloat162float(__double2bfloat16(v));  // rounded once
-              sv = (float)v;
-              fs0 = fs1;
-              fs1 = fs2;
-              fs2 = fs3;
-            }
+          float sv = fminf(fmaxf(s[n][q] + b_row[q] + b_col[q] - wl[q].y,
+                                 -kClip),
+                           kClip);
+          float svb = rsp::rbf(sv);
+          if ((fixed >> (4 * n + q)) & 1u) {  // the next queued exact S
+            const double v = fmin(
+                fmax(fs0 + (double)b_row[q] + (double)b_col[q] - lx64[q],
+                     -(double)kClip),
+                (double)kClip);
+            svb = __bfloat162float(__double2bfloat16(v));  // rounded once
+            sv = (float)v;
+            fs0 = fs1;
+            fs1 = fs2;
+            fs2 = fs3;
           }
           const float cost = present ? rsp::rbf(wl[q].x * svb) : 0.f;
           const float c2 = rsp::rbf(cost * cost);
-          sl += BS ? rsp::rbf(cost * sv) : cost * sv;
+          sl += cost * sv;
           if (s_dump != nullptr && present) {
             const int i = side ? q0 + qr[q] : own0 + pr[q];
             const int j = side ? own0 + pr[q] : q0 + qr[q];
@@ -1055,6 +1030,563 @@ __global__ void __launch_bounds__(MmaShape<MR>::kThreads, 2)
     const float l = rsp::block_sum(lsum, sm.red);
     if (tid == 0) lpart[blockIdx.x * chunks + chunk] = l;
   }
+}
+
+// ---- the bf16-state head over the present cells ----------------------------
+
+// Launch A of the bf16-state head (state_bf16 != 0) at instance width MR
+// (both widths): the f32 walk's steps over the tile's present cells
+// (glove_tile_sums above) on the gather launch's bf16 rows.  Per step the
+// 32 x 64 count block is staged as count lines along X's unit stride (16-
+// byte granules from the aligned address below each line, as the mma path
+// stages them) and compacted by ballots own-major, other positions rising;
+// only the other rows (MR bf16, zero past r), biases and norms that a
+// present cell needs are staged by cp.async into one of two buffers, and a
+// step without a present cell stages and computes nothing.  S for the
+// step's 32 own lines x its slots on the tensor cores (mma.m16n8k16, each
+// k16 slice into fresh fragments added in float32, the mma path's S), then
+// the present cells a warp 32 at a time: a cell whose float32 S lies
+// within the sum's error bound ((2^-21 + ceil(r / 16) 2^-24) |w_own|
+// |w_oth|) of a bf16 rounding midpoint is summed again in float64 by the
+// whole warp, so S is the exactly rounded bf16 of w_own . w_oth; then + b_i,
+// + b_j and - log x each rounded, the clip, cost = bf16(bf16(weight) sv)
+// and the loss term bf16(cost sv) from the gather's table of (bf16(weight),
+// bf16(log x)).  The step's costs and bf16(cost^2) are then scattered into
+// a 32 x 64 block over the step's slots (zero where absent; the lines'
+// sums of cost and cost^2 taken on the way), the needed rows' bf16(w^2)
+// formed once, and the products cost w_oth and cost^2 w_oth^2 run on the
+// tensor cores over the slots alone (the mma path's fragments: a warp 16
+// own lines x MR / 4 components, a step's k16 slices into fresh fragments
+// added in float32); a chunk writes its partials once, for launch B
+// (unchanged).  No atomics: a fixed order everywhere.  So a step's work
+// follows its slots and present cells, not the 32 x 64 block.  Shared
+// memory 105 KB a CTA at r <= 128 (two an SM), 191 KB at 320 (one).
+template <int MR>
+struct WalkSmem {
+  static constexpr int kLd = MR + 8;  // bf16 a staged row: 16 bytes past a
+                                      // multiple of 128 bytes
+  static constexpr int kLdC = kN + 8;  // bf16 a row of the step's cost block
+  __nv_bfloat16 own[kO * kLd];
+  __nv_bfloat16 oth[2][kN * kLd];     // the needed other rows, by slot; the
+                                      // free one takes a step's count lines
+  __nv_bfloat16 oth2[kN * kLd];       // the step's bf16(w_oth^2), by slot
+  __nv_bfloat16 cst[2][kO * kLdC];    // the step's cost and bf16(cost^2),
+                                      // own line x slot (0 where absent)
+  float sblk[kO * (kN + 4)];          // the step's S, own line x slot
+  float val[2][kCells];               // present cells, own-major: x, then cost
+  unsigned char slot[2][kCells];
+  unsigned char line[2][kCells];      // a cell's own line
+  unsigned char slot_pos[2][kN];
+  short row0[2][kO + 1];
+  float b_own[kO], n_own[kO];
+  float b_oth[2][kN], n_oth[2][kN];
+  int coff[kN];                       // a count line's offset in its granule
+  int rowcnt[kO];
+  unsigned need[kThreads / 32][2];
+  float red[32];
+};
+static_assert((size_t)kN * WalkSmem<kMaxR>::kLd * 2 >= (size_t)kN * kCntLine,
+              "a step's count lines fit a row buffer");
+static_assert(sizeof(WalkSmem<kMaxR>) <= 232448 / 2 - 1024,
+              "two CTAs of the bf16-state walk an SM at r <= 128");
+static_assert(sizeof(WalkSmem<kMaxRWide>) <= 232448,
+              "one CTA's shared memory");
+
+__device__ __forceinline__ float bf_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// RSP_K11_WALK_CLOCKS (a timing build, kernel_times.py k11-walk): thread
+// 0 of CTA (0, 0, 0) sums the clock cycles of each phase of its steps,
+// and the CTA counts its present cells and those it summed again in
+// float64; they overwrite part[0..9].
+#ifdef RSP_K11_WALK_CLOCKS
+#define RSP_WALK_CLK(i)                                                 \
+  do {                                                                  \
+    if (clk_on) {                                                       \
+      const long long c_ = clock64();                                   \
+      wclk[i] += c_ - wclk_t;                                           \
+      wclk_t = c_;                                                      \
+    }                                                                   \
+  } while (0)
+#else
+#define RSP_WALK_CLK(i) \
+  do {                  \
+  } while (0)
+#endif
+
+template <int MR>
+__global__ void __launch_bounds__(kThreads, MR <= kMaxR ? 2 : 1)
+    glove_tile_walk_bf16(int n_r, int n_c, const __nv_bfloat16* __restrict__ X,
+                         long long sr, long long sc,
+                         const __nv_bfloat16* __restrict__ gw,
+                         const float* __restrict__ gb,
+                         const float* __restrict__ gn,
+                         const float2* __restrict__ lut, int r, int chunks,
+                         float* __restrict__ part, float* __restrict__ lpart) {
+  extern __shared__ __align__(16) unsigned char smem_walk[];
+  WalkSmem<MR>& sm = *reinterpret_cast<WalkSmem<MR>*>(smem_walk);
+  constexpr int kLd = WalkSmem<MR>::kLd, kLdC = WalkSmem<MR>::kLdC,
+                kGran = MR / 8;
+  const int side = blockIdx.z;
+  const int n_own = side ? n_c : n_r, n_oth = side ? n_r : n_c;
+  const int own0 = blockIdx.x * kO;
+  if (own0 >= n_own) return;  // the same for the whole CTA
+  const int chunk = blockIdx.y;
+  const int steps = (n_oth + kN - 1) / kN;
+  const int s0 = (int)((long long)chunk * steps / chunks);
+  const int s1 = (int)((long long)(chunk + 1) * steps / chunks);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_own_blk = n_own - own0 < kO ? n_own - own0 : kO;
+  const int rb = (n_r + 3) & ~3;
+  const __nv_bfloat16* W_own = gw + (size_t)(side ? n_r : 0) * MR;
+  const __nv_bfloat16* W_oth = gw + (size_t)(side ? 0 : n_r) * MR;
+  const float* B_own = gb + (side ? rb : 0);
+  const float* B_oth = gb + (side ? 0 : rb);
+  const float* N_own = gn + (side ? rb : 0);
+  const float* N_oth = gn + (side ? 0 : rb);
+  const long long s_own = side ? sc : sr, s_oth = side ? sr : sc;
+  const bool lines_own = s_oth == 1;  // count lines run along the other side
+  const int n8 = (r + 7) / 8;         // 8-component granules of a row
+  const int kr = (r + 15) / 16;       // k16 slices of S
+  // S's error bound over |w_own| |w_oth|: the tensor core's error on a k16
+  // slice is at most 2^-21 of its sum of |products| and the kr slices'
+  // float32 adds at most kr 2^-24 of theirs, both under the rows' norms
+  // by Cauchy-Schwarz (near_midpoint_slices' argument); 0.1% for the
+  // norms' own rounding
+  const float bound_k = (0x1p-21f + (float)kr * 0x1p-24f) * 1.001f;
+
+  // A step's count lines into buf: own lines along the other side, or
+  // other lines along the own side.
+  auto load_counts = [&](int step, unsigned char* buf) {
+    const int oth0 = step * kN;
+    const int n_oth_blk = n_oth - oth0 < kN ? n_oth - oth0 : kN;
+    const int n_lines = lines_own ? n_own_blk : n_oth_blk;
+    const int len = lines_own ? n_oth_blk : n_own_blk;
+    for (int e = tid; e < kN * 9; e += kThreads) {
+      const int line = e / 9, q = e - line * 9;
+      if (line >= n_lines) continue;
+      const long long el = lines_own
+                               ? (long long)(own0 + line) * s_own + oth0
+                               : (long long)(oth0 + line) * s_oth + own0;
+      const size_t a = reinterpret_cast<size_t>(X) + 2 * (size_t)el;
+      const int off = (int)(a & 15);
+      if (q == 0) sm.coff[line] = off;
+      if (q < ((off + 2 * len + 15) >> 4))
+        rsp::cp_async16(buf + line * kCntLine + 16 * q,
+                        reinterpret_cast<const void*>((a & ~(size_t)15) +
+                                                      16 * q),
+                        16);
+    }
+  };
+  // the count's bits at own line m, other position n of the step (0
+  // outside the tile)
+  auto bits_at = [&](const unsigned char* buf, int m, int n, int oth0) {
+    if (m >= n_own_blk || oth0 + n >= n_oth) return 0u;
+    const int line = lines_own ? m : n, el = lines_own ? n : m;
+    return (unsigned)*reinterpret_cast<const unsigned short*>(
+        buf + line * kCntLine + sm.coff[line] + 2 * el);
+  };
+  // the f32 walk's compact(): the step's present cells own-major, other
+  // positions rising, a slot for each needed other position; returns the
+  // slots.  One barrier inside; the caller synchronises before and after.
+  auto compact = [&](const unsigned char* buf, int bb, int oth0) {
+    unsigned lo[4], hi[4], xl[4], xh[4], nlo = 0, nhi = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = 4 * warp + i;
+      xl[i] = bits_at(buf, m, lane, oth0);
+      xh[i] = bits_at(buf, m, lane + 32, oth0);
+      lo[i] = __ballot_sync(RSP_FULL_MASK, bf_lo(xl[i]) > 0.f);
+      hi[i] = __ballot_sync(RSP_FULL_MASK, bf_lo(xh[i]) > 0.f);
+      nlo |= lo[i];
+      nhi |= hi[i];
+      if (lane == 0) sm.rowcnt[m] = __popc(lo[i]) + __popc(hi[i]);
+    }
+    if (lane == 0) {
+      sm.need[warp][0] = nlo;
+      sm.need[warp][1] = nhi;
+    }
+    __syncthreads();
+    nlo = nhi = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      nlo |= sm.need[w][0];
+      nhi |= sm.need[w][1];
+    }
+    const int c = sm.rowcnt[lane];  // kO == 32 lines: one a lane
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(RSP_FULL_MASK, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const unsigned lt = (1u << lane) - 1;
+    if (warp == 0) {
+      sm.row0[bb][lane + 1] = (short)incl;
+      if (lane == 0) sm.row0[bb][0] = 0;
+      if ((nlo >> lane) & 1)
+        sm.slot_pos[bb][__popc(nlo & lt)] = (unsigned char)lane;
+      if ((nhi >> lane) & 1)
+        sm.slot_pos[bb][__popc(nlo) + __popc(nhi & lt)] =
+            (unsigned char)(lane + 32);
+    }
+    const int slot_lo = __popc(nlo & lt);
+    const int slot_hi = __popc(nlo) + __popc(nhi & lt);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = 4 * warp + i;
+      const int base = __shfl_sync(RSP_FULL_MASK, incl - c, m);
+      if ((lo[i] >> lane) & 1) {
+        const int e = base + __popc(lo[i] & lt);
+        sm.val[bb][e] = bf_lo(xl[i]);
+        sm.slot[bb][e] = (unsigned char)slot_lo;
+        sm.line[bb][e] = (unsigned char)m;
+      }
+      if ((hi[i] >> lane) & 1) {
+        const int e = base + __popc(lo[i]) + __popc(hi[i] & lt);
+        sm.val[bb][e] = bf_lo(xh[i]);
+        sm.slot[bb][e] = (unsigned char)slot_hi;
+        sm.line[bb][e] = (unsigned char)m;
+      }
+    }
+    return __popc(nlo) + __popc(nhi);
+  };
+  // the needed other rows (their positions oth0 + slot_pos), biases and
+  // norms into buffer bb
+  auto stage_rows = [&](int bb, int oth0, int n_need) {
+    for (int q = tid; q < n_need * kGran; q += kThreads) {
+      const int s = q / kGran, g = q - s * kGran;
+      const int p = oth0 + sm.slot_pos[bb][s];
+      rsp::cp_async16(&sm.oth[bb][s * kLd + 8 * g],
+                      W_oth + (size_t)p * MR + 8 * g, 16);
+    }
+    for (int s = tid; s < n_need; s += kThreads) {
+      const int p = oth0 + sm.slot_pos[bb][s];
+      cp_async4(&sm.b_oth[bb][s], B_oth + p, 4);
+      cp_async4(&sm.n_oth[bb][s], N_oth + p, 4);
+    }
+  };
+
+  // the warp's products: own lines [16 mt, 16 mt + 16) x components
+  // [kNW c0, kNW c0 + kNW), kNW / 8 n8 tiles of fragments each
+  constexpr int kNW = MR / 4, kNT8 = kNW / 8;
+  const int mt = warp & 1, c0 = (warp >> 1) * kNW;
+  const int gq = lane >> 2, tig = lane & 3;
+  float G[kNT8][4], A2[kNT8][4];
+#pragma unroll
+  for (int n = 0; n < kNT8; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) G[n][q] = A2[n][q] = 0.f;
+  float rc[4] = {0.f, 0.f, 0.f, 0.f}, rc2[4] = {0.f, 0.f, 0.f, 0.f};
+  float lsum = 0.f;
+
+  for (int e = tid; e < kO * kGran; e += kThreads) {
+    const int m = e / kGran, q = e - m * kGran, p = own0 + m;
+    rsp::cp_async16(&sm.own[m * kLd + 8 * q],
+                    W_own + (size_t)(p < n_own ? p : 0) * MR + 8 * q,
+                    p < n_own ? 16 : 0);
+  }
+  if (tid < kO) {
+    const int p = own0 + tid;
+    cp_async4(&sm.b_own[tid], B_own + (p < n_own ? p : 0), p < n_own ? 4 : 0);
+    cp_async4(&sm.n_own[tid], N_own + (p < n_own ? p : 0), p < n_own ? 4 : 0);
+  }
+  auto cbuf = [&](int b) {
+    return reinterpret_cast<unsigned char*>(sm.oth[b]);
+  };
+  __shared__ int n_need_of[2];  // the slots staged in each buffer
+  if (s0 < s1) {
+    load_counts(s0, cbuf(1));
+    rsp::cp_async_commit();
+    rsp::cp_async_wait<0>();
+    __syncthreads();
+    const int n_need = compact(cbuf(1), 0, s0 * kN);
+    if (tid == 0) n_need_of[0] = n_need;
+    __syncthreads();
+    stage_rows(0, s0 * kN, n_need);
+    rsp::cp_async_commit();
+  }
+#ifdef RSP_K11_WALK_CLOCKS
+  const bool clk_on = tid == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&
+                      blockIdx.z == 0;
+  long long wclk[8] = {0, 0, 0, 0, 0, 0, 0, 0}, wclk_t = clock64();
+  float n_flag = 0.f, n_cell = 0.f;
+#endif
+  for (int step = s0; step < s1; ++step) {
+    const int bb = (step - s0) & 1, nb = bb ^ 1;
+    const bool next = step + 1 < s1;
+    rsp::cp_async_wait<0>();  // this step's rows (and the own rows)
+    __syncthreads();          // ... and the step before is done with nb
+    if (next) {
+      load_counts(step + 1, cbuf(nb));
+      rsp::cp_async_commit();
+    }
+    RSP_WALK_CLK(0);
+    // S, the cost and the loss term of each present cell, one a thread
+    const __nv_bfloat16* oth = sm.oth[bb];
+    const int n_cells = sm.row0[bb][kO];
+    const int n_slot = n_need_of[bb];
+    const int n16 = (n_slot + 15) & ~15;
+    // the step's S block on mma.m16n8k16: warp (mt, ng) 16 own lines x the
+    // slots [16 ng, 16 ng + 16), each k16 slice into fresh fragments added
+    // in float32 (the mma path's S)
+    const int ng = warp >> 1;
+    if (n_cells > 0 && 16 * ng < n16) {
+      float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int ks = 0; ks < kr; ++ks) {
+        unsigned a[4], bq[4];
+        rsp::ldsm_x4(a, &sm.own[(16 * mt + (lane & 15)) * kLd + 16 * ks +
+                                (lane >> 4) * 8]);
+        rsp::ldsm_x4(bq, &oth[(16 * ng + (lane & 7) + ((lane >> 4) << 3)) *
+                                  kLd +
+                              16 * ks + ((lane >> 3) & 1) * 8]);
+        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+        rsp::mma_bf16(t0, a, bq[0], bq[1]);
+        rsp::mma_bf16(t1, a, bq[2], bq[3]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          s0[q] += t0[q];
+          s1[q] += t1[q];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int m = 16 * mt + gq + 8 * (q >> 1);
+        const int c = 16 * ng + 2 * tig + (q & 1);
+        sm.sblk[m * (kN + 4) + c] = s0[q];
+        sm.sblk[m * (kN + 4) + c + 8] = s1[q];
+      }
+    }
+    __syncthreads();
+    RSP_WALK_CLK(1);
+    // the present cells, a warp 2 x 32 at a time (two cells a lane, for
+    // their loads' latency)
+    for (int base = 32 * warp; base < n_cells; base += 2 * kThreads) {
+      int e[2], m[2], s[2];
+      bool on[2];
+      float dot[2], sd[2];
+      float2 wl[2];
+      unsigned fl[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        e[h] = base + h * kThreads + lane;
+        on[h] = e[h] < n_cells;
+        m[h] = on[h] ? sm.line[bb][e[h]] : 0;
+        s[h] = on[h] ? sm.slot[bb][e[h]] : 0;
+        wl[h] = on[h] ? __ldg(&lut[__float_as_uint(sm.val[bb][e[h]]) >> 16])
+                      : make_float2(0.f, 0.f);
+        dot[h] = on[h] ? sm.sblk[m[h] * (kN + 4) + s[h]] : 0.f;
+        sd[h] = rsp::rbf(dot[h]);
+        // a cell whose float32 S may round to the other bf16 neighbour
+        // than the exact sum
+        fl[h] = __ballot_sync(
+            RSP_FULL_MASK,
+            on[h] && within_of_midpoint(dot[h], bound_k * sm.n_own[m[h]] *
+                                                    sm.n_oth[bb][s[h]]));
+#ifdef RSP_K11_WALK_CLOCKS
+        if (on[h]) n_cell += 1.f;
+        if (lane == 0) n_flag += (float)__popc(fl[h]);
+#endif
+      }
+      // the flagged cells summed again in float64, four a round: group g
+      // of eight lanes takes the g-th flagged cell, a lane the component
+      // pairs gl + 8 j in two sums, then a fixed tree over the group
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        while (fl[h] != 0u) {
+          const int grp = lane >> 3, gl = lane & 7;
+          unsigned f = fl[h];
+          for (int j = 0; j < grp && f != 0u; ++j) f &= f - 1;
+          const int L = f != 0u ? __ffs(f) - 1 : -1;
+          const int mL = __shfl_sync(RSP_FULL_MASK, m[h], L < 0 ? 0 : L);
+          const int sL = __shfl_sync(RSP_FULL_MASK, s[h], L < 0 ? 0 : L);
+          double x0 = 0.0, x1 = 0.0;
+          if (L >= 0) {
+            const unsigned* ow =
+                reinterpret_cast<const unsigned*>(sm.own + mL * kLd);
+            const unsigned* ot =
+                reinterpret_cast<const unsigned*>(oth + sL * kLd);
+            for (int j = gl; j < 4 * n8; j += 8) {
+              const unsigned u = ow[j], v = ot[j];
+              x0 += (double)(bf_lo(u) * bf_lo(v));
+              x1 += (double)(bf_hi(u) * bf_hi(v));
+            }
+          }
+          double x = x0 + x1;
+#pragma unroll
+          for (int o = 4; o > 0; o >>= 1)
+            x += __shfl_xor_sync(RSP_FULL_MASK, x, o);
+          // lane L takes its group's sum; the round's cells leave the mask
+          unsigned done = 0u;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            const int Lg = __shfl_sync(RSP_FULL_MASK, L, 8 * g);
+            const double xg = __shfl_sync(RSP_FULL_MASK, x, 8 * g);
+            if (Lg >= 0) {
+              done |= 1u << Lg;
+              if (lane == Lg) sd[h] = __bfloat162float(__double2bfloat16(xg));
+            }
+          }
+          fl[h] &= ~done;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (on[h]) {
+          // the reference adds the row's bias first: (S + b_i) + b_j
+          const float bo = sm.b_own[m[h]], bt = sm.b_oth[bb][s[h]];
+          const float b_row = side ? bt : bo, b_col = side ? bo : bt;
+          const float sv = fminf(
+              fmaxf(rsp::rbf(rsp::rbf(rsp::rbf(sd[h] + b_row) + b_col) -
+                             wl[h].y),
+                    -kClip),
+              kClip);
+          const float cost = rsp::rbf(wl[h].x * sv);
+          lsum += rsp::rbf(cost * sv);
+          sm.val[bb][e[h]] = cost;
+        }
+      }
+    }
+    RSP_WALK_CLK(2);
+    rsp::cp_async_wait<0>();  // the next step's counts
+    __syncthreads();
+    RSP_WALK_CLK(3);
+    if (next) {
+      const int n_need = compact(cbuf(nb), nb, (step + 1) * kN);
+      if (tid == 0) n_need_of[nb] = n_need;
+      __syncthreads();
+      stage_rows(nb, (step + 1) * kN, n_need);
+      rsp::cp_async_commit();
+    }
+    RSP_WALK_CLK(4);
+    // the cost block: each warp its lines warp + 8 i (zero, then the
+    // present cells' cost and bf16(cost^2) at their slots, the lines' sums
+    // of both on the way); the needed rows' bf16(w^2), and zero rows past
+    // the slots up to the k16 slice
+    __nv_bfloat16* C = sm.cst[0];
+    __nv_bfloat16* C2 = sm.cst[1];
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = warp + 8 * i;
+      C[m * kLdC + lane] = C[m * kLdC + lane + 32] = zero;
+      C2[m * kLdC + lane] = C2[m * kLdC + lane + 32] = zero;
+      __syncwarp();
+      float s1 = 0.f, s2 = 0.f;
+      const int e1 = sm.row0[bb][m + 1];
+      for (int e = sm.row0[bb][m] + lane; e < e1; e += 32) {
+        const float cv = sm.val[bb][e];
+        const float c2v = rsp::rbf(cv * cv);
+        C[m * kLdC + sm.slot[bb][e]] = __float2bfloat16_rn(cv);
+        C2[m * kLdC + sm.slot[bb][e]] = __float2bfloat16_rn(c2v);
+        s1 += cv;
+        s2 += c2v;
+      }
+      rc[i] += s1;  // a lane's share; the warp's tree at the end
+      rc2[i] += s2;
+    }
+    __nv_bfloat16* ob = sm.oth[bb];
+    for (int q = tid; q < n16 * kGran; q += kThreads) {
+      const int sl = q / kGran, gr = q - sl * kGran;
+      uint4* o = reinterpret_cast<uint4*>(ob + sl * kLd + 8 * gr);
+      uint4* o2 = reinterpret_cast<uint4*>(sm.oth2 + sl * kLd + 8 * gr);
+      if (sl < n_slot) {
+        const uint4 v = *o;
+        const unsigned w[4] = {v.x, v.y, v.z, v.w};
+        unsigned sq[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const float lo = bf_lo(w[h]), hi = bf_hi(w[h]);
+          const __nv_bfloat162 t = __floats2bfloat162_rn(lo * lo, hi * hi);
+          sq[h] = *reinterpret_cast<const unsigned*>(&t);
+        }
+        *o2 = make_uint4(sq[0], sq[1], sq[2], sq[3]);
+      } else {
+        *o = *o2 = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    RSP_WALK_CLK(5);
+    __syncthreads();
+    RSP_WALK_CLK(6);
+    // cost @ w_oth and cost^2 @ w_oth^2 over the step's slots: each step's
+    // k16 slices into fresh fragments, added to the sums in float32
+#pragma unroll
+    for (int cl = 0; cl < kNT8 / 2; ++cl) {
+      const int cp = c0 / 16 + cl;
+      if (16 * cp < r) {
+        float tg[2][4] = {}, ta[2][4] = {};
+        for (int kk = 0; kk < n16 / 16; ++kk) {
+          unsigned ca[4], c2a[4], bq[4];
+          const int ao = (16 * mt + (lane & 15)) * kLdC + 16 * kk +
+                         (lane >> 4) * 8;
+          rsp::ldsm_x4(ca, &C[ao]);
+          rsp::ldsm_x4(c2a, &C2[ao]);
+          const int o = (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
+                        16 * cp + (lane >> 4) * 8;
+          rsp::ldsm_x4_trans(bq, &ob[o]);
+          rsp::mma_bf16(tg[0], ca, bq[0], bq[1]);
+          rsp::mma_bf16(tg[1], ca, bq[2], bq[3]);
+          rsp::ldsm_x4_trans(bq, &sm.oth2[o]);
+          rsp::mma_bf16(ta[0], c2a, bq[0], bq[1]);
+          rsp::mma_bf16(ta[1], c2a, bq[2], bq[3]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          G[2 * cl][q] += tg[0][q];
+          G[2 * cl + 1][q] += tg[1][q];
+          A2[2 * cl][q] += ta[0][q];
+          A2[2 * cl + 1][q] += ta[1][q];
+        }
+      }
+    }
+    RSP_WALK_CLK(7);
+  }
+  rsp::cp_async_wait<0>();
+
+  const int width = 2 * r + 2;
+  float* P = part + (side ? (size_t)chunks * n_r * width : 0) +
+             (size_t)chunk * n_own * width;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = own0 + 16 * mt + gq + 8 * h;
+#pragma unroll
+    for (int n = 0; n < kNT8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = c0 + 8 * n + 2 * tig + e;
+        if (p < n_own && k < r) {
+          P[(size_t)p * width + k] = G[n][2 * h + e];
+          P[(size_t)p * width + r + k] = A2[n][2 * h + e];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = own0 + warp + 8 * i;
+    const float a1 = rsp::warp_sum(rc[i]), a2 = rsp::warp_sum(rc2[i]);
+    if (p < n_own && lane == 0) {
+      P[(size_t)p * width + 2 * r] = a1;
+      P[(size_t)p * width + 2 * r + 1] = a2;
+    }
+  }
+  if (side == 0) {
+    const float l = rsp::block_sum(lsum, sm.red);
+    if (tid == 0) lpart[blockIdx.x * chunks + chunk] = l;
+  }
+#ifdef RSP_K11_WALK_CLOCKS
+  const float nf = rsp::block_sum(n_flag, sm.red);
+  const float nc = rsp::block_sum(n_cell, sm.red);
+  if (clk_on) {
+    for (int q = 0; q < 8; ++q) part[q] = (float)wclk[q];
+    part[8] = nf;
+    part[9] = nc;
+  }
+#endif
 }
 
 // ---- the r = 320 head on wgmma -----------------------------------------------
@@ -1256,21 +1788,6 @@ __device__ __forceinline__ bool near_midpoint_slices(
   return within_of_midpoint(sv, bound);
 }
 
-// near_midpoint_dot with the slices' own magnitudes (bf16 state: the
-// bound of S alone).
-__device__ __forceinline__ bool near_midpoint_dot_slices(
-    float s, const __nv_bfloat16* an, const __nv_bfloat16* bn) {
-  float sigma = 0.f;
-#pragma unroll
-  for (int k = 0; k < kSlices; k += 2) {
-    const __nv_bfloat162 a2 = *reinterpret_cast<const __nv_bfloat162*>(an + k);
-    const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(bn + k);
-    sigma = fmaf(__low2float(a2), __low2float(b2), sigma);
-    sigma = fmaf(__high2float(a2), __high2float(b2), sigma);
-  }
-  return within_of_midpoint(s, 0x1p-19f * sigma * (1.f + 0x1p-18f));
-}
-
 // Byte offset of the 16-byte chunk c (8 components) of row `row` in a
 // swizzled tile of 64-row boxes.
 __device__ __forceinline__ int chunk_at(int row, int c) {
@@ -1307,7 +1824,6 @@ struct Item {
 // registers, B the staged rows read MN-major), a step into fresh
 // accumulators added in float32.  No atomics: a chunk writes its partial
 // sums once, launch B adds them in order.
-template <bool BS>
 __global__ void __launch_bounds__(wgk::kThreads, 1)
     glove_tile_sums_wg(const __grid_constant__ CUtensorMap tw_r,
                        const __grid_constant__ CUtensorMap tw_c,
@@ -1553,27 +2069,17 @@ __global__ void __launch_bounds__(wgk::kThreads, 1)
                           << 16)
                     : 0.f;
             if (x > 0.f) {
-              bool near;
-              if constexpr (BS) {  // S itself, by both bounds
-                near = near_midpoint_dot(s[4 * n + q], sm.n_own[pr],
-                                         sm.n_oth[slot][qr], slices) &&
-                       near_midpoint_dot_slices(
-                           s[4 * n + q], sm.sn_own + pr * kSlices,
-                           sm.sn_oth[slot] + qr * kSlices);
-              } else {
-                const float b_row = side ? sm.b_oth[slot][qr] : sm.b_own[pr];
-                const float b_col = side ? sm.b_own[pr] : sm.b_oth[slot][qr];
-                const float lx = __logf(x);
-                const float sv = fminf(
-                    fmaxf(s[4 * n + q] + b_row + b_col - lx, -kClip), kClip);
-                near = near_midpoint(sv, s[4 * n + q], b_row, b_col, lx,
-                                     sm.n_own[pr], sm.n_oth[slot][qr],
-                                     slices) &&
-                       near_midpoint_slices(sv, s[4 * n + q], b_row, b_col,
-                                            lx, sm.sn_own + pr * kSlices,
-                                            sm.sn_oth[slot] + qr * kSlices);
-              }
-              if (near) near_mask |= 1u << q;
+              const float b_row = side ? sm.b_oth[slot][qr] : sm.b_own[pr];
+              const float b_col = side ? sm.b_own[pr] : sm.b_oth[slot][qr];
+              const float lx = __logf(x);
+              const float sv = fminf(
+                  fmaxf(s[4 * n + q] + b_row + b_col - lx, -kClip), kClip);
+              if (near_midpoint(sv, s[4 * n + q], b_row, b_col, lx,
+                                sm.n_own[pr], sm.n_oth[slot][qr], slices) &&
+                  near_midpoint_slices(sv, s[4 * n + q], b_row, b_col, lx,
+                                       sm.sn_own + pr * kSlices,
+                                       sm.sn_oth[slot] + qr * kSlices))
+                near_mask |= 1u << q;
             }
           }
           const unsigned fixed = near_mask;
@@ -1650,40 +2156,23 @@ __global__ void __launch_bounds__(wgk::kThreads, 1)
               const float b_row = side ? sm.b_oth[slot][qr] : sm.b_own[pr];
               const float b_col = side ? sm.b_own[pr] : sm.b_oth[slot][qr];
               const float2 wl = __ldg(&lut[xb]);
-              float sv, svb;
-              if constexpr (BS) {  // bf16(S), then each op rounded
-                float sd = rsp::rbf(s[4 * n + q]);
-                if ((fixed >> q) & 1u) {  // the next queued exact S
-                  sd = __bfloat162float(__double2bfloat16(fs0));
-                  fs0 = fs1;
-                  fs1 = fs2;
-                  fs2 = fs3;
-                }
-                svb = fminf(
-                    fmaxf(rsp::rbf(rsp::rbf(rsp::rbf(sd + b_row) + b_col) -
-                                   wl.y),
-                          -kClip),
-                    kClip);
-                sv = svb;
-              } else {
-                sv = fminf(fmaxf(s[4 * n + q] + b_row + b_col - wl.y, -kClip),
-                           kClip);
-                svb = rsp::rbf(sv);
-                if ((fixed >> q) & 1u) {  // the next queued exact S
-                  const double v =
-                      fmin(fmax(fs0 + (double)b_row + (double)b_col -
-                                    __ldg(&lut64[xb]),
-                                -(double)kClip),
-                           (double)kClip);
-                  svb = __bfloat162float(__double2bfloat16(v));  // rounded once
-                  sv = (float)v;
-                  fs0 = fs1;
-                  fs1 = fs2;
-                  fs2 = fs3;
-                }
+              float sv = fminf(
+                  fmaxf(s[4 * n + q] + b_row + b_col - wl.y, -kClip), kClip);
+              float svb = rsp::rbf(sv);
+              if ((fixed >> q) & 1u) {  // the next queued exact S
+                const double v =
+                    fmin(fmax(fs0 + (double)b_row + (double)b_col -
+                                  __ldg(&lut64[xb]),
+                              -(double)kClip),
+                         (double)kClip);
+                svb = __bfloat162float(__double2bfloat16(v));  // rounded once
+                sv = (float)v;
+                fs0 = fs1;
+                fs1 = fs2;
+                fs2 = fs3;
               }
               cost = rsp::rbf(wl.x * svb);
-              sl += BS ? rsp::rbf(cost * sv) : cost * sv;
+              sl += cost * sv;
   #ifndef RSP_K11_CLOCKS
               if (s_dump != nullptr) {
                 const int ii = side ? q0 + qr : own0 + pr;
@@ -1921,12 +2410,13 @@ int n_sms() {
   return n_sm;
 }
 
-// Chunks of the other side per CTA row of the tensor-core path: the count
-// (at most 4: each adds a tile's worth of partial sums) with the fewest
-// waves x steps a chunk, at two CTAs an SM at r <= 128 and one at 320.
-int plan_chunks_mma(int n_r, int n_c, int r) {
+// Chunks of the other side per CTA row of the tensor-core path (own
+// blocks of kMO positions) and of the bf16-state walk (kO): the count (at
+// most 4: each adds a tile's worth of partial sums) with the fewest waves
+// x steps a chunk, at two CTAs an SM at r <= 128 and one at 320.
+int plan_chunks_mma(int n_r, int n_c, int r, int own = kMO) {
   const int n = n_r > n_c ? n_r : n_c;
-  const int own_blocks = (n + kMO - 1) / kMO, steps = (n + kMN - 1) / kMN;
+  const int own_blocks = (n + own - 1) / own, steps = (n + kMN - 1) / kMN;
   const int slots = (r <= kMaxR ? 2 : 1) * n_sms();
   int best = 1;
   long long best_t = -1;
@@ -2011,10 +2501,30 @@ MmaScratch mma_scratch(int n_r, int n_c, int r) {
   return m;
 }
 
+// Scratch floats of the bf16-state walk: partials, loss partials, then
+// (16-byte aligned) the gathered bf16 rows, the biases, the rows' norms
+// and the weight table.
+struct WalkScratch {
+  long long part, lpart, gw, gb, gn, lut, total;
+};
+WalkScratch walk_scratch(int n_r, int n_c, int r) {
+  const long long chunks = plan_chunks_mma(n_r, n_c, r, kO);
+  const long long mr = width_of(r);
+  WalkScratch m;
+  m.part = 0;
+  m.lpart = chunks * (n_r + n_c) * (2LL * r + 2);
+  m.gw = (m.lpart + chunks * ((n_r + kO - 1) / kO) + 3) & ~3LL;
+  m.gb = m.gw + (long long)(n_r + n_c) * mr / 2;
+  m.gn = m.gb + ((n_r + 3) & ~3) + ((n_c + 3) & ~3) + 4;
+  m.lut = m.gn + ((n_r + 3) & ~3) + ((n_c + 3) & ~3) + 4;
+  m.total = m.lut + 2LL * kLut;
+  return m;
+}
+
 // Launch A (and the gather of the bf16 path) of a tile at instance width
 // MR: sets chunks, n_lpart and lpart for launch B.
 // T: the state's table type (bf16: the bf16-state instance, BS below,
-// which takes the bf16 head only).
+// which takes the bf16 head only and runs the present-cell walk).
 template <int MR, typename T>
 int tile_sums(const int* rows, const int* cols, int n_r, int n_c,
               const void* X, long long sr, long long sc, int bf16,
@@ -2029,21 +2539,48 @@ int tile_sums(const int* rows, const int* cols, int n_r, int n_c,
     cudaError_t e = cudaFuncSetAttribute(
         glove_tile_sums<MR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)sizeof(Smem<MR>));
-    if constexpr (MR <= kMaxR) {
+    if constexpr (BS) {
       if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(glove_tile_sums_mma<MR, BS>,
+        e = cudaFuncSetAttribute(glove_tile_walk_bf16<MR>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)sizeof(WalkSmem<MR>));
+    } else if constexpr (MR <= kMaxR) {
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(glove_tile_sums_mma<MR>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)sizeof(MmaSmem<MR>));
     } else {
       if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(glove_tile_sums_wg<BS>,
+        e = cudaFuncSetAttribute(glove_tile_sums_wg,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  wgk::kSmemBytes);
     }
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
-  if (bf16) {
+  if constexpr (BS) {
+    const WalkScratch m = walk_scratch(n_r, n_c, r);
+    chunks = plan_chunks_mma(n_r, n_c, r, kO);
+    const int own_blocks = ((n_r > n_c ? n_r : n_c) + kO - 1) / kO;
+    n_lpart = chunks * ((n_r + kO - 1) / kO);
+    lpart = scratch + m.lpart;
+    auto* gw = reinterpret_cast<__nv_bfloat16*>(scratch + m.gw);
+    float* gb = scratch + m.gb;
+    float* gn = scratch + m.gn;
+    auto* lut = reinterpret_cast<float2*>(scratch + m.lut);
+    long long ng = 32LL * (n_r + n_c);
+    if (ng < kLut) ng = kLut;
+    glove_tile_gather<MR, T><<<(unsigned)((ng + 255) / 256), 256, 0, st>>>(
+        rows, cols, n_r, n_c, w_i, w_j, b_i, b_j, r, x_max, alpha, gw,
+        nullptr, gb, gn, nullptr, lut, nullptr);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    glove_tile_walk_bf16<MR><<<dim3(own_blocks, chunks, 2), kThreads,
+                               sizeof(WalkSmem<MR>), st>>>(
+        n_r, n_c, static_cast<const __nv_bfloat16*>(X), sr, sc, gw, gb, gn,
+        lut, r, chunks, scratch, lpart);
+    (void)s_dump;
+  } else if (bf16) {
     const MmaScratch m = mma_scratch(n_r, n_c, r);
     chunks = plan_chunks_mma(n_r, n_c, r);
     const int own_blocks = ((n_r > n_c ? n_r : n_c) + kMO - 1) / kMO;
@@ -2064,7 +2601,7 @@ int tile_sums(const int* rows, const int* cols, int n_r, int n_c,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     if constexpr (MR <= kMaxR) {
-      glove_tile_sums_mma<MR, BS><<<dim3(own_blocks, chunks, 2),
+      glove_tile_sums_mma<MR><<<dim3(own_blocks, chunks, 2),
                                 MmaShape<MR>::kThreads, sizeof(MmaSmem<MR>),
                                 st>>>(n_r, n_c, X, sr, sc, gw, gw2, gb, gn,
                                       lut, lut64, r, chunks, scratch, lpart,
@@ -2077,13 +2614,13 @@ int tile_sums(const int* rows, const int* cols, int n_r, int n_c,
       for (int q = 0; q < 4; ++q)
         if (int e = row_map(&maps[q], bases[q], q & 1 ? n_c : n_r)) return e;
       const int items = 2 * own_blocks * chunks;
-      glove_tile_sums_wg<BS><<<items < n_sms() ? items : n_sms(),
+      glove_tile_sums_wg<<<items < n_sms() ? items : n_sms(),
                                wgk::kThreads,
                            wgk::kSmemBytes, st>>>(
           maps[0], maps[1], maps[2], maps[3], n_r, n_c, X, sr, sc, gb, gn,
           gsn, lut, lut64, r, chunks, scratch, lpart, s_dump);
     }
-  } else if constexpr (!BS) {
+  } else {
     chunks = plan_chunks(n_r, n_c);
     const int own_blocks = ((n_r > n_c ? n_r : n_c) + kO - 1) / kO;
     n_lpart = chunks * ((n_r + kO - 1) / kO);
@@ -2094,8 +2631,6 @@ int tile_sums(const int* rows, const int* cols, int n_r, int n_c,
                           sizeof(Smem<MR>), st>>>(
         rows, cols, n_r, n_c, static_cast<const float*>(X), sr, sc, w_i, w_j,
         b_i, b_j, r, vec, x_max, alpha, chunks, scratch, lpart);
-  } else {
-    return (int)cudaErrorInvalidValue;  // bf16 state takes the bf16 head
   }
   return (int)cudaGetLastError();
 }
@@ -2134,7 +2669,8 @@ extern "C" int rsp_glove_tile_width(int r) { return width_of(r); }
 
 // Floats of scratch one tile needs (the wrapper allocates it uninitialised).
 extern "C" long long rsp_glove_tile_scratch(int n_r, int n_c, int r,
-                                            int bf16) {
+                                            int bf16, int state_bf16) {
+  if (state_bf16) return walk_scratch(n_r, n_c, r).total;
   if (bf16) return mma_scratch(n_r, n_c, r).total;
   const long long chunks = plan_chunks(n_r, n_c);
   return chunks * (n_r + n_c) * (2LL * r + 2) +
@@ -2145,13 +2681,14 @@ extern "C" long long rsp_glove_tile_scratch(int n_r, int n_c, int r,
 // tile's counts, element (a, b) at X[a sr + b sc] (f32, or bf16 when bf16
 // != 0, which also rounds the products' operands to bf16 and runs them on
 // the tensor cores; then sr or sc must be 1); the eight state tables f32,
-// or bf16 when state_bf16 != 0 (the bf16-state instance: bf16 != 0, and
-// x_max, alpha and lr bf16 values), updated in place; scratch of
-// rsp_glove_tile_scratch floats; loss (one float) receives the tile's
-// sum(cost * S).  s_dump, for checks only, is null or (2, n_r, n_c) floats
-// that receive, at the present cells, the bf16 value of clip(S + b_i + b_j
-// - log x) that each side of the bf16 path formed (the row side's [i, j],
-// the column side's [j, i]); then the state is left as it was.
+// or bf16 when state_bf16 != 0 (the bf16-state instance, the present-cell
+// walk: bf16 != 0, and x_max, alpha and lr bf16 values), updated in place;
+// scratch of rsp_glove_tile_scratch floats; loss (one float) receives the
+// tile's sum(cost * S).  s_dump, for checks only, is null or (2, n_r, n_c)
+// floats that receive, at the present cells, the bf16 value of clip(S +
+// b_i + b_j - log x) that each side of the bf16 head over float32 state
+// formed (the row side's [i, j], the column side's [j, i]); then the
+// state is left as it was.  The bf16-state walk takes none.
 extern "C" int rsp_glove_tile(const int* rows, const int* cols, int n_r,
                               int n_c, const void* X, long long sr,
                               long long sc, int bf16, int state_bf16,
@@ -2165,6 +2702,7 @@ extern "C" int rsp_glove_tile(const int* rows, const int* cols, int n_r,
   if (bf16 && sr != 1 && sc != 1) return (int)cudaErrorInvalidValue;
   if (s_dump != nullptr && !bf16) return (int)cudaErrorInvalidValue;
   if (state_bf16 && !bf16) return (int)cudaErrorInvalidValue;
+  if (s_dump != nullptr && state_bf16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   void* const tabs[8] = {w_i, w_j, b_i, b_j, acc_w_i, acc_w_j, acc_b_i,
                          acc_b_j};

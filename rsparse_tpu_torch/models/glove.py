@@ -96,8 +96,8 @@ from .. import _kernels
 from ..config import bf16_value as _bf16_value
 from ..config import logger, resolve_dtype, to_bf16
 from ..config import round_bf16 as _rb
-from ..ops.segsum import (ShardMaps, chunked_sums_bf16, ordered_add_,
-                          shard_slot_maps)
+from ..ops.segsum import (ShardMaps, WorkList, chunked_sums_bf16,
+                          ordered_add_, shard_slot_maps)
 from ..parallel import sgd_sharded as sgd
 
 CLIP_VALUE = 100.0
@@ -141,6 +141,11 @@ class Shard(NamedTuple):
     slot_c: torch.Tensor    # (N,) int32
     order_c: torch.Tensor   # (N,) int32
     bounds_c: torch.Tensor  # (U_c + 1,) int32
+    #: each side's work list of K10's bf16 instance (ops/segsum.py
+    #: WorkList), made with the slot maps; the float32 instance and the
+    #: plain versions do not read them
+    work_r: Optional[WorkList] = None
+    work_c: Optional[WorkList] = None
 
 
 class Shards(NamedTuple):
@@ -160,7 +165,8 @@ class Shards(NamedTuple):
 
     def shard(self, s: int) -> Shard:
         return Shard(self.rows[s], self.cols[s], self.vals[s],
-                     *self.maps_r.shard(s), *self.maps_c.shard(s))
+                     *self.maps_r.shard(s), *self.maps_c.shard(s),
+                     self.maps_r.work(s), self.maps_c.work(s))
 
     def swapped(self) -> "Shards":
         """The transposed triplets: roles, and with them the maps, swap."""
@@ -337,19 +343,32 @@ def _glove_shard_cuda(st: GloveState, sh: Shard, x_max: float, alpha: float,
     loss = torch.empty((), dtype=f32, device=dev)
     if N == 0:
         return loss.zero_().to(st.w_i.dtype)
+    work = []
+    if bf16:   # the reference's scalars at bf16; the work lists
+        x_max, alpha, lr = (_bf16_value(v) for v in (x_max, alpha, lr))
+        for name, wl in (("work_r", sh.work_r), ("work_c", sh.work_c)):
+            if wl is None:
+                raise ValueError(f"{name}: K10's bf16 instance takes the "
+                                 "shard's work lists (Shards.build)")
+            _kernels.check_tensor(name + ".items", wl.items,
+                                  (wl.items.shape[0], 4), i32)
+            _kernels.check_tensor(name + ".multi", wl.multi,
+                                  (wl.multi.shape[0], 2), i32)
+            work += [_kernels.ptr(wl.items), wl.items.shape[0],
+                     _kernels.ptr(wl.multi), wl.multi.shape[0]]
+    else:
+        work = [None, 0] * 4
     so = _kernels.lib()
     scratch = torch.empty((so.rsp_glove_shard_scratch(N, U_r, U_c, r,
                                                       int(bf16)),),
                           dtype=f32, device=dev)
-    if bf16:   # the reference's scalars at bf16
-        x_max, alpha, lr = (_bf16_value(v) for v in (x_max, alpha, lr))
     rc = so.rsp_glove_shard(
         *(_kernels.ptr(t) for t in (sh.rows, sh.cols, sh.vals, sh.slot_r,
                                     sh.slot_c, sh.feats_r, sh.feats_c,
                                     sh.order_r, sh.order_c, sh.bounds_r,
                                     sh.bounds_c)),
         N, U_r, U_c, r, *(_kernels.ptr(t) for t in st), x_max, alpha, lr,
-        int(bf16), int(bool(ordered)), _kernels.ptr(scratch),
+        int(bf16), int(bool(ordered)), *work, _kernels.ptr(scratch),
         _kernels.ptr(loss), _kernels.stream(dev))
     _kernels.check(rc, "glove")
     _kernels.launches[("glove_wide" if r > GLOVE_WIDTHS[0] else "glove")
@@ -489,11 +508,13 @@ def _glove_tile_plain_bf16(st: GloveState, rows, cols, x, x_max: float,
 def _glove_tile_cuda(st: GloveState, rows, cols, x, x_max: float,
                      alpha: float, lr: float, cdt: torch.dtype,
                      s_dump: Optional[torch.Tensor] = None):
-    """K11 on the card.  ``s_dump`` (checks only; bf16 head): a (2, n_r,
-    n_c) float32 CUDA tensor that receives, at the present cells, the bf16
-    value of clip(S + b_i + b_j - log x) that each side formed (the row
-    side's [i, j], the column side's [j, i]); the state is then left
-    unchanged and the loss unwritten."""
+    """K11 on the card (bf16 state: the present-cell walk,
+    ``glove_tile_walk_bf16``).  ``s_dump`` (checks only; the bf16 head over
+    float32 state: no check reads the bf16-state walk's S, and it takes
+    none): a (2, n_r, n_c) float32 CUDA tensor that receives, at the
+    present cells, the bf16 value of clip(S + b_i + b_j - log x) that each
+    side formed (the row side's [i, j], the column side's [j, i]); the
+    state is then left unchanged and the loss unwritten."""
     r = _check_state(st)
     n_r, n_c = rows.shape[0], cols.shape[0]
     f32 = torch.float32
@@ -518,9 +539,11 @@ def _glove_tile_cuda(st: GloveState, rows, cols, x, x_max: float,
     if bf16 and 1 not in x.stride():
         raise ValueError("x: the bf16 head takes a view with a unit stride")
     if s_dump is not None:
+        if state_bf16:
+            raise ValueError("s_dump: the bf16-state walk forms no S dump")
         _kernels.check_tensor("s_dump", s_dump, (2, n_r, n_c), f32)
-    scratch = torch.empty((so.rsp_glove_tile_scratch(n_r, n_c, r, bf16),),
-                          dtype=f32, device=dev)
+    scratch = torch.empty((so.rsp_glove_tile_scratch(
+        n_r, n_c, r, bf16, int(state_bf16)),), dtype=f32, device=dev)
     loss = torch.empty((), dtype=f32, device=dev)
     rc = so.rsp_glove_tile(
         _kernels.ptr(rows), _kernels.ptr(cols), n_r, n_c, _kernels.ptr(x),

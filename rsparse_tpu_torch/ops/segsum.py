@@ -118,6 +118,21 @@ def slot_map(col_idx: np.ndarray, nnz: np.ndarray):
             offs.astype(np.int32))
 
 
+class WorkList(NamedTuple):
+    """One side of one shard as K10's bf16 walk takes it
+    (:func:`k10_work_lists`): ``items[i] = (e0, e1, q, end)``, the entries
+    ``order[e0:e1]`` that one CTA walks, the chunk slot ``q`` its rounded
+    sums go to (-1: the item holds whole features, each stepped at once),
+    and ``end``, the end of the item's feature in ``order`` where the item
+    is a feature's first chunk (the ordered path walks the whole feature
+    from there), -1 for a later chunk, ``e1`` otherwise; ``multi[m] = (u,
+    q0)``, the slots of the features over several chunks and their first
+    chunk slot (launch F sums chunks q0, q0 + 1, ... in order)."""
+
+    items: torch.Tensor   # (n_items, 4) int32
+    multi: torch.Tensor   # (n_multi, 2) int32
+
+
 class ShardMaps(NamedTuple):
     """Slot maps of stacked (S, N) shards on one side (tensors on one
     device): shard s's distinct ids of its valid entries, sorted, are
@@ -125,19 +140,31 @@ class ShardMaps(NamedTuple):
     into them (their count at padding).  ``order[s]`` lists shard s's
     valid entries grouped by slot ascending, entry ascending within a slot
     (N past its valid entries), and slot u's entries are ``order[s, b[u]:
-    b[u + 1]]`` with ``b = bounds[offs[s] + s:offs[s + 1] + s + 1]``."""
+    b[u + 1]]`` with ``b = bounds[offs[s] + s:offs[s + 1] + s + 1]``.
+    ``items`` / ``multi`` hold every shard's :class:`WorkList`, shard s's
+    at ``item_offs[s]:item_offs[s + 1]`` / ``multi_offs``."""
 
     feats: torch.Tensor   # (sum of U_s,) int32
     slot: torch.Tensor    # (S, N) int32
     offs: Tuple[int, ...]
     order: torch.Tensor   # (S, N) int32
     bounds: torch.Tensor  # (sum of U_s + S,) int32
+    items: torch.Tensor   # (sum of n_items_s, 4) int32
+    item_offs: Tuple[int, ...]
+    multi: torch.Tensor   # (sum of n_multi_s, 2) int32
+    multi_offs: Tuple[int, ...]
 
     def shard(self, s: int):
         """(feats, slot, order, bounds) of shard s."""
         a, b = self.offs[s], self.offs[s + 1]
         return (self.feats[a:b], self.slot[s], self.order[s],
                 self.bounds[a + s:b + s + 1])
+
+    def work(self, s: int) -> WorkList:
+        """Shard s's :class:`WorkList`."""
+        return WorkList(
+            self.items[self.item_offs[s]:self.item_offs[s + 1]],
+            self.multi[self.multi_offs[s]:self.multi_offs[s + 1]])
 
 
 def shard_slot_maps(ids: torch.Tensor, valid: torch.Tensor) -> ShardMaps:
@@ -170,9 +197,87 @@ def shard_slot_maps(ids: torch.Tensor, valid: torch.Tensor) -> ShardMaps:
     bounds = torch.empty((offs[-1] + S,), dtype=torch.int64, device=dev)
     bounds[gid[start] + shard[start]] = rank[start]
     bounds[ends + torch.arange(S, device=dev)] = n_valid
+    items, item_offs, multi, multi_offs = k10_work_lists(bounds, offs, N)
     return ShardMaps((keys[start] & 0xFFFFFFFF).to(torch.int32),
                      slot.to(torch.int32), tuple(offs),
-                     order.to(torch.int32), bounds.to(torch.int32))
+                     order.to(torch.int32), bounds.to(torch.int32),
+                     items, item_offs, multi, multi_offs)
+
+
+#: entries a packed item of K10's bf16 walk holds at most: the features
+#: of at most this many entries that lie in one window of this many
+#: entries of a side's order go to one CTA (csrc/glove.cu kPack)
+K10_PACK = 32
+
+
+def k10_work_lists(bounds: torch.Tensor, offs, N: int):
+    """K10's bf16 work lists (:class:`WorkList`) of every shard of one side,
+    on ``bounds``' device, from the slot ranges alone: a feature of more
+    than ``SCHED_CHUNK`` entries gives one item a chunk of ``SCHED_CHUNK``
+    (its rounded chunk sums go to chunk slots, launch F adds them); a
+    feature of at most ``K10_PACK`` entries that lies inside one window of
+    ``K10_PACK`` entries of the order shares that window's item with the
+    others there; every other feature is an item of its own.  So no item
+    holds more than ``SCHED_CHUNK`` entries, none splits a chunk, and each
+    side's valid entries lie in exactly one item.  A shard's items are
+    sorted by the length of their longest feature, longest first (the
+    card starts the longest chains first), then by position.  Returns
+    (items, item_offs, multi, multi_offs)."""
+    dev = bounds.device
+    S = len(offs) - 1
+    counts = torch.tensor([offs[s + 1] - offs[s] for s in range(S)],
+                          dtype=torch.long, device=dev)
+    U = int(offs[-1])
+    shard = torch.repeat_interleave(torch.arange(S, device=dev), counts)
+    u_loc = torch.arange(U, device=dev) - torch.repeat_interleave(
+        torch.cumsum(counts, 0) - counts, counts)
+    g = torch.arange(U, device=dev) + shard
+    b = bounds.long()
+    st, en = b[g], b[g + 1]
+    n = en - st
+    win = st // K10_PACK
+    inside = (n <= K10_PACK) & ((en - 1) // K10_PACK == win)
+    big = n > SCHED_CHUNK
+    # packed items: the runs of inside features of one shard and window
+    same = lambda a, c: (a[1:] == a[:-1]) & (c[1:] == c[:-1])  # noqa: E731
+    key_same = same(shard, win) & inside[1:] & inside[:-1]
+    first = inside.clone()
+    first[1:] &= ~key_same
+    last = inside.clone()
+    last[:-1] &= ~key_same
+    pk = (shard[first], st[first], en[last], en[last] - st[first])
+    # features of their own: neither inside a window nor over chunks
+    own = ~inside & ~big
+    ow = (shard[own], st[own], en[own], n[own])
+    # chunks of the features over several
+    nc = (n[big] + SCHED_CHUNK - 1) // SCHED_CHUNK
+    shard_b = shard[big]
+    q0 = torch.cumsum(nc, 0) - nc
+    per = torch.zeros(S + 1, dtype=torch.long, device=dev)
+    per.index_add_(0, shard_b + 1, nc)
+    q0 = q0 - torch.cumsum(per, 0)[shard_b]   # slots count from 0 a shard
+    rep = lambda t: torch.repeat_interleave(t, nc)  # noqa: E731
+    c = torch.arange(int(nc.sum()), device=dev) - rep(torch.cumsum(nc, 0)
+                                                      - nc)
+    ce0 = rep(st[big]) + SCHED_CHUNK * c
+    ce1 = torch.minimum(ce0 + SCHED_CHUNK, rep(en[big]))
+    ck = (rep(shard_b), ce0, ce1, rep(n[big]))
+    cq = rep(q0) + c
+    cend = torch.where(c == 0, rep(en[big]), -1)
+    sh_i, e0, e1, ln = (torch.cat(t) for t in zip(pk, ow, ck))
+    neg = torch.full_like(pk[0], -1)
+    q = torch.cat([neg, torch.full_like(ow[0], -1), cq])
+    end = torch.cat([pk[2], ow[2], cend])
+    M = N + 1
+    key = (sh_i * M + (N - ln)) * M + e0
+    perm = torch.argsort(key)
+    items = torch.stack([e0, e1, q, end], 1)[perm].to(torch.int32)
+    n_items = torch.bincount(sh_i, minlength=S)
+    multi = torch.stack([u_loc[big], q0], 1).to(torch.int32)
+    n_multi = torch.bincount(shard_b, minlength=S)
+    cum = lambda t: (0,) + tuple(torch.cumsum(t, 0).tolist())  # noqa: E731
+    return (items.contiguous(), cum(n_items), multi.contiguous(),
+            cum(n_multi))
 
 
 def staged_glm_blocks(csr, dtype: torch.dtype,

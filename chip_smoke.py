@@ -149,26 +149,34 @@ line:
    ``recommend --limit 10`` against the in-process ``predict``; (c) a fit
    of 1 iteration with ``checkpoint_path``, resumed to 2, bitwise equal to
    2 iterations in one go.
-11. the wide widths (K1 and K2 above d = 160, K10 and K11 above r = 128,
-   each on its wide route, with its own row of the kernels line): (a) K1
-   and K2 against their plain versions at d = 161, 192, 256, 258, 512 and
-   514 (implicit; at 258 and 514 also a 1,024-column head, implicit and
-   explicit with presence bits, explicit with biases, and phase 9's
+11. the wide widths (K1, K2 and K4 above d = 160, K10 and K11 above r =
+   128, each on its wide route, with its own row of the kernels line): (a)
+   K1 and K2 against their plain versions at d = 161, 192, 256, 258, 512
+   and 514 (implicit; at 258 and 514 also a 1,024-column head, implicit
+   and explicit with presence bits, explicit with biases, and phase 9's
    reduced-precision variants), on buckets of 256 x 128 and 16 x 8,192,
-   with their launch plans and stage times; (b) K10 and K11 on config
+   with their launch plans and stage times; K4 (PR 22) the same on the
+   256 x 128 buckets at a sweep budget of ``WIDE_NNLS_BUDGET`` (y 1e-3 or
+   no further from the float64 twin than twice the plain version, the
+   loss 1e-5 against the plain loss of its own y), in slices of systems
+   and launched twice, bitwise; (b) K10 and K11 on config
    #4's first shard and tiles at r = 129, 256, 300 and 320 (at 300 as
    phase 8 (a): straight and swapped, twice for bitwise-equal tables, the
    edge and transposed tiles, bf16 and float32 counts, beside the cuBLAS
    chain); (c) ML-100k: WRMF rank 192 within 0.005 of the JAX package's
-   NDCG@10 / MAP@10 (``REF_WIDE``), the explicit Cholesky model with
+   NDCG@10 / MAP@10 (``REF_WIDE``), WRMF rank 192 with NNLS likewise
+   (every factor >= 0), the explicit Cholesky model with
    biases at d = 194 held to the RMSE gate, GloVe rank 300 (bf16 head)
    within 1e-3 of the JAX package's cost history; (d) full width: rank
    512 (f32, n_hot="auto", 2 iterations, transform of 65,536 users,
    predict of 4,096), rank 256 at the headline setting and config #2 (b)
-   at rank 256 (d = 258), each with stage walls, sweep ms, user-updates/s,
-   peak memory, loss per nnz and its kernels re-checked on the heaviest
-   buckets; config #4 GloVe at rank 300 (3 epochs: walls, triplets/s,
-   peak memory, both kernels re-checked on the fitted state), then phase
+   at rank 256 (d = 258), config #2 (c) (implicit NNLS, 1 iteration) at
+   rank 256 and at rank 512 with both biases (d = 514), on the first
+   users of ``WIDE_NNLS_USERS``, each with stage walls, sweep ms,
+   user-updates/s, peak memory, loss per nnz and its kernels re-checked
+   on the heaviest buckets (NNLS: factors >= 0); config #4 GloVe at rank
+   300 (3 epochs: walls, triplets/s, peak memory, both kernels re-checked
+   on the fitted state), then phase
    8's bf16-state checks and fit at rank 300 (the wide bf16 instances).
 12. WRMF on a mesh of processes (``rsparse_tpu_torch.parallel``) at phase
    4's settings (rank 128, 2 iterations of CG(3) on the ML-20M-shaped
@@ -503,13 +511,13 @@ def nnls_summary(sweeps, src) -> str:
 
 def _bucket_case(gen, device, B, L, d, H, *, explicit=False, biases=False,
                  bits=False, ugb=False, solver=None, n_src=32768,
-                 density=0.05):
+                 density=0.05, nnls_max_iter=None):
     """One bucket with its sweep terms, made on the card: source rows
     (n_src, d), cold entries (implicit confidences 1 + e^u; explicit
     integer ratings -2..2, many stored zeros), source biases, and a dense
     head of H columns, ``density`` of its cells present (explicit: with
     stored zeros, and presence bits when ``bits``; else no zero is stored
-    in the head)."""
+    in the head); ``nnls_max_iter`` sets the NNLS sweep budget."""
     import torch
     from rsparse_tpu_torch.ops import als
     from rsparse_tpu_torch.sparse.device import RowBucket
@@ -532,7 +540,9 @@ def _bucket_case(gen, device, B, L, d, H, *, explicit=False, biases=False,
     cfg = als.ALSConfig(solver=als.CONJUGATE_GRADIENT if solver is None
                         else solver, use_global_bias=ugb,
                         feedback="explicit" if explicit else "implicit",
-                        with_biases=biases, dynamic_lambda=explicit)
+                        with_biases=biases, dynamic_lambda=explicit,
+                        **({} if nnls_max_iter is None else
+                           dict(nnls_max_iter=nnls_max_iter)))
     g = 0.05 if (ugb or (biases and not explicit)) else 0.0
     lam = 1.0
     src_act, x_biases, XtX, rhs_init = als._sweep_prepare(src, lam, g, cfg,
@@ -715,27 +725,26 @@ def k1_tiles_or_walk(args, tag, hot_scale=None, y64=None) -> None:
         f"{als._cg_route(cargs)}) {dflt:.3f} ms")
 
 
-def check_nnls_slices(args, y, sweeps, tag) -> None:
+def check_nnls_slices(args, y, sweeps, tag, hot_scale=None) -> None:
     """K4 with its scratch cut into slices of a third of the bucket's
     systems, as a bucket larger than ``als.NNLS_SCRATCH_BYTES`` runs: the
     same factors and sweeps, bit for bit (each system is built and swept
     alone)."""
     import torch
-    from rsparse_tpu_torch import _kernels
     from rsparse_tpu_torch.ops import als
     per = -(-args[4].batch // 3)
-    stride = _kernels.lib().rsp_als_nnls_stride(args[0].shape[1])
+    stride, extra = als.nnls_scratch(args[0].shape[1], args[4].batch)
     sw = torch.zeros_like(sweeps)
     kept = als.NNLS_SCRATCH_BYTES
     try:
-        als.NNLS_SCRATCH_BYTES = 4 * stride * per
-        ys, _ = als.solve_bucket_nnls(*args, sweeps=sw)
+        als.NNLS_SCRATCH_BYTES = 4 * (stride * per + extra)
+        ys, _ = als.solve_bucket_nnls(*args, sweeps=sw, hot_scale=hot_scale)
     finally:
         als.NNLS_SCRATCH_BYTES = kept
     torch.cuda.synchronize()
     same = bool(torch.equal(ys, y) and torch.equal(sw, sweeps))
-    log(f"  K4 als_nnls {tag}: in slices of {per} systems, bitwise "
-        f"equal={same}")
+    log(f"  K4 als_nnls{'_wide' if args[0].shape[1] > als.WIDE_D else ''} "
+        f"{tag}: in slices of {per} systems, bitwise equal={same}")
     require(same, f"K4 {tag}: the sliced scratch changed the result")
 
 
@@ -4127,9 +4136,26 @@ WIDE_RS = (129, 256, 300, 320)
 #:   print(np.nanmean(r.ndcg_k(p.indices, te)), np.nanmean(r.ap_k(p.indices, te)))
 #:   g = r.GloVe(**dict(c.GLOVE_KW, rank=300))
 #:   g.fit_transform(c.ml100k_cooccurrence(x), n_iter=3); print(g.cost_history)"
+#: and (PR 22) WRMF rank 192 with the NNLS solver at WIDE_NNLS_ML100K's
+#: settings (the same split, seed and predict; held by
+#: tests/test_torch_k4_wide.py), made by
+#:   JAX_PLATFORMS=cpu python3 -c "import numpy as np, chip_smoke as c,
+#:   rsparse_tpu as r; x = r.load_movielens100k()
+#:   tr, te = r.train_test_split(x, 0.2, np.random.default_rng(0))
+#:   kw = c.WIDE_NNLS_ML100K; m = r.WRMF(seed=0, **kw['model'])
+#:   m.fit_transform(tr, n_iter=kw['n_iter'])
+#:   p = m.predict(tr, k=10, not_recommend=tr)
+#:   print(np.nanmean(r.ndcg_k(p.indices, te)), np.nanmean(r.ap_k(p.indices, te)))"
+#: (~30 s on the CPU: the JAX package sweeps a bucket until all of its
+#: systems stop, so the budget is small)
 REF_WIDE = {"wrmf_rank192": (0.16864202811174311, 0.2122274675577552),
             "glove_rank300": (0.5800940529263338, 0.1271744864574558,
-                              0.05637187870599677)}
+                              0.05637187870599677),
+            "wrmf_nnls_rank192": (0.10344388322998646, 0.11410046290278318)}
+#: phase 11 (c)'s NNLS model on ML-100k (d = 192: the wide K4)
+WIDE_NNLS_ML100K = dict(model=dict(rank=192, lambda_=1.0,
+                                   feedback="implicit", solver="nnls",
+                                   nnls_max_iter=10), n_iter=3)
 
 
 def check_wide_caps() -> None:
@@ -4152,14 +4178,51 @@ def check_wide_caps() -> None:
         a = _kernels.BucketArgs(B=1, L=1, d=d)
         require((lib.rsp_als_chol_wide_info(ctypes.byref(a), info) == 0)
                 == ok, f"K2's own check disagrees with MAX_D at d = {d}")
+    for d, ok in ((_kernels.MAX_D["als_nnls"], True),
+                  (_kernels.MAX_D["als_nnls"] + 1, False)):
+        require((lib.rsp_als_nnls_inflight(d) > 0) == ok,
+                f"K4's own check disagrees with MAX_D at d = {d}")
+    hold_nnls_mirror()
     for r in (1, 128, 129, 300, 320, 321):
         want = glove.glove_width(r) if r <= glove.MAX_RANK else 0
         got = (lib.rsp_glove_shard_width(r), lib.rsp_glove_tile_width(r))
         require(got == (want, want), f"K10 / K11 take r = {r} on {got}, the "
                 f"Python plan on {want}")
-    log(f"  caps: K1 and K2 d <= {_kernels.MAX_D['als_cg']}, K10 and K11 r "
-        f"<= {glove.MAX_RANK} (instances {glove.GLOVE_WIDTHS}), the "
+    log(f"  caps: K1, K2 and K4 d <= {_kernels.MAX_D['als_cg']}, K10 and "
+        f"K11 r <= {glove.MAX_RANK} (instances {glove.GLOVE_WIDTHS}), the "
         "library's checks agree")
+
+
+def hold_nnls_mirror() -> None:
+    """The wide K4's layout as ops/als.py mirrors it (``nnls_wide_layout``;
+    the CPU tests replay the mirror) against the library: at every width of
+    WIDE_DS, float32 and bf16 tables, the scratch floats a system
+    (``rsp_als_nnls_stride``), and the build's CTAs a system and shared
+    bytes, the row stride and the ring's bytes (``rsp_als_nnls_wide_info``)
+    must agree."""
+    import ctypes
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.ops import als
+    lib = _kernels.lib()
+    info = (ctypes.c_int * 8)()
+    seen = []
+    for d in WIDE_DS:
+        for tb in (4, 2):
+            L = als.nnls_wide_layout(d, tb)
+            a = _kernels.BucketArgs(B=1, L=1, d=d, table_bf16=int(tb == 2))
+            _kernels.check(lib.rsp_als_nnls_wide_info(ctypes.byref(a), info),
+                           "als_nnls")
+            got = (lib.rsp_als_nnls_stride(d), info[0], info[1], info[4],
+                   info[6], info[7], lib.rsp_als_nnls_extra(d, 1000))
+            want = (L["stride"], L["cluster"], L["smem_bytes"], L["ds"],
+                    L["ring_bytes"], L["sub"], L["sub"] * L["stride"])
+            require(got == want, f"ops/als.py's wide K4 layout disagrees with "
+                    f"the library at d = {d}, table bytes {tb}: (stride, "
+                    f"CTAs, bytes, ds, ring, sub-slice, its floats) {want} "
+                    f"against {got}")
+            seen.append(f"{d}/{tb} B: {info[0]} CTAs, {info[5]} warps an SM")
+    log("  K4 wide layout, ops/als.py's mirror held to the library: "
+        + "; ".join(seen))
 
 
 def check_wide_kernels(device, results) -> None:
@@ -4209,14 +4272,153 @@ def check_wide_kernels(device, results) -> None:
                + (" gb" if cfg.use_global_bias else ""))
         _record(results, name, als._SOLVE[cfg.solver], plain, args, tag, rep,
                 1e-4, 1e-5)
+    k4, nnls, bud = "K4 als_nnls_wide", als.NNLS, WIDE_NNLS_BUDGET
     lowp = tuple((name, dict(B=256, L=128, d=d, H=1024, **kw))
                  for d in (258, 514)
                  for name, kw in ((cg, {}), (cg, dict(explicit=True,
                                                        bits=True)),
                                   (k2, dict(solver=chol)),
                                   (k2, dict(explicit=True, bits=True,
-                                            solver=chol))))
+                                            solver=chol)),
+                                  (k4, dict(solver=nnls, nnls_max_iter=bud)),
+                                  (k4, dict(explicit=True, bits=True,
+                                            solver=nnls,
+                                            nnls_max_iter=bud))))
     check_lowp_kernels(device, results, base=lowp, seed=12)
+    check_wide_nnls(device, results)
+
+
+#: phase 11 (a)'s sweep budget for the wide K4 beside its plain version
+#: (the plain loop is a few torch ops a coordinate step: ~0.5 s a bucket
+#: of 256 at d = 514 and this budget)
+WIDE_NNLS_BUDGET = 20
+#: phase 11 (d)'s users of config #2 (c) by rank (cut for time: the fit's
+#: own budget, 10,000 sweeps, is not cut, and at d = 514 the item
+#: half-sweep of the first 1,024 users ran over a minute, its
+#: ill-conditioned items sweeping to the budget)
+WIDE_NNLS_USERS = {256: 1024, 512: 256}
+
+
+def k4_wide_detail(args, hot_scale=None, sweeps=None):
+    """The wide K4's plan for a bucket (ops/als.py ``nnls_plan``) and its
+    launches timed apart (each slice stopped after the build, G, mu, the
+    sweeps; then the loss), with the sweeps' time a coordinate step: the
+    slowest system's chain (the sweep launch over its steps, exact where
+    every system sweeps at once) and the card's (times the warps
+    sweeping, over every system's steps).  Returns (plan, text)."""
+    import torch
+    from rsparse_tpu_torch.ops import als
+    plan = als.nnls_plan(*args, hot_scale=hot_scale)
+    cargs, _, _ = als._bucket_args(*args, hot_scale, kernel="als_nnls")
+    dev = args[0].device
+    sw = (torch.zeros((cargs.B,), dtype=torch.int32, device=dev)
+          if sweeps is None else sweeps)
+    t = [time_ms(lambda: als._launch_nnls(cargs, args[8].nnls_max_iter, sw,
+                                          dev, stages=st), reps=3)
+         for st in (1, 2, 3, 4, 5)]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    warps = min(cargs.B, plan["per_sm"] * n_sm)
+    sweep_ms = t[3] - t[2]
+    chain = sweep_ms * 1e6 / max(1, int(sw.max()) * cargs.d)
+    card = sweep_ms * 1e6 * warps / max(1.0, float(sw.double().sum())
+                                           * cargs.d)
+    return plan, (
+        f"K4 wide: build {plan['cluster']} CTAs a system ({plan['passes']} "
+        f"pass{'es' if plan['passes'] > 1 else ''}, {plan['smem_bytes']} "
+        f"bytes), {plan['g_tiles']} G tiles, {warps} warps sweeping "
+        f"({plan['per_sm']} an SM, ring {plan['ring_bytes']} bytes); build "
+        f"{t[0]:.3f} + G {t[1] - t[0]:.3f} + mu {t[2] - t[1]:.3f} + sweeps "
+        f"{sweep_ms:.3f} + loss {t[4] - t[3]:.3f} ms; a step {chain:.1f} ns "
+        f"(slowest system's chain) / {card:.1f} ns (the card's)")
+
+
+def hold_nnls_wide(args, tag, results, rep=False, hot_scale=None) -> None:
+    """The wide K4 on one bucket against its plain version (one timed call)
+    and the float64 twin (the same bf16 roundings): y within 1e-3, or no
+    further from the float64 twin than twice the plain version (Frobenius;
+    G squares the conditioning); its loss within 1e-5 of the plain loss of
+    its own y; launched twice and in slices of a third of the systems,
+    bitwise (every system is built and swept alone); every factor >= 0.
+    ``rep``: the row of the kernels line."""
+    import torch
+    from rsparse_tpu_torch.ops import als
+    name = "K4 als_nnls_wide"
+    b = args[4]
+    sw = torch.zeros((b.batch,), dtype=torch.int32, device=b.nnz.device)
+    kern = functools.partial(als.solve_bucket_nnls, sweeps=sw,
+                             hot_scale=hot_scale)
+    yk, lk = kern(*args)
+    yk, lk = yk.clone(), lk.clone()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    yp, lp = als._solve_bucket_plain(*args, hot_scale=hot_scale)
+    t1.record()
+    src, xb, XtX, rhs_init, b, x0, lam, g, cfg, W, Vh, hb, nt = args
+    d64 = lambda t: None if t is None else t.double()  # noqa: E731
+    y64, _ = als._solve_bucket_plain(
+        src.double(), d64(xb), d64(XtX), d64(rhs_init), b, x0.double(), lam,
+        g, cfg, W if W is None or W.dtype == torch.uint8 else W.double(),
+        d64(Vh), hb, nt, hot_scale=d64(hot_scale),
+        rounding=als._rounds_bf16(cfg, torch.float32))
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(yk).all() and torch.isfinite(lk).all()),
+            f"{name} {tag}: non-finite output")
+    require(float(yk.min()) >= 0, f"{name} {tag}: a negative factor")
+    apart = hold_bf16(f"{name} {tag}", yk, yp, y64, 1e-3)
+    hold_loss_at_own_y(f"{name} {tag}", args, yk, lk, hot_scale)
+    sw2 = torch.zeros_like(sw)
+    y2, l2 = als.solve_bucket_nnls(*args, sweeps=sw2, hot_scale=hot_scale)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(y2, yk) and torch.equal(l2, lk)
+                 and torch.equal(sw2, sw)),
+            f"{name} {tag}: two launches differ")
+    check_nnls_slices(args, yk, sw, tag, hot_scale)
+    plan, detail = k4_wide_detail(args, hot_scale, sw2)
+    ms = time_ms(lambda: kern(*args))
+    pms = t0.elapsed_time(t1)
+    bms, bby = als_bound(args, sw, hot_scale)
+    log(f"  {name:11s} {tag:62s} y_rel={rel_err(yk, yp):.2e} "
+        f"loss_rel={rel_err(lk, lp):.2e} apart={apart} (vs f64: kernel "
+        f"{rel_err(yk, y64):.2e}, plain {rel_err(yp, y64):.2e}) "
+        f"kernel={ms:.3f} ms plain={pms:.3f} ms bound={bms:.4f} ms ({bby}) "
+        f"{sweep_summary(sw)} (budget {cfg.nnls_max_iter}); two launches "
+        f"bitwise\n    {detail}")
+    r = results["als_nnls_wide"]
+    r["max_abs_err"] = max(r["max_abs_err"], float((yk - yp).abs().max()))
+    if rep:
+        r.update(ms=ms, plain_ms=pms, shape=f"{tag}, budget "
+                 f"{cfg.nnls_max_iter}", bound_ms=bms, bound_by=bby,
+                 library_ms=None)
+
+
+def check_wide_nnls(device, results) -> None:
+    """Phase 11 (a): the wide K4 against its plain version at every width
+    of WIDE_DS (implicit, 256 rows of up to 128 entries), and at d = 514
+    with a 1,024-column head (implicit with a global bias, the kernels
+    line's row; explicit with presence bits) and explicit with source
+    biases (hold_nnls_wide), at a budget of WIDE_NNLS_BUDGET sweeps."""
+    import torch
+    from rsparse_tpu_torch.ops import als
+    gen = torch.Generator(device=device)
+    gen.manual_seed(14)
+    cases = [dict(d=d, H=0) for d in WIDE_DS] + [
+        dict(d=514, H=1024, ugb=True),
+        dict(d=514, H=1024, explicit=True, bits=True),
+        dict(d=514, H=0, explicit=True, biases=True)]
+    log(f"  K4 wide at a budget of {WIDE_NNLS_BUDGET} sweeps")
+    for kw in cases:
+        d, H = kw.pop("d"), kw.pop("H")
+        args = _bucket_case(gen, device, 256, 128, d, H, solver=als.NNLS,
+                            nnls_max_iter=WIDE_NNLS_BUDGET, **kw)
+        cfg = args[8]
+        tag = (f"{cfg.feedback[:3]} B=256 L=128 d={args[0].shape[1]} H={H}"
+               + (" bias" if cfg.with_biases else "")
+               + (" bits" if args[11] is not None else "")
+               + (" gb" if cfg.use_global_bias else ""))
+        hold_nnls_wide(args, tag, results,
+                       rep=d == 514 and H and cfg.use_global_bias)
+        del args
 
 
 def hold_chol_mirror(device) -> None:
@@ -4326,6 +4528,31 @@ def run_wide_ml100k(device, launches) -> None:
     check_predictions(preds.indices, 10, train.shape[1], train,
                       "ML-100k rank 192")
 
+    kw = WIDE_NNLS_ML100K
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = rt.WRMF(seed=0, device=device, **kw["model"])
+    emb = m.fit_transform(train, n_iter=kw["n_iter"])
+    preds = m.predict(train, k=10, not_recommend=train)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.append(check_launched(_kernels, "ML-100k WRMF NNLS rank 192",
+                                   ("als_nnls_wide", "topk")))
+    ndcg = float(np.nanmean(rt.ndcg_k(preds.indices, test)))
+    mapk = float(np.nanmean(rt.ap_k(preds.indices, test)))
+    ref = REF_WIDE["wrmf_nnls_rank192"]
+    low = min(float(emb.min()), float(np.min(m.components)))
+    log(f"  WRMF NNLS rank 192 ({kw['n_iter']} iterations, budget "
+        f"{kw['model']['nnls_max_iter']} sweeps): NDCG@10={ndcg:.4f} "
+        f"MAP@10={mapk:.4f} (JAX on the CPU {ref[0]:.4f} / {ref[1]:.4f}); "
+        f"smallest factor {low:.3g}; wall={wall:.2f} s")
+    require(abs(ndcg - ref[0]) <= LOWP_QUALITY_TOL and
+            abs(mapk - ref[1]) <= LOWP_QUALITY_TOL,
+            "ML-100k NNLS rank 192: quality off the JAX package's")
+    require(low >= 0, "ML-100k NNLS rank 192: a negative factor")
+    check_predictions(preds.indices, 10, train.shape[1], train,
+                      "ML-100k NNLS rank 192")
+
     full = sp.csr_matrix(x)
     tr, te = rt.train_test_split(full, 0.8, np.random.default_rng(7))
     te = te.tocoo()
@@ -4380,8 +4607,9 @@ def _wide_fit(device, x, what, launches, rank, q=None, **kw):
     clock, counted with the fit's launches."""
     import torch
     from rsparse_tpu_torch import _kernels
-    names = ("als_chol_wide",) + (
-        ("als_cg_wide",) if kw.get("solver") == "conjugate_gradient" else ())
+    names = {"nnls": ("als_nnls_wide",),
+             "conjugate_gradient": ("als_chol_wide", "als_cg_wide")}.get(
+                 kw.get("solver"), ("als_chol_wide",))
     m, emb = _fit_full_width(device, x, what, names, launches, rank=rank,
                              **kw)
     users = [r["wall_s"] for r in m.fit_trace if r["phase"] == "users"]
@@ -4457,6 +4685,21 @@ def run_wide_full(device, x, x4, results, launches) -> None:
     check_staged_buckets(m, x, results, max_rows=1024)
     del m, emb
     torch.cuda.empty_cache()
+    for rank, kw in ((256, {}), (512, dict(with_user_item_bias=True))):
+        xs = x[:WIDE_NNLS_USERS[rank]]
+        log(f"  config #2 (c) at rank {rank}: implicit NNLS"
+            + (", user/item biases (d = 514)" if kw else "") + ", 1 "
+            f"iteration, the first {xs.shape[0]} of {x.shape[0]} users "
+            f"({xs.nnz} entries; cut for time)")
+        m, emb = _wide_fit(device, xs, f"config #2 (c) rank {rank}",
+                           launches, rank, n_iter=1, lambda_=0.1,
+                           feedback="implicit", solver="nnls", **kw)
+        require(float(emb.min()) >= 0 and float(np.min(m.components)) >= 0,
+                f"config #2 (c) rank {rank}: a negative factor")
+        check_staged_buckets(m, xs, results, nnls_max_iter=WIDE_NNLS_BUDGET,
+                             max_rows=256)
+        del m, emb
+        torch.cuda.empty_cache()
 
     log("  config #4 GloVe rank 300 (bf16 head), 3 epochs")
     torch.cuda.reset_peak_memory_stats()
@@ -5753,6 +5996,8 @@ KERNELS = {
     "als_chol_wide": ("rsparse_tpu_torch/csrc/als_chol_wide.cu",
                       "rsparse_tpu/ops/als.py:138, "
                       "rsparse_tpu/ops/als.py:269"),
+    "als_nnls_wide": ("rsparse_tpu_torch/csrc/als_nnls_wide.cu",
+                      "rsparse_tpu/ops/solvers.py:254"),
     "glove_wide": ("rsparse_tpu_torch/csrc/glove.cu",
                    "rsparse_tpu/models/glove.py:50, "
                    "rsparse_tpu/models/glove.py:109"),

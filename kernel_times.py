@@ -64,6 +64,18 @@ WHAT is one or more of:
               closing half-sweep of a rank-512 implicit fit (1 iteration)
               on the ML-20M-shaped synthetic, twice;
   k2-wide-buckets  k2-wide's buckets alone (no sweep, no clock build);
+  k4-wide     K4 on its wide route (``csrc/als_nnls_wide.cu``) on phase
+              11 (a)'s synthetic buckets of 256 rows of up to 128 entries:
+              at d = 514 with a 1,024-column head (implicit, global bias:
+              the kernels line's shape), at 258 and 161; at the budget of
+              ``chip_smoke.WIDE_NNLS_BUDGET`` sweeps beside the plain
+              version, and at the fit's own (10,000); each with its plan,
+              its launches apart (build, G, mu, the sweeps, the loss), the
+              time a coordinate step, the sweeps' percentiles and the
+              bound; G on each of its routes (float64 FMAs, float64
+              mma.sync: ``rsp_als_nnls_g_route``); at the fit's budget
+              also the sweeps under each cap of sweeping warps an SM
+              (``rsp_als_nnls_sweep_cap``);
   k11-wide    K11's bf16 head on config #4's first tile (3,063 x 3,063)
               at r = 128 and 300, from the model's initial state: CUDA
               events and CUDA-graph device time, the dense mma rate, the
@@ -628,6 +640,67 @@ def k2_wide_times(dev, reps, sweep=True):
                      m.lambda_, m._g, cfg, br.n_rows)
 
 
+def k4_wide_times(dev, reps):
+    import dataclasses
+    import torch
+    from rsparse_tpu_torch import _kernels
+    from rsparse_tpu_torch.ops import als, solvers
+    cs = sys.modules["chip_smoke"]
+    lib = _kernels.lib()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    for d, H, kw in ((514, 1024, dict(ugb=True)), (258, 0, {}),
+                     (161, 0, {})):
+        args = cs._bucket_case(gen, dev, 256, 128, d, H, solver=als.NNLS,
+                               nnls_max_iter=cs.WIDE_NNLS_BUDGET, **kw)
+        tag = f"B=256 L=128 d={d} H={H}" + (" gb" if kw else "")
+        for budget in (cs.WIDE_NNLS_BUDGET, solvers.SCD_MAX_ITER):
+            a = (*args[:8], dataclasses.replace(args[8],
+                                                nnls_max_iter=budget),
+                 *args[9:])
+            sw = torch.zeros((256,), dtype=torch.int32, device=dev)
+            run = functools.partial(als.solve_bucket_nnls, *a, sweeps=sw)
+            yk, _ = run()
+            ms = cs.time_ms(run, reps)
+            plan, detail = cs.k4_wide_detail(a, None, sw)
+            bms, bby = cs.als_bound(a, sw)
+            line = (f"  K4 wide {tag} budget {budget}: {ms:.3f} ms; bound "
+                    f"{bms:.4f} ms ({bby}); {cs.sweep_summary(sw)}")
+            if budget == cs.WIDE_NNLS_BUDGET:
+                t0 = time.perf_counter()
+                yp, _ = als._solve_bucket_plain(*a)
+                torch.cuda.synchronize()
+                pms = (time.perf_counter() - t0) * 1e3
+                line += (f"; plain {pms:.1f} ms (one call), y_rel "
+                         f"{cs.rel_err(yk, yp):.2e}")
+            print(line + "\n    " + detail, flush=True)
+            if budget == cs.WIDE_NNLS_BUDGET:
+                # G's two routes, float64 FMAs and float64 mma.sync
+                was = lib.rsp_als_nnls_g_route(-1)
+                try:
+                    for route, name in ((0, "FMA"), (1, "mma.sync")):
+                        lib.rsp_als_nnls_g_route(route)
+                        y2, _ = run()
+                        print(f"    G on float64 {name}: "
+                              + cs.k4_wide_detail(a, None, sw)[1]
+                              + f"; y against the default route's "
+                              f"{cs.rel_err(y2, yk):.2e}", flush=True)
+                finally:
+                    lib.rsp_als_nnls_g_route(was)
+            if budget == solvers.SCD_MAX_ITER:
+                was = lib.rsp_als_nnls_sweep_cap(0)
+                try:
+                    for cap in (1, 2, 3, 4, 6):
+                        lib.rsp_als_nnls_sweep_cap(cap)
+                        print(f"    cap {cap} a SM: "
+                              + cs.k4_wide_detail(a, None, sw)[1],
+                              flush=True)
+                finally:
+                    lib.rsp_als_nnls_sweep_cap(was)
+        del args
+        torch.cuda.empty_cache()
+
+
 #: the phases csrc/glove_dense.cu's RSP_K11_CLOCKS build times (a consumer
 #: warpgroup's thread 0 of CTA 0)
 K11_PHASES = ("waits for a stage", "S", "cost and cost^2 (with re-sums)",
@@ -951,6 +1024,7 @@ TIMERS = {"k1": k1_times, "k8": k8_times, "k3": k3_times,
           "k7": k7_times, "ftrl-pass": ftrl_pass_times, "k10": k10_times,
           "k2-wide": k2_wide_times,
           "k2-wide-buckets": lambda dev, reps: k2_wide_times(dev, reps, False),
+          "k4-wide": k4_wide_times,
           "k11-wide": k11_wide_times, "k9-bf16": k9_bf16_times,
           "k10-bf16": k10_bf16_times, "k11-bf16": k11_bf16_times,
           "k11-f32": k11_f32_times, "k11-walk": k11_walk_times}

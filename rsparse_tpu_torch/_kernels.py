@@ -43,14 +43,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: widest d each ALS kernel takes on the card, one entry a kernel, held
 #: equal to the kernel's own check: K1 (csrc/als_cg.cu kMaxD; instances
-#: for d <= 128, 160, 288 and 544) and K2 (csrc/als_chol.cu d <= 160 in
-#: shared memory, csrc/als_chol_wide.cu kWideMaxD across a cluster)
-#: take rank 512 with both biases, d = 514; K4 (csrc/als_nnls.cu, d x d
-#: matrices in shared memory) rank 128 with biases, d = 129 (d <= 160)
-MAX_D = {"als_cg": 514, "als_chol": 514, "als_nnls": 160}
+#: for d <= 128, 160, 288 and 544), K2 (csrc/als_chol.cu d <= 160 in
+#: shared memory, csrc/als_chol_wide.cu kWideMaxD across a cluster) and K4
+#: (csrc/als_nnls.cu d <= 160, d x d matrices in shared memory;
+#: csrc/als_nnls_wide.cu kWideMaxD, the lhs over the wide K2's panels and
+#: G in device memory) take rank 512 with both biases, d = 514
+MAX_D = {"als_cg": 514, "als_chol": 514, "als_nnls": 514}
 
 #: launches per kernel, counted by the wrappers (the wide routes apart:
-#: K1 and K2 at d > 160, K10 and K11 at r > 128; the bf16-state
+#: K1, K2 and K4 at d > 160, K10 and K11 at r > 128; the bf16-state
 #: instances of K9, K10 and K11, "_bf16"; K11's f32 head, "_f32")
 launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "als_nnls": 0,
                             "topk": 0, "spmm": 0, "spmm_residual": 0,
@@ -64,7 +65,7 @@ launches: Dict[str, int] = {"als_cg": 0, "als_chol": 0, "als_nnls": 0,
                             "glove_wide_bf16": 0, "glove_dense_bf16": 0,
                             "glove_dense_wide_bf16": 0,
                             "glove_dense_f32": 0,
-                            "glove_dense_wide_f32": 0}
+                            "glove_dense_wide_f32": 0, "als_nnls_wide": 0}
 #: what the last build did: {"seconds": ..., "log": ..., "path": ...}
 build_info: Dict[str, object] = {}
 
@@ -214,10 +215,30 @@ def lib() -> ctypes.CDLL:
     so.rsp_als_nnls.argtypes = [args, i, f, p, p, i, p, p]
     so.rsp_als_nnls.restype = i
     # d -> floats of scratch a system; d -> systems sweeping at once an SM
+    # (both minus a CUDA error past the widest d)
     so.rsp_als_nnls_stride.argtypes = [i]
     so.rsp_als_nnls_stride.restype = i
     so.rsp_als_nnls_inflight.argtypes = [i]
     so.rsp_als_nnls_inflight.restype = i
+    # d, B -> floats of scratch past the slice (the wide K4's lhs)
+    so.rsp_als_nnls_extra.argtypes = [i, i]
+    so.rsp_als_nnls_extra.restype = ctypes.c_longlong
+    # the wide K4 (d > 160; rsp_als_nnls runs it): the same arguments and
+    # stages (1 the build, 2 + G, 3 + mu, 4 + the sweeps, 5 + the loss)
+    # before the stream; info (8 int32: CTAs a system in the build, their
+    # shared bytes, build passes, G tiles a system, row stride, sweeping
+    # warps an SM, ring bytes, systems an lhs sub-slice); the sweeping warps
+    # an SM (0: the default)
+    so.rsp_als_nnls_wide_staged.argtypes = [args, i, f, p, p, i, p, i, p]
+    so.rsp_als_nnls_wide_staged.restype = i
+    so.rsp_als_nnls_wide_info.argtypes = [args, p]
+    so.rsp_als_nnls_wide_info.restype = i
+    so.rsp_als_nnls_sweep_cap.argtypes = [i]
+    so.rsp_als_nnls_sweep_cap.restype = i
+    # the route of the wide K4's G (1 float64 mma.sync, 0 float64 FMAs, -1
+    # the default) -> the route before
+    so.rsp_als_nnls_g_route.argtypes = [i]
+    so.rsp_als_nnls_g_route.restype = i
     # args, plan, mode (1: matvec term of x0, 0: rhs term of g_rhs), stream
     so.rsp_hot_chain.argtypes = [args, plan, i, p]
     so.rsp_hot_chain.restype = i

@@ -164,9 +164,9 @@ __device__ __forceinline__ void tf32_step(float (&c)[Run::kMaxT][4],
 
 // One k-step of 16 staged rows on a bf16 route: p[0..3] are the rows
 // k = 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9 with weights w[0..3].  SYM adds
-// the transposed term: c += bf16(w x) x' + x bf16(w x)'; else (explicit)
-// c += x x'.
-template <class Run, class T, bool SYM>
+// the transposed term: c += bf16(w x) x' + x bf16(w x)' (HALF 1: the first
+// term alone, HALF 2: the second alone); else (explicit) c += x x'.
+template <class Run, class T, bool SYM, int HALF = 0>
 __device__ __forceinline__ void bf16_step(float (&c)[Run::kMaxT][4],
                                           const Run& run,
                                           const unsigned char* const (&p)[4],
@@ -202,9 +202,10 @@ __device__ __forceinline__ void bf16_step(float (&c)[Run::kMaxT][4],
       for (int q = 0; q < 4; ++q) u[q] = j < d ? sld<T>(p[q], j) : 0.f;
       const unsigned bx0 = pack2(u[0], u[1]), bx1 = pack2(u[2], u[3]);
       if constexpr (SYM) {
-        rsp::mma_bf16(c[t], aw, bx0, bx1);
-        rsp::mma_bf16(c[t], ax, pack2(w[0] * u[0], w[1] * u[1]),
-                 pack2(w[2] * u[2], w[3] * u[3]));
+        if constexpr (HALF != 2) rsp::mma_bf16(c[t], aw, bx0, bx1);
+        if constexpr (HALF != 1)
+          rsp::mma_bf16(c[t], ax, pack2(w[0] * u[0], w[1] * u[1]),
+                        pack2(w[2] * u[2], w[3] * u[3]));
       } else {
         rsp::mma_bf16(c[t], ax, bx0, bx1);
       }

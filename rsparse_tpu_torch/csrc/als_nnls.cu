@@ -23,6 +23,7 @@
 // Built for d <= 128 and d <= 160, each for float and bf16 source tables
 // (the rounding points of compute_dtype="bfloat16" are those of the shared
 // normal-equation build and of K1's loss; the sweeps are f32 either way).
+// At 160 < d <= 514 rsp_als_nnls runs als_nnls_wide.cu's kernels.
 //
 // What bounds it on the H100: the coordinate sweeps, a chain of d
 // dependent steps per sweep, times the sweeps a system needs (G squares the
@@ -330,26 +331,49 @@ int sweep_blocks_per_sm(int d, size_t* smem_out) {
 
 }  // namespace
 
-// Floats of scratch one system takes (packed G and mu).
-extern "C" int rsp_als_nnls_stride(int d) { return sys_floats(d); }
+// The wide widths, 160 < d <= 514 (als_nnls_wide.cu).
+extern "C" long long rsp_als_nnls_wide_stride(int d);
+extern "C" int rsp_als_nnls_wide_inflight(int d);
+extern "C" int rsp_als_nnls_wide(const rsp::BucketArgs* args, int max_iter,
+                                 float rel_tol, int* sweeps, float* scratch,
+                                 int slice, int* counter, void* stream);
+
+extern "C" long long rsp_als_nnls_wide_extra(int d, int B);
+
+// Floats of scratch one system of a slice takes (packed G and mu; at d >
+// 160 G and mu whole), or minus a CUDA error past d = 514.
+extern "C" int rsp_als_nnls_stride(int d) {
+  return d > 160 ? (int)rsp_als_nnls_wide_stride(d) : sys_floats(d);
+}
+
+// Floats of scratch past a bucket of B systems' slice: none at d <= 160;
+// above, the lhs and rhs of a sub-slice of systems (als_nnls_wide.cu).
+extern "C" long long rsp_als_nnls_extra(int d, int B) {
+  return d > 160 ? rsp_als_nnls_wide_extra(d, B) : 0;
+}
 
 // Systems sweeping at once on one SM at width d (warps of the sweep stage
 // an SM holds), or minus a CUDA error.
 extern "C" int rsp_als_nnls_inflight(int d) {
-  if (d <= 0 || d > 160) return -(int)cudaErrorInvalidValue;
+  if (d > 160) return rsp_als_nnls_wide_inflight(d);
+  if (d <= 0) return -(int)cudaErrorInvalidValue;
   const int n = sweep_blocks_per_sm(d, nullptr);
   return n < 0 ? n : n * kSweepWarps;
 }
 
 // args: the bucket (rsp::BucketArgs; y and loss are written); sweeps (B,)
-// int32 or null; scratch: slice * rsp_als_nnls_stride(d) floats; slice: the
-// systems built and swept at a time; counter: one int32 of device memory.
+// int32 or null; scratch: slice * rsp_als_nnls_stride(d) +
+// rsp_als_nnls_extra(d, B) floats; slice: the systems built and swept at
+// a time; counter: one int32 of device memory.
 extern "C" int rsp_als_nnls(const rsp::BucketArgs* args, int max_iter,
                             float rel_tol, int* sweeps, float* scratch,
                             int slice, int* counter, void* stream) {
   const rsp::BucketArgs a = *args;
+  if (a.d > 160)
+    return rsp_als_nnls_wide(args, max_iter, rel_tol, sweeps, scratch, slice,
+                             counter, stream);
   if (a.B <= 0) return 0;
-  if (a.d <= 0 || a.d > 160 || slice <= 0) return (int)cudaErrorInvalidValue;
+  if (a.d <= 0 || slice <= 0) return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
   // [d <= 128 ? 0 : 1][bf16 table][explicit]
   static const Build builds[2][2][2] = {

@@ -22,10 +22,10 @@ users ``[1, emb..., u_bias]``, items ``[i_bias, emb..., 1]``, so
 
 On the card the factor width d (``rank``, or ``rank + 2`` with biases)
 runs on hand-written kernels up to ``_kernels.MAX_D``: d <= 514 (rank 512
-with both biases) for CG (K1) and Cholesky (K2, which also runs
-``transform`` and the closing half-sweep), d <= 160 for NNLS (K4); above
-it a solve raises NotImplementedError naming ROADMAP.md.  CPU tensors take
-the plain versions at any width.
+with both biases) for CG (K1), Cholesky (K2, which also runs
+``transform`` and the closing half-sweep) and NNLS (K4); above it a solve
+raises NotImplementedError naming ROADMAP.md.  CPU tensors take the plain
+versions at any width.
 
 Randomness comes from ``np.random.default_rng(seed)`` drawn in the same
 order as the reference (U first; V only when the solver is not CG), so the

@@ -32,8 +32,8 @@ rows, and ``bf16(y)`` in the loss; every sum stays float32.  A uint8 head
 (``hot_scale``) dequantises as ``code * scale`` in the compute dtype.
 
 Three kernels solve a bucket on the card: K1 (``csrc/als_cg.cuh``) by CG,
-K2 (``csrc/als_chol.cu``) by Cholesky and K4 (``csrc/als_nnls.cu``) by
-NNLS coordinate descent; :func:`hot_chain` exposes K1's bf16 head term
+K2 (``csrc/als_chol.cu``, ``als_chol_wide.cu``) by Cholesky and K4
+(``csrc/als_nnls.cu``, ``als_nnls_wide.cu``) by NNLS coordinate descent; :func:`hot_chain` exposes K1's bf16 head term
 alone.  :func:`_solve_bucket_implicit` and :func:`_solve_bucket_explicit`
 are their plain PyTorch versions; the wrappers take them only for tensors
 on the CPU.
@@ -836,18 +836,105 @@ def chol_wide_layout(d: int, tbytes: int) -> dict:
 
 
 #: largest scratch K4's build stage writes for its sweeps (packed G and mu,
-#: 33.5 KB a system at d = 128): a bucket with more systems is built and
+#: 33.5 KB a system at d = 128; at d > ``WIDE_D`` G and mu, 1.07 MB a
+#: system at d = 514, and the lhs and rhs of a sub-slice of
+#: ``NNLS_LHS_SUB`` systems): a bucket with more systems is built and
 #: swept in slices
 NNLS_SCRATCH_BYTES = 1 << 30
+#: the wide K4's G tile, the rows of G a sweep warp's ring holds and the
+#: rows it copies on one mbarrier, and the systems whose lhs the scratch
+#: holds at once (csrc/als_nnls_wide.cu kGT, kRing, kChunk, kLhsSub)
+NNLS_G_TILE, NNLS_RING, NNLS_CHUNK, NNLS_LHS_SUB = 64, 16, 4, 128
 
 
 def nnls_inflight(d: int) -> int:
     """Systems K4's sweep stage holds at once on one SM at width d (one
-    warp each; shared memory bounds it)."""
+    warp each; shared memory bounds it, and at d > ``WIDE_D`` a cap of
+    warps an SM, ``rsp_als_nnls_sweep_cap``)."""
     n = _kernels.lib().rsp_als_nnls_inflight(d)
     if n <= 0:
         raise RuntimeError(f"als_nnls occupancy query failed: CUDA error {-n}")
     return n
+
+
+def nnls_wide_layout(d: int, tbytes: int) -> dict:
+    """The wide K4's work at width ``d`` (160 < d <= 514) and table bytes
+    ``tbytes``, as csrc/als_nnls_wide.cu lays it out: the build's CTAs a
+    system and their panels (the wide K2's :func:`chol_wide_layout`: each
+    CTA sums and writes its own 16-row panels of the lhs), the row stride
+    ``ds`` of lhs and G in the scratch (d rounded up to 8 floats), the
+    floats of one system of a slice there (``stride``: G, then mu at float
+    ``offsets["mu"]``) and of one system of the lhs sub-slice after the
+    slice (the same: lhs, then rhs at ``offsets["rhs"]``), the systems a
+    sub-slice holds at most, G's lower 64 x 64 tiles a system and the
+    shared bytes of a sweep warp (its chunks' mbarriers, 128 bytes, and the
+    ring of G rows it streams)."""
+    ds = (d + 7) & ~7
+    nt = -(-d // NNLS_G_TILE)
+    chol = chol_wide_layout(d, tbytes)
+    return dict(d=d, ds=ds, stride=d * ds + ds, sub=NNLS_LHS_SUB,
+                offsets=dict(G=0, mu=d * ds, lhs=0, rhs=d * ds),
+                cluster=chol["cluster"], owner=chol["owner"],
+                panels=chol["panels"], smem_bytes=chol["smem_bytes"],
+                g_tiles=nt * (nt + 1) // 2,
+                ring_bytes=128 + 4 * NNLS_RING * ds)
+
+
+def nnls_plan(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
+              cfg: ALSConfig, hot_W=None, V_hot=None, hot_bits=None,
+              nnz_total=None, hot_scale=None) -> dict:
+    """How the wide K4 (d > ``WIDE_D``) runs a bucket on the card
+    (``rsp_als_nnls_wide_info``; nothing is launched): the build's CTAs a
+    system and shared bytes a CTA, its passes (2 where bf16-rounded
+    implicit rows make the lhs non-symmetric), G's tiles a system, the row
+    stride, the sweeping warps an SM, the ring's shared bytes and the
+    systems an lhs sub-slice holds."""
+    args, _, _ = _bucket_args(src, x_biases, XtX, rhs_init, bucket, None,
+                              lam, g, cfg, hot_W, V_hot, hot_bits, nnz_total,
+                              hot_scale, kernel="als_nnls")
+    info = (ctypes.c_int * 8)()
+    _kernels.check(_kernels.lib().rsp_als_nnls_wide_info(
+        ctypes.byref(args), info), "als_nnls")
+    return dict(cluster=info[0], smem_bytes=info[1], passes=info[2],
+                g_tiles=info[3], ds=info[4], per_sm=info[5],
+                ring_bytes=info[6], sub=info[7], d=args.d,
+                table_bytes=2 if args.table_bf16 else 4)
+
+
+def nnls_scratch(d: int, B: int) -> Tuple[int, int]:
+    """(floats of K4's scratch a system of a slice, floats after the
+    slice) for a bucket of B systems at width d (``rsp_als_nnls_stride``,
+    ``rsp_als_nnls_extra``: at d > ``WIDE_D`` the lhs sub-slice)."""
+    lib = _kernels.lib()
+    stride, extra = lib.rsp_als_nnls_stride(d), lib.rsp_als_nnls_extra(d, B)
+    if stride <= 0 or extra < 0:
+        _kernels.check(-min(stride, extra), "als_nnls")
+    return stride, extra
+
+
+def _launch_nnls(args, max_iter: int, sweeps, device, stages: int = 5):
+    """K4 on a validated bucket (:func:`_bucket_args`), its scratch a slice
+    of the bucket's systems at a time (and at d > ``WIDE_D`` an lhs
+    sub-slice), at most ``NNLS_SCRATCH_BYTES`` in all, at least one system.
+    At d > ``WIDE_D`` ``stages`` < 5 stops each slice after the wide
+    kernel's build (1), G (2), mu (3) or sweeps (4), and runs no loss
+    (timings)."""
+    lib = _kernels.lib()
+    stride, extra = nnls_scratch(args.d, args.B)
+    per = max(1, min(args.B, (NNLS_SCRATCH_BYTES - 4 * extra)
+                     // (4 * stride)))
+    scratch = torch.empty((per * stride + extra,), dtype=torch.float32,
+                          device=device)
+    counter = torch.empty((1,), dtype=torch.int32, device=device)
+    common = (ctypes.byref(args), ctypes.c_int(max_iter),
+              ctypes.c_float(SCD_TOL), _kernels.ptr(sweeps),
+              _kernels.ptr(scratch), per, _kernels.ptr(counter))
+    if stages == 5:
+        rc = lib.rsp_als_nnls(*common, _kernels.stream(device))
+    else:
+        rc = lib.rsp_als_nnls_wide_staged(*common, stages,
+                                          _kernels.stream(device))
+    _kernels.check(rc, "als_nnls")
 
 
 def solve_bucket_nnls(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
@@ -855,10 +942,12 @@ def solve_bucket_nnls(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
                       nnz_total=None, sweeps=None, hot_scale=None):
     """K4: one bucket of non-negative solves by coordinate descent
     (``csrc/als_nnls.cu``: the normal equations and G built per system,
-    then the sweeps one warp per system, then the loss).  ``sweeps`` ((B,)
-    int32, optional) receives the sweeps each system ran.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel.  Returns (y (B, d),
-    loss (B,))."""
+    then the sweeps one warp per system, then the loss; at d > ``WIDE_D``
+    ``csrc/als_nnls_wide.cu``: the lhs built over the wide K2's panels, G
+    in float64 tiles, mu, the sweeps streaming G's rows from device memory,
+    the loss).  ``sweeps`` ((B,) int32, optional) receives the sweeps each
+    system ran.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel.  Returns (y (B, d), loss (B,))."""
     if src.device.type == "cpu":
         return _solve_bucket_plain(src, x_biases, XtX, rhs_init, bucket,
                                    x_init, lam, g, cfg, hot_W, V_hot,
@@ -868,20 +957,9 @@ def solve_bucket_nnls(src, x_biases, XtX, rhs_init, bucket, x_init, lam, g,
                                  nnz_total, hot_scale, kernel="als_nnls")
     if sweeps is not None:
         _kernels.check_tensor("sweeps", sweeps, (bucket.batch,), torch.int32)
-    lib = _kernels.lib()
-    # the build stage's G and mu for the sweeps: a slice of the bucket's
-    # systems at a time, at most NNLS_SCRATCH_BYTES
-    stride = lib.rsp_als_nnls_stride(args.d)
-    per = max(1, min(args.B, NNLS_SCRATCH_BYTES // (4 * stride)))
-    scratch = torch.empty((per * stride,), dtype=torch.float32,
-                          device=src.device)
-    counter = torch.empty((1,), dtype=torch.int32, device=src.device)
-    rc = lib.rsp_als_nnls(
-        ctypes.byref(args), ctypes.c_int(cfg.nnls_max_iter),
-        ctypes.c_float(SCD_TOL), _kernels.ptr(sweeps), _kernels.ptr(scratch),
-        per, _kernels.ptr(counter), _kernels.stream(src.device))
-    _kernels.check(rc, "als_nnls")
-    _kernels.launches["als_nnls"] += 1
+    _launch_nnls(args, cfg.nnls_max_iter, sweeps, src.device)
+    _kernels.launches["als_nnls_wide" if args.d > WIDE_D
+                      else "als_nnls"] += 1
     return y, loss
 
 

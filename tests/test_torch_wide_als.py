@@ -393,13 +393,13 @@ def test_chol_deal_balances_the_triangle(d):
 
 
 def test_caps_raise_above_each_kernel_width():
-    """The width caps, one a kernel: K1 and K2 take d <= 514, K4 d <= 160;
-    above them the wrapper raises NotImplementedError naming ROADMAP.md
-    before it touches a tensor (the CPU plain versions take any width)."""
+    """The width caps, one a kernel: K1, K2 and K4 take d <= 514; above
+    them the wrapper raises NotImplementedError naming ROADMAP.md before it
+    touches a tensor (the CPU plain versions take any width)."""
     assert _kernels.MAX_D == {"als_cg": 514, "als_chol": 514,
-                              "als_nnls": 160}
+                              "als_nnls": 514}
     assert port.WIDE_D == 160
-    for kernel, d in (("als_cg", 515), ("als_chol", 515), ("als_nnls", 161)):
+    for kernel, d in (("als_cg", 515), ("als_chol", 515), ("als_nnls", 515)):
         src = torch.zeros((4, d))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             port._bucket_args(src, None, None, None, None, None, 1.0, 0.0,

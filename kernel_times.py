@@ -72,10 +72,7 @@ WHAT is one or more of:
               version, and at the fit's own (10,000); each with its plan,
               its launches apart (build, G, mu, the sweeps, the loss), the
               time a coordinate step, the sweeps' percentiles and the
-              bound; G on each of its routes (float64 FMAs, float64
-              mma.sync: ``rsp_als_nnls_g_route``); at the fit's budget
-              also the sweeps under each cap of sweeping warps an SM
-              (``rsp_als_nnls_sweep_cap``);
+              bound;
   k11-wide    K11's bf16 head on config #4's first tile (3,063 x 3,063)
               at r = 128 and 300, from the model's initial state: CUDA
               events and CUDA-graph device time, the dense mma rate, the
@@ -643,10 +640,8 @@ def k2_wide_times(dev, reps, sweep=True):
 def k4_wide_times(dev, reps):
     import dataclasses
     import torch
-    from rsparse_tpu_torch import _kernels
     from rsparse_tpu_torch.ops import als, solvers
     cs = sys.modules["chip_smoke"]
-    lib = _kernels.lib()
     gen = torch.Generator(device=dev)
     gen.manual_seed(14)
     for d, H, kw in ((514, 1024, dict(ugb=True)), (258, 0, {}),
@@ -674,29 +669,6 @@ def k4_wide_times(dev, reps):
                 line += (f"; plain {pms:.1f} ms (one call), y_rel "
                          f"{cs.rel_err(yk, yp):.2e}")
             print(line + "\n    " + detail, flush=True)
-            if budget == cs.WIDE_NNLS_BUDGET:
-                # G's two routes, float64 FMAs and float64 mma.sync
-                was = lib.rsp_als_nnls_g_route(-1)
-                try:
-                    for route, name in ((0, "FMA"), (1, "mma.sync")):
-                        lib.rsp_als_nnls_g_route(route)
-                        y2, _ = run()
-                        print(f"    G on float64 {name}: "
-                              + cs.k4_wide_detail(a, None, sw)[1]
-                              + f"; y against the default route's "
-                              f"{cs.rel_err(y2, yk):.2e}", flush=True)
-                finally:
-                    lib.rsp_als_nnls_g_route(was)
-            if budget == solvers.SCD_MAX_ITER:
-                was = lib.rsp_als_nnls_sweep_cap(0)
-                try:
-                    for cap in (1, 2, 3, 4, 6):
-                        lib.rsp_als_nnls_sweep_cap(cap)
-                        print(f"    cap {cap} a SM: "
-                              + cs.k4_wide_detail(a, None, sw)[1],
-                              flush=True)
-                finally:
-                    lib.rsp_als_nnls_sweep_cap(was)
         del args
         torch.cuda.empty_cache()
 

@@ -227,18 +227,11 @@ def lib() -> ctypes.CDLL:
     # stages (1 the build, 2 + G, 3 + mu, 4 + the sweeps, 5 + the loss)
     # before the stream; info (8 int32: CTAs a system in the build, their
     # shared bytes, build passes, G tiles a system, row stride, sweeping
-    # warps an SM, ring bytes, systems an lhs sub-slice); the sweeping warps
-    # an SM (0: the default)
+    # warps an SM, ring bytes, systems an lhs sub-slice)
     so.rsp_als_nnls_wide_staged.argtypes = [args, i, f, p, p, i, p, i, p]
     so.rsp_als_nnls_wide_staged.restype = i
     so.rsp_als_nnls_wide_info.argtypes = [args, p]
     so.rsp_als_nnls_wide_info.restype = i
-    so.rsp_als_nnls_sweep_cap.argtypes = [i]
-    so.rsp_als_nnls_sweep_cap.restype = i
-    # the route of the wide K4's G (1 float64 mma.sync, 0 float64 FMAs, -1
-    # the default) -> the route before
-    so.rsp_als_nnls_g_route.argtypes = [i]
-    so.rsp_als_nnls_g_route.restype = i
     # args, plan, mode (1: matvec term of x0, 0: rhs term of g_rhs), stream
     so.rsp_hot_chain.argtypes = [args, plan, i, p]
     so.rsp_hot_chain.restype = i

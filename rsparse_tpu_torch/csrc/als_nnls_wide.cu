@@ -38,23 +38,23 @@
 //     2), the second pass writing the upper blocks.
 // (2) G = lhs' lhs + eps I: 64 x 64 tiles of the lower triangle, a CTA of
 //     256 threads each, 16 rows of lhs staged a step, summed in float64 on
-//     mma.sync (m8n8k4; rsp_als_nnls_g_route 0: FMAs, 4 x 4 a thread), each
-//     tile's lower entries written and mirrored, so G is exactly
-//     symmetric.
+//     mma.sync (m8n8k4: 1.8-1.9x float64 FMAs, 4 x 4 a thread, at d = 258
+//     and 514), each tile's lower entries written and mirrored, so G is
+//     exactly symmetric.
 // (3) mu = G x0 - lhs' rhs in float64: a CTA 32 coordinates of a system,
 //     a lane a coordinate (a column of G and of lhs, read row by row,
 //     coalesced), its 8 warps each an eighth of the rows.
 // (4) Sweeps (a launch a slice): one warp a system, a persistent grid of
 //     one-warp blocks taking systems from a counter (launch (3) zeroes it),
-//     at most `per_sm` an SM (kDefaultPerSm, or rsp_als_nnls_sweep_cap's).
+//     at most kPerSm an SM.
 //     G stays in device memory (the L2 holds ~45 at d = 514); a step reads
 //     row k (= column k) whole, and the warp streams rows through a ring
 //     of kRing rows in its shared memory, a chunk of kChunk rows at a time
 //     by the copy engine (cp.async.bulk, one lane issuing a row an
 //     instruction, the chunk completing on its mbarrier), three chunks
 //     ahead, the sweeps wrapping to row 0 (a stopped system's chunks in
-//     flight are drained).  (Per-lane 16-byte cp.async, a row a step or
-//     eight a group, kept a step at ~160-400 ns.)  A step is the narrow kernel's: the shuffle of mu_k, the
+//     flight are drained).  (Per-lane 16-byte cp.async copies, a row or
+//     eight a copy group, made each step slower.)  A step is the narrow kernel's: the shuffle of mu_k, the
 //     correctly rounded quotient, the clamp and PL FMAs a lane, the next
 //     row's values read from the ring during the step.
 // (5) Loss: a CTA a row from the solved x, as K1 (rsp::row_loss at 17
@@ -77,15 +77,13 @@ constexpr float kNnlsEps = 1e-16f;  // NNLS_EPS of ops/solvers.py
 constexpr int kChunk = 4;           // G rows a bulk-copy chunk (mbarrier)
 constexpr int kRing = 16;           // G rows in a sweep warp's ring
 constexpr int kLhsSub = 128;        // systems whose lhs the scratch holds
-constexpr int kDefaultPerSm = 2;    // sweeping warps an SM
-constexpr int kDefaultGRoute = 1;   // G on float64 mma.sync (0: FMAs)
+// sweeping warps an SM: one was slower at 256 systems, 3 to 6 no faster
+constexpr int kPerSm = 2;
 constexpr int kGT = 64;             // G's tile
 constexpr int kGK = 16;             // lhs rows staged a step of G
 constexpr int kLossThreads = 256;
 constexpr int kMuWarps = 8;         // warps a CTA of mu (32 coordinates)
 
-int g_per_sm_cap = 0;  // rsp_als_nnls_sweep_cap (0: kDefaultPerSm)
-int g_route = kDefaultGRoute;  // rsp_als_nnls_g_route
 
 // row stride of lhs and G in the scratch: d rounded up to 8 floats (32 B)
 __host__ __device__ constexpr int nnls_ds(int d) { return (d + 7) & ~7; }
@@ -188,7 +186,7 @@ __device__ __forceinline__ void g_stage(const float* A, int d, int ds, int k0,
 
 // The tile's G values (rounded, eps on the diagonal, in `tile`) to G at
 // (i, j) and (j, i): a diagonal tile writes its lower triangle and its
-// mirror, so G is exactly symmetric whatever the route summed.
+// mirror, so G is exactly symmetric whatever order the mma summed in.
 __device__ __forceinline__ void g_write(float* G, int d, int ds, int i0,
                                         int j0, bool diag,
                                         float (*tile)[kGT + 1]) {
@@ -204,10 +202,10 @@ __device__ __forceinline__ void g_write(float* G, int d, int ds, int i0,
 
 // (2) Tile blockIdx.x of G's lower 64 x 64 tiles of system blockIdx.y of
 // the sub-slice (lhs at `lhs`, G at `g`): G[i][j] = sum_k lhs[k][i]
-// lhs[k][j] (+ eps on the diagonal), summed in float64 in k order and
-// rounded once.  MMA false: float64 FMAs, 4 x 4 a thread; true: float64
-// mma.sync (m8n8k4), a warp 8 rows of the tile.
-template <bool MMA>
+// lhs[k][j] (+ eps on the diagonal), summed in float64 on mma.sync
+// (m8n8k4; warp w: tile rows 8 w + lane / 4, n-tile nt: columns 8 nt +
+// 2 (lane % 4) and + 1, the accumulator fragment), k in order, rounded
+// once.
 __global__ void __launch_bounds__(256)
 nnls_wide_g_kernel(const float* __restrict__ lhs, float* __restrict__ g,
                    int d) {
@@ -219,71 +217,35 @@ nnls_wide_g_kernel(const float* __restrict__ lhs, float* __restrict__ g,
   const int i0 = kGT * ti, j0 = kGT * tj;
   const float* A = lhs + (long long)blockIdx.y * nnls_stride(d);
   float* G = g + (long long)blockIdx.y * nnls_stride(d);
-  if constexpr (!MMA) {
-    const int ty = tid >> 4, tx = tid & 15;
-    double acc[4][4];
+  const int w = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  double acc[kGT / 8][2];
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
+  for (int nt = 0; nt < kGT / 8; ++nt) acc[nt][0] = acc[nt][1] = 0.0;
+  for (int k0 = 0; k0 < d; k0 += kGK) {
+    g_stage(A, d, ds, k0, i0, j0, sa, sb);
+    __syncthreads();
 #pragma unroll
-      for (int v = 0; v < 4; ++v) acc[u][v] = 0.0;
-    for (int k0 = 0; k0 < d; k0 += kGK) {
-      g_stage(A, d, ds, k0, i0, j0, sa, sb);
-      __syncthreads();
+    for (int kk = 0; kk < kGK; kk += 4) {
+      const double a = sa[kk + tq][8 * w + gq];
 #pragma unroll
-      for (int kk = 0; kk < kGK; ++kk) {
-        double av[4], bv[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          av[u] = sa[kk][ty + 16 * u];
-          bv[u] = sb[kk][tx + 16 * u];
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) acc[u][v] = fma(av[u], bv[v], acc[u][v]);
+      for (int nt = 0; nt < kGT / 8; ++nt) {
+        const double b = sb[kk + tq][8 * nt + gq];
+        asm volatile(
+            "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, "
+            "{%2}, {%3}, {%0, %1};\n"
+            : "+d"(acc[nt][0]), "+d"(acc[nt][1])
+            : "d"(a), "d"(b));
       }
-      __syncthreads();
     }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int r = ty + 16 * u, c = tx + 16 * v;
-        tile[r][c] = (float)acc[u][v] + (i0 + r == j0 + c ? kNnlsEps : 0.f);
-      }
-  } else {
-    // warp w: tile rows 8 w + lane / 4; n-tile nt: columns 8 nt + 2 (lane
-    // % 4) and + 1 (the m8n8k4 accumulator fragment)
-    const int w = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
-    double acc[kGT / 8][2];
-#pragma unroll
-    for (int nt = 0; nt < kGT / 8; ++nt) acc[nt][0] = acc[nt][1] = 0.0;
-    for (int k0 = 0; k0 < d; k0 += kGK) {
-      g_stage(A, d, ds, k0, i0, j0, sa, sb);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kGK; kk += 4) {
-        const double a = sa[kk + tq][8 * w + gq];
-#pragma unroll
-        for (int nt = 0; nt < kGT / 8; ++nt) {
-          const double b = sb[kk + tq][8 * nt + gq];
-          asm volatile(
-              "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, "
-              "{%2}, {%3}, {%0, %1};\n"
-              : "+d"(acc[nt][0]), "+d"(acc[nt][1])
-              : "d"(a), "d"(b));
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int nt = 0; nt < kGT / 8; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = 8 * w + gq, c = 8 * nt + 2 * tq + h;
-        tile[r][c] = (float)acc[nt][h] + (i0 + r == j0 + c ? kNnlsEps : 0.f);
-      }
+    __syncthreads();
   }
+#pragma unroll
+  for (int nt = 0; nt < kGT / 8; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 8 * w + gq, c = 8 * nt + 2 * tq + h;
+      tile[r][c] = (float)acc[nt][h] + (i0 + r == j0 + c ? kNnlsEps : 0.f);
+    }
   g_write(G, d, ds, i0, j0, ti == tj, tile);
 }
 
@@ -574,7 +536,7 @@ int check_wide(const rsp::BucketArgs& a) {
   return 0;
 }
 
-// Sweeping warps an SM at width d: the cap, at most what shared memory
+// Sweeping warps an SM at width d: kPerSm, at most what shared memory
 // allows; sets the sweep kernel's attributes.  Minus a CUDA error.
 int sweep_per_sm(int d, size_t* smem_out) {
   const Sweep kern = sweep_kernel(d);
@@ -590,8 +552,7 @@ int sweep_per_sm(int d, size_t* smem_out) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, 32, smem);
   if (smem_out != nullptr) *smem_out = smem;
   if (err != cudaSuccess) return -(int)err;
-  const int cap = g_per_sm_cap > 0 ? g_per_sm_cap : kDefaultPerSm;
-  return n < cap ? n : cap;
+  return n < kPerSm ? n : kPerSm;
 }
 
 }  // namespace
@@ -613,22 +574,6 @@ extern "C" long long rsp_als_nnls_wide_extra(int d, int B) {
 extern "C" int rsp_als_nnls_wide_inflight(int d) {
   if (d <= 160 || d > kWideMaxD) return -(int)cudaErrorInvalidValue;
   return sweep_per_sm(d, nullptr);
-}
-
-// Sets the sweeping warps an SM (0: the default, kDefaultPerSm); returns
-// the cap in force before.
-extern "C" int rsp_als_nnls_sweep_cap(int per_sm) {
-  const int was = g_per_sm_cap;
-  g_per_sm_cap = per_sm > 0 ? per_sm : 0;
-  return was;
-}
-
-// Sets the route of G's tiles (1: float64 mma.sync, 0: float64 FMAs; < 0:
-// the default); returns the route in force before.
-extern "C" int rsp_als_nnls_g_route(int route) {
-  const int was = g_route;
-  g_route = route < 0 ? kDefaultGRoute : (route ? 1 : 0);
-  return was;
 }
 
 // info: [0] CTAs a system in the build, [1] its shared bytes a CTA, [2]
@@ -709,11 +654,8 @@ extern "C" int rsp_als_nnls_wide_staged(const rsp::BucketArgs* args,
         build2<<<m * C, kWideThreads, Ly.bytes, st>>>(a, s0 + u0, lhs, 0);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
       if (stages < 2) continue;
-      const dim3 g_grid(nt * (nt + 1) / 2, m);
-      if (g_route == 1)
-        nnls_wide_g_kernel<true><<<g_grid, 256, 0, st>>>(lhs, g, d);
-      else
-        nnls_wide_g_kernel<false><<<g_grid, 256, 0, st>>>(lhs, g, d);
+      nnls_wide_g_kernel<<<dim3(nt * (nt + 1) / 2, m), 256, 0, st>>>(lhs, g,
+                                                                      d);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
       if (stages < 3) continue;
       nnls_wide_mu_kernel<<<dim3((d + 31) / 32, m), 32 * kMuWarps, 0, st>>>(

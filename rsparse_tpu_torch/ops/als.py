@@ -849,8 +849,8 @@ NNLS_G_TILE, NNLS_RING, NNLS_CHUNK, NNLS_LHS_SUB = 64, 16, 4, 128
 
 def nnls_inflight(d: int) -> int:
     """Systems K4's sweep stage holds at once on one SM at width d (one
-    warp each; shared memory bounds it, and at d > ``WIDE_D`` a cap of
-    warps an SM, ``rsp_als_nnls_sweep_cap``)."""
+    warp each; shared memory bounds it, and at d > ``WIDE_D`` the wide
+    kernel's kPerSm)."""
     n = _kernels.lib().rsp_als_nnls_inflight(d)
     if n <= 0:
         raise RuntimeError(f"als_nnls occupancy query failed: CUDA error {-n}")

@@ -155,7 +155,7 @@ line:
    and 514 (implicit; at 258 and 514 also a 1,024-column head, implicit
    and explicit with presence bits, explicit with biases, and phase 9's
    reduced-precision variants), on buckets of 256 x 128 and 16 x 8,192,
-   with their launch plans and stage times; K4 (PR 22) the same on the
+   with their launch plans and stage times; K4 the same on the
    256 x 128 buckets at a sweep budget of ``WIDE_NNLS_BUDGET`` (y 1e-3 or
    no further from the float64 twin than twice the plain version, the
    loss 1e-5 against the plain loss of its own y), in slices of systems
@@ -4136,7 +4136,7 @@ WIDE_RS = (129, 256, 300, 320)
 #:   print(np.nanmean(r.ndcg_k(p.indices, te)), np.nanmean(r.ap_k(p.indices, te)))
 #:   g = r.GloVe(**dict(c.GLOVE_KW, rank=300))
 #:   g.fit_transform(c.ml100k_cooccurrence(x), n_iter=3); print(g.cost_history)"
-#: and (PR 22) WRMF rank 192 with the NNLS solver at WIDE_NNLS_ML100K's
+#: and WRMF rank 192 with the NNLS solver at WIDE_NNLS_ML100K's
 #: settings (the same split, seed and predict; held by
 #: tests/test_torch_k4_wide.py), made by
 #:   JAX_PLATFORMS=cpu python3 -c "import numpy as np, chip_smoke as c,

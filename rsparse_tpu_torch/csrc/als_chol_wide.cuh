@@ -320,7 +320,7 @@ __device__ __forceinline__ void wide_gram(const rsp::BucketArgs& a,
 
     const T* src = head ? R.hot_table : R.table;
     const int row_bytes = d * (int)sizeof(T);
-    auto issue = [&](int ch) {
+    auto load_chunk = [&](int ch) {
       unsigned char* buf = stage + (ch & 1) * kCR * rs;
       for (int e = tid; e < kCR * Ly.granules; e += kWideThreads) {
         const int l = e / Ly.granules, q = e - l * Ly.granules;
@@ -344,11 +344,11 @@ __device__ __forceinline__ void wide_gram(const rsp::BucketArgs& a,
     };
     const int route = gram_route<T, EXPLICIT>(head, rnd);
     const int n_chunks = (n_list + kCR - 1) / kCR;
-    issue(0);
+    load_chunk(0);
     rsp::cp_async_commit();
     for (int ch = 0; ch < n_chunks; ++ch) {
       if (ch + 1 < n_chunks) {
-        issue(ch + 1);
+        load_chunk(ch + 1);
         rsp::cp_async_commit();
         rsp::cp_async_wait<1>();
       } else {

@@ -367,7 +367,7 @@ nnls_wide_sweep_kernel(const float* __restrict__ g, int s0, int n_sys, int d,
   int off[PL];
 #pragma unroll
   for (int m = 0; m < PL; ++m) off[m] = lane + 32 * m < d ? lane + 32 * m : 0;
-  unsigned ic = 0, iw = 0;  // chunks issued, chunks waited for
+  unsigned ic = 0, iw = 0;  // chunks fetched, chunks waited for
 
   for (;;) {
     int s = 0;
@@ -381,7 +381,7 @@ nnls_wide_sweep_kernel(const float* __restrict__ g, int s0, int n_sys, int d,
     // kRing; the next chunk's first row
     const unsigned base = ic * kChunk;
     int irow = 0;
-    auto issue = [&]() {
+    auto fetch = [&]() {
       if (lane == 0) {
         unsigned long long* bar = &bars[ic % kChunks];
         float* dst = ring + (ic % kChunks) * kChunk * ds;
@@ -400,7 +400,7 @@ nnls_wide_sweep_kernel(const float* __restrict__ g, int s0, int n_sys, int d,
       ++iw;
     };
 #pragma unroll 1
-    for (int u = 0; u < kChunks - 1; ++u) issue();
+    for (int u = 0; u < kChunks - 1; ++u) fetch();
     float xr[PL], mr[PL], gd[PL], rd[PL];
 #pragma unroll
     for (int m = 0; m < PL; ++m) {
@@ -435,7 +435,7 @@ nnls_wide_sweep_kernel(const float* __restrict__ g, int s0, int n_sys, int d,
             // ring rows chunk c - 1 left (every lane has read them), then
             // chunk c + 1 (the last step of chunk c reads its first row)
             __syncwarp();
-            issue();
+            fetch();
             wait_next();
           }
           const float* nrow = ring + ((q + 1) & (kRing - 1)) * ds;

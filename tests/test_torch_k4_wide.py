@@ -301,7 +301,7 @@ def _g_tiles(A, d):
 def _sweep_ring(G, mu, x0, max_iter, rel_tol=solvers.SCD_TOL):
     """One warp's sweeps, G's rows read through its ring of NNLS_RING
     slots in chunks of NNLS_CHUNK rows: stream position p (row p % d) in
-    slot p % NNLS_RING, the chunks 0-2 issued first, and at the start of
+    slot p % NNLS_RING, the chunks 0-2 fetched first, and at the start of
     chunk c (step q = c NNLS_CHUNK) chunk c + 3 into the slots chunk c - 1
     left, after which chunks c and c + 1 are waited for; step q reads row
     q + 1; a stopped system's chunks in flight are dropped.  Returns (x,
@@ -314,7 +314,7 @@ def _sweep_ring(G, mu, x0, max_iter, rel_tol=solvers.SCD_TOL):
     landed = [False] * R
     state = dict(ic=0, row=0)
 
-    def issue():
+    def fetch():
         for u in range(K):
             s = (state["ic"] * K + u) % R
             ring[s], held[s], landed[s] = G[state["row"]], state["row"], False
@@ -329,7 +329,7 @@ def _sweep_ring(G, mu, x0, max_iter, rel_tol=solvers.SCD_TOL):
                     landed[(c * K + u) % R] = True
 
     for _ in range(n_ch - 1):
-        issue()
+        fetch()
     wait(1)
     x, mu = x0.copy(), mu.copy()
     assert held[0] == 0 and landed[0]
@@ -338,7 +338,7 @@ def _sweep_ring(G, mu, x0, max_iter, rel_tol=solvers.SCD_TOL):
         start = x.copy()
         for k in range(d):
             if q % K == 0:
-                issue()
+                fetch()
                 wait(q // K + 2)
             s = (q + 1) % R
             # the next row is in its slot and has landed
